@@ -1,0 +1,53 @@
+"""PyTorch/CUDA port of ps_pytorch_tpu, for one NVIDIA H100.
+
+The JAX package beside this one is the reference; each module here keeps
+its counterpart's name so a reader can find it. This package imports
+``torch`` and never JAX or anything of the JAX package.
+
+Slice in place: the serving engine's main path (batched flash prefill
+into a slot pool, int8 block-scale KV cache, continuous-batching greedy
+decode, open-loop traffic), on two hand-written Hopper kernels
+(``csrc/``). What is still to port is listed in ROADMAP.md.
+
+Device rule: every entry point takes an explicit ``device``. The default
+is ``cuda``; without a card it raises unless the caller passed
+``device="cpu"``. Nothing falls back to the CPU silently.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller says
+    otherwise. Raises when CUDA is asked for (explicitly or by default)
+    and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev!r} (cuda or cpu)")
+    return dev
+
+
+def on_device(tree, device: torch.device):
+    """Move every tensor of a nested dict/list tree to ``device`` (no-op
+    for tensors already there)."""
+    if isinstance(tree, dict):
+        return {k: on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(on_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+__all__ = ["DeviceLike", "on_device", "resolve_device"]

@@ -1,0 +1,110 @@
+"""The event schema for the port's JSONL streams (a host-only copy of the
+JAX package's obs/schema.py, trimmed to the kinds the serving slice
+emits; the training kinds arrive with the training slice).
+
+``validate_event`` rejects unknown kinds and missing fields and coerces
+the declared int fields. A stream begins with one ``run_header`` record
+carrying the run id, the schema version and a paired wall/monotonic
+clock base.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import uuid
+from typing import Dict, Optional, Tuple
+
+SCHEMA_VERSION = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class EventSpec:
+    """One registered event kind: required fields plus the fields that
+    are integers by contract."""
+
+    required: Tuple[str, ...]
+    int_fields: Tuple[str, ...] = ()
+    doc: str = ""
+
+
+EVENT_KINDS: Dict[str, EventSpec] = {
+    "run_header": EventSpec(
+        required=("run_id", "schema_version", "component", "t_mono"),
+        int_fields=("schema_version", "pid"),
+        doc="stream identity + clock base; first record of every stream",
+    ),
+    "span": EventSpec(
+        required=("name", "t", "dur"),
+        int_fields=("depth", "step", "tick", "slot", "rid",
+                    "new_tokens", "weights_step", "from_step", "to_step"),
+        doc="one traced host-side phase: t/dur are seconds on the "
+            "stream header's monotonic clock",
+    ),
+    # serving request lifecycle: every submitted request terminates in
+    # EXACTLY one of request_done | request_shed | deadline_expired
+    "request_done": EventSpec(
+        required=("rid", "new_tokens", "weights_step"),
+        int_fields=("rid", "new_tokens", "weights_step"),
+        doc="one request completed (its new-token budget reached); "
+            "met_deadline rides along when the request carried one",
+    ),
+    "request_shed": EventSpec(
+        required=("rid", "projected_wait_s", "queue_depth", "slo_budget_s"),
+        int_fields=("rid", "queue_depth"),
+        doc="admission controller refused the arrival at submit time: "
+            "projected queue wait exceeded the SLO budget",
+    ),
+    "deadline_expired": EventSpec(
+        required=("rid", "where", "deadline_s"),
+        int_fields=("rid", "tokens_done"),
+        doc="request deadline passed before completion; 'where' is "
+            "submit | queue | decode",
+    ),
+}
+
+
+def new_run_id() -> str:
+    """Random 12-hex run id — shared across one run's streams."""
+    return uuid.uuid4().hex[:12]
+
+
+def validate_event(record: dict) -> dict:
+    """Validate (and normalize, in place) one JSONL record against the
+    registry. Raises ValueError on a missing/unknown ``kind`` or a
+    missing required field; coerces the kind's declared int fields."""
+    kind = record.get("kind")
+    if kind is None:
+        raise ValueError(f"event record has no 'kind': {record!r}")
+    spec = EVENT_KINDS.get(kind)
+    if spec is None:
+        raise ValueError(
+            f"unknown event kind {kind!r} — register it in "
+            f"obs/schema.EVENT_KINDS (known: {sorted(EVENT_KINDS)})"
+        )
+    missing = [f for f in spec.required if f not in record]
+    if missing:
+        raise ValueError(
+            f"event kind {kind!r} is missing required field(s) "
+            f"{missing}: {record!r}"
+        )
+    for f in spec.int_fields:
+        v = record.get(f)
+        if v is not None and not isinstance(v, bool):
+            record[f] = int(v)
+    return record
+
+
+def run_header(component: str, run_id: Optional[str] = None) -> dict:
+    """The stream-opening run_header record (t_wall and t_mono are one
+    paired sample; pid 0: one process per stream)."""
+    rec = {
+        "kind": "run_header",
+        "run_id": run_id or new_run_id(),
+        "schema_version": SCHEMA_VERSION,
+        "component": component,
+        "t_wall": round(time.time(), 6),
+        "t_mono": round(time.perf_counter(), 6),
+        "pid": 0,
+    }
+    return rec

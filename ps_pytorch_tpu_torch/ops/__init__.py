@@ -1,0 +1,19 @@
+"""The port's kernel wrappers, each beside its plain PyTorch version."""
+
+from .flash_attention import flash_attention, flash_fwd, flash_fwd_plain
+from .quantize import (
+    dequantize_int8,
+    quantize_int8,
+    quantize_rows,
+    quantize_rows_plain,
+)
+
+__all__ = [
+    "dequantize_int8",
+    "flash_attention",
+    "flash_fwd",
+    "flash_fwd_plain",
+    "quantize_int8",
+    "quantize_rows",
+    "quantize_rows_plain",
+]

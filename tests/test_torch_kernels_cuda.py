@@ -1,0 +1,128 @@
+"""The port's hand-written kernels on the card, against their plain
+PyTorch versions (K1 quantize_rows, K4 flash_fwd), and the serving engine
+on the card against the same engine on the CPU.
+
+Every test here needs a CUDA card and skips without one. This file
+imports neither JAX nor the JAX package (the card's machine has no JAX),
+so it runs there on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+(``--noconftest`` because tests/conftest.py sets up JAX's CPU mesh.)
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
+from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from ps_pytorch_tpu_torch.ops.quantize import (
+    quantize_int8,
+    quantize_rows,
+    quantize_rows_plain,
+)
+from ps_pytorch_tpu_torch.serve import Request, ServeConfig, ServingEngine
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run `pytest --noconftest -m cuda "
+                    "tests/test_torch_kernels_cuda.py` on the H100")
+    # f32 comparisons need full f32 matmuls on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,bs,dtype", [
+    (1024, 64, torch.bfloat16),   # prefill write: max_prompt_len * heads rows
+    (64, 64, torch.bfloat16),     # decode write: slots * heads rows
+    (1001, 128, torch.float32),   # ragged row count
+    (3, 33, torch.float32),       # row width not a multiple of 32
+    (17, 500, torch.bfloat16),
+])
+def test_torch_quantize_rows_kernel_bit_exact_on_card(cuda_device, nb, bs, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(nb + bs)
+    x = (torch.randn((nb, bs), generator=g, device=cuda_device) * 3).to(dtype)
+    x[1] = 0.0
+    before = quantize_rows.launches
+    q, s = quantize_rows(x)
+    qp, sp = quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    assert torch.equal(q, qp)
+    assert torch.equal(s, sp)
+
+
+@pytest.mark.cuda
+def test_torch_quantize_kernel_rounds_half_to_even_on_card(cuda_device):
+    x = torch.full((8, 128), 0.5, device=cuda_device)
+    x[0, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5])
+    q, s = quantize_int8(x, block_size=128)
+    assert q[0, :6].tolist() == [127, 2, -4, 0, 0, 2]
+    assert float(s[0, 0]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,dtype,causal,kw", [
+    (1, 128, 8, 64, torch.bfloat16, True, {}),   # the serving prefill shape
+    (1, 128, 8, 64, torch.float32, True, {}),
+    (1, 100, 8, 64, torch.float32, True, {}),
+    (2, 100, 4, 32, torch.float32, False, {}),
+    (1, 200, 2, 128, torch.float32, True, {}),
+    (1, 77, 3, 64, torch.float32, True, {"q_off": 5, "k_off": 30, "k_len": 60}),
+])
+def test_torch_flash_kernel_matches_plain_on_card(cuda_device, b, t, h, d,
+                                                  dtype, causal, kw):
+    g = torch.Generator(device=cuda_device).manual_seed(t + d)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=cuda_device).to(dtype)
+    q, k, v = (a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1))
+    before = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, causal=causal, **kw)
+    op, lsep = flash_fwd_plain(q, k, v, causal, d ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    assert o.dtype == dtype and o.shape == (b, t, h, d)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(o.float(), op.float(), atol=2e-2, rtol=1e-2)
+        torch.testing.assert_close(lse, lsep, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(o, op, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, lsep, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_torch_engine_on_card_matches_cpu_engine(cuda_device, int8):
+    """The engine on the card (kernels) emits the tokens the same engine
+    emits on the CPU (plain versions), and launches K4 once per block per
+    prefill and K1 twice per block per prefill and per decode step."""
+    cfg = TransformerConfig(vocab_size=97, dim=128, depth=2, heads=2,
+                            max_seq_len=64, attention_impl="flash")
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu")
+    serve = ServeConfig(slots=3, max_len=48, max_prompt_len=12, kv_int8=int8)
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(0, 97, p).astype(np.int32),
+                    max_new_tokens=n)
+            for i, (p, n) in enumerate([(5, 9), (1, 6), (12, 8), (7, 14)])]
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        engine = ServingEngine(cfg, params, serve, device=dev)
+        engine.warmup()
+        k4, k1 = flash_fwd.launches, quantize_rows.launches
+        p0, d0 = engine.n_prefills, engine.n_decode_steps
+        outs[str(dev)] = [c.tokens for c in
+                          engine.decode_requests([dataclasses.replace(r) for r in reqs])]
+        if dev != "cpu":
+            prefills = engine.n_prefills - p0
+            steps = engine.n_decode_steps - d0
+            assert prefills == 3
+            assert flash_fwd.launches - k4 == cfg.depth * prefills
+            assert quantize_rows.launches - k1 == (
+                2 * cfg.depth * (prefills + steps) if int8 else 0)
+    assert outs["cpu"] == outs["cuda"]
