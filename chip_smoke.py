@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one H100 and hold each of
-its hand-written kernels against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's serving and PS-training paths on one H100
+and hold each of its hand-written kernels against its plain PyTorch
+version.
 
     python3 chip_smoke.py
 
@@ -10,7 +11,8 @@ Needs one CUDA card (exits non-zero without one, and without the
 Phases, one line each:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32 off;
-2. build both kernels from ``ps_pytorch_tpu_torch/csrc`` with nvcc (sm_90a);
+2. build every kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
+   source, all at once; sm_90a);
 3. K1 quantize_rows vs its plain version, bit-exact, at the serving path's
    shapes (prefill write [1024, 64] bf16, decode write [64, 64] bf16) and a
    ragged [1001, 128] f32, timed with CUDA events;
@@ -22,7 +24,23 @@ Phases, one line each:
    32 open-loop requests; every request completes, tokens in range, p50/p99
    finite, and the kernel launch counters match the work done;
 6. f32 engine vs the port's per-sequence ``generate`` on the card;
-7. the kernels JSON line, then the result line.
+7. K2 quantize_tensor vs its plain version, bit-exact (payload and scale),
+   at the training wire's shapes: the largest ResNet18 leaf stacked for 8
+   workers [8, 3, 3, 512, 512], a BN leaf [8, 512], the dense bias [8, 10],
+   a ragged odd length and an all-zero tensor; timed, with its bound;
+8. K1's shared-scale entry quantize_rows_scaled vs its plain version,
+   bit-exact, at the largest leaf's block-128 rows [8 * 18432, 128];
+9. train: ResNet18 at full width on synthetic CIFAR-10, 8 stacked workers,
+   batch 128 each, lr 0.1, momentum 0.9, num-aggregate 5 (random_k), the
+   int8 per-tensor wire, through ``cli.train.main``: every loss finite, no
+   skipped step, K2 launched 62 times per step; step time p50 and images/s;
+   then a short run on the block-128 wire (K1's shared-scale entry, 62
+   launches per step);
+10. train held on the card: one LeNet step at 8 workers on the card (the
+   kernels) against the same step on the CPU (the plain versions), same
+   params, batch and mask, for the per-tensor and block-128 wires, and a
+   NaN-injected step that must leave the params alone;
+11. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 """
@@ -290,6 +308,207 @@ def phase_exact(dev) -> dict:
     print("phase 6 f32 engine == per-sequence generate: " + json.dumps(rec))
     return rec
 
+# ResNet18's largest leaf (BasicBlock_7/Conv_1 kernel) and the wire's
+# worker count: the shapes the training path hands K2 and K1
+RESNET18_LEAVES = 62
+BIG_LEAF = (3, 3, 512, 512)
+WORKERS = 8
+
+
+def phase_k2(dev) -> dict:
+    from ps_pytorch_tpu_torch.ops.quantize import quantize_tensor, quantize_tensor_plain
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [("largest_leaf", (WORKERS,) + BIG_LEAF), ("bn_leaf", (WORKERS, 512)),
+             ("dense_bias", (WORKERS, 10)), ("ragged_odd", (WORKERS, 12345)),
+             ("all_zero", (WORKERS, 4099))]
+    out = {}
+    for name, shape in cases:
+        x = torch.randn(shape, generator=g, device=dev) * 0.01
+        if name == "all_zero":
+            x.zero_()
+        q, s = quantize_tensor(x)
+        qp, sp = quantize_tensor_plain(x)
+        torch.cuda.synchronize()
+        require(torch.equal(q, qp), f"K2 {name}: int8 payload differs from plain")
+        require(torch.equal(s, sp), f"K2 {name}: scale differs from plain")
+        if name == "all_zero":
+            require(float(s) == 0.0 and not bool(q.any()), "K2 all_zero: scale or payload != 0")
+        n = x.numel()
+        # the contract's bound: x read once, q written once, one scale; the
+        # two-launch design reads x twice (absmax, then quantize)
+        b_ms, b_by = bound_ms(4 * n + n + 4, 4.0 * n, torch.float32)
+        out[name] = {
+            "shape": list(shape), "max_abs_err": float((q.int() - qp.int()).abs().max()),
+            "scale_equal": True,
+            "ms": time_ms(lambda: quantize_tensor(x)),
+            "plain_ms": time_ms(lambda: quantize_tensor_plain(x)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "two_pass_floor_ms": (8 * n + n + 4) / HBM_BYTES_PER_S * 1e3,
+        }
+    print("phase 7 K2 quantize_tensor bit-exact vs plain: " + json.dumps(out))
+    return out
+
+
+def phase_k1_scaled(dev) -> dict:
+    from ps_pytorch_tpu_torch.ops.quantize import (
+        quantize_rows_scaled,
+        quantize_rows_scaled_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    nb = int(np.prod(BIG_LEAF)) // 128
+    x = torch.randn((WORKERS * nb, 128), generator=g, device=dev) * 0.01
+    x.view(WORKERS, nb, 128)[:, 5] = 0.0  # one block all-zero on every worker
+    absmax = x.abs().view(WORKERS, nb, 128).amax(dim=(0, 2))
+    q, s = quantize_rows_scaled(x, absmax)
+    qp, sp = quantize_rows_scaled_plain(x, absmax)
+    torch.cuda.synchronize()
+    require(torch.equal(q, qp), "K1 scaled: int8 payload differs from plain")
+    require(torch.equal(s, sp), "K1 scaled: scales differ from plain")
+    n = x.numel()
+    b_ms, b_by = bound_ms(4 * n + 4 * nb + n + 4 * nb, 4.0 * n, torch.float32)
+    out = {"shape": [WORKERS * nb, 128], "shared_rows": nb,
+           "max_abs_err": float((q.int() - qp.int()).abs().max()),
+           "ms": time_ms(lambda: quantize_rows_scaled(x, absmax)),
+           "plain_ms": time_ms(lambda: quantize_rows_scaled_plain(x, absmax)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print("phase 8 K1 quantize_rows_scaled bit-exact vs plain: " + json.dumps(out))
+    return out
+
+
+TRAIN_ARGS = ["--network", "ResNet18", "--dataset", "Cifar10", "--num-workers",
+              str(WORKERS), "--batch-size", "128", "--lr", "0.1", "--momentum", "0.9",
+              "--num-aggregate", "5", "--compress-grad", "compress", "--log-interval",
+              "1", "--device", "cuda", "--no-checkpoints"]
+
+
+def _train(steps: int, extra=()) -> dict:
+    from ps_pytorch_tpu_torch.cli import train as cli_train
+
+    return cli_train.main(TRAIN_ARGS + ["--max-steps", str(steps), *extra])
+
+
+def phase_train(card: str) -> dict:
+    from ps_pytorch_tpu_torch.ops.quantize import quantize_rows_scaled, quantize_tensor
+
+    steps = 20
+    quantize_tensor.launches = 0
+    quantize_rows_scaled.launches = 0
+    out = _train(steps)
+    torch.cuda.synchronize()
+    k2, k1s = quantize_tensor.launches, quantize_rows_scaled.launches
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+            f"train: losses {losses}")
+    require(out["train"]["skipped_steps"] == 0.0, "train: a step was skipped")
+    require(k2 == RESNET18_LEAVES * steps,
+            f"train: K2 launched {k2} times, expected {RESNET18_LEAVES} x {steps}")
+    require(k1s == 0, f"train: K1 scaled launched {k1s} times on the per-tensor wire")
+    times = [h["time_cost"] for h in hist[3:]]  # after warm-up (cuDNN autotune)
+    p50 = float(np.median(times))
+    rec = {"card": card, "model": "ResNet18 synthetic Cifar10 f32 (TF32 off)",
+           "workers": WORKERS, "batch_per_worker": 128, "steps": steps,
+           "wire": "int8 per-tensor, num-aggregate 5 random_k",
+           "launches": {"quantize_tensor": k2, "quantize_rows_scaled": k1s},
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
+           "step_ms_max": max(times) * 1e3,
+           "images_per_s": WORKERS * 128 / p50, "val": out["val"]}
+    print("phase 9 train ResNet18 int8 per-tensor: " + json.dumps(rec))
+
+    steps_b = 3
+    quantize_tensor.launches = 0
+    quantize_rows_scaled.launches = 0
+    out_b = _train(steps_b, ["--quant-block-size", "128"])
+    torch.cuda.synchronize()
+    k1s_b, k2_b = quantize_rows_scaled.launches, quantize_tensor.launches
+    lb = [h["loss"] for h in out_b["history"]]
+    require(all(np.isfinite(v) for v in lb), f"train block-128: losses {lb}")
+    require(k1s_b == RESNET18_LEAVES * steps_b,
+            f"train block-128: K1 scaled launched {k1s_b} times, expected "
+            f"{RESNET18_LEAVES} x {steps_b}")
+    require(k2_b == 0, f"train block-128: K2 launched {k2_b} times")
+    rec_b = {"wire": "int8 block-128", "steps": steps_b,
+             "launches": {"quantize_rows_scaled": k1s_b, "quantize_tensor": k2_b},
+             "losses": lb,
+             "step_ms_last": out_b["history"][-1]["time_cost"] * 1e3}
+    print("phase 9b train ResNet18 int8 block-128: " + json.dumps(rec_b))
+    rec["block128"] = rec_b
+    return rec
+
+
+def _lenet_pair(dev, cfg_kw, faults=None):
+    from ps_pytorch_tpu_torch.data import make_preprocessor
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.ps import PSConfig, init_ps_state, make_ps_train_step
+    from ps_pytorch_tpu_torch.resilience.faults import FaultPlan
+
+    cfg = PSConfig(num_workers=WORKERS, **cfg_kw)
+    model = build_model("LeNet")
+    params, _ = init_model(model, torch.Generator().manual_seed(5), device="cpu")
+    plan = FaultPlan(**faults) if faults else None
+    out = {}
+    for d in ("cpu", dev):
+        tx = build_optimizer("sgd", 0.02, momentum=0.9)
+        st = init_ps_state(model, tx, cfg, params=params, batch_stats={}, device=d)
+        step = make_ps_train_step(model, tx, cfg, preprocess=make_preprocessor("MNIST", True),
+                                  faults=plan, device=d)
+        out[str(torch.device(d).type)] = (st, step)
+    return out
+
+
+def phase_held(dev) -> dict:
+    """One LeNet step at 8 workers: card (kernels) vs CPU (plain
+    versions). Tolerance: the two devices' f32 convolutions differ in
+    their last bits, so a few int8 payloads round the other way; every
+    param must agree within 1% of the step's largest update and at most
+    1% of them may differ by more than 1e-6."""
+    from ps_pytorch_tpu_torch.data import make_synthetic
+    from ps_pytorch_tpu_torch.ops.quantize import quantize_rows_scaled, quantize_tensor
+    from ps_pytorch_tpu_torch.parallel.ps import StepDraws
+
+    d = make_synthetic("MNIST", train_size=WORKERS * 16, test_size=8, seed=4)
+    batch = {"image": d.train_images, "label": d.train_labels}
+    perm = torch.tensor([3, 0, 6, 1, 5, 2, 7, 4])
+    out = {}
+    for name, kw in (("per_tensor", dict(compress="int8", num_aggregate=5)),
+                     ("block128", dict(compress="int8", quant_block_size=128,
+                                       num_aggregate=5))):
+        pair = _lenet_pair(dev, kw)
+        res = {}
+        for key, (st, step) in pair.items():
+            k2, k1s = quantize_tensor.launches, quantize_rows_scaled.launches
+            p0 = st.params.flat.detach().cpu().clone()
+            st, m = step(st, batch, StepDraws(perm=perm))
+            res[key] = (st.params.flat.detach().cpu(), p0, float(m["loss"]),
+                        quantize_tensor.launches - k2, quantize_rows_scaled.launches - k1s)
+        (pc, p0, lc, _, _), (pg, _, lg, k2g, k1g) = res["cpu"], res["cuda"]
+        moved = float((pc - p0).abs().max())
+        diff = (pc - pg).abs()
+        require(float(diff.max()) <= 1e-2 * moved,
+                f"held {name}: card vs CPU params differ by {float(diff.max())} "
+                f"(update {moved})")
+        frac = float((diff > 1e-6).float().mean())
+        require(frac <= 0.01, f"held {name}: {frac:.4f} of params differ by > 1e-6")
+        want = (8, 0) if name == "per_tensor" else (0, 8)
+        require((k2g, k1g) == want,
+                f"held {name}: launches K2 {k2g}, K1 scaled {k1g}, expected {want}")
+        out[name] = {"max_abs_diff": float(diff.max()), "max_update": moved,
+                     "frac_diff_gt_1e-6": frac, "loss_cpu": lc, "loss_cuda": lg}
+    pair = _lenet_pair(dev, dict(compress="int8"), faults={"nan_grads": [1]})
+    st, step = pair["cuda"]
+    p0 = st.params.flat.clone()
+    st, m = step(st, batch, StepDraws())
+    require(torch.equal(st.params.flat, p0), "held nan: params moved on a NaN step")
+    require(float(m["skipped_steps"]) == 1.0, "held nan: skipped_steps != 1")
+    out["nan_step"] = {"params_unchanged": True, "skipped_steps": 1.0}
+    print("phase 10 train held on the card vs CPU (LeNet, 8 workers): " + json.dumps(out))
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -321,6 +540,10 @@ def main() -> int:
     k4 = phase_k4(flash_fwd, flash_fwd_plain, dev)
     serve = phase_serve(card, dev)
     phase_exact(dev)
+    k2 = phase_k2(dev)
+    k1s = phase_k1_scaled(dev)
+    train = phase_train(smi)
+    phase_held(dev)
 
     kernels = [
         {
@@ -332,6 +555,25 @@ def main() -> int:
             "ms": k1["prefill"]["ms"], "plain_ms": k1["prefill"]["plain_ms"],
             "bound_ms": k1["prefill"]["bound_ms"],
             "bound_by": k1["prefill"]["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "quantize_rows_scaled", "route": "cuda",
+            "source": "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
+            "replaces": "ps_pytorch_tpu/ops/quantize.py:101",
+            "launches": train["block128"]["launches"]["quantize_rows_scaled"],
+            "max_abs_err": k1s["max_abs_err"], "ms": k1s["ms"],
+            "plain_ms": k1s["plain_ms"], "bound_ms": k1s["bound_ms"],
+            "bound_by": k1s["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "quantize_tensor", "route": "cuda",
+            "source": "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
+            "replaces": "ps_pytorch_tpu/ops/quantize.py:78",
+            "launches": train["launches"]["quantize_tensor"],
+            "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+            "ms": k2["largest_leaf"]["ms"], "plain_ms": k2["largest_leaf"]["plain_ms"],
+            "bound_ms": k2["largest_leaf"]["bound_ms"],
+            "bound_by": k2["largest_leaf"]["bound_by"], "library_ms": None,
         },
         {
             "name": "flash_fwd", "route": "cuda",

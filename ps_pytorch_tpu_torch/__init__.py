@@ -4,10 +4,15 @@ The JAX package beside this one is the reference; each module here keeps
 its counterpart's name so a reader can find it. This package imports
 ``torch`` and never JAX or anything of the JAX package.
 
-Slice in place: the serving engine's main path (batched flash prefill
-into a slot pool, int8 block-scale KV cache, continuous-batching greedy
-decode, open-loop traffic), on two hand-written Hopper kernels
-(``csrc/``). What is still to port is listed in ROADMAP.md.
+Slices in place, on hand-written Hopper kernels (``csrc/``):
+
+- serving: batched flash prefill into a slot pool, int8 block-scale KV
+  cache, continuous-batching greedy decode, open-loop traffic (K1, K4);
+- synchronous PS training: ``cli.train`` -> ``Trainer`` -> the PS step on
+  N virtual workers stacked on one card, with the per-leaf int8
+  gradient wire (K2 per tensor, K1's shared-scale entry per block).
+
+What is still to port is listed in ROADMAP.md.
 
 Device rule: every entry point takes an explicit ``device``. The default
 is ``cuda``; without a card it raises unless the caller passed

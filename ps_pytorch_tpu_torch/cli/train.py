@@ -1,0 +1,49 @@
+"""PS training entry of the port (the counterpart of ps_pytorch_tpu.cli.train).
+
+Canonical invocation (the reference's run_pytorch.sh semantics), on the
+card, with 8 virtual workers stacked on it:
+
+  python -m ps_pytorch_tpu_torch.cli.train --network ResNet18 \\
+      --dataset Cifar10 --num-workers 8 --batch-size 128 --lr 0.1 \\
+      --momentum 0.9 --num-aggregate 5 --compress-grad compress
+
+``--device cpu`` runs the plain versions on the CPU (the tests do).
+Without ``--device cpu`` and without a card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ..trainer import Trainer
+from ..utils import get_logger
+from ._flags import (
+    add_ps_flags,
+    add_train_flags,
+    ps_config_from,
+    refuse_unported_flags,
+    train_config_from,
+)
+
+logger = get_logger()
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser("ps_pytorch_tpu_torch.cli.train")
+    add_train_flags(parser)
+    add_ps_flags(parser)
+    parser.add_argument("--config-json", metavar="FILE", default=None)
+    args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
+    refuse_unported_flags(args)
+    tcfg = train_config_from(args)
+    pcfg = ps_config_from(args, args.num_workers or 1)
+    trainer = Trainer(tcfg, pcfg, device=args.device)
+    metrics = trainer.train()
+    logger.info("training done: %s", metrics)
+    val = trainer.validate()
+    return {"train": metrics, "val": val, "history": trainer.history}
+
+
+if __name__ == "__main__":
+    main()

@@ -42,3 +42,12 @@ def params_to_numpy(tree: Any):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def cnn_from_jax(params: Any, batch_stats: Any, device: DeviceLike = None):
+    """A flax CNN's ``params`` and ``batch_stats`` (numpy trees) -> the
+    port's ``(params, batch_stats)``. The port keeps flax's names and its
+    HWIO / ``[in, out]`` layouts, so this is a copy of each leaf: the
+    flattened leaves, and therefore the flat state and the block-128
+    quantization rows, are element for element the JAX ones."""
+    return params_from_jax(params, device), params_from_jax(batch_stats or {}, device)

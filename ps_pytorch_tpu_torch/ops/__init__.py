@@ -6,6 +6,10 @@ from .quantize import (
     quantize_int8,
     quantize_rows,
     quantize_rows_plain,
+    quantize_rows_scaled,
+    quantize_rows_scaled_plain,
+    quantize_tensor,
+    quantize_tensor_plain,
 )
 
 __all__ = [
@@ -16,4 +20,8 @@ __all__ = [
     "quantize_int8",
     "quantize_rows",
     "quantize_rows_plain",
+    "quantize_rows_scaled",
+    "quantize_rows_scaled_plain",
+    "quantize_tensor",
+    "quantize_tensor_plain",
 ]

@@ -9,8 +9,8 @@ together, then one link:
          -Xcompiler -fPIC -c csrc/<name>.cu
     nvcc -shared -o libps_kernels.so *.o
 
-No ``--use_fast_math``: K1 must round half to even and divide exactly
-(IEEE), as the JAX reference does.
+No ``--use_fast_math``: K1 and K2 must round half to even and divide
+exactly (IEEE), as the JAX reference does.
 
 The library lands in ``ps_pytorch_tpu_torch/_build/<hash>/`` (listed in
 .gitignore), keyed by a hash of the sources and flags, and is built at
@@ -119,6 +119,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.ps_quantize_rows.argtypes = [vp, i32, vp, vp, i64, i32, vp]
     lib.ps_quantize_rows.restype = i32
+    lib.ps_quantize_rows_scaled.argtypes = [vp, i32, vp, i64, vp, vp, i64, i32, vp]
+    lib.ps_quantize_rows_scaled.restype = i32
+    lib.ps_absmax.argtypes = [vp, i32, i64, vp, vp]
+    lib.ps_absmax.restype = i32
+    lib.ps_quantize_tensor.argtypes = [vp, i32, i64, vp, vp, vp, vp]
+    lib.ps_quantize_tensor.restype = i32
     lib.ps_flash_fwd.argtypes = (
         [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
          ctypes.POINTER(i64), f32, i32, i32, i32, i32, vp]

@@ -1,53 +1,104 @@
-"""int8 symmetric block quantization (the port of ops/quantize.py).
+"""int8 symmetric quantization (the port of ops/quantize.py).
 
-Block mode only, which is what the serving slice runs: the int8 KV
-cache quantizes every (position, head) vector with its own absmax scale
-(serve/kv.py, block = head_dim).
+Three wrappers, each of one hand-written kernel; CUDA tensors launch the
+kernel, CPU tensors take the plain version beside it, with no fallback
+between the two:
 
-- ``quantize_rows`` is the wrapper of kernel K1 (``csrc/quantize_rows.cu``):
-  CUDA tensors launch the kernel, CPU tensors take the plain version
-  ``quantize_rows_plain`` beside it. No fallback between the two.
-- ``quantize_int8(x, block_size=...)`` / ``dequantize_int8`` keep the JAX
-  signatures and arithmetic (quantize.py:147-170): absmax per row,
-  ``scale = absmax / 127``, ``inv = where(absmax > 0, 127 / max(absmax,
-  1e-30), 0)``, ``clip(round_half_even(x * inv), -127, 127)`` to int8 —
-  bit-exact against the JAX function.
+- ``quantize_rows`` — K1, fused entry (``csrc/quantize_rows.cu``): per-row
+  absmax, scale and quantize of ``[NB, BS]``. The serving slice's int8 KV
+  cache, and the block-scale wire without shared scales.
+- ``quantize_rows_scaled`` — K1, shared-scale entry: rows ``[N*nb, bs]``
+  of N workers quantized with a given per-row absmax ``[nb]`` that was
+  already max-reduced over the workers (the block-scale gradient wire).
+- ``quantize_tensor`` — K2 (``csrc/quantize_tensor.cu``): one absmax over
+  the whole (worker-stacked) tensor, one shared scale.
 
-Per-tensor mode (kernel K2), the shared-scale ``axis_name`` path, the
-given-``inv`` entry and stochastic rounding belong to the training
-slice and raise ``NotImplementedError`` until then (ROADMAP.md).
+``quantize_int8(x, axis_name=..., block_size=...)`` / ``dequantize_int8``
+keep the JAX signatures. With ``axis_name`` (a ``parallel.mesh.WorkerAxis``)
+``x`` is worker-stacked ``[N, *shape]``: the absmax is taken over every
+worker (the pmax) and each worker's payload is quantized with that
+shared scale; the scale comes back once, without the worker dimension.
+
+The arithmetic is quantize.py:147-186 as XLA runs it under jit, op for op:
+``inv = where(absmax > 0, 127 / max(absmax, 1e-30), 0)`` (an IEEE
+quotient), ``clip(round_half_even(x * inv), -127, 127)`` to int8, and
+``scale = absmax * (1/127)``: inside a jitted program XLA rewrites the
+division by the constant 127 into a multiply by the f32 constant 1/127,
+and every JAX caller of these functions (the train step, the serving
+engine) is jitted. Bit-exact against the JAX function under jit.
+
+Stochastic rounding, ``quantize_lattice``, int4 and the homomorphic
+accumulate-rescale (kernel K3) belong to later slices and raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-_TRAINING_SLICE = (
-    "is part of the PS training slice, not ported yet (see ROADMAP.md, "
-    "queue of kernels: K2 per-tensor, K1 given-inv, K3 accumulate-rescale)"
+_NOT_PORTED = (
+    "is not ported yet (see ROADMAP.md, queue 1 item 5 and queue 2: "
+    "stochastic rounding, the int4 lattice and kernel K3 come with the "
+    "homomorphic slice)"
 )
+
+# the f32 constant XLA multiplies by where the JAX code divides by 127.0
+RECIP_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _inv_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """``where(absmax > 0, 127 / max(absmax, 1e-30), 0)`` as an IEEE
+    quotient: PyTorch computes ``127.0 / t`` as ``reciprocal(t) * 127``,
+    so the numerator is a tensor too."""
+    c127 = torch.full_like(absmax, 127.0)
+    return torch.where(
+        absmax > 0, c127 / torch.clamp_min(absmax, 1e-30),
+        torch.zeros((), dtype=torch.float32, device=absmax.device),
+    )
+
+
+def _quant(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    # torch.round rounds half to even, as jnp.round does
+    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
 
 
 def quantize_rows_plain(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1: f32/bf16 ``[NB, BS]`` -> (int8
-    ``[NB, BS]``, f32 scale ``[NB, 1]``). ``torch.round`` rounds half to
-    even, as ``jnp.round`` does."""
-    x = xb.float()
-    absmax = x.abs().amax(dim=1, keepdim=True)
-    # both divisions tensor by tensor: PyTorch computes `scalar / t` as
-    # reciprocal(t) * scalar, and on CUDA `t / scalar` as t * (1 / scalar);
-    # neither is the IEEE quotient JAX and the kernel produce
-    c127 = torch.full_like(absmax, 127.0)
-    scale = absmax / c127
-    inv = torch.where(
-        absmax > 0, c127 / torch.clamp_min(absmax, 1e-30),
-        torch.zeros((), dtype=torch.float32, device=x.device),
-    )
-    q = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
-    return q, scale
+    """Plain PyTorch version of K1 (fused): f32/bf16 ``[NB, BS]`` -> (int8
+    ``[NB, BS]``, f32 scale ``[NB, 1]``)."""
+    absmax = xb.float().abs().amax(dim=1, keepdim=True)
+    return _quant(xb, _inv_scale(absmax)), absmax * RECIP_127
+
+
+def quantize_rows_scaled_plain(
+    xb: torch.Tensor, absmax: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1's shared-scale entry: rows ``[N*nb,
+    bs]``, given absmax ``[nb]`` (row ``w*nb + r`` uses ``absmax[r]``) ->
+    (int8 ``[N*nb, bs]``, f32 scale ``[nb, 1]``)."""
+    amax = absmax.reshape(-1, 1).float()
+    nb, bs = amax.shape[0], xb.shape[1]
+    rows = xb.reshape(-1, nb, bs)
+    q = _quant(rows, _inv_scale(amax)[None])
+    return q.reshape(xb.shape), amax * RECIP_127
+
+
+def quantize_tensor_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: one absmax over all of ``x`` -> (int8
+    like ``x``, f32 scalar scale)."""
+    absmax = x.float().abs().amax()
+    return _quant(x, _inv_scale(absmax)), absmax * RECIP_127
+
+
+def _kernel_input(x: torch.Tensor, what: str) -> torch.Tensor:
+    from . import _build
+
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    return x.contiguous()
 
 
 def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,9 +117,7 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return quantize_rows_plain(xb)
     from . import _build
 
-    if xb.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"quantize_rows: unsupported dtype {xb.dtype}")
-    xb = xb.contiguous()
+    xb = _kernel_input(xb, "quantize_rows")
     nb, bs = xb.shape
     q = torch.empty((nb, bs), dtype=torch.int8, device=xb.device)
     scale = torch.empty((nb, 1), dtype=torch.float32, device=xb.device)
@@ -88,28 +137,139 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 quantize_rows.launches = 0
 
 
+def quantize_rows_scaled(
+    xb: torch.Tensor, absmax: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1, shared-scale entry: rows ``[N*nb, bs]`` of N workers (f32 or
+    bf16) quantized with the given absmax ``[nb]`` (f32, already
+    max-reduced over the workers; row ``w*nb + r`` uses ``absmax[r]``)
+    -> (int8 ``[N*nb, bs]``, f32 scale ``[nb, 1]``).
+
+    Replaces the same Pallas kernel as ``quantize_rows`` where its ``inv``
+    came from a pmax'd absmax (quantize.py:152-167). Bound: bytes (one
+    read of x, one int8 write). A CPU tensor runs
+    ``quantize_rows_scaled_plain``; a CUDA tensor launches the kernel or
+    raises."""
+    if xb.dim() != 2:
+        raise ValueError(f"quantize_rows_scaled takes [N*nb, bs], got {tuple(xb.shape)}")
+    nb = absmax.numel()
+    if nb == 0 or xb.shape[0] % nb:
+        raise ValueError(
+            f"quantize_rows_scaled: {xb.shape[0]} rows are not a whole number "
+            f"of workers' {nb} rows"
+        )
+    if not xb.is_cuda:
+        return quantize_rows_scaled_plain(xb, absmax)
+    from . import _build
+
+    if not absmax.is_cuda or absmax.dtype != torch.float32:
+        raise TypeError("quantize_rows_scaled: absmax must be f32 on the same card")
+    xb = _kernel_input(xb, "quantize_rows_scaled")
+    absmax = absmax.reshape(-1).contiguous()
+    rows, bs = xb.shape
+    q = torch.empty((rows, bs), dtype=torch.int8, device=xb.device)
+    scale = torch.empty((nb, 1), dtype=torch.float32, device=xb.device)
+    if xb.numel() == 0:
+        return q, scale
+    lib = _build.load()
+    with torch.cuda.device(xb.device):
+        code = lib.ps_quantize_rows_scaled(
+            xb.data_ptr(), _build.DTYPE_CODES[xb.dtype], absmax.data_ptr(), nb,
+            q.data_ptr(), scale.data_ptr(), rows, bs, _build.stream_of(xb),
+        )
+    quantize_rows_scaled.launches += 1
+    _build.check(code, "quantize_rows_scaled")
+    return q, scale
+
+
+quantize_rows_scaled.launches = 0
+
+
+def quantize_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: per-tensor int8 quantization of ``x`` (any shape, f32 or bf16)
+    with one scale -> (int8 like ``x``, f32 scalar scale).
+
+    Replaces ps_pytorch_tpu/ops/quantize.py:_quant_kernel (Pallas,
+    quantize.py:58, launched at :78) together with the absmax and
+    inverse XLA computed around it. Two launches, nothing through the
+    host: ``ps_absmax`` over all of ``x`` into a device scalar (for a
+    worker-stacked ``x`` that is the pmax), then ``ps_quantize_tensor``,
+    which reads it from device memory. Any length, no lane or row
+    condition. Bound on the H100: bytes. A CPU tensor runs
+    ``quantize_tensor_plain``; a CUDA tensor launches or raises."""
+    if not x.is_cuda:
+        return quantize_tensor_plain(x)
+    from . import _build
+
+    x = _kernel_input(x, "quantize_tensor")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    absmax = torch.empty((), dtype=torch.float32, device=x.device)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    code = _build.DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = _build.stream_of(x)
+        err = lib.ps_absmax(x.data_ptr(), code, x.numel(), absmax.data_ptr(), stream)
+        _build.check(err, "quantize_tensor (absmax)")
+        err = lib.ps_quantize_tensor(
+            x.data_ptr(), code, x.numel(), absmax.data_ptr(), q.data_ptr(),
+            scale.data_ptr(), stream,
+        )
+    quantize_tensor.launches += 1
+    _build.check(err, "quantize_tensor")
+    return q, scale
+
+
+quantize_tensor.launches = 0
+
+
 def quantize_int8(
     x: torch.Tensor,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     block_size: int = 0,
     rounding: str = "nearest",
     key=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 quantization, block mode: q is ``[n_blocks,
-    block_size]`` over the zero-padded flattened tensor, scale is
-    ``[n_blocks, 1]``. Pass the original shape to ``dequantize_int8``."""
-    if not block_size:
-        raise NotImplementedError(f"per-tensor quantize_int8 {_TRAINING_SLICE}")
-    if axis_name is not None:
-        raise NotImplementedError(f"shared-scale quantize_int8 {_TRAINING_SLICE}")
+    """Symmetric int8 quantization.
+
+    Per-tensor mode (``block_size=0``): q has x's shape, the scale is a
+    scalar. Block mode: q is ``[n_blocks, block_size]`` over the
+    zero-padded flattened tensor, the scale ``[n_blocks, 1]``; pass the
+    original shape to ``dequantize_int8``.
+
+    ``axis_name`` (a ``WorkerAxis``): ``x`` is worker-stacked ``[N,
+    *shape]`` and the scales are shared over the workers. Per-tensor:
+    q ``[N, *shape]``, one scalar scale. Block mode: each worker's
+    flattened tensor is cut into blocks, q is ``[N, n_blocks,
+    block_size]`` and the scale ``[n_blocks, 1]``."""
     if rounding != "nearest" or key is not None:
-        raise NotImplementedError(f"stochastic rounding {_TRAINING_SLICE}")
-    flat = x.reshape(-1)
-    n = flat.shape[0]
+        raise NotImplementedError(f"stochastic rounding {_NOT_PORTED}")
+    if axis_name is not None and not hasattr(axis_name, "size"):
+        raise TypeError(
+            f"axis_name must be a parallel.mesh.WorkerAxis, got {axis_name!r}"
+        )
+    if not block_size:
+        # one absmax over the whole (stacked) tensor is the pmax
+        return quantize_tensor(x)
+    lead = (axis_name.size,) if axis_name is not None else ()
+    if axis_name is not None and (x.dim() == 0 or x.shape[0] != axis_name.size):
+        raise ValueError(
+            f"shared-scale quantize_int8 takes [{axis_name.size}, ...], got "
+            f"{tuple(x.shape)}"
+        )
+    flat = x.reshape(lead + (-1,))
+    n = flat.shape[-1]
     nb = -(-n // block_size)
     if nb * block_size != n:
         flat = F.pad(flat, (0, nb * block_size - n))
-    return quantize_rows(flat.reshape(nb, block_size))
+    if axis_name is None:
+        return quantize_rows(flat.reshape(nb, block_size))
+    xb = flat.reshape(axis_name.size, nb, block_size)
+    # per-(worker, block) absmax, then the pmax over workers: XLA ops
+    # outside the kernel in JAX too (quantize.py:152-154)
+    absmax = xb.abs().amax(dim=(0, 2)).float()
+    q, scale = quantize_rows_scaled(xb.reshape(-1, block_size), absmax)
+    return q.reshape(axis_name.size, nb, block_size), scale
 
 
 def dequantize_int8(
@@ -118,7 +278,10 @@ def dequantize_int8(
     block_size: int = 0,
     shape: Optional[Tuple[int, ...]] = None,
 ) -> torch.Tensor:
-    """Invert ``quantize_int8`` (q may be an int32 sum of int8 payloads)."""
+    """Invert ``quantize_int8`` (q may be an int32 sum of int8 payloads).
+    Block mode takes q ``[n_blocks, block_size]`` or, worker-stacked,
+    ``[N, n_blocks, block_size]``, and ``shape`` without the worker
+    dimension."""
     out = q.float() * scale
     if block_size:
         if shape is None:
@@ -126,5 +289,6 @@ def dequantize_int8(
         n = 1
         for d in shape:
             n *= int(d)
-        out = out.reshape(-1)[:n].reshape(shape)
+        lead = tuple(out.shape[:-2])
+        out = out.reshape(lead + (-1,))[..., :n].reshape(lead + tuple(shape))
     return out

@@ -1,8 +1,10 @@
-"""Flat weight geometry (the serving engine's subset of parallel/buckets.py).
+"""Flat weight geometry and the per-leaf gradient wire (the port's subset
+of parallel/buckets.py).
 
-The serving engine keeps its weights as ONE padded flat f32 vector in the
-flat-state layout the trainer trains in, so a checkpoint rollover is one
-buffer swap. This module carries that geometry:
+The trainer keeps master params and optimizer moments as ONE padded flat
+f32 vector (``state_layout="flat"``), and the serving engine keeps its
+weights the same way, so a checkpoint rollover is one buffer swap. This
+module carries that geometry:
 
 - ``TreeLayout`` / ``tree_layout``: per-leaf shapes, dtypes and element
   offsets of a params tree. Leaf order is ``jax.tree_util``'s — dict keys
@@ -11,10 +13,16 @@ buffer swap. This module carries that geometry:
 - ``plan_buckets``: the padded partition (the engine uses one bucket);
 - ``FlatVector``: one flat f32 tensor plus ``tree()``, a tree of VIEWS
   into it (no copies for f32 leaves);
+- ``tree_to_flat`` / ``pad_flat`` / ``to_flat_vector``: the pack;
+- ``piece_stream``: what a collective ships. The per-leaf wire
+  (``bucket_bytes=None``, the default ``--bucket-bytes -1``) is ported:
+  one piece per leaf, rebuilt into the tree or, with ``flat_output``,
+  into the padded flat vector the fused update consumes;
 - ``_np_tree_to_flat``: the host-side pack.
 
-The bucketed gradient wire (split/assemble/pipelined order) comes with
-the training slice.
+The bucketed wires (``bucket_bytes >= 0``: split/assemble and the
+pipelined order) raise ``NotImplementedError`` until their slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -61,6 +69,14 @@ def tree_unflatten(skeleton, leaves: List[Any]):
 
 def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of equally-shaped trees (a bare tensor is a
+    one-leaf tree)."""
+    flats = [tree_flatten(t) for t in trees]
+    leaves = [fn(*xs) for xs in zip(*(f[0] for f in flats))]
+    return tree_unflatten(flats[0][1], leaves)
 
 
 def _align_up(n: int, align: int) -> int:
@@ -132,6 +148,18 @@ def plan_buckets(total: int, bucket_bytes: int, align: int = 1) -> BucketPlan:
                       starts=tuple(starts), sizes=tuple(sizes))
 
 
+def tree_to_flat(tree) -> torch.Tensor:
+    """Concatenate every leaf (tree_leaves order) into one f32 vector."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((0,), dtype=torch.float32)
+    return torch.cat([leaf.float().reshape(-1) for leaf in leaves])
+
+
+def pad_flat(flat: torch.Tensor, plan: BucketPlan) -> torch.Tensor:
+    return torch.nn.functional.pad(flat, (0, plan.padded_total - plan.total))
+
+
 def flat_to_tree(layout: TreeLayout, flat: torch.Tensor):
     """Per-leaf views of ``flat`` (the pad tail is dropped); a leaf whose
     dtype is not f32 is cast, which copies it."""
@@ -157,6 +185,12 @@ class FlatVector:
         return flat_to_tree(self.layout, self.flat)
 
 
+def to_flat_vector(tree, plan: BucketPlan) -> FlatVector:
+    """Pack a tree of tensors into a FlatVector with ``plan``'s padding."""
+    return FlatVector(flat=pad_flat(tree_to_flat(tree), plan),
+                      layout=tree_layout(tree), plan=plan)
+
+
 def tree_view(params):
     """Tree view of a params-like object (FlatVector or tree)."""
     if isinstance(params, FlatVector):
@@ -172,3 +206,35 @@ def _np_tree_to_flat(layout: TreeLayout, plan: BucketPlan, tree) -> np.ndarray:
         arr = leaf.detach().to("cpu", torch.float32).numpy().reshape(-1)
         flat[off:off + arr.size] = arr
     return flat
+
+
+def piece_stream(tree, bucket_bytes, align: int = 1, flat_output: bool = False):
+    """The comm engine's one entry point: what a collective scheme ships
+    (buckets.py:412). Returns ``(pieces, key_ids, rebuild)``:
+
+    - ``pieces``: the tree's leaves verbatim (``bucket_bytes is None``,
+      the per-leaf wire). A leaf may be worker-stacked ``[N, *shape]``;
+    - ``key_ids``: the enumeration index per leaf (the PRNG fold value
+      of stochastic rounding, kept for the contract);
+    - ``rebuild``: maps the per-piece results (same shapes, without the
+      worker dimension) back to the tree, or with ``flat_output=True`` to
+      ONE padded flat f32 vector in the ``align`` geometry
+      (``plan_buckets(total, 0, align)``). The pieces are the same either
+      way; only the rebuild differs."""
+    if bucket_bytes is not None:
+        raise NotImplementedError(
+            "bucketed gradient wires (bucket_bytes >= 0) are not ported yet "
+            "(ROADMAP.md queue 1, Slice B): use the per-leaf wire "
+            "(--bucket-bytes -1)"
+        )
+    leaves, skeleton = tree_flatten(tree)
+    key_ids = tuple(range(len(leaves)))
+    if not flat_output:
+        return leaves, key_ids, lambda outs: tree_unflatten(skeleton, list(outs))
+
+    def rebuild(outs):
+        flat = (torch.cat([o.float().reshape(-1) for o in outs]) if outs
+                else torch.zeros((0,), dtype=torch.float32))
+        return pad_flat(flat, plan_buckets(flat.numel(), 0, align=align))
+
+    return leaves, key_ids, rebuild

@@ -1,0 +1,5 @@
+"""Resilience of the port: the non-finite gradient guard."""
+
+from .guard import GuardState, init_guard_state, tree_all_finite, update_guard_state
+
+__all__ = ["GuardState", "init_guard_state", "tree_all_finite", "update_guard_state"]

@@ -1,4 +1,5 @@
-from .logging import get_logger
+from .logging import format_eval_line, format_iter_line, get_logger, parse_iter_line
 from .sync import host_sync
 
-__all__ = ["get_logger", "host_sync"]
+__all__ = ["format_eval_line", "format_iter_line", "get_logger", "host_sync",
+           "parse_iter_line"]

@@ -1,6 +1,7 @@
 """The port's hand-written kernels on the card, against their plain
-PyTorch versions (K1 quantize_rows, K4 flash_fwd), and the serving engine
-on the card against the same engine on the CPU.
+PyTorch versions (K1 quantize_rows and its shared-scale entry
+quantize_rows_scaled, K2 quantize_tensor, K4 flash_fwd), and the serving
+engine on the card against the same engine on the CPU.
 
 Every test here needs a CUDA card and skips without one. This file
 imports neither JAX nor the JAX package (the card's machine has no JAX),
@@ -23,6 +24,10 @@ from ps_pytorch_tpu_torch.ops.quantize import (
     quantize_int8,
     quantize_rows,
     quantize_rows_plain,
+    quantize_rows_scaled,
+    quantize_rows_scaled_plain,
+    quantize_tensor,
+    quantize_tensor_plain,
 )
 from ps_pytorch_tpu_torch.serve import Request, ServeConfig, ServingEngine
 
@@ -66,6 +71,78 @@ def test_torch_quantize_kernel_rounds_half_to_even_on_card(cuda_device):
     q, s = quantize_int8(x, block_size=128)
     assert q[0, :6].tolist() == [127, 2, -4, 0, 0, 2]
     assert float(s[0, 0]) == 1.0
+
+
+def _halves(x: torch.Tensor) -> torch.Tensor:
+    """Plant exact halves where absmax is 127 (inv == 1): round half to
+    even decides them."""
+    flat = x.view(-1)
+    flat[:6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5])
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 3, 3, 512, 512), torch.float32),  # largest ResNet18 leaf, 8 workers
+    ((8, 512), torch.float32),             # a BN leaf
+    ((8, 10), torch.float32),              # the dense bias
+    ((8, 1001), torch.float32),            # ragged odd length
+    ((7, 33), torch.bfloat16),
+])
+def test_torch_quantize_tensor_kernel_bit_exact_on_card(cuda_device, shape, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 3).to(dtype)
+    if dtype == torch.float32:
+        # absmax 127 -> inv 1: the planted halves land on .5 exactly
+        x = _halves(x.clamp(-100, 100))
+    before = quantize_tensor.launches
+    q, s = quantize_tensor(x)
+    qp, sp = quantize_tensor_plain(x)
+    torch.cuda.synchronize()
+    assert quantize_tensor.launches == before + 1
+    assert q.shape == x.shape and q.dtype == torch.int8 and s.shape == ()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    if dtype == torch.float32:
+        assert q.view(-1)[:6].tolist() == [127, 2, -4, 0, 0, 2]
+
+
+@pytest.mark.cuda
+def test_torch_quantize_tensor_kernel_all_zero_and_offset_view(cuda_device):
+    z = torch.zeros((8, 513), device=cuda_device)
+    q, s = quantize_tensor(z)
+    assert float(s) == 0.0 and not q.any()
+    # an unaligned slice takes the scalar path of both launches
+    x = torch.randn(4097, device=cuda_device)[1:]
+    q, s = quantize_tensor(x)
+    qp, sp = quantize_tensor_plain(x)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers,nb,bs,dtype", [
+    (8, 18432, 128, torch.float32),  # the largest ResNet18 leaf at block 128
+    (8, 4, 128, torch.float32),
+    (3, 5, 33, torch.float32),
+    (2, 9, 64, torch.bfloat16),
+])
+def test_torch_quantize_rows_scaled_kernel_bit_exact_on_card(cuda_device, workers,
+                                                            nb, bs, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(nb + bs)
+    x = (torch.randn((workers * nb, bs), generator=g, device=cuda_device) * 3).to(dtype)
+    x.view(workers, nb, bs)[:, 1] = 0.0  # a block all-zero on every worker
+    if dtype == torch.float32:
+        x[2] = 0.5
+        x[2, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5])
+    absmax = x.float().abs().reshape(workers, nb, bs).amax(dim=(0, 2))
+    before = quantize_rows_scaled.launches
+    q, s = quantize_rows_scaled(x, absmax)
+    qp, sp = quantize_rows_scaled_plain(x, absmax)
+    torch.cuda.synchronize()
+    assert quantize_rows_scaled.launches == before + 1
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert float(s[1, 0]) == 0.0
+    if dtype == torch.float32:
+        assert q[2, :6].tolist() == [127, 2, -4, 0, 0, 2]
 
 
 @pytest.mark.cuda

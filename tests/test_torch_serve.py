@@ -4,8 +4,8 @@ traffic) against the JAX package's serve/, plus the port's own rules
 
 The pins:
 
-- the KV pool's int8 payload and scales are bit-exact against JAX's on
-  identical K/V, and pooled attention agrees within 1e-5 in both formats;
+- the KV pool's int8 payload and scales are bit-exact against JAX's
+  (jitted, as its engine runs them) on identical K/V, and pooled attention agrees within 1e-5 in both formats;
 - continuous-batching greedy decode is token-identical to the JAX engine
   on the same weights and to the port's own per-sequence ``generate``
   (f32 pool, naive and flash prefill; 5 requests on 3 slots);
@@ -111,9 +111,12 @@ def test_torch_kv_write_slot_and_attend_match_jax(int8):
     lengths = np.asarray([16, 9, 4, 1], np.int32)
     jpool = jkv.init_kv_pool(JCFG, 4, 16, int8=int8)
     tpool = tkv.init_kv_pool(TCFG, 4, 16, int8=int8, device="cpu")
+    # the JAX engine writes the pool under jit, where the quantizer's scale
+    # is absmax * f32(1/127) (tests/test_torch_quantize.py)
+    write_slot = jax.jit(jkv.write_slot, static_argnums=1)
     for s in range(4):
         for i in range(JCFG.depth):
-            jpool = jkv.write_slot(jpool, i, jnp.int32(s), jnp.asarray(k), jnp.asarray(v))
+            jpool = write_slot(jpool, i, jnp.int32(s), jnp.asarray(k), jnp.asarray(v))
             tkv.write_slot(tpool, i, s, torch.from_numpy(k), torch.from_numpy(v))
     assert sorted(tpool) == sorted(jpool)
     for name in jpool:
@@ -135,7 +138,8 @@ def test_torch_kv_write_token_matches_jax(int8):
     jpool = jkv.init_kv_pool(JCFG, 4, 16, int8=int8)
     tpool = tkv.init_kv_pool(TCFG, 4, 16, int8=int8, device="cpu")
     kt, vt = k[:4], v[:4]  # [S, H, hd]: one token per slot
-    jpool = jkv.write_token(jpool, 1, jnp.asarray(pos), jnp.asarray(kt), jnp.asarray(vt))
+    jpool = jax.jit(jkv.write_token, static_argnums=1)(
+        jpool, 1, jnp.asarray(pos), jnp.asarray(kt), jnp.asarray(vt))
     tkv.write_token(tpool, 1, torch.from_numpy(pos), torch.from_numpy(kt),
                     torch.from_numpy(vt))
     for name in jpool:

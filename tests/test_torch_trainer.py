@@ -1,0 +1,104 @@
+"""The port's training entry points on the CPU: ``cli.train.main`` and
+``Trainer`` (ps_pytorch_tpu_torch.cli, trainer).
+
+They run the whole slice end to end at a small size (LeNet, synthetic
+MNIST, 8 stacked workers) with ``--device cpu``; without it, on a
+machine with no card, they raise. Flags the slice does not run are
+refused, never ignored. The card runs the full-width ResNet18 path in
+chip_smoke.py.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from ps_pytorch_tpu.utils import logging as jlog
+from ps_pytorch_tpu_torch.cli import train as cli_train
+from ps_pytorch_tpu_torch.data import make_synthetic
+from ps_pytorch_tpu_torch.parallel.ps import PSConfig
+from ps_pytorch_tpu_torch.trainer import TrainConfig, Trainer
+
+BASE = ["--network", "LeNet", "--num-workers", "8", "--batch-size", "16",
+        "--test-batch-size", "64", "--log-interval", "1"]
+
+
+def _run(*extra):
+    return cli_train.main(BASE + ["--device", "cpu", *extra])
+
+
+def test_torch_cli_train_runs_on_cpu_with_finite_losses(caplog):
+    out = _run("--max-steps", "5", "--compress-grad", "compress")
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 5 and all(math.isfinite(v) for v in losses)
+    assert out["train"]["skipped_steps"] == 0.0
+    assert math.isfinite(out["val"]["loss"]) and 0.0 <= out["val"]["prec1"] <= 100.0
+
+
+@pytest.mark.parametrize("extra", [
+    ["--quant-block-size", "128", "--error-feedback"],
+    ["--num-aggregate", "5", "--mask-mode", "first_k", "--state-layout", "tree"],
+    ["--compress-grad", "none", "--grad-accum-steps", "2", "--bn-mode", "local"],
+    ["--compress-grad", "compress", "--dynamic-loss-scale", "--weight-decay", "1e-4"],
+])
+def test_torch_cli_train_wire_options(extra):
+    args = ["--max-steps", "3"] + extra
+    if "--error-feedback" in extra:
+        args += ["--compress-grad", "compress", "--num-aggregate", "5"]
+    out = _run(*args)
+    assert all(math.isfinite(h["loss"]) for h in out["history"])
+
+
+def test_torch_cli_train_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(BASE + ["--max-steps", "1"])
+
+
+def test_torch_cli_train_nan_fault_plan_skips_one_step():
+    out = _run("--max-steps", "3", "--compress-grad", "compress",
+               "--fault-plan", '{"nan_grads": [2]}')
+    assert out["train"]["skipped_steps"] == 1.0
+    assert math.isfinite(out["history"][-1]["loss"])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--resume"], ["--bucket-bytes", "0"], ["--opt-placement", "sharded"],
+    ["--metrics-file", "m.jsonl"], ["--optimizer", "adam"], ["--network", "VGG16"],
+    ["--dtype", "bfloat16"], ["--overlap", "on"], ["--compress-grad", "2round"],
+    ["--trace", "t"], ["--fault-plan", '{"slow_steps": [1]}'],
+    ["--coordinator-address", "localhost:1234"], ["--data-root", "/nonexistent"],
+])
+def test_torch_cli_train_refuses_unported_flags(extra):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _run("--max-steps", "1", *extra)
+
+
+def test_torch_trainer_log_lines_parse_with_the_reference_parser(caplog):
+    lines = []
+    import logging
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    from ps_pytorch_tpu_torch.trainer import logger
+
+    h = Grab()
+    logger.addHandler(h)
+    try:
+        d = make_synthetic("MNIST", train_size=256, test_size=32)
+        t = Trainer(TrainConfig(network="LeNet", dataset="MNIST", batch_size=8,
+                                max_steps=4, log_interval=2, test_batch_size=32),
+                    PSConfig(num_workers=4, compress="int8"), dataset=d, device="cpu")
+        t.train()
+        val = t.validate()
+    finally:
+        logger.removeHandler(h)
+    parsed = [jlog.parse_iter_line(x) for x in lines]
+    steps = [p["step"] for p in parsed if p]
+    assert steps == [1.0, 2.0, 4.0]
+    assert any(x.startswith("Validation Step: 4") for x in lines)
+    assert np.isfinite(val["loss"])
