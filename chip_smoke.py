@@ -40,13 +40,30 @@ Phases, one line each:
    kernels) against the same step on the CPU (the plain versions), same
    params, batch and mask, for the per-tensor and block-128 wires, and a
    NaN-injected step that must leave the params alone;
-11. the kernels JSON line, then the result line.
+11. K3 accumulate_rescale_int8 vs its plain version, bit-exact, at the
+   homomorphic two-round wire's shapes: the ResNet18 fused stacked payload
+   [8, 11173968], one region [8, 1396746], [8, 130], [258, 4096] and
+   [1, 1], with divisors 5.0, 8.0 and a device-tensor divisor; timed, with
+   its bound;
+12. train ResNet18 (8 x 128, lr 0.1, momentum 0.9, num-aggregate 5) through
+   ``cli.train.main`` on the autotune-best wire (``--compress-grad 2round
+   --bucket-bytes 0 --wire-domain homomorphic``) for 10 steps: finite
+   losses, no skipped step, exactly one K3 and one K2 launch per step;
+   then 3 steps of the dequant two-round wire (1 + 8 K2 launches per step)
+   and 3 of the ZeRO-1 placement on the two-round wire (one K2 per step);
+13. one LeNet step at 8 workers, card vs CPU (phase 10's rule, with K
+   times its bound on the two-round wires' coarser second rounding), on the
+   autotune-best wire with EF, int8 homomorphic in 64 KiB buckets, the
+   two-round dequant wire with block-128 scales and ZeRO-1 int8
+   homomorphic, each with its launch counts;
+14. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -59,9 +76,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_OPS_PER_S = {                 # H100 SXM dense tensor-core peaks
+PEAK_OPS_PER_S = {                 # H100 SXM dense peaks (f32: CUDA cores)
     torch.bfloat16: 989e12,
     torch.float32: 67e12,
+    torch.int8: 1979e12,
 }
 ITERS = 200
 
@@ -313,6 +331,9 @@ def phase_exact(dev) -> dict:
 RESNET18_LEAVES = 62
 BIG_LEAF = (3, 3, 512, 512)
 WORKERS = 8
+# ResNet18's 11173962 parameters padded to n*s = 8 x 1396746: the fused
+# two-round payload K3 sums per step
+RESNET18_PADDED = 11173968
 
 
 def phase_k2(dev) -> dict:
@@ -439,6 +460,129 @@ def phase_train(card: str) -> dict:
     return rec
 
 
+def phase_k3(dev) -> dict:
+    from ps_pytorch_tpu_torch.ops.quantize import (
+        accumulate_rescale_int8,
+        accumulate_rescale_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases = [("resnet18_fused", WORKERS, RESNET18_PADDED),
+             ("resnet18_region", WORKERS, RESNET18_PADDED // WORKERS),
+             ("ragged", WORKERS, 130), ("int16_capacity", 258, 4096), ("one", 1, 1)]
+    out = {}
+    for name, n, s in cases:
+        recv = torch.randint(-127, 128, (n, s), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+        recv[:, 0] = 127  # a full-scale column
+        err = 0
+        for d in (5.0, 8.0, torch.tensor(float(n), device=dev)):
+            k3 = accumulate_rescale_int8(recv, d)
+            plain = accumulate_rescale_plain(recv, d)
+            torch.cuda.synchronize()
+            require(torch.equal(k3, plain), f"K3 {name} divisor {d}: differs from plain")
+            err = max(err, int((k3.int() - plain.int()).abs().max()))
+        # the contract's bound: recv read once, the int8 row written once;
+        # n adds per column on the int8 path
+        b_ms, b_by = bound_ms(n * s + s, float(n * s), torch.int8)
+        out[name] = {
+            "shape": [n, s], "max_abs_err": float(err),
+            "ms": time_ms(lambda: accumulate_rescale_int8(recv, 5.0)),
+            "plain_ms": time_ms(lambda: accumulate_rescale_plain(recv, 5.0), iters=20),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    print("phase 11 K3 accumulate_rescale_int8 bit-exact vs plain: " + json.dumps(out))
+    return out
+
+
+def _pieces(cfg, params) -> int:
+    """How many pieces the config's wire ships per step (one per leaf,
+    or one per bucket of its plan), from the port's own geometry."""
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_layout, tree_leaves
+    from ps_pytorch_tpu_torch.parallel.ps import state_plan
+
+    if cfg.bucket_bytes is None and cfg.opt_placement != "sharded":
+        return len(tree_leaves(params))
+    return state_plan(cfg, tree_layout(params).total).n_buckets
+
+
+def expected_launches(cfg, params) -> dict:
+    """Kernel launches per step of ``cfg``'s wire, computed from the code:
+    round 1 quantizes each piece once (K2 per tensor, K1 shared-scale per
+    block); the dequant two-round wire requantizes each piece's N regions
+    (K2 each, or one K1 fused launch over every region's rows); the
+    homomorphic two-round wire runs K3 once per piece; the ZeRO-1 wire has
+    round 1 only."""
+    p = _pieces(cfg, params)
+    block = bool(cfg.quant_block_size)
+    two_round = cfg.compress == "int8_2round" and cfg.opt_placement != "sharded"
+    hom = cfg.wire_domain == "homomorphic"
+    return {
+        "quantize_tensor": 0 if block else p * (1 + (WORKERS if two_round and not hom else 0)),
+        "quantize_rows_scaled": p if block else 0,
+        "quantize_rows": p if block and two_round and not hom else 0,
+        "accumulate_rescale_int8": p if two_round and hom else 0,
+    }
+
+
+def _counters():
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    return {name: getattr(q, name) for name in (
+        "quantize_tensor", "quantize_rows_scaled", "quantize_rows", "accumulate_rescale_int8")}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_train_wires(card: str) -> dict:
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+
+    resnet, _ = init_model(build_model("ResNet18"), torch.Generator().manual_seed(0),
+                           device="cpu")
+    runs = [("autotune_best", 10, ["--compress-grad", "2round", "--bucket-bytes", "0",
+                                   "--wire-domain", "homomorphic"]),
+            ("2round_dequant", 3, ["--compress-grad", "2round", "--bucket-bytes", "0"]),
+            ("zero1_2round", 3, ["--opt-placement", "sharded", "--compress-grad", "2round"])]
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    out = {}
+    for name, steps, flags in runs:
+        # the config cli.train builds from these flags
+        cfg = ps_config_from(parser.parse_args(TRAIN_ARGS + flags), WORKERS)
+        want = {k: v * steps for k, v in expected_launches(cfg, resnet).items()}
+        reset_counts()
+        res = _train(steps, flags)
+        torch.cuda.synchronize()
+        got = read_counts()
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                f"train {name}: losses {losses}")
+        require(res["train"]["skipped_steps"] == 0.0, f"train {name}: a step was skipped")
+        require(got == want, f"train {name}: launches {got}, expected {want}")
+        rec = {"flags": " ".join(flags), "steps": steps, "launches": got,
+               "loss_first": losses[0], "loss_last": losses[-1]}
+        if steps >= 10:
+            times = [h["time_cost"] for h in hist[3:]]  # after cuDNN's warm-up
+            p50 = float(np.median(times))
+            rec.update({"card": card, "step_ms_p50": p50 * 1e3,
+                        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+                        "images_per_s": WORKERS * 128 / p50})
+        out[name] = rec
+    require(out["autotune_best"]["launches"]["accumulate_rescale_int8"] == 10,
+            "train autotune_best: K3 not launched once per step")
+    print("phase 12 train ResNet18 on the two-round / homomorphic / ZeRO-1 wires: "
+          + json.dumps(out))
+    return out
+
+
 def _lenet_pair(dev, cfg_kw, faults=None):
     from ps_pytorch_tpu_torch.data import make_preprocessor
     from ps_pytorch_tpu_torch.models import build_model, init_model
@@ -509,6 +653,61 @@ def phase_held(dev) -> dict:
     return out
 
 
+def phase_held_wires(dev) -> dict:
+    """Phase 10's card-vs-CPU rule on the wires of this slice, with one
+    change for the two-round wires: their second rounding (K3's rescale
+    by K, or round 2's requantize of the region sums) sits on a lattice up
+    to K times coarser than round 1's, so one element that rounds the
+    other way on the card moves its param by up to K times what a flip
+    on the one-round wire does; there the bound is K% of the update."""
+    from ps_pytorch_tpu_torch.data import make_synthetic
+    from ps_pytorch_tpu_torch.parallel.ps import PSConfig, StepDraws
+
+    d = make_synthetic("MNIST", train_size=WORKERS * 16, test_size=8, seed=4)
+    batch = {"image": d.train_images, "label": d.train_labels}
+    perm = torch.tensor([3, 0, 6, 1, 5, 2, 7, 4])
+    wires = {
+        "autotune_best_ef": dict(compress="int8_2round", bucket_bytes=0,
+                                 wire_domain="homomorphic", num_aggregate=5,
+                                 error_feedback=True),
+        "int8_homomorphic_64k": dict(compress="int8", bucket_bytes=65536,
+                                     wire_domain="homomorphic", num_aggregate=5),
+        "2round_dequant_block128": dict(compress="int8_2round", quant_block_size=128,
+                                        num_aggregate=5),
+        "zero1_int8_homomorphic": dict(opt_placement="sharded", compress="int8",
+                                       wire_domain="homomorphic", num_aggregate=5),
+    }
+    out = {}
+    for name, kw in wires.items():
+        pair = _lenet_pair(dev, kw)
+        res = {}
+        for key, (st, step) in pair.items():
+            reset_counts()
+            p0 = st.params.flat.detach().cpu().clone()
+            st, m = step(st, batch, StepDraws(perm=perm))
+            res[key] = (st.params.flat.detach().cpu(), p0, float(m["loss"]), read_counts(),
+                        float(m["skipped_steps"]))
+        (pc, p0, lc, _, _), (pg, _, lg, counts, skipped) = res["cpu"], res["cuda"]
+        cfg = PSConfig(num_workers=WORKERS, **kw)
+        coarse = cfg.compress == "int8_2round" and cfg.opt_placement != "sharded"
+        bound = 1e-2 * (cfg.effective_aggregate if coarse else 1)
+        moved = float((pc - p0).abs().max())
+        diff = (pc - pg).abs()
+        require(float(diff.max()) <= bound * moved,
+                f"held {name}: card vs CPU params differ by {float(diff.max())} "
+                f"(update {moved}, bound {bound} of it)")
+        frac = float((diff > 1e-6).float().mean())
+        require(frac <= 0.01, f"held {name}: {frac:.4f} of params differ by > 1e-6")
+        require(skipped == 0.0, f"held {name}: the card skipped the step")
+        want = expected_launches(cfg, pair["cpu"][0].params.tree())
+        require(counts == want, f"held {name}: launches {counts}, expected {want}")
+        out[name] = {"max_abs_diff": float(diff.max()), "max_update": moved,
+                     "bound_fraction": bound, "frac_diff_gt_1e-6": frac, "loss_cpu": lc,
+                     "loss_cuda": lg, "launches": counts}
+    print("phase 13 wires held on the card vs CPU (LeNet, 8 workers): " + json.dumps(out))
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -544,6 +743,9 @@ def main() -> int:
     k1s = phase_k1_scaled(dev)
     train = phase_train(smi)
     phase_held(dev)
+    k3 = phase_k3(dev)
+    wires = phase_train_wires(smi)
+    phase_held_wires(dev)
 
     kernels = [
         {
@@ -574,6 +776,16 @@ def main() -> int:
             "ms": k2["largest_leaf"]["ms"], "plain_ms": k2["largest_leaf"]["plain_ms"],
             "bound_ms": k2["largest_leaf"]["bound_ms"],
             "bound_by": k2["largest_leaf"]["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "accumulate_rescale", "route": "cuda",
+            "source": "ps_pytorch_tpu_torch/csrc/accum_rescale.cu",
+            "replaces": "ps_pytorch_tpu/ops/quantize.py:424",
+            "launches": wires["autotune_best"]["launches"]["accumulate_rescale_int8"],
+            "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+            "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
+            "bound_ms": k3["resnet18_fused"]["bound_ms"],
+            "bound_by": k3["resnet18_fused"]["bound_by"], "library_ms": None,
         },
         {
             "name": "flash_fwd", "route": "cuda",

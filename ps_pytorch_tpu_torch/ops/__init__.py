@@ -2,6 +2,9 @@
 
 from .flash_attention import flash_attention, flash_fwd, flash_fwd_plain
 from .quantize import (
+    accum_dtype,
+    accumulate_rescale_int8,
+    accumulate_rescale_plain,
     dequantize_int8,
     quantize_int8,
     quantize_rows,
@@ -13,6 +16,9 @@ from .quantize import (
 )
 
 __all__ = [
+    "accum_dtype",
+    "accumulate_rescale_int8",
+    "accumulate_rescale_plain",
     "dequantize_int8",
     "flash_attention",
     "flash_fwd",

@@ -9,8 +9,8 @@ together, then one link:
          -Xcompiler -fPIC -c csrc/<name>.cu
     nvcc -shared -o libps_kernels.so *.o
 
-No ``--use_fast_math``: K1 and K2 must round half to even and divide
-exactly (IEEE), as the JAX reference does.
+No ``--use_fast_math``: K1, K2 and K3 must round half to even and
+divide exactly (IEEE), as the JAX reference does.
 
 The library lands in ``ps_pytorch_tpu_torch/_build/<hash>/`` (listed in
 .gitignore), keyed by a hash of the sources and flags, and is built at
@@ -125,6 +125,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ps_absmax.restype = i32
     lib.ps_quantize_tensor.argtypes = [vp, i32, i64, vp, vp, vp, vp]
     lib.ps_quantize_tensor.restype = i32
+    lib.ps_accumulate_rescale.argtypes = [vp, i64, i64, vp, vp, vp]
+    lib.ps_accumulate_rescale.restype = i32
     lib.ps_flash_fwd.argtypes = (
         [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
          ctypes.POINTER(i64), f32, i32, i32, i32, i32, vp]

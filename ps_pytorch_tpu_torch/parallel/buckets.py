@@ -1,5 +1,5 @@
-"""Flat weight geometry and the per-leaf gradient wire (the port's subset
-of parallel/buckets.py).
+"""Flat weight geometry and the gradient wire's piece stream (the port of
+parallel/buckets.py, serial schedule).
 
 The trainer keeps master params and optimizer moments as ONE padded flat
 f32 vector (``state_layout="flat"``), and the serving engine keeps its
@@ -10,19 +10,22 @@ module carries that geometry:
   offsets of a params tree. Leaf order is ``jax.tree_util``'s — dict keys
   sorted, list order kept (buckets.py:73-88) — so the flat vector is
   element-identical to the JAX engine's (engine.py:254-259);
-- ``plan_buckets``: the padded partition (the engine uses one bucket);
+- ``plan_buckets``: the padded partition into ~``bucket_bytes`` buckets
+  whose boundaries are multiples of ``align``;
 - ``FlatVector``: one flat f32 tensor plus ``tree()``, a tree of VIEWS
   into it (no copies for f32 leaves);
-- ``tree_to_flat`` / ``pad_flat`` / ``to_flat_vector``: the pack;
+- ``tree_to_flat`` / ``pad_flat`` / ``to_flat_vector``: the pack
+  (``stacked=True`` flattens each worker's row of a worker-stacked tree);
+- ``split_buckets`` / ``concat_buckets``: cut a padded flat buffer into
+  its buckets and join them again;
 - ``piece_stream``: what a collective ships. The per-leaf wire
-  (``bucket_bytes=None``, the default ``--bucket-bytes -1``) is ported:
-  one piece per leaf, rebuilt into the tree or, with ``flat_output``,
-  into the padded flat vector the fused update consumes;
+  (``bucket_bytes=None``, the default ``--bucket-bytes -1``) ships the
+  leaves; the bucketed wires (``0`` = one fused buffer, ``N`` = ~N-byte
+  buckets) ship the buckets of each worker's flattened, padded tree;
 - ``_np_tree_to_flat``: the host-side pack.
 
-The bucketed wires (``bucket_bytes >= 0``: split/assemble and the
-pipelined order) raise ``NotImplementedError`` until their slice
-(ROADMAP.md).
+The pipelined order (``--overlap on``) raises ``NotImplementedError``
+until its slice (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -94,13 +97,14 @@ class TreeLayout:
     total: int                 # total elements (unpadded)
 
 
-def tree_layout(tree) -> TreeLayout:
-    """Geometry of a tree of tensors."""
+def tree_layout(tree, stacked: bool = False) -> TreeLayout:
+    """Geometry of a tree of tensors (``stacked``: of one worker's row of
+    a tree of worker-stacked ``[N, *shape]`` leaves)."""
     leaves, skeleton = tree_flatten(tree)
     shapes, dtypes, offsets = [], [], []
     off = 0
     for leaf in leaves:
-        shape = tuple(int(d) for d in leaf.shape)
+        shape = tuple(int(d) for d in leaf.shape[1 if stacked else 0:])
         shapes.append(shape)
         dtypes.append(leaf.dtype)
         offsets.append(off)
@@ -148,27 +152,49 @@ def plan_buckets(total: int, bucket_bytes: int, align: int = 1) -> BucketPlan:
                       starts=tuple(starts), sizes=tuple(sizes))
 
 
-def tree_to_flat(tree) -> torch.Tensor:
-    """Concatenate every leaf (tree_leaves order) into one f32 vector."""
+def tree_to_flat(tree, stacked: bool = False) -> torch.Tensor:
+    """Concatenate every leaf (tree_leaves order) into one f32 vector.
+    ``stacked``: every leaf is worker-stacked ``[N, *shape]`` and each
+    worker's leaves are flattened into its own row, ``[N, total]``."""
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.zeros((0,), dtype=torch.float32)
-    return torch.cat([leaf.float().reshape(-1) for leaf in leaves])
+    if not stacked:
+        return torch.cat([leaf.float().reshape(-1) for leaf in leaves])
+    n = leaves[0].shape[0]
+    # explicit row lengths: reshape(n, -1) is ambiguous for an empty leaf
+    return torch.cat([leaf.float().reshape(n, int(np.prod(leaf.shape[1:], dtype=np.int64)))
+                      for leaf in leaves], dim=1)
 
 
 def pad_flat(flat: torch.Tensor, plan: BucketPlan) -> torch.Tensor:
+    """Zero-pad the last dimension from ``plan.total`` to
+    ``plan.padded_total`` (a worker-stacked ``[N, total]`` pads per row)."""
     return torch.nn.functional.pad(flat, (0, plan.padded_total - plan.total))
 
 
 def flat_to_tree(layout: TreeLayout, flat: torch.Tensor):
     """Per-leaf views of ``flat`` (the pad tail is dropped); a leaf whose
-    dtype is not f32 is cast, which copies it."""
+    dtype is not f32 is cast, which copies it. Leading dimensions of
+    ``flat`` (a worker-stacked ``[N, padded]``) lead every leaf."""
+    lead = tuple(flat.shape[:-1])
     leaves = []
     for shape, dtype, off in zip(layout.shapes, layout.dtypes, layout.offsets):
         n = int(np.prod(shape, dtype=np.int64))
-        leaf = flat[off:off + n].view(shape)
+        leaf = flat[..., off:off + n].reshape(lead + tuple(shape))
         leaves.append(leaf if dtype == flat.dtype else leaf.to(dtype))
     return tree_unflatten(layout.treedef, leaves)
+
+
+def split_buckets(flat_padded: torch.Tensor, plan: BucketPlan) -> List[torch.Tensor]:
+    """Slices of the padded flat buffer's last dimension, one per bucket
+    (views; a worker-stacked ``[N, padded]`` buffer gives ``[N, size]``
+    pieces)."""
+    return [flat_padded[..., s:s + n] for s, n in zip(plan.starts, plan.sizes)]
+
+
+def concat_buckets(buckets) -> torch.Tensor:
+    return torch.cat(list(buckets), dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,33 +234,60 @@ def _np_tree_to_flat(layout: TreeLayout, plan: BucketPlan, tree) -> np.ndarray:
     return flat
 
 
-def piece_stream(tree, bucket_bytes, align: int = 1, flat_output: bool = False):
+def piece_stream(tree, bucket_bytes, align: int = 1, flat_output: bool = False,
+                 pipelined: bool = False, bucket_output: bool = False):
     """The comm engine's one entry point: what a collective scheme ships
     (buckets.py:412). Returns ``(pieces, key_ids, rebuild)``:
 
     - ``pieces``: the tree's leaves verbatim (``bucket_bytes is None``,
-      the per-leaf wire). A leaf may be worker-stacked ``[N, *shape]``;
-    - ``key_ids``: the enumeration index per leaf (the PRNG fold value
-      of stochastic rounding, kept for the contract);
-    - ``rebuild``: maps the per-piece results (same shapes, without the
-      worker dimension) back to the tree, or with ``flat_output=True`` to
-      ONE padded flat f32 vector in the ``align`` geometry
-      (``plan_buckets(total, 0, align)``). The pieces are the same either
-      way; only the rebuild differs."""
-    if bucket_bytes is not None:
+      the per-leaf wire), or the contiguous f32 buckets of the flattened
+      tree (``0`` = one fused bucket, ``N`` = ~N-byte buckets aligned to
+      ``align`` elements, ``plan_buckets``). The bucketed wires take
+      worker-stacked ``[N, *shape]`` leaves (the collectives'
+      convention): each worker's leaves are flattened in tree order into
+      its own row, padded to the plan, and cut, so a bucket piece is
+      ``[N, size]`` and row w is exactly the bucket JAX ships from worker
+      w's device;
+    - ``key_ids``: the enumeration index per leaf, or the bucket's START
+      OFFSET in the flat buffer per bucket (the PRNG fold value of
+      stochastic rounding, kept for the contract);
+    - ``rebuild``: maps the per-piece results back to the tree, or with
+      ``flat_output=True`` to ONE padded flat f32 vector in the ``align``
+      geometry, or with ``bucket_output=True`` (bucketed wires only) to
+      the list of per-bucket results. Results come without the worker
+      dimension (the replicated aggregate); worker-stacked results (an
+      error-feedback contribution) rebuild worker-stacked. The pieces are
+      the same for every rebuild.
+
+    ``pipelined=True`` (readiness order, per-bucket assembly) is not
+    ported yet and raises."""
+    if pipelined:
         raise NotImplementedError(
-            "bucketed gradient wires (bucket_bytes >= 0) are not ported yet "
-            "(ROADMAP.md queue 1, Slice B): use the per-leaf wire "
-            "(--bucket-bytes -1)"
-        )
+            "the pipelined piece order (--overlap on) is not ported yet "
+            "(ROADMAP.md queue 1 item 13)")
+    if bucket_output and bucket_bytes is None:
+        raise ValueError("bucket_output needs a bucketed wire "
+                         "(bucket_bytes is None = per-leaf)")
     leaves, skeleton = tree_flatten(tree)
-    key_ids = tuple(range(len(leaves)))
-    if not flat_output:
-        return leaves, key_ids, lambda outs: tree_unflatten(skeleton, list(outs))
+    if bucket_bytes is None:
+        key_ids = tuple(range(len(leaves)))
+        if not flat_output:
+            return leaves, key_ids, lambda outs: tree_unflatten(skeleton, list(outs))
 
-    def rebuild(outs):
-        flat = (torch.cat([o.float().reshape(-1) for o in outs]) if outs
-                else torch.zeros((0,), dtype=torch.float32))
-        return pad_flat(flat, plan_buckets(flat.numel(), 0, align=align))
+        def rebuild(outs):
+            flat = (torch.cat([o.float().reshape(-1) for o in outs]) if outs
+                    else torch.zeros((0,), dtype=torch.float32))
+            return pad_flat(flat, plan_buckets(flat.numel(), 0, align=align))
 
-    return leaves, key_ids, rebuild
+        return leaves, key_ids, rebuild
+    layout = tree_layout(tree, stacked=True)
+    plan = plan_buckets(layout.total, bucket_bytes, align=align)
+    pieces = split_buckets(pad_flat(tree_to_flat(tree, stacked=True), plan), plan)
+    if bucket_output:
+        rebuild = list
+    elif flat_output:
+        rebuild = concat_buckets
+    else:
+        def rebuild(outs):
+            return flat_to_tree(layout, concat_buckets(outs))
+    return pieces, plan.starts, rebuild

@@ -1,5 +1,5 @@
 """Gradient aggregation on the stacked worker backend (the port of
-parallel/collectives.py, main-path subset).
+parallel/collectives.py: the flat wires, serial schedule).
 
 Every per-worker gradient leaf is worker-stacked ``[N, *shape]``; an
 aggregate comes back once, without the worker dimension (the replicated
@@ -10,25 +10,38 @@ result of the JAX collective). Reference semantics:
 - ``aggregation_mask``: partial ("backup-worker") aggregation, only K of
   N gradients enter the sum (:179-186); ``random_k`` models "first K to
   arrive", ``first_k`` is the deterministic variant;
-- ``quantized_psum``: per leaf, shared absmax (pmax) -> int8 quantize
-  (kernel K2 per tensor, K1's shared-scale entry per block) -> int32
-  psum -> dequantize / K;
+- ``quantized_psum``: per piece, shared absmax (pmax) -> int8 quantize
+  (kernel K2 per tensor, K1's shared-scale entry per block) -> exact
+  integer psum -> dequantize / K. ``wire_domain="homomorphic"`` sums in
+  the minimal exact accumulator (``accum_dtype``: int16 through 258
+  workers) and folds 1/K into the one deferred scale multiply;
+- ``quantized_allreduce_2round``: the int8-on-the-wire two-round scheme
+  (round 1 quantize -> all_to_all -> exact region sums; round 2
+  requantize with local scales -> all_gather), or on the homomorphic
+  wire round 1 -> K3's fused accumulate-rescale -> all_gather -> one
+  deferred multiply by the round-1 scales;
 - ``local_quantized_contribution``: what each worker's gradient becomes
   after its int8 round trip (error feedback);
 - ``aggregate_gradients``: mask -> (quantized) reduce -> / K.
 
+A piece is one leaf (``bucket_bytes=None``) or one bucket of each
+worker's flattened tree (``buckets.piece_stream``); every scheme and the
+EF contribution share that stream.
+
 Division by the aggregation count: the JAX step divides by a Python
 float inside jit, which XLA turns into a multiply by the f32 reciprocal
 (``x / 5.0`` is ``x * f32(1/5)``); the port multiplies by that constant
-so the wire is bit-exact against the reference.
+so the wire is bit-exact against the reference. K3's rescale is the one
+true division (an IEEE quotient): for the accumulations it sees,
+``|acc| <= 127 * K``, both spellings give the same rounded integer.
 
 ``jax.random.permutation`` cannot be reproduced in torch: the random_k
 mask takes its permutation from a ``torch.Generator``, or the caller
 injects one (the parity tests inject JAX's).
 
-The two-round, hierarchical and homomorphic wires, stochastic rounding,
-adaptive ``agg_count`` and ``bucket_peaks`` raise ``NotImplementedError``
-(ROADMAP.md, Slice B).
+Not ported yet, and refused with a pointer to ROADMAP.md: the
+hierarchical wire (a tuple axis), the pipelined order, stochastic
+rounding, a traced (adaptive) ``num_aggregate`` and ``bucket_peaks``.
 """
 
 from __future__ import annotations
@@ -38,11 +51,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.quantize import dequantize_int8, quantize_int8
+from ..ops.quantize import (
+    accum_dtype,
+    accumulate_rescale_int8,
+    dequantize_int8,
+    fold_recip,
+    quantize_int8,
+    quantize_rows,
+)
 from .buckets import piece_stream, tree_flatten, tree_unflatten
 from .mesh import WorkerAxis
 
-_SLICE_B = "is not ported yet (ROADMAP.md queue 1, Slice B)"
+_ROADMAP = "is not ported yet (ROADMAP.md queue 1"
 
 
 def reciprocal(denominator: float) -> float:
@@ -55,9 +75,14 @@ def _check_axis(axis) -> None:
     if not isinstance(axis, WorkerAxis):
         raise NotImplementedError(
             f"axis {axis!r}: only the stacked WorkerAxis backend is ported; "
-            f"tuple axes (hierarchical DCN x ICI) and torch.distributed "
-            f"{_SLICE_B}"
+            f"tuple axes (the hierarchical DCN x ICI wire) {_ROADMAP} item 14) "
+            f"and torch.distributed {_ROADMAP} item 1)"
         )
+
+
+def _check_rounding(rounding: str, key) -> None:
+    if rounding != "nearest" or key is not None:
+        raise NotImplementedError(f"stochastic rounding {_ROADMAP} item 5)")
 
 
 def _per_worker(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -88,7 +113,7 @@ def aggregation_mask(
     ``first_k`` selects ``w < num_aggregate``."""
     _check_axis(axis)
     if isinstance(num_aggregate, torch.Tensor):
-        raise NotImplementedError(f"a traced (adaptive) num_aggregate {_SLICE_B}")
+        raise NotImplementedError(f"a traced (adaptive) num_aggregate {_ROADMAP} item 15)")
     if num_aggregate is None or num_aggregate >= num_workers:
         return torch.ones((num_workers,), dtype=torch.float32, device=device)
     if mode == "first_k":
@@ -104,7 +129,7 @@ def aggregation_mask(
 
 def psum_mean(tree, axis: WorkerAxis, denominator: float,
               bucket_bytes: Optional[int] = None, flat_output: bool = False):
-    """Sum over workers / denominator, per leaf (parity: _model_update
+    """Sum over workers / denominator, per piece (parity: _model_update
     divides the aggregate buffer by num_aggregate). ``flat_output``
     returns the padded flat vector instead of the tree."""
     _check_axis(axis)
@@ -123,38 +148,200 @@ def quantized_psum(
     bucket_bytes: Optional[int] = None,
     flat_output: bool = False,
     wire_domain: str = "dequant",
+    num_workers: Optional[int] = None,
     return_contribution: bool = False,
 ):
-    """int8-quantized gradient all-reduce, per leaf: shared absmax (the
-    pmax) -> int8 quantize -> int32 psum -> dequantize / denominator.
-    Exact-sum in int32; deterministic (one scale for all workers).
+    """int8-quantized gradient all-reduce, per piece: shared absmax (the
+    pmax) -> int8 quantize -> exact integer psum -> dequantize /
+    denominator. Deterministic (one scale for all workers).
+
+    The dequant wire sums in int32 and divides after dequantizing,
+    ``(s * scale) * (1/K)``. The homomorphic wire (collectives.py:271-278)
+    sums in ``accum_dtype(num_workers)`` (int16 through 258 workers:
+    half the bytes, the same integers) and dequantizes once with
+    ``scale / K``, which XLA folds with the scale's own ``* (1/127)``
+    into ``absmax * fold_recip(K)`` (one f32 constant). The spellings
+    differ in the last bit, so each is copied as XLA runs it.
 
     ``return_contribution`` also returns each worker's dequantized
     payload (worker-stacked, tree-shaped): the value
     ``local_quantized_contribution`` computes, from the same
     quantization instead of a second one."""
     _check_axis(axis)
-    if rounding != "nearest" or key is not None:
-        raise NotImplementedError(f"stochastic rounding {_SLICE_B}")
-    if wire_domain != "dequant":
-        raise NotImplementedError(f"wire_domain={wire_domain!r} {_SLICE_B}")
+    _check_rounding(rounding, key)
+    homomorphic = wire_domain == "homomorphic"
+    if homomorphic and num_workers is None:
+        raise ValueError("homomorphic quantized_psum needs num_workers (it sizes "
+                         "the exact accumulator dtype)")
     recip = reciprocal(denominator)
-    pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=block_size or 1,
+    align = block_size or 1
+    pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=align,
                                       flat_output=flat_output)
     outs, contribs = [], []
     for g in pieces:
         shape = tuple(g.shape[1:])
-        q, scale = quantize_int8(g.float(), axis_name=axis, block_size=block_size)
-        s = axis.psum(q.to(torch.int32))
-        outs.append(dequantize_int8(s, scale, block_size=block_size, shape=shape) * recip)
+        q, scale, absmax = quantize_int8(g.float(), axis_name=axis, block_size=block_size,
+                                         return_absmax=True)
+        if homomorphic:
+            s = axis.psum(q.to(accum_dtype(num_workers)))
+            outs.append(dequantize_int8(s, absmax * fold_recip(denominator),
+                                        block_size=block_size, shape=shape))
+        else:
+            s = axis.psum(q.to(torch.int32))
+            outs.append(dequantize_int8(s, scale, block_size=block_size, shape=shape)
+                        * recip)
         if return_contribution:
-            contribs.append(dequantize_int8(
-                q.to(torch.int32), scale, block_size=block_size, shape=shape))
+            contribs.append(dequantize_int8(q.to(torch.int32), scale,
+                                            block_size=block_size, shape=shape))
     agg = rebuild(outs)
     if not return_contribution:
         return agg
-    _, _, rebuild_tree = piece_stream(tree, bucket_bytes)
-    return agg, rebuild_tree(contribs)
+    return agg, piece_stream(tree, bucket_bytes, align=align)[2](contribs)
+
+
+def _slice_len(total: int, n: int, block_size: int) -> int:
+    """Per-worker region length: ceil(total/n) rounded up to whole
+    quantization blocks (collectives.py:295)."""
+    bs = block_size or 1
+    return (-(-total // n) + bs - 1) // bs * bs
+
+
+def _q2r_scatter_stage(g32: torch.Tensor, axis: WorkerAxis, n: int, s: int,
+                       block_size: int):
+    """Round 1 of the two-round scheme for one worker-stacked flat padded
+    piece ``[N, n*s]`` (collectives.py:302): shared-scale int8 quantize ->
+    all_to_all int8 -> exact int32 region sums -> dequantize each region
+    with its own rows of the shared scales. Returns ``(partial [n, s]
+    f32, q1 [N, n, s] int8, scale1)``: row w of ``partial`` is worker w's
+    region of the sum (an int8-wire reduce_scatter); ``q1`` and
+    ``scale1`` are the round-1 payload and scales (the EF contribution)."""
+    q1, scale1 = quantize_int8(g32, axis_name=axis, block_size=block_size)
+    q1 = q1.reshape(axis.size, n, s)
+    recv = axis.all_to_all(q1)  # [n(region), N(sender), s]
+    partial = recv.to(torch.int32).sum(1, dtype=torch.int32)
+    if block_size:
+        nb_loc = s // block_size
+        my_scales = scale1.reshape(n, nb_loc, 1)
+        partial = (partial.reshape(n, nb_loc, block_size).float() * my_scales).reshape(n, s)
+    else:
+        partial = partial.float() * scale1
+    return partial, q1, scale1
+
+
+def _q2r_scatter_stage_hom(g32: torch.Tensor, axis: WorkerAxis, n: int, s: int,
+                           block_size: int):
+    """Homomorphic round 1 (collectives.py:340): shared-scale int8
+    quantize of the worker-stacked flat padded piece ``[N, n*s]``.
+    Returns ``(q1 [N, n*s] int8, scale1)``. The all_to_all that would
+    hand worker w the ``[N, s]`` rows of its region is not spelled out:
+    in the stacked backend the regions already lie side by side in
+    ``q1``, and K3 over the whole ``[N, n*s]`` computes every worker's
+    region at once (``quantized_allreduce_2round``)."""
+    q1, scale1 = quantize_int8(g32, axis_name=axis, block_size=block_size)
+    return q1.reshape(axis.size, n * s), scale1
+
+
+def _deq_shared(full: torch.Tensor, scale, gain: float, block_size: int) -> torch.Tensor:
+    """THE single deferred scale-multiply of the homomorphic wire
+    (collectives.py:370): int8 payload x (shared scale x gain) -> f32,
+    per block row or per tensor."""
+    if block_size:
+        return (full.reshape(-1, block_size).float() * (scale * gain)).reshape(-1)
+    return full.float() * (scale * gain)
+
+
+def _q2r_gather_stage(partial: torch.Tensor, axis: WorkerAxis, n: int, s: int,
+                      block_size: int) -> torch.Tensor:
+    """Round 2 (collectives.py:383): requantize each region's partial sum
+    ``[s]`` with LOCAL scales (no cross-worker agreement: the regions are
+    disjoint) and all_gather int8 plus the scale rows -> the dequantized
+    full ``[n*s]``. Per tensor: one K2 launch per region (each region has
+    its own absmax). Block mode: one K1 fused launch over every region's
+    rows at once (rows are independent, so this equals n per-region
+    calls)."""
+    if block_size:
+        nb_loc = s // block_size
+        q2, scale2 = quantize_rows(partial.reshape(n * nb_loc, block_size))
+        full = axis.all_gather(q2.reshape(n, s))
+        scales2 = axis.all_gather(scale2.reshape(n, nb_loc, 1))  # [n*nb_loc, 1]
+        return (full.reshape(-1, block_size).float() * scales2).reshape(-1)
+    regions = [quantize_int8(partial[w]) for w in range(n)]
+    full = axis.all_gather(torch.stack([q for q, _ in regions]))
+    scales2 = axis.all_gather(torch.stack([sc for _, sc in regions]).reshape(n, 1))
+    return (full.reshape(n, s).float() * scales2[:, None]).reshape(-1)
+
+
+def quantized_allreduce_2round(
+    tree,
+    axis: WorkerAxis,
+    denominator: float,
+    num_workers: int,
+    block_size: int = 0,
+    rounding: str = "nearest",
+    key=None,
+    bucket_bytes: Optional[int] = None,
+    flat_output: bool = False,
+    wire_domain: str = "dequant",
+    return_contribution: bool = False,
+):
+    """The two-round int8 all-reduce whose wire carries int8
+    (collectives.py:405). Per piece: flatten -> pad to ``[n, s]`` ->
+    round 1 (shared-scale int8, all_to_all, exact region sums) ->
+
+    - dequant wire: round 2 requantizes each region with local scales,
+      all_gathers int8 plus the scale rows, and dequantizes; then * 1/K;
+    - homomorphic wire: K3 sums each region's worker rows and rescales
+      them by K back onto the int8 lattice, the result is all_gathered,
+      and ONE deferred multiply by the round-1 scales dequantizes it (the
+      denominator is already folded into K3).
+
+    Stacked launch shape: worker w's K3 call would take its region's
+    ``[N, s]`` rows after the all_to_all, and the all_gather would
+    concatenate the n results. The regions lie side by side in the
+    stacked round-1 payload ``[N, n*s]``, so ONE launch over it equals
+    that concatenation: one K3 launch per piece (once per step at
+    ``bucket_bytes=0``).
+
+    ``return_contribution`` also returns each worker's round-1 round
+    trip, worker-stacked and tree-shaped (the EF contribution mirrors
+    round 1 only; round 2's noise is not residual-tracked, as in JAX):
+    the value ``local_quantized_contribution`` computes, from round 1's
+    own quantization (the padding to ``n*s`` is zeros, which changes no
+    scale and no block boundary)."""
+    _check_axis(axis)
+    _check_rounding(rounding, key)
+    if axis.size != num_workers:
+        raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
+    n = num_workers
+    recip = reciprocal(denominator)
+    align = block_size or 1
+    pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=align,
+                                      flat_output=flat_output)
+    outs, contribs = [], []
+    for g in pieces:
+        shape = tuple(g.shape[1:])
+        total = int(np.prod(shape, dtype=np.int64))
+        g32 = g.float().reshape(n, total)
+        s = _slice_len(total, n, block_size)
+        g32 = torch.nn.functional.pad(g32, (0, n * s - total))
+        if wire_domain == "homomorphic":
+            q1, scale1 = _q2r_scatter_stage_hom(g32, axis, n, s, block_size)
+            full = accumulate_rescale_int8(q1, denominator)  # [n*s], all regions
+            deq = _deq_shared(full, scale1, 1.0, block_size)
+            outs.append(deq[:total].reshape(shape))  # denominator folded in
+        else:
+            partial, q1, scale1 = _q2r_scatter_stage(g32, axis, n, s, block_size)
+            deq = _q2r_gather_stage(partial, axis, n, s, block_size)
+            outs.append((deq[:total] * recip).reshape(shape))
+        if return_contribution:
+            qc = q1.reshape((n, -1, block_size) if block_size else (n, n * s))
+            c = dequantize_int8(qc.to(torch.int32), scale1, block_size=block_size,
+                                shape=(n * s,))
+            contribs.append(c[:, :total].reshape((n,) + shape))
+    agg = rebuild(outs)
+    if not return_contribution:
+        return agg
+    return agg, piece_stream(tree, bucket_bytes, align=align)[2](contribs)
 
 
 def local_quantized_contribution(
@@ -168,11 +355,11 @@ def local_quantized_contribution(
     """What each worker's gradient becomes after its shared-scale int8
     round trip, worker-stacked and tree-shaped: the transmitted value
     whose difference from the gradient is the error-feedback residual
-    (mirrors ``quantized_psum`` exactly: same scales, same rounding)."""
+    (mirrors ``quantized_psum`` and round 1 of the two-round scheme
+    exactly: same pieces, same scales, same rounding)."""
     _check_axis(axis)
-    if rounding != "nearest" or key is not None:
-        raise NotImplementedError(f"stochastic rounding {_SLICE_B}")
-    pieces, _, rebuild = piece_stream(grads, bucket_bytes)
+    _check_rounding(rounding, key)
+    pieces, _, rebuild = piece_stream(grads, bucket_bytes, align=block_size or 1)
     outs = []
     for g in pieces:
         q, scale = quantize_int8(g.float(), axis_name=axis, block_size=block_size)
@@ -195,24 +382,37 @@ def aggregate_gradients(
     return_contribution: bool = False,
     bucket_bytes: Optional[int] = None,
     flat_output: bool = False,
+    pipelined: bool = False,
     wire_domain: str = "dequant",
     bucket_peaks=None,
 ):
-    """The full PS aggregation: mask -> (quantized) reduce -> / K.
+    """The full PS aggregation: mask -> (bucket) -> (quantized) reduce ->
+    / K.
 
     ``grads`` is a tree of worker-stacked ``[N, *shape]`` leaves. The
     aggregate is the tree (or, with ``flat_output``, the padded flat f32
-    vector) without the worker dimension. ``return_contribution`` also
-    returns each worker's transmitted (post-mask, post-round-trip) value,
-    worker-stacked and tree-shaped: what error feedback subtracts.
-    ``perm`` is random_k's permutation (``random_permutation``)."""
+    vector) without the worker dimension. ``bucket_bytes`` picks the wire granularity: None =
+    one piece per leaf, 0 = one fused buffer, N = ~N-byte buckets.
+    ``return_contribution`` also returns each worker's transmitted
+    (post-mask, post-round-trip) value, worker-stacked and tree-shaped:
+    what error feedback subtracts. ``perm`` is random_k's permutation
+    (``random_permutation``)."""
+    if wire_domain not in ("dequant", "homomorphic"):
+        raise ValueError(f"bad wire_domain {wire_domain!r}")
+    if wire_domain == "homomorphic":
+        if compress in (None, "none"):
+            raise ValueError(
+                "wire_domain='homomorphic' needs a compress mode — an "
+                "uncompressed f32 psum has no compressed domain to sum in")
+        if quant_rounding == "stochastic":
+            raise ValueError("wire_domain='homomorphic' needs quant_rounding='nearest'")
     _check_axis(axis)
     if axis.size != num_workers:
         raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
-    if compress == "int8_2round":
-        raise NotImplementedError(f"the two-round int8 wire {_SLICE_B}")
     if bucket_peaks is not None:
-        raise NotImplementedError(f"adaptive per-bucket precision {_SLICE_B}")
+        raise NotImplementedError(f"adaptive per-bucket precision {_ROADMAP} item 15)")
+    if pipelined:
+        raise NotImplementedError(f"the pipelined wire (--overlap on) {_ROADMAP} item 13)")
     k = (num_aggregate
          if (num_aggregate is not None and num_aggregate < num_workers)
          else num_workers)
@@ -221,16 +421,22 @@ def aggregate_gradients(
         sel = aggregation_mask(axis, num_workers, num_aggregate, perm, mask_mode,
                                device=leaves[0].device)
         grads = tree_unflatten(skeleton, [g * _per_worker(sel, g) for g in leaves])
+    wire = dict(bucket_bytes=bucket_bytes, flat_output=flat_output)
     if compress in (None, "none"):
-        agg = psum_mean(grads, axis, float(k), bucket_bytes=bucket_bytes,
-                        flat_output=flat_output)
+        agg = psum_mean(grads, axis, float(k), **wire)
         contribution = grads  # lossless transmit: the residual is zero
     elif compress == "int8":
         out = quantized_psum(
             grads, axis, float(k), block_size=quant_block_size,
-            rounding=quant_rounding, key=quant_key, bucket_bytes=bucket_bytes,
-            flat_output=flat_output, wire_domain=wire_domain,
-            return_contribution=return_contribution,
+            rounding=quant_rounding, key=quant_key, wire_domain=wire_domain,
+            num_workers=num_workers, return_contribution=return_contribution, **wire,
+        )
+        agg, contribution = out if return_contribution else (out, None)
+    elif compress == "int8_2round":
+        out = quantized_allreduce_2round(
+            grads, axis, float(k), num_workers, block_size=quant_block_size,
+            rounding=quant_rounding, key=quant_key, wire_domain=wire_domain,
+            return_contribution=return_contribution, **wire,
         )
         agg, contribution = out if return_contribution else (out, None)
     else:

@@ -66,6 +66,41 @@ class WorkerAxis:
         self._check(x)
         return x.mean(0)
 
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.psum_scatter(x, axis, tiled=True)``: worker-stacked
+        ``[N, L, *rest]`` with ``L`` a multiple of N -> ``[N, L/N, *rest]``,
+        row w the sum over workers of their w-th slice. Integer payloads
+        sum in their own width, as ``psum`` does."""
+        self._check(x)
+        n = self.size
+        if x.dim() < 2 or x.shape[1] % n:
+            raise ValueError(f"psum_scatter needs [{n}, L, ...] with L % {n} == 0, "
+                             f"got {tuple(x.shape)}")
+        parts = x.reshape((n, n, x.shape[1] // n) + tuple(x.shape[2:]))
+        return parts.sum(0, dtype=x.dtype)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+        tiled=True)`` on per-worker ``[n, s]`` payloads: worker-stacked
+        ``[N, n, s]`` (n == N, row j of worker w is w's slice of region j)
+        -> ``[n(region), N(sender), s]``, where entry ``[w, j]`` is what
+        worker j sent to worker w. A transposed view: no bytes move on
+        one device."""
+        self._check(x)
+        if x.dim() < 2 or x.shape[1] != self.size:
+            raise ValueError(f"all_to_all needs [{self.size}, {self.size}, ...], "
+                             f"got {tuple(x.shape)}")
+        return x.transpose(0, 1)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_gather(x, axis, tiled=True)``: worker-stacked ``[N, m,
+        *rest]`` -> the replicated concatenation ``[N*m, *rest]`` of the
+        workers' blocks in worker order."""
+        self._check(x)
+        if x.dim() < 2:
+            raise ValueError(f"tiled all_gather needs [N, m, ...], got {tuple(x.shape)}")
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
 
 def make_mesh(num_workers: int) -> WorkerAxis:
     """The worker axis of ``num_workers`` virtual workers (``make_mesh``

@@ -1,6 +1,6 @@
 """The parameter-server data-parallel step on the stacked worker backend
-(the port of parallel/ps.py: replicated placement, flat or tree state,
-serial schedule).
+(the port of parallel/ps.py: replicated and ZeRO-1 sharded placements,
+flat or tree state, serial schedule).
 
 One call of the train step is one global step of the reference protocol
 (master step N plus every worker's iteration N):
@@ -14,11 +14,18 @@ One call of the train step is one global step of the reference protocol
                                      augmentation draws and its own BN
                                      batch statistics; its gradient lands
                                      in worker-stacked [N, *leaf] buffers
-  worker per-layer Isend             the per-leaf wire (collectives.py):
-  master partial aggregate           mask -> int8 quantize (kernel K2 /
-                                     K1's shared-scale entry) -> int32
-                                     sum over workers -> dequantize / K
-  master SGD step                    one fused update of the flat state
+  worker per-layer Isend             the gradient wire (collectives.py):
+  master partial aggregate           mask -> per-leaf or bucketed pieces
+                                     -> int8 quantize (K2 / K1's
+                                     shared-scale entry) -> exact integer
+                                     sum (int32, or int16 on the
+                                     homomorphic wire) or the two-round
+                                     int8 all_to_all / all_gather (K3 on
+                                     the homomorphic wire) -> / K
+  master SGD step                    one fused update of the flat state;
+                                     under ZeRO-1 each worker updates its
+                                     1/N shard of every bucket and the
+                                     updates are all_gathered
   BN stats                           bn_mode pmean (averaged) or local
                                      (per worker, stacked)
 
@@ -33,9 +40,8 @@ seed and the step number, or are injected (``StepDraws``) so the parity
 tests can feed the draws JAX made (``jax.random`` cannot be reproduced in
 torch).
 
-Not ported yet, and refused with a pointer to ROADMAP.md: the ZeRO-1
-sharded placement, the pipelined schedule, bucketed wires, synced BN,
-the two-round / hierarchical / homomorphic wires, stochastic rounding,
+Not ported yet, and refused with a pointer to ROADMAP.md: the pipelined
+schedule, synced BN, the hierarchical wire, stochastic rounding,
 adaptive aggregation and adaptive precision.
 """
 
@@ -49,19 +55,30 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..models import apply_model, init_model
 from ..ops.metrics import accuracy, cross_entropy_loss
+from ..ops.quantize import accum_dtype, dequantize_int8, fold_recip, quantize_int8
 from ..optim.sgd import SGDState, apply_updates
 from ..resilience.guard import init_guard_state, tree_all_finite, update_guard_state
 from .buckets import (
     BucketPlan,
+    FlatVector,
+    concat_buckets,
+    flat_to_tree,
+    pad_flat,
     plan_buckets,
     to_flat_vector,
     tree_flatten,
     tree_layout,
     tree_map,
+    tree_to_flat,
     tree_unflatten,
     tree_view,
 )
-from .collectives import aggregate_gradients, random_permutation, reciprocal
+from .collectives import (
+    aggregate_gradients,
+    aggregation_mask,
+    random_permutation,
+    reciprocal,
+)
 from .mesh import WORKER_AXIS, WorkerAxis
 
 _ROADMAP = "is not ported yet (see ROADMAP.md queue 1)"
@@ -101,6 +118,9 @@ class PSConfig:
         # the JAX package's own validation, same messages
         if self.num_workers < 1:
             raise ValueError(f"bad num_workers {self.num_workers}")
+        if self.dcn_hosts > 1 and self.num_workers % self.dcn_hosts:
+            raise ValueError(f"num_workers {self.num_workers} not divisible by "
+                             f"dcn_hosts {self.dcn_hosts}")
         if self.grad_accum_steps < 1:
             raise ValueError(f"bad grad_accum_steps {self.grad_accum_steps}")
         if self.opt_placement not in ("replicated", "sharded"):
@@ -115,14 +135,41 @@ class PSConfig:
             raise ValueError(f"bad state_layout {self.state_layout!r}")
         if self.overlap not in ("serial", "pipelined"):
             raise ValueError(f"bad overlap {self.overlap!r} (serial | pipelined)")
+        if (self.overlap == "pipelined" and self.bucket_bytes is None
+                and self.opt_placement != "sharded"):
+            raise ValueError(
+                "overlap='pipelined' needs a bucketed wire: set bucket_bytes "
+                "(0 = one fused buffer, N = ~N-byte buckets) — the replicated "
+                "per-leaf wire has no buckets to stream")
         if self.bucket_bytes is not None and self.bucket_bytes < 0:
             raise ValueError(
                 f"bad bucket_bytes {self.bucket_bytes} (None = per-leaf, "
                 f"0 = one fused buffer, N>0 = ~N-byte buckets)")
         if self.wire_domain not in ("dequant", "homomorphic"):
             raise ValueError(f"bad wire_domain {self.wire_domain!r} (dequant | homomorphic)")
+        if self.wire_domain == "homomorphic":
+            if self.compress in (None, "none"):
+                raise ValueError(
+                    "wire_domain='homomorphic' needs a compress mode "
+                    "(--compress-grad compress|2round): an uncompressed f32 psum "
+                    "has nothing to homomorphically sum")
+            if self.quant_rounding == "stochastic":
+                raise ValueError(
+                    "wire_domain='homomorphic' needs quant_rounding='nearest': "
+                    "shared scales put every worker on ONE lattice")
+            # the exact-accumulation bound: raises past int32's capacity
+            accum_dtype(self.num_workers)
         if self.error_feedback and self.compress in (None, "none"):
             raise ValueError("error_feedback needs a compress mode")
+        if self.precision_adapt:
+            if self.compress in (None, "none"):
+                raise ValueError("precision_adapt needs a compress mode: an "
+                                 "uncompressed f32 wire has no lattice to retune")
+            if self.bucket_bytes is None:
+                raise ValueError("precision_adapt needs a bucketed wire: set "
+                                 "bucket_bytes (the tags are a per-BUCKET property)")
+            if self.quant_rounding != "nearest":
+                raise ValueError("precision_adapt needs quant_rounding='nearest'")
         if self.dynamic_loss_scale:
             if self.compress in (None, "none"):
                 raise ValueError("dynamic_loss_scale needs a compress mode")
@@ -137,23 +184,32 @@ class PSConfig:
             raise ValueError(
                 "adaptive aggregation needs BOTH num_aggregate_min and "
                 "num_aggregate_max (set neither for the static mask)")
+        if self.num_aggregate_min is not None and not (
+                1 <= self.num_aggregate_min <= self.num_aggregate_max <= self.num_workers):
+            raise ValueError(
+                f"bad adaptive bounds [{self.num_aggregate_min}, "
+                f"{self.num_aggregate_max}]: need 1 <= min <= max <= "
+                f"num_workers ({self.num_workers})")
         if self.loss_scale_init <= 0.0:
             raise ValueError(f"bad loss_scale_init {self.loss_scale_init} (must be > 0)")
         if self.mask_mode not in ("random_k", "first_k"):
             raise ValueError(f"unknown aggregation mode {self.mask_mode!r}")
+        hierarchical = self.dcn_hosts > 1 or not isinstance(self.axis_name, str)
+        if self.compress == "int8_2round" and self.opt_placement == "sharded" and hierarchical:
+            raise ValueError(
+                "int8_2round x sharded x dcn_hosts>1 is unsupported: the "
+                "sharded wire is one reduce_scatter over the whole mesh, so "
+                "there is no hierarchical structure for the 2-round scheme to "
+                "exploit — use compress='int8' there")
         # what this slice does not port
         refused = [
-            (self.dcn_hosts > 1 or not isinstance(self.axis_name, str),
-             "hierarchical data parallelism (dcn_hosts > 1, a tuple axis_name)"),
-            (self.opt_placement == "sharded", "the ZeRO-1 sharded placement"),
-            (self.overlap == "pipelined", "the pipelined schedule (--overlap on)"),
-            (self.bn_mode == "synced", "synced (cross-replica) BatchNorm"),
-            (self.bucket_bytes is not None, "bucketed wires (--bucket-bytes >= 0)"),
-            (self.compress == "int8_2round", "the two-round int8 wire (2round)"),
-            (self.wire_domain != "dequant", "the homomorphic wire"),
-            (self.quant_rounding != "nearest", "stochastic rounding"),
-            (self.num_aggregate_min is not None, "adaptive partial aggregation"),
-            (self.precision_adapt, "adaptive per-bucket precision"),
+            (hierarchical, "hierarchical data parallelism (dcn_hosts > 1, a tuple "
+             "axis_name; item 14)"),
+            (self.overlap == "pipelined", "the pipelined schedule (--overlap on; item 13)"),
+            (self.bn_mode == "synced", "synced (cross-replica) BatchNorm (item 2)"),
+            (self.quant_rounding != "nearest", "stochastic rounding (item 5)"),
+            (self.num_aggregate_min is not None, "adaptive partial aggregation (item 15)"),
+            (self.precision_adapt, "adaptive per-bucket precision (item 15)"),
         ]
         for hit, what in refused:
             if hit:
@@ -168,17 +224,35 @@ class PSConfig:
 
 def wire_align(cfg: PSConfig) -> int:
     """Bucket-boundary alignment (f32 elements) of this config's wire
-    (ps.py:442): the int8 quantization block for the quantized schemes,
-    1 for per-tensor scales or no compression."""
-    if cfg.compress in ("int8", "int8_2round") and cfg.quant_block_size:
-        return cfg.quant_block_size
-    return 1
+    (ps.py:442): the int8 quantization block for the quantized schemes
+    (1 for per-tensor scales or no compression), times num_workers on
+    the ZeRO-1 scatter so each worker's slice of each bucket owns whole
+    scale rows."""
+    block = (cfg.quant_block_size
+             if cfg.compress in ("int8", "int8_2round") and cfg.quant_block_size else 1)
+    return cfg.num_workers * block if cfg.opt_placement == "sharded" else block
+
+
+def _sharded_plan(cfg: PSConfig, total: int) -> BucketPlan:
+    """Bucket geometry of the ZeRO-1 flat wire (ps.py:459): every bucket
+    and the padded total a multiple of ``wire_align`` (num_workers *
+    block); ``bucket_bytes`` None and 0 are the same fused plan."""
+    return plan_buckets(total, cfg.bucket_bytes or 0, align=wire_align(cfg))
+
+
+def _zero1_shard_size(total: int, cfg: PSConfig) -> int:
+    """Per-worker flat shard length under ZeRO-1 (ps.py:472): each
+    worker's 1/N of every bucket of the padded flat gradient."""
+    return _sharded_plan(cfg, total).padded_total // cfg.num_workers
 
 
 def state_plan(cfg: PSConfig, total: int) -> BucketPlan:
     """The flat-state geometry (ps.py:478): the BucketPlan the config's
     gradient wire uses, so the reduced flat gradient drops straight into
-    the vector update."""
+    the vector update. Sharded: the ZeRO-1 scatter plan, so params
+    already live in shard geometry."""
+    if cfg.opt_placement == "sharded":
+        return _sharded_plan(cfg, total)
     return plan_buckets(total, cfg.bucket_bytes or 0, align=wire_align(cfg))
 
 
@@ -187,8 +261,11 @@ class PSTrainState:
     """``step`` is a host int (the number of steps taken); the rest lives
     on the card. ``params`` is a FlatVector (state_layout="flat") or the
     tree; ``batch_stats`` is worker-stacked under bn_mode="local";
-    ``comm_state`` holds the error-feedback residuals, worker-stacked per
-    param leaf (or None)."""
+    ``opt_state``'s moments are worker-stacked ``[N, shard]`` under the
+    ZeRO-1 placement (its step count is one scalar: every worker's is the
+    same); ``comm_state`` holds the error-feedback residuals,
+    worker-stacked per param leaf, or under ZeRO-1 one flat ``[N,
+    shard*N]`` row per worker (or None)."""
 
     step: int
     params: Any
@@ -209,18 +286,26 @@ def init_ps_state(model, tx, cfg: PSConfig, generator: Optional[torch.Generator]
         params, batch_stats = init_model(model, generator, device=dev)
     params = tree_map(lambda p: p.to(dev, torch.float32), params)
     batch_stats = tree_map(lambda s: s.to(dev), batch_stats or {})
-    if cfg.state_layout == "flat":
-        master = to_flat_vector(params, state_plan(cfg, tree_layout(params).total))
-        opt_state = tx.init(master.flat)
-    else:
-        master = params
-        opt_state = tx.init(params)
+    total = tree_layout(params).total
     n = cfg.num_workers
+    master = (to_flat_vector(params, state_plan(cfg, total))
+              if cfg.state_layout == "flat" else params)
+    if cfg.opt_placement == "sharded":
+        # identical zero-init on every worker, worker-stacked [N, shard]
+        opt_state = tx.init(torch.zeros((n, _zero1_shard_size(total, cfg)),
+                                        dtype=torch.float32, device=dev))
+    else:
+        opt_state = tx.init(master.flat if cfg.state_layout == "flat" else params)
     if cfg.bn_mode == "local" and batch_stats:
         batch_stats = tree_map(lambda s: s.expand((n,) + tuple(s.shape)).clone(),
                                batch_stats)
     comm_state = None
-    if cfg.error_feedback:
+    if cfg.error_feedback and cfg.opt_placement == "sharded":
+        # the sharded wire transforms the FLAT padded gradient, so its
+        # residual lives there: one [shard * N] row per worker
+        comm_state = torch.zeros((n, _zero1_shard_size(total, cfg) * n),
+                                 dtype=torch.float32, device=dev)
+    elif cfg.error_feedback:
         comm_state = tree_map(
             lambda p: torch.zeros((n,) + tuple(p.shape), dtype=torch.float32, device=dev),
             params)
@@ -269,6 +354,112 @@ def _select(finite: torch.Tensor, new, old):
     if new is None:
         return None
     return tree_map(lambda a, b: torch.where(finite, a, b), new, old)
+
+
+def _worker_region(flat: torch.Tensor, plan: BucketPlan, n: int) -> torch.Tensor:
+    """Every worker's region of a bucketed flat buffer (ps.py:631),
+    worker-stacked ``[N, shard]``: row w is its 1/n slice of every
+    bucket, concatenated in bucket order."""
+    return concat_buckets([flat[start:start + size].reshape(n, size // n)
+                           for start, size in zip(plan.starts, plan.sizes)])
+
+
+def _shard_reduce_bucket(bucket: torch.Tensor, size: int, axis: WorkerAxis, n: int,
+                         k: int, cfg: PSConfig, want_contrib: bool):
+    """One bucket of the ZeRO-1 wire (ps.py:732): (quantize) ->
+    psum_scatter / int8 all_to_all -> every worker's dequantized 1/n
+    shard divided by the aggregation count. ``bucket`` is worker-stacked
+    ``[N, size]``; returns ``(g_shard [N, size/n], contribution [N,
+    size] or None)``.
+
+    - int8: quantize, exact psum_scatter in int32 (int16 on the
+      homomorphic wire: the same integers);
+    - int8_2round: quantize, int8 all_to_all, exact int32 region sums.
+      Round 1 is the whole wire here (each worker keeps its region), so
+      there is no round 2 and no K3.
+
+    The dequantize copies XLA's spelling per wire domain: ``(sb * scale)
+    * (1/K)`` on the dequant wire, ``sb * (scale / K)`` on the
+    homomorphic one, where XLA folds ``/ K`` into the per-tensor scale's
+    own constant (``absmax * fold``) but not into a block-row slice."""
+    s = size // n
+    bsz = cfg.quant_block_size
+    recip = reciprocal(k)
+    if cfg.compress not in ("int8", "int8_2round"):
+        return axis.psum_scatter(bucket) * recip, None
+    homomorphic = cfg.wire_domain == "homomorphic"
+    q, scale, absmax = quantize_int8(bucket, axis_name=axis, block_size=bsz,
+                                     return_absmax=True)
+    contrib = None
+    if want_contrib:
+        # what the wire carries after the int8 round trip: a masked-out
+        # worker sent 0, so its whole gradient stays in the residual
+        contrib = dequantize_int8(q.to(torch.int32), scale, block_size=bsz, shape=(size,))
+    if cfg.compress == "int8":
+        acc_dt = accum_dtype(n) if homomorphic else torch.int32
+        sb = axis.psum_scatter(q.reshape(n, size).to(acc_dt))  # [N, s]
+    else:
+        recv = axis.all_to_all(q.reshape(n, n, s))  # int8 [n(region), N, s]
+        sb = recv.to(torch.int32).sum(1, dtype=torch.int32)
+    if bsz:
+        nb_loc = s // bsz
+        my_scales = scale.reshape(n, nb_loc, 1)
+        rows = sb.reshape(n, nb_loc, bsz).float()
+        if homomorphic:
+            return (rows * (my_scales * recip)).reshape(n, s), contrib
+        return (rows * my_scales).reshape(n, s) * recip, contrib
+    if homomorphic:
+        return dequantize_int8(sb, absmax * fold_recip(k)), contrib
+    return dequantize_int8(sb, scale) * recip, contrib
+
+
+def _sharded_ps_update(params, opt_state, grads, tx, cfg: PSConfig, axis: WorkerAxis,
+                       sel: Optional[torch.Tensor] = None, err: Optional[torch.Tensor] = None):
+    """ZeRO-1 "sharded PS" (ps.py:814), serial: (EF add-back) -> mask ->
+    (quantize) -> reduce_scatter per bucket -> every worker's update of
+    its own shard -> all_gather of the parameter delta.
+
+    ``grads`` is the tree of worker-stacked gradients; each worker's
+    leaves flatten into its own row of the padded flat ``[N, L]``
+    gradient, carved by ``_sharded_plan``. ``params`` is the replicated
+    tree or a FlatVector already in the shard geometry; ``opt_state``'s
+    moments are ``[N, shard]``; ``err`` is the ``[N, L]`` EF residual.
+    ``sel`` is the ``[N]`` aggregation mask or None. Returns
+    ``(new_params, new_opt, new_err)``, ``new_params`` of ``params``'
+    kind."""
+    n = cfg.num_workers
+    k = cfg.effective_aggregate
+    layout = tree_layout(grads, stacked=True)
+    plan = _sharded_plan(cfg, layout.total)
+    flat_g = pad_flat(tree_to_flat(grads, stacked=True), plan)
+    if err is not None:
+        flat_g = flat_g + err
+    sent = flat_g * sel[:, None] if sel is not None else flat_g
+    g_shards, contribs = [], []
+    for start, size in zip(plan.starts, plan.sizes):
+        g_b, contrib = _shard_reduce_bucket(sent[:, start:start + size], size, axis, n, k,
+                                            cfg, want_contrib=err is not None)
+        g_shards.append(g_b)
+        if contrib is not None:
+            contribs.append(contrib)
+    g_shard = concat_buckets(g_shards)
+    new_err = flat_g - concat_buckets(contribs) if err is not None else None
+    is_flat = isinstance(params, FlatVector)
+    flat_p = params.flat if is_flat else pad_flat(tree_to_flat(params), plan)
+    p_shard = _worker_region(flat_p, plan, n)
+    upd_shard, new_opt = tx.update(g_shard, opt_state, p_shard)
+    # reassemble: each bucket's shard segment gathers back tiled, in
+    # bucket order, inverting _worker_region
+    full, off = [], 0
+    for size in plan.sizes:
+        full.append(axis.all_gather(upd_shard[:, off:off + size // n]))
+        off += size // n
+    if is_flat:
+        new_params = dataclasses.replace(params, flat=flat_p + concat_buckets(full))
+    else:
+        upd = flat_to_tree(layout, concat_buckets(full)[:layout.total])
+        new_params = apply_updates(params, upd)
+    return new_params, new_opt, new_err
 
 
 def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = None,
@@ -364,23 +555,36 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
 
         finite = tree_all_finite(grads) if cfg.nonfinite_guard else None
         new_comm = state.comm_state
-        if cfg.error_feedback:
-            grads = tree_map(torch.add, grads, state.comm_state)
-        out = aggregate_gradients(
-            grads, axis, n, num_aggregate=cfg.num_aggregate, perm=draws.perm,
-            mask_mode=cfg.mask_mode, compress=cfg.compress,
-            quant_block_size=cfg.quant_block_size, quant_rounding=cfg.quant_rounding,
-            return_contribution=cfg.error_feedback, bucket_bytes=cfg.bucket_bytes,
-            flat_output=is_flat,
-        )
-        if cfg.error_feedback:
-            agg, contribution = out
-            new_comm = tree_map(torch.sub, grads, contribution)
-        else:
-            agg = out
         master = state.params.flat if is_flat else state.params
-        updates, new_opt = tx.update(agg, state.opt_state, master)
-        new_master = apply_updates(master, updates)
+        if cfg.opt_placement == "sharded":
+            sel = None
+            if cfg.effective_aggregate != n:
+                sel = aggregation_mask(axis, n, cfg.num_aggregate, draws.perm,
+                                       cfg.mask_mode, device=dev)
+            new_params, new_opt, new_err = _sharded_ps_update(
+                state.params, state.opt_state, grads, tx, cfg, axis, sel=sel,
+                err=state.comm_state if cfg.error_feedback else None)
+            new_master = new_params.flat if is_flat else new_params
+            if cfg.error_feedback:
+                new_comm = new_err
+        else:
+            if cfg.error_feedback:
+                grads = tree_map(torch.add, grads, state.comm_state)
+            out = aggregate_gradients(
+                grads, axis, n, num_aggregate=cfg.num_aggregate, perm=draws.perm,
+                mask_mode=cfg.mask_mode, compress=cfg.compress,
+                quant_block_size=cfg.quant_block_size,
+                quant_rounding=cfg.quant_rounding,
+                return_contribution=cfg.error_feedback, bucket_bytes=cfg.bucket_bytes,
+                flat_output=is_flat, wire_domain=cfg.wire_domain,
+            )
+            if cfg.error_feedback:
+                agg, contribution = out
+                new_comm = tree_map(torch.sub, grads, contribution)
+            else:
+                agg = out
+            updates, new_opt = tx.update(agg, state.opt_state, master)
+            new_master = apply_updates(master, updates)
 
         if cfg.bn_mode == "local":
             out_bs = (tree_map(lambda *xs: torch.stack(xs), *new_bs_w)

@@ -1,9 +1,12 @@
 """Where the PS training step's time goes on the card: a ``torch.profiler``
 window over the chip_smoke training configuration (ResNet18, synthetic
 CIFAR-10, 8 stacked workers of batch 128, lr 0.1, momentum 0.9,
-num-aggregate 5 random_k, the int8 per-tensor wire, f32 with TF32 off).
+num-aggregate 5 random_k, f32 with TF32 off) on a chosen gradient wire
+(default: the int8 per-tensor, per-leaf wire).
 
-    python -m ps_pytorch_tpu_torch.tools.train_profile [--steps 5] [--block 0]
+    python -m ps_pytorch_tpu_torch.tools.train_profile [--steps 5] [--block 0] \
+        [--compress-grad compress|2round|none] [--wire-domain dequant|homomorphic] \
+        [--bucket-bytes -1|0|N] [--opt-placement replicated|sharded]
 
 After ``--warmup`` steps (cuDNN picks its algorithms there), times
 ``--steps`` steps without the profiler, then profiles as many, each ended
@@ -16,7 +19,8 @@ wall time; one stream, so kernels do not overlap), the device time by category (
 the int32 sum over workers, cuDNN convolutions and the other kernels) and
 the top CUDA kernels by device time, and each port kernel's mean and
 largest device time per launch. ``--block 128`` profiles the
-block-scale wire instead. Needs a CUDA card.
+block-scale wire instead; the wire flags take the values of
+``cli.train``'s. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ import torch
 CATEGORIES = (
     ("K2 quantize_tensor", ("absmax_kernel", "quantize_tensor_kernel")),
     ("K1 quantize_rows_scaled", ("quantize_rows_scaled_kernel",)),
-    ("int32 sum over workers", ("sum_functor<int",)),
+    ("K1 quantize_rows", ("quantize_rows_kernel",)),
+    ("K3 accumulate_rescale", ("accum_rescale_kernel",)),
+    ("integer sum over workers", ("sum_functor<int", "sum_functor<short")),
     ("cuDNN convolution", ("cudnn", "xmma", "conv", "implicit", "winograd", "fft",
                            "dgrad", "wgrad", "fprop", "cutlass", "sgemm", "gemm")),
     ("batch norm", ("batch_norm", "welford", "bn_")),
@@ -41,7 +47,8 @@ CATEGORIES = (
 
 
 # the port's own kernels, reported launch by launch
-PORT_KERNELS = ("absmax_kernel", "quantize_tensor_kernel", "quantize_rows_scaled_kernel")
+PORT_KERNELS = ("absmax_kernel", "quantize_tensor_kernel", "quantize_rows_scaled_kernel",
+                "quantize_rows_kernel", "accum_rescale_kernel")
 
 
 def _card() -> str:
@@ -63,6 +70,11 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--block", type=int, default=0, help="--quant-block-size")
+    ap.add_argument("--compress-grad", default="compress", choices=("compress", "2round", "none"))
+    ap.add_argument("--wire-domain", default="dequant", choices=("dequant", "homomorphic"))
+    ap.add_argument("--bucket-bytes", type=int, default=-1,
+                    help="-1 per-leaf, 0 one fused buffer, N ~N-byte buckets")
+    ap.add_argument("--opt-placement", default="replicated", choices=("replicated", "sharded"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device is available", file=sys.stderr)
@@ -78,8 +90,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     n, b = 8, 128
-    cfg = PSConfig(num_workers=n, num_aggregate=5, compress="int8",
-                   quant_block_size=args.block)
+    compress = {"compress": "int8", "2round": "int8_2round", "none": None}[args.compress_grad]
+    cfg = PSConfig(num_workers=n, num_aggregate=5, compress=compress,
+                   quant_block_size=args.block, wire_domain=args.wire_domain,
+                   bucket_bytes=None if args.bucket_bytes < 0 else args.bucket_bytes,
+                   opt_placement=args.opt_placement)
     model = build_model("ResNet18")
     tx = build_optimizer("sgd", 0.1, momentum=0.9)
     state = init_ps_state(model, tx, cfg, torch.Generator().manual_seed(1), device=dev)
@@ -132,8 +147,10 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": _card(), "kind": torch.cuda.get_device_name(0),
         "config": (f"ResNet18 synthetic Cifar10 f32 (TF32 off), {n} workers x {b}, "
-                   f"num-aggregate 5 random_k, int8 "
-                   f"{'block-%d' % args.block if args.block else 'per-tensor'}"),
+                   f"num-aggregate 5 random_k, --compress-grad {args.compress_grad} "
+                   f"{'block-%d' % args.block if args.block else 'per-tensor'} "
+                   f"--wire-domain {args.wire_domain} --bucket-bytes {args.bucket_bytes} "
+                   f"--opt-placement {args.opt_placement}"),
         "steps": args.steps, "wall_ms_per_step": wall_s / args.steps * 1e3,
         "device_ms_per_step": busy_s / args.steps * 1e3,
         "device_idle_share": 1.0 - busy_s / wall_s,

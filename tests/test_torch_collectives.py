@@ -203,9 +203,10 @@ def test_torch_worker_axis_primitives():
 def test_torch_collectives_refuse_unported_wires():
     g = _torch_tree(_grads())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8_2round")
+        tc.aggregate_gradients(g, ("dcn", WORKER_AXIS), N, compress="int8_2round")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0)
+        tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0,
+                               pipelined=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.quantized_psum(g, WorkerAxis(N), 8.0, rounding="stochastic")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -216,5 +217,4 @@ def test_torch_collectives_refuse_unported_wires():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.aggregation_mask(WorkerAxis(N), N, torch.tensor(5), _jax_perm())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8",
-                               wire_domain="homomorphic")
+        tc.quantized_allreduce_2round(g, WorkerAxis(N), 8.0, N, rounding="stochastic")

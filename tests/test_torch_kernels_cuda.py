@@ -1,7 +1,9 @@
 """The port's hand-written kernels on the card, against their plain
 PyTorch versions (K1 quantize_rows and its shared-scale entry
-quantize_rows_scaled, K2 quantize_tensor, K4 flash_fwd), and the serving
-engine on the card against the same engine on the CPU.
+quantize_rows_scaled, K2 quantize_tensor, K3 accumulate_rescale_int8, K4
+flash_fwd), the serving engine on the card against the same engine on the
+CPU, and the gradient wires on the card against the same wires on the CPU
+(bit-exact: every op on them is elementwise or an exact integer sum).
 
 Every test here needs a CUDA card and skips without one. This file
 imports neither JAX nor the JAX package (the card's machine has no JAX),
@@ -21,6 +23,8 @@ import torch
 from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
 from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from ps_pytorch_tpu_torch.ops.quantize import (
+    accumulate_rescale_int8,
+    accumulate_rescale_plain,
     quantize_int8,
     quantize_rows,
     quantize_rows_plain,
@@ -29,6 +33,9 @@ from ps_pytorch_tpu_torch.ops.quantize import (
     quantize_tensor,
     quantize_tensor_plain,
 )
+from ps_pytorch_tpu_torch.parallel import collectives
+from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves, tree_map
+from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
 from ps_pytorch_tpu_torch.serve import Request, ServeConfig, ServingEngine
 
 
@@ -203,3 +210,85 @@ def test_torch_engine_on_card_matches_cpu_engine(cuda_device, int8):
             assert quantize_rows.launches - k1 == (
                 2 * cfg.depth * (prefills + steps) if int8 else 0)
     assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [
+    (8, 11173968),  # the ResNet18 fused stacked payload (16-byte path)
+    (8, 1396746),   # one region of it (byte path: s % 16 != 0)
+    (8, 130), (1, 1), (258, 4096), (1, 300), (8, 16), (3, 17),
+])
+def test_torch_accumulate_rescale_kernel_bit_exact_on_card(cuda_device, n, s):
+    g = torch.Generator(device=cuda_device).manual_seed(n + s)
+    recv = torch.randint(-127, 128, (n, s), generator=g, device=cuda_device,
+                         dtype=torch.int32).to(torch.int8)
+    recv[:, 0] = 127  # a full-scale column: acc = 127 n
+    for d in (5.0, 8.0, float(n), torch.tensor(float(n), device=cuda_device)):
+        before = accumulate_rescale_int8.launches
+        out = accumulate_rescale_int8(recv, d)
+        plain = accumulate_rescale_plain(recv, d)
+        torch.cuda.synchronize()
+        assert accumulate_rescale_int8.launches == before + 1
+        assert out.dtype == torch.int8 and tuple(out.shape) == (s,)
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 5, 6, 8, 16])
+def test_torch_accumulate_rescale_kernel_every_accumulator_on_card(cuda_device, d):
+    """Every accumulator value in [-127 d, 127 d] rounds to the exact
+    rounded quotient (half to even), from an aligned and from an
+    unaligned base pointer."""
+    target = np.arange(-127 * d, 127 * d + 1)
+    rows, rest = [], target.copy()
+    for _ in range(d):
+        rows.append(np.clip(rest, -127, 127))
+        rest = rest - rows[-1]
+    recv = torch.from_numpy(np.stack(rows).astype(np.int8)).to(cuda_device)
+    exact = torch.from_numpy(np.clip(np.round(target / d), -127, 127).astype(np.int8))
+    assert torch.equal(accumulate_rescale_int8(recv, float(d)).cpu(), exact)
+    buf = torch.empty(recv.numel() + 1, dtype=torch.int8, device=cuda_device)
+    shifted = buf[1:].view(recv.shape)  # contiguous, base address odd
+    shifted.copy_(recv)
+    assert torch.equal(accumulate_rescale_int8(shifted, float(d)).cpu(), exact)
+
+
+def _grads(device):
+    rng = np.random.RandomState(0)
+    scale = np.exp(rng.randn(8, 1) * 2).astype(np.float32)
+
+    def leaf(*shape):
+        x = rng.randn(8, *shape).astype(np.float32)
+        return torch.from_numpy(x * scale.reshape((8,) + (1,) * len(shape))).to(device)
+
+    return {"conv": {"kernel": leaf(3, 3, 16, 32), "bias": leaf(32)},
+            "dense": leaf(512, 10), "odd": leaf(301),
+            "zero": torch.zeros((8, 9), device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_bytes", [None, 0, 65536])
+@pytest.mark.parametrize("block", [0, 128])
+@pytest.mark.parametrize("compress,domain", [
+    ("int8", "dequant"), ("int8", "homomorphic"),
+    ("int8_2round", "dequant"), ("int8_2round", "homomorphic"),
+])
+def test_torch_wires_on_card_match_cpu(cuda_device, compress, domain, block, bucket_bytes):
+    """The aggregate and the EF contribution on the card (the kernels)
+    equal the same wire on the CPU (the plain versions), bit for bit."""
+    perm = torch.tensor([3, 0, 6, 1, 5, 2, 7, 4])
+    kw = dict(num_aggregate=5, perm=perm, compress=compress, quant_block_size=block,
+              bucket_bytes=bucket_bytes, wire_domain=domain, flat_output=True,
+              return_contribution=True)
+    g = _grads("cpu")
+    k3 = accumulate_rescale_int8.launches
+    agg_gpu, c_gpu = collectives.aggregate_gradients(
+        tree_map(lambda t: t.to(cuda_device), g), WorkerAxis(8), 8, **kw)
+    agg_cpu, c_cpu = collectives.aggregate_gradients(g, WorkerAxis(8), 8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(agg_gpu.cpu(), agg_cpu)
+    for a, b in zip(tree_leaves(c_gpu), tree_leaves(c_cpu)):
+        assert torch.equal(a.cpu(), b)
+    pieces = 1 if bucket_bytes == 0 else (5 if bucket_bytes is None else None)
+    if compress == "int8_2round" and domain == "homomorphic" and pieces:
+        assert accumulate_rescale_int8.launches - k3 == pieces

@@ -203,9 +203,11 @@ def test_torch_ps_state_geometry_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(opt_placement="sharded"), dict(overlap="pipelined", bucket_bytes=0),
-    dict(bn_mode="synced"), dict(dcn_hosts=2), dict(compress="int8_2round"),
-    dict(bucket_bytes=65536), dict(compress="int8", quant_rounding="stochastic"),
+    dict(opt_placement="sharded", overlap="pipelined"),
+    dict(overlap="pipelined", bucket_bytes=0),
+    dict(bn_mode="synced"), dict(dcn_hosts=2), dict(compress="int8_2round", dcn_hosts=2),
+    dict(precision_adapt=True, compress="int8", bucket_bytes=0),
+    dict(compress="int8", quant_rounding="stochastic"),
     dict(num_aggregate_min=2, num_aggregate_max=4),
 ])
 def test_torch_ps_config_refuses_unported_paths(kw):

@@ -65,9 +65,11 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--resume"], ["--bucket-bytes", "0"], ["--opt-placement", "sharded"],
+    ["--resume"], ["--bucket-bytes", "0", "--overlap", "on"],
+    ["--opt-placement", "sharded", "--bn-mode", "synced"],
     ["--metrics-file", "m.jsonl"], ["--optimizer", "adam"], ["--network", "VGG16"],
-    ["--dtype", "bfloat16"], ["--overlap", "on"], ["--compress-grad", "2round"],
+    ["--dtype", "bfloat16"], ["--overlap", "on", "--opt-placement", "sharded"],
+    ["--compress-grad", "2round", "--dcn-hosts", "2"],
     ["--trace", "t"], ["--fault-plan", '{"slow_steps": [1]}'],
     ["--coordinator-address", "localhost:1234"], ["--data-root", "/nonexistent"],
 ])
