@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and PS-training paths on one H100
-and hold each of its hand-written kernels against its plain PyTorch
-version.
+"""Drive the PyTorch/CUDA port's serving, PS-training and LM-training
+paths on one H100 and hold each of its hand-written kernels against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -56,7 +56,26 @@ Phases, one line each:
    autotune-best wire with EF, int8 homomorphic in 64 KiB buckets, the
    two-round dequant wire with block-128 scales and ZeRO-1 int8
    homomorphic, each with its launch counts;
-14. the kernels JSON line, then the result line.
+14. K4's partial triple flash_partial, K5 flash_bwd_dq and K6
+   flash_bwd_dkv against their plain versions at the LM-1 attention shape
+   [8, 1024, 8, 64] bf16 (one causal hop at offsets 0) and at an LM-ring
+   hop [8, 2048, 8, 64] (four stacked shards x batch 2, per-shard offsets
+   of hop 3: one shard's keys all masked) in bf16 and f32; timed, with
+   their bounds, and K5 + K6 beside aten's flash-attention backward (the
+   library yardstick, never called by the port) at LM-1;
+15. LM-1: the JAX bench's LM leg at full width (vocab 2048, d512, depth
+   6, 8 heads, seq 1024, batch 8, bf16 block math over f32 params, remat,
+   SGD lr 0.01 momentum 0.9) through ``cli.train_lm.main`` at (dp 1,
+   sp 1) with flash attention, 20 steps: every loss finite, launches per
+   step exactly L n (1 + remat) K4-partial, L n K5 and L n K6; step p50
+   and tokens/s;
+16. LM-ring: the same model at seq 8192 on (dp 1, sp 4) stacked shards,
+   batch 2, 5 steps, the same checks;
+17. a small LM step at (dp 2, sp 4), f32: the card (kernels) against the
+   CPU (plain versions) on the one-way ring, the bidirectional ring and
+   Ulysses (K4 normalized + K5/K6 in the input dtype), each with its
+   launch counts;
+18. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 """
@@ -708,6 +727,233 @@ def phase_held_wires(dev) -> dict:
     return out
 
 
+def _flash_counters():
+    from ps_pytorch_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+        flash_partial,
+    )
+
+    return {"flash_fwd": flash_fwd, "flash_partial": flash_partial,
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def reset_flash_counts() -> None:
+    for fn in _flash_counters().values():
+        fn.launches = 0
+
+
+def read_flash_counts() -> dict:
+    return {name: fn.launches for name, fn in _flash_counters().items()}
+
+
+def kept_pairs(b, h, tq, tk, causal, q_off, k_off) -> int:
+    """The (query, key) pairs the mask keeps, over every row and head:
+    the work this run's data needs (masked tiles are skipped)."""
+    if not causal:
+        return b * h * tq * tk
+    qo = np.broadcast_to(np.asarray(q_off.cpu() if torch.is_tensor(q_off) else q_off), (b,))
+    ko = np.broadcast_to(np.asarray(k_off.cpu() if torch.is_tensor(k_off) else k_off), (b,))
+    q = np.arange(tq)
+    return h * int(sum(np.clip(qo[r] + q - ko[r] + 1, 0, tk).sum() for r in range(b)))
+
+
+def _near(what: str, got, want, tol) -> float:
+    """Max abs error, required within ``tol`` of the result's largest
+    magnitude (f32 sums in another order: the kernels tile by tile with
+    scalar FMAs, the plain versions over whole rows with matmuls)."""
+    err = float((got.float() - want.float()).abs().max())
+    require(err <= tol * max(1.0, float(want.float().abs().max())),
+            f"{what} off its plain version by {err}")
+    return err
+
+
+def phase_flash_train_kernels(dev) -> dict:
+    """Phase 14: K4-partial, K5, K6 against their plain versions."""
+    import torch.nn.functional as F
+    from ps_pytorch_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_bwd_plain,
+        flash_fwd_plain,
+        flash_partial,
+        flash_partial_plain,
+    )
+
+    n, t_loc = 4, 2048
+    me = torch.arange(n, device=dev)
+    # hop 3 of a 4-shard ring, batch 2 per shard: shard i meets key block
+    # (i + 3) % 4, so shard 0's keys all lie in its future
+    ring_q = (me * t_loc).repeat_interleave(2)
+    ring_k = (((me + 3) % n) * t_loc).repeat_interleave(2)
+    cases = [("lm1_bf16", 8, 1024, torch.bfloat16, 0, 0),
+             ("ring_hop_bf16", 8, t_loc, torch.bfloat16, ring_q, ring_k),
+             ("ring_hop_f32", 8, t_loc, torch.float32, ring_q, ring_k)]
+    h, d = 8, 64
+    scale = d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for name, b, t, dt, q_off, k_off in cases:
+        q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(dt)
+                       for _ in range(4))
+        pv, m, l = flash_partial(q, k, v, True, scale, q_off, k_off)
+        pvp, mp, lp = flash_partial_plain(q, k, v, True, scale, q_off, k_off)
+        o, lse = flash_fwd_plain(q, k, v, True, scale, q_off=q_off, k_off=k_off)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, lse, delta, True, scale, q_off, k_off)
+        dq = flash_bwd_dq(*bwd, out_dtype=torch.float32)
+        dk, dv = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
+        dq2 = flash_bwd_dq(*bwd, out_dtype=torch.float32)
+        dk2, dv2 = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
+        want = flash_bwd_plain(*bwd, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        errs = {key: _near(f"{name} {key}", got, ref, tol) for key, got, ref, tol in (
+            ("pv", pv, pvp, 2e-5), ("m", m, mp, 2e-6), ("l", l, lp, 2e-5),
+            ("dq", dq, want[0], 5e-5), ("dk", dk, want[1], 5e-5), ("dv", dv, want[2], 5e-5))}
+        require(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                f"{name}: K5/K6 changed between two runs")
+        pairs = kept_pairs(b, h, t, t, True, q_off, k_off)
+        elt, act = q.element_size(), b * t * h * d
+        stat = b * h * t * 4
+        # bounds: each input read once, each output written once; 4 D
+        # flops per kept pair forward (QK, PV), 6 D for K5, 8 D for K6
+        bounds = {
+            "partial": bound_ms(3 * act * elt + act * 4 + 2 * stat, 4.0 * d * pairs, dt),
+            "dq": bound_ms(4 * act * elt + 2 * stat + act * 4, 6.0 * d * pairs, dt),
+            "dkv": bound_ms(4 * act * elt + 2 * stat + 2 * act * 4, 8.0 * d * pairs, dt),
+        }
+        # fewer back-to-back calls at the ring hop, where one takes 6-13 ms
+        iters, plain_iters = (ITERS, 20) if t <= 1024 else (50, 10)
+        rec = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
+               "kept_pairs": pairs, "max_abs_err": errs}
+        rec["partial"] = {
+            "ms": time_ms(lambda: flash_partial(q, k, v, True, scale, q_off, k_off), iters),
+            "plain_ms": time_ms(lambda: flash_partial_plain(q, k, v, True, scale, q_off,
+                                                            k_off), iters=plain_iters),
+            "bound_ms": bounds["partial"][0], "bound_by": bounds["partial"][1],
+            "library_ms": None}
+        plain_bwd_ms = time_ms(lambda: flash_bwd_plain(*bwd, out_dtype=torch.float32),
+                               iters=plain_iters)
+        rec["dq"] = {"ms": time_ms(lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32), iters),
+                     "plain_ms": plain_bwd_ms,
+                     "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]}
+        rec["dkv"] = {"ms": time_ms(lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32),
+                                    iters),
+                      "plain_ms": plain_bwd_ms,
+                      "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]}
+        library = None
+        if name == "lm1_bf16":
+            # aten's flash-attention backward for the same (dq, dk, dv), K5
+            # and K6 together, at offsets 0
+            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            doh = do.transpose(1, 2)
+            library = time_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                                          retain_graph=True), iters=50)
+        rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = library
+        out[name] = rec
+    print("phase 14 K4-partial / K5 / K6 vs plain: " + json.dumps(out))
+    return out
+
+
+# The JAX package's LM bench leg (bench.py:66, 582-595) at full width
+LM_DEPTH = 6
+LM_ARGS = ["--parallelism", "dp_sp", "--attention-impl", "flash", "--vocab-size", "2048",
+           "--dim", "512", "--depth", str(LM_DEPTH), "--heads", "8", "--dtype", "bfloat16",
+           "--remat", "--lr", "0.01", "--momentum", "0.9", "--log-interval", "1",
+           "--device", "cuda"]
+
+
+def phase_lm(card: str, phase: str, steps: int, n_sp: int, batch: int, seq: int) -> dict:
+    """Phases 15-16: LM training through ``cli.train_lm.main``, with the
+    flash launch counts of the formula (L n (1 + remat) K4-partial, L n
+    K5, L n K6 per step)."""
+    from ps_pytorch_tpu_torch.cli import train_lm
+
+    flags = ["--seq-len", str(seq), "--batch-size", str(batch), "--num-sp", str(n_sp),
+             "--max-steps", str(steps)]
+    reset_flash_counts()
+    res = train_lm.main(LM_ARGS + flags)
+    torch.cuda.synchronize()
+    got = read_flash_counts()
+    hops = LM_DEPTH * n_sp
+    want = {"flash_fwd": 0, "flash_partial": 2 * hops * steps,
+            "flash_bwd_dq": hops * steps, "flash_bwd_dkv": hops * steps}
+    hist = res["history"]
+    losses = [h_["loss"] for h_ in hist]
+    require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+            f"{phase}: losses {losses}")
+    require(got == want, f"{phase}: launches {got}, expected {want}")
+    times = [h_["time_cost"] for h_ in hist[2:]]  # after the first two steps
+    p50 = float(np.median(times))
+    rec = {"card": card, "flags": " ".join(LM_ARGS[:-2] + flags),
+           "layout": f"dp 1 x sp {n_sp}", "steps": steps, "launches": got,
+           "losses": losses, "step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
+           "step_ms_max": max(times) * 1e3, "tokens_per_s": batch * seq / p50,
+           "steady_ms_per_step": res["steady_elapsed_s"] / res["steady_steps"] * 1e3,
+           "params": res["params"]}
+    print(f"{phase}: " + json.dumps(rec))
+    return rec
+
+
+def phase_lm_held(dev) -> dict:
+    """Phase 17: one LM step at (dp 2, sp 4), f32 with TF32 off, card
+    (kernels) vs CPU (plain versions) from the same params and tokens.
+    Tolerance: the JAX package's own dp_sp bounds (loss rtol 1e-5,
+    params rtol 2e-4 / atol 2e-5): the same f32 sums in other orders."""
+    from ps_pytorch_tpu_torch import on_device
+    from ps_pytorch_tpu_torch.cli.train_lm import make_synthetic_tokens
+    from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+    from ps_pytorch_tpu_torch.parallel.dp_sp import (
+        make_lm_train_step,
+        make_mesh_2d,
+        shard_tokens_2d,
+    )
+
+    depth, dp, sp = 2, 2, 4
+    mesh = make_mesh_2d(dp, sp)
+    tokens = torch.from_numpy(make_synthetic_tokens(256, 4, 256, seed=3))
+    variants = {"ring": dict(sp_attention="ring"),
+                "ring_bidirectional": dict(sp_attention="ring", bidirectional_ring=True),
+                "ulysses": dict(sp_attention="ulysses")}
+    out = {}
+    for name, kw in variants.items():
+        cfg = TransformerConfig(vocab_size=256, dim=256, depth=depth, heads=4,
+                                max_seq_len=256, attention_impl="flash", remat=True, **kw)
+        params = init_transformer(cfg, torch.Generator().manual_seed(9), device="cpu")
+        res = {}
+        for d in ("cpu", dev):
+            tx = build_optimizer("sgd", 0.1, momentum=0.9)
+            p = on_device(params, torch.device(d))
+            step = make_lm_train_step(cfg, tx, mesh)
+            reset_flash_counts()
+            p2, _, loss = step(p, tx.init(p), shard_tokens_2d(tokens.to(d), mesh))
+            res[torch.device(d).type] = ([x.detach().cpu() for x in tree_leaves(p2)],
+                                         float(loss), read_flash_counts())
+        (pc, lc, _), (pg, lg, counts) = res["cpu"], res[torch.device(dev).type]
+        require(abs(lg - lc) <= 1e-5 * abs(lc), f"held LM {name}: loss {lg} vs CPU {lc}")
+        worst = 0.0
+        for a, b in zip(pg, pc):
+            excess = (a - b).abs() - (2e-5 + 2e-4 * b.abs())
+            worst = max(worst, float((a - b).abs().max()))
+            require(bool((excess <= 0).all()), f"held LM {name}: params off by {worst}")
+        if name == "ulysses":  # local flash attention over the gathered sequence
+            want = {"flash_fwd": 2 * depth, "flash_partial": 0,
+                    "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
+        else:  # each of the n offsets once per pass, both ring directions
+            want = {"flash_fwd": 0, "flash_partial": 2 * depth * sp,
+                    "flash_bwd_dq": depth * sp, "flash_bwd_dkv": depth * sp}
+        require(counts == want, f"held LM {name}: launches {counts}, expected {want}")
+        out[name] = {"loss_cpu": lc, "loss_cuda": lg, "max_abs_param_diff": worst,
+                     "launches": counts}
+    print("phase 17 LM step held on the card vs CPU (dp 2 x sp 4): " + json.dumps(out))
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -746,6 +992,22 @@ def main() -> int:
     k3 = phase_k3(dev)
     wires = phase_train_wires(smi)
     phase_held_wires(dev)
+    fk = phase_flash_train_kernels(dev)
+    lm1 = phase_lm(smi, "phase 15 LM-1 train_lm dp 1 x sp 1 flash", 20, 1, 8, 1024)
+    phase_lm(smi, "phase 16 LM-ring train_lm dp 1 x sp 4 flash", 5, 4, 2, 8192)
+    phase_lm_held(dev)
+
+    def flash_entry(name, source, site, part):
+        rec = fk["lm1_bf16"][part]
+        key = {"partial": ("pv", "m", "l"), "dq": ("dq",), "dkv": ("dk", "dv")}[part]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"ps_pytorch_tpu/ops/flash_attention.py:{site}",
+            "launches": lm1["launches"][name],
+            "max_abs_err": max(c["max_abs_err"][k] for c in fk.values() for k in key),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        }
 
     kernels = [
         {
@@ -799,6 +1061,9 @@ def main() -> int:
             "bound_by": k4["prefill_bf16"]["bound_by"],
             "library_ms": k4["prefill_bf16"]["library_ms"],
         },
+        flash_entry("flash_partial", "ps_pytorch_tpu_torch/csrc/flash_fwd.cu", 199, "partial"),
+        flash_entry("flash_bwd_dq", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 319, "dq"),
+        flash_entry("flash_bwd_dkv", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 337, "dkv"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Transformer LM (the port of models/transformer.py, single device).
+"""Transformer LM (the port of models/transformer.py).
 
 The JAX tree's names and ``[in, out]`` matrix layouts are kept
 (``embed [V, D]``, ``pos_embed [L, D]``, per block ``ln1``, ``wqkv
@@ -6,9 +6,13 @@ The JAX tree's names and ``[in, out]`` matrix layouts are kept
 then ``out_norm``), so carrying weights across (models/convert.py) is a
 copy, not a transpose, and ``x @ w`` reads the same on both sides.
 
-Functions take a params tree (nested dict/list of tensors);
-``TransformerLM`` wraps one as an ``nn.Module``. Sequence-parallel
-attention (ring, Ulysses) comes with its own slice (ROADMAP.md).
+Functions take a params tree (nested dict/list of tensors), which is
+what training differentiates (parallel/dp_sp.py); ``TransformerLM``
+wraps one as an ``nn.Module`` for serving. With a sequence axis (a
+``WorkerAxis``), ``apply_transformer`` runs on stacked sequence shards
+``[n, B, T_loc]``: every op but attention is pointwise over the sequence
+and runs on the local shards, positions index by the global offset, and
+attention is the ring or Ulysses over the axis (``select_attention``).
 """
 
 from __future__ import annotations
@@ -20,9 +24,17 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, on_device, resolve_device
-from ..parallel.ring_attention import full_attention
+from ..parallel.mesh import WorkerAxis
+from ..parallel.ring_attention import (
+    full_attention,
+    ring_attention,
+    ring_flash_attention,
+    shard_sequence,
+    unshard_sequence,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,13 +47,17 @@ class TransformerConfig:
     max_seq_len: int = 2048
     causal: bool = True
     dtype: Any = torch.float32
-    # training-side options, kept so configs carry across unchanged; the
-    # serving slice runs forward only
+    # recompute each block's activations in backward
+    # (torch.utils.checkpoint): ~1/3 more work for O(1) activations in depth
     remat: bool = False
+    # rotate K/V both ways on the sequence ring (parallel/ring_attention)
     bidirectional_ring: bool = False
+    # sequence-parallel scheme: "ring" or "ulysses" (heads % n == 0)
     sp_attention: str = "ring"
     # within-device attention: "naive" (materializes [T, T]) or "flash"
-    # (kernel K4, ops/flash_attention.py)
+    # (kernels K4-K6, ops/flash_attention.py); on an sp "ring" it selects
+    # ring_flash_attention (the partial-triple kernel per hop), on
+    # "ulysses" the attention over the gathered sequence
     attention_impl: str = "naive"
     # block math runs in compute_dtype (None = dtype); weights are cast
     # where they are used, never at init
@@ -107,15 +123,38 @@ def local_attention(cfg: TransformerConfig):
     raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
 
 
-def select_attention(cfg: TransformerConfig, seq_axis_name: Optional[str] = None):
+def select_attention(cfg: TransformerConfig, seq_axis: Optional[WorkerAxis] = None):
     """The attention callable for this config — the one selection point.
-    Only the within-device case (``seq_axis_name=None``) is ported."""
-    if seq_axis_name is not None:
-        raise NotImplementedError(
-            "sequence-parallel attention (ring/Ulysses) is not ported yet "
-            "(ROADMAP.md)"
-        )
-    return local_attention(cfg)
+
+    ``seq_axis=None``: within-device (naive or flash). Otherwise the
+    sequence-parallel scheme (``cfg.sp_attention``) over that axis: the
+    ring (plain, or flash per hop under ``attention_impl="flash"``,
+    one-way or bidirectional) or Ulysses. The callable takes the blocks'
+    ``[n * B, T_loc, H, hd]`` (shard-major stacked batch) and views it as
+    the ``[n, B, T_loc, H, hd]`` shards the scheme works on."""
+    if seq_axis is None:
+        return local_attention(cfg)
+    if cfg.sp_attention == "ulysses":
+        from ..parallel.ulysses import ulysses_attention
+
+        scheme = partial(ulysses_attention, axis=seq_axis, causal=cfg.causal,
+                         impl=cfg.attention_impl)
+    elif cfg.sp_attention == "ring":
+        if cfg.attention_impl not in ("naive", "flash"):
+            raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+        ring = ring_flash_attention if cfg.attention_impl == "flash" else ring_attention
+        scheme = partial(ring, axis=seq_axis, causal=cfg.causal,
+                         bidirectional=cfg.bidirectional_ring)
+    else:
+        raise ValueError(f"unknown sp_attention {cfg.sp_attention!r}")
+    n = seq_axis.size
+
+    def attend(q, k, v):
+        split = lambda x: x.reshape((n, -1) + tuple(x.shape[1:]))
+        o = scheme(split(q), split(k), split(v))
+        return o.reshape((-1,) + tuple(o.shape[2:]))
+
+    return attend
 
 
 def transformer_block(cfg: TransformerConfig, x, blk, attend, mlp=None):
@@ -140,19 +179,58 @@ def transformer_block(cfg: TransformerConfig, x, blk, attend, mlp=None):
 
 def apply_transformer(cfg: TransformerConfig, params: Dict,
                       tokens: torch.Tensor,
-                      seq_axis_name: Optional[str] = None,
+                      seq_axis: Optional[WorkerAxis] = None,
                       pos_offset: Optional[int] = None) -> torch.Tensor:
-    """Forward: int tokens ``[B, T]`` -> logits ``[B, T, vocab]``."""
-    t = tokens.shape[1]
-    attend = select_attention(cfg, seq_axis_name)
+    """Forward: int tokens ``[B, T]`` -> logits ``[B, T, vocab]``.
+
+    With ``seq_axis``, tokens are the stacked sequence shards ``[n, B,
+    T_loc]`` of that axis's n workers and the logits come back ``[n, B,
+    T_loc, vocab]``: positional embeddings index by GLOBAL position
+    (worker i's shard starts at ``i * T_loc``, transformer.py:207-215) and
+    attention runs over the axis."""
+    attend = select_attention(cfg, seq_axis)
     shard = 0 if pos_offset is None else int(pos_offset)
-    pos = torch.arange(shard, shard + t, device=tokens.device)
-    x = params["embed"][tokens] + params["pos_embed"][pos][None]
+    if seq_axis is None:
+        t = tokens.shape[1]
+        pos = torch.arange(shard, shard + t, device=tokens.device)
+        x = params["embed"][tokens] + params["pos_embed"][pos][None]
+    else:
+        seq_axis._check(tokens)
+        n, b, t = tokens.shape
+        pos = (seq_axis.axis_index(tokens.device)[:, None] * t + shard
+               + torch.arange(t, device=tokens.device))  # [n, T_loc]
+        x = params["embed"][tokens] + params["pos_embed"][pos][:, None]
+        x = x.reshape(n * b, t, cfg.dim)
+
+    def block(x, blk):
+        return transformer_block(cfg, x, blk, attend)
+
     for blk in params["blocks"]:
-        x = transformer_block(cfg, x, blk, attend)
+        if cfg.remat:
+            # the block's activations (the ring's forward included) are
+            # recomputed in backward (jax.checkpoint, transformer.py:221)
+            x = checkpoint(block, x, blk, use_reentrant=False)
+        else:
+            x = block(x, blk)
     cd = cfg.effective_compute_dtype
     xf = _rms_norm(x.to(cd), params["out_norm"].to(cd))
-    return xf @ params["embed"].T.to(cd)
+    logits = xf @ params["embed"].T.to(cd)
+    if seq_axis is not None:
+        logits = logits.reshape(n, b, t, -1)
+    return logits
+
+
+def make_sp_forward(cfg: TransformerConfig, axis: WorkerAxis):
+    """Sequence-parallel forward (transformer.py:231): params replicated,
+    global tokens ``[B, T]`` split into stacked shards over ``axis``,
+    logits ``[B, T, vocab]`` gathered back."""
+
+    def forward(params, tokens):
+        shards = shard_sequence(tokens, axis)
+        return unshard_sequence(apply_transformer(cfg, params, shards, seq_axis=axis),
+                                axis)
+
+    return forward
 
 
 class _Block(nn.Module):
@@ -165,8 +243,10 @@ class _Block(nn.Module):
 class TransformerLM(nn.Module):
     """``nn.Module`` holding one params tree, forward = ``apply_transformer``.
 
-    Parameters are frozen (``requires_grad=False``): this slice serves,
-    and the flash kernel's backward arrives with the training slice."""
+    A serving wrapper: its parameters are frozen (``requires_grad=False``)
+    and the engine reads them as one flat buffer. Training differentiates
+    the functional params tree instead (``parallel/dp_sp.py``), as the JAX
+    package's optax step does, so this module never needs gradients."""
 
     def __init__(self, cfg: TransformerConfig, params: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None,

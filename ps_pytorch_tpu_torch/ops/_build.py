@@ -128,10 +128,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ps_accumulate_rescale.argtypes = [vp, i64, i64, vp, vp, vp]
     lib.ps_accumulate_rescale.restype = i32
     lib.ps_flash_fwd.argtypes = (
-        [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-         ctypes.POINTER(i64), f32, i32, i32, i32, i32, vp]
+        [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+         ctypes.POINTER(i64), f32, i32, i32, vp, i32, i32, vp]
     )
     lib.ps_flash_fwd.restype = i32
+    lib.ps_flash_bwd_dq.argtypes = (
+        [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+         ctypes.POINTER(i64), f32, i32, i32, vp, i32, i32, vp]
+    )
+    lib.ps_flash_bwd_dq.restype = i32
+    lib.ps_flash_bwd_dkv.argtypes = (
+        [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+         ctypes.POINTER(i64), f32, i32, i32, vp, i32, i32, vp]
+    )
+    lib.ps_flash_bwd_dkv.restype = i32
     lib.ps_error_string.argtypes = [i32]
     lib.ps_error_string.restype = ctypes.c_char_p
 

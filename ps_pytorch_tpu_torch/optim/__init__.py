@@ -2,7 +2,8 @@
 
 ``build_optimizer`` mirrors the JAX factory for SGD; the same update
 serves the tree and the flat state (the JAX package's ``flat=True``
-variant). Adam/AMSGrad are not ported yet (ROADMAP.md).
+variant). The LM trainer's learning-rate schedules are in
+``schedules.py``. Adam/AMSGrad are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -10,6 +10,9 @@ over that dimension is the collective. A reduced value comes back
 without the worker dimension: one copy, which every worker reads, as the
 replicated result of a JAX collective is.
 
+``ppermute`` moves rows between workers (the sequence ring's K/V
+rotation); ``Mesh2D`` is the (dp x sp) grid of the LM training step.
+
 This is the analogue of the reference's 8-device virtual CPU mesh. The
 ``torch.distributed`` backend (gloo / NCCL, one rank per card) is a
 later slice (ROADMAP.md).
@@ -92,6 +95,30 @@ class WorkerAxis:
                              f"got {tuple(x.shape)}")
         return x.transpose(0, 1)
 
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """``lax.ppermute(x, axis, perm)``: worker-stacked ``x``; each
+        ``(src, dst)`` pair sends worker src's row to worker dst, and a
+        worker no pair sends to receives zeros. A rotation (every worker
+        receives, from ``(dst + c) % N``) is ``torch.roll`` by ``-c``: the
+        ring's ``[(j, (j - 1) % N)]`` is a roll by -1, and the rotation by
+        0 (a one-worker ring) returns ``x`` itself."""
+        self._check(x)
+        n = self.size
+        src = [-1] * n
+        for s, d in perm:
+            if not (0 <= s < n and 0 <= d < n) or src[d] >= 0:
+                raise ValueError(f"ppermute: bad permutation {perm} for {n} workers")
+            src[d] = s
+        shifts = {(s - d) % n for d, s in enumerate(src) if s >= 0}
+        if len(shifts) == 1 and min(src) >= 0:
+            shift = shifts.pop()
+            return torch.roll(x, -shift, dims=0) if shift else x
+        out = torch.zeros_like(x)
+        for d, s in enumerate(src):
+            if s >= 0:
+                out[d] = x[s]
+        return out
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``lax.all_gather(x, axis, tiled=True)``: worker-stacked ``[N, m,
         *rest]`` -> the replicated concatenation ``[N*m, *rest]`` of the
@@ -106,3 +133,24 @@ def make_mesh(num_workers: int) -> WorkerAxis:
     """The worker axis of ``num_workers`` virtual workers (``make_mesh``
     builds a device mesh; here every worker shares the one device)."""
     return WorkerAxis(num_workers)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A (dp x sp) grid of virtual workers, the stacked counterpart of
+    ``dp_sp.make_mesh_2d``'s device mesh: dp outer, sp inner, so worker
+    (i, j) is number ``i * sp + j`` (``worker_ids``).
+
+    Per-worker tensors of the grid are stacked ``[sp, dp, ...]``: the sp
+    axis leads, because every attention call rotates K/V along it and
+    every ``WorkerAxis`` primitive acts on the leading dimension; the
+    stacked batch ``[sp, dp * b]`` then splits into sequence shards by a
+    view. A reduction over dp is one over dimension 1."""
+
+    dp: WorkerAxis
+    sp: WorkerAxis
+
+    def worker_ids(self) -> torch.Tensor:
+        """``[dp, sp]`` worker numbers, dp outer (the device grid's order)."""
+        return torch.arange(self.dp.size * self.sp.size).reshape(self.dp.size,
+                                                                 self.sp.size)

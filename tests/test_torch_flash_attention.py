@@ -91,12 +91,3 @@ def test_torch_full_attention_matches_jax(causal):
     got = full_attention(*_t(q, k, v), causal=causal)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
-
-def test_torch_flash_is_forward_only():
-    q, k, v = _t(*_qkv(1, 8, 1, 32, seed=0))
-    q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_attention(q, k, v, causal=True)
-    with torch.no_grad():
-        flash_attention(q, k, v, causal=True)  # no gradient asked: fine
-

@@ -1,7 +1,8 @@
 """The port's hand-written kernels on the card, against their plain
 PyTorch versions (K1 quantize_rows and its shared-scale entry
 quantize_rows_scaled, K2 quantize_tensor, K3 accumulate_rescale_int8, K4
-flash_fwd), the serving engine on the card against the same engine on the
+flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
+flash_bwd_dkv), the serving engine on the card against the same engine on the
 CPU, and the gradient wires on the card against the same wires on the CPU
 (bit-exact: every op on them is elementwise or an exact integer sum).
 
@@ -21,7 +22,18 @@ import pytest
 import torch
 
 from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
-from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from ps_pytorch_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_attention,
+    flash_bwd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_bwd_plain,
+    flash_fwd,
+    flash_fwd_plain,
+    flash_partial,
+    flash_partial_plain,
+)
 from ps_pytorch_tpu_torch.ops.quantize import (
     accumulate_rescale_int8,
     accumulate_rescale_plain,
@@ -178,6 +190,118 @@ def test_torch_flash_kernel_matches_plain_on_card(cuda_device, b, t, h, d,
     else:
         torch.testing.assert_close(o, op, atol=1e-5, rtol=0)
         torch.testing.assert_close(lse, lsep, atol=1e-5, rtol=0)
+
+
+def _assert_near(got, want, tol):
+    """f32 sums in another order: the kernels sum keys (or queries) tile by
+    tile with an online rescale and scalar FMAs, the plain versions over
+    the whole row with matmuls. Held to ``tol`` of the result's largest
+    magnitude, elementwise."""
+    want = want.float()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol * scale)
+
+
+def _hop_inputs(b, tq, tk, h, d, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda t: torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    return mk(tq), mk(tk), mk(tk), mk(tq)
+
+
+def _offsets(kind, dev):
+    """Scalars, or one (q_off, k_off) per batch row: two stacked shards
+    of a 2-way ring at hop 1 (row 0 sees a later shard: every key masked;
+    row 1 an earlier one: every key kept)."""
+    if kind == "ring":
+        return (torch.tensor([0, 256], device=dev), torch.tensor([256, 0], device=dev))
+    return kind
+
+
+FLASH_HOP_CASES = [
+    # b, tq, tk, h, d, dtype, causal, offsets
+    (8, 1024, 1024, 8, 64, torch.bfloat16, True, (0, 0)),  # LM-1, one hop
+    (2, 256, 256, 8, 64, torch.bfloat16, True, "ring"),    # stacked ring hop
+    (2, 256, 256, 8, 64, torch.float32, True, "ring"),
+    (1, 100, 77, 3, 32, torch.float32, True, (5, 30)),     # ragged, cut diagonal
+    (2, 64, 64, 2, 128, torch.float32, True, (0, 64)),     # whole hop masked
+    (2, 50, 70, 2, 64, torch.float32, False, (0, 0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets", FLASH_HOP_CASES)
+def test_torch_flash_partial_kernel_matches_plain_on_card(cuda_device, b, tq, tk, h, d,
+                                                          dtype, causal, offsets):
+    q, k, v, _ = _hop_inputs(b, tq, tk, h, d, dtype, tq + d, cuda_device)
+    q_off, k_off = _offsets(offsets, cuda_device)
+    before = flash_partial.launches
+    pv, m, l = flash_partial(q, k, v, causal, d ** -0.5, q_off, k_off)
+    pvp, mp, lp = flash_partial_plain(q, k, v, causal, d ** -0.5, q_off, k_off)
+    torch.cuda.synchronize()
+    assert flash_partial.launches == before + 1
+    assert pv.dtype == m.dtype == l.dtype == torch.float32
+    assert pv.shape == (b, tq, h, d) and m.shape == l.shape == (b, h, tq)
+    _assert_near(pv, pvp, 2e-5)
+    _assert_near(m, mp, 2e-6)
+    _assert_near(l, lp, 2e-5)
+    if offsets in ("ring", (0, 64)):  # a wholly masked hop is the no-op triple
+        row = 0
+        assert bool((pv[row] == 0).all()) and bool((l[row] == 0).all())
+        assert bool((m[row] == NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets", FLASH_HOP_CASES)
+@pytest.mark.parametrize("out", ["f32", "input"])
+def test_torch_flash_bwd_kernels_match_plain_on_card(cuda_device, b, tq, tk, h, d, dtype,
+                                                     causal, offsets, out):
+    """K5 and K6 against flash_bwd_plain from the plain forward's final lse
+    and delta; f32 outputs (ring hops) and input-dtype outputs (the
+    single-device backward: bf16 outputs may differ by one bf16 ulp of
+    the largest gradient). Two runs give the same bits (no atomics)."""
+    q, k, v, do = _hop_inputs(b, tq, tk, h, d, dtype, tk + d, cuda_device)
+    q_off, k_off = _offsets(offsets, cuda_device)
+    scale = d ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale, q_off=q_off, k_off=k_off)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    out_dtype = torch.float32 if out == "f32" else None
+    n5, n6 = flash_bwd_dq.launches, flash_bwd_dkv.launches
+    got = flash_bwd(q, k, v, do, lse, delta, causal, scale, q_off, k_off,
+                    out_dtype=out_dtype)
+    again = flash_bwd(q, k, v, do, lse, delta, causal, scale, q_off, k_off,
+                      out_dtype=out_dtype)
+    want = flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, q_off, k_off,
+                           out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches - n5, flash_bwd_dkv.launches - n6) == (2, 2)
+    tol = 1e-2 if (out == "input" and dtype == torch.bfloat16) else 5e-5
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), f"{name} changed between two runs"
+        _assert_near(g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,causal,dtype", [(100, True, torch.float32),
+                                            (64, False, torch.float32),
+                                            (128, True, torch.bfloat16)])
+def test_torch_flash_attention_grads_on_card_match_cpu(cuda_device, t, causal, dtype):
+    """flash_attention's autograd (K4 forward, K5 + K6 backward in the
+    input dtype) on the card against the same Function on the CPU (the
+    plain versions)."""
+    rng = np.random.RandomState(t)
+    xs = [torch.from_numpy(rng.randn(2, t, 4, 64).astype(np.float32)).to(dtype)
+          for _ in range(4)]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v = (x.to(dev).detach().requires_grad_(True) for x in xs[:3])
+        o = flash_attention(q, k, v, causal=causal)
+        o.backward(xs[3].to(dev))
+        grads[str(dev)] = [x.grad.cpu() for x in (q, k, v)]
+    tol = 1e-2 if dtype == torch.bfloat16 else 5e-5
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert g.dtype == dtype
+        _assert_near(g, w, tol)
 
 
 @pytest.mark.cuda
