@@ -12,7 +12,10 @@ Phases, one line each:
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32 off;
 2. build every kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
-   source, all at once; sm_90a);
+   source, all at once; sm_90a), then count the tensor-core instructions
+   (HMMA / HGMMA, from ``cuobjdump -sass``) of each bf16 K5 / K6
+   instantiation (D 32, 64, 128; f32 and bf16 out; a zero fails the run)
+   beside ptxas's registers and spill bytes;
 3. K1 quantize_rows vs its plain version, bit-exact, at the serving path's
    shapes (prefill write [1024, 64] bf16, decode write [64, 64] bf16) and a
    ragged [1001, 128] f32, timed with CUDA events;
@@ -60,9 +63,11 @@ Phases, one line each:
    flash_bwd_dkv against their plain versions at the LM-1 attention shape
    [8, 1024, 8, 64] bf16 (one causal hop at offsets 0) and at an LM-ring
    hop [8, 2048, 8, 64] (four stacked shards x batch 2, per-shard offsets
-   of hop 3: one shard's keys all masked) in bf16 and f32; timed, with
-   their bounds, and K5 + K6 beside aten's flash-attention backward (the
-   library yardstick, never called by the port) at LM-1;
+   of hop 3: one shard's keys all masked) in bf16 and f32; timed with CUDA
+   events and (K5, K6) with ``torch.profiler``'s device time, with their
+   bounds, and K5 + K6 beside aten's flash-attention backward (the library
+   yardstick, never called by the port: wall and device time) at LM-1 and
+   the bf16 ring hop;
 15. LM-1: the JAX bench's LM leg at full width (vocab 2048, d512, depth
    6, 8 heads, seq 1024, batch 8, bf16 block math over f32 params, remat,
    SGD lr 0.01 momentum 0.9) through ``cli.train_lm.main`` at (dp 1,
@@ -85,6 +90,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -136,10 +142,119 @@ def time_ms(fn, iters: int = ITERS, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> tuple:
+    """Device time per call from ``torch.profiler`` over ``iters``
+    back-to-back calls: for each CUDA kernel name, its mean time per
+    recorded launch times its launches per call (at least one), summed;
+    and that per name (ms per call). Per-launch means keep the figure
+    right when the trace drops some of a kernel's events: summed over the
+    calls instead, one run read K5 at 0.16 ms a call where CUDA events
+    timed 0.53 ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            rec = seen.setdefault(evt.name[:80], [0, 0.0])
+            rec[0] += 1
+            rec[1] += evt.time_range.elapsed_us() / 1e3
+    require(bool(seen), "profiler: no device time recorded")
+    by_name = {k: t / n * max(1, round(n / iters)) for k, (n, t) in seen.items()}
+    return sum(by_name.values()), by_name
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the tensor-core instantiations of K5 / K6: (kernel, D, output type)
+MMA_KERNELS = [(k, d, out) for k in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")
+               for d in (32, 64, 128) for out in ("f32", "bf16")]
+_MANGLED = re.compile(r"(flash_d(?:q|kv)_mma_kernel)ILi(\d+)E(?:Li\d+E)?(f|13__nv_bfloat16)E")
+
+
+def _instantiation(mangled: str):
+    m = _MANGLED.search(mangled)
+    return None if m is None else (m.group(1), int(m.group(2)),
+                                   "f32" if m.group(3) == "f" else "bf16")
+
+
+def _cuobjdump(nvcc: str) -> str:
+    import shutil
+
+    for cand in (os.path.join(os.path.dirname(nvcc), "cuobjdump"), shutil.which("cuobjdump")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise SmokeError("cuobjdump not found beside nvcc or on PATH")
+
+
+def tensor_core_counts(lib_path: str, nvcc: str) -> dict:
+    """Tensor-core instructions (HMMA / HGMMA) in the SASS of each K5 / K6
+    tensor-core instantiation of the built library."""
+    sass = subprocess.run([_cuobjdump(nvcc), "-sass", lib_path], stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = _instantiation(line.split("Function :")[1].strip())
+            if current is not None:
+                counts[current] = 0
+        elif current is not None and re.search(r"\bHG?MMA\.", line):
+            counts[current] += 1
+    return counts
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes ptxas reported for each K5 / K6
+    tensor-core instantiation (``-Xptxas -v`` in the build's log)."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = _instantiation(m.group(1))
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(current, {}).update(spill_stores=int(m.group(1)),
+                                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(current, {})["registers"] = int(m.group(1))
+    return out
+
+
+def phase_build() -> dict:
+    """Phase 2: build every kernel, then read the tensor-core instruction
+    count of each bf16 K5 / K6 instantiation from the library's SASS (a
+    zero fails the run) and ptxas's registers and spills."""
+    from ps_pytorch_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    seconds = time.perf_counter() - t0
+    counts = tensor_core_counts(lib, _build._nvcc())
+    regs = ptxas_report(_build.build_log())
+    rec = {}
+    for key in MMA_KERNELS:
+        name = f"{key[0]}<D={key[1]}, out={key[2]}>"
+        require(counts.get(key, 0) > 0,
+                f"build: {name} has {counts.get(key, 0)} HMMA/HGMMA instructions")
+        rec[name] = {"tensor_core_instructions": counts[key], **regs.get(key, {})}
+    print(f"phase 2 build: {seconds:.1f} s "
+          f"({', '.join(os.path.basename(s) for s in _build.sources())} -> "
+          f"{os.path.relpath(lib)}); K5/K6 bf16 SASS: " + json.dumps(rec))
+    return rec
 
 
 def phase_k1(quantize_rows, quantize_rows_plain, dev) -> dict:
@@ -761,8 +876,10 @@ def kept_pairs(b, h, tq, tk, causal, q_off, k_off) -> int:
 
 def _near(what: str, got, want, tol) -> float:
     """Max abs error, required within ``tol`` of the result's largest
-    magnitude (f32 sums in another order: the kernels tile by tile with
-    scalar FMAs, the plain versions over whole rows with matmuls)."""
+    magnitude (f32 sums in another order: the kernels tile by tile, K4
+    and the f32 K5/K6 with scalar FMAs, the bf16 K5/K6 on the tensor cores
+    with P and dS as a bf16 hi + lo pair; the plain versions over whole
+    rows with matmuls)."""
     err = float((got.float() - want.float()).abs().max())
     require(err <= tol * max(1.0, float(want.float().abs().max())),
             f"{what} off its plain version by {err}")
@@ -842,16 +959,29 @@ def phase_flash_train_kernels(dev) -> dict:
                                     iters),
                       "plain_ms": plain_bwd_ms,
                       "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]}
+        for part, fn in (("dq", lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32)),
+                         ("dkv", lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32))):
+            rec[part]["device_ms"] = device_ms(fn)[0]
         library = None
-        if name == "lm1_bf16":
+        if dt == torch.bfloat16:
             # aten's flash-attention backward for the same (dq, dk, dv), K5
-            # and K6 together, at offsets 0
-            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True)
+            # and K6 together: causal at LM-1's offsets 0; on the ring hop
+            # non-causal over the six rows whose shards keep every key (the
+            # two of shard 0 keep none and get zeros)
+            rows = slice(None) if name == "lm1_bf16" else slice(2, None)
+            qh, kh, vh = (x[rows].transpose(1, 2).detach().requires_grad_(True)
                           for x in (q, k, v))
-            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-            doh = do.transpose(1, 2)
-            library = time_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
-                                                          retain_graph=True), iters=50)
+            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=name == "lm1_bf16")
+            doh = do[rows].transpose(1, 2)
+            aten = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+            library = time_ms(aten, iters=50)
+            lib_dev, lib_kernels = device_ms(aten)
+            rec["library_device_ms"] = lib_dev
+            rec["library_device_kernels"] = lib_kernels
+            rec["k5_plus_k6"] = {
+                "ms": rec["dq"]["ms"] + rec["dkv"]["ms"], "library_ms": library,
+                "device_ms": rec["dq"]["device_ms"] + rec["dkv"]["device_ms"],
+                "library_device_ms": lib_dev}
         rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = library
         out[name] = rec
     print("phase 14 K4-partial / K5 / K6 vs plain: " + json.dumps(out))
@@ -959,7 +1089,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from ps_pytorch_tpu_torch.ops import _build
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     from ps_pytorch_tpu_torch.ops.quantize import quantize_rows, quantize_rows_plain
 
@@ -974,12 +1103,7 @@ def main() -> int:
     print(f"phase 1 device: {card} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | tf32 off")
 
-    t0 = time.perf_counter()
-    _build.build()
-    _build.load()
-    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(os.path.basename(s) for s in _build.sources())} -> "
-          f"{os.path.relpath(_build.library_path())})")
+    phase_build()
 
     k1 = phase_k1(quantize_rows, quantize_rows_plain, dev)
     k4 = phase_k4(flash_fwd, flash_fwd_plain, dev)

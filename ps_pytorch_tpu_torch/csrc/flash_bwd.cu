@@ -16,7 +16,7 @@
 // cross-block reduction and no atomics, so a result is the same from run
 // to run. Outputs are f32 (ring hops sum their pieces without rounding,
 // flash_grads_partial :509-532) or the input dtype (flash_attention's own
-// backward, :315-317).
+// backward, :315-317), rounded once at the store.
 //
 // Masking and tile skipping come from flash_mask.cuh, the rule K4 uses:
 // K5 stops at the first key tile no row of its q tile keeps; K6 starts at
@@ -26,17 +26,42 @@
 // padded: rows past Tq and keys past Tk load as zeros and are never kept.
 //
 // Bound on the H100 at the LM training shape (B=8, T=1024, H=8, D=64,
-// bf16 in, f32 out, causal): bytes, K5 ~15 us, K6 ~20 us at 3.35 TB/s.
-// This first version is simple and right: scalar f32 FMAs on the CUDA
-// cores (3 D FMAs per kept pair for K5, 4 D for K6), one warp per row of
-// its own tile and one lane per row of the visiting tile, as K4 does.
-// Shared memory at D = 128: K5 161 KB, K6 193 KB (under the 227 KB opt-in
-// limit, set with cudaFuncSetAttribute). wgmma/TMA are later work.
+// bf16 in, f32 out, causal): bytes, K5 ~15 us, K6 ~20 us at 3.35 TB/s;
+// the products are 6 D (K5) and 8 D (K6) flops per kept pair, 0.078 /
+// 0.104 ms at the bf16 tensor-core peak. Two routes, chosen by dtype:
+//
+// * bf16 inputs (both LM cells, the Ulysses path, flash_attention's VJP):
+//   the tensor-core kernels flash_dq_mma_kernel / flash_dkv_mma_kernel.
+//   Tiles stay bf16 in shared memory (rows padded by 16 bytes, so the 8
+//   rows an ldmatrix phase reads fall in 8 different bank groups), filled
+//   by cp.async 16-byte copies, the visiting tile double-buffered so the
+//   next one loads while this one computes. Each warp owns 16 rows of the
+//   block's own 64-row tile; every product is mma.sync.m16n8k16 (bf16 in,
+//   f32 accumulators in registers, fragments by ldmatrix). K5 computes
+//   S = Q.K^T and dP = dO.V^T and feeds dS straight from its accumulator
+//   registers into dQ += dS.K; K6 computes S^T = K.Q^T and dP^T = V.dO^T
+//   with the key tile as M, so P^T and dS^T are already the A operand of
+//   dV += P^T.dO and dK += dS^T.Q. The TPU kernels take those three
+//   accumulating products from f32 P and dS; rounding P and dS once to
+//   bf16 (as FlashAttention-2 does) misses this port's 5e-5 tolerance by
+//   25-35x, so they enter as a bf16 hi + lo pair (hi = bf16(x), lo =
+//   bf16(x - hi)), two products into the same f32 accumulator: ~3e-6 of
+//   the largest gradient, at the cost of one more product each. Scores,
+//   exp, the lse guard and (dp - delta) * scale stay in f32; the mask is
+//   evaluated only on tiles that cross the causal diagonal, k_len or Tk.
+//   K6 visits 64-query tiles at D <= 64 and 32-query tiles at D = 128,
+//   where two f32 accumulators of 16 x 128 per warp fill the registers.
+// * f32 inputs (the f32 ring steps and card tests; on no timed path): the
+//   scalar kernels flash_dq_scalar_kernel / flash_dkv_scalar_kernel, f32
+//   FMAs on the CUDA cores, one warp per row of the block's own tile and
+//   one lane per row of the visiting tile.
 #include "flash_mask.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;   // query rows per tile
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;   // query rows per tile (K6 at D = 128: 32)
 constexpr int kBK = 64;   // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -67,19 +92,35 @@ __device__ __forceinline__ const T* head_ptr(const void* base, const long long* 
   return static_cast<const T*>(base) + b * st[0] + h * st[2];
 }
 
-// Stage rows [r0, r0 + n) of a [T, D] head slice into smem rows of pitch P
-// (zeros past T).
-template <typename T, int D, int P>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long st,
+template <typename T>
+__device__ __forceinline__ T* out_ptr(void* base, const long long* st, int b, int h) {
+  return static_cast<T*>(base) + b * st[0] + h * st[2];
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// ---------------------------------------------------------------------------
+// f32 inputs: the scalar kernels (CUDA cores).
+
+// Stage rows [r0, r0 + n) of a [T, D] f32 head slice into smem rows of
+// pitch P (zeros past T).
+template <int D, int P>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long st,
                                       int r0, int n, int T_len) {
   for (int i = threadIdx.x; i < n * D; i += kThreads) {
     const int r = i / D, d = i % D, t = r0 + r;
-    dst[r * P + d] = t < T_len ? ps::to_float(src[(long long)t * st + d]) : 0.0f;
+    dst[r * P + d] = t < T_len ? src[(long long)t * st + d] : 0.0f;
   }
 }
 
-template <typename T, typename OutT, int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_scalar_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][D]      (broadcast reads)
   float* dos = qs + kBQ * D;          // [kBQ][D]
@@ -95,11 +136,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const ps::FlashMask mask =
       ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const T* kp = head_ptr<T>(a.k, a.sk, b, h);
-  const T* vp = head_ptr<T>(a.v, a.sv, b, h);
+  const float* kp = head_ptr<float>(a.k, a.sk, b, h);
+  const float* vp = head_ptr<float>(a.v, a.sv, b, h);
 
-  stage<T, D, D>(qs, head_ptr<T>(a.q, a.sq, b, h), a.sq[1], q0, kBQ, a.Tq);
-  stage<T, D, D>(dos, head_ptr<T>(a.dout, a.sdo, b, h), a.sdo[1], q0, kBQ, a.Tq);
+  stage<D, D>(qs, head_ptr<float>(a.q, a.sq, b, h), a.sq[1], q0, kBQ, a.Tq);
+  stage<D, D>(dos, head_ptr<float>(a.dout, a.sdo, b, h), a.sdo[1], q0, kBQ, a.Tq);
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) dqs[i] = 0.0f;
   for (int r = threadIdx.x; r < kBQ; r += kThreads) {
     const int t = q0 + r;
@@ -112,8 +153,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile is consumed (and the init done)
-    stage<T, D, D + 1>(ks, kp, a.sk[1], k0, kBK, a.Tk);
-    stage<T, D, D + 1>(vs, vp, a.sv[1], k0, kBK, a.Tk);
+    stage<D, D + 1>(ks, kp, a.sk[1], k0, kBK, a.Tk);
+    stage<D, D + 1>(vs, vp, a.sv[1], k0, kBK, a.Tk);
     __syncthreads();
 
     for (int r = warp; r < kBQ; r += kWarps) {
@@ -160,15 +201,15 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(BwdArgs a) {
   }
   __syncthreads();
 
-  OutT* dqp = static_cast<OutT*>(a.dq) + b * a.sdq[0] + h * a.sdq[2];
+  float* dqp = out_ptr<float>(a.dq, a.sdq, b, h);
   for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, t = q0 + r;
-    if (t < a.Tq) dqp[(long long)t * a.sdq[1] + d] = ps::from_float<OutT>(dqs[i]);
+    if (t < a.Tq) dqp[(long long)t * a.sdq[1] + d] = dqs[i];
   }
 }
 
-template <typename T, typename OutT, int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_scalar_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [kBK][D]      (broadcast reads)
   float* vs = ks + kBK * D;           // [kBK][D]
@@ -185,11 +226,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const ps::FlashMask mask =
       ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const T* qp = head_ptr<T>(a.q, a.sq, b, h);
-  const T* dop = head_ptr<T>(a.dout, a.sdo, b, h);
+  const float* qp = head_ptr<float>(a.q, a.sq, b, h);
+  const float* dop = head_ptr<float>(a.dout, a.sdo, b, h);
 
-  stage<T, D, D>(ks, head_ptr<T>(a.k, a.sk, b, h), a.sk[1], k0, kBK, a.Tk);
-  stage<T, D, D>(vs, head_ptr<T>(a.v, a.sv, b, h), a.sv[1], k0, kBK, a.Tk);
+  stage<D, D>(ks, head_ptr<float>(a.k, a.sk, b, h), a.sk[1], k0, kBK, a.Tk);
+  stage<D, D>(vs, head_ptr<float>(a.v, a.sv, b, h), a.sv[1], k0, kBK, a.Tk);
   for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
     dks[i] = 0.0f;
     dvs[i] = 0.0f;
@@ -200,8 +241,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();  // the previous tile is consumed (and the init done)
-    stage<T, D, D + 1>(qs, qp, a.sq[1], q0, kBQ, a.Tq);
-    stage<T, D, D + 1>(dos, dop, a.sdo[1], q0, kBQ, a.Tq);
+    stage<D, D + 1>(qs, qp, a.sq[1], q0, kBQ, a.Tq);
+    stage<D, D + 1>(dos, dop, a.sdo[1], q0, kBQ, a.Tq);
     for (int r = threadIdx.x; r < kBQ; r += kThreads) {
       const int t = q0 + r;
       lse_s[r] = t < a.Tq ? a.lse[(long long)bh * a.Tq + t] : ps::kNegInf;
@@ -264,25 +305,394 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(BwdArgs a) {
   }
   __syncthreads();
 
-  OutT* dkp = static_cast<OutT*>(a.dk) + b * a.sdk[0] + h * a.sdk[2];
-  OutT* dvp = static_cast<OutT*>(a.dv) + b * a.sdv[0] + h * a.sdv[2];
+  float* dkp = out_ptr<float>(a.dk, a.sdk, b, h);
+  float* dvp = out_ptr<float>(a.dv, a.sdv, b, h);
   for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
     const int r = i / D, d = i % D, key = k0 + r;
     if (key < a.Tk) {
-      dkp[(long long)key * a.sdk[1] + d] = ps::from_float<OutT>(dks[i]);
-      dvp[(long long)key * a.sdv[1] + d] = ps::from_float<OutT>(dvs[i]);
+      dkp[(long long)key * a.sdk[1] + d] = dks[i];
+      dvp[(long long)key * a.sdv[1] + d] = dvs[i];
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 inputs: the tensor-core kernels.
+
+constexpr int kPad = 8;  // bf16 per smem row past D: 16 bytes
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; with
+// src_bytes = 0 nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16). Fragments, for
+// g = lane / 4 and t = lane % 4: c[0..1] = (row g, cols 2t, 2t+1), c[2..3]
+// = (row g + 8, the same cols); a[0] = (row g, cols 2t, 2t+1), a[1] = (row
+// g + 8, ...), a[2] / a[3] the same 8 columns on; b[0] = (rows 2t, 2t+1,
+// col g), b[1] = (rows 2t + 8, 2t + 9, col g).
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values as a bf16 pair hi = bf16(x) (round to nearest even) and
+// the rest lo = bf16(x - hi): hi + lo carries x to about 2^-16 of |x|.
+__device__ __forceinline__ void split2(float x, float y, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// Rows [r0, r0 + ROWS) of a [T, D] bf16 head slice (row stride st) into
+// shared rows of pitch D + kPad, 16 bytes a copy; rows past T are zeroed.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long st,
+                                          int r0, int T_len) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks, t = r0 + r;
+    const bf16* g = src + (long long)(t < T_len ? t : 0) * st + c * 8;
+    cp_async16(dst + r * (D + kPad) + c * 8, g, t < T_len ? 16 : 0);
+  }
+}
+
+// The [ROWS] f32 statistics of rows [r0, r0 + ROWS) into shared memory:
+// lse and delta, with NEG_INF and 0 past Tq (the lse guard then zeroes p).
+template <int ROWS>
+__device__ __forceinline__ void load_stats(float* lse_s, float* delta_s, const float* lse,
+                                           const float* delta, int r0, int Tq) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
+    const int t = r0 + i;
+    if (t < Tq) {
+      cp_async4(lse_s + i, lse + t);
+      cp_async4(delta_s + i, delta + t);
+    } else {
+      lse_s[i] = ps::kNegInf;
+      delta_s[i] = 0.0f;
+    }
+  }
+}
+
+// acc (16 x N as N / 8 fragments) += A (16 x KD) . B^T, B N x KD; A and B
+// row-major bf16 in shared memory, pitch P.
+template <int N, int KD, int P>
+__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], const bf16* a,
+                                         const bf16* b, int lane) {
+#pragma unroll
+  for (int k = 0; k < KD; k += 16) {
+    unsigned af[4];
+    ldsm4(af, a + (lane % 16) * P + k + (lane / 16) * 8);
+#pragma unroll
+    for (int n = 0; n < N; n += 16) {
+      unsigned bf[4];
+      ldsm4(bf, b + (n + lane % 8 + (lane / 16) * 8) * P + k + (lane / 8 % 2) * 8);
+      mma16816(acc[n / 8], af, bf[0], bf[1]);
+      mma16816(acc[n / 8 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D as D / 8 fragments) += X . B, X the f32 16 x N fragments a
+// gemm_abt left (its C layout is the A layout of the next product), B
+// N x D row-major bf16 in shared memory, pitch P. X enters as hi + lo:
+// two products into the same accumulator.
+template <int N, int D, int P>
+__device__ __forceinline__ void gemm_split_ab(float (&acc)[D / 8][4],
+                                              const float (&x)[N / 8][4],
+                                              const bf16* b, int lane) {
+#pragma unroll
+  for (int k = 0; k < N; k += 16) {
+    unsigned hi[4], lo[4];
+    const float* c0 = x[k / 8];
+    const float* c1 = x[k / 8 + 1];
+    split2(c0[0], c0[1], hi[0], lo[0]);
+    split2(c0[2], c0[3], hi[1], lo[1]);
+    split2(c1[0], c1[1], hi[2], lo[2]);
+    split2(c1[2], c1[3], hi[3], lo[3]);
+#pragma unroll
+    for (int n = 0; n < D; n += 16) {
+      unsigned bf[4];
+      ldsm4_t(bf, b + (k + lane % 16) * P + n + (lane / 16) * 8);
+      mma16816(acc[n / 8], hi, bf[0], bf[1]);
+      mma16816(acc[n / 8 + 1], hi, bf[2], bf[3]);
+      mma16816(acc[n / 8], lo, bf[0], bf[1]);
+      mma16816(acc[n / 8 + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+// Blocks a multiprocessor should hold at once, which caps a thread's
+// registers at 65536 / (128 n). At LM-1 on the H100 K5 ran faster with 4
+// (128 registers, a few spilled) than with ptxas's free choice of 166 (3
+// blocks), K6 with 3 (168) than with 235 (2); at D = 128 the accumulators
+// need every register, so there is no cap.
 template <int D>
-constexpr size_t dq_smem_floats() {
-  return 3 * (size_t)kBQ * D + 2 * (size_t)kBK * (D + 1) + 2 * kBQ;
+constexpr int dq_min_blocks() {
+  return D > 64 ? 1 : 4;
 }
 
 template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 4 * (size_t)kBK * D + 2 * (size_t)kBQ * (D + 1) + 2 * kBQ;
+constexpr int dkv_min_blocks() {
+  return D > 64 ? 1 : 3;
+}
+
+// K5 on the tensor cores: one block per (batch*head, 64-row q tile); warp
+// w owns rows [16 w, 16 w + 16) of it and loops over the visible key tiles.
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
+    flash_dq_mma_kernel(BwdArgs a) {
+  constexpr int P = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_bytes);  // [kBQ][P]
+  bf16* dos = qs + kBQ * P;                        // [kBQ][P]
+  bf16* ks = dos + kBQ * P;                        // [2][kBK][P]
+  bf16* vs = ks + 2 * kBK * P;                     // [2][kBK][P]
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest causal rows first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const ps::FlashMask mask =
+      ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
+  const bf16* kp = head_ptr<bf16>(a.k, a.sk, b, h);
+  const bf16* vp = head_ptr<bf16>(a.v, a.sv, b, h);
+  const int n_kt = (ps::key_limit(mask, min(q0 + kBQ, a.Tq)) + kBK - 1) / kBK;
+
+  load_rows<D, kBQ>(qs, head_ptr<bf16>(a.q, a.sq, b, h), a.sq[1], q0, a.Tq);
+  load_rows<D, kBQ>(dos, head_ptr<bf16>(a.dout, a.sdo, b, h), a.sdo[1], q0, a.Tq);
+  if (n_kt > 0) {
+    load_rows<D, kBK>(ks, kp, a.sk[1], 0, a.Tk);
+    load_rows<D, kBK>(vs, vp, a.sv[1], 0, a.Tk);
+  }
+  cp_async_commit();
+
+  // this thread's rows: row0 (fragment slots 0, 1) and row0 + 8 (2, 3)
+  const int row0 = q0 + warp * 16 + lane / 4;
+  float lse[2], delta[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row0 + 8 * i;
+    lse[i] = t < a.Tq ? a.lse[(long long)bh * a.Tq + t] : ps::kNegInf;
+    delta[i] = t < a.Tq ? a.delta[(long long)bh * a.Tq + t] : 0.0f;
+    live[i] = lse[i] > ps::kNegInf * 0.5f;
+  }
+
+  float dq[D / 8][4] = {};
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    const bf16* kst = ks + (kt & 1) * kBK * P;
+    const bf16* vst = vs + (kt & 1) * kBK * P;
+    if (kt + 1 < n_kt) {  // the next tile loads while this one computes
+      load_rows<D, kBK>(ks + ((kt + 1) & 1) * kBK * P, kp, a.sk[1], k0 + kBK, a.Tk);
+      load_rows<D, kBK>(vs + ((kt + 1) & 1) * kBK * P, vp, a.sv[1], k0 + kBK, a.Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    float s[kBK / 8][4] = {};
+    float ds[kBK / 8][4] = {};
+    gemm_abt<kBK, D, P>(s, qs + warp * 16 * P, kst, lane);
+    gemm_abt<kBK, D, P>(ds, dos + warp * 16 * P, vst, lane);  // dP for now
+    const bool interior = ps::tile_kept(mask, q0 + warp * 16, k0, kBK);
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2;
+        const int key = k0 + j * 8 + (lane % 4) * 2 + (e & 1);
+        const bool kept = live[i] && (interior || ps::keep(mask, row0 + 8 * i, key));
+        const float p = kept ? expf(s[j][e] * a.scale - lse[i]) : 0.0f;
+        ds[j][e] = p * (ds[j][e] - delta[i]) * a.scale;
+      }
+    }
+    gemm_split_ab<kBK, D, P>(dq, ds, kst, lane);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();  // no visible key tile: the q tile's copies
+
+  OutT* dqp = out_ptr<OutT>(a.dq, a.sdq, b, h);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row0 + 8 * i;
+    if (t >= a.Tq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dqp + (long long)t * a.sdq[1] + j * 8 + (lane % 4) * 2,
+             dq[j][2 * i], dq[j][2 * i + 1]);
+  }
+}
+
+// K6 on the tensor cores: one block per (batch*head, 64-key tile); warp w
+// owns keys [16 w, 16 w + 16) of it and loops over BQ-query tiles from
+// the first that keeps the tile's first key.
+template <int D, int BQ, typename OutT>
+__global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
+    flash_dkv_mma_kernel(BwdArgs a) {
+  constexpr int P = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_bytes);  // [kBK][P]
+  bf16* vs = ks + kBK * P;                         // [kBK][P]
+  bf16* qs = vs + kBK * P;                         // [2][BQ][P]
+  bf16* dos = qs + 2 * BQ * P;                     // [2][BQ][P]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * P);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                             // [2][BQ]
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * kBK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const ps::FlashMask mask =
+      ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
+  const bf16* qp = head_ptr<bf16>(a.q, a.sq, b, h);
+  const bf16* dop = head_ptr<bf16>(a.dout, a.sdo, b, h);
+  const float* lse = a.lse + (long long)bh * a.Tq;
+  const float* delta = a.delta + (long long)bh * a.Tq;
+  const int qt0 = ps::first_query(mask, k0, a.Tq) / BQ;
+  const int n_qt = (a.Tq + BQ - 1) / BQ;
+
+  load_rows<D, kBK>(ks, head_ptr<bf16>(a.k, a.sk, b, h), a.sk[1], k0, a.Tk);
+  load_rows<D, kBK>(vs, head_ptr<bf16>(a.v, a.sv, b, h), a.sv[1], k0, a.Tk);
+  if (qt0 < n_qt) {
+    load_rows<D, BQ>(qs, qp, a.sq[1], qt0 * BQ, a.Tq);
+    load_rows<D, BQ>(dos, dop, a.sdo[1], qt0 * BQ, a.Tq);
+    load_stats<BQ>(lse_s, delta_s, lse, delta, qt0 * BQ, a.Tq);
+  }
+  cp_async_commit();
+
+  // this thread's keys: key0 (fragment slots 0, 1) and key0 + 8 (2, 3)
+  const int key0 = k0 + warp * 16 + lane / 4;
+  float dk[D / 8][4] = {};
+  float dv[D / 8][4] = {};
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BQ;
+    const int st = (qt - qt0) & 1;
+    const bf16* qst = qs + st * BQ * P;
+    const bf16* dost = dos + st * BQ * P;
+    const float* lse_t = lse_s + st * BQ;
+    const float* delta_t = delta_s + st * BQ;
+    if (qt + 1 < n_qt) {  // the next tile loads while this one computes
+      const int nx = (st ^ 1) * BQ;
+      load_rows<D, BQ>(qs + nx * P, qp, a.sq[1], q0 + BQ, a.Tq);
+      load_rows<D, BQ>(dos + nx * P, dop, a.sdo[1], q0 + BQ, a.Tq);
+      load_stats<BQ>(lse_s + nx, delta_s + nx, lse, delta, q0 + BQ, a.Tq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    float p[BQ / 8][4] = {};
+    float ds[BQ / 8][4] = {};
+    gemm_abt<BQ, D, P>(p, ks + warp * 16 * P, qst, lane);    // S^T for now
+    gemm_abt<BQ, D, P>(ds, vs + warp * 16 * P, dost, lane);  // dP^T for now
+    const bool interior = ps::tile_kept(mask, q0, k0 + warp * 16, 16);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (lane % 4) * 2 + (e & 1);  // query within the tile
+        const float l = lse_t[c];
+        const bool kept = l > ps::kNegInf * 0.5f &&
+                          (interior || ps::keep(mask, q0 + c, key0 + 8 * (e / 2)));
+        const float pe = kept ? expf(p[j][e] * a.scale - l) : 0.0f;
+        p[j][e] = pe;
+        ds[j][e] = pe * (ds[j][e] - delta_t[c]) * a.scale;
+      }
+    }
+    gemm_split_ab<BQ, D, P>(dv, p, dost, lane);
+    gemm_split_ab<BQ, D, P>(dk, ds, qst, lane);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+
+  OutT* dkp = out_ptr<OutT>(a.dk, a.sdk, b, h);
+  OutT* dvp = out_ptr<OutT>(a.dv, a.sdv, b, h);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= a.Tk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + (lane % 4) * 2;
+      store2(dkp + (long long)key * a.sdk[1] + col, dk[j][2 * i], dk[j][2 * i + 1]);
+      store2(dvp + (long long)key * a.sdv[1] + col, dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+
+template <int D>
+constexpr size_t dq_scalar_smem() {
+  return (3 * (size_t)kBQ * D + 2 * (size_t)kBK * (D + 1) + 2 * kBQ) * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dkv_scalar_smem() {
+  return (4 * (size_t)kBK * D + 2 * (size_t)kBQ * (D + 1) + 2 * kBQ) * sizeof(float);
+}
+
+// K6's query tile on the tensor-core route: 32 at D = 128 (registers)
+template <int D>
+constexpr int dkv_tile() {
+  return D > 64 ? 32 : 64;
+}
+
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return (2 * (size_t)kBQ + 4 * (size_t)kBK) * (D + kPad) * sizeof(bf16);
+}
+
+template <int D>
+constexpr size_t dkv_mma_smem() {
+  return (2 * (size_t)kBK + 4 * (size_t)dkv_tile<D>()) * (D + kPad) * sizeof(bf16) +
+         4 * (size_t)dkv_tile<D>() * sizeof(float);
 }
 
 template <typename K>
@@ -294,36 +704,65 @@ int launch_kernel(K kernel, size_t bytes, dim3 grid, const BwdArgs& a, cudaStrea
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename OutT, int D>
-int launch(const BwdArgs& a, int B, bool dq, cudaStream_t s) {
-  if (dq) {
-    const dim3 grid((unsigned)((a.Tq + kBQ - 1) / kBQ), (unsigned)(B * a.H));
-    return launch_kernel(flash_dq_kernel<T, OutT, D>,
-                         dq_smem_floats<D>() * sizeof(float), grid, a, s);
-  }
-  const dim3 grid((unsigned)((a.Tk + kBK - 1) / kBK), (unsigned)(B * a.H));
-  return launch_kernel(flash_dkv_kernel<T, OutT, D>,
-                       dkv_smem_floats<D>() * sizeof(float), grid, a, s);
+dim3 grid_of(const BwdArgs& a, int B, bool dq) {
+  return dim3((unsigned)(((dq ? a.Tq : a.Tk) + 63) / 64), (unsigned)(B * a.H));
 }
 
-template <typename T, typename OutT>
-int launch_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
+template <int D>
+int launch_scalar(const BwdArgs& a, int B, bool dq, cudaStream_t s) {
+  if (dq)
+    return launch_kernel(flash_dq_scalar_kernel<D>, dq_scalar_smem<D>(),
+                         grid_of(a, B, true), a, s);
+  return launch_kernel(flash_dkv_scalar_kernel<D>, dkv_scalar_smem<D>(),
+                       grid_of(a, B, false), a, s);
+}
+
+template <int D, typename OutT>
+int launch_mma(const BwdArgs& a, int B, bool dq, cudaStream_t s) {
+  if (dq)
+    return launch_kernel(flash_dq_mma_kernel<D, OutT>, dq_mma_smem<D>(),
+                         grid_of(a, B, true), a, s);
+  return launch_kernel(flash_dkv_mma_kernel<D, dkv_tile<D>(), OutT>, dkv_mma_smem<D>(),
+                       grid_of(a, B, false), a, s);
+}
+
+template <typename OutT>
+int launch_mma_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, OutT, 32>(a, B, dq, s);
-    case 64: return launch<T, OutT, 64>(a, B, dq, s);
-    case 128: return launch<T, OutT, 128>(a, B, dq, s);
+    case 32: return launch_mma<32, OutT>(a, B, dq, s);
+    case 64: return launch_mma<64, OutT>(a, B, dq, s);
+    case 128: return launch_mma<128, OutT>(a, B, dq, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+int launch_scalar_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_scalar<32>(a, B, dq, s);
+    case 64: return launch_scalar<64>(a, B, dq, s);
+    case 128: return launch_scalar<128>(a, B, dq, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core route copies 16-byte chunks and stores output pairs:
+// every row of q, k, v, do and of the outputs starts on a 16-byte boundary.
+bool rows_aligned(const void* p, const long long* st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st[0] % 8 == 0 &&
+         st[1] % 8 == 0 && st[2] % 8 == 0;
+}
+
 int dispatch(const BwdArgs& a, int dtype, int out_f32, int B, int D, bool dq,
              cudaStream_t s) {
-  if (dtype == ps::kFloat32) return launch_d<float, float>(a, B, D, dq, s);
-  if (dtype == ps::kBFloat16) {
-    return out_f32 ? launch_d<__nv_bfloat16, float>(a, B, D, dq, s)
-                   : launch_d<__nv_bfloat16, __nv_bfloat16>(a, B, D, dq, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (dtype == ps::kFloat32)  // f32 inputs give f32 gradients
+    return out_f32 ? launch_scalar_d(a, B, D, dq, s) : (int)cudaErrorInvalidValue;
+  if (dtype != ps::kBFloat16) return (int)cudaErrorInvalidValue;
+  const bool in_ok = rows_aligned(a.q, a.sq) && rows_aligned(a.k, a.sk) &&
+                     rows_aligned(a.v, a.sv) && rows_aligned(a.dout, a.sdo);
+  const bool out_ok = dq ? rows_aligned(a.dq, a.sdq)
+                         : rows_aligned(a.dk, a.sdk) && rows_aligned(a.dv, a.sdv);
+  if (!in_ok || !out_ok) return (int)cudaErrorMisalignedAddress;
+  return out_f32 ? launch_mma_d<float>(a, B, D, dq, s) : launch_mma_d<bf16>(a, B, D, dq, s);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -360,9 +799,11 @@ bool bad_shape(int B, int H, int Tq, int Tk) {
 
 // strides: int64 element strides, (batch, time, head) for q, k, v, do and
 // then the outputs (dq; or dk, dv) in that order: 15 for the dq entry, 18
-// for the dk/dv entry; the head-dim stride must be 1 (the wrapper checks). lse, delta: f32 [B, H, Tq] contiguous. out_f32 != 0 writes the
-// gradients in f32, else in the input dtype. off: null, or a device int32
-// [B, 2] table of (q_off, k_off) that then replaces the scalars.
+// for the dk/dv entry; the head-dim stride must be 1 (the wrapper checks);
+// bf16 inputs also need 16-byte-aligned rows (cudaErrorMisalignedAddress
+// otherwise). lse, delta: f32 [B, H, Tq] contiguous. out_f32 != 0 writes
+// the gradients in f32, else in the input dtype. off: null, or a device
+// int32 [B, 2] table of (q_off, k_off) that then replaces the scalars.
 extern "C" int ps_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
                                void* dq, int dtype, int out_f32, int B, int H,

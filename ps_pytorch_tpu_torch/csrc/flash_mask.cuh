@@ -52,6 +52,15 @@ __device__ __forceinline__ int key_limit(const FlashMask& m, int q_end) {
   return (int)n;
 }
 
+// Every pair of query rows [q0, ...) and keys [k0, k0 + nk) is kept: the
+// keys lie below kv_len and, under causal, the last of them is at or
+// before the first query. K5/K6 skip keep() on such tiles and evaluate it
+// per fragment element only on tiles that cross the diagonal, k_len or
+// Tk (rows past Tq are zeroed by the lse guard, not by the mask).
+__device__ __forceinline__ bool tile_kept(const FlashMask& m, int q0, int k0, int nk) {
+  return k0 + nk <= m.kv_len && (!m.causal || m.k_off + k0 + nk - 1 <= m.q_off + q0);
+}
+
 // The same rule seen from a key tile starting at key0 (K6): no query row
 // before the returned one keeps any key >= key0; Tq when none does.
 __device__ __forceinline__ int first_query(const FlashMask& m, int key0, int Tq) {

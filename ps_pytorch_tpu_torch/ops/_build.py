@@ -10,7 +10,10 @@ together, then one link:
     nvcc -shared -o libps_kernels.so *.o
 
 No ``--use_fast_math``: K1, K2 and K3 must round half to even and
-divide exactly (IEEE), as the JAX reference does.
+divide exactly (IEEE), as the JAX reference does. ``-Xptxas -v`` makes
+ptxas report each kernel's registers, shared memory and spills; the
+reports of every source land in ``build.log`` beside the library
+(``build_log()``).
 
 The library lands in ``ps_pytorch_tpu_torch/_build/<hash>/`` (listed in
 .gitignore), keyed by a hash of the sources and flags, and is built at
@@ -38,7 +41,7 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libps_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,9 +98,10 @@ def build() -> str:
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )))
-        errors = []
+        errors, logs = [], []
         for src, _, p in procs:
             log, _ = p.communicate()
+            logs.append(f"== {os.path.basename(src)}\n{log}")
             if p.returncode != 0:
                 errors.append(f"{os.path.basename(src)}:\n{log}")
         if errors:
@@ -111,8 +115,20 @@ def build() -> str:
         if link.returncode != 0:
             raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
         os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(os.path.join(os.path.dirname(out), "build.log"), "w") as f:
+            f.write("\n".join(logs))
         os.replace(lib_tmp, out)  # atomic: a concurrent loader sees all or none
     return out
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas's per-kernel registers and spills) of the
+    build of these sources; empty when the library was not built here."""
+    path = os.path.join(os.path.dirname(library_path()), "build.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -11,7 +11,10 @@ plain versions; CUDA tensors launch the kernel or raise.
   ring hop's unnormalized triple (pv, m, l) in f32;
 - ``flash_bwd`` — K5 ``flash_bwd_dq`` and K6 ``flash_bwd_dkv``
   (``csrc/flash_bwd.cu``): (dq, dk, dv) from the final lse and delta,
-  in f32 (``flash_grads_partial``, ring hops) or the input dtype.
+  in f32 (``flash_grads_partial``, ring hops) or the input dtype. bf16
+  inputs run on the tensor cores (``mma.sync``, P and dS entering the
+  accumulating products as a bf16 hi + lo pair), f32 inputs on the
+  CUDA cores.
 
 All keep the TPU kernels' semantics: f32 scores, f32 softmax statistics
 whatever the input dtype, the finite ``NEG_INF`` and the guards for rows
@@ -151,6 +154,19 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the tensor-core backward kernels (bf16) read it: unit last
+    stride and every ``[D]`` row on a 16-byte boundary (base address and
+    batch, time, head strides), since their ``cp.async`` copies move 16
+    bytes. Head splits of a fused projection pass as they are; any other
+    view is copied here, explicitly."""
+    x = _unit_last(x)
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and all(x.stride(i) % step == 0 for i in range(3)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _stats(x: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
     """A ``[B, H, T]`` statistic as the contiguous f32 the kernels read."""
     if x.shape != (b, h, t):
@@ -259,7 +275,11 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, scale, q_off, k_off, k_len,
     from . import _build
 
     _check_cuda("flash_bwd", q, k, v, do, lse, delta)
-    q, k, v, do = (_unit_last(x) for x in (q, k, v, do))
+    if do.dtype != q.dtype:
+        raise TypeError(f"flash_bwd: do in {do.dtype} for {q.dtype} inputs")
+    # bf16 takes the tensor-core kernels, f32 the scalar ones (flash_bwd.cu)
+    rows = _rows16 if q.dtype == torch.bfloat16 else _unit_last
+    q, k, v, do = (rows(x) for x in (q, k, v, do))
     b, tq, h, d = q.shape
     tk = k.shape[1]
     out_dtype = out_dtype or q.dtype
@@ -299,7 +319,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
     Replaces ps_pytorch_tpu/ops/flash_attention.py:_make_dq_kernel
     (launched by _flash_bwd at :319). One block per (batch*head, 64-row q
     tile) loops over the key tiles its rows can see; no atomics. Bound on
-    the H100: bytes. A CPU tensor runs ``flash_bwd_plain``."""
+    the H100: bytes. bf16 inputs take the tensor-core kernel (rows
+    16-byte aligned: ``_rows16``), f32 the scalar one. A CPU tensor runs
+    ``flash_bwd_plain``."""
     _check_inputs(q, k, v)
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, q_off, k_off,
@@ -320,8 +342,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     Replaces ps_pytorch_tpu/ops/flash_attention.py:_make_dkv_kernel
     (launched by _flash_bwd at :337). One block per (batch*head, 64-key
     tile) loops over the query tiles that can see it; no atomics, so the
-    result is the same from run to run. Bound on the H100: bytes. A CPU
-    tensor runs ``flash_bwd_plain``."""
+    result is the same from run to run. Bound on the H100: bytes. bf16
+    inputs take the tensor-core kernel, f32 the scalar one. A CPU tensor
+    runs ``flash_bwd_plain``."""
     _check_inputs(q, k, v)
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, q_off, k_off,

@@ -33,8 +33,8 @@ import torch
 # substrings of CUDA kernel names, checked in this order
 CATEGORIES = (
     ("K4 flash_fwd / flash_partial", ("flash_fwd_kernel",)),
-    ("K5 flash_bwd_dq", ("flash_dq_kernel",)),
-    ("K6 flash_bwd_dkv", ("flash_dkv_kernel",)),
+    ("K5 flash_bwd_dq", ("flash_dq_",)),
+    ("K6 flash_bwd_dkv", ("flash_dkv_",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
     ("softmax / log-softmax / gather", ("softmax", "gather", "nll")),
     ("reductions (norms, sums)", ("reduce_kernel",)),
@@ -42,7 +42,7 @@ CATEGORIES = (
     ("casts and copies", ("copy_kernel",)),
 )
 
-PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_", "flash_dkv_")
 
 
 def _card() -> str:

@@ -17,6 +17,7 @@ gradients on both sides (every product of bf16 values is exact in f32),
 so they are held to the same bound.
 """
 
+import functools
 import importlib
 
 import jax
@@ -173,3 +174,84 @@ def test_torch_mask_scores_per_row_offsets():
     for r in range(3):
         want = mask_scores(s[r:r + 1], True, None, int(q_off[r]), int(k_off[r]))
         assert torch.equal(got[r:r + 1], want)
+
+
+# ------------------------------------------------ the tensor-core product scheme
+
+PRODUCT_TOL = 5e-5  # of the largest gradient: phase 14's and the card tests' bound
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_grads(d):
+    """bf16 q, k, v, do ([BH, T, D], one causal head pair at T 256), the
+    forward's lse and delta = rowsum(do * o), and the JAX package's
+    ``_flash_bwd`` on them in f32, in interpret mode as its own tests run
+    it: exact f32 P and dS in every product."""
+    q, k, v, do = _arrays(2, 256, 256, d, d, jnp.bfloat16)
+    scale = d ** -0.5
+    o, lse = jfa._flash_fwd(_j(q), _j(k), _j(v), scale, True, 64, 64, INTERPRET)
+    delta = jnp.sum(_j(do).astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
+    want = jfa._flash_bwd(_j(q), _j(k), _j(v), lse, delta, _j(do), scale, True, 64, 64,
+                          INTERPRET, out_dtype=jnp.float32)
+    return ((q, k, v, do), np.array(lse), np.array(delta),
+            dict(zip(("dq", "dk", "dv"), (np.array(w) for w in want))))
+
+
+def _tensor_core_products(q, k, v, do, lse, delta, scale, split):
+    """The bf16 K5/K6's arithmetic emulated in torch on the CPU, causal:
+    S = Q.K^T and dP = dO.V^T from bf16 values (every product exact in
+    f32) summed in f32; p = exp(S scale - lse) and ds = p (dP - delta)
+    scale in f32; then each accumulating product (dS.K, dS^T.Q, P^T.dO)
+    takes P or dS as a bf16 hi + lo pair (``split``) or rounded once to
+    bf16, against the bf16 operand, summed in f32."""
+    qf, kf, vf, dof = (_t(x)[:, :, 0].float() for x in (q, k, v, do))
+    lse, delta = torch.from_numpy(lse)[..., None], torch.from_numpy(delta)[..., None]
+    t = qf.shape[1]
+    keep = torch.ones(t, t, dtype=torch.bool).tril()
+    s = qf @ kf.transpose(-1, -2) * scale
+    p = torch.where(keep & (lse > NEG_INF / 2), torch.exp(s - lse), torch.zeros(()))
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * scale
+
+    def pieces(x):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+    prod = lambda x, y: sum(piece @ y for piece in pieces(x))
+    return {"dq": prod(ds, kf), "dk": prod(ds.transpose(-1, -2), qf),
+            "dv": prod(p.transpose(-1, -2), dof)}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("grad", ["dq", "dk", "dv"])
+def test_torch_flash_bwd_hi_lo_products_match_jax(grad, d):
+    """The tensor-core route's product scheme holds the JAX kernels' f32
+    semantics: P and dS entering dq += dS.K, dk += dS^T.Q and dv += P^T.dO
+    as a bf16 hi + lo pair stay within 5e-5 of the largest gradient of
+    ``_flash_bwd``; rounding them once to bf16 (FlashAttention-2's scheme)
+    does not, which is why the kernels take the extra product."""
+    (q, k, v, do), lse, delta, want = _jax_bf16_grads(d)
+    scale = d ** -0.5
+    bound = PRODUCT_TOL * float(np.abs(want[grad]).max())
+    split = _tensor_core_products(q, k, v, do, lse, delta, scale, split=True)[grad]
+    once = _tensor_core_products(q, k, v, do, lse, delta, scale, split=False)[grad]
+    err_split = float(np.abs(split.numpy() - want[grad]).max())
+    err_once = float(np.abs(once.numpy() - want[grad]).max())
+    assert err_split <= bound, (err_split, bound)
+    assert err_once > bound, (err_once, bound)
+
+
+def test_torch_flash_bwd_rows16_copies_only_misaligned_views():
+    """The bf16 backward kernels copy 16-byte row chunks: head splits of a
+    fused projection and [B, H, T, D] transposes pass as they are; a view
+    whose base or row stride breaks 16-byte alignment is copied."""
+    fa = importlib.import_module("ps_pytorch_tpu_torch.ops.flash_attention")
+    qkv = torch.arange(2 * 5 * 384, dtype=torch.float32).to(torch.bfloat16).view(2, 5, 384)
+    k = qkv[..., 128:256].reshape(2, 5, 4, 32)  # row stride 3 H D
+    assert fa._rows16(k) is k
+    t = torch.zeros(2, 4, 5, 32, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa._rows16(t) is t
+    for bad in (qkv.view(-1)[1:1 + 2 * 5 * 128].view(2, 5, 4, 32),  # base off by 2 bytes
+                qkv[..., :144].reshape(2, 5, 4, 36)[..., :32]):     # row stride 36
+        got = fa._rows16(bad)
+        assert got is not bad and got.data_ptr() % 16 == 0
+        assert all(got.stride(i) % 8 == 0 for i in range(3)) and torch.equal(got, bad)

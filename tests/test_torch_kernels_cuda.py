@@ -194,16 +194,25 @@ def test_torch_flash_kernel_matches_plain_on_card(cuda_device, b, t, h, d,
 
 def _assert_near(got, want, tol):
     """f32 sums in another order: the kernels sum keys (or queries) tile by
-    tile with an online rescale and scalar FMAs, the plain versions over
-    the whole row with matmuls. Held to ``tol`` of the result's largest
-    magnitude, elementwise."""
+    tile (K4 with an online rescale; K5/K6 on bf16 inputs with tensor-core
+    products that take P and dS as a bf16 hi + lo pair, on f32 inputs with
+    scalar FMAs), the plain versions over the whole row with matmuls. Held
+    to ``tol`` of the result's largest magnitude, elementwise."""
     want = want.float()
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol * scale)
 
 
-def _hop_inputs(b, tq, tk, h, d, dtype, seed, dev):
+def _hop_inputs(b, tq, tk, h, d, dtype, seed, dev, layout="dense"):
+    """q, k, v, do; ``layout="fused"`` gives head splits of fused
+    projections (q, k, v of one [B, T, 3 H D] tensor, do of a [B, T, 2 H
+    D] one: strided rows, no copy) and needs tq == tk."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "fused":
+        qkv = torch.randn((b, tq, 3 * h * d), generator=g, device=dev).to(dtype)
+        q, k, v = (a.reshape(b, tq, h, d) for a in qkv.split(h * d, dim=-1))
+        dd = torch.randn((b, tq, 2 * h * d), generator=g, device=dev).to(dtype)
+        return q, k, v, dd[..., h * d:].reshape(b, tq, h, d)
     mk = lambda t: torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
     return mk(tq), mk(tk), mk(tk), mk(tq)
 
@@ -218,21 +227,30 @@ def _offsets(kind, dev):
 
 
 FLASH_HOP_CASES = [
-    # b, tq, tk, h, d, dtype, causal, offsets
-    (8, 1024, 1024, 8, 64, torch.bfloat16, True, (0, 0)),  # LM-1, one hop
-    (2, 256, 256, 8, 64, torch.bfloat16, True, "ring"),    # stacked ring hop
-    (2, 256, 256, 8, 64, torch.float32, True, "ring"),
-    (1, 100, 77, 3, 32, torch.float32, True, (5, 30)),     # ragged, cut diagonal
-    (2, 64, 64, 2, 128, torch.float32, True, (0, 64)),     # whole hop masked
-    (2, 50, 70, 2, 64, torch.float32, False, (0, 0)),
+    # b, tq, tk, h, d, dtype, causal, offsets, layout
+    (8, 1024, 1024, 8, 64, torch.bfloat16, True, (0, 0), "dense"),  # LM-1, one hop
+    (2, 256, 256, 8, 64, torch.bfloat16, True, "ring", "dense"),    # stacked ring hop
+    (2, 256, 256, 8, 64, torch.float32, True, "ring", "dense"),
+    (1, 100, 77, 3, 32, torch.float32, True, (5, 30), "dense"),     # ragged, cut diagonal
+    (2, 64, 64, 2, 128, torch.float32, True, (0, 64), "dense"),     # whole hop masked
+    (2, 50, 70, 2, 64, torch.float32, False, (0, 0), "dense"),
+    # bf16: the tensor-core route of K5/K6 at every head dim and edge
+    (2, 192, 192, 4, 32, torch.bfloat16, True, (0, 0), "dense"),    # D = 32
+    (2, 160, 160, 2, 128, torch.bfloat16, True, (0, 0), "dense"),   # D = 128, ragged T
+    (1, 100, 77, 3, 64, torch.bfloat16, True, (5, 30), "dense"),    # ragged, cut diagonal
+    (2, 256, 256, 4, 128, torch.bfloat16, True, "ring", "dense"),   # stacked ring, D = 128
+    (2, 256, 256, 4, 32, torch.bfloat16, True, "ring", "dense"),    # stacked ring, D = 32
+    (2, 64, 64, 2, 128, torch.bfloat16, True, (0, 64), "dense"),    # whole hop masked
+    (2, 50, 70, 2, 32, torch.bfloat16, False, (0, 0), "dense"),
+    (2, 192, 192, 4, 64, torch.bfloat16, True, (0, 0), "fused"),    # strided head splits
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets", FLASH_HOP_CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets,layout", FLASH_HOP_CASES)
 def test_torch_flash_partial_kernel_matches_plain_on_card(cuda_device, b, tq, tk, h, d,
-                                                          dtype, causal, offsets):
-    q, k, v, _ = _hop_inputs(b, tq, tk, h, d, dtype, tq + d, cuda_device)
+                                                          dtype, causal, offsets, layout):
+    q, k, v, _ = _hop_inputs(b, tq, tk, h, d, dtype, tq + d, cuda_device, layout)
     q_off, k_off = _offsets(offsets, cuda_device)
     before = flash_partial.launches
     pv, m, l = flash_partial(q, k, v, causal, d ** -0.5, q_off, k_off)
@@ -251,15 +269,15 @@ def test_torch_flash_partial_kernel_matches_plain_on_card(cuda_device, b, tq, tk
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets", FLASH_HOP_CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets,layout", FLASH_HOP_CASES)
 @pytest.mark.parametrize("out", ["f32", "input"])
 def test_torch_flash_bwd_kernels_match_plain_on_card(cuda_device, b, tq, tk, h, d, dtype,
-                                                     causal, offsets, out):
+                                                     causal, offsets, layout, out):
     """K5 and K6 against flash_bwd_plain from the plain forward's final lse
     and delta; f32 outputs (ring hops) and input-dtype outputs (the
     single-device backward: bf16 outputs may differ by one bf16 ulp of
     the largest gradient). Two runs give the same bits (no atomics)."""
-    q, k, v, do = _hop_inputs(b, tq, tk, h, d, dtype, tk + d, cuda_device)
+    q, k, v, do = _hop_inputs(b, tq, tk, h, d, dtype, tk + d, cuda_device, layout)
     q_off, k_off = _offsets(offsets, cuda_device)
     scale = d ** -0.5
     o, lse = flash_fwd_plain(q, k, v, causal, scale, q_off=q_off, k_off=k_off)
@@ -279,6 +297,33 @@ def test_torch_flash_bwd_kernels_match_plain_on_card(cuda_device, b, tq, tk, h, 
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, g2), f"{name} changed between two runs"
         _assert_near(g, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq,tk,k_len,causal,offsets", [
+    (100, 90, 70, False, (0, 0)),    # keys past k_len masked mid-tile
+    (130, 130, 64, True, (20, 0)),   # k_len on a tile edge, a cut diagonal
+])
+def test_torch_flash_bwd_kernels_key_length_on_card(cuda_device, dtype, tq, tk, k_len,
+                                                    causal, offsets):
+    """K5 and K6 with the key-length mask (``k_len``, local key positions)
+    against flash_bwd_plain, from the plain forward's lse and delta under
+    the same mask; f32 outputs, the same tolerance and determinism."""
+    q, k, v, do = _hop_inputs(2, tq, tk, 4, 64, dtype, tq + k_len, cuda_device)
+    q_off, k_off = offsets
+    scale = 64 ** -0.5
+    o, lse = flash_fwd_plain(q, k, v, causal, scale, k_len, q_off, k_off)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, lse, delta, causal, scale, q_off, k_off, k_len)
+    got = flash_bwd(*args, out_dtype=torch.float32)
+    again = flash_bwd(*args, out_dtype=torch.float32)
+    want = flash_bwd_plain(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, g2), f"{name} changed between two runs"
+        _assert_near(g, w, 5e-5)
+    assert not got[1][:, k_len:].any() and not got[2][:, k_len:].any()
 
 
 @pytest.mark.cuda
