@@ -13,14 +13,18 @@ Phases, one line each:
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32 off;
 2. build every kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
    source, all at once; sm_90a), then count the tensor-core instructions
-   (HMMA / HGMMA, from ``cuobjdump -sass``) of each bf16 K5 / K6
-   instantiation (D 32, 64, 128; f32 and bf16 out; a zero fails the run)
-   beside ptxas's registers and spill bytes;
+   (HMMA / HGMMA, from ``cuobjdump -sass``) of each bf16 instantiation of
+   K4 (D 32, 64, 128; normalized and partial) and of K5 / K6 (D 32, 64,
+   128; f32 and bf16 out; a zero fails the run) beside ptxas's registers
+   and spill bytes;
 3. K1 quantize_rows vs its plain version, bit-exact, at the serving path's
    shapes (prefill write [1024, 64] bf16, decode write [64, 64] bf16) and a
    ragged [1001, 128] f32, timed with CUDA events;
 4. K4 flash_fwd vs its plain version at the prefill shape [1, 128, 8, 64]
-   (bf16 and f32, causal) and an odd T = 100, timed beside
+   (bf16 and f32, causal), at head dims 32 and 128 (bf16) and an odd
+   T = 100, twice (the same bits); timed with CUDA events and
+   ``torch.profiler``'s device time (which also shows the route: bf16 runs
+   ``flash_fwd_mma_kernel``, f32 ``flash_fwd_scalar_kernel``) beside
    ``scaled_dot_product_attention`` (the library yardstick, never called by
    the port) and its bound;
 5. serve: d512 x 6 bf16 model, flash prefill, int8 KV pool, 8 slots,
@@ -63,11 +67,11 @@ Phases, one line each:
    flash_bwd_dkv against their plain versions at the LM-1 attention shape
    [8, 1024, 8, 64] bf16 (one causal hop at offsets 0) and at an LM-ring
    hop [8, 2048, 8, 64] (four stacked shards x batch 2, per-shard offsets
-   of hop 3: one shard's keys all masked) in bf16 and f32; timed with CUDA
-   events and (K5, K6) with ``torch.profiler``'s device time, with their
-   bounds, and K5 + K6 beside aten's flash-attention backward (the library
-   yardstick, never called by the port: wall and device time) at LM-1 and
-   the bf16 ring hop;
+   of hop 3: one shard's keys all masked) in bf16 and f32, each twice (the
+   same bits); timed with CUDA events and ``torch.profiler``'s device time,
+   with their bounds; K4-partial beside aten's flash-attention forward and
+   K5 + K6 beside its backward (the library yardsticks, never called by the
+   port: wall and device time) at LM-1 and the bf16 ring hop;
 15. LM-1: the JAX bench's LM leg at full width (vocab 2048, d512, depth
    6, 8 heads, seq 1024, batch 8, bf16 block math over f32 params, remat,
    SGD lr 0.01 momentum 0.9) through ``cli.train_lm.main`` at (dp 1,
@@ -83,6 +87,13 @@ Phases, one line each:
 18. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
+
+    python3 chip_smoke.py --phases 4,14 [--package-root DIR]
+
+runs only the named flash kernel phases (4, 14), against the
+``ps_pytorch_tpu_torch`` package under DIR when given (another checkout:
+a parent commit timed in turns with this one on the same card), and
+prints their lines; no kernels line, no result line.
 """
 
 from __future__ import annotations
@@ -107,6 +118,9 @@ PEAK_OPS_PER_S = {                 # H100 SXM dense peaks (f32: CUDA cores)
     torch.int8: 1979e12,
 }
 ITERS = 200
+# set by --package-root: the package timed is another checkout's, whose
+# kernels may bear other names than this one's routes
+OTHER_TREE = False
 
 
 class SmokeError(RuntimeError):
@@ -154,17 +168,20 @@ def device_ms(fn, iters: int = 10) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     seen = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            rec = seen.setdefault(evt.name[:80], [0, 0.0])
-            rec[0] += 1
-            rec[1] += evt.time_range.elapsed_us() / 1e3
-    require(bool(seen), "profiler: no device time recorded")
+    for _ in range(3):  # a trace may come back with no device events: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                rec = seen.setdefault(evt.name[:80], [0, 0.0])
+                rec[0] += 1
+                rec[1] += evt.time_range.elapsed_us() / 1e3
+        if seen:
+            break
+    require(bool(seen), "profiler: no device time recorded in three traces")
     by_name = {k: t / n * max(1, round(n / iters)) for k, (n, t) in seen.items()}
     return sum(by_name.values()), by_name
 
@@ -175,16 +192,25 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the tensor-core instantiations of K5 / K6: (kernel, D, output type)
-MMA_KERNELS = [(k, d, out) for k in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")
-               for d in (32, 64, 128) for out in ("f32", "bf16")]
-_MANGLED = re.compile(r"(flash_d(?:q|kv)_mma_kernel)ILi(\d+)E(?:Li\d+E)?(f|13__nv_bfloat16)E")
+# the tensor-core instantiations: (kernel, D, variant), K4 by entry and K5
+# / K6 by output type
+MMA_KERNELS = ([("flash_fwd_mma_kernel", d, f"normalize={n}")
+                for d in (32, 64, 128) for n in ("true", "false")]
+               + [(k, d, f"out={out}")
+                  for k in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")
+                  for d in (32, 64, 128) for out in ("f32", "bf16")])
+_MANGLED_FWD = re.compile(r"(flash_fwd_mma_kernel)ILi(\d+)ELb([01])E")
+_MANGLED_BWD = re.compile(r"(flash_d(?:q|kv)_mma_kernel)ILi(\d+)E(?:Li\d+E)?(f|13__nv_bfloat16)E")
 
 
 def _instantiation(mangled: str):
-    m = _MANGLED.search(mangled)
+    m = _MANGLED_FWD.search(mangled)
+    if m is not None:
+        return (m.group(1), int(m.group(2)),
+                "normalize=" + ("true" if m.group(3) == "1" else "false"))
+    m = _MANGLED_BWD.search(mangled)
     return None if m is None else (m.group(1), int(m.group(2)),
-                                   "f32" if m.group(3) == "f" else "bf16")
+                                   "out=" + ("f32" if m.group(3) == "f" else "bf16"))
 
 
 def _cuobjdump(nvcc: str) -> str:
@@ -197,8 +223,8 @@ def _cuobjdump(nvcc: str) -> str:
 
 
 def tensor_core_counts(lib_path: str, nvcc: str) -> dict:
-    """Tensor-core instructions (HMMA / HGMMA) in the SASS of each K5 / K6
-    tensor-core instantiation of the built library."""
+    """Tensor-core instructions (HMMA / HGMMA) in the SASS of each K4 / K5
+    / K6 tensor-core instantiation of the built library."""
     sass = subprocess.run([_cuobjdump(nvcc), "-sass", lib_path], stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True, check=True).stdout
     counts, current = {}, None
@@ -213,7 +239,7 @@ def tensor_core_counts(lib_path: str, nvcc: str) -> dict:
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes ptxas reported for each K5 / K6
+    """Registers and spill bytes ptxas reported for each K4 / K5 / K6
     tensor-core instantiation (``-Xptxas -v`` in the build's log)."""
     out, current = {}, None
     for line in log.splitlines():
@@ -235,8 +261,8 @@ def ptxas_report(log: str) -> dict:
 
 def phase_build() -> dict:
     """Phase 2: build every kernel, then read the tensor-core instruction
-    count of each bf16 K5 / K6 instantiation from the library's SASS (a
-    zero fails the run) and ptxas's registers and spills."""
+    count of each bf16 K4 / K5 / K6 instantiation from the library's SASS
+    (a zero fails the run) and ptxas's registers and spills."""
     from ps_pytorch_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -247,13 +273,13 @@ def phase_build() -> dict:
     regs = ptxas_report(_build.build_log())
     rec = {}
     for key in MMA_KERNELS:
-        name = f"{key[0]}<D={key[1]}, out={key[2]}>"
+        name = f"{key[0]}<D={key[1]}, {key[2]}>"
         require(counts.get(key, 0) > 0,
                 f"build: {name} has {counts.get(key, 0)} HMMA/HGMMA instructions")
         rec[name] = {"tensor_core_instructions": counts[key], **regs.get(key, {})}
     print(f"phase 2 build: {seconds:.1f} s "
           f"({', '.join(os.path.basename(s) for s in _build.sources())} -> "
-          f"{os.path.relpath(lib)}); K5/K6 bf16 SASS: " + json.dumps(rec))
+          f"{os.path.relpath(lib)}); K4/K5/K6 bf16 SASS: " + json.dumps(rec))
     return rec
 
 
@@ -292,21 +318,45 @@ def _qkv(b, t, h, d, dt, g, dev):
     return [a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1)]
 
 
+# K4's kernel for each input type: the route is chosen by dtype, with no
+# fallback from one to the other
+K4_ROUTE = {torch.bfloat16: "flash_fwd_mma_kernel", torch.float32: "flash_fwd_scalar_kernel"}
+
+
+def _device_route(what: str, fn, dt) -> tuple:
+    """K4's own device time per call of ``fn`` (a K4 entry) and every
+    kernel the call ran (tensor offsets add the small copies that build
+    their device table); fails unless the one K4 kernel among them is the
+    kernel of ``dt``'s route."""
+    _, by_name = device_ms(fn)
+    k4 = [name for name in by_name if "flash_fwd" in name]
+    require(len(k4) == 1 and (OTHER_TREE or K4_ROUTE[dt] in k4[0]),
+            f"{what}: ran {sorted(by_name)}, expected one {K4_ROUTE[dt]}")
+    return by_name[k4[0]], sorted(by_name)
+
+
 def phase_k4(flash_fwd, flash_fwd_plain, dev) -> dict:
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(2)
-    cases = [("prefill_bf16", 128, torch.bfloat16, True, 2e-2, 1e-2),
-             ("prefill_f32", 128, torch.float32, True, 1e-5, 0.0),
-             ("odd_t100_f32_causal", 100, torch.float32, True, 1e-5, 0.0),
-             ("odd_t100_f32", 100, torch.float32, False, 1e-5, 0.0)]
-    b, h, d = 1, 8, 64
+    # name, T, D, dtype, causal, atol, rtol
+    cases = [("prefill_bf16", 128, 64, torch.bfloat16, True, 2e-2, 1e-2),
+             ("prefill_f32", 128, 64, torch.float32, True, 1e-5, 0.0),
+             ("odd_t100_f32_causal", 100, 64, torch.float32, True, 1e-5, 0.0),
+             ("odd_t100_f32", 100, 64, torch.float32, False, 1e-5, 0.0),
+             ("prefill_bf16_d32", 128, 32, torch.bfloat16, True, 2e-2, 1e-2),
+             ("prefill_bf16_d128", 128, 128, torch.bfloat16, True, 2e-2, 1e-2),
+             ("odd_t100_bf16_causal", 100, 64, torch.bfloat16, True, 2e-2, 1e-2)]
+    b, h = 1, 8
     out = {}
-    for name, t, dt, causal, atol, rtol in cases:
+    for name, t, d, dt, causal, atol, rtol in cases:
         q, k, v = _qkv(b, t, h, d, dt, g, dev)
         o, lse = flash_fwd(q, k, v, causal=causal)
+        o2, lse2 = flash_fwd(q, k, v, causal=causal)
         op, lsep = flash_fwd_plain(q, k, v, causal, 1.0 / d ** 0.5)
         torch.cuda.synchronize()
+        require(torch.equal(o, o2) and torch.equal(lse, lse2),
+                f"K4 {name}: changed between two runs")
         err = (o.float() - op.float()).abs()
         lim = atol + rtol * op.float().abs()
         require(bool((err <= lim).all()), f"K4 {name}: o off by {float(err.max())}")
@@ -317,15 +367,17 @@ def phase_k4(flash_fwd, flash_fwd_plain, dev) -> dict:
         n_bytes = 4 * b * t * h * d * q.element_size() + b * h * t * 4
         b_ms, b_by = bound_ms(n_bytes, 4.0 * d * pairs * h * b, dt)
         qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+        kernel = lambda: flash_fwd(q, k, v, causal=causal)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+        dev_ms, kernels = _device_route(f"K4 {name}", kernel, dt)
         rec = {
             "shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
             "causal": causal, "max_abs_err": float(err.max()),
             "lse_max_abs_err": lse_err,
-            "ms": time_ms(lambda: flash_fwd(q, k, v, causal=causal)),
+            "ms": time_ms(kernel), "device_ms": dev_ms, "device_kernels": kernels,
             "plain_ms": time_ms(
                 lambda: flash_fwd_plain(q, k, v, causal, 1.0 / d ** 0.5)),
-            "library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)),
+            "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa)[0],
             "bound_ms": b_ms, "bound_by": b_by,
         }
         out[name] = rec
@@ -915,6 +967,7 @@ def phase_flash_train_kernels(dev) -> dict:
         q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(dt)
                        for _ in range(4))
         pv, m, l = flash_partial(q, k, v, True, scale, q_off, k_off)
+        again = flash_partial(q, k, v, True, scale, q_off, k_off)
         pvp, mp, lp = flash_partial_plain(q, k, v, True, scale, q_off, k_off)
         o, lse = flash_fwd_plain(q, k, v, True, scale, q_off=q_off, k_off=k_off)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -930,6 +983,8 @@ def phase_flash_train_kernels(dev) -> dict:
             ("dq", dq, want[0], 5e-5), ("dk", dk, want[1], 5e-5), ("dv", dv, want[2], 5e-5))}
         require(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: K5/K6 changed between two runs")
+        require(all(torch.equal(x, y) for x, y in zip((pv, m, l), again)),
+                f"{name}: K4-partial changed between two runs")
         pairs = kept_pairs(b, h, t, t, True, q_off, k_off)
         elt, act = q.element_size(), b * t * h * d
         stat = b * h * t * 4
@@ -944,8 +999,10 @@ def phase_flash_train_kernels(dev) -> dict:
         iters, plain_iters = (ITERS, 20) if t <= 1024 else (50, 10)
         rec = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
                "kept_pairs": pairs, "max_abs_err": errs}
+        partial = lambda: flash_partial(q, k, v, True, scale, q_off, k_off)
+        dev_ms, kernels = _device_route(f"{name} K4-partial", partial, dt)
         rec["partial"] = {
-            "ms": time_ms(lambda: flash_partial(q, k, v, True, scale, q_off, k_off), iters),
+            "ms": time_ms(partial, iters), "device_ms": dev_ms, "device_kernels": kernels,
             "plain_ms": time_ms(lambda: flash_partial_plain(q, k, v, True, scale, q_off,
                                                             k_off), iters=plain_iters),
             "bound_ms": bounds["partial"][0], "bound_by": bounds["partial"][1],
@@ -964,11 +1021,18 @@ def phase_flash_train_kernels(dev) -> dict:
             rec[part]["device_ms"] = device_ms(fn)[0]
         library = None
         if dt == torch.bfloat16:
-            # aten's flash-attention backward for the same (dq, dk, dv), K5
-            # and K6 together: causal at LM-1's offsets 0; on the ring hop
-            # non-causal over the six rows whose shards keep every key (the
-            # two of shard 0 keep none and get zeros)
+            # aten's flash attention for the same work: causal at LM-1's
+            # offsets 0; on the ring hop non-causal over the six rows whose
+            # shards keep every key (the two of shard 0 keep none and get
+            # zeros). Its forward returns (o, logsumexp), the same softmax
+            # work as K4's triple; its backward gives (dq, dk, dv), K5 and
+            # K6 together.
             rows = slice(None) if name == "lm1_bf16" else slice(2, None)
+            fwd_args = [x[rows].transpose(1, 2) for x in (q, k, v)]
+            aten_fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                *fwd_args, dropout_p=0.0, is_causal=name == "lm1_bf16", scale=scale)
+            rec["partial"]["library_ms"] = time_ms(aten_fwd, iters)
+            rec["partial"]["library_device_ms"] = device_ms(aten_fwd)[0]
             qh, kh, vh = (x[rows].transpose(1, 2).detach().requires_grad_(True)
                           for x in (q, k, v))
             oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=name == "lm1_bf16")
@@ -1085,10 +1149,20 @@ def phase_lm_held(dev) -> dict:
 
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global OTHER_TREE
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated flash kernel phases to run alone (4, 14)")
+    ap.add_argument("--package-root", default=None,
+                    help="directory holding the ps_pytorch_tpu_torch package to time")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.package_root is not None:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+        OTHER_TREE = True
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
     from ps_pytorch_tpu_torch.ops.quantize import quantize_rows, quantize_rows_plain
 
@@ -1102,6 +1176,17 @@ def main() -> int:
     print(smi)
     print(f"phase 1 device: {card} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | tf32 off")
+
+    if args.phases is not None:
+        import ps_pytorch_tpu_torch
+
+        print(f"package: {os.path.dirname(os.path.abspath(ps_pytorch_tpu_torch.__file__))}")
+        alone = {4: lambda: phase_k4(flash_fwd, flash_fwd_plain, dev),
+                 14: lambda: phase_flash_train_kernels(dev)}
+        for n in (int(x) for x in args.phases.split(",")):
+            require(n in alone, f"--phases: {n} is not one of {sorted(alone)}")
+            alone[n]()
+        return 0
 
     phase_build()
 

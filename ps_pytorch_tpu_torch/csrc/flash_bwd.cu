@@ -31,8 +31,8 @@
 // 0.104 ms at the bf16 tensor-core peak. Two routes, chosen by dtype:
 //
 // * bf16 inputs (both LM cells, the Ulysses path, flash_attention's VJP):
-//   the tensor-core kernels flash_dq_mma_kernel / flash_dkv_mma_kernel.
-//   Tiles stay bf16 in shared memory (rows padded by 16 bytes, so the 8
+//   the tensor-core kernels flash_dq_mma_kernel / flash_dkv_mma_kernel,
+//   built from flash_mma.cuh (shared with K4's forward). Tiles stay bf16 in shared memory (rows padded by 16 bytes, so the 8
 //   rows an ldmatrix phase reads fall in 8 different bank groups), filled
 //   by cp.async 16-byte copies, the visiting tile double-buffered so the
 //   next one loads while this one computes. Each warp owns 16 rows of the
@@ -56,10 +56,20 @@
 //   FMAs on the CUDA cores, one warp per row of the block's own tile and
 //   one lane per row of the visiting tile.
 #include "flash_mask.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using ps::bf16;
+using ps::cp_async4;
+using ps::cp_async_commit;
+using ps::cp_async_wait;
+using ps::gemm_abt;
+using ps::gemm_split_ab;
+using ps::kPad;
+using ps::load_rows;
+using ps::rows_aligned;
+using ps::store2;
 
 constexpr int kBQ = 64;   // query rows per tile (K6 at D = 128: 32)
 constexpr int kBK = 64;   // keys per tile
@@ -95,14 +105,6 @@ __device__ __forceinline__ const T* head_ptr(const void* base, const long long* 
 template <typename T>
 __device__ __forceinline__ T* out_ptr(void* base, const long long* st, int b, int h) {
   return static_cast<T*>(base) + b * st[0] + h * st[2];
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // ---------------------------------------------------------------------------
@@ -319,83 +321,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_scalar_kernel(BwdArgs a) {
 // ---------------------------------------------------------------------------
 // bf16 inputs: the tensor-core kernels.
 
-constexpr int kPad = 8;  // bf16 per smem row past D: 16 bytes
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without passing through registers; with
-// src_bytes = 0 nothing is read and the 16 bytes are zeroed.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16). Fragments, for
-// g = lane / 4 and t = lane % 4: c[0..1] = (row g, cols 2t, 2t+1), c[2..3]
-// = (row g + 8, the same cols); a[0] = (row g, cols 2t, 2t+1), a[1] = (row
-// g + 8, ...), a[2] / a[3] the same 8 columns on; b[0] = (rows 2t, 2t+1,
-// col g), b[1] = (rows 2t + 8, 2t + 9, col g).
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values as a bf16 pair hi = bf16(x) (round to nearest even) and
-// the rest lo = bf16(x - hi): hi + lo carries x to about 2^-16 of |x|.
-__device__ __forceinline__ void split2(float x, float y, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = *reinterpret_cast<const unsigned*>(&l);
-}
-
-// Rows [r0, r0 + ROWS) of a [T, D] bf16 head slice (row stride st) into
-// shared rows of pitch D + kPad, 16 bytes a copy; rows past T are zeroed.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long st,
-                                          int r0, int T_len) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks, t = r0 + r;
-    const bf16* g = src + (long long)(t < T_len ? t : 0) * st + c * 8;
-    cp_async16(dst + r * (D + kPad) + c * 8, g, t < T_len ? 16 : 0);
-  }
-}
-
 // The [ROWS] f32 statistics of rows [r0, r0 + ROWS) into shared memory:
 // lse and delta, with NEG_INF and 0 past Tq (the lse guard then zeroes p).
 template <int ROWS>
@@ -409,54 +334,6 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* delta_s, const f
     } else {
       lse_s[i] = ps::kNegInf;
       delta_s[i] = 0.0f;
-    }
-  }
-}
-
-// acc (16 x N as N / 8 fragments) += A (16 x KD) . B^T, B N x KD; A and B
-// row-major bf16 in shared memory, pitch P.
-template <int N, int KD, int P>
-__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], const bf16* a,
-                                         const bf16* b, int lane) {
-#pragma unroll
-  for (int k = 0; k < KD; k += 16) {
-    unsigned af[4];
-    ldsm4(af, a + (lane % 16) * P + k + (lane / 16) * 8);
-#pragma unroll
-    for (int n = 0; n < N; n += 16) {
-      unsigned bf[4];
-      ldsm4(bf, b + (n + lane % 8 + (lane / 16) * 8) * P + k + (lane / 8 % 2) * 8);
-      mma16816(acc[n / 8], af, bf[0], bf[1]);
-      mma16816(acc[n / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x D as D / 8 fragments) += X . B, X the f32 16 x N fragments a
-// gemm_abt left (its C layout is the A layout of the next product), B
-// N x D row-major bf16 in shared memory, pitch P. X enters as hi + lo:
-// two products into the same accumulator.
-template <int N, int D, int P>
-__device__ __forceinline__ void gemm_split_ab(float (&acc)[D / 8][4],
-                                              const float (&x)[N / 8][4],
-                                              const bf16* b, int lane) {
-#pragma unroll
-  for (int k = 0; k < N; k += 16) {
-    unsigned hi[4], lo[4];
-    const float* c0 = x[k / 8];
-    const float* c1 = x[k / 8 + 1];
-    split2(c0[0], c0[1], hi[0], lo[0]);
-    split2(c0[2], c0[3], hi[1], lo[1]);
-    split2(c1[0], c1[1], hi[2], lo[2]);
-    split2(c1[2], c1[3], hi[3], lo[3]);
-#pragma unroll
-    for (int n = 0; n < D; n += 16) {
-      unsigned bf[4];
-      ldsm4_t(bf, b + (k + lane % 16) * P + n + (lane / 16) * 8);
-      mma16816(acc[n / 8], hi, bf[0], bf[1]);
-      mma16816(acc[n / 8 + 1], hi, bf[2], bf[3]);
-      mma16816(acc[n / 8], lo, bf[0], bf[1]);
-      mma16816(acc[n / 8 + 1], lo, bf[2], bf[3]);
     }
   }
 }
@@ -498,11 +375,12 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
   const bf16* vp = head_ptr<bf16>(a.v, a.sv, b, h);
   const int n_kt = (ps::key_limit(mask, min(q0 + kBQ, a.Tq)) + kBK - 1) / kBK;
 
-  load_rows<D, kBQ>(qs, head_ptr<bf16>(a.q, a.sq, b, h), a.sq[1], q0, a.Tq);
-  load_rows<D, kBQ>(dos, head_ptr<bf16>(a.dout, a.sdo, b, h), a.sdo[1], q0, a.Tq);
+  load_rows<D, kBQ, kThreads>(qs, head_ptr<bf16>(a.q, a.sq, b, h), a.sq[1], q0, a.Tq);
+  load_rows<D, kBQ, kThreads>(dos, head_ptr<bf16>(a.dout, a.sdo, b, h), a.sdo[1], q0,
+                              a.Tq);
   if (n_kt > 0) {
-    load_rows<D, kBK>(ks, kp, a.sk[1], 0, a.Tk);
-    load_rows<D, kBK>(vs, vp, a.sv[1], 0, a.Tk);
+    load_rows<D, kBK, kThreads>(ks, kp, a.sk[1], 0, a.Tk);
+    load_rows<D, kBK, kThreads>(vs, vp, a.sv[1], 0, a.Tk);
   }
   cp_async_commit();
 
@@ -524,8 +402,9 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
     const bf16* kst = ks + (kt & 1) * kBK * P;
     const bf16* vst = vs + (kt & 1) * kBK * P;
     if (kt + 1 < n_kt) {  // the next tile loads while this one computes
-      load_rows<D, kBK>(ks + ((kt + 1) & 1) * kBK * P, kp, a.sk[1], k0 + kBK, a.Tk);
-      load_rows<D, kBK>(vs + ((kt + 1) & 1) * kBK * P, vp, a.sv[1], k0 + kBK, a.Tk);
+      const int nx = ((kt + 1) & 1) * kBK * P;
+      load_rows<D, kBK, kThreads>(ks + nx, kp, a.sk[1], k0 + kBK, a.Tk);
+      load_rows<D, kBK, kThreads>(vs + nx, vp, a.sv[1], k0 + kBK, a.Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -594,11 +473,11 @@ __global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
   const int qt0 = ps::first_query(mask, k0, a.Tq) / BQ;
   const int n_qt = (a.Tq + BQ - 1) / BQ;
 
-  load_rows<D, kBK>(ks, head_ptr<bf16>(a.k, a.sk, b, h), a.sk[1], k0, a.Tk);
-  load_rows<D, kBK>(vs, head_ptr<bf16>(a.v, a.sv, b, h), a.sv[1], k0, a.Tk);
+  load_rows<D, kBK, kThreads>(ks, head_ptr<bf16>(a.k, a.sk, b, h), a.sk[1], k0, a.Tk);
+  load_rows<D, kBK, kThreads>(vs, head_ptr<bf16>(a.v, a.sv, b, h), a.sv[1], k0, a.Tk);
   if (qt0 < n_qt) {
-    load_rows<D, BQ>(qs, qp, a.sq[1], qt0 * BQ, a.Tq);
-    load_rows<D, BQ>(dos, dop, a.sdo[1], qt0 * BQ, a.Tq);
+    load_rows<D, BQ, kThreads>(qs, qp, a.sq[1], qt0 * BQ, a.Tq);
+    load_rows<D, BQ, kThreads>(dos, dop, a.sdo[1], qt0 * BQ, a.Tq);
     load_stats<BQ>(lse_s, delta_s, lse, delta, qt0 * BQ, a.Tq);
   }
   cp_async_commit();
@@ -616,8 +495,8 @@ __global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
     const float* delta_t = delta_s + st * BQ;
     if (qt + 1 < n_qt) {  // the next tile loads while this one computes
       const int nx = (st ^ 1) * BQ;
-      load_rows<D, BQ>(qs + nx * P, qp, a.sq[1], q0 + BQ, a.Tq);
-      load_rows<D, BQ>(dos + nx * P, dop, a.sdo[1], q0 + BQ, a.Tq);
+      load_rows<D, BQ, kThreads>(qs + nx * P, qp, a.sq[1], q0 + BQ, a.Tq);
+      load_rows<D, BQ, kThreads>(dos + nx * P, dop, a.sdo[1], q0 + BQ, a.Tq);
       load_stats<BQ>(lse_s + nx, delta_s + nx, lse, delta, q0 + BQ, a.Tq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -743,13 +622,6 @@ int launch_scalar_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
     case 128: return launch_scalar<128>(a, B, dq, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// The tensor-core route copies 16-byte chunks and stores output pairs:
-// every row of q, k, v, do and of the outputs starts on a 16-byte boundary.
-bool rows_aligned(const void* p, const long long* st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st[0] % 8 == 0 &&
-         st[1] % 8 == 0 && st[2] % 8 == 0;
 }
 
 int dispatch(const BwdArgs& a, int dtype, int out_f32, int B, int D, bool dq,

@@ -11,10 +11,13 @@ plain versions; CUDA tensors launch the kernel or raise.
   ring hop's unnormalized triple (pv, m, l) in f32;
 - ``flash_bwd`` — K5 ``flash_bwd_dq`` and K6 ``flash_bwd_dkv``
   (``csrc/flash_bwd.cu``): (dq, dk, dv) from the final lse and delta,
-  in f32 (``flash_grads_partial``, ring hops) or the input dtype. bf16
-  inputs run on the tensor cores (``mma.sync``, P and dS entering the
-  accumulating products as a bf16 hi + lo pair), f32 inputs on the
-  CUDA cores.
+  in f32 (``flash_grads_partial``, ring hops) or the input dtype.
+
+bf16 inputs run all three on the tensor cores (``mma.sync``, with P and
+dS entering the accumulating products as a bf16 hi + lo pair, so the
+results keep the TPU kernels' f32 products), f32 inputs on the CUDA
+cores: an explicit choice by dtype in the C entry points, with no
+fallback from one route to the other.
 
 All keep the TPU kernels' semantics: f32 scores, f32 softmax statistics
 whatever the input dtype, the finite ``NEG_INF`` and the guards for rows
@@ -155,7 +158,7 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the tensor-core backward kernels (bf16) read it: unit last
+    """``x`` as the tensor-core kernels (bf16 K4-K6) read it: unit last
     stride and every ``[D]`` row on a 16-byte boundary (base address and
     batch, time, head strides), since their ``cp.async`` copies move 16
     bytes. Head splits of a fused projection pass as they are; any other
@@ -165,6 +168,12 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16 == 0 and all(x.stride(i) % step == 0 for i in range(3)):
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def _kernel_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as its route reads it: bf16 goes to the tensor-core kernels
+    (``_rows16``), f32 to the scalar ones (unit last stride)."""
+    return _rows16(x) if x.dtype == torch.bfloat16 else _unit_last(x)
 
 
 def _stats(x: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
@@ -198,7 +207,7 @@ def _launch_fwd(q, k, v, causal, scale, k_len, q_off, k_off, normalize: bool):
     from . import _build
 
     _check_cuda("flash_fwd", q, k, v)
-    q, k, v = (_unit_last(x) for x in (q, k, v))
+    q, k, v = (_kernel_view(x) for x in (q, k, v))
     b, tq, h, d = q.shape
     tk = k.shape[1]
     o = torch.empty((b, tq, h, d), dtype=q.dtype if normalize else torch.float32,
@@ -235,8 +244,9 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
     bytes (q/k/v/o read and written once); one block per (batch*head,
     64-row q tile) loops over 64-key tiles staged in shared memory,
     reading ``[B, T, H, D]`` through strides (no fold copies) and masking
-    ragged tiles itself. A CPU tensor runs ``flash_fwd_plain``; a CUDA
-    tensor launches the kernel or raises."""
+    ragged tiles itself. bf16 inputs take the tensor-core kernel (rows
+    16-byte aligned: ``_rows16``), f32 the scalar one. A CPU tensor runs
+    ``flash_fwd_plain``; a CUDA tensor launches the kernel or raises."""
     _check_inputs(q, k, v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -259,8 +269,9 @@ def flash_partial(q, k, v, causal: bool, scale: float, q_off: Offset = 0,
     flash_attention.py:483). ``q_off`` / ``k_off`` are the shards' global
     offsets, per batch row when tensors: one launch serves every stacked
     shard of a hop. Bound on the H100: bytes (q/k/v in, the f32 triple
-    out). Any shard lengths: ragged tiles are masked in the kernel (the
-    JAX wrapper pads to the block grid instead, with the same result)."""
+    out). bf16 inputs take the tensor-core kernel, f32 the scalar one.
+    Any shard lengths: ragged tiles are masked in the kernel (the JAX
+    wrapper pads to the block grid instead, with the same result)."""
     _check_inputs(q, k, v)
     if not q.is_cuda:
         return flash_partial_plain(q, k, v, causal, scale, q_off, k_off, k_len)
@@ -277,9 +288,7 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, scale, q_off, k_off, k_len,
     _check_cuda("flash_bwd", q, k, v, do, lse, delta)
     if do.dtype != q.dtype:
         raise TypeError(f"flash_bwd: do in {do.dtype} for {q.dtype} inputs")
-    # bf16 takes the tensor-core kernels, f32 the scalar ones (flash_bwd.cu)
-    rows = _rows16 if q.dtype == torch.bfloat16 else _unit_last
-    q, k, v, do = (rows(x) for x in (q, k, v, do))
+    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
     b, tq, h, d = q.shape
     tk = k.shape[1]
     out_dtype = out_dtype or q.dtype

@@ -11,7 +11,7 @@ Prints one JSON line: the card (nvidia-smi name and power limit) and, per
 window, the wall time, the device's busy time and idle share (summed CUDA
 kernel time over wall time; one stream, so kernels do not overlap), the
 per-tick wall and device times, the device time of the two port kernels
-(K1 ``quantize_rows_kernel``, K4 ``flash_fwd_kernel``) and the top CUDA
+(K1 ``quantize_rows_kernel``, K4 ``flash_fwd_*_kernel``) and the top CUDA
 kernels by device time. Needs a CUDA card.
 """
 
@@ -68,7 +68,7 @@ def _window(step, n: int) -> dict:
         "device_ms_per_tick": busy_s / n * 1e3,
         "cuda_kernel_launches": sum(c for c, _ in kernels.values()),
         "K1_quantize_rows": port("quantize_rows_kernel"),
-        "K4_flash_fwd": port("flash_fwd_kernel"),
+        "K4_flash_fwd": port("flash_fwd_"),  # both routes: mma and scalar
         "top_kernels": [{"name": k[:90], "count": c, "device_s": t}
                         for k, (c, t) in top],
     }

@@ -30,9 +30,10 @@ import time
 import numpy as np
 import torch
 
-# substrings of CUDA kernel names, checked in this order
+# substrings of CUDA kernel names (each port kernel by its prefix, which
+# both routes share: flash_fwd_{mma,scalar}_kernel, ...), checked in this order
 CATEGORIES = (
-    ("K4 flash_fwd / flash_partial", ("flash_fwd_kernel",)),
+    ("K4 flash_fwd / flash_partial", ("flash_fwd_",)),
     ("K5 flash_bwd_dq", ("flash_dq_",)),
     ("K6 flash_bwd_dkv", ("flash_dkv_",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
@@ -42,7 +43,7 @@ CATEGORIES = (
     ("casts and copies", ("copy_kernel",)),
 )
 
-PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_", "flash_dkv_")
+PORT_KERNELS = ("flash_fwd_", "flash_dq_", "flash_dkv_")
 
 
 def _card() -> str:

@@ -164,32 +164,59 @@ def test_torch_quantize_rows_scaled_kernel_bit_exact_on_card(cuda_device, worker
         assert q[2, :6].tolist() == [127, 2, -4, 0, 0, 2]
 
 
+def _attn_inputs(b, t, h, d, dtype, seed, dev, layout):
+    """q, k, v ``[B, T, H, D]``: ``"fused"`` head splits of one [B, T, 3 H
+    D] projection (strided rows, no copy), ``"dense"`` contiguous tensors,
+    ``"misaligned"`` views whose base lies 2 or 4 bytes past a 16-byte
+    boundary (the bf16 route copies them first: ``_rows16``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "fused":
+        qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
+        return [a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1)]
+    n = b * t * h * d
+    flat = torch.randn((3 * n + 1,), generator=g, device=dev).to(dtype)
+    off = 1 if layout == "misaligned" else 0
+    return [flat[off + i * n:off + (i + 1) * n].view(b, t, h, d) for i in range(3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,d,dtype,causal,kw", [
-    (1, 128, 8, 64, torch.bfloat16, True, {}),   # the serving prefill shape
-    (1, 128, 8, 64, torch.float32, True, {}),
-    (1, 100, 8, 64, torch.float32, True, {}),
-    (2, 100, 4, 32, torch.float32, False, {}),
-    (1, 200, 2, 128, torch.float32, True, {}),
-    (1, 77, 3, 64, torch.float32, True, {"q_off": 5, "k_off": 30, "k_len": 60}),
+@pytest.mark.parametrize("b,t,h,d,dtype,causal,kw,layout", [
+    (1, 128, 8, 64, torch.bfloat16, True, {}, "fused"),   # the serving prefill shape
+    (1, 128, 8, 64, torch.float32, True, {}, "fused"),
+    (1, 100, 8, 64, torch.float32, True, {}, "fused"),
+    (2, 100, 4, 32, torch.float32, False, {}, "fused"),
+    (1, 200, 2, 128, torch.float32, True, {}, "fused"),
+    (1, 77, 3, 64, torch.float32, True, {"q_off": 5, "k_off": 30, "k_len": 60}, "fused"),
+    # bf16: the tensor-core route at every head dim and edge
+    (1, 128, 8, 32, torch.bfloat16, True, {}, "fused"),   # D = 32
+    (1, 200, 2, 128, torch.bfloat16, True, {}, "fused"),  # D = 128, ragged T
+    (2, 100, 4, 64, torch.bfloat16, True, {}, "dense"),   # ragged T
+    (2, 100, 4, 32, torch.bfloat16, False, {}, "dense"),
+    (1, 77, 3, 64, torch.bfloat16, True, {"q_off": 5, "k_off": 30, "k_len": 60}, "fused"),
+    (1, 64, 2, 64, torch.bfloat16, True, {"q_off": 0, "k_off": 64}, "dense"),  # all masked
+    (2, 130, 4, 64, torch.bfloat16, True, {}, "misaligned"),
 ])
 def test_torch_flash_kernel_matches_plain_on_card(cuda_device, b, t, h, d,
-                                                  dtype, causal, kw):
-    g = torch.Generator(device=cuda_device).manual_seed(t + d)
-    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=cuda_device).to(dtype)
-    q, k, v = (a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1))
+                                                  dtype, causal, kw, layout):
+    """K4 normalized against flash_fwd_plain; two runs give the same bits
+    (no atomics)."""
+    q, k, v = _attn_inputs(b, t, h, d, dtype, t + d, cuda_device, layout)
     before = flash_fwd.launches
     o, lse = flash_fwd(q, k, v, causal=causal, **kw)
+    o2, lse2 = flash_fwd(q, k, v, causal=causal, **kw)
     op, lsep = flash_fwd_plain(q, k, v, causal, d ** -0.5, **kw)
     torch.cuda.synchronize()
-    assert flash_fwd.launches == before + 1
+    assert flash_fwd.launches == before + 2
     assert o.dtype == dtype and o.shape == (b, t, h, d)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "changed between two runs"
     if dtype == torch.bfloat16:
         torch.testing.assert_close(o.float(), op.float(), atol=2e-2, rtol=1e-2)
         torch.testing.assert_close(lse, lsep, atol=1e-4, rtol=0)
     else:
         torch.testing.assert_close(o, op, atol=1e-5, rtol=0)
         torch.testing.assert_close(lse, lsep, atol=1e-5, rtol=0)
+    if kw.get("k_off") == 64:  # every key masked: o = 0, lse = NEG_INF
+        assert not o.any() and bool((lse == NEG_INF).all())
 
 
 def _assert_near(got, want, tol):
@@ -206,8 +233,14 @@ def _assert_near(got, want, tol):
 def _hop_inputs(b, tq, tk, h, d, dtype, seed, dev, layout="dense"):
     """q, k, v, do; ``layout="fused"`` gives head splits of fused
     projections (q, k, v of one [B, T, 3 H D] tensor, do of a [B, T, 2 H
-    D] one: strided rows, no copy) and needs tq == tk."""
+    D] one: strided rows, no copy) and needs tq == tk; ``"misaligned"``
+    views whose base lies one element past a 16-byte boundary (the bf16
+    route copies them first: ``_rows16``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "misaligned":
+        mk = lambda t: torch.randn((b * t * h * d + 1,), generator=g,
+                                   device=dev).to(dtype)[1:].view(b, t, h, d)
+        return mk(tq), mk(tk), mk(tk), mk(tq)
     if layout == "fused":
         qkv = torch.randn((b, tq, 3 * h * d), generator=g, device=dev).to(dtype)
         q, k, v = (a.reshape(b, tq, h, d) for a in qkv.split(h * d, dim=-1))
@@ -243,6 +276,7 @@ FLASH_HOP_CASES = [
     (2, 64, 64, 2, 128, torch.bfloat16, True, (0, 64), "dense"),    # whole hop masked
     (2, 50, 70, 2, 32, torch.bfloat16, False, (0, 0), "dense"),
     (2, 192, 192, 4, 64, torch.bfloat16, True, (0, 0), "fused"),    # strided head splits
+    (2, 130, 130, 4, 64, torch.bfloat16, True, "ring", "misaligned"),  # copied first
 ]
 
 
@@ -250,13 +284,18 @@ FLASH_HOP_CASES = [
 @pytest.mark.parametrize("b,tq,tk,h,d,dtype,causal,offsets,layout", FLASH_HOP_CASES)
 def test_torch_flash_partial_kernel_matches_plain_on_card(cuda_device, b, tq, tk, h, d,
                                                           dtype, causal, offsets, layout):
+    """K4's partial triple against flash_partial_plain; two runs give the
+    same bits (no atomics)."""
     q, k, v, _ = _hop_inputs(b, tq, tk, h, d, dtype, tq + d, cuda_device, layout)
     q_off, k_off = _offsets(offsets, cuda_device)
     before = flash_partial.launches
     pv, m, l = flash_partial(q, k, v, causal, d ** -0.5, q_off, k_off)
+    again = flash_partial(q, k, v, causal, d ** -0.5, q_off, k_off)
     pvp, mp, lp = flash_partial_plain(q, k, v, causal, d ** -0.5, q_off, k_off)
     torch.cuda.synchronize()
-    assert flash_partial.launches == before + 1
+    assert flash_partial.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip((pv, m, l), again)), \
+        "changed between two runs"
     assert pv.dtype == m.dtype == l.dtype == torch.float32
     assert pv.shape == (b, tq, h, d) and m.shape == l.shape == (b, h, tq)
     _assert_near(pv, pvp, 2e-5)
