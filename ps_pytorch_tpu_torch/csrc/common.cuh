@@ -32,6 +32,29 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// int8(clip(rint(x * inv), -127, 127)): rintf rounds half to even, as
+// jnp.round does (K1 and K2)
+__device__ __forceinline__ int8_t quant_int8(float x, float inv) {
+  float r = rintf(x * inv);
+  r = fminf(fmaxf(r, -127.0f), 127.0f);
+  return (int8_t)__float2int_rn(r);
+}
+
+// where(absmax > 0, 127 / max(absmax, 1e-30), 0) as an IEEE quotient
+__device__ __forceinline__ float inv_scale(float amax) {
+  return amax > 0.0f ? 127.0f / fmaxf(amax, 1e-30f) : 0.0f;
+}
+
+// the f32 constant XLA multiplies by where the JAX code divides by 127.0
+constexpr float kRecip127 = 1.0f / 127.0f;
+
+// pieces in one launch's descriptor table (K1's and K2's multi-tensor
+// entries): the table goes by value as a kernel parameter, and 64 pieces
+// of at most 7 int64 words each, plus the header, stay under the 4 KB
+// parameter space every CUDA 12 toolkit accepts (ops/quantize.py
+// MAX_PIECES)
+constexpr int kMaxPieces = 64;
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);

@@ -135,12 +135,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.ps_quantize_rows.argtypes = [vp, i32, vp, vp, i64, i32, vp]
     lib.ps_quantize_rows.restype = i32
-    lib.ps_quantize_rows_scaled.argtypes = [vp, i32, vp, i64, vp, vp, i64, i32, vp]
-    lib.ps_quantize_rows_scaled.restype = i32
-    lib.ps_absmax.argtypes = [vp, i32, i64, vp, vp]
-    lib.ps_absmax.restype = i32
-    lib.ps_quantize_tensor.argtypes = [vp, i32, i64, vp, vp, vp, vp]
-    lib.ps_quantize_tensor.restype = i32
+    lib.ps_quantize_rows_scaled_many.argtypes = [vp, vp, vp, vp]
+    lib.ps_quantize_rows_scaled_many.restype = i32
+    lib.ps_rows_table_words.argtypes = []
+    lib.ps_rows_table_words.restype = i64
+    lib.ps_quantize_tensors.argtypes = [vp, vp, vp, vp]
+    lib.ps_quantize_tensors.restype = i32
+    lib.ps_tensor_table_words.argtypes = []
+    lib.ps_tensor_table_words.restype = i64
     lib.ps_accumulate_rescale.argtypes = [vp, i64, i64, vp, vp, vp]
     lib.ps_accumulate_rescale.restype = i32
     lib.ps_flash_fwd.argtypes = (

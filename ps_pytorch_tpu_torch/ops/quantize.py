@@ -1,17 +1,28 @@
 """int8 symmetric quantization (the port of ops/quantize.py).
 
-Four wrappers, each of one hand-written kernel; CUDA tensors launch the
+Five wrappers, each of one hand-written kernel; CUDA tensors launch the
 kernel, CPU tensors take the plain version beside it, with no fallback
-between the two (the fourth, ``accumulate_rescale_int8``, is K3 below):
+between the two (the fifth, ``accumulate_rescale_int8``, is K3 below):
 
 - ``quantize_rows`` — K1, fused entry (``csrc/quantize_rows.cu``): per-row
   absmax, scale and quantize of ``[NB, BS]``. The serving slice's int8 KV
   cache, and the block-scale wire without shared scales.
-- ``quantize_rows_scaled`` — K1, shared-scale entry: rows ``[N*nb, bs]``
-  of N workers quantized with a given per-row absmax ``[nb]`` that was
-  already max-reduced over the workers (the block-scale gradient wire).
-- ``quantize_tensor`` — K2 (``csrc/quantize_tensor.cu``): one absmax over
-  the whole (worker-stacked) tensor, one shared scale.
+- ``quantize_rows_scaled_many`` — K1, shared-scale entry, multi-tensor:
+  every worker-stacked piece of a step in one call, each cut into blocks
+  whose absmax is taken over every worker (the pmax) and shared by them
+  (the block-scale gradient wire).
+- ``quantize_tensors`` — K2 (``csrc/quantize_tensor.cu``), multi-tensor:
+  every piece of a step in one call, each with one absmax over the whole
+  (worker-stacked) piece and one shared scale. ``quantize_tensor`` is its
+  one-piece call.
+
+``quantize_int8_many`` is the gradient wire's entry over a step's pieces
+(``quantize_int8(..., return_absmax=True)`` of each, one kernel call).
+Each multi-tensor wrapper's ``.launches`` counts its calls that launch:
+one per call, however many pieces and launches the call takes. A call
+cuts its list into descriptor tables of at most ``MAX_PIECES`` pieces
+(``plan_tensor_tables``, ``plan_rows_tables``: pure Python) that go to
+the card as kernel parameters.
 
 ``quantize_int8(x, axis_name=..., block_size=...)`` / ``dequantize_int8``
 keep the JAX signatures. With ``axis_name`` (a ``parallel.mesh.WorkerAxis``)
@@ -40,7 +51,8 @@ slices and raise ``NotImplementedError`` (ROADMAP.md).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,25 +92,213 @@ def quantize_rows_plain(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _quant(xb, _inv_scale(absmax)), absmax * RECIP_127
 
 
-def quantize_rows_scaled_plain(
-    xb: torch.Tensor, absmax: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1's shared-scale entry: rows ``[N*nb,
-    bs]``, given absmax ``[nb]`` (row ``w*nb + r`` uses ``absmax[r]``) ->
-    (int8 ``[N*nb, bs]``, f32 scale ``[nb, 1]``)."""
-    amax = absmax.reshape(-1, 1).float()
-    nb, bs = amax.shape[0], xb.shape[1]
-    rows = xb.reshape(-1, nb, bs)
-    q = _quant(rows, _inv_scale(amax)[None])
-    return q.reshape(xb.shape), amax * RECIP_127
+def quantize_rows_scaled_plain(x: torch.Tensor, block_size: int):
+    """Plain PyTorch version of K1's shared-scale entry for one
+    worker-stacked piece ``[N, *shape]``: each worker's flattened piece is
+    zero-padded to whole blocks, each block's absmax taken over every
+    worker -> (int8 ``[N, nb, bs]``, f32 scale ``[nb, 1]``, f32 absmax
+    ``[nb, 1]``)."""
+    workers = x.shape[0]
+    flat = x.reshape(workers, -1)
+    n = flat.shape[1]
+    nb = -(-n // block_size)
+    if nb * block_size != n:
+        flat = F.pad(flat, (0, nb * block_size - n))
+    xb = flat.reshape(workers, nb, block_size)
+    if nb == 0:
+        absmax = torch.zeros((0, 1), dtype=torch.float32, device=x.device)
+    else:
+        absmax = xb.float().abs().amax(dim=(0, 2)).reshape(nb, 1)
+    return _quant(xb, _inv_scale(absmax)[None]), absmax * RECIP_127, absmax
+
+
+def quantize_rows_scaled_many_plain(xs, block_size: int):
+    """Plain PyTorch version of ``quantize_rows_scaled_many``: the
+    one-piece plain version over each piece."""
+    return [quantize_rows_scaled_plain(x, block_size) for x in xs]
 
 
 def quantize_tensor_plain(x: torch.Tensor, return_absmax: bool = False):
-    """Plain PyTorch version of K2: one absmax over all of ``x`` -> (int8
-    like ``x``, f32 scalar scale) [, the absmax]."""
-    absmax = x.float().abs().amax()
+    """Plain PyTorch version of K2 for one piece: one absmax over all of
+    ``x`` -> (int8 like ``x``, f32 scalar scale) [, the absmax]. An empty
+    ``x`` has absmax 0."""
+    if x.numel() == 0:
+        absmax = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        absmax = x.float().abs().amax()
     q, scale = _quant(x, _inv_scale(absmax)), absmax * RECIP_127
     return (q, scale, absmax) if return_absmax else (q, scale)
+
+
+def quantize_tensors_plain(xs):
+    """Plain PyTorch version of ``quantize_tensors``: [(q, scale, absmax)]
+    of the one-piece plain version over each piece."""
+    return [quantize_tensor_plain(x, return_absmax=True) for x in xs]
+
+
+# ------------------------------------------------- multi-tensor planning
+
+# pieces in one descriptor table: csrc/common.cuh kMaxPieces (the table
+# goes by value in the 4 KB kernel parameter space)
+MAX_PIECES = 64
+# elements a K2 block takes at a time: csrc/quantize_tensor.cu kChunk
+K2_CHUNK = 8192
+
+
+class TablePlan(NamedTuple):
+    """One descriptor table of a multi-tensor call: the pieces it takes
+    (indices into the call's list, in order) and the first work unit of
+    each, then the table's total."""
+
+    pieces: Tuple[int, ...]
+    first: Tuple[int, ...]
+
+
+def _tables(indices, units, max_pieces) -> List[TablePlan]:
+    out = []
+    for k in range(0, len(indices), max_pieces):
+        part = indices[k:k + max_pieces]
+        first = [0]
+        for i in part:
+            first.append(first[-1] + units[i])
+        out.append(TablePlan(tuple(part), tuple(first)))
+    return out
+
+
+def plan_tensor_tables(lengths, max_pieces: int = MAX_PIECES,
+                       chunk: int = K2_CHUNK) -> List[TablePlan]:
+    """K2's launch plan for pieces of ``lengths`` elements: each
+    non-empty piece is ``ceil(n / chunk)`` chunks, the pieces in order in
+    tables of at most ``max_pieces``. Empty pieces get no work (their
+    absmax and scale stay 0)."""
+    units = [-(-int(n) // chunk) for n in lengths]
+    return _tables([i for i, n in enumerate(lengths) if n], units, max_pieces)
+
+
+def plan_rows_tables(nbs, max_pieces: int = MAX_PIECES) -> List[TablePlan]:
+    """K1 shared-scale's launch plan: the work unit is one block-row of a
+    piece (every worker's block r), ``nbs[i]`` of them for piece i; the
+    non-empty pieces, in order, in tables of at most ``max_pieces``."""
+    return _tables([i for i, nb in enumerate(nbs) if nb], list(nbs), max_pieces)
+
+
+class _Layout:
+    """Word offsets of a descriptor table (csrc/quantize_tensor.cu
+    TensorTable, csrc/quantize_rows.cu RowsTable): ``header`` int64 words,
+    then arrays of MAX_PIECES words (the last, of first units, one more)."""
+
+    def __init__(self, header: int, arrays):
+        self.header, self.offset, at = header, {}, header
+        for name in arrays:
+            self.offset[name] = at
+            at += MAX_PIECES
+        self.words = at + 1
+
+
+_K2_TABLE = _Layout(2, ["x", "q", "n", "kind", "slot", "first"])
+_K1_TABLE = _Layout(4, ["x", "q", "n", "nb", "kind", "slot", "first"])
+_F32_VEC, _F32, _BF16 = 0, 1, 2  # the kernels' load kinds
+
+
+def _padded(n: int) -> int:
+    return -(-n // 16) * 16  # each piece's int8 output starts 16-byte aligned
+
+
+def _strides(shape) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for d in reversed(shape):
+        out.append(acc)
+        acc *= int(d)
+    return tuple(reversed(out))
+
+
+def _put(words: np.ndarray, layout: _Layout, name: str, values) -> None:
+    at = layout.offset[name]
+    words[at:at + len(values)] = values
+
+
+@functools.lru_cache(maxsize=256)
+def _tensor_call(shapes):
+    """K2's per-shape work for pieces of ``shapes``, done once: the
+    tables with every word but the pointers and load kinds, and each
+    piece's int8 output view (shape, strides, offset into the call's
+    buffer) and the buffer's length."""
+    lengths = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
+    q_off = np.cumsum([0] + [_padded(n) for n in lengths]).tolist()
+    tables = []
+    for t in plan_tensor_tables(lengths):
+        words = np.zeros(_K2_TABLE.words, dtype=np.int64)
+        words[:2] = [len(t.pieces), t.first[-1]]
+        _put(words, _K2_TABLE, "n", [lengths[i] for i in t.pieces])
+        _put(words, _K2_TABLE, "slot", list(t.pieces))
+        _put(words, _K2_TABLE, "first", t.first)
+        tables.append((t, words))
+    views = [(shape, _strides(shape), q_off[i]) for i, shape in enumerate(shapes)]
+    return tables, views, q_off[-1]
+
+
+@functools.lru_cache(maxsize=256)
+def _rows_call(workers, lengths, block_size):
+    """K1 shared-scale's per-shape work, done once: the tables with every
+    word but the pointers and load kinds, and each piece's three output
+    views (shape, strides, offset): q into the call's int8 buffer, scale
+    and absmax into its f32 buffer (every absmax row, then every scale
+    row); and the two buffers' lengths."""
+    nbs = [-(-n // block_size) for n in lengths]
+    plan = plan_rows_tables(nbs)
+    q_off = np.cumsum([0] + [_padded(workers * nb * block_size) for nb in nbs]).tolist()
+    slot = np.cumsum([0] + nbs).tolist()
+    tables = []
+    for t in plan:
+        words = np.zeros(_K1_TABLE.words, dtype=np.int64)
+        words[:4] = [len(t.pieces), t.first[-1], workers, block_size]
+        _put(words, _K1_TABLE, "n", [lengths[i] for i in t.pieces])
+        _put(words, _K1_TABLE, "nb", [nbs[i] for i in t.pieces])
+        _put(words, _K1_TABLE, "slot", [slot[i] for i in t.pieces])
+        _put(words, _K1_TABLE, "first", t.first)
+        tables.append((t, words))
+    rows = slot[-1]
+    views = [((workers, nb, block_size), (nb * block_size, block_size, 1), q_off[i],
+              (nb, 1), (1, 1), rows + slot[i], slot[i])
+             for i, nb in enumerate(nbs)]
+    return tables, views, q_off[-1], rows
+
+
+_checked_tables = False
+
+
+def _lib():
+    """The kernel library, with its table layouts checked against this
+    module's once."""
+    global _checked_tables
+    from . import _build
+
+    lib = _build.load()
+    if not _checked_tables:
+        got = (lib.ps_tensor_table_words(), lib.ps_rows_table_words())
+        if got != (_K2_TABLE.words, _K1_TABLE.words):
+            raise _build.KernelBuildError(
+                f"descriptor tables of {got} words in the library, "
+                f"{(_K2_TABLE.words, _K1_TABLE.words)} here")
+        _checked_tables = True
+    return lib
+
+
+def _card_pieces(xs, what: str):
+    """The pieces as the kernels take them (contiguous, f32 or bf16, one
+    card), or None when every piece lies on the CPU."""
+    if not any(x.is_cuda for x in xs):
+        return None
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        raise ValueError(f"{what}: the pieces lie on {sorted({str(x.device) for x in xs})}; "
+                         f"one call takes one card")
+    from . import _build
+
+    for x in xs:
+        if x.dtype not in _build.DTYPE_CODES:
+            raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    return [x.contiguous() for x in xs]
 
 
 def _kernel_input(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -145,91 +345,151 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 quantize_rows.launches = 0
 
 
-def quantize_rows_scaled(
-    xb: torch.Tensor, absmax: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1, shared-scale entry: rows ``[N*nb, bs]`` of N workers (f32 or
-    bf16) quantized with the given absmax ``[nb]`` (f32, already
-    max-reduced over the workers; row ``w*nb + r`` uses ``absmax[r]``)
-    -> (int8 ``[N*nb, bs]``, f32 scale ``[nb, 1]``).
+def quantize_rows_scaled_many(xs, block_size: int):
+    """K1, shared-scale entry over every piece of a step: each ``xs[i]``
+    is worker-stacked ``[N, *shape]`` (f32 or bf16, the same N for all,
+    any length, 0 included), flattened per worker and cut into ``nb =
+    ceil(n / block_size)`` blocks -> ``[(q int8 [N, nb, bs], scale f32
+    [nb, 1], absmax f32 [nb, 1]), ...]``, block r's absmax the max over
+    every worker's block r (the pmax), shared by them.
 
-    Replaces the same Pallas kernel as ``quantize_rows`` where its ``inv``
-    came from a pmax'd absmax (quantize.py:152-167). Bound: bytes (one
-    read of x, one int8 write). A CPU tensor runs
-    ``quantize_rows_scaled_plain``; a CUDA tensor launches the kernel or
-    raises."""
-    if xb.dim() != 2:
-        raise ValueError(f"quantize_rows_scaled takes [N*nb, bs], got {tuple(xb.shape)}")
-    nb = absmax.numel()
-    if nb == 0 or xb.shape[0] % nb:
-        raise ValueError(
-            f"quantize_rows_scaled: {xb.shape[0]} rows are not a whole number "
-            f"of workers' {nb} rows"
-        )
-    if not xb.is_cuda:
-        return quantize_rows_scaled_plain(xb, absmax)
+    Replaces the Pallas kernel of ``quantize_rows`` where its ``inv``
+    came from a pmax'd absmax (ps_pytorch_tpu/ops/quantize.py:152-167),
+    together with that absmax, which XLA computed around it. One wrapper
+    call for the whole list: a launch per table of ``MAX_PIECES`` pieces
+    (one for ResNet18's 62 leaves), no padded copy (the padding is read
+    as 0 inside the kernel) and no absmax pass outside it. Bound on the
+    H100: bytes (x read once, one int8 written per element). CPU pieces
+    run ``quantize_rows_scaled_many_plain``; CUDA pieces launch the
+    kernel or raise. ``.launches`` counts the calls that launch."""
+    if block_size < 1:
+        raise ValueError(f"quantize_rows_scaled_many: block_size {block_size} < 1")
+    xs = list(xs)
+    for x in xs:
+        if x.dim() == 0 or x.shape[0] < 1 or x.shape[0] != xs[0].shape[0]:
+            raise ValueError("quantize_rows_scaled_many takes worker-stacked [N, ...] pieces "
+                             f"of one N, got {[tuple(x.shape) for x in xs]}")
+    xs_card = _card_pieces(xs, "quantize_rows_scaled_many")
+    if xs_card is None:
+        return quantize_rows_scaled_many_plain(xs, block_size)
     from . import _build
 
-    if not absmax.is_cuda or absmax.dtype != torch.float32:
-        raise TypeError("quantize_rows_scaled: absmax must be f32 on the same card")
-    xb = _kernel_input(xb, "quantize_rows_scaled")
-    absmax = absmax.reshape(-1).contiguous()
-    rows, bs = xb.shape
-    q = torch.empty((rows, bs), dtype=torch.int8, device=xb.device)
-    scale = torch.empty((nb, 1), dtype=torch.float32, device=xb.device)
-    if xb.numel() == 0:
-        return q, scale
-    lib = _build.load()
-    with torch.cuda.device(xb.device):
-        code = lib.ps_quantize_rows_scaled(
-            xb.data_ptr(), _build.DTYPE_CODES[xb.dtype], absmax.data_ptr(), nb,
-            q.data_ptr(), scale.data_ptr(), rows, bs, _build.stream_of(xb),
-        )
-    quantize_rows_scaled.launches += 1
-    _build.check(code, "quantize_rows_scaled")
-    return q, scale
+    workers = xs[0].shape[0]
+    lengths = tuple(x.numel() // workers for x in xs_card)
+    tables, views, q_len, rows = _rows_call(workers, lengths, block_size)
+    dev = xs_card[0].device
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i], lengths[i],
+                                                         block_size) for i in t.pieces])
+                code = lib.ps_quantize_rows_scaled_many(
+                    words.ctypes.data, stats.data_ptr(), stats.data_ptr() + 4 * rows, stream)
+                _build.check(code, "quantize_rows_scaled_many")
+        quantize_rows_scaled_many.launches += 1
+    return [(q.as_strided(qs, qst, qo), stats.as_strided(ss, sst, so),
+             stats.as_strided(ss, sst, ao)) for qs, qst, qo, ss, sst, so, ao in views]
 
 
-quantize_rows_scaled.launches = 0
+quantize_rows_scaled_many.launches = 0
+
+
+def _k1_kind(dtype, ptr: int, n: int, block_size: int) -> int:
+    if dtype == torch.bfloat16:
+        return _BF16
+    return _F32_VEC if ptr % 16 == 0 and n % 4 == 0 and block_size % 4 == 0 else _F32
+
+
+def quantize_tensors(xs):
+    """K2: per-tensor int8 quantization of every piece of a step in one
+    call: each ``xs[i]`` (any shape and length, 0 included; f32 or bf16;
+    one card) gets one absmax over the whole piece (for a worker-stacked
+    piece that is the pmax) and one scale -> ``[(q int8 like xs[i], scale
+    f32 0-d, absmax f32 0-d), ...]``.
+
+    Replaces ps_pytorch_tpu/ops/quantize.py:_quant_kernel (Pallas,
+    quantize.py:58, launched at :78 once per piece) together with the
+    absmax and inverse XLA computed around it. The call cuts the list
+    into descriptor tables (``plan_tensor_tables``; one for ResNet18's 62
+    leaves) and launches two kernels per table, the absmax of every piece
+    and then its quantize; after one zeroing of the absmax slots nothing
+    goes through the host. Bound on the H100: bytes. CPU pieces run
+    ``quantize_tensors_plain``; CUDA pieces launch the kernels or raise.
+    ``.launches`` counts the calls that launch."""
+    xs = list(xs)
+    xs_card = _card_pieces(xs, "quantize_tensors")
+    if xs_card is None:
+        return quantize_tensors_plain(xs)
+    from . import _build
+
+    tables, views, q_len = _tensor_call(tuple(x.shape for x in xs_card))
+    dev = xs_card[0].device
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    stats = torch.zeros((2, len(xs)), dtype=torch.float32, device=dev)  # absmax, scale
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K2_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K2_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                _put(words, _K2_TABLE, "kind", [_k2_kind(xs_card[i].dtype, ptrs[i])
+                                                for i in t.pieces])
+                code = lib.ps_quantize_tensors(words.ctypes.data, stats.data_ptr(),
+                                               stats.data_ptr() + 4 * len(xs), stream)
+                _build.check(code, "quantize_tensors")
+        quantize_tensors.launches += 1
+    absmax, scale = stats.unbind(0)
+    return [(q.as_strided(*view), sc, am)
+            for view, sc, am in zip(views, scale.unbind(), absmax.unbind())]
+
+
+quantize_tensors.launches = 0
+
+
+def _k2_kind(dtype, ptr: int) -> int:
+    if dtype == torch.bfloat16:
+        return _BF16
+    return _F32_VEC if ptr % 16 == 0 else _F32
 
 
 def quantize_tensor(x: torch.Tensor, return_absmax: bool = False):
-    """K2: per-tensor int8 quantization of ``x`` (any shape, f32 or bf16)
-    with one scale -> (int8 like ``x``, f32 scalar scale) [, the device
-    absmax the scale came from].
-
-    Replaces ps_pytorch_tpu/ops/quantize.py:_quant_kernel (Pallas,
-    quantize.py:58, launched at :78) together with the absmax and
-    inverse XLA computed around it. Two launches, nothing through the
-    host: ``ps_absmax`` over all of ``x`` into a device scalar (for a
-    worker-stacked ``x`` that is the pmax), then ``ps_quantize_tensor``,
-    which reads it from device memory. Any length, no lane or row
-    condition. Bound on the H100: bytes. A CPU tensor runs
-    ``quantize_tensor_plain``; a CUDA tensor launches or raises."""
+    """K2 on one piece: ``quantize_tensors([x])`` -> (int8 like ``x``, f32
+    scalar scale) [, the device absmax the scale came from]. A CPU tensor
+    runs ``quantize_tensor_plain``."""
     if not x.is_cuda:
         return quantize_tensor_plain(x, return_absmax)
-    from . import _build
-
-    x = _kernel_input(x, "quantize_tensor")
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    absmax = torch.empty((), dtype=torch.float32, device=x.device)
-    scale = torch.empty((), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    code = _build.DTYPE_CODES[x.dtype]
-    with torch.cuda.device(x.device):
-        stream = _build.stream_of(x)
-        err = lib.ps_absmax(x.data_ptr(), code, x.numel(), absmax.data_ptr(), stream)
-        _build.check(err, "quantize_tensor (absmax)")
-        err = lib.ps_quantize_tensor(
-            x.data_ptr(), code, x.numel(), absmax.data_ptr(), q.data_ptr(),
-            scale.data_ptr(), stream,
-        )
-    quantize_tensor.launches += 1
-    _build.check(err, "quantize_tensor")
+    q, scale, absmax = quantize_tensors([x])[0]
     return (q, scale, absmax) if return_absmax else (q, scale)
 
 
-quantize_tensor.launches = 0
+def quantize_int8_many(xs, axis_name, block_size: int = 0):
+    """``quantize_int8(x, axis_name=axis_name, block_size=block_size,
+    return_absmax=True)`` of every piece of ``xs`` (worker-stacked ``[N,
+    *shape]``) in one kernel call: K2 per tensor, K1's shared-scale entry
+    per block. The gradient wire's quantize of a step."""
+    if not hasattr(axis_name, "size"):
+        raise TypeError(f"axis_name must be a parallel.mesh.WorkerAxis, got {axis_name!r}")
+    xs = list(xs)
+    if not block_size:
+        return quantize_tensors(xs)
+    for x in xs:
+        if x.dim() == 0 or x.shape[0] != axis_name.size:
+            raise ValueError(f"shared-scale quantize_int8 takes [{axis_name.size}, ...], got "
+                             f"{tuple(x.shape)}")
+    return quantize_rows_scaled_many(xs, block_size)
 
 
 def quantize_int8(
@@ -266,28 +526,17 @@ def quantize_int8(
     if not block_size:
         # one absmax over the whole (stacked) tensor is the pmax
         return quantize_tensor(x, return_absmax)
-    lead = (axis_name.size,) if axis_name is not None else ()
-    if axis_name is not None and (x.dim() == 0 or x.shape[0] != axis_name.size):
-        raise ValueError(
-            f"shared-scale quantize_int8 takes [{axis_name.size}, ...], got "
-            f"{tuple(x.shape)}"
-        )
-    flat = x.reshape(lead + (-1,))
+    if axis_name is not None:
+        q, scale, absmax = quantize_int8_many([x], axis_name, block_size)[0]
+        return (q, scale, absmax) if return_absmax else (q, scale)
+    if return_absmax:
+        raise ValueError("return_absmax needs shared (axis_name) or per-tensor scales")
+    flat = x.reshape(-1)
     n = flat.shape[-1]
     nb = -(-n // block_size)
     if nb * block_size != n:
         flat = F.pad(flat, (0, nb * block_size - n))
-    if axis_name is None:
-        if return_absmax:
-            raise ValueError("return_absmax needs shared (axis_name) or per-tensor scales")
-        return quantize_rows(flat.reshape(nb, block_size))
-    xb = flat.reshape(axis_name.size, nb, block_size)
-    # per-(worker, block) absmax, then the pmax over workers: XLA ops
-    # outside the kernel in JAX too (quantize.py:152-154)
-    absmax = xb.abs().amax(dim=(0, 2)).float()
-    q, scale = quantize_rows_scaled(xb.reshape(-1, block_size), absmax)
-    q = q.reshape(axis_name.size, nb, block_size)
-    return (q, scale, absmax.reshape(nb, 1)) if return_absmax else (q, scale)
+    return quantize_rows(flat.reshape(nb, block_size))
 
 
 def fold_recip(denominator: float) -> float:

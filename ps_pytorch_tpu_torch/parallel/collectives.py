@@ -10,9 +10,10 @@ result of the JAX collective). Reference semantics:
 - ``aggregation_mask``: partial ("backup-worker") aggregation, only K of
   N gradients enter the sum (:179-186); ``random_k`` models "first K to
   arrive", ``first_k`` is the deterministic variant;
-- ``quantized_psum``: per piece, shared absmax (pmax) -> int8 quantize
-  (kernel K2 per tensor, K1's shared-scale entry per block) -> exact
-  integer psum -> dequantize / K. ``wire_domain="homomorphic"`` sums in
+- ``quantized_psum``: every piece quantized in one kernel call (shared
+  absmax, the pmax, and int8 payload of each piece: K2 per tensor, K1's
+  shared-scale entry per block), then per piece the exact integer psum
+  -> dequantize / K. ``wire_domain="homomorphic"`` sums in
   the minimal exact accumulator (``accum_dtype``: int16 through 258
   workers) and folds 1/K into the one deferred scale multiply;
 - ``quantized_allreduce_2round``: the int8-on-the-wire two-round scheme
@@ -26,7 +27,9 @@ result of the JAX collective). Reference semantics:
 
 A piece is one leaf (``bucket_bytes=None``) or one bucket of each
 worker's flattened tree (``buckets.piece_stream``); every scheme and the
-EF contribution share that stream.
+EF contribution share that stream. Each quantize stage takes all of a
+step's pieces in one multi-tensor kernel call
+(``ops.quantize.quantize_int8_many``); what follows it runs per piece.
 
 Division by the aggregation count: the JAX step divides by a Python
 float inside jit, which XLA turns into a multiply by the f32 reciprocal
@@ -56,8 +59,9 @@ from ..ops.quantize import (
     accumulate_rescale_int8,
     dequantize_int8,
     fold_recip,
-    quantize_int8,
+    quantize_int8_many,
     quantize_rows,
+    quantize_tensors,
 )
 from .buckets import piece_stream, tree_flatten, tree_unflatten
 from .mesh import WorkerAxis
@@ -178,10 +182,9 @@ def quantized_psum(
     pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=align,
                                       flat_output=flat_output)
     outs, contribs = [], []
-    for g in pieces:
+    quantized = quantize_int8_many([g.float() for g in pieces], axis, block_size)
+    for g, (q, scale, absmax) in zip(pieces, quantized):
         shape = tuple(g.shape[1:])
-        q, scale, absmax = quantize_int8(g.float(), axis_name=axis, block_size=block_size,
-                                         return_absmax=True)
         if homomorphic:
             s = axis.psum(q.to(accum_dtype(num_workers)))
             outs.append(dequantize_int8(s, absmax * fold_recip(denominator),
@@ -206,39 +209,21 @@ def _slice_len(total: int, n: int, block_size: int) -> int:
     return (-(-total // n) + bs - 1) // bs * bs
 
 
-def _q2r_scatter_stage(g32: torch.Tensor, axis: WorkerAxis, n: int, s: int,
-                       block_size: int):
-    """Round 1 of the two-round scheme for one worker-stacked flat padded
-    piece ``[N, n*s]`` (collectives.py:302): shared-scale int8 quantize ->
-    all_to_all int8 -> exact int32 region sums -> dequantize each region
-    with its own rows of the shared scales. Returns ``(partial [n, s]
-    f32, q1 [N, n, s] int8, scale1)``: row w of ``partial`` is worker w's
-    region of the sum (an int8-wire reduce_scatter); ``q1`` and
-    ``scale1`` are the round-1 payload and scales (the EF contribution)."""
-    q1, scale1 = quantize_int8(g32, axis_name=axis, block_size=block_size)
-    q1 = q1.reshape(axis.size, n, s)
-    recv = axis.all_to_all(q1)  # [n(region), N(sender), s]
+def _q2r_scatter_stage(q1: torch.Tensor, scale1: torch.Tensor, axis: WorkerAxis, n: int,
+                       s: int, block_size: int) -> torch.Tensor:
+    """Round 1 of the two-round scheme for one piece (collectives.py:302),
+    after its shared-scale int8 quantize ``q1`` (``[N, n*s]`` as a flat
+    padded piece) and ``scale1``: all_to_all int8 -> exact int32 region
+    sums -> dequantize each region with its own rows of the shared
+    scales. Returns ``partial [n, s]`` f32: row w is worker w's region of
+    the sum (an int8-wire reduce_scatter)."""
+    recv = axis.all_to_all(q1.reshape(axis.size, n, s))  # [n(region), N(sender), s]
     partial = recv.to(torch.int32).sum(1, dtype=torch.int32)
     if block_size:
         nb_loc = s // block_size
         my_scales = scale1.reshape(n, nb_loc, 1)
-        partial = (partial.reshape(n, nb_loc, block_size).float() * my_scales).reshape(n, s)
-    else:
-        partial = partial.float() * scale1
-    return partial, q1, scale1
-
-
-def _q2r_scatter_stage_hom(g32: torch.Tensor, axis: WorkerAxis, n: int, s: int,
-                           block_size: int):
-    """Homomorphic round 1 (collectives.py:340): shared-scale int8
-    quantize of the worker-stacked flat padded piece ``[N, n*s]``.
-    Returns ``(q1 [N, n*s] int8, scale1)``. The all_to_all that would
-    hand worker w the ``[N, s]`` rows of its region is not spelled out:
-    in the stacked backend the regions already lie side by side in
-    ``q1``, and K3 over the whole ``[N, n*s]`` computes every worker's
-    region at once (``quantized_allreduce_2round``)."""
-    q1, scale1 = quantize_int8(g32, axis_name=axis, block_size=block_size)
-    return q1.reshape(axis.size, n * s), scale1
+        return (partial.reshape(n, nb_loc, block_size).float() * my_scales).reshape(n, s)
+    return partial.float() * scale1
 
 
 def _deq_shared(full: torch.Tensor, scale, gain: float, block_size: int) -> torch.Tensor:
@@ -250,25 +235,32 @@ def _deq_shared(full: torch.Tensor, scale, gain: float, block_size: int) -> torc
     return full.float() * (scale * gain)
 
 
-def _q2r_gather_stage(partial: torch.Tensor, axis: WorkerAxis, n: int, s: int,
-                      block_size: int) -> torch.Tensor:
-    """Round 2 (collectives.py:383): requantize each region's partial sum
-    ``[s]`` with LOCAL scales (no cross-worker agreement: the regions are
-    disjoint) and all_gather int8 plus the scale rows -> the dequantized
-    full ``[n*s]``. Per tensor: one K2 launch per region (each region has
-    its own absmax). Block mode: one K1 fused launch over every region's
-    rows at once (rows are independent, so this equals n per-region
-    calls)."""
+def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int):
+    """Round 2 (collectives.py:383) for every piece: requantize each
+    region's partial sum with LOCAL scales (no cross-worker agreement:
+    the regions are disjoint) and all_gather int8 plus the scale rows ->
+    each piece's dequantized full ``[n*s]``. Per tensor: ONE K2 call over
+    every region of every piece (each region has its own absmax). Block
+    mode: one K1 fused launch per piece over all its regions' rows (rows
+    are independent, so this equals n per-region calls)."""
     if block_size:
-        nb_loc = s // block_size
-        q2, scale2 = quantize_rows(partial.reshape(n * nb_loc, block_size))
-        full = axis.all_gather(q2.reshape(n, s))
-        scales2 = axis.all_gather(scale2.reshape(n, nb_loc, 1))  # [n*nb_loc, 1]
-        return (full.reshape(-1, block_size).float() * scales2).reshape(-1)
-    regions = [quantize_int8(partial[w]) for w in range(n)]
-    full = axis.all_gather(torch.stack([q for q, _ in regions]))
-    scales2 = axis.all_gather(torch.stack([sc for _, sc in regions]).reshape(n, 1))
-    return (full.reshape(n, s).float() * scales2[:, None]).reshape(-1)
+        outs = []
+        for partial in partials:
+            s = partial.shape[1]
+            nb_loc = s // block_size
+            q2, scale2 = quantize_rows(partial.reshape(n * nb_loc, block_size))
+            full = axis.all_gather(q2.reshape(n, s))
+            scales2 = axis.all_gather(scale2.reshape(n, nb_loc, 1))  # [n*nb_loc, 1]
+            outs.append((full.reshape(-1, block_size).float() * scales2).reshape(-1))
+        return outs
+    regions = quantize_tensors([partial[w] for partial in partials for w in range(n)])
+    outs = []
+    for i, partial in enumerate(partials):
+        mine = regions[i * n:(i + 1) * n]
+        full = axis.all_gather(torch.stack([q for q, _, _ in mine]))
+        scales2 = axis.all_gather(torch.stack([sc for _, sc, _ in mine]).reshape(n, 1))
+        outs.append((full.reshape(n, partial.shape[1]).float() * scales2[:, None]).reshape(-1))
+    return outs
 
 
 def quantized_allreduce_2round(
@@ -285,10 +277,12 @@ def quantized_allreduce_2round(
     return_contribution: bool = False,
 ):
     """The two-round int8 all-reduce whose wire carries int8
-    (collectives.py:405). Per piece: flatten -> pad to ``[n, s]`` ->
-    round 1 (shared-scale int8, all_to_all, exact region sums) ->
+    (collectives.py:405). Each piece is flattened and padded to ``[n,
+    s]``; round 1 quantizes every piece in one kernel call (shared-scale
+    int8), then per piece all_to_all and exact region sums ->
 
-    - dequant wire: round 2 requantizes each region with local scales,
+    - dequant wire: round 2 requantizes each region with local scales
+      (per tensor: every region of every piece in one K2 call),
       all_gathers int8 plus the scale rows, and dequantizes; then * 1/K;
     - homomorphic wire: K3 sums each region's worker rows and rescales
       them by K back onto the int8 lattice, the result is all_gathered,
@@ -317,30 +311,34 @@ def quantized_allreduce_2round(
     align = block_size or 1
     pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=align,
                                       flat_output=flat_output)
-    outs, contribs = [], []
-    for g in pieces:
-        shape = tuple(g.shape[1:])
-        total = int(np.prod(shape, dtype=np.int64))
-        g32 = g.float().reshape(n, total)
-        s = _slice_len(total, n, block_size)
-        g32 = torch.nn.functional.pad(g32, (0, n * s - total))
-        if wire_domain == "homomorphic":
-            q1, scale1 = _q2r_scatter_stage_hom(g32, axis, n, s, block_size)
-            full = accumulate_rescale_int8(q1, denominator)  # [n*s], all regions
-            deq = _deq_shared(full, scale1, 1.0, block_size)
-            outs.append(deq[:total].reshape(shape))  # denominator folded in
-        else:
-            partial, q1, scale1 = _q2r_scatter_stage(g32, axis, n, s, block_size)
-            deq = _q2r_gather_stage(partial, axis, n, s, block_size)
-            outs.append((deq[:total] * recip).reshape(shape))
-        if return_contribution:
-            qc = q1.reshape((n, -1, block_size) if block_size else (n, n * s))
-            c = dequantize_int8(qc.to(torch.int32), scale1, block_size=block_size,
-                                shape=(n * s,))
-            contribs.append(c[:, :total].reshape((n,) + shape))
+    shapes = [tuple(g.shape[1:]) for g in pieces]
+    totals = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
+    slices = [_slice_len(total, n, block_size) for total in totals]
+    padded = [torch.nn.functional.pad(g.float().reshape(n, total), (0, n * s - total))
+              for g, total, s in zip(pieces, totals, slices)]
+    round1 = quantize_int8_many(padded, axis, block_size)  # every piece, one call
+    if wire_domain == "homomorphic":
+        # the all_to_all that would hand worker w the [N, s] rows of its
+        # region is not spelled out: in the stacked backend the regions
+        # lie side by side in q1 [N, n*s], and K3 over it computes every
+        # worker's region at once
+        deqs = [_deq_shared(accumulate_rescale_int8(q1.reshape(n, n * s), denominator),
+                            scale1, 1.0, block_size)  # denominator folded into K3
+                for (q1, scale1, _), s in zip(round1, slices)]
+    else:
+        partials = [_q2r_scatter_stage(q1, scale1, axis, n, s, block_size)
+                    for (q1, scale1, _), s in zip(round1, slices)]
+        deqs = [deq * recip for deq in _q2r_gather_stage(partials, axis, n, block_size)]
+    outs = [deq[:total].reshape(shape) for deq, total, shape in zip(deqs, totals, shapes)]
     agg = rebuild(outs)
     if not return_contribution:
         return agg
+    contribs = []
+    for (q1, scale1, _), total, shape, s in zip(round1, totals, shapes, slices):
+        qc = q1.reshape((n, -1, block_size) if block_size else (n, n * s))
+        c = dequantize_int8(qc.to(torch.int32), scale1, block_size=block_size,
+                            shape=(n * s,))
+        contribs.append(c[:, :total].reshape((n,) + shape))
     return agg, piece_stream(tree, bucket_bytes, align=align)[2](contribs)
 
 
@@ -360,12 +358,10 @@ def local_quantized_contribution(
     _check_axis(axis)
     _check_rounding(rounding, key)
     pieces, _, rebuild = piece_stream(grads, bucket_bytes, align=block_size or 1)
-    outs = []
-    for g in pieces:
-        q, scale = quantize_int8(g.float(), axis_name=axis, block_size=block_size)
-        outs.append(dequantize_int8(q.to(torch.int32), scale,
-                                    block_size=block_size, shape=tuple(g.shape[1:])))
-    return rebuild(outs)
+    quantized = quantize_int8_many([g.float() for g in pieces], axis, block_size)
+    return rebuild([dequantize_int8(q.to(torch.int32), scale, block_size=block_size,
+                                    shape=tuple(g.shape[1:]))
+                    for g, (q, scale, _) in zip(pieces, quantized)])
 
 
 def aggregate_gradients(

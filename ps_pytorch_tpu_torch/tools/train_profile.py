@@ -14,9 +14,11 @@ by a host read of its metrics as the trainer's per-step log window does.
 Prints one JSON line: the card (nvidia-smi name and power limit), the
 wall time per step with and without the profiler, the device's busy time
 and idle share (summed CUDA kernel time over wall time, against either
-wall time; one stream, so kernels do not overlap), the device time by category (K2
-``absmax_kernel`` + ``quantize_tensor_kernel``, K1's shared-scale rows,
-the int32 sum over workers, cuDNN convolutions and the other kernels) and
+wall time; one stream, so kernels do not overlap), the device time by category (K2's
+``absmax_many_kernel`` + ``quantize_many_kernel``, K1's shared-scale
+``quantize_rows_scaled_many_kernel``, the int32 sum over workers, cuDNN
+convolutions and the other kernels; the fill that zeroes K2's absmax
+slots counts as other) and
 the top CUDA kernels by device time, and each port kernel's mean and
 largest device time per launch. ``--block 128`` profiles the
 block-scale wire instead; the wire flags take the values of
@@ -35,8 +37,8 @@ import torch
 
 # substrings of CUDA kernel names, checked in this order
 CATEGORIES = (
-    ("K2 quantize_tensor", ("absmax_kernel", "quantize_tensor_kernel")),
-    ("K1 quantize_rows_scaled", ("quantize_rows_scaled_kernel",)),
+    ("K2 quantize_tensors", ("absmax_many_kernel", "quantize_many_kernel")),
+    ("K1 quantize_rows_scaled_many", ("quantize_rows_scaled_many_kernel",)),
     ("K1 quantize_rows", ("quantize_rows_kernel",)),
     ("K3 accumulate_rescale", ("accum_rescale_kernel",)),
     ("integer sum over workers", ("sum_functor<int", "sum_functor<short")),
@@ -47,8 +49,9 @@ CATEGORIES = (
 
 
 # the port's own kernels, reported launch by launch
-PORT_KERNELS = ("absmax_kernel", "quantize_tensor_kernel", "quantize_rows_scaled_kernel",
-                "quantize_rows_kernel", "accum_rescale_kernel")
+PORT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
+                "quantize_rows_scaled_many_kernel", "quantize_rows_kernel",
+                "accum_rescale_kernel")
 
 
 def _card() -> str:

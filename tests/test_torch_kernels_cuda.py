@@ -1,6 +1,7 @@
 """The port's hand-written kernels on the card, against their plain
-PyTorch versions (K1 quantize_rows and its shared-scale entry
-quantize_rows_scaled, K2 quantize_tensor, K3 accumulate_rescale_int8, K4
+PyTorch versions (K1 quantize_rows and its multi-tensor shared-scale
+entry quantize_rows_scaled_many, K2's multi-tensor quantize_tensors and
+its one-piece call quantize_tensor, K3 accumulate_rescale_int8, K4
 flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
 flash_bwd_dkv), the serving engine on the card against the same engine on the
 CPU, and the gradient wires on the card against the same wires on the CPU
@@ -34,16 +35,20 @@ from ps_pytorch_tpu_torch.ops.flash_attention import (
     flash_partial,
     flash_partial_plain,
 )
+from ps_pytorch_tpu_torch.models import build_model
+from ps_pytorch_tpu_torch.ops import quantize as tq
 from ps_pytorch_tpu_torch.ops.quantize import (
     accumulate_rescale_int8,
     accumulate_rescale_plain,
     quantize_int8,
     quantize_rows,
     quantize_rows_plain,
-    quantize_rows_scaled,
-    quantize_rows_scaled_plain,
+    quantize_rows_scaled_many,
+    quantize_rows_scaled_many_plain,
     quantize_tensor,
     quantize_tensor_plain,
+    quantize_tensors,
+    quantize_tensors_plain,
 )
 from ps_pytorch_tpu_torch.parallel import collectives
 from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves, tree_map
@@ -114,11 +119,11 @@ def test_torch_quantize_tensor_kernel_bit_exact_on_card(cuda_device, shape, dtyp
     if dtype == torch.float32:
         # absmax 127 -> inv 1: the planted halves land on .5 exactly
         x = _halves(x.clamp(-100, 100))
-    before = quantize_tensor.launches
+    before = quantize_tensors.launches
     q, s = quantize_tensor(x)
     qp, sp = quantize_tensor_plain(x)
     torch.cuda.synchronize()
-    assert quantize_tensor.launches == before + 1
+    assert quantize_tensors.launches == before + 1
     assert q.shape == x.shape and q.dtype == torch.int8 and s.shape == ()
     assert torch.equal(q, qp) and torch.equal(s, sp)
     if dtype == torch.float32:
@@ -147,21 +152,136 @@ def test_torch_quantize_tensor_kernel_all_zero_and_offset_view(cuda_device):
 def test_torch_quantize_rows_scaled_kernel_bit_exact_on_card(cuda_device, workers,
                                                             nb, bs, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(nb + bs)
-    x = (torch.randn((workers * nb, bs), generator=g, device=cuda_device) * 3).to(dtype)
+    x = (torch.randn((workers, nb * bs), generator=g, device=cuda_device) * 3).to(dtype)
     x.view(workers, nb, bs)[:, 1] = 0.0  # a block all-zero on every worker
     if dtype == torch.float32:
-        x[2] = 0.5
-        x[2, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5])
-    absmax = x.float().abs().reshape(workers, nb, bs).amax(dim=(0, 2))
-    before = quantize_rows_scaled.launches
-    q, s = quantize_rows_scaled(x, absmax)
-    qp, sp = quantize_rows_scaled_plain(x, absmax)
+        x[0, 2 * bs:3 * bs] = 0.5
+        x[0, 2 * bs:2 * bs + 6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5])
+        x[1:, 2 * bs:3 * bs] = 0.0  # block 2's absmax is 127 (inv 1): halves decide
+    before = quantize_rows_scaled_many.launches
+    (q, s, a), = quantize_rows_scaled_many([x], bs)
+    (qp, sp, ap), = quantize_rows_scaled_many_plain([x], bs)
     torch.cuda.synchronize()
-    assert quantize_rows_scaled.launches == before + 1
-    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert quantize_rows_scaled_many.launches == before + 1
+    assert q.shape == (workers, nb, bs) and s.shape == (nb, 1)
+    assert torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(a, ap)
     assert float(s[1, 0]) == 0.0
     if dtype == torch.float32:
-        assert q[2, :6].tolist() == [127, 2, -4, 0, 0, 2]
+        assert q[0, 2, :6].tolist() == [127, 2, -4, 0, 0, 2]
+
+
+def _resnet18_pieces(dev, dtype=torch.float32, seed=0):
+    """ResNet18's 62 leaves stacked for 8 workers, magnitudes varying by
+    worker and leaf: the per-leaf wire's pieces of one step."""
+    params, _ = build_model("ResNet18").init(torch.Generator().manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for leaf in tree_leaves(params):
+        scale = torch.exp(torch.randn((8,) + (1,) * leaf.dim(), generator=g, device=dev) * 2)
+        out.append((torch.randn((8,) + tuple(leaf.shape), generator=g, device=dev)
+                    * scale).to(dtype))
+    return out
+
+
+def _same_many(got, want):
+    assert len(got) == len(want)
+    for (q, s, a), (qp, sp, ap) in zip(got, want):
+        assert q.shape == qp.shape and s.shape == sp.shape
+        assert torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(a, ap)
+
+
+@pytest.mark.cuda
+def test_torch_quantize_tensors_kernel_resnet18_leaves_on_card(cuda_device):
+    """The per-leaf wire's step: 62 pieces in ONE call, bit-exact, and
+    the same bits twice."""
+    xs = _resnet18_pieces(cuda_device)
+    before = quantize_tensors.launches
+    got = quantize_tensors(xs)
+    again = quantize_tensors(xs)
+    torch.cuda.synchronize()
+    assert quantize_tensors.launches == before + 2
+    _same_many(got, quantize_tensors_plain(xs))
+    _same_many(again, got)
+
+
+@pytest.mark.cuda
+def test_torch_quantize_rows_scaled_many_kernel_resnet18_leaves_on_card(cuda_device):
+    """The block-128 wire's step: 62 pieces in ONE call (ragged leaves:
+    their last block is padded in the kernel), bit-exact, twice equal."""
+    xs = _resnet18_pieces(cuda_device, seed=1)
+    before = quantize_rows_scaled_many.launches
+    got = quantize_rows_scaled_many(xs, 128)
+    again = quantize_rows_scaled_many(xs, 128)
+    torch.cuda.synchronize()
+    assert quantize_rows_scaled_many.launches == before + 2
+    _same_many(got, quantize_rows_scaled_many_plain(xs, 128))
+    _same_many(again, got)
+
+
+def _odd_pieces(dev, count, seed):
+    """``count`` worker-stacked pieces of assorted lengths (0 included,
+    multiples of 4 or not), f32 and bf16, every third f32 one a view one
+    element past an aligned start (the element-wise load path)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(count):
+        n = int(rng.choice([0, 1, 3, 4, 127, 128, 129, 1000, 4099, 9001]))
+        flat = torch.randn(8 * n + 1, generator=g, device=dev) * float(np.exp(rng.randn() * 3))
+        x = (flat[1:] if i % 3 == 1 else flat[:-1]).view(8, n)
+        out.append(x.to(torch.bfloat16) if i % 5 == 3 else x)
+    return out
+
+
+@pytest.mark.cuda
+def test_torch_quantize_tensors_kernel_300_pieces_on_card(cuda_device):
+    """300 pieces: more than one descriptor table (MAX_PIECES each), with
+    0-length, misaligned and bf16 pieces among them; one wrapper call."""
+    xs = _odd_pieces(cuda_device, 300, 3)
+    assert len(tq.plan_tensor_tables([x.numel() for x in xs])) > 4
+    before = quantize_tensors.launches
+    got = quantize_tensors(xs)
+    torch.cuda.synchronize()
+    assert quantize_tensors.launches == before + 1
+    _same_many(got, quantize_tensors_plain(xs))
+
+
+@pytest.mark.cuda
+def test_torch_quantize_rows_scaled_many_kernel_300_pieces_on_card(cuda_device):
+    xs = _odd_pieces(cuda_device, 300, 4)
+    assert len(tq.plan_rows_tables([-(-x.shape[1] // 128) for x in xs])) > 4
+    for bs in (128, 33):
+        before = quantize_rows_scaled_many.launches
+        got = quantize_rows_scaled_many(xs, bs)
+        torch.cuda.synchronize()
+        assert quantize_rows_scaled_many.launches == before + 1
+        _same_many(got, quantize_rows_scaled_many_plain(xs, bs))
+
+
+@pytest.mark.cuda
+def test_torch_quantize_many_kernels_misaligned_views_on_card(cuda_device):
+    """Views one element past a 16-byte boundary take the element-wise
+    loads, decided per piece; the aligned pieces beside them keep float4."""
+    flat = torch.randn(8 * 4096 + 8, device=cuda_device)
+    xs = [flat[1:1 + 8 * 4096].view(8, 4096), flat[:8 * 4096].view(8, 4096),
+          flat[3:3 + 8 * 129].view(8, 129), torch.zeros((8, 0), device=cuda_device)]
+    _same_many(quantize_tensors(xs), quantize_tensors_plain(xs))
+    _same_many(quantize_rows_scaled_many(xs, 128), quantize_rows_scaled_many_plain(xs, 128))
+
+
+@pytest.mark.cuda
+def test_torch_quantize_many_kernels_non_finite_piece_on_card(cuda_device):
+    """A piece holding inf and NaN runs without a fault (its payload need
+    not match: the non-finite guard skips such a step); the finite pieces
+    beside it stay bit-exact."""
+    xs = _resnet18_pieces(cuda_device, seed=2)[:6]
+    xs[2].view(-1)[5] = float("inf")
+    xs[2].view(-1)[77] = float("nan")
+    for got, want in ((quantize_tensors(xs), quantize_tensors_plain(xs)),
+                      (quantize_rows_scaled_many(xs, 128),
+                       quantize_rows_scaled_many_plain(xs, 128))):
+        torch.cuda.synchronize()
+        _same_many(got[:2] + got[3:], want[:2] + want[3:])
 
 
 def _attn_inputs(b, t, h, d, dtype, seed, dev, layout):

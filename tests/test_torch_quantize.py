@@ -32,6 +32,7 @@ from ps_pytorch_tpu_torch.ops.quantize import (
     quantize_rows_plain,
     quantize_tensor,
     quantize_tensor_plain,
+    quantize_tensors,
 )
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
 
@@ -183,12 +184,14 @@ def test_torch_quantize_per_tensor_halves_and_zero():
 
 
 def test_torch_quantize_tensor_is_the_plain_version_on_cpu():
+    """quantize_tensor is the one-piece call of K2's multi-tensor wrapper,
+    whose counter counts its launching calls: none on the CPU."""
     x = torch.from_numpy(_x((9, 24), 7))
-    before = quantize_tensor.launches
+    before = quantize_tensors.launches
     q, s = quantize_tensor(x)
     qp, sp = quantize_tensor_plain(x)
     assert torch.equal(q, qp) and torch.equal(s, sp)
-    assert quantize_tensor.launches == before
+    assert quantize_tensors.launches == before
 
 
 # --------------------------------- shared scales over the worker axis
