@@ -13,11 +13,12 @@ Phases, one line each:
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, TF32 off;
 2. build every kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
    source, all at once; sm_90a), then count the tensor-core instructions
-   (HMMA / HGMMA, from ``cuobjdump -sass``) of each bf16 instantiation of
-   K4 (D 32, 64, 128; normalized and partial) and of K5 / K6 (D 32, 64,
-   128; f32 and bf16 out; a zero fails the run) beside ptxas's registers
-   and spill bytes, and the registers and spills of K2's and K1's
-   multi-tensor kernels;
+   (HMMA / HGMMA, from ``cuobjdump -sass``) of each tensor-core
+   instantiation: K4 bf16 (D 32, 64, 128; normalized and partial), K5 /
+   K6 bf16 (D 32, 64, 128; f32 and bf16 out) and K5 / K6 f32 (D 32, 64,
+   128; their TF32 ``HMMA.1688.F32.TF32`` lines); a zero fails the run;
+   beside ptxas's registers and spill bytes, and the registers and spills
+   of K2's and K1's multi-tensor kernels;
 3. K1 quantize_rows vs its plain version, bit-exact, at the serving path's
    shapes (prefill write [1024, 64] bf16, decode write [64, 64] bf16) and a
    ragged [1001, 128] f32, timed with CUDA events;
@@ -74,19 +75,22 @@ Phases, one line each:
    homomorphic, each with its launch counts;
 14. K4's partial triple flash_partial, K5 flash_bwd_dq and K6
    flash_bwd_dkv against their plain versions at the LM-1 attention shape
-   [8, 1024, 8, 64] bf16 (one causal hop at offsets 0) and at an LM-ring
-   hop [8, 2048, 8, 64] (four stacked shards x batch 2, per-shard offsets
-   of hop 3: one shard's keys all masked) in bf16 and f32, each twice (the
-   same bits); timed with CUDA events and ``torch.profiler``'s device time,
-   with their bounds; K4-partial beside aten's flash-attention forward and
-   K5 + K6 beside its backward (the library yardsticks, never called by the
-   port: wall and device time) at LM-1 and the bf16 ring hop;
+   [8, 1024, 8, 64] (one causal hop at offsets 0) and at an LM-ring hop
+   [8, 2048, 8, 64] (four stacked shards x batch 2, per-shard offsets of
+   hop 3: one shard's keys all masked), each in bf16 and f32, each twice
+   (the same bits); timed with CUDA events and ``torch.profiler``'s
+   device time (which also shows each call's route), with their bounds;
+   K4-partial beside aten's forward and K5 + K6 beside its backward (the
+   library yardsticks, never called by the port: wall and device time):
+   for bf16 aten's flash forward and the backward sdpa picks by default,
+   for f32 memory-efficient attention both ways;
 15. LM-1: the JAX bench's LM leg at full width (vocab 2048, d512, depth
    6, 8 heads, seq 1024, batch 8, bf16 block math over f32 params, remat,
    SGD lr 0.01 momentum 0.9) through ``cli.train_lm.main`` at (dp 1,
    sp 1) with flash attention, 20 steps: every loss finite, launches per
    step exactly L n (1 + remat) K4-partial, L n K5 and L n K6; step p50
-   and tokens/s;
+   and tokens/s; then 8 steps of the same at ``cli.train_lm``'s default
+   ``--dtype float32`` (K5 / K6 on the TF32 route), the same checks;
 16. LM-ring: the same model at seq 8192 on (dp 1, sp 4) stacked shards,
    batch 2, 5 steps, the same checks;
 17. a small LM step at (dp 2, sp 4), f32: the card (kernels) against the
@@ -97,11 +101,12 @@ Phases, one line each:
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 4,7,8,9,14 [--package-root DIR]
+    python3 chip_smoke.py --phases 2,4,7,8,9,14 [--package-root DIR]
 
-runs only the named phases (the flash kernels 4 and 14; the 62-leaf wire
-steps of 7 and 8 alone; the ResNet18 run of 9), against the
-``ps_pytorch_tpu_torch`` package under DIR when given (another checkout:
+runs only the named phases (the build 2; the flash kernels 4 and 14; the
+62-leaf wire steps of 7 and 8 alone; the ResNet18 run of 9), against the
+``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
+checks this tree's kernel list; another checkout:
 a parent commit timed in turns with this one on the same card; a parent
 without the multi-tensor entries runs its per-leaf loop of
 ``quantize_int8``), and prints their lines; no kernels line, no result
@@ -129,6 +134,10 @@ PEAK_OPS_PER_S = {                 # H100 SXM dense peaks (f32: CUDA cores)
     torch.float32: 67e12,
     torch.int8: 1979e12,
 }
+# f32 products on the tensor cores as 3xTF32, three TF32 products each: the
+# least time the card needs for an f32-accurate product (the f32 flash
+# kernels' bound)
+TF32X3_OPS_PER_S = 494.7e12 / 3
 ITERS = 200
 # set by --package-root: the package timed is another checkout's, whose
 # kernels may bear other names than this one's routes
@@ -206,21 +215,24 @@ def device_profile(fn, iters: int = 10) -> tuple:
     return sum(by_name.values()), by_name, per_call
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the tensor-core instantiations: (kernel, D, variant), K4 by entry and K5
-# / K6 by output type
+# the tensor-core instantiations: (kernel, D, variant), K4 by entry, the
+# bf16 K5 / K6 by output type, the f32 (TF32) K5 / K6 one per D
+TF32_KERNELS = ("flash_dq_tf32_kernel", "flash_dkv_tf32_kernel")
 MMA_KERNELS = ([("flash_fwd_mma_kernel", d, f"normalize={n}")
                 for d in (32, 64, 128) for n in ("true", "false")]
                + [(k, d, f"out={out}")
                   for k in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")
-                  for d in (32, 64, 128) for out in ("f32", "bf16")])
+                  for d in (32, 64, 128) for out in ("f32", "bf16")]
+               + [(k, d, "in=f32") for k in TF32_KERNELS for d in (32, 64, 128)])
 _MANGLED_FWD = re.compile(r"(flash_fwd_mma_kernel)ILi(\d+)ELb([01])E")
 _MANGLED_BWD = re.compile(r"(flash_d(?:q|kv)_mma_kernel)ILi(\d+)E(?:Li\d+E)?(f|13__nv_bfloat16)E")
+_MANGLED_TF32 = re.compile(r"(flash_d(?:q|kv)_tf32_kernel)ILi(\d+)E")
 
 
 def _instantiation(mangled: str):
@@ -228,6 +240,9 @@ def _instantiation(mangled: str):
     if m is not None:
         return (m.group(1), int(m.group(2)),
                 "normalize=" + ("true" if m.group(3) == "1" else "false"))
+    m = _MANGLED_TF32.search(mangled)
+    if m is not None:
+        return (m.group(1), int(m.group(2)), "in=f32")
     m = _MANGLED_BWD.search(mangled)
     return None if m is None else (m.group(1), int(m.group(2)),
                                    "out=" + ("f32" if m.group(3) == "f" else "bf16"))
@@ -243,8 +258,9 @@ def _cuobjdump(nvcc: str) -> str:
 
 
 def tensor_core_counts(lib_path: str, nvcc: str) -> dict:
-    """Tensor-core instructions (HMMA / HGMMA) in the SASS of each K4 / K5
-    / K6 tensor-core instantiation of the built library."""
+    """Tensor-core instructions in the SASS of each K4 / K5 / K6
+    tensor-core instantiation of the built library: HMMA / HGMMA lines,
+    and for the f32 kernels only their TF32 ones (``HMMA.1688.F32.TF32``)."""
     sass = subprocess.run([_cuobjdump(nvcc), "-sass", lib_path], stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True, check=True).stdout
     counts, current = {}, None
@@ -253,7 +269,8 @@ def tensor_core_counts(lib_path: str, nvcc: str) -> dict:
             current = _instantiation(line.split("Function :")[1].strip())
             if current is not None:
                 counts[current] = 0
-        elif current is not None and re.search(r"\bHG?MMA\.", line):
+        elif current is not None and re.search(
+                r"\bHMMA\.\S*TF32" if current[0] in TF32_KERNELS else r"\bHG?MMA\.", line):
             counts[current] += 1
     return counts
 
@@ -309,8 +326,9 @@ def ptxas_quant_report(log: str) -> dict:
 
 def phase_build() -> dict:
     """Phase 2: build every kernel, then read the tensor-core instruction
-    count of each bf16 K4 / K5 / K6 instantiation from the library's SASS
-    (a zero fails the run) and ptxas's registers and spills."""
+    count of each K4 / K5 / K6 tensor-core instantiation from the
+    library's SASS (a zero fails the run) and ptxas's registers and
+    spills."""
     from ps_pytorch_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -323,7 +341,7 @@ def phase_build() -> dict:
     for key in MMA_KERNELS:
         name = f"{key[0]}<D={key[1]}, {key[2]}>"
         require(counts.get(key, 0) > 0,
-                f"build: {name} has {counts.get(key, 0)} HMMA/HGMMA instructions")
+                f"build: {name} has {counts.get(key, 0)} tensor-core instructions")
         rec[name] = {"tensor_core_instructions": counts[key], **regs.get(key, {})}
     quant = ptxas_quant_report(_build.build_log())
     require(sorted(quant) == sorted(QUANT_KERNELS) and
@@ -331,7 +349,7 @@ def phase_build() -> dict:
             f"build: ptxas reported {sorted(quant)} of {QUANT_KERNELS}")
     print(f"phase 2 build: {seconds:.1f} s "
           f"({', '.join(os.path.basename(s) for s in _build.sources())} -> "
-          f"{os.path.relpath(lib)}); K4/K5/K6 bf16 SASS: " + json.dumps(rec)
+          f"{os.path.relpath(lib)}); K4/K5/K6 tensor-core SASS: " + json.dumps(rec)
           + "; K1/K2 multi-tensor: " + json.dumps(quant))
     return rec
 
@@ -352,7 +370,7 @@ def phase_k1(quantize_rows, quantize_rows_plain, dev) -> dict:
         require(torch.equal(s, sp), f"K1 {name}: scales differ from plain")
         elt = x.element_size()
         n_bytes = nb * bs * elt + nb * bs + nb * 4
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * nb * bs, torch.float32)
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * nb * bs, PEAK_OPS_PER_S[torch.float32])
         out[name] = {
             "shape": [nb, bs], "dtype": str(dt).replace("torch.", ""),
             "max_abs_err": float((q.int() - qp.int()).abs().max()),
@@ -371,21 +389,30 @@ def _qkv(b, t, h, d, dt, g, dev):
     return [a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1)]
 
 
-# K4's kernel for each input type: the route is chosen by dtype, with no
-# fallback from one to the other
-K4_ROUTE = {torch.bfloat16: "flash_fwd_mma_kernel", torch.float32: "flash_fwd_scalar_kernel"}
+# Each flash kernel's route for each input type, chosen by dtype with no
+# fallback from one to another: (kernel family, dtype) -> kernel
+FLASH_ROUTE = {
+    ("flash_fwd", torch.bfloat16): "flash_fwd_mma_kernel",
+    ("flash_fwd", torch.float32): "flash_fwd_scalar_kernel",
+    ("flash_dq", torch.bfloat16): "flash_dq_mma_kernel",
+    ("flash_dq", torch.float32): "flash_dq_tf32_kernel",
+    ("flash_dkv", torch.bfloat16): "flash_dkv_mma_kernel",
+    ("flash_dkv", torch.float32): "flash_dkv_tf32_kernel",
+}
 
 
-def _device_route(what: str, fn, dt) -> tuple:
-    """K4's own device time per call of ``fn`` (a K4 entry) and every
-    kernel the call ran (tensor offsets add the small copies that build
-    their device table); fails unless the one K4 kernel among them is the
-    kernel of ``dt``'s route."""
+def _device_route(what: str, fn, dt, family: str = "flash_fwd") -> tuple:
+    """The flash kernel's own device time per call of ``fn`` (an entry of
+    ``family``: K4 ``flash_fwd``, K5 ``flash_dq``, K6 ``flash_dkv``) and
+    every kernel the call ran (tensor offsets add the small copies that
+    build their device table); fails unless the one kernel of the family
+    among them is the kernel of ``dt``'s route."""
     _, by_name = device_ms(fn)
-    k4 = [name for name in by_name if "flash_fwd" in name]
-    require(len(k4) == 1 and (OTHER_TREE or K4_ROUTE[dt] in k4[0]),
-            f"{what}: ran {sorted(by_name)}, expected one {K4_ROUTE[dt]}")
-    return by_name[k4[0]], sorted(by_name)
+    want = FLASH_ROUTE[(family, dt)]
+    mine = [name for name in by_name if family + "_" in name]
+    require(len(mine) == 1 and (OTHER_TREE or want in mine[0]),
+            f"{what}: ran {sorted(by_name)}, expected one {want}")
+    return by_name[mine[0]], sorted(by_name)
 
 
 def phase_k4(flash_fwd, flash_fwd_plain, dev) -> dict:
@@ -418,7 +445,8 @@ def phase_k4(flash_fwd, flash_fwd_plain, dev) -> dict:
                 f"K4 {name}: lse off by {lse_err}")
         pairs = t * (t + 1) // 2 if causal else t * t
         n_bytes = 4 * b * t * h * d * q.element_size() + b * h * t * 4
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * d * pairs * h * b, dt)
+        rate = TF32X3_OPS_PER_S if dt == torch.float32 else PEAK_OPS_PER_S[dt]
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * d * pairs * h * b, rate)
         qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
         kernel = lambda: flash_fwd(q, k, v, causal=causal)
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
@@ -647,13 +675,13 @@ def wire_step_case(dev, block: int) -> dict:
     n_in = sum(x.numel() for x in xs)
     n_out = sum(qg.numel() + 4 * sg.numel() + 4 * ag.numel() for qg, sg, ag in got)
     dev_total, by_name, launches = device_profile(lambda: fn(xs))
+    b_ms, b_by = bound_ms(4 * n_in + n_out, 4.0 * n_in, PEAK_OPS_PER_S[torch.float32])
     rec = {
         "pieces": len(xs), "elements": n_in, "wrapper_calls": calls,
         "device_launches": sum(launches.values()),
         "device_ms": dev_total, "device_kernels": {k[:60]: v for k, v in by_name.items()},
         "ms": time_ms(lambda: fn(xs), iters=50), "host_ms": host_ms(lambda: fn(xs)),
-        "bound_ms": bound_ms(4 * n_in + n_out, 4.0 * n_in, torch.float32)[0],
-        "bound_by": bound_ms(4 * n_in + n_out, 4.0 * n_in, torch.float32)[1],
+        "bound_ms": b_ms, "bound_by": b_by,
         "two_pass_floor_ms": (8 * n_in + n_out) / HBM_BYTES_PER_S * 1e3,
         "max_abs_err": 0.0,
     }
@@ -685,7 +713,7 @@ def phase_k2(dev) -> dict:
             require(float(s) == 0.0 and not bool(q.any()), "K2 all_zero: scale or payload != 0")
         n = x.numel()
         # the contract's bound: x read once, q written once, one scale
-        b_ms, b_by = bound_ms(4 * n + n + 4, 4.0 * n, torch.float32)
+        b_ms, b_by = bound_ms(4 * n + n + 4, 4.0 * n, PEAK_OPS_PER_S[torch.float32])
         out[name] = {
             "shape": list(shape), "max_abs_err": float((q.int() - qp.int()).abs().max()),
             "scale_equal": True,
@@ -715,7 +743,7 @@ def phase_k1_scaled(dev) -> dict:
     require(torch.equal(q, qp), "K1 scaled: int8 payload differs from plain")
     require(torch.equal(s, sp) and torch.equal(a, ap), "K1 scaled: scales differ from plain")
     n = x.numel()
-    b_ms, b_by = bound_ms(4 * n + n + 8 * nb, 4.0 * n, torch.float32)
+    b_ms, b_by = bound_ms(4 * n + n + 8 * nb, 4.0 * n, PEAK_OPS_PER_S[torch.float32])
     out = {"shape": [WORKERS, nb, 128], "shared_rows": nb,
            "max_abs_err": float((q.int() - qp.int()).abs().max()),
            "ms": time_ms(lambda: quantize_rows_scaled_many([x], 128)),
@@ -815,7 +843,7 @@ def phase_k3(dev) -> dict:
             err = max(err, int((k3.int() - plain.int()).abs().max()))
         # the contract's bound: recv read once, the int8 row written once;
         # n adds per column on the int8 path
-        b_ms, b_by = bound_ms(n * s + s, float(n * s), torch.int8)
+        b_ms, b_by = bound_ms(n * s + s, float(n * s), PEAK_OPS_PER_S[torch.int8])
         out[name] = {
             "shape": [n, s], "max_abs_err": float(err),
             "ms": time_ms(lambda: accumulate_rescale_int8(recv, 5.0)),
@@ -1077,21 +1105,52 @@ def kept_pairs(b, h, tq, tk, causal, q_off, k_off) -> int:
     return h * int(sum(np.clip(qo[r] + q - ko[r] + 1, 0, tk).sum() for r in range(b)))
 
 
-def _near(what: str, got, want, tol) -> float:
+def _near(what: str, got, want, tol) -> tuple:
     """Max abs error, required within ``tol`` of the result's largest
     magnitude (f32 sums in another order: the kernels tile by tile, K4
-    and the f32 K5/K6 with scalar FMAs, the bf16 K5/K6 on the tensor cores
-    with P and dS as a bf16 hi + lo pair; the plain versions over whole
-    rows with matmuls)."""
+    with scalar FMAs, K5/K6 on the tensor cores, bf16 with P and dS as a
+    bf16 hi + lo pair and f32 as 3xTF32; the plain versions over whole
+    rows with matmuls); and that error over the largest magnitude."""
     err = float((got.float() - want.float()).abs().max())
-    require(err <= tol * max(1.0, float(want.float().abs().max())),
-            f"{what} off its plain version by {err}")
-    return err
+    top = float(want.float().abs().max())
+    require(err <= tol * max(1.0, top), f"{what} off its plain version by {err}")
+    return err, err / top if top > 0 else 0.0
+
+
+def _aten_yardsticks(q, k, v, do, scale, causal, iters) -> dict:
+    """aten's attention on the same work as one K4-partial call and one K5
+    + K6 pair (never called by the port). Forward: flash attention for
+    bf16, memory-efficient attention for f32 (flash takes no f32); it
+    returns (o, logsumexp), the same softmax work as K4's triple.
+    Backward, (dq, dk, dv), K5 and K6 together: for bf16 what
+    scaled_dot_product_attention picks by default, its fastest call (on
+    the H100 cuDNN's flash backward); for f32 memory-efficient attention
+    (``bwd_device_kernels`` names the kernels). Wall and device time."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    fwd_args = [x.transpose(1, 2) for x in (q, k, v)]
+    qh, kh, vh = (x.detach().requires_grad_(True) for x in fwd_args)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, scale=scale)
+    if q.dtype == torch.bfloat16:
+        fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            *fwd_args, dropout_p=0.0, is_causal=causal, scale=scale)
+        oh = sdpa()
+    else:
+        fwd = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            *fwd_args, None, True, 0.0, is_causal=causal, scale=scale)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            oh = sdpa()
+    doh = do.transpose(1, 2)
+    bwd = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+    bwd_dev, bwd_kernels = device_ms(bwd)
+    return {"fwd_ms": time_ms(fwd, iters), "fwd_device_ms": device_ms(fwd)[0],
+            "bwd_ms": time_ms(bwd, iters=50), "bwd_device_ms": bwd_dev,
+            "bwd_device_kernels": sorted(bwd_kernels)}
 
 
 def phase_flash_train_kernels(dev) -> dict:
     """Phase 14: K4-partial, K5, K6 against their plain versions."""
-    import torch.nn.functional as F
     from ps_pytorch_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv,
         flash_bwd_dq,
@@ -1108,6 +1167,7 @@ def phase_flash_train_kernels(dev) -> dict:
     ring_q = (me * t_loc).repeat_interleave(2)
     ring_k = (((me + 3) % n) * t_loc).repeat_interleave(2)
     cases = [("lm1_bf16", 8, 1024, torch.bfloat16, 0, 0),
+             ("lm1_f32", 8, 1024, torch.float32, 0, 0),
              ("ring_hop_bf16", 8, t_loc, torch.bfloat16, ring_q, ring_k),
              ("ring_hop_f32", 8, t_loc, torch.float32, ring_q, ring_k)]
     h, d = 8, 64
@@ -1129,9 +1189,11 @@ def phase_flash_train_kernels(dev) -> dict:
         dk2, dv2 = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
         want = flash_bwd_plain(*bwd, out_dtype=torch.float32)
         torch.cuda.synchronize()
-        errs = {key: _near(f"{name} {key}", got, ref, tol) for key, got, ref, tol in (
-            ("pv", pv, pvp, 2e-5), ("m", m, mp, 2e-6), ("l", l, lp, 2e-5),
-            ("dq", dq, want[0], 5e-5), ("dk", dk, want[1], 5e-5), ("dv", dv, want[2], 5e-5))}
+        errs, rel = {}, {}
+        for key, got, ref, tol in (
+                ("pv", pv, pvp, 2e-5), ("m", m, mp, 2e-6), ("l", l, lp, 2e-5),
+                ("dq", dq, want[0], 5e-5), ("dk", dk, want[1], 5e-5), ("dv", dv, want[2], 5e-5)):
+            errs[key], rel[key] = _near(f"{name} {key}", got, ref, tol)
         require(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 f"{name}: K5/K6 changed between two runs")
         require(all(torch.equal(x, y) for x, y in zip((pv, m, l), again)),
@@ -1140,85 +1202,74 @@ def phase_flash_train_kernels(dev) -> dict:
         elt, act = q.element_size(), b * t * h * d
         stat = b * h * t * 4
         # bounds: each input read once, each output written once; 4 D
-        # flops per kept pair forward (QK, PV), 6 D for K5, 8 D for K6
+        # flops per kept pair forward (QK, PV), 6 D for K5, 8 D for K6,
+        # at the rate of the input type's products (f32: 3xTF32)
+        rate = TF32X3_OPS_PER_S if dt == torch.float32 else PEAK_OPS_PER_S[dt]
         bounds = {
-            "partial": bound_ms(3 * act * elt + act * 4 + 2 * stat, 4.0 * d * pairs, dt),
-            "dq": bound_ms(4 * act * elt + 2 * stat + act * 4, 6.0 * d * pairs, dt),
-            "dkv": bound_ms(4 * act * elt + 2 * stat + 2 * act * 4, 8.0 * d * pairs, dt),
+            "partial": bound_ms(3 * act * elt + act * 4 + 2 * stat, 4.0 * d * pairs, rate),
+            "dq": bound_ms(4 * act * elt + 2 * stat + act * 4, 6.0 * d * pairs, rate),
+            "dkv": bound_ms(4 * act * elt + 2 * stat + 2 * act * 4, 8.0 * d * pairs, rate),
         }
-        # fewer back-to-back calls at the ring hop, where one takes 6-13 ms
-        iters, plain_iters = (ITERS, 20) if t <= 1024 else (50, 10)
+        # fewer back-to-back calls where one call takes milliseconds
+        slow = t > 1024 or dt == torch.float32
+        iters, plain_iters = (50, 10) if slow else (ITERS, 20)
         rec = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
-               "kept_pairs": pairs, "max_abs_err": errs}
+               "kept_pairs": pairs, "max_abs_err": errs, "err_of_largest": rel}
         partial = lambda: flash_partial(q, k, v, True, scale, q_off, k_off)
         dev_ms, kernels = _device_route(f"{name} K4-partial", partial, dt)
         rec["partial"] = {
             "ms": time_ms(partial, iters), "device_ms": dev_ms, "device_kernels": kernels,
             "plain_ms": time_ms(lambda: flash_partial_plain(q, k, v, True, scale, q_off,
                                                             k_off), iters=plain_iters),
-            "bound_ms": bounds["partial"][0], "bound_by": bounds["partial"][1],
-            "library_ms": None}
+            "bound_ms": bounds["partial"][0], "bound_by": bounds["partial"][1]}
         plain_bwd_ms = time_ms(lambda: flash_bwd_plain(*bwd, out_dtype=torch.float32),
                                iters=plain_iters)
-        rec["dq"] = {"ms": time_ms(lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32), iters),
-                     "plain_ms": plain_bwd_ms,
-                     "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]}
-        rec["dkv"] = {"ms": time_ms(lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32),
-                                    iters),
-                      "plain_ms": plain_bwd_ms,
-                      "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]}
-        for part, fn in (("dq", lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32)),
-                         ("dkv", lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32))):
-            rec[part]["device_ms"] = device_ms(fn)[0]
-        library = None
-        if dt == torch.bfloat16:
-            # aten's flash attention for the same work: causal at LM-1's
-            # offsets 0; on the ring hop non-causal over the six rows whose
-            # shards keep every key (the two of shard 0 keep none and get
-            # zeros). Its forward returns (o, logsumexp), the same softmax
-            # work as K4's triple; its backward gives (dq, dk, dv), K5 and
-            # K6 together.
-            rows = slice(None) if name == "lm1_bf16" else slice(2, None)
-            fwd_args = [x[rows].transpose(1, 2) for x in (q, k, v)]
-            aten_fwd = lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                *fwd_args, dropout_p=0.0, is_causal=name == "lm1_bf16", scale=scale)
-            rec["partial"]["library_ms"] = time_ms(aten_fwd, iters)
-            rec["partial"]["library_device_ms"] = device_ms(aten_fwd)[0]
-            qh, kh, vh = (x[rows].transpose(1, 2).detach().requires_grad_(True)
-                          for x in (q, k, v))
-            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=name == "lm1_bf16")
-            doh = do[rows].transpose(1, 2)
-            aten = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
-            library = time_ms(aten, iters=50)
-            lib_dev, lib_kernels = device_ms(aten)
-            rec["library_device_ms"] = lib_dev
-            rec["library_device_kernels"] = lib_kernels
-            rec["k5_plus_k6"] = {
-                "ms": rec["dq"]["ms"] + rec["dkv"]["ms"], "library_ms": library,
-                "device_ms": rec["dq"]["device_ms"] + rec["dkv"]["device_ms"],
-                "library_device_ms": lib_dev}
-        rec["dq"]["library_ms"] = rec["dkv"]["library_ms"] = library
+        for part, family, fn in (
+                ("dq", "flash_dq", lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32)),
+                ("dkv", "flash_dkv", lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32))):
+            dev_ms, kernels = _device_route(f"{name} {part}", fn, dt, family)
+            rec[part] = {"ms": time_ms(fn, iters), "device_ms": dev_ms,
+                         "device_kernels": kernels, "plain_ms": plain_bwd_ms,
+                         "bound_ms": bounds[part][0], "bound_by": bounds[part][1]}
+        # aten on the same work: causal at LM-1's offsets 0; on the ring
+        # hop non-causal over the six rows whose shards keep every key (the
+        # two of shard 0 keep none and get zeros)
+        rows = slice(None) if name.startswith("lm1") else slice(2, None)
+        lib = _aten_yardsticks(q[rows], k[rows], v[rows], do[rows], scale,
+                               name.startswith("lm1"), iters)
+        rec["partial"]["library_ms"] = lib["fwd_ms"]
+        rec["partial"]["library_device_ms"] = lib["fwd_device_ms"]
+        for part in ("dq", "dkv"):
+            rec[part]["library_ms"] = lib["bwd_ms"]
+            rec[part]["library_device_ms"] = lib["bwd_device_ms"]
+        rec["library_device_kernels"] = lib["bwd_device_kernels"]
+        rec["k5_plus_k6"] = {
+            "ms": rec["dq"]["ms"] + rec["dkv"]["ms"], "library_ms": lib["bwd_ms"],
+            "device_ms": rec["dq"]["device_ms"] + rec["dkv"]["device_ms"],
+            "library_device_ms": lib["bwd_device_ms"],
+            "bound_ms": rec["dq"]["bound_ms"] + rec["dkv"]["bound_ms"]}
         out[name] = rec
-    print("phase 14 K4-partial / K5 / K6 vs plain: " + json.dumps(out))
+        print(f"phase 14 {name}: " + json.dumps(rec), flush=True)
     return out
 
 
 # The JAX package's LM bench leg (bench.py:66, 582-595) at full width
 LM_DEPTH = 6
 LM_ARGS = ["--parallelism", "dp_sp", "--attention-impl", "flash", "--vocab-size", "2048",
-           "--dim", "512", "--depth", str(LM_DEPTH), "--heads", "8", "--dtype", "bfloat16",
+           "--dim", "512", "--depth", str(LM_DEPTH), "--heads", "8",
            "--remat", "--lr", "0.01", "--momentum", "0.9", "--log-interval", "1",
            "--device", "cuda"]
 
 
-def phase_lm(card: str, phase: str, steps: int, n_sp: int, batch: int, seq: int) -> dict:
+def phase_lm(card: str, phase: str, steps: int, n_sp: int, batch: int, seq: int,
+             dtype: str = "bfloat16") -> dict:
     """Phases 15-16: LM training through ``cli.train_lm.main``, with the
     flash launch counts of the formula (L n (1 + remat) K4-partial, L n
     K5, L n K6 per step)."""
     from ps_pytorch_tpu_torch.cli import train_lm
 
-    flags = ["--seq-len", str(seq), "--batch-size", str(batch), "--num-sp", str(n_sp),
-             "--max-steps", str(steps)]
+    flags = ["--dtype", dtype, "--seq-len", str(seq), "--batch-size", str(batch),
+             "--num-sp", str(n_sp), "--max-steps", str(steps)]
     reset_flash_counts()
     res = train_lm.main(LM_ARGS + flags)
     torch.cuda.synchronize()
@@ -1304,7 +1355,8 @@ def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run alone (4, 7, 8, 9, 14)")
+                    help="comma-separated phases to run alone (2, 4, 7, 8, 9, 14; "
+                         "2 on this tree only)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
     args = ap.parse_args(argv)
@@ -1332,15 +1384,18 @@ def main(argv=None) -> int:
         import ps_pytorch_tpu_torch
 
         print(f"package: {os.path.dirname(os.path.abspath(ps_pytorch_tpu_torch.__file__))}")
-        alone = {4: lambda: phase_k4(flash_fwd, flash_fwd_plain, dev),
+        alone = {2: phase_build,
+                 4: lambda: phase_k4(flash_fwd, flash_fwd_plain, dev),
                  7: lambda: print("phase 7 K2 wire step: "
                                   + json.dumps(wire_step_case(dev, 0))),
                  8: lambda: print("phase 8 K1 shared-scale wire step: "
                                   + json.dumps(wire_step_case(dev, 128))),
                  9: lambda: phase_train(smi),
                  14: lambda: phase_flash_train_kernels(dev)}
-        for n in (int(x) for x in args.phases.split(",")):
-            require(n in alone, f"--phases: {n} is not one of {sorted(alone)}")
+        phases = [int(x) for x in args.phases.split(",")]
+        require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
+        require(not (2 in phases and OTHER_TREE), "--phases: 2 checks this tree's kernels")
+        for n in phases:
             alone[n]()
         return 0
 
@@ -1359,20 +1414,33 @@ def main(argv=None) -> int:
     phase_held_wires(dev)
     fk = phase_flash_train_kernels(dev)
     lm1 = phase_lm(smi, "phase 15 LM-1 train_lm dp 1 x sp 1 flash", 20, 1, 8, 1024)
+    lm1_f32 = phase_lm(smi, "phase 15b LM-1 f32 train_lm dp 1 x sp 1 flash", 8, 1, 8, 1024,
+                       "float32")
     phase_lm(smi, "phase 16 LM-ring train_lm dp 1 x sp 4 flash", 5, 4, 2, 8192)
     phase_lm_held(dev)
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
         key = {"partial": ("pv", "m", "l"), "dq": ("dq",), "dkv": ("dk", "dv")}[part]
-        return {
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": f"ps_pytorch_tpu/ops/flash_attention.py:{site}",
             "launches": lm1["launches"][name],
             "max_abs_err": max(c["max_abs_err"][k] for c in fk.values() for k in key),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "ms": rec["ms"], "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
         }
+        # the f32 route at LM-1 (cli.train_lm's default dtype), launches
+        # from phase 15b
+        f32 = fk["lm1_f32"][part]
+        entry["f32"] = {
+            "launches": lm1_f32["launches"][name],
+            "max_abs_err": max(c["max_abs_err"][k] for n_, c in fk.items()
+                               if n_.endswith("f32") for k in key),
+            **{k: f32[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_device_ms")}}
+        return entry
 
     kernels = [
         {

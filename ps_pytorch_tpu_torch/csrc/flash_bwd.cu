@@ -25,38 +25,52 @@
 // ring hop covers every stacked shard). Ragged tiles are masked, not
 // padded: rows past Tq and keys past Tk load as zeros and are never kept.
 //
-// Bound on the H100 at the LM training shape (B=8, T=1024, H=8, D=64,
-// bf16 in, f32 out, causal): bytes, K5 ~15 us, K6 ~20 us at 3.35 TB/s;
-// the products are 6 D (K5) and 8 D (K6) flops per kept pair, 0.078 /
-// 0.104 ms at the bf16 tensor-core peak. Two routes, chosen by dtype:
+// Bound on the H100. The products are 6 D (K5) and 8 D (K6) flops per
+// kept pair. At the LM training shape (B=8, T=1024, H=8, D=64, causal)
+// in bf16 that is 13 / 17 us at the tensor-core peak, under ~15 / 20 us
+// of bytes; in f32 78 / 104 us at 3xTF32's 164.9 TFLOP/s, and 0.469 /
+// 0.625 ms on an f32 LM-ring hop (B=8 stacked shards of T=2048, six
+// seeing every key): operations.
+//
+// One kernel body per pass (dq_tiles, dkv_tiles), on the tensor cores for
+// both input types; the type picks the product helpers:
 //
 // * bf16 inputs (both LM cells, the Ulysses path, flash_attention's VJP):
-//   the tensor-core kernels flash_dq_mma_kernel / flash_dkv_mma_kernel,
-//   built from flash_mma.cuh (shared with K4's forward). Tiles stay bf16 in shared memory (rows padded by 16 bytes, so the 8
-//   rows an ldmatrix phase reads fall in 8 different bank groups), filled
-//   by cp.async 16-byte copies, the visiting tile double-buffered so the
-//   next one loads while this one computes. Each warp owns 16 rows of the
-//   block's own 64-row tile; every product is mma.sync.m16n8k16 (bf16 in,
-//   f32 accumulators in registers, fragments by ldmatrix). K5 computes
-//   S = Q.K^T and dP = dO.V^T and feeds dS straight from its accumulator
-//   registers into dQ += dS.K; K6 computes S^T = K.Q^T and dP^T = V.dO^T
-//   with the key tile as M, so P^T and dS^T are already the A operand of
-//   dV += P^T.dO and dK += dS^T.Q. The TPU kernels take those three
-//   accumulating products from f32 P and dS; rounding P and dS once to
-//   bf16 (as FlashAttention-2 does) misses this port's 5e-5 tolerance by
-//   25-35x, so they enter as a bf16 hi + lo pair (hi = bf16(x), lo =
-//   bf16(x - hi)), two products into the same f32 accumulator: ~3e-6 of
-//   the largest gradient, at the cost of one more product each. Scores,
-//   exp, the lse guard and (dp - delta) * scale stay in f32; the mask is
-//   evaluated only on tiles that cross the causal diagonal, k_len or Tk.
-//   K6 visits 64-query tiles at D <= 64 and 32-query tiles at D = 128,
-//   where two f32 accumulators of 16 x 128 per warp fill the registers.
-// * f32 inputs (the f32 ring steps and card tests; on no timed path): the
-//   scalar kernels flash_dq_scalar_kernel / flash_dkv_scalar_kernel, f32
-//   FMAs on the CUDA cores, one warp per row of the block's own tile and
-//   one lane per row of the visiting tile.
+//   flash_dq_mma_kernel / flash_dkv_mma_kernel with flash_mma.cuh (shared
+//   with K4): mma.sync.m16n8k16, fragments by ldmatrix. bf16 products are
+//   exact in f32. The TPU kernels take the three accumulating products
+//   from f32 P and dS; rounding P and dS once to bf16 (as
+//   FlashAttention-2 does) misses this port's 5e-5 tolerance by 25-35x,
+//   so they enter as a bf16 hi + lo pair (hi = bf16(x), lo = bf16(x -
+//   hi)), two products into the same f32 accumulator: ~3e-6 of the
+//   largest gradient, at the cost of one more product each.
+// * f32 inputs (cli.train_lm's default dtype: the f32 LM steps, rings and
+//   Ulysses): flash_dq_tf32_kernel / flash_dkv_tf32_kernel with
+//   flash_tf32.cuh: mma.sync.m16n8k8 TF32, every operand of every product
+//   (S, dP, dQ, dK, dV) as a TF32 hi + lo pair, three products each
+//   (3xTF32), each 8-deep step summed apart and added to the accumulator
+//   by an f32 add, where one TF32 product misses the 5e-5 bound by 6-23x
+//   and the tensor cores' truncated sums drift over long rows. P and dS
+//   feed the next product from their accumulator registers in a permuted
+//   contraction order (flash_tf32.cuh).
+//
+// The shared structure: tiles stay in the input type in shared memory,
+// rows padded by 16 bytes (conflict-free fragment reads: flash_mma.cuh,
+// flash_tf32.cuh), filled by cp.async 16-byte copies, the visiting tile
+// double-buffered so the next one loads while this one computes. Each
+// warp owns 16 rows of the block's own 64-row tile, with f32 accumulators
+// in registers. K5 computes S = Q.K^T and dP = dO.V^T and feeds dS
+// straight from its accumulator registers into dQ += dS.K; K6 computes
+// S^T = K.Q^T and dP^T = V.dO^T with the key tile as M, so P^T and dS^T
+// are already the A operand of dV += P^T.dO and dK += dS^T.Q. Scores,
+// exp, the lse guard and (dp - delta) * scale stay in f32; the mask is
+// evaluated only on tiles that cross the causal diagonal, k_len or Tk.
+// Tiles: K5 visits 64-key tiles and K6 64-query tiles (32 at D = 128,
+// where two f32 accumulators of 16 x 128 per warp fill the registers);
+// in f32, 32 (16 at D = 128).
 #include "flash_mask.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -66,13 +80,12 @@ using ps::cp_async_commit;
 using ps::cp_async_wait;
 using ps::gemm_abt;
 using ps::gemm_split_ab;
-using ps::kPad;
 using ps::load_rows;
 using ps::rows_aligned;
 using ps::store2;
 
-constexpr int kBQ = 64;   // query rows per tile (K6 at D = 128: 32)
-constexpr int kBK = 64;   // keys per tile
+constexpr int kBQ = 64;   // query rows per tile: K5's block, K6's visiting tile
+constexpr int kBK = 64;   // keys per tile: K6's block, K5's visiting tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
@@ -107,219 +120,11 @@ __device__ __forceinline__ T* out_ptr(void* base, const long long* st, int b, in
   return static_cast<T*>(base) + b * st[0] + h * st[2];
 }
 
-// ---------------------------------------------------------------------------
-// f32 inputs: the scalar kernels (CUDA cores).
-
-// Stage rows [r0, r0 + n) of a [T, D] f32 head slice into smem rows of
-// pitch P (zeros past T).
-template <int D, int P>
-__device__ __forceinline__ void stage(float* dst, const float* src, long long st,
-                                      int r0, int n, int T_len) {
-  for (int i = threadIdx.x; i < n * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = r0 + r;
-    dst[r * P + d] = t < T_len ? src[(long long)t * st + d] : 0.0f;
-  }
+// Shared rows: D plus 16 bytes of padding (flash_mma.cuh, flash_tf32.cuh).
+template <typename T, int D>
+__host__ __device__ constexpr int pitch() {
+  return D + (sizeof(T) == sizeof(bf16) ? ps::kPad : ps::kPad32);
 }
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_scalar_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [kBQ][D]      (broadcast reads)
-  float* dos = qs + kBQ * D;          // [kBQ][D]
-  float* ks = dos + kBQ * D;          // [kBK][D + 1]  (one key row per lane)
-  float* vs = ks + kBK * (D + 1);     // [kBK][D + 1]
-  float* dqs = vs + kBK * (D + 1);    // [kBQ][D]      f32 accumulator
-  float* lse_s = dqs + kBQ * D;       // [kBQ]
-  float* delta_s = lse_s + kBQ;       // [kBQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kBQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const ps::FlashMask mask =
-      ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const float* kp = head_ptr<float>(a.k, a.sk, b, h);
-  const float* vp = head_ptr<float>(a.v, a.sv, b, h);
-
-  stage<D, D>(qs, head_ptr<float>(a.q, a.sq, b, h), a.sq[1], q0, kBQ, a.Tq);
-  stage<D, D>(dos, head_ptr<float>(a.dout, a.sdo, b, h), a.sdo[1], q0, kBQ, a.Tq);
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) dqs[i] = 0.0f;
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    const int t = q0 + r;
-    lse_s[r] = t < a.Tq ? a.lse[(long long)bh * a.Tq + t] : ps::kNegInf;
-    delta_s[r] = t < a.Tq ? a.delta[(long long)bh * a.Tq + t] : 0.0f;
-  }
-
-  const int n_keys = ps::key_limit(mask, min(q0 + kBQ, a.Tq));
-  const int n_kt = (n_keys + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile is consumed (and the init done)
-    stage<D, D + 1>(ks, kp, a.sk[1], k0, kBK, a.Tk);
-    stage<D, D + 1>(vs, vp, a.sv[1], k0, kBK, a.Tk);
-    __syncthreads();
-
-    for (int r = warp; r < kBQ; r += kWarps) {
-      const int t = q0 + r;
-      if (t >= a.Tq) break;  // rows ascend; the whole warp agrees
-      const float* qr = qs + r * D;
-      const float* dor = dos + r * D;
-      const float lse = lse_s[r], delta = delta_s[r];
-      const bool live = lse > ps::kNegInf * 0.5f;
-      float ds[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = lane + 32 * u;
-        const float* kr = ks + j * (D + 1);
-        const float* vr = vs + j * (D + 1);
-        float s = 0.0f, dp = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(qr[d], kr[d], s);
-          dp = fmaf(dor[d], vr[d], dp);
-        }
-        const float p =
-            live && ps::keep(mask, t, k0 + j) ? expf(s * a.scale - lse) : 0.0f;
-        ds[u] = p * (dp - delta) * a.scale;
-      }
-      // lane owns dq columns lane, lane + 32, ...
-      float acc[D / 32];
-      float* ar = dqs + r * D;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[i] = ar[lane + 32 * i];
-#pragma unroll 4
-      for (int j = 0; j < 32; ++j) {
-        const float da = __shfl_sync(ps::kFullMask, ds[0], j);
-        const float db = __shfl_sync(ps::kFullMask, ds[1], j);
-#pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          acc[i] = fmaf(da, ks[j * (D + 1) + lane + 32 * i], acc[i]);
-          acc[i] = fmaf(db, ks[(j + 32) * (D + 1) + lane + 32 * i], acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) ar[lane + 32 * i] = acc[i];
-    }
-  }
-  __syncthreads();
-
-  float* dqp = out_ptr<float>(a.dq, a.sdq, b, h);
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = q0 + r;
-    if (t < a.Tq) dqp[(long long)t * a.sdq[1] + d] = dqs[i];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_scalar_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  float* ks = smem;                   // [kBK][D]      (broadcast reads)
-  float* vs = ks + kBK * D;           // [kBK][D]
-  float* qs = vs + kBK * D;           // [kBQ][D + 1]  (one query row per lane)
-  float* dos = qs + kBQ * (D + 1);    // [kBQ][D + 1]
-  float* dks = dos + kBQ * (D + 1);   // [kBK][D]      f32 accumulators
-  float* dvs = dks + kBK * D;         // [kBK][D]
-  float* lse_s = dvs + kBK * D;       // [kBQ]
-  float* delta_s = lse_s + kBQ;       // [kBQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * kBK;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const ps::FlashMask mask =
-      ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const float* qp = head_ptr<float>(a.q, a.sq, b, h);
-  const float* dop = head_ptr<float>(a.dout, a.sdo, b, h);
-
-  stage<D, D>(ks, head_ptr<float>(a.k, a.sk, b, h), a.sk[1], k0, kBK, a.Tk);
-  stage<D, D>(vs, head_ptr<float>(a.v, a.sv, b, h), a.sv[1], k0, kBK, a.Tk);
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    dks[i] = 0.0f;
-    dvs[i] = 0.0f;
-  }
-
-  const int qt0 = ps::first_query(mask, k0, a.Tq) / kBQ;
-  const int n_qt = (a.Tq + kBQ - 1) / kBQ;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // the previous tile is consumed (and the init done)
-    stage<D, D + 1>(qs, qp, a.sq[1], q0, kBQ, a.Tq);
-    stage<D, D + 1>(dos, dop, a.sdo[1], q0, kBQ, a.Tq);
-    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-      const int t = q0 + r;
-      lse_s[r] = t < a.Tq ? a.lse[(long long)bh * a.Tq + t] : ps::kNegInf;
-      delta_s[r] = t < a.Tq ? a.delta[(long long)bh * a.Tq + t] : 0.0f;
-    }
-    __syncthreads();
-
-    for (int jr = warp; jr < kBK; jr += kWarps) {
-      const int key = k0 + jr;
-      if (key >= a.Tk) break;  // keys ascend; the whole warp agrees
-      const float* kr = ks + jr * D;
-      const float* vr = vs + jr * D;
-      float p[2], ds[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int i = lane + 32 * u, t = q0 + i;
-        const float* qr = qs + i * (D + 1);
-        const float* dor = dos + i * (D + 1);
-        float s = 0.0f, dp = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(qr[d], kr[d], s);
-          dp = fmaf(dor[d], vr[d], dp);
-        }
-        const float lse = lse_s[i];
-        const bool kept = t < a.Tq && lse > ps::kNegInf * 0.5f && ps::keep(mask, t, key);
-        p[u] = kept ? expf(s * a.scale - lse) : 0.0f;
-        ds[u] = p[u] * (dp - delta_s[i]) * a.scale;
-      }
-      // lane owns dk/dv columns lane, lane + 32, ...
-      float dk[D / 32], dv[D / 32];
-      float* dkr = dks + jr * D;
-      float* dvr = dvs + jr * D;
-#pragma unroll
-      for (int m = 0; m < D / 32; ++m) {
-        dk[m] = dkr[lane + 32 * m];
-        dv[m] = dvr[lane + 32 * m];
-      }
-#pragma unroll 4
-      for (int i = 0; i < 32; ++i) {
-        const float pa = __shfl_sync(ps::kFullMask, p[0], i);
-        const float pb = __shfl_sync(ps::kFullMask, p[1], i);
-        const float da = __shfl_sync(ps::kFullMask, ds[0], i);
-        const float db = __shfl_sync(ps::kFullMask, ds[1], i);
-#pragma unroll
-        for (int m = 0; m < D / 32; ++m) {
-          const int c = lane + 32 * m;
-          dv[m] = fmaf(pa, dos[i * (D + 1) + c], dv[m]);
-          dv[m] = fmaf(pb, dos[(i + 32) * (D + 1) + c], dv[m]);
-          dk[m] = fmaf(da, qs[i * (D + 1) + c], dk[m]);
-          dk[m] = fmaf(db, qs[(i + 32) * (D + 1) + c], dk[m]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < D / 32; ++m) {
-        dkr[lane + 32 * m] = dk[m];
-        dvr[lane + 32 * m] = dv[m];
-      }
-    }
-  }
-  __syncthreads();
-
-  float* dkp = out_ptr<float>(a.dk, a.sdk, b, h);
-  float* dvp = out_ptr<float>(a.dv, a.sdv, b, h);
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    const int r = i / D, d = i % D, key = k0 + r;
-    if (key < a.Tk) {
-      dkp[(long long)key * a.sdk[1] + d] = dks[i];
-      dvp[(long long)key * a.sdv[1] + d] = dvs[i];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 inputs: the tensor-core kernels.
 
 // The [ROWS] f32 statistics of rows [r0, r0 + ROWS) into shared memory:
 // lse and delta, with NEG_INF and 0 past Tq (the lse guard then zeroes p).
@@ -338,32 +143,61 @@ __device__ __forceinline__ void load_stats(float* lse_s, float* delta_s, const f
   }
 }
 
+// The visiting tiles: K5's keys, K6's queries. bf16: 64, and 32 for K6
+// at D = 128 (registers). f32 tiles take twice the bytes, and the 3xTF32
+// steps a fresh accumulator each (flash_tf32.cuh): 32, and 16 at D = 128.
+// On the H100 K6's 64-query f32 tile spilled 168 bytes at D = 64 and ran
+// the ring hop in 5.37 ms, the 32-query tile 3.23 ms (PERF.md).
+template <typename T, int D>
+__host__ __device__ constexpr int dq_tile() {
+  return sizeof(T) == sizeof(float) ? (D > 64 ? 16 : 32) : kBK;
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int dkv_tile() {
+  return sizeof(T) == sizeof(float) ? (D > 64 ? 16 : 32) : (D > 64 ? 32 : kBQ);
+}
+
+template <typename T, int D>
+constexpr size_t dq_smem() {
+  return (2 * (size_t)kBQ + 4 * (size_t)dq_tile<T, D>()) * pitch<T, D>() * sizeof(T);
+}
+
+template <typename T, int D>
+constexpr size_t dkv_smem() {
+  return (2 * (size_t)kBK + 4 * (size_t)dkv_tile<T, D>()) * pitch<T, D>() * sizeof(T) +
+         4 * (size_t)dkv_tile<T, D>() * sizeof(float);
+}
+
 // Blocks a multiprocessor should hold at once, which caps a thread's
-// registers at 65536 / (128 n). At LM-1 on the H100 K5 ran faster with 4
-// (128 registers, a few spilled) than with ptxas's free choice of 166 (3
-// blocks), K6 with 3 (168) than with 235 (2); at D = 128 the accumulators
-// need every register, so there is no cap.
-template <int D>
+// registers at 65536 / (128 n). bf16: at LM-1 on the H100 K5 ran faster
+// with 4 (128 registers, a few spilled) than with ptxas's free choice of
+// 166 (3 blocks), K6 with 3 (168) than with 235 (2); at D = 128 the
+// accumulators need every register, so there is no cap. f32 (dq_smem
+// and dkv_smem: 37 / 70 / 101 KB at D = 32 / 64 / 128): 3 blocks at D =
+// 32, 2 at D = 64 (K5 with 3 spilled 40 bytes and took the ring hop in
+// 2.65 ms, with 2 none and 2.46 ms), no cap at D = 128.
+template <typename T, int D>
 constexpr int dq_min_blocks() {
-  return D > 64 ? 1 : 4;
+  return D > 64 ? 1 : (sizeof(T) == sizeof(bf16) ? 4 : (D == 32 ? 3 : 2));
 }
 
-template <int D>
+template <typename T, int D>
 constexpr int dkv_min_blocks() {
-  return D > 64 ? 1 : 3;
+  return D > 64 ? 1 : (sizeof(T) == sizeof(bf16) || D == 32 ? 3 : 2);
 }
 
-// K5 on the tensor cores: one block per (batch*head, 64-row q tile); warp
-// w owns rows [16 w, 16 w + 16) of it and loops over the visible key tiles.
-template <int D, typename OutT>
-__global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
-    flash_dq_mma_kernel(BwdArgs a) {
-  constexpr int P = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_bytes);  // [kBQ][P]
-  bf16* dos = qs + kBQ * P;                        // [kBQ][P]
-  bf16* ks = dos + kBQ * P;                        // [2][kBK][P]
-  bf16* vs = ks + 2 * kBK * P;                     // [2][kBK][P]
+// K5's tiles: one block per (batch*head, 64-row q tile), longest causal
+// rows first; warp w owns rows [16 w, 16 w + 16) of it and loops over the
+// visible key tiles.
+template <typename T, int D, typename OutT>
+__device__ __forceinline__ void dq_tiles(const BwdArgs& a, unsigned char* smem_bytes) {
+  constexpr int P = pitch<T, D>();
+  constexpr int BK = dq_tile<T, D>();
+  T* qs = reinterpret_cast<T*>(smem_bytes);  // [kBQ][P]
+  T* dos = qs + kBQ * P;                     // [kBQ][P]
+  T* ks = dos + kBQ * P;                     // [2][BK][P]
+  T* vs = ks + 2 * BK * P;                   // [2][BK][P]
 
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
@@ -371,16 +205,16 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const ps::FlashMask mask =
       ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const bf16* kp = head_ptr<bf16>(a.k, a.sk, b, h);
-  const bf16* vp = head_ptr<bf16>(a.v, a.sv, b, h);
-  const int n_kt = (ps::key_limit(mask, min(q0 + kBQ, a.Tq)) + kBK - 1) / kBK;
+  const T* kp = head_ptr<T>(a.k, a.sk, b, h);
+  const T* vp = head_ptr<T>(a.v, a.sv, b, h);
+  const int n_kt = (ps::key_limit(mask, min(q0 + kBQ, a.Tq)) + BK - 1) / BK;
 
-  load_rows<D, kBQ, kThreads>(qs, head_ptr<bf16>(a.q, a.sq, b, h), a.sq[1], q0, a.Tq);
-  load_rows<D, kBQ, kThreads>(dos, head_ptr<bf16>(a.dout, a.sdo, b, h), a.sdo[1], q0,
+  load_rows<D, kBQ, kThreads>(qs, head_ptr<T>(a.q, a.sq, b, h), a.sq[1], q0, a.Tq);
+  load_rows<D, kBQ, kThreads>(dos, head_ptr<T>(a.dout, a.sdo, b, h), a.sdo[1], q0,
                               a.Tq);
   if (n_kt > 0) {
-    load_rows<D, kBK, kThreads>(ks, kp, a.sk[1], 0, a.Tk);
-    load_rows<D, kBK, kThreads>(vs, vp, a.sv[1], 0, a.Tk);
+    load_rows<D, BK, kThreads>(ks, kp, a.sk[1], 0, a.Tk);
+    load_rows<D, BK, kThreads>(vs, vp, a.sv[1], 0, a.Tk);
   }
   cp_async_commit();
 
@@ -398,13 +232,13 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
 
   float dq[D / 8][4] = {};
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    const bf16* kst = ks + (kt & 1) * kBK * P;
-    const bf16* vst = vs + (kt & 1) * kBK * P;
+    const int k0 = kt * BK;
+    const T* kst = ks + (kt & 1) * BK * P;
+    const T* vst = vs + (kt & 1) * BK * P;
     if (kt + 1 < n_kt) {  // the next tile loads while this one computes
-      const int nx = ((kt + 1) & 1) * kBK * P;
-      load_rows<D, kBK, kThreads>(ks + nx, kp, a.sk[1], k0 + kBK, a.Tk);
-      load_rows<D, kBK, kThreads>(vs + nx, vp, a.sv[1], k0 + kBK, a.Tk);
+      const int nx = ((kt + 1) & 1) * BK * P;
+      load_rows<D, BK, kThreads>(ks + nx, kp, a.sk[1], k0 + BK, a.Tk);
+      load_rows<D, BK, kThreads>(vs + nx, vp, a.sv[1], k0 + BK, a.Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -412,13 +246,13 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
     }
     __syncthreads();
 
-    float s[kBK / 8][4] = {};
-    float ds[kBK / 8][4] = {};
-    gemm_abt<kBK, D, P>(s, qs + warp * 16 * P, kst, lane);
-    gemm_abt<kBK, D, P>(ds, dos + warp * 16 * P, vst, lane);  // dP for now
-    const bool interior = ps::tile_kept(mask, q0 + warp * 16, k0, kBK);
+    float s[BK / 8][4] = {};
+    float ds[BK / 8][4] = {};
+    gemm_abt<BK, D, P>(s, qs + warp * 16 * P, kst, lane);
+    gemm_abt<BK, D, P>(ds, dos + warp * 16 * P, vst, lane);  // dP for now
+    const bool interior = ps::tile_kept(mask, q0 + warp * 16, k0, BK);
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e / 2;
@@ -428,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
         ds[j][e] = p * (ds[j][e] - delta[i]) * a.scale;
       }
     }
-    gemm_split_ab<kBK, D, P>(dq, ds, kst, lane);
+    gemm_split_ab<BK, D, P>(dq, ds, kst, lane);
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_async_wait<0>();  // no visible key tile: the q tile's copies
@@ -445,18 +279,17 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<D>())
   }
 }
 
-// K6 on the tensor cores: one block per (batch*head, 64-key tile); warp w
-// owns keys [16 w, 16 w + 16) of it and loops over BQ-query tiles from
-// the first that keeps the tile's first key.
-template <int D, int BQ, typename OutT>
-__global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
-    flash_dkv_mma_kernel(BwdArgs a) {
-  constexpr int P = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_bytes);  // [kBK][P]
-  bf16* vs = ks + kBK * P;                         // [kBK][P]
-  bf16* qs = vs + kBK * P;                         // [2][BQ][P]
-  bf16* dos = qs + 2 * BQ * P;                     // [2][BQ][P]
+// K6's tiles: one block per (batch*head, 64-key tile); warp w owns keys
+// [16 w, 16 w + 16) of it and loops over BQ-query tiles from the first
+// that keeps the tile's first key.
+template <typename T, int D, typename OutT>
+__device__ __forceinline__ void dkv_tiles(const BwdArgs& a, unsigned char* smem_bytes) {
+  constexpr int P = pitch<T, D>();
+  constexpr int BQ = dkv_tile<T, D>();
+  T* ks = reinterpret_cast<T*>(smem_bytes);  // [kBK][P]
+  T* vs = ks + kBK * P;                      // [kBK][P]
+  T* qs = vs + kBK * P;                      // [2][BQ][P]
+  T* dos = qs + 2 * BQ * P;                  // [2][BQ][P]
   float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * P);  // [2][BQ]
   float* delta_s = lse_s + 2 * BQ;                             // [2][BQ]
 
@@ -466,15 +299,15 @@ __global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const ps::FlashMask mask =
       ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const bf16* qp = head_ptr<bf16>(a.q, a.sq, b, h);
-  const bf16* dop = head_ptr<bf16>(a.dout, a.sdo, b, h);
+  const T* qp = head_ptr<T>(a.q, a.sq, b, h);
+  const T* dop = head_ptr<T>(a.dout, a.sdo, b, h);
   const float* lse = a.lse + (long long)bh * a.Tq;
   const float* delta = a.delta + (long long)bh * a.Tq;
   const int qt0 = ps::first_query(mask, k0, a.Tq) / BQ;
   const int n_qt = (a.Tq + BQ - 1) / BQ;
 
-  load_rows<D, kBK, kThreads>(ks, head_ptr<bf16>(a.k, a.sk, b, h), a.sk[1], k0, a.Tk);
-  load_rows<D, kBK, kThreads>(vs, head_ptr<bf16>(a.v, a.sv, b, h), a.sv[1], k0, a.Tk);
+  load_rows<D, kBK, kThreads>(ks, head_ptr<T>(a.k, a.sk, b, h), a.sk[1], k0, a.Tk);
+  load_rows<D, kBK, kThreads>(vs, head_ptr<T>(a.v, a.sv, b, h), a.sv[1], k0, a.Tk);
   if (qt0 < n_qt) {
     load_rows<D, BQ, kThreads>(qs, qp, a.sq[1], qt0 * BQ, a.Tq);
     load_rows<D, BQ, kThreads>(dos, dop, a.sdo[1], qt0 * BQ, a.Tq);
@@ -489,8 +322,8 @@ __global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     const int st = (qt - qt0) & 1;
-    const bf16* qst = qs + st * BQ * P;
-    const bf16* dost = dos + st * BQ * P;
+    const T* qst = qs + st * BQ * P;
+    const T* dost = dos + st * BQ * P;
     const float* lse_t = lse_s + st * BQ;
     const float* delta_t = delta_s + st * BQ;
     if (qt + 1 < n_qt) {  // the next tile loads while this one computes
@@ -545,34 +378,39 @@ __global__ void __launch_bounds__(kThreads, dkv_min_blocks<D>())
 }
 
 // ---------------------------------------------------------------------------
+// The kernels: bf16 inputs (f32 or bf16 gradients), f32 inputs (f32
+// gradients).
+
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kThreads, (dq_min_blocks<bf16, D>()))
+    flash_dq_mma_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  dq_tiles<bf16, D, OutT>(a, smem_bytes);
+}
+
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kThreads, (dkv_min_blocks<bf16, D>()))
+    flash_dkv_mma_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  dkv_tiles<bf16, D, OutT>(a, smem_bytes);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, (dq_min_blocks<float, D>()))
+    flash_dq_tf32_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  dq_tiles<float, D, float>(a, smem_bytes);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, (dkv_min_blocks<float, D>()))
+    flash_dkv_tf32_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  dkv_tiles<float, D, float>(a, smem_bytes);
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
-
-template <int D>
-constexpr size_t dq_scalar_smem() {
-  return (3 * (size_t)kBQ * D + 2 * (size_t)kBK * (D + 1) + 2 * kBQ) * sizeof(float);
-}
-
-template <int D>
-constexpr size_t dkv_scalar_smem() {
-  return (4 * (size_t)kBK * D + 2 * (size_t)kBQ * (D + 1) + 2 * kBQ) * sizeof(float);
-}
-
-// K6's query tile on the tensor-core route: 32 at D = 128 (registers)
-template <int D>
-constexpr int dkv_tile() {
-  return D > 64 ? 32 : 64;
-}
-
-template <int D>
-constexpr size_t dq_mma_smem() {
-  return (2 * (size_t)kBQ + 4 * (size_t)kBK) * (D + kPad) * sizeof(bf16);
-}
-
-template <int D>
-constexpr size_t dkv_mma_smem() {
-  return (2 * (size_t)kBK + 4 * (size_t)dkv_tile<D>()) * (D + kPad) * sizeof(bf16) +
-         4 * (size_t)dkv_tile<D>() * sizeof(float);
-}
 
 template <typename K>
 int launch_kernel(K kernel, size_t bytes, dim3 grid, const BwdArgs& a, cudaStream_t s) {
@@ -587,21 +425,21 @@ dim3 grid_of(const BwdArgs& a, int B, bool dq) {
   return dim3((unsigned)(((dq ? a.Tq : a.Tk) + 63) / 64), (unsigned)(B * a.H));
 }
 
-template <int D>
-int launch_scalar(const BwdArgs& a, int B, bool dq, cudaStream_t s) {
-  if (dq)
-    return launch_kernel(flash_dq_scalar_kernel<D>, dq_scalar_smem<D>(),
-                         grid_of(a, B, true), a, s);
-  return launch_kernel(flash_dkv_scalar_kernel<D>, dkv_scalar_smem<D>(),
-                       grid_of(a, B, false), a, s);
-}
-
 template <int D, typename OutT>
 int launch_mma(const BwdArgs& a, int B, bool dq, cudaStream_t s) {
   if (dq)
-    return launch_kernel(flash_dq_mma_kernel<D, OutT>, dq_mma_smem<D>(),
+    return launch_kernel(flash_dq_mma_kernel<D, OutT>, dq_smem<bf16, D>(),
                          grid_of(a, B, true), a, s);
-  return launch_kernel(flash_dkv_mma_kernel<D, dkv_tile<D>(), OutT>, dkv_mma_smem<D>(),
+  return launch_kernel(flash_dkv_mma_kernel<D, OutT>, dkv_smem<bf16, D>(),
+                       grid_of(a, B, false), a, s);
+}
+
+template <int D>
+int launch_tf32(const BwdArgs& a, int B, bool dq, cudaStream_t s) {
+  if (dq)
+    return launch_kernel(flash_dq_tf32_kernel<D>, dq_smem<float, D>(),
+                         grid_of(a, B, true), a, s);
+  return launch_kernel(flash_dkv_tf32_kernel<D>, dkv_smem<float, D>(),
                        grid_of(a, B, false), a, s);
 }
 
@@ -615,25 +453,27 @@ int launch_mma_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
   }
 }
 
-int launch_scalar_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
+int launch_tf32_d(const BwdArgs& a, int B, int D, bool dq, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_scalar<32>(a, B, dq, s);
-    case 64: return launch_scalar<64>(a, B, dq, s);
-    case 128: return launch_scalar<128>(a, B, dq, s);
+    case 32: return launch_tf32<32>(a, B, dq, s);
+    case 64: return launch_tf32<64>(a, B, dq, s);
+    case 128: return launch_tf32<128>(a, B, dq, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int dispatch(const BwdArgs& a, int dtype, int out_f32, int B, int D, bool dq,
              cudaStream_t s) {
-  if (dtype == ps::kFloat32)  // f32 inputs give f32 gradients
-    return out_f32 ? launch_scalar_d(a, B, D, dq, s) : (int)cudaErrorInvalidValue;
-  if (dtype != ps::kBFloat16) return (int)cudaErrorInvalidValue;
-  const bool in_ok = rows_aligned(a.q, a.sq) && rows_aligned(a.k, a.sk) &&
-                     rows_aligned(a.v, a.sv) && rows_aligned(a.dout, a.sdo);
-  const bool out_ok = dq ? rows_aligned(a.dq, a.sdq)
-                         : rows_aligned(a.dk, a.sdk) && rows_aligned(a.dv, a.sdv);
+  const bool f32 = dtype == ps::kFloat32;
+  if (!f32 && dtype != ps::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (f32 && !out_f32) return (int)cudaErrorInvalidValue;  // f32 inputs give f32 gradients
+  const int vec = f32 ? 4 : 8;  // elements in 16 bytes
+  const bool in_ok = rows_aligned(a.q, a.sq, vec) && rows_aligned(a.k, a.sk, vec) &&
+                     rows_aligned(a.v, a.sv, vec) && rows_aligned(a.dout, a.sdo, vec);
+  const bool out_ok = dq ? rows_aligned(a.dq, a.sdq, vec)
+                         : rows_aligned(a.dk, a.sdk, vec) && rows_aligned(a.dv, a.sdv, vec);
   if (!in_ok || !out_ok) return (int)cudaErrorMisalignedAddress;
+  if (f32) return launch_tf32_d(a, B, D, dq, s);
   return out_f32 ? launch_mma_d<float>(a, B, D, dq, s) : launch_mma_d<bf16>(a, B, D, dq, s);
 }
 
@@ -671,11 +511,12 @@ bool bad_shape(int B, int H, int Tq, int Tk) {
 
 // strides: int64 element strides, (batch, time, head) for q, k, v, do and
 // then the outputs (dq; or dk, dv) in that order: 15 for the dq entry, 18
-// for the dk/dv entry; the head-dim stride must be 1 (the wrapper checks);
-// bf16 inputs also need 16-byte-aligned rows (cudaErrorMisalignedAddress
-// otherwise). lse, delta: f32 [B, H, Tq] contiguous. out_f32 != 0 writes
-// the gradients in f32, else in the input dtype. off: null, or a device
-// int32 [B, 2] table of (q_off, k_off) that then replaces the scalars.
+// for the dk/dv entry; the head-dim stride must be 1 (the wrapper checks)
+// and every row 16-byte aligned (cudaErrorMisalignedAddress otherwise).
+// lse, delta: f32 [B, H, Tq] contiguous. out_f32 != 0 writes the
+// gradients in f32, else in the input dtype (bf16 inputs only: f32 inputs
+// give f32 gradients). off: null, or a device int32 [B, 2] table of
+// (q_off, k_off) that then replaces the scalars.
 extern "C" int ps_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
                                void* dq, int dtype, int out_f32, int B, int H,

@@ -151,10 +151,10 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
 
 // The tensor-core routes copy 16-byte chunks and store output pairs: every
 // [D] row starts on a 16-byte boundary (base address aligned, batch, time
-// and head strides multiples of 8 elements).
-inline bool rows_aligned(const void* p, const long long* st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st[0] % 8 == 0 &&
-         st[1] % 8 == 0 && st[2] % 8 == 0;
+// and head strides multiples of vec elements: 8 bf16, 4 f32).
+inline bool rows_aligned(const void* p, const long long* st, int vec = 8) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st[0] % vec == 0 &&
+         st[1] % vec == 0 && st[2] % vec == 0;
 }
 
 }  // namespace ps

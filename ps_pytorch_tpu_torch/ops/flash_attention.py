@@ -15,9 +15,11 @@ plain versions; CUDA tensors launch the kernel or raise.
 
 bf16 inputs run all three on the tensor cores (``mma.sync``, with P and
 dS entering the accumulating products as a bf16 hi + lo pair, so the
-results keep the TPU kernels' f32 products), f32 inputs on the CUDA
-cores: an explicit choice by dtype in the C entry points, with no
-fallback from one route to the other.
+results keep the TPU kernels' f32 products). f32 inputs run K5 and K6 on
+the tensor cores too, every operand as a TF32 hi + lo pair (3xTF32, each
+8-deep step added to the accumulator by an f32 add), and K4 on the CUDA
+cores. The route is an explicit choice by
+dtype in the C entry points, with no fallback from one to another.
 
 All keep the TPU kernels' semantics: f32 scores, f32 softmax statistics
 whatever the input dtype, the finite ``NEG_INF`` and the guards for rows
@@ -158,11 +160,11 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the tensor-core kernels (bf16 K4-K6) read it: unit last
-    stride and every ``[D]`` row on a 16-byte boundary (base address and
-    batch, time, head strides), since their ``cp.async`` copies move 16
-    bytes. Head splits of a fused projection pass as they are; any other
-    view is copied here, explicitly."""
+    """``x`` as the tensor-core kernels (bf16 K4, bf16 and f32 K5/K6)
+    read it: unit last stride and every ``[D]`` row on a 16-byte boundary
+    (base address and batch, time, head strides), since their ``cp.async``
+    copies move 16 bytes. Head splits of a fused projection pass as they
+    are; any other view is copied here, explicitly."""
     x = _unit_last(x)
     step = 16 // x.element_size()
     if x.data_ptr() % 16 == 0 and all(x.stride(i) % step == 0 for i in range(3)):
@@ -171,8 +173,8 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as its route reads it: bf16 goes to the tensor-core kernels
-    (``_rows16``), f32 to the scalar ones (unit last stride)."""
+    """``x`` as K4's route reads it: bf16 goes to the tensor-core kernel
+    (``_rows16``), f32 to the scalar one (unit last stride)."""
     return _rows16(x) if x.dtype == torch.bfloat16 else _unit_last(x)
 
 
@@ -288,7 +290,7 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, scale, q_off, k_off, k_len,
     _check_cuda("flash_bwd", q, k, v, do, lse, delta)
     if do.dtype != q.dtype:
         raise TypeError(f"flash_bwd: do in {do.dtype} for {q.dtype} inputs")
-    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
+    q, k, v, do = (_rows16(x) for x in (q, k, v, do))  # both routes: tensor cores
     b, tq, h, d = q.shape
     tk = k.shape[1]
     out_dtype = out_dtype or q.dtype
@@ -328,9 +330,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
     Replaces ps_pytorch_tpu/ops/flash_attention.py:_make_dq_kernel
     (launched by _flash_bwd at :319). One block per (batch*head, 64-row q
     tile) loops over the key tiles its rows can see; no atomics. Bound on
-    the H100: bytes. bf16 inputs take the tensor-core kernel (rows
-    16-byte aligned: ``_rows16``), f32 the scalar one. A CPU tensor runs
-    ``flash_bwd_plain``."""
+    the H100: bytes at LM-1 in bf16, else operations (6 D flops a kept
+    pair). Both routes run on the tensor cores, with rows 16-byte aligned
+    (``_rows16``): bf16 inputs ``flash_dq_mma_kernel``, f32 inputs
+    ``flash_dq_tf32_kernel`` (3xTF32), whose gradients are f32. A CPU
+    tensor runs ``flash_bwd_plain``."""
     _check_inputs(q, k, v)
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, q_off, k_off,
@@ -351,9 +355,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     Replaces ps_pytorch_tpu/ops/flash_attention.py:_make_dkv_kernel
     (launched by _flash_bwd at :337). One block per (batch*head, 64-key
     tile) loops over the query tiles that can see it; no atomics, so the
-    result is the same from run to run. Bound on the H100: bytes. bf16
-    inputs take the tensor-core kernel, f32 the scalar one. A CPU tensor
-    runs ``flash_bwd_plain``."""
+    result is the same from run to run. Bound on the H100: bytes at LM-1
+    in bf16, else operations (8 D flops a kept pair). bf16 inputs run
+    ``flash_dkv_mma_kernel``, f32 inputs ``flash_dkv_tf32_kernel``
+    (3xTF32). A CPU tensor runs ``flash_bwd_plain``."""
     _check_inputs(q, k, v)
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale, q_off, k_off,

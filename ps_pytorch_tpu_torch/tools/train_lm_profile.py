@@ -5,7 +5,11 @@ math over f32 params, remat, SGD lr 0.01 momentum 0.9) on the dp x sp
 step with flash attention inside the ring.
 
     python -m ps_pytorch_tpu_torch.tools.train_lm_profile [--steps 5] \\
-        [--seq-len 1024] [--batch-size 8] [--num-dp 1] [--num-sp 1] [--no-remat]
+        [--seq-len 1024] [--batch-size 8] [--num-dp 1] [--num-sp 1] [--no-remat] \\
+        [--dtype bfloat16|float32]
+
+``--dtype float32`` runs the block math in f32, ``cli.train_lm``'s
+default (K5 / K6 on their TF32 route, K4 on its scalar one).
 
 After ``--warmup`` steps, times ``--steps`` steps without the profiler,
 then profiles as many, each ended by a host read of its loss as the CLI's
@@ -69,6 +73,8 @@ def main(argv=None) -> int:
     ap.add_argument("--num-dp", type=int, default=1)
     ap.add_argument("--num-sp", type=int, default=1)
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                    help="block math dtype (cli.train_lm --dtype)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_lm_profile: no CUDA device is available", file=sys.stderr)
@@ -88,7 +94,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cfg = TransformerConfig(vocab_size=2048, dim=512, depth=6, heads=8,
                             max_seq_len=args.seq_len, remat=not args.no_remat,
-                            attention_impl="flash", compute_dtype=torch.bfloat16)
+                            attention_impl="flash",
+                            compute_dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
     mesh = make_mesh_2d(args.num_dp, args.num_sp)
     tx = build_optimizer("sgd", 0.01, momentum=0.9)
     params = init_transformer(cfg, torch.Generator().manual_seed(1), device=dev)
@@ -141,7 +148,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": _card(), "kind": torch.cuda.get_device_name(0),
         "config": (f"LM vocab 2048 d512 x6 h8 seq {args.seq_len} batch {args.batch_size}, "
-                   f"bf16 block math, remat {not args.no_remat}, flash ring, "
+                   f"{args.dtype} block math, remat {not args.no_remat}, flash ring, "
                    f"dp {args.num_dp} x sp {args.num_sp}"),
         "steps": args.steps, "wall_ms_per_step": wall_s / args.steps * 1e3,
         "device_ms_per_step": busy_s / args.steps * 1e3,

@@ -30,6 +30,7 @@ from ps_pytorch_tpu_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention,
     flash_bwd,
+    flash_bwd_plain,
     flash_fwd_plain,
     flash_grads_partial,
     flash_partial,
@@ -193,8 +194,11 @@ def _jax_bf16_grads(d):
     delta = jnp.sum(_j(do).astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
     want = jfa._flash_bwd(_j(q), _j(k), _j(v), lse, delta, _j(do), scale, True, 64, 64,
                           INTERPRET, out_dtype=jnp.float32)
-    return ((q, k, v, do), np.array(lse), np.array(delta),
-            dict(zip(("dq", "dk", "dv"), (np.array(w) for w in want))))
+    out = ((q, k, v, do), np.array(lse), np.array(delta),
+           dict(zip(("dq", "dk", "dv"), (np.array(w) for w in want))))
+    for a in (*out[0], out[1], out[2], *out[3].values()):
+        a.setflags(write=False)  # shared by the cases: no case may write it
+    return out
 
 
 def _tensor_core_products(q, k, v, do, lse, delta, scale, split):
@@ -205,7 +209,7 @@ def _tensor_core_products(q, k, v, do, lse, delta, scale, split):
     takes P or dS as a bf16 hi + lo pair (``split``) or rounded once to
     bf16, against the bf16 operand, summed in f32."""
     qf, kf, vf, dof = (_t(x)[:, :, 0].float() for x in (q, k, v, do))
-    lse, delta = torch.from_numpy(lse)[..., None], torch.from_numpy(delta)[..., None]
+    lse, delta = torch.tensor(lse)[..., None], torch.tensor(delta)[..., None]
     t = qf.shape[1]
     keep = torch.ones(t, t, dtype=torch.bool).tril()
     s = qf @ kf.transpose(-1, -2) * scale
@@ -241,17 +245,270 @@ def test_torch_flash_bwd_hi_lo_products_match_jax(grad, d):
 
 
 def test_torch_flash_bwd_rows16_copies_only_misaligned_views():
-    """The bf16 backward kernels copy 16-byte row chunks: head splits of a
-    fused projection and [B, H, T, D] transposes pass as they are; a view
-    whose base or row stride breaks 16-byte alignment is copied."""
+    """The backward kernels (bf16 and f32 routes) copy 16-byte row chunks:
+    head splits of a fused projection and [B, H, T, D] transposes pass as
+    they are; a view whose base or row stride breaks 16-byte alignment is
+    copied."""
     fa = importlib.import_module("ps_pytorch_tpu_torch.ops.flash_attention")
-    qkv = torch.arange(2 * 5 * 384, dtype=torch.float32).to(torch.bfloat16).view(2, 5, 384)
-    k = qkv[..., 128:256].reshape(2, 5, 4, 32)  # row stride 3 H D
-    assert fa._rows16(k) is k
-    t = torch.zeros(2, 4, 5, 32, dtype=torch.bfloat16).transpose(1, 2)
-    assert fa._rows16(t) is t
-    for bad in (qkv.view(-1)[1:1 + 2 * 5 * 128].view(2, 5, 4, 32),  # base off by 2 bytes
-                qkv[..., :144].reshape(2, 5, 4, 36)[..., :32]):     # row stride 36
-        got = fa._rows16(bad)
-        assert got is not bad and got.data_ptr() % 16 == 0
-        assert all(got.stride(i) % 8 == 0 for i in range(3)) and torch.equal(got, bad)
+    for dtype in (torch.bfloat16, torch.float32):
+        step = 16 // torch.tensor([], dtype=dtype).element_size()  # elements in 16 bytes
+        qkv = torch.arange(2 * 5 * 384, dtype=torch.float32).to(dtype).view(2, 5, 384)
+        k = qkv[..., 128:256].reshape(2, 5, 4, 32)  # row stride 3 H D
+        assert fa._rows16(k) is k
+        t = torch.zeros(2, 4, 5, 32, dtype=dtype).transpose(1, 2)
+        assert fa._rows16(t) is t
+        for bad in (qkv.view(-1)[1:1 + 2 * 5 * 128].view(2, 5, 4, 32),  # base off one element
+                    qkv[..., :136].reshape(2, 5, 4, 34)[..., :32]):  # row stride 34
+            got = fa._rows16(bad)
+            assert got is not bad and got.data_ptr() % 16 == 0
+            assert all(got.stride(i) % step == 0 for i in range(3)) and torch.equal(got, bad)
+
+
+# --------------------------------------------- the f32 route's 3xTF32 scheme
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does (to nearest, ties
+    away from zero), on the bit pattern: half of the 13 dropped bits added
+    to the magnitude, then the 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_torch_tf32_rounding_matches_cvt_rna():
+    """TF32 keeps 10 mantissa bits: 1 + 2^-11 is a tie and goes away from
+    zero, just below it goes down; the sign is kept; exact values and the
+    low 13 bits of any result are as cvt.rna leaves them."""
+    u = 2.0 ** -10  # one TF32 ulp at 1
+    x = torch.tensor([1 + u / 2, 1 + u / 2 - 2 ** -23, -(1 + u / 2), 1 + u, 3.0, 0.0,
+                      1 + 1.5 * u, -(1 + u / 2 - 2 ** -23)])
+    want = torch.tensor([1 + u, 1.0, -(1 + u), 1 + u, 3.0, 0.0, 1 + 2 * u, -1.0])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(np.float32))
+    got = _tf32(r)
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+    assert bool(((got - r).abs() <= r.abs() * 2.0 ** -11).all())
+
+
+# The mma.m16n8k8 .tf32 fragments (PTX ISA), lane = 4 g + t: (row, col) of
+# C register e, (row, k-slot) of A register r, (k-slot, col) of B register r
+def _c_frag(lane, e):
+    g, t = divmod(lane, 4)
+    return g + 8 * (e // 2), 2 * t + e % 2
+
+
+def _a_frag(lane, r):
+    g, t = divmod(lane, 4)
+    return g + 8 * (r % 2), t + 4 * (r // 2)
+
+
+def _b_frag(lane, r):
+    g, t = divmod(lane, 4)
+    return t + 4 * r, g
+
+
+# what flash_tf32.cuh's gemm_split_ab does: A register r takes C register
+# A_FROM_C[r] of the same lane; B register r reads row 2 t + r of the tile
+A_FROM_C = (0, 2, 1, 3)
+
+
+def _b_row(lane, r):
+    return 2 * (lane % 4) + r
+
+
+def _slot_maps():
+    """k-slot -> the C column that A's registers carry into it, and ->
+    the B row the kernel reads for it, as the fragment layouts imply; each
+    must be one value per slot."""
+    a_col, b_row = {}, {}
+    for lane in range(32):
+        for r in range(4):
+            row, slot = _a_frag(lane, r)
+            c_row, c_col = _c_frag(lane, A_FROM_C[r])
+            assert c_row == row, "an A register must hold its own row's value"
+            a_col.setdefault(slot, set()).add(c_col)
+        for r in range(2):
+            slot, col = _b_frag(lane, r)
+            b_row.setdefault(slot, set()).add(_b_row(lane, r))
+    assert all(len(v) == 1 for v in (*a_col.values(), *b_row.values()))
+    return ([a_col[s].pop() for s in range(8)], [b_row[s].pop() for s in range(8)])
+
+
+def test_torch_flash_tf32_accumulator_feeds_operand_in_place():
+    """P and dS feed dQ += dS.K, dK += dS^T.Q, dV += P^T.dO from their own
+    accumulator registers: every A register takes a C register of the same
+    lane and row, the k-slots run over the C tile's columns in a permuted
+    order, and B's rows are read in that same order, so a fragment-level
+    m16n8k8 over random tiles gives C . B."""
+    a_perm, b_perm = _slot_maps()
+    assert a_perm == b_perm == [0, 2, 4, 6, 1, 3, 5, 7]
+    rng = np.random.RandomState(0)
+    c, b = rng.randn(16, 8), rng.randn(8, 8)
+    a_regs = np.zeros((32, 4))
+    b_regs = np.zeros((32, 2))
+    for lane in range(32):
+        for r in range(4):
+            a_regs[lane, r] = c[_c_frag(lane, A_FROM_C[r])]
+        for r in range(2):
+            b_regs[lane, r] = b[_b_row(lane, r), _b_frag(lane, r)[1]]
+    # the hardware's product, from the registers as the fragments place them
+    a_tile, b_tile = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        for r in range(4):
+            a_tile[_a_frag(lane, r)] = a_regs[lane, r]
+        for r in range(2):
+            b_tile[_b_frag(lane, r)] = b_regs[lane, r]
+    np.testing.assert_allclose(a_tile @ b_tile, c @ b, rtol=1e-12)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_torch_flash_tf32_fragment_reads_are_bank_conflict_free(d):
+    """At the f32 tiles' pitch D + 4 words, each warp-wide 32-bit read of
+    a fragment touches 32 distinct banks: A and B along D (lane reads row
+    g, column t or t + 4) and B along the rows in the permuted order (rows
+    2 t and 2 t + 1, column g)."""
+    pitch = d + 4
+    g, t = np.divmod(np.arange(32), 4)
+    reads = {"along D": g * pitch + t, "along D, +4": g * pitch + t + 4,
+             "rows 2t": 2 * t * pitch + g, "rows 2t + 1": (2 * t + 1) * pitch + g,
+             "A rows g + 8": (g + 8) * pitch + t}
+    for name, words in reads.items():
+        assert len(set(words % 32)) == 32, name
+    # an unpermuted row read (rows t and t + 4) would conflict
+    assert len(set((t * pitch + g) % 32)) < 32
+
+
+def _rz(x):
+    """float64 -> f32 rounded toward zero: an mma's sum as the tensor
+    cores leave it in their accumulator (they truncate; Fasi et al.,
+    "Numerical behavior of NVIDIA tensor cores", 2021)."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _products(x, y, split, a_perm=None, b_perm=None, chain=False):
+    """x @ y as the f32 kernels' m16n8k8 TF32 products sum it: the
+    contraction in steps of 8, each step's products (hi.lo + lo.hi, then
+    hi.hi with ``split``: 3xTF32; hi.hi alone: one TF32 product) into a
+    fresh accumulator, every mma's sum truncated to f32 (``_rz``), and the
+    step added to the running f32 accumulator rounded to nearest, as
+    flash_tf32.cuh's mma_3xtf32 does. ``chain``: every mma into the
+    running accumulator instead (what the kernels avoid). Operands are
+    rounded by ``_tf32``; within a step the k-slots take x's columns in
+    ``a_perm`` and y's rows in ``b_perm`` (the accumulator-fed products'
+    order). The products are summed in float64, exactly for TF32
+    operands, so no f32 matmul setting reaches the result."""
+    xh, yh = _tf32(x), _tf32(y)
+    xl, yl = _tf32(x - xh), _tf32(y - yh)
+    xh, yh, xl, yl = (t.double() for t in (xh, yh, xl, yl))
+    acc = torch.zeros(x.shape[:-1] + y.shape[-1:])
+    for k in range(0, x.shape[-1], 8):
+        ca = [k + i for i in (a_perm or range(8))]
+        cb = [k + i for i in (b_perm or range(8))]
+        pairs = ([(xh, yl), (xl, yh)] if split else []) + [(xh, yh)]
+        step = acc if chain else torch.zeros_like(acc)
+        for a, b in pairs:
+            step = _rz(step.double() + a[..., ca] @ b[..., cb, :])
+        acc = step if chain else acc + step
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_f32_grads(d):
+    """f32 q, k, v, do ([BH, T, D], two causal heads at T 256), the
+    forward's lse and delta = rowsum(do * o), and the JAX package's
+    ``_flash_bwd`` on them, in interpret mode: f32 products throughout."""
+    q, k, v, do = _arrays(2, 256, 256, d, 3 * d, np.float32)
+    scale = d ** -0.5
+    o, lse = jfa._flash_fwd(_j(q), _j(k), _j(v), scale, True, 64, 64, INTERPRET)
+    delta = jnp.sum(_j(do) * o, axis=-1)
+    want = jfa._flash_bwd(_j(q), _j(k), _j(v), lse, delta, _j(do), scale, True, 64, 64,
+                          INTERPRET, out_dtype=jnp.float32)
+    out = ((q, k, v, do), np.array(lse), np.array(delta),
+           dict(zip(("dq", "dk", "dv"), (np.array(w) for w in want))))
+    for a in (*out[0], out[1], out[2], *out[3].values()):
+        a.setflags(write=False)  # shared by the cases: no case may write it
+    return out
+
+
+def _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split, chain=False):
+    """The f32 K5 / K6 arithmetic emulated in torch on the CPU, causal:
+    K5's S = Q.K^T and dP = dO.V^T, K6's S^T = K.Q^T and dP^T = V.dO^T,
+    each a TF32 product over D; p = exp(S scale - lse) and ds = p (dP -
+    delta) scale in f32; then dQ += dS.K, dK += dS^T.Q and dV += P^T.dO
+    over the keys (queries) with the accumulator-fed k-slot order
+    (``_products``; the inputs are copied, never shared)."""
+    qf, kf, vf, dof = (torch.tensor(x) for x in (q, k, v, do))
+    lse, delta = torch.tensor(lse), torch.tensor(delta)
+    t = qf.shape[1]
+    keep = torch.ones(t, t, dtype=torch.bool).tril()
+    live = lse[..., None] > NEG_INF / 2
+    tr = lambda x: x.transpose(-1, -2)
+    prod = functools.partial(_products, split=split, chain=chain)
+    perms = dict(zip(("a_perm", "b_perm"), _slot_maps()))
+    # K5: queries on M
+    p = torch.where(keep & live, torch.exp(prod(qf, tr(kf)) * scale - lse[..., None]),
+                    torch.zeros(()))
+    ds = p * (prod(dof, tr(vf)) - delta[..., None]) * scale
+    dq = prod(ds, kf, **perms)
+    # K6: keys on M
+    pt = torch.where(tr(keep & live),
+                     torch.exp(prod(kf, tr(qf)) * scale - lse[:, None, :]), torch.zeros(()))
+    dst = pt * (prod(vf, tr(dof)) - delta[:, None, :]) * scale
+    return {"dq": dq, "dk": prod(dst, qf, **perms), "dv": prod(pt, dof, **perms)}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("grad", ["dq", "dk", "dv"])
+def test_torch_flash_bwd_3xtf32_products_match_jax(grad, d):
+    """The f32 route's product scheme holds the JAX kernels' f32
+    semantics: every product of K5 / K6 as 3xTF32 (operands split into
+    TF32 hi + lo pairs by cvt.rna, hi.lo + lo.hi + hi.hi, eight k-slots a
+    step summed apart by the truncating tensor cores and added in f32, the
+    accumulator-fed products in the kernels' permuted order) stays within
+    5e-5 of the largest gradient of ``_flash_bwd`` on f32 inputs; one TF32
+    product (hi.hi) does not, which is why the kernels take three."""
+    (q, k, v, do), lse, delta, want = _jax_f32_grads(d)
+    scale = d ** -0.5
+    bound = PRODUCT_TOL * float(np.abs(want[grad]).max())
+    three = _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split=True)[grad]
+    one = _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split=False)[grad]
+    err_three = float(np.abs(three.numpy() - want[grad]).max())
+    err_one = float(np.abs(one.numpy() - want[grad]).max())
+    assert err_three <= bound, (err_three, bound)
+    assert err_one > bound, (err_one, bound)
+
+
+def test_torch_flash_tf32_step_sums_hold_long_rows():
+    """Why mma_3xtf32 adds each step in f32 outside the tensor cores: they
+    truncate the sum an mma leaves, and over a long row (one causal head,
+    T 1024, D 64, f32 inputs) that bias, chained through the running
+    accumulator, puts dK and dV several times further from float64 than
+    f32 sums (``flash_bwd_plain``) are. Summed a step apart, every
+    gradient stays within 3x of the f32 sums' error and within 5e-5 of
+    the largest gradient."""
+    t, d = 1024, 64
+    q, k, v, do = _arrays(1, t, t, d, 11, np.float32)
+    scale = d ** -0.5
+    q64, k64, v64, do64 = (torch.tensor(x, dtype=torch.float64) for x in (q, k, v, do))
+    keep = torch.ones(t, t, dtype=torch.bool).tril()
+    s = (q64 @ k64.transpose(1, 2) * scale).masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    delta = (do64 * (p @ v64)).sum(-1)
+    ds = p * (do64 @ v64.transpose(1, 2) - delta[..., None]) * scale
+    exact = (ds @ k64, ds.transpose(1, 2) @ q64, p.transpose(1, 2) @ do64)
+    lse32, delta32 = lse.float(), delta.float()
+    f32 = flash_bwd_plain(*(torch.tensor(x)[:, :, None] for x in (q, k, v, do)),
+                          lse32[:, None], delta32[:, None], True, scale,
+                          out_dtype=torch.float32)
+    step = _tf32_kernel_grads(q, k, v, do, lse32.numpy(), delta32.numpy(), scale, split=True)
+    chain = _tf32_kernel_grads(q, k, v, do, lse32.numpy(), delta32.numpy(), scale,
+                               split=True, chain=True)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        want = exact[i]
+        top = float(want.abs().max())
+        err = lambda got: float((got.double() - want).abs().max())
+        plain, mine, chained = err(f32[i][:, :, 0]), err(step[name]), err(chain[name])
+        assert mine <= 3 * plain and mine <= PRODUCT_TOL * top, (name, mine, plain)
+        if name != "dq":
+            assert chained > 5 * plain, (name, chained, plain)

@@ -343,8 +343,9 @@ def _assert_near(got, want, tol):
     """f32 sums in another order: the kernels sum keys (or queries) tile by
     tile (K4 with an online rescale; K5/K6 on bf16 inputs with tensor-core
     products that take P and dS as a bf16 hi + lo pair, on f32 inputs with
-    scalar FMAs), the plain versions over the whole row with matmuls. Held
-    to ``tol`` of the result's largest magnitude, elementwise."""
+    3xTF32 tensor-core products), the plain versions over the whole row
+    with matmuls. Held to ``tol`` of the result's largest magnitude,
+    elementwise."""
     want = want.float()
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got.float(), want, rtol=0, atol=tol * scale)
@@ -354,8 +355,8 @@ def _hop_inputs(b, tq, tk, h, d, dtype, seed, dev, layout="dense"):
     """q, k, v, do; ``layout="fused"`` gives head splits of fused
     projections (q, k, v of one [B, T, 3 H D] tensor, do of a [B, T, 2 H
     D] one: strided rows, no copy) and needs tq == tk; ``"misaligned"``
-    views whose base lies one element past a 16-byte boundary (the bf16
-    route copies them first: ``_rows16``)."""
+    views whose base lies one element past a 16-byte boundary (the
+    tensor-core routes copy them first: ``_rows16``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if layout == "misaligned":
         mk = lambda t: torch.randn((b * t * h * d + 1,), generator=g,
@@ -397,6 +398,16 @@ FLASH_HOP_CASES = [
     (2, 50, 70, 2, 32, torch.bfloat16, False, (0, 0), "dense"),
     (2, 192, 192, 4, 64, torch.bfloat16, True, (0, 0), "fused"),    # strided head splits
     (2, 130, 130, 4, 64, torch.bfloat16, True, "ring", "misaligned"),  # copied first
+    # f32: the TF32 route of K5/K6 at every head dim, layout and LM-1
+    (8, 1024, 1024, 8, 64, torch.float32, True, (0, 0), "dense"),   # LM-1, one hop
+    (2, 256, 256, 4, 128, torch.float32, True, "ring", "dense"),    # stacked ring, D = 128
+    (2, 256, 256, 4, 32, torch.float32, True, "ring", "dense"),     # stacked ring, D = 32
+    (2, 160, 160, 2, 128, torch.float32, True, (0, 0), "dense"),    # D = 128, ragged T
+    (2, 192, 192, 4, 64, torch.float32, True, (0, 0), "fused"),     # strided head splits
+    (2, 130, 130, 4, 64, torch.float32, True, "ring", "misaligned"),   # copied first
+    # Ulysses over LM-ring's whole sequence (2 of 8 heads a rank at sp 4):
+    # the longest f32 rows, where truncated tensor-core sums would drift most
+    (2, 8192, 8192, 2, 64, torch.float32, True, (0, 0), "dense"),
 ]
 
 
