@@ -14,21 +14,22 @@ Phases, one line each:
 2. build every kernel from ``ps_pytorch_tpu_torch/csrc`` (one nvcc per
    source, all at once; sm_90a), then count the tensor-core instructions
    (HMMA / HGMMA, from ``cuobjdump -sass``) of each tensor-core
-   instantiation: K4 bf16 (D 32, 64, 128; normalized and partial), K5 /
-   K6 bf16 (D 32, 64, 128; f32 and bf16 out) and K5 / K6 f32 (D 32, 64,
-   128; their TF32 ``HMMA.1688.F32.TF32`` lines); a zero fails the run;
+   instantiation: K4 bf16 and f32 (D 32, 64, 128; normalized and
+   partial), K5 / K6 bf16 (D 32, 64, 128; f32 and bf16 out) and K5 / K6
+   f32 (D 32, 64, 128); the f32 kernels count only their TF32
+   ``HMMA.1688.F32.TF32`` lines; a zero fails the run;
    beside ptxas's registers and spill bytes, and the registers and spills
    of K2's and K1's multi-tensor kernels;
 3. K1 quantize_rows vs its plain version, bit-exact, at the serving path's
    shapes (prefill write [1024, 64] bf16, decode write [64, 64] bf16) and a
    ragged [1001, 128] f32, timed with CUDA events;
 4. K4 flash_fwd vs its plain version at the prefill shape [1, 128, 8, 64]
-   (bf16 and f32, causal), at head dims 32 and 128 (bf16) and an odd
-   T = 100, twice (the same bits); timed with CUDA events and
+   (bf16 and f32, causal), at head dims 32 and 128 (both types) and an
+   odd T = 100, twice (the same bits); timed with CUDA events and
    ``torch.profiler``'s device time (which also shows the route: bf16 runs
-   ``flash_fwd_mma_kernel``, f32 ``flash_fwd_scalar_kernel``) beside
+   ``flash_fwd_mma_kernel``, f32 ``flash_fwd_tf32_kernel``) beside
    ``scaled_dot_product_attention`` (the library yardstick, never called by
-   the port) and its bound;
+   the port; memory-efficient attention for f32) and its bound;
 5. serve: d512 x 6 bf16 model, flash prefill, int8 KV pool, 8 slots,
    32 open-loop requests; every request completes, tokens in range, p50/p99
    finite, and the kernel launch counters match the work done;
@@ -79,7 +80,9 @@ Phases, one line each:
    [8, 2048, 8, 64] (four stacked shards x batch 2, per-shard offsets of
    hop 3: one shard's keys all masked), each in bf16 and f32, each twice
    (the same bits); timed with CUDA events and ``torch.profiler``'s
-   device time (which also shows each call's route), with their bounds;
+   device time (which also shows each call's route: f32 runs the TF32
+   kernels ``flash_fwd_tf32_kernel``, ``flash_dq_tf32_kernel``,
+   ``flash_dkv_tf32_kernel``), with their bounds;
    K4-partial beside aten's forward and K5 + K6 beside its backward (the
    library yardsticks, never called by the port: wall and device time):
    for bf16 aten's flash forward and the backward sdpa picks by default,
@@ -90,7 +93,7 @@ Phases, one line each:
    sp 1) with flash attention, 20 steps: every loss finite, launches per
    step exactly L n (1 + remat) K4-partial, L n K5 and L n K6; step p50
    and tokens/s; then 8 steps of the same at ``cli.train_lm``'s default
-   ``--dtype float32`` (K5 / K6 on the TF32 route), the same checks;
+   ``--dtype float32`` (K4-K6 on the TF32 route), the same checks;
 16. LM-ring: the same model at seq 8192 on (dp 1, sp 4) stacked shards,
    batch 2, 5 steps, the same checks;
 17. a small LM step at (dp 2, sp 4), f32: the card (kernels) against the
@@ -221,16 +224,19 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# the tensor-core instantiations: (kernel, D, variant), K4 by entry, the
-# bf16 K5 / K6 by output type, the f32 (TF32) K5 / K6 one per D
-TF32_KERNELS = ("flash_dq_tf32_kernel", "flash_dkv_tf32_kernel")
-MMA_KERNELS = ([("flash_fwd_mma_kernel", d, f"normalize={n}")
+# the tensor-core instantiations: (kernel, D, variant), K4 (both types)
+# by entry, the bf16 K5 / K6 by output type, the f32 (TF32) K5 / K6 one
+# per D
+TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel")
+MMA_KERNELS = ([(k, d, f"normalize={n}")
+                for k in ("flash_fwd_mma_kernel", "flash_fwd_tf32_kernel")
                 for d in (32, 64, 128) for n in ("true", "false")]
                + [(k, d, f"out={out}")
                   for k in ("flash_dq_mma_kernel", "flash_dkv_mma_kernel")
                   for d in (32, 64, 128) for out in ("f32", "bf16")]
-               + [(k, d, "in=f32") for k in TF32_KERNELS for d in (32, 64, 128)])
-_MANGLED_FWD = re.compile(r"(flash_fwd_mma_kernel)ILi(\d+)ELb([01])E")
+               + [(k, d, "in=f32") for k in ("flash_dq_tf32_kernel", "flash_dkv_tf32_kernel")
+                  for d in (32, 64, 128)])
+_MANGLED_FWD = re.compile(r"(flash_fwd_(?:mma|tf32)_kernel)ILi(\d+)ELb([01])E")
 _MANGLED_BWD = re.compile(r"(flash_d(?:q|kv)_mma_kernel)ILi(\d+)E(?:Li\d+E)?(f|13__nv_bfloat16)E")
 _MANGLED_TF32 = re.compile(r"(flash_d(?:q|kv)_tf32_kernel)ILi(\d+)E")
 
@@ -393,7 +399,7 @@ def _qkv(b, t, h, d, dt, g, dev):
 # fallback from one to another: (kernel family, dtype) -> kernel
 FLASH_ROUTE = {
     ("flash_fwd", torch.bfloat16): "flash_fwd_mma_kernel",
-    ("flash_fwd", torch.float32): "flash_fwd_scalar_kernel",
+    ("flash_fwd", torch.float32): "flash_fwd_tf32_kernel",
     ("flash_dq", torch.bfloat16): "flash_dq_mma_kernel",
     ("flash_dq", torch.float32): "flash_dq_tf32_kernel",
     ("flash_dkv", torch.bfloat16): "flash_dkv_mma_kernel",
@@ -426,6 +432,8 @@ def phase_k4(flash_fwd, flash_fwd_plain, dev) -> dict:
              ("odd_t100_f32", 100, 64, torch.float32, False, 1e-5, 0.0),
              ("prefill_bf16_d32", 128, 32, torch.bfloat16, True, 2e-2, 1e-2),
              ("prefill_bf16_d128", 128, 128, torch.bfloat16, True, 2e-2, 1e-2),
+             ("prefill_f32_d32", 128, 32, torch.float32, True, 1e-5, 0.0),
+             ("prefill_f32_d128", 128, 128, torch.float32, True, 1e-5, 0.0),
              ("odd_t100_bf16_causal", 100, 64, torch.bfloat16, True, 2e-2, 1e-2)]
     b, h = 1, 8
     out = {}
@@ -1107,10 +1115,10 @@ def kept_pairs(b, h, tq, tk, causal, q_off, k_off) -> int:
 
 def _near(what: str, got, want, tol) -> tuple:
     """Max abs error, required within ``tol`` of the result's largest
-    magnitude (f32 sums in another order: the kernels tile by tile, K4
-    with scalar FMAs, K5/K6 on the tensor cores, bf16 with P and dS as a
-    bf16 hi + lo pair and f32 as 3xTF32; the plain versions over whole
-    rows with matmuls); and that error over the largest magnitude."""
+    magnitude (f32 sums in another order: the kernels tile by tile on the
+    tensor cores, bf16 with P and dS as a bf16 hi + lo pair and f32 as
+    3xTF32; the plain versions over whole rows with matmuls); and that
+    error over the largest magnitude."""
     err = float((got.float() - want.float()).abs().max())
     top = float(want.float().abs().max())
     require(err <= tol * max(1.0, top), f"{what} off its plain version by {err}")
@@ -1417,7 +1425,7 @@ def main(argv=None) -> int:
     lm1_f32 = phase_lm(smi, "phase 15b LM-1 f32 train_lm dp 1 x sp 1 flash", 8, 1, 8, 1024,
                        "float32")
     phase_lm(smi, "phase 16 LM-ring train_lm dp 1 x sp 4 flash", 5, 4, 2, 8192)
-    phase_lm_held(dev)
+    held = phase_lm_held(dev)
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -1494,6 +1502,15 @@ def main(argv=None) -> int:
             "bound_ms": k4["prefill_bf16"]["bound_ms"],
             "bound_by": k4["prefill_bf16"]["bound_by"],
             "library_ms": k4["prefill_bf16"]["library_ms"],
+            # the f32 route at the prefill shape; launches from phase 17's
+            # f32 Ulysses step
+            "f32": {
+                "launches": held["ulysses"]["launches"]["flash_fwd"],
+                "max_abs_err": max(r["max_abs_err"] for r in k4.values()
+                                   if r["dtype"] == "float32"),
+                **{k: k4["prefill_f32"][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms")}},
         },
         flash_entry("flash_partial", "ps_pytorch_tpu_torch/csrc/flash_fwd.cu", 199, "partial"),
         flash_entry("flash_bwd_dq", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 319, "dq"),

@@ -81,6 +81,7 @@ using ps::cp_async_wait;
 using ps::gemm_abt;
 using ps::gemm_split_ab;
 using ps::load_rows;
+using ps::pitch;
 using ps::rows_aligned;
 using ps::store2;
 
@@ -118,12 +119,6 @@ __device__ __forceinline__ const T* head_ptr(const void* base, const long long* 
 template <typename T>
 __device__ __forceinline__ T* out_ptr(void* base, const long long* st, int b, int h) {
   return static_cast<T*>(base) + b * st[0] + h * st[2];
-}
-
-// Shared rows: D plus 16 bytes of padding (flash_mma.cuh, flash_tf32.cuh).
-template <typename T, int D>
-__host__ __device__ constexpr int pitch() {
-  return D + (sizeof(T) == sizeof(bf16) ? ps::kPad : ps::kPad32);
 }
 
 // The [ROWS] f32 statistics of rows [r0, r0 + ROWS) into shared memory:

@@ -33,29 +33,42 @@
 // training shape (B=8, T=1024, H=8, D=64: q/k/v bf16 in, pv/m/l f32 out,
 // ~42 MB, ~13 us; the 4 D flops of each kept pair, 8.6 GFLOP, take ~9 us
 // at the bf16 tensor-core peak); operations on an LM-ring hop (B=8
-// stacked shards of T=2048, six of them seeing every key: ~52 us). Two
-// routes, chosen by dtype:
+// stacked shards of T=2048, six of them seeing every key: ~52 us). In
+// f32, operations at 3xTF32's 164.9 TFLOP/s: 52 us at LM-1, 313 us on
+// the ring hop.
+//
+// One kernel body (fwd_tiles), on the tensor cores for both input types;
+// the type picks the product helpers. The q tile and double-buffered K/V
+// tiles stay in the input type in shared memory, rows padded by 16 bytes,
+// filled by cp.async 16-byte copies (rows past T zero-filled), the next
+// K/V tile loading while this one computes. Warp w owns q rows [16 w,
+// 16 w + 16): S = Q.K^T on the tensor cores, then the mask and the online
+// softmax on S's C fragments in f32 (row max over the quad, alpha, p, the
+// row sums), then acc += P.V with P straight from those registers. The
+// outputs are stored straight from the fragments.
 //
 // * bf16 inputs (both LM cells, the serving prefill, the Ulysses path):
-//   flash_fwd_mma_kernel, on the tensor cores with the building blocks of
-//   flash_mma.cuh. The q tile and double-buffered 64-key K/V tiles stay
-//   bf16 in shared memory, filled by cp.async 16-byte copies (rows past T
-//   zero-filled), the next K/V tile loading while this one computes. Warp
-//   w owns q rows [16 w, 16 w + 16): S = Q.K^T by mma.sync.m16n8k16 from
+//   flash_fwd_mma_kernel with flash_mma.cuh: mma.sync.m16n8k16 from
 //   ldmatrix fragments (bf16 products are exact in f32 and summed in f32,
-//   as preferred_element_type=f32 does), then the mask and the online
-//   softmax on S's C fragments in f32 (row max over the quad, alpha, p,
-//   the row sums), then acc += P.V with P straight from those registers
-//   (S's C layout is PV's A layout). JAX takes that product from f32 P;
-//   rounding P once to bf16 misses the partial triple's 2e-5 bound, so P
-//   enters as a bf16 hi + lo pair, two products into one f32 accumulator.
-//   V is exact bf16, read by ldmatrix.trans. The outputs are stored
-//   straight from the fragments.
-// * f32 inputs (the f32 ring steps, phase 4's and the card tests' f32
-//   cases): flash_fwd_scalar_kernel, f32 FMAs on the CUDA cores, one warp
-//   per q row, K/V tiles staged in shared memory as f32.
+//   as preferred_element_type=f32 does); S's C layout is PV's A layout.
+//   JAX takes PV from f32 P; rounding P once to bf16 misses the partial
+//   triple's 2e-5 bound, so P enters as a bf16 hi + lo pair, two products
+//   into one f32 accumulator. V is exact bf16, read by ldmatrix.trans.
+//   64-key tiles.
+// * f32 inputs (cli.train_lm's default dtype: the f32 LM steps, rings and
+//   Ulysses; the f32 serving engine's prefill): flash_fwd_tf32_kernel
+//   with flash_tf32.cuh: mma.sync.m16n8k8 TF32, both operands of both
+//   products as TF32 hi + lo pairs (3xTF32), each 8-deep step summed
+//   apart and added to the accumulator by an f32 add (the tensor cores
+//   truncate their sums); P enters PV from its C registers in a permuted
+//   contraction order, V's rows read as 2t, 2t + 1. The q tile and each
+//   32-key K / V tile are split once into hi / lo planes in shared
+//   memory, so the warps read their B fragments instead of each splitting
+//   them. The mask is applied after the product, so a masked score is
+//   exactly NEG_INF.
 #include "flash_mask.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -64,7 +77,6 @@ using ps::cp_async_commit;
 using ps::cp_async_wait;
 using ps::gemm_abt;
 using ps::gemm_split_ab;
-using ps::kPad;
 using ps::load_rows;
 using ps::rows_aligned;
 using ps::store2;
@@ -90,145 +102,24 @@ struct FlashArgs {
   long long sq[3], sk[3], sv[3], so[3];  // batch, time, head strides
 };
 
-// ---------------------------------------------------------------------------
-// f32 inputs: the scalar kernel (CUDA cores).
-
-template <int D>
-constexpr size_t scalar_smem() {
-  // q tile, k tile (row padded to D + 1: conflict-free column reads),
-  // v tile, f32 accumulator, running max and sum per row
-  return ((size_t)kBQ * D + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-          (size_t)kBQ * D + 2 * kBQ) * sizeof(float);
+// The key tile a block visits: bf16 64 keys, f32 32. f32 tiles are split
+// once into TF32 hi / lo planes in shared memory (the q tile once a
+// block, each K / V tile once as it lands) rather than by each of the
+// four warps that read them: on the H100 that ran the LM-1 shape 20% and
+// the ring hop 11% faster than 64-key tiles split on every read (PERF.md).
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_tile() {
+  return sizeof(T) == sizeof(float) ? 32 : kBK;
 }
 
-template <int D, bool kNormalize>
-__global__ void __launch_bounds__(kThreads) flash_fwd_scalar_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [kBQ][D]
-  float* ks = qs + kBQ * D;          // [kBK][D + 1]
-  float* vs = ks + kBK * (D + 1);    // [kBK][D]
-  float* acc = vs + kBK * D;         // [kBQ][D]
-  float* ms = acc + kBQ * D;         // [kBQ]
-  float* ls = ms + kBQ;              // [kBQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const ps::FlashMask mask =
-      ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-
-  const float* qp = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[2];
-  const float* kp = static_cast<const float*>(a.k) + b * a.sk[0] + h * a.sk[2];
-  const float* vp = static_cast<const float*>(a.v) + b * a.sv[0] + h * a.sv[2];
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = q0 + r;
-    qs[i] = t < a.Tq ? qp[(long long)t * a.sq[1] + d] : 0.0f;
-    acc[i] = 0.0f;
-  }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    ms[r] = ps::kNegInf;
-    ls[r] = 0.0f;
-  }
-
-  const int n_keys = ps::key_limit(mask, min(q0 + kBQ, a.Tq));
-  const int n_kt = (n_keys + kBK - 1) / kBK;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile is consumed (and the init done)
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, d = i % D, key = k0 + j;
-      float kv = 0.0f, vv = 0.0f;
-      if (key < a.Tk) {
-        kv = kp[(long long)key * a.sk[1] + d];
-        vv = vp[(long long)key * a.sv[1] + d];
-      }
-      ks[j * (D + 1) + d] = kv;
-      vs[j * D + d] = vv;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < kBQ; r += kWarps) {
-      const int t = q0 + r;
-      if (t >= a.Tq) break;  // rows ascend; the whole warp agrees
-      const float* qr = qs + r * D;
-      float s[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = lane + 32 * u;
-        const float* kr = ks + j * (D + 1);
-        float dot = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s[u] = ps::keep(mask, t, k0 + j) ? dot * a.scale : ps::kNegInf;
-      }
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, ps::warp_max(fmaxf(s[0], s[1])));
-      const bool live = m_new > ps::kNegInf * 0.5f;
-      const float p0 = live ? expf(s[0] - m_new) : 0.0f;
-      const float p1 = live ? expf(s[1] - m_new) : 0.0f;
-      const float alpha = expf(m_prev - m_new);
-      const float p_sum = ps::warp_sum(p0 + p1);
-
-      // lane owns output columns lane, lane + 32, ...
-      float o[D / 32];
-      float* ar = acc + r * D;
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) o[i] = ar[lane + 32 * i] * alpha;
-#pragma unroll 4
-      for (int j = 0; j < 32; ++j) {
-        const float pa = __shfl_sync(ps::kFullMask, p0, j);
-        const float pb = __shfl_sync(ps::kFullMask, p1, j);
-#pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          o[i] = fmaf(pa, vs[j * D + lane + 32 * i], o[i]);
-          o[i] = fmaf(pb, vs[(j + 32) * D + lane + 32 * i], o[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < D / 32; ++i) ar[lane + 32 * i] = o[i];
-      __syncwarp();
-      if (lane == 0) {
-        ms[r] = m_new;
-        ls[r] = ls[r] * alpha + p_sum;
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  for (int r = warp; r < kBQ; r += kWarps) {
-    const int t = q0 + r;
-    if (t >= a.Tq) break;
-    const long long row = (long long)bh * a.Tq + t;
-    float* orow = static_cast<float*>(a.o) + b * a.so[0] + h * a.so[2] +
-                  (long long)t * a.so[1];
-    if (kNormalize) {
-      const float l = ls[r];
-      const float l_safe = l == 0.0f ? 1.0f : l;
-      for (int d = lane; d < D; d += 32) orow[d] = acc[r * D + d] / l_safe;
-      if (lane == 0) a.lse[row] = ms[r] + logf(l_safe);
-    } else {
-      // the partial triple: UNNORMALIZED numerator plus (m, l), merged
-      // across hops by the caller
-      for (int d = lane; d < D; d += 32) orow[d] = acc[r * D + d];
-      if (lane == 0) {
-        a.lse[row] = ms[r];
-        a.l[row] = ls[r];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 inputs: the tensor-core kernel.
-
-template <int D>
-constexpr size_t mma_smem() {
-  // the q tile and two stages of K and V tiles, bf16 rows of pitch D + kPad
-  return ((size_t)kBQ + 4 * (size_t)kBK) * (D + kPad) * sizeof(bf16);
+template <typename T, int D>
+constexpr size_t fwd_smem() {
+  // the q tile and two stages of K and V tiles in the input type, rows of
+  // pitch D + 16 bytes; f32 also the lo planes of q and of one K and V
+  // stage (45 / 85 / 165 KB at D = 32 / 64 / 128)
+  constexpr size_t bk = fwd_tile<T, D>();
+  constexpr size_t rows = kBQ + 4 * bk + (sizeof(T) == sizeof(float) ? kBQ + 2 * bk : 0);
+  return rows * ps::pitch<T, D>() * sizeof(T);
 }
 
 // The largest of a row's values over the four lanes of a quad (the lanes
@@ -244,27 +135,33 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Blocks a multiprocessor should hold at once, which caps a thread's
-// registers at 65536 / (128 n). At D = 64 on the H100 the kernel ran 7-12%
-// faster with 4 (128 registers, 16 bytes spilled) than with ptxas's free
-// choice of 157 (3 blocks). D = 32 fits 4 blocks uncapped (128 registers),
-// and at D = 128 shared memory (87 KB a block) holds it to 2 blocks anyway.
-template <int D>
+// registers at 65536 / (128 n). bf16: at D = 64 on the H100 the kernel ran
+// 7-12% faster with 4 (128 registers, 16 bytes spilled) than with ptxas's
+// free choice of 157 (3 blocks). D = 32 fits 4 blocks uncapped (128
+// registers), and at D = 128 shared memory (87 KB a block) holds it to 2
+// blocks anyway. f32: shared memory holds it to 2 blocks at D = 64, where
+// ptxas takes 211 registers and spills nothing; 32-key tiles split on
+// every read at 3 blocks (168 registers) spilled 28 bytes and ran the ring
+// hop 11% slower.
+template <typename T, int D>
 constexpr int fwd_min_blocks() {
-  return D == 64 ? 4 : 1;
+  return sizeof(T) == sizeof(bf16) ? (D == 64 ? 4 : 1) : 1;
 }
 
-// One block per (batch*head, 64-row q tile); warp w owns rows [16 w,
-// 16 w + 16) of it and loops over the visible key tiles. This thread holds
-// rows row0 (fragment slots 0, 1) and row0 + 8 (slots 2, 3) of each 16 x 8
-// fragment, columns 2 (lane % 4) and 2 (lane % 4) + 1.
-template <int D, bool kNormalize>
-__global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
-    flash_fwd_mma_kernel(FlashArgs a) {
-  constexpr int P = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_bytes);  // [kBQ][P]
-  bf16* ks = qs + kBQ * P;                         // [2][kBK][P]
-  bf16* vs = ks + 2 * kBK * P;                     // [2][kBK][P]
+// One block per (batch*head, 64-row q tile), longest causal rows first;
+// warp w owns rows [16 w, 16 w + 16) of it and loops over the visible key
+// tiles. This thread holds rows row0 (fragment slots 0, 1) and row0 + 8
+// (slots 2, 3) of each 16 x 8 fragment, columns 2 (lane % 4) and
+// 2 (lane % 4) + 1. The input type picks the product helpers.
+template <typename T, int D, bool kNormalize>
+__device__ __forceinline__ void fwd_tiles(const FlashArgs& a, unsigned char* smem_bytes) {
+  constexpr int P = ps::pitch<T, D>();
+  constexpr int BK = fwd_tile<T, D>();
+  constexpr bool kPlanes = sizeof(T) == sizeof(float);  // TF32 hi / lo planes
+  T* qs = reinterpret_cast<T*>(smem_bytes);  // [kBQ][P]
+  T* ks = qs + kBQ * P;                      // [2][BK][P]
+  T* vs = ks + 2 * BK * P;                   // [2][BK][P]
+  [[maybe_unused]] T* lo = vs + 2 * BK * P;  // planes: q, K, V lo [kBQ + 2 BK][P]
 
   const int bh = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
@@ -272,15 +169,15 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const ps::FlashMask mask =
       ps::flash_mask(a.causal, a.k_len, a.Tk, a.off, a.q_off, a.k_off, b);
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[2];
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.sk[0] + h * a.sk[2];
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.sv[0] + h * a.sv[2];
-  const int n_kt = (ps::key_limit(mask, min(q0 + kBQ, a.Tq)) + kBK - 1) / kBK;
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[2];
+  const T* kp = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[2];
+  const T* vp = static_cast<const T*>(a.v) + b * a.sv[0] + h * a.sv[2];
+  const int n_kt = (ps::key_limit(mask, min(q0 + kBQ, a.Tq)) + BK - 1) / BK;
 
   load_rows<D, kBQ, kThreads>(qs, qp, a.sq[1], q0, a.Tq);
   if (n_kt > 0) {
-    load_rows<D, kBK, kThreads>(ks, kp, a.sk[1], 0, a.Tk);
-    load_rows<D, kBK, kThreads>(vs, vp, a.sv[1], 0, a.Tk);
+    load_rows<D, BK, kThreads>(ks, kp, a.sk[1], 0, a.Tk);
+    load_rows<D, BK, kThreads>(vs, vp, a.sv[1], 0, a.Tk);
   }
   cp_async_commit();
 
@@ -289,13 +186,13 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
   float l[2] = {0.0f, 0.0f};  // this lane's share of the running row sums
   float acc[D / 8][4] = {};
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    const bf16* kst = ks + (kt & 1) * kBK * P;
-    const bf16* vst = vs + (kt & 1) * kBK * P;
+    const int k0 = kt * BK;
+    T* kst = ks + (kt & 1) * BK * P;
+    T* vst = vs + (kt & 1) * BK * P;
     if (kt + 1 < n_kt) {  // the next tile loads while this one computes
-      const int nx = ((kt + 1) & 1) * kBK * P;
-      load_rows<D, kBK, kThreads>(ks + nx, kp, a.sk[1], k0 + kBK, a.Tk);
-      load_rows<D, kBK, kThreads>(vs + nx, vp, a.sv[1], k0 + kBK, a.Tk);
+      const int nx = ((kt + 1) & 1) * BK * P;
+      load_rows<D, BK, kThreads>(ks + nx, kp, a.sk[1], k0 + BK, a.Tk);
+      load_rows<D, BK, kThreads>(vs + nx, vp, a.sv[1], k0 + BK, a.Tk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -303,12 +200,23 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
     }
     __syncthreads();
 
-    float s[kBK / 8][4] = {};
-    gemm_abt<kBK, D, P>(s, qs + warp * 16 * P, kst, lane);
-    const bool interior = ps::tile_kept(mask, q0 + warp * 16, k0, kBK);
+    float s[BK / 8][4] = {};
+    if constexpr (kPlanes) {
+      T* klo = lo + kBQ * P;
+      T* vlo = klo + BK * P;
+      if (kt == 0) ps::split_rows<D, kBQ, kThreads>(qs, lo);
+      ps::split_rows<D, BK, kThreads>(kst, klo);
+      ps::split_rows<D, BK, kThreads>(vst, vlo);
+      __syncthreads();
+      gemm_abt<BK, D, P>(s, ps::SplitTile{qs + warp * 16 * P, lo + warp * 16 * P},
+                         ps::SplitTile{kst, klo}, lane);
+    } else {
+      gemm_abt<BK, D, P>(s, qs + warp * 16 * P, kst, lane);
+    }
+    const bool interior = ps::tile_kept(mask, q0 + warp * 16, k0, BK);
     float m_new[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e / 2;
@@ -329,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
     }
     float p_sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e / 2;
@@ -344,7 +252,11 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e / 2];
     }
-    gemm_split_ab<kBK, D, P>(acc, s, vst, lane);
+    if constexpr (kPlanes) {
+      gemm_split_ab<BK, D, P>(acc, s, ps::SplitTile{vst, lo + (kBQ + BK) * P}, lane);
+    } else {
+      gemm_split_ab<BK, D, P>(acc, s, vst, lane);
+    }
     __syncthreads();  // this stage is consumed before it is refilled
   }
   cp_async_wait<0>();  // no visible key tile: the q tile's copies
@@ -359,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
                          (lane % 4) * 2;
     if (kNormalize) {
       const float l_safe = l_row == 0.0f ? 1.0f : l_row;
-      bf16* orow = static_cast<bf16*>(a.o) + at;
+      T* orow = static_cast<T*>(a.o) + at;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         store2(orow + j * 8, acc[j][2 * i] / l_safe, acc[j][2 * i + 1] / l_safe);
@@ -377,6 +289,23 @@ __global__ void __launch_bounds__(kThreads, fwd_min_blocks<D>())
 }
 
 // ---------------------------------------------------------------------------
+// The kernels: bf16 inputs (mma.sync bf16), f32 inputs (3xTF32).
+
+template <int D, bool kNormalize>
+__global__ void __launch_bounds__(kThreads, (fwd_min_blocks<bf16, D>()))
+    flash_fwd_mma_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  fwd_tiles<bf16, D, kNormalize>(a, smem_bytes);
+}
+
+template <int D, bool kNormalize>
+__global__ void __launch_bounds__(kThreads, (fwd_min_blocks<float, D>()))
+    flash_fwd_tf32_kernel(FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  fwd_tiles<float, D, kNormalize>(a, smem_bytes);
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 
 template <typename K>
@@ -390,18 +319,18 @@ int launch_kernel(K kernel, size_t bytes, const FlashArgs& a, int B, cudaStream_
 }
 
 template <int D, bool kNormalize>
-int launch(const FlashArgs& a, int B, bool mma, cudaStream_t s) {
-  if (mma)
-    return launch_kernel(flash_fwd_mma_kernel<D, kNormalize>, mma_smem<D>(), a, B, s);
-  return launch_kernel(flash_fwd_scalar_kernel<D, kNormalize>, scalar_smem<D>(), a, B, s);
+int launch(const FlashArgs& a, int B, bool f32, cudaStream_t s) {
+  if (f32)
+    return launch_kernel(flash_fwd_tf32_kernel<D, kNormalize>, fwd_smem<float, D>(), a, B, s);
+  return launch_kernel(flash_fwd_mma_kernel<D, kNormalize>, fwd_smem<bf16, D>(), a, B, s);
 }
 
 template <bool kNormalize>
-int launch_d(const FlashArgs& a, int B, int D, bool mma, cudaStream_t s) {
+int launch_d(const FlashArgs& a, int B, int D, bool f32, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<32, kNormalize>(a, B, mma, s);
-    case 64: return launch<64, kNormalize>(a, B, mma, s);
-    case 128: return launch<128, kNormalize>(a, B, mma, s);
+    case 32: return launch<32, kNormalize>(a, B, f32, s);
+    case 64: return launch<64, kNormalize>(a, B, f32, s);
+    case 128: return launch<128, kNormalize>(a, B, f32, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -409,11 +338,10 @@ int launch_d(const FlashArgs& a, int B, int D, bool mma, cudaStream_t s) {
 }  // namespace
 
 // strides: 12 int64 element strides, (batch, time, head) for q, k, v, o in
-// that order; the head-dim stride must be 1 (the wrapper checks); bf16
-// inputs also need 16-byte-aligned rows of q, k, v and o
-// (cudaErrorMisalignedAddress otherwise). dtype picks the route: f32 the
-// scalar kernel, bf16 the tensor-core kernel; nothing falls back from one
-// to the other. normalize != 0: o is [B, Tq, H, D] in the input dtype, lse
+// that order; the head-dim stride must be 1 (the wrapper checks) and
+// every row of q, k, v and o 16-byte aligned (cudaErrorMisalignedAddress
+// otherwise). dtype picks the route: f32 the 3xTF32 kernel, bf16 the
+// bf16 tensor-core kernel; nothing falls back from one to the other. normalize != 0: o is [B, Tq, H, D] in the input dtype, lse
 // [B, H, Tq] f32, l unused. normalize == 0: o is pv f32, lse receives m, l
 // receives l. off: null, or a device int32 [B, 2] table of (q_off, k_off)
 // that then replaces the scalars.
@@ -447,20 +375,12 @@ extern "C" int ps_flash_fwd(const void* q, const void* k, const void* v,
     a.sv[i] = strides[6 + i];
     a.so[i] = strides[9 + i];
   }
+  const bool f32 = dtype == ps::kFloat32;
+  if (!f32 && dtype != ps::kBFloat16) return (int)cudaErrorInvalidValue;
+  const int vec = f32 ? 4 : 8;  // elements in 16 bytes
+  if (!rows_aligned(q, a.sq, vec) || !rows_aligned(k, a.sk, vec) ||
+      !rows_aligned(v, a.sv, vec) || !rows_aligned(o, a.so, vec))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool mma;
-  switch (dtype) {
-    case ps::kFloat32:
-      mma = false;
-      break;
-    case ps::kBFloat16:
-      if (!rows_aligned(q, a.sq) || !rows_aligned(k, a.sk) || !rows_aligned(v, a.sv) ||
-          !rows_aligned(o, a.so))
-        return (int)cudaErrorMisalignedAddress;
-      mma = true;
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return normalize ? launch_d<true>(a, B, D, mma, s) : launch_d<false>(a, B, D, mma, s);
+  return normalize ? launch_d<true>(a, B, D, f32, s) : launch_d<false>(a, B, D, f32, s);
 }

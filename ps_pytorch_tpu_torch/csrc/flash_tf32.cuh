@@ -1,7 +1,7 @@
-// The TF32 tensor-core building blocks of the f32 flash kernels: K5 / K6
-// (flash_bwd.cu) on f32 inputs. They overload flash_mma.cuh's bf16 tile
-// helpers (load_rows, gemm_abt, gemm_split_ab) for float tiles, so one
-// kernel body serves both input types.
+// The TF32 tensor-core building blocks of the f32 flash kernels: K4
+// (flash_fwd.cu) and K5 / K6 (flash_bwd.cu) on f32 inputs. They overload
+// flash_mma.cuh's bf16 tile helpers (load_rows, gemm_abt, gemm_split_ab)
+// for float tiles, so one kernel body serves both input types.
 //
 // 3xTF32. The TPU kernels take every product in f32; one TF32 product
 // (10 mantissa bits) misses the port's 5e-5 bound by 6-23x. Each f32
@@ -35,11 +35,19 @@
 // t) read like the first case.
 #pragma once
 
+#include <type_traits>
+
 #include "flash_mma.cuh"
 
 namespace ps {
 
 constexpr int kPad32 = 4;  // floats per smem row past D: 16 bytes
+
+// Shared rows: D plus 16 bytes of padding (flash_mma.cuh, above).
+template <typename T, int D>
+__host__ __device__ constexpr int pitch() {
+  return D + (sizeof(T) == sizeof(bf16) ? kPad : kPad32);
+}
 
 // x rounded to TF32 (cvt.rna: to nearest, ties away from zero), as the
 // f32 bit pattern with its low 13 mantissa bits zero
@@ -95,26 +103,66 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, long lon
   }
 }
 
+// A shared f32 tile of pitch P as an operand: raw values, each split into
+// a TF32 pair as it is read (const float*), or a SplitTile, split once
+// into hi / lo planes: hi = tf32(x) and lo = tf32(x - hi), as f32 bit
+// patterns.
+struct SplitTile {
+  const float* hi;
+  const float* lo;
+};
+
+__device__ __forceinline__ void tf32_pair(const float* t, int i, unsigned& hi, unsigned& lo) {
+  split_tf32(t[i], hi, lo);
+}
+
+__device__ __forceinline__ void tf32_pair(SplitTile t, int i, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(t.hi[i]);
+  lo = __float_as_uint(t.lo[i]);
+}
+
+template <typename X>
+constexpr bool kF32Tile = std::is_convertible_v<X, const float*> || std::is_same_v<X, SplitTile>;
+
+// Rows [0, ROWS) of a shared f32 tile of pitch D + kPad32 split in place
+// into planes: hi stays in t, lo goes to the same place in lo; 16 bytes a
+// step by each of the block's THREADS threads.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void split_rows(float* t, float* lo) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+    const int at = (i / kChunks) * (D + kPad32) + (i % kChunks) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(t + at);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(t + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  }
+}
+
 // acc (16 x N as N / 8 fragments) += A (16 x KD) . B^T, B N x KD; A and B
-// row-major f32 in shared memory, pitch P; 3xTF32.
-template <int N, int KD, int P>
-__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], const float* a,
-                                         const float* b, int lane) {
+// row-major f32 tiles in shared memory, pitch P; 3xTF32.
+template <int N, int KD, int P, typename A, typename B,
+          typename = std::enable_if_t<kF32Tile<A> && kF32Tile<B>>>
+__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], A a, B b, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int k = 0; k < KD; k += 8) {
     unsigned ahi[4], alo[4];
-    const float* ar = a + g * P + k + t;
-    split_tf32(ar[0], ahi[0], alo[0]);
-    split_tf32(ar[8 * P], ahi[1], alo[1]);
-    split_tf32(ar[4], ahi[2], alo[2]);
-    split_tf32(ar[8 * P + 4], ahi[3], alo[3]);
+    const int ar = g * P + k + t;
+    tf32_pair(a, ar, ahi[0], alo[0]);
+    tf32_pair(a, ar + 8 * P, ahi[1], alo[1]);
+    tf32_pair(a, ar + 4, ahi[2], alo[2]);
+    tf32_pair(a, ar + 8 * P + 4, ahi[3], alo[3]);
 #pragma unroll
     for (int n = 0; n < N; n += 8) {
-      const float* br = b + (n + g) * P + k + t;
+      const int br = (n + g) * P + k + t;
       unsigned bhi[2], blo[2];
-      split_tf32(br[0], bhi[0], blo[0]);
-      split_tf32(br[4], bhi[1], blo[1]);
+      tf32_pair(b, br, bhi[0], blo[0]);
+      tf32_pair(b, br + 4, bhi[1], blo[1]);
       mma_3xtf32(acc[n / 8], ahi, alo, bhi, blo);
     }
   }
@@ -129,10 +177,9 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], const float* a,
 // a = (c0, c2, c1, c3), and B's rows are read in the same order: rows
 // 2t (b0) and 2t + 1 (b1). No shuffle, no round trip through shared
 // memory.
-template <int N, int D, int P>
+template <int N, int D, int P, typename B, typename = std::enable_if_t<kF32Tile<B>>>
 __device__ __forceinline__ void gemm_split_ab(float (&acc)[D / 8][4],
-                                              const float (&x)[N / 8][4],
-                                              const float* b, int lane) {
+                                              const float (&x)[N / 8][4], B b, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -141,12 +188,12 @@ __device__ __forceinline__ void gemm_split_ab(float (&acc)[D / 8][4],
     split_tf32(x[j][2], hi[1], lo[1]);  // (row g + 8, k-slot t)     = (g + 8, 2t)
     split_tf32(x[j][1], hi[2], lo[2]);  // (row g,     k-slot t + 4) = (g, 2t + 1)
     split_tf32(x[j][3], hi[3], lo[3]);  // (row g + 8, k-slot t + 4) = (g + 8, 2t + 1)
-    const float* br = b + (8 * j + 2 * t) * P + g;
+    const int br = (8 * j + 2 * t) * P + g;
 #pragma unroll
     for (int n = 0; n < D; n += 8) {
       unsigned bhi[2], blo[2];
-      split_tf32(br[n], bhi[0], blo[0]);
-      split_tf32(br[P + n], bhi[1], blo[1]);
+      tf32_pair(b, br + n, bhi[0], blo[0]);
+      tf32_pair(b, br + P + n, bhi[1], blo[1]);
       mma_3xtf32(acc[n / 8], hi, lo, bhi, blo);
     }
   }

@@ -15,11 +15,11 @@ plain versions; CUDA tensors launch the kernel or raise.
 
 bf16 inputs run all three on the tensor cores (``mma.sync``, with P and
 dS entering the accumulating products as a bf16 hi + lo pair, so the
-results keep the TPU kernels' f32 products). f32 inputs run K5 and K6 on
+results keep the TPU kernels' f32 products). f32 inputs run all three on
 the tensor cores too, every operand as a TF32 hi + lo pair (3xTF32, each
-8-deep step added to the accumulator by an f32 add), and K4 on the CUDA
-cores. The route is an explicit choice by
-dtype in the C entry points, with no fallback from one to another.
+8-deep step added to the accumulator by an f32 add). The route is an
+explicit choice by dtype in the C entry points, with no fallback from one
+to another.
 
 All keep the TPU kernels' semantics: f32 scores, f32 softmax statistics
 whatever the input dtype, the finite ``NEG_INF`` and the guards for rows
@@ -155,27 +155,17 @@ def _check_cuda(what: str, *xs: torch.Tensor) -> None:
         raise ValueError(f"{what}: operands must be on one device")
 
 
-def _unit_last(x: torch.Tensor) -> torch.Tensor:
-    return x if x.stride(-1) == 1 else x.contiguous()
-
-
 def _rows16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the tensor-core kernels (bf16 K4, bf16 and f32 K5/K6)
-    read it: unit last stride and every ``[D]`` row on a 16-byte boundary
-    (base address and batch, time, head strides), since their ``cp.async``
+    """``x`` as the tensor-core kernels (K4-K6, bf16 and f32) read it:
+    unit last stride and every ``[D]`` row on a 16-byte boundary (base
+    address and batch, time, head strides), since their ``cp.async``
     copies move 16 bytes. Head splits of a fused projection pass as they
     are; any other view is copied here, explicitly."""
-    x = _unit_last(x)
+    x = x if x.stride(-1) == 1 else x.contiguous()
     step = 16 // x.element_size()
     if x.data_ptr() % 16 == 0 and all(x.stride(i) % step == 0 for i in range(3)):
         return x
     return x.clone(memory_format=torch.contiguous_format)
-
-
-def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as K4's route reads it: bf16 goes to the tensor-core kernel
-    (``_rows16``), f32 to the scalar one (unit last stride)."""
-    return _rows16(x) if x.dtype == torch.bfloat16 else _unit_last(x)
 
 
 def _stats(x: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
@@ -209,7 +199,7 @@ def _launch_fwd(q, k, v, causal, scale, k_len, q_off, k_off, normalize: bool):
     from . import _build
 
     _check_cuda("flash_fwd", q, k, v)
-    q, k, v = (_kernel_view(x) for x in (q, k, v))
+    q, k, v = (_rows16(x) for x in (q, k, v))  # both routes: tensor cores
     b, tq, h, d = q.shape
     tk = k.shape[1]
     o = torch.empty((b, tq, h, d), dtype=q.dtype if normalize else torch.float32,
@@ -244,10 +234,11 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
     Replaces ps_pytorch_tpu/ops/flash_attention.py:_make_fwd_kernel
     (normalize=True, launched by _flash_fwd at :199). Bound on the H100:
     bytes (q/k/v/o read and written once); one block per (batch*head,
-    64-row q tile) loops over 64-key tiles staged in shared memory,
-    reading ``[B, T, H, D]`` through strides (no fold copies) and masking
-    ragged tiles itself. bf16 inputs take the tensor-core kernel (rows
-    16-byte aligned: ``_rows16``), f32 the scalar one. A CPU tensor runs
+    64-row q tile) loops over key tiles (64 keys bf16, 32 f32) staged in
+    shared memory, reading ``[B, T, H, D]`` through strides (no fold
+    copies) and masking ragged tiles itself. Both routes run on the tensor cores, with rows
+    16-byte aligned (``_rows16``): bf16 inputs ``flash_fwd_mma_kernel``,
+    f32 inputs ``flash_fwd_tf32_kernel`` (3xTF32). A CPU tensor runs
     ``flash_fwd_plain``; a CUDA tensor launches the kernel or raises."""
     _check_inputs(q, k, v)
     if scale is None:
@@ -271,7 +262,9 @@ def flash_partial(q, k, v, causal: bool, scale: float, q_off: Offset = 0,
     flash_attention.py:483). ``q_off`` / ``k_off`` are the shards' global
     offsets, per batch row when tensors: one launch serves every stacked
     shard of a hop. Bound on the H100: bytes (q/k/v in, the f32 triple
-    out). bf16 inputs take the tensor-core kernel, f32 the scalar one.
+    out) at LM-1 in bf16, else operations (4 D flops a kept pair, f32 at
+    3xTF32's rate). bf16 inputs run ``flash_fwd_mma_kernel``, f32 inputs
+    ``flash_fwd_tf32_kernel`` (3xTF32), both with rows 16-byte aligned.
     Any shard lengths: ragged tiles are masked in the kernel (the JAX
     wrapper pads to the block grid instead, with the same result)."""
     _check_inputs(q, k, v)

@@ -68,7 +68,7 @@ def _window(step, n: int) -> dict:
         "device_ms_per_tick": busy_s / n * 1e3,
         "cuda_kernel_launches": sum(c for c, _ in kernels.values()),
         "K1_quantize_rows": port("quantize_rows_kernel"),
-        "K4_flash_fwd": port("flash_fwd_"),  # both routes: mma and scalar
+        "K4_flash_fwd": port("flash_fwd_"),  # both routes: mma and tf32
         "top_kernels": [{"name": k[:90], "count": c, "device_s": t}
                         for k, (c, t) in top],
     }

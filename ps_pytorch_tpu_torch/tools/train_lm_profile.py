@@ -9,7 +9,7 @@ step with flash attention inside the ring.
         [--dtype bfloat16|float32]
 
 ``--dtype float32`` runs the block math in f32, ``cli.train_lm``'s
-default (K5 / K6 on their TF32 route, K4 on its scalar one).
+default (K4, K5 and K6 on their TF32 route).
 
 After ``--warmup`` steps, times ``--steps`` steps without the profiler,
 then profiles as many, each ended by a host read of its loss as the CLI's
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 # substrings of CUDA kernel names (each port kernel by its prefix, which
-# both routes share: flash_fwd_{mma,scalar}_kernel, ...), checked in this order
+# both routes share: flash_fwd_{mma,tf32}_kernel, ...), checked in this order
 CATEGORIES = (
     ("K4 flash_fwd / flash_partial", ("flash_fwd_",)),
     ("K5 flash_bwd_dq", ("flash_dq_",)),

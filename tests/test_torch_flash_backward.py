@@ -385,7 +385,7 @@ def _rz(x):
     return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
 
 
-def _products(x, y, split, a_perm=None, b_perm=None, chain=False):
+def _products(x, y, split, a_perm=None, b_perm=None, chain=False, acc=None):
     """x @ y as the f32 kernels' m16n8k8 TF32 products sum it: the
     contraction in steps of 8, each step's products (hi.lo + lo.hi, then
     hi.hi with ``split``: 3xTF32; hi.hi alone: one TF32 product) into a
@@ -396,11 +396,13 @@ def _products(x, y, split, a_perm=None, b_perm=None, chain=False):
     rounded by ``_tf32``; within a step the k-slots take x's columns in
     ``a_perm`` and y's rows in ``b_perm`` (the accumulator-fed products'
     order). The products are summed in float64, exactly for TF32
-    operands, so no f32 matmul setting reaches the result."""
+    operands, so no f32 matmul setting reaches the result. ``acc``: the
+    running f32 accumulator the steps are added to (default zeros)."""
     xh, yh = _tf32(x), _tf32(y)
     xl, yl = _tf32(x - xh), _tf32(y - yh)
     xh, yh, xl, yl = (t.double() for t in (xh, yh, xl, yl))
-    acc = torch.zeros(x.shape[:-1] + y.shape[-1:])
+    if acc is None:
+        acc = torch.zeros(x.shape[:-1] + y.shape[-1:])
     for k in range(0, x.shape[-1], 8):
         ca = [k + i for i in (a_perm or range(8))]
         cb = [k + i for i in (b_perm or range(8))]

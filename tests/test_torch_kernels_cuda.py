@@ -288,7 +288,7 @@ def _attn_inputs(b, t, h, d, dtype, seed, dev, layout):
     """q, k, v ``[B, T, H, D]``: ``"fused"`` head splits of one [B, T, 3 H
     D] projection (strided rows, no copy), ``"dense"`` contiguous tensors,
     ``"misaligned"`` views whose base lies 2 or 4 bytes past a 16-byte
-    boundary (the bf16 route copies them first: ``_rows16``)."""
+    boundary (both routes copy them first: ``_rows16``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if layout == "fused":
         qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
@@ -307,6 +307,11 @@ def _attn_inputs(b, t, h, d, dtype, seed, dev, layout):
     (2, 100, 4, 32, torch.float32, False, {}, "fused"),
     (1, 200, 2, 128, torch.float32, True, {}, "fused"),
     (1, 77, 3, 64, torch.float32, True, {"q_off": 5, "k_off": 30, "k_len": 60}, "fused"),
+    # f32: the TF32 route's edges and its longest rows
+    (1, 64, 2, 64, torch.float32, True, {"q_off": 0, "k_off": 64}, "dense"),  # all masked
+    (2, 130, 4, 64, torch.float32, True, {}, "misaligned"),
+    (1, 128, 8, 32, torch.float32, True, {}, "fused"),    # D = 32
+    (2, 8192, 2, 64, torch.float32, True, {}, "dense"),   # Ulysses over LM-ring's sequence
     # bf16: the tensor-core route at every head dim and edge
     (1, 128, 8, 32, torch.bfloat16, True, {}, "fused"),   # D = 32
     (1, 200, 2, 128, torch.bfloat16, True, {}, "fused"),  # D = 128, ragged T
@@ -341,9 +346,9 @@ def test_torch_flash_kernel_matches_plain_on_card(cuda_device, b, t, h, d,
 
 def _assert_near(got, want, tol):
     """f32 sums in another order: the kernels sum keys (or queries) tile by
-    tile (K4 with an online rescale; K5/K6 on bf16 inputs with tensor-core
-    products that take P and dS as a bf16 hi + lo pair, on f32 inputs with
-    3xTF32 tensor-core products), the plain versions over the whole row
+    tile (K4 with an online rescale) with tensor-core products, on bf16
+    inputs taking P and dS as a bf16 hi + lo pair, on f32 inputs as
+    3xTF32 products, the plain versions over the whole row
     with matmuls. Held to ``tol`` of the result's largest magnitude,
     elementwise."""
     want = want.float()
