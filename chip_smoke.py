@@ -305,7 +305,8 @@ def ptxas_report(log: str) -> dict:
 # K2's and K1's multi-tensor kernels, whose registers and spills phase 2
 # prints
 QUANT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
-                 "quantize_rows_scaled_many_kernel")
+                 "quantize_rows_scaled_many_kernel", "quantize_kv_write_kernel",
+                 "quantize_rows_many_kernel")
 
 
 def ptxas_quant_report(log: str) -> dict:
@@ -360,31 +361,132 @@ def phase_build() -> dict:
     return rec
 
 
-def phase_k1(quantize_rows, quantize_rows_plain, dev) -> dict:
-    g = torch.Generator(device=dev).manual_seed(1)
-    cases = [("prefill", 1024, 64, torch.bfloat16),
-             ("decode", 64, 64, torch.bfloat16),
-             ("ragged", 1001, 128, torch.float32)]
+# phase 5's serving pool: 8 slots of 256 positions, 8 heads of 64, bf16
+# K / V, 128-token prompts, depth 6
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PROMPT, SERVE_HEADS, SERVE_HD = 8, 256, 128, 8, 64
+# a decode tick's positions, one of them max_len: dropped
+DECODE_POS = (5, 200, 255, SERVE_MAX_LEN, 17, 64, 130, 0)
+
+
+def _serve_kv(rows: int, seed: int, dev):
+    """K and V ``[rows, H, hd]`` as the serving engine hands them to its
+    pool: head splits of one bf16 projection (strided views)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    _, k, v = _qkv(1, rows, SERVE_HEADS, SERVE_HD, torch.bfloat16, g, dev)
+    return k[0], v[0]
+
+
+def _serve_layer_pool(dev, seed: int) -> list:
+    """One layer's int8 pool views (k_q, k_s, v_q, v_s), random contents."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (SERVE_SLOTS, SERVE_MAX_LEN, SERVE_HEADS, SERVE_HD)
+    q = [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int32)
+         .to(torch.int8) for _ in range(2)]
+    return [q[0], torch.rand(shape[:-1] + (1,), generator=g, device=dev),
+            q[1], torch.rand(shape[:-1] + (1,), generator=g, device=dev)]
+
+
+def empty_launch_floor(dev) -> dict:
+    """The device time of one launch of a kernel that does nothing (the
+    floor under every launch: profiler), and the time a call of such
+    launches back to back (CUDA events: the launch rate from Python)."""
+    from ps_pytorch_tpu_torch.ops import _build
+
+    lib = _build.load()
+    stream = _build.stream_of(torch.empty(0, device=dev))
+    fn = lambda: _build.check(lib.ps_empty_launch(stream), "empty launch")
+    dev_total, _, launches = device_profile(fn, iters=50)
+    require(sum(launches.values()) == 1, f"empty launch: {launches}")
+    return {"device_us": dev_total * 1e3, "ms": time_ms(fn)}
+
+
+def kv_pool_write_case(dev) -> dict:
+    """The serving pool's int8 write through ``serve.kv`` (any tree: a
+    parent's quantize and index writes, or this tree's one launch), at
+    phase 5's shapes: a prefill write of 128 positions and a decode write
+    of 8 slots, per call and per tick (x depth): wall ms (CUDA events),
+    device us and device launches (profiler)."""
+    from ps_pytorch_tpu_torch.serve import kv
+
+    cfg = serve_config(torch.bfloat16, "flash")
+    pool = kv.init_kv_pool(cfg, SERVE_SLOTS, SERVE_MAX_LEN, int8=True, device=dev)
+    kp, vp = _serve_kv(SERVE_PROMPT, 21, dev)
+    kd, vd = _serve_kv(SERVE_SLOTS, 22, dev)
+    pos = torch.tensor([p % SERVE_MAX_LEN for p in DECODE_POS], dtype=torch.int32, device=dev)
     out = {}
-    for name, nb, bs, dt in cases:
+    for name, fn in (("prefill", lambda: kv.write_slot(pool, 0, 3, kp, vp)),
+                     ("decode", lambda: kv.write_token(pool, 0, pos, kd, vd))):
+        dev_total, by_name, launches = device_profile(fn, iters=50)
+        ms = time_ms(fn)
+        out[name] = {"ms": ms, "device_us": dev_total * 1e3,
+                     "device_launches": sum(launches.values()),
+                     "per_tick": {"ms": ms * cfg.depth, "device_us": dev_total * 1e3 * cfg.depth,
+                                  "device_launches": sum(launches.values()) * cfg.depth},
+                     "device_kernels": {k[:60]: v * 1e3 for k, v in by_name.items()}}
+    return out
+
+
+def phase_k1(dev) -> dict:
+    """Phase 3: K1's KV entry at the serving shapes (a prefill write of 128
+    positions into one slot, a decode write of 8 slots, one position out of
+    range) against its plain version on a copy of the same pool, bit-exact
+    over the whole pool; its device time a launch, wall time a call, the
+    plain version's, the bound and the empty-launch floor; the pool write
+    a tick; then ``quantize_rows`` (the shared-scale kernel at one
+    worker) bit-exact at a ragged f32 and an odd bf16 shape."""
+    from ps_pytorch_tpu_torch.ops.quantize import (
+        quantize_kv_write,
+        quantize_kv_write_plain,
+        quantize_rows,
+        quantize_rows_plain,
+    )
+
+    out = {}
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    for name, rows, where in (("prefill", SERVE_PROMPT, dict(slot=3)),
+                              ("decode", SERVE_SLOTS, dict(pos=pos))):
+        k, v = _serve_kv(rows, 31 + rows, dev)
+        k[0, 0] = 0.0  # an all-zero head vector: scale 0, inv 0
+        pool = _serve_layer_pool(dev, rows)
+        plain = [t.clone() for t in pool]
+        c0 = quantize_kv_write.launches
+        quantize_kv_write(k, v, *pool, **where)
+        calls = quantize_kv_write.launches - c0
+        quantize_kv_write_plain(k, v, *plain, **where)
+        torch.cuda.synchronize()
+        require(calls == 1, f"K1 kv {name}: {calls} launches counted for one call")
+        for got, want in zip(pool, plain):
+            require(torch.equal(got, want), f"K1 kv {name}: the pool differs from plain")
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pool, plain))
+        fn = lambda: quantize_kv_write(k, v, *pool, **where)
+        dev_total, by_name, launches = device_profile(fn, iters=50)
+        require(OTHER_TREE or list(launches) and all(
+            "quantize_kv_write_kernel" in n for n in launches) and sum(launches.values()) == 1,
+            f"K1 kv {name}: launched {launches}")
+        n_elt = rows * SERVE_HEADS * SERVE_HD
+        n_bytes = 2 * (2 * n_elt + n_elt + 4 * rows * SERVE_HEADS) + (4 * rows if "pos" in where
+                                                                         else 0)
+        b_ms, b_by = bound_ms(n_bytes, 2 * 4.0 * n_elt, PEAK_OPS_PER_S[torch.float32])
+        out[name] = {
+            "rows": rows, "heads": SERVE_HEADS, "head_dim": SERVE_HD, "dtype": "bfloat16",
+            "max_abs_err": err, "ms": time_ms(fn), "device_us": dev_total * 1e3,
+            "plain_ms": time_ms(lambda: quantize_kv_write_plain(k, v, *plain, **where)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    out["empty_launch_floor"] = empty_launch_floor(dev)
+    out["pool_write"] = kv_pool_write_case(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for name, nb, bs, dt in (("rows_ragged", 1001, 128, torch.float32),
+                             ("rows_odd_bf16", 17, 500, torch.bfloat16)):
         x = (torch.randn((nb, bs), generator=g, device=dev) * 3.0).to(dt)
-        x[7] = 0.0  # an all-zero row: scale 0, inv 0
+        x[7] = 0.0
         q, s = quantize_rows(x)
         qp, sp = quantize_rows_plain(x)
         torch.cuda.synchronize()
-        require(torch.equal(q, qp), f"K1 {name}: int8 payload differs from plain")
-        require(torch.equal(s, sp), f"K1 {name}: scales differ from plain")
-        elt = x.element_size()
-        n_bytes = nb * bs * elt + nb * bs + nb * 4
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * nb * bs, PEAK_OPS_PER_S[torch.float32])
-        out[name] = {
-            "shape": [nb, bs], "dtype": str(dt).replace("torch.", ""),
-            "max_abs_err": float((q.int() - qp.int()).abs().max()),
-            "ms": time_ms(lambda: quantize_rows(x)),
-            "plain_ms": time_ms(lambda: quantize_rows_plain(x)),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
-    print("phase 3 K1 quantize_rows bit-exact vs plain: " + json.dumps(out))
+        require(torch.equal(q, qp) and torch.equal(s, sp), f"K1 {name}: differs from plain")
+        out[name] = {"shape": [nb, bs], "max_abs_err": 0.0,
+                     "ms": time_ms(lambda: quantize_rows(x))}
+    print("phase 3 K1 quantize_kv_write bit-exact vs plain: " + json.dumps(out))
     return out
 
 
@@ -488,7 +590,7 @@ def phase_serve(card: str, dev) -> dict:
     from ps_pytorch_tpu_torch.models import init_transformer
     from ps_pytorch_tpu_torch.obs import Tracer, summarize_spans
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd
-    from ps_pytorch_tpu_torch.ops.quantize import quantize_rows
+    from ps_pytorch_tpu_torch.ops import quantize as qz
     from ps_pytorch_tpu_torch.serve import (
         ServeConfig, ServingEngine, TrafficConfig, make_requests, run_open_loop,
     )
@@ -515,12 +617,15 @@ def phase_serve(card: str, dev) -> dict:
 
     engine.tick = recording_tick
     p0, d0 = engine.n_prefills, engine.n_decode_steps
+    k1 = ("quantize_kv_write", "quantize_rows", "quantize_rows_many",
+          "quantize_rows_scaled_many")
     flash_fwd.launches = 0
-    quantize_rows.launches = 0
+    for name in k1:
+        getattr(qz, name).launches = 0
     summary = run_open_loop(engine, requests)
     torch.cuda.synchronize()
     launches = {"flash_fwd": flash_fwd.launches,
-                "quantize_rows": quantize_rows.launches}
+                **{name: getattr(qz, name).launches for name in k1}}
     prefills = engine.n_prefills - p0
     steps = engine.n_decode_steps - d0
 
@@ -539,9 +644,11 @@ def phase_serve(card: str, dev) -> dict:
     require(launches["flash_fwd"] == cfg.depth * prefills,
             f"serve: K4 launched {launches['flash_fwd']} times, expected "
             f"{cfg.depth} x {prefills} prefills")
-    require(launches["quantize_rows"] == 2 * cfg.depth * (prefills + steps),
-            f"serve: K1 launched {launches['quantize_rows']} times, expected "
-            f"{2 * cfg.depth} x ({prefills} prefills + {steps} decode steps)")
+    require(launches["quantize_kv_write"] == cfg.depth * (prefills + steps),
+            f"serve: K1's KV entry launched {launches['quantize_kv_write']} times, expected "
+            f"{cfg.depth} x ({prefills} prefills + {steps} decode steps)")
+    require(all(launches[name] == 0 for name in k1[1:]),
+            f"serve: K1's other entries launched on the serve path: {launches}")
     rec = {
         "card": card, "model": "d512x6 vocab2048 bf16 flash-prefill int8-kv",
         "slots": 8, "prefills": prefills, "decode_steps": steps,
@@ -700,6 +807,85 @@ def wire_step_case(dev, block: int) -> dict:
     return rec
 
 
+def resnet18_round2_rows(dev) -> list:
+    """The block-128 two-round wire's round-2 input of one ResNet18 step:
+    each leaf padded to ``n * s`` (s whole blocks a region), its region
+    sums ``[n, s]`` as ``[n s / 128, 128]`` rows."""
+    out = []
+    for x in resnet18_step_pieces(dev):
+        n = x[0].numel()
+        s = (-(-n // WORKERS) + 127) // 128 * 128
+        flat = torch.nn.functional.pad(x.reshape(WORKERS, n), (0, WORKERS * s - n))
+        out.append(flat.reshape(WORKERS, WORKERS * s).sum(0).reshape(-1, 128))
+    return out
+
+
+def _round2_entry():
+    """Round 2's requantize of a step's rows through the package's own
+    entry, and its counter: one ``quantize_rows_many`` call, or (a parent
+    tree) ``quantize_rows`` piece by piece, as its round 2 calls it."""
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    if hasattr(q, "quantize_rows_many"):
+        return q.quantize_rows_many, q.quantize_rows_many
+    return (lambda xs: [q.quantize_rows(x) for x in xs]), q.quantize_rows
+
+
+def round2_step_case(dev, fn=None, counter=None) -> dict:
+    """Round 2 of a block-128 two-round ResNet18 step (62 pieces), held
+    bit-exact against the same call on CPU copies; device time, wall and
+    host time, wrapper calls and device launches a step beside the bound
+    (the rows read once, int8 and a scale a row written once)."""
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    if fn is None:
+        fn, counter = _round2_entry()
+    xs = resnet18_round2_rows(dev)
+    c0 = counter.launches
+    got = fn(xs)
+    torch.cuda.synchronize()
+    calls = counter.launches - c0
+    for i, ((qg, sg), (qw, sw)) in enumerate(zip(got, q.quantize_rows_many_plain(
+            [x.cpu() for x in xs]))):
+        require(torch.equal(qg.cpu(), qw) and torch.equal(sg.cpu(), sw),
+                f"round 2: piece {i} differs from the plain version")
+    if not OTHER_TREE:
+        require(calls == 1, f"round 2: {calls} wrapper calls, expected 1")
+    rows = sum(x.shape[0] for x in xs)
+    n_in = sum(x.numel() for x in xs)
+    dev_total, by_name, launches = device_profile(lambda: fn(xs))
+    b_ms, b_by = bound_ms(4 * n_in + n_in + 4 * rows, 4.0 * n_in, PEAK_OPS_PER_S[torch.float32])
+    return {"pieces": len(xs), "rows": rows, "elements": n_in, "wrapper_calls": calls,
+            "device_launches": sum(launches.values()), "device_ms": dev_total,
+            "device_kernels": {k[:60]: v for k, v in by_name.items()},
+            "ms": time_ms(lambda: fn(xs), iters=50), "host_ms": host_ms(lambda: fn(xs)),
+            "plain_ms": time_ms(lambda: q.quantize_rows_many_plain(xs), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+
+
+def round2_designs(dev) -> dict:
+    """Round 2's two designs in turns (1, 2, 2, 1): the shared-scale
+    kernel at one worker (``quantize_rows_many``) and the lane-group
+    kernel of its own (``_quantize_rows_many_groups``)."""
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    class _Count:
+        launches = 0
+
+    def groups(xs):
+        _Count.launches += 1
+        return q._quantize_rows_many_groups(xs)
+
+    out = {"shared_scale_one_worker": [], "lane_groups": []}
+    for name in ("shared_scale_one_worker", "lane_groups", "lane_groups",
+                 "shared_scale_one_worker"):
+        rec = (round2_step_case(dev) if name == "shared_scale_one_worker"
+               else round2_step_case(dev, groups, _Count))
+        out[name].append({k: rec[k] for k in ("device_ms", "ms", "host_ms", "device_launches",
+                                              "device_kernels")})
+    return out
+
+
 def phase_k2(dev) -> dict:
     from ps_pytorch_tpu_torch.ops.quantize import quantize_tensor, quantize_tensor_plain
 
@@ -757,8 +943,11 @@ def phase_k1_scaled(dev) -> dict:
            "ms": time_ms(lambda: quantize_rows_scaled_many([x], 128)),
            "plain_ms": time_ms(lambda: quantize_rows_scaled_many_plain([x], 128)),
            "bound_ms": b_ms, "bound_by": b_by,
-           "resnet18_step": wire_step_case(dev, 128)}
-    print("phase 8 K1 quantize_rows_scaled_many bit-exact vs plain: " + json.dumps(out))
+           "resnet18_step": wire_step_case(dev, 128),
+           "resnet18_round2": round2_step_case(dev),
+           "round2_designs": round2_designs(dev)}
+    print("phase 8 K1 quantize_rows_scaled_many / quantize_rows_many bit-exact vs plain: "
+          + json.dumps(out))
     return out
 
 
@@ -878,20 +1067,23 @@ def expected_launches(cfg, params) -> dict:
     multi-tensor call counts once, however many pieces it takes): round 1
     quantizes every piece in one call (K2 per tensor, K1 shared-scale per
     block); the dequant two-round wire requantizes every region of every
-    piece in a second K2 call per tensor, or with one K1 fused launch per
-    piece over its regions' rows; the homomorphic two-round wire runs K3
-    once per piece; the ZeRO-1 wire has round 1 only, one call per
-    bucket."""
+    piece in a second call (K2 per tensor, K1's ``quantize_rows_many`` per
+    block); the homomorphic two-round wire runs K3 once per piece; the
+    ZeRO-1 wire has round 1 only, one call per bucket. Nothing on a wire
+    calls ``quantize_rows`` or the KV entry."""
     p = _pieces(cfg, params)
     block = bool(cfg.quant_block_size)
     sharded = cfg.opt_placement == "sharded"
     two_round = cfg.compress == "int8_2round" and not sharded
     hom = cfg.wire_domain == "homomorphic"
     calls = p if sharded else 1
+    round2 = 1 if two_round and not hom else 0
     return {
-        "quantize_tensors": 0 if block else calls + (1 if two_round and not hom else 0),
+        "quantize_tensors": 0 if block else calls + round2,
         "quantize_rows_scaled_many": calls if block else 0,
-        "quantize_rows": p if block and two_round and not hom else 0,
+        "quantize_rows_many": round2 if block else 0,
+        "quantize_rows": 0,
+        "quantize_kv_write": 0,
         "accumulate_rescale_int8": p if two_round and hom else 0,
     }
 
@@ -900,8 +1092,8 @@ def _counters():
     from ps_pytorch_tpu_torch.ops import quantize as q
 
     return {name: getattr(q, name) for name in (
-        "quantize_tensors", "quantize_rows_scaled_many", "quantize_rows",
-        "accumulate_rescale_int8")}
+        "quantize_tensors", "quantize_rows_scaled_many", "quantize_rows_many", "quantize_rows",
+        "quantize_kv_write", "accumulate_rescale_int8")}
 
 
 def reset_counts() -> None:
@@ -922,6 +1114,11 @@ def phase_train_wires(card: str) -> dict:
     runs = [("autotune_best", 10, ["--compress-grad", "2round", "--bucket-bytes", "0",
                                    "--wire-domain", "homomorphic"]),
             ("2round_dequant", 3, ["--compress-grad", "2round", "--bucket-bytes", "0"]),
+            # per leaf: 62 pieces, round 2 in one quantize_rows_many call
+            ("2round_dequant_block128", 3, ["--compress-grad", "2round",
+                                            "--quant-block-size", "128"]),
+            ("2round_dequant_block128_fused", 3, ["--compress-grad", "2round", "--bucket-bytes",
+                                                  "0", "--quant-block-size", "128"]),
             ("zero1_2round", 3, ["--opt-placement", "sharded", "--compress-grad", "2round"])]
     parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
     out = {}
@@ -950,6 +1147,8 @@ def phase_train_wires(card: str) -> dict:
         out[name] = rec
     require(out["autotune_best"]["launches"]["accumulate_rescale_int8"] == 10,
             "train autotune_best: K3 not launched once per step")
+    require(out["2round_dequant_block128"]["launches"]["quantize_rows_many"] == 3,
+            "train 2round_dequant_block128: round 2 not one K1 call a step")
     print("phase 12 train ResNet18 on the two-round / homomorphic / ZeRO-1 wires: "
           + json.dumps(out))
     return out
@@ -1363,7 +1562,7 @@ def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run alone (2, 4, 7, 8, 9, 14; "
+                    help="comma-separated phases to run alone (2, 3, 4, 7, 8, 9, 14; "
                          "2 on this tree only)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
@@ -1375,7 +1574,6 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.abspath(args.package_root))
         OTHER_TREE = True
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
-    from ps_pytorch_tpu_torch.ops.quantize import quantize_rows, quantize_rows_plain
 
     # f32 comparisons on the card need full f32 products: TF32 off for
     # matmuls and for cuDNN
@@ -1393,11 +1591,14 @@ def main(argv=None) -> int:
 
         print(f"package: {os.path.dirname(os.path.abspath(ps_pytorch_tpu_torch.__file__))}")
         alone = {2: phase_build,
+                 3: lambda: print("phase 3 KV pool write: "
+                                  + json.dumps(kv_pool_write_case(dev))),
                  4: lambda: phase_k4(flash_fwd, flash_fwd_plain, dev),
                  7: lambda: print("phase 7 K2 wire step: "
                                   + json.dumps(wire_step_case(dev, 0))),
-                 8: lambda: print("phase 8 K1 shared-scale wire step: "
-                                  + json.dumps(wire_step_case(dev, 128))),
+                 8: lambda: print("phase 8 K1 block-128 wire step, rounds 1 and 2: "
+                                  + json.dumps({"round1": wire_step_case(dev, 128),
+                                                "round2": round2_step_case(dev)})),
                  9: lambda: phase_train(smi),
                  14: lambda: phase_flash_train_kernels(dev)}
         phases = [int(x) for x in args.phases.split(",")]
@@ -1409,7 +1610,7 @@ def main(argv=None) -> int:
 
     phase_build()
 
-    k1 = phase_k1(quantize_rows, quantize_rows_plain, dev)
+    k1 = phase_k1(dev)
     k4 = phase_k4(flash_fwd, flash_fwd_plain, dev)
     serve = phase_serve(card, dev)
     phase_exact(dev)
@@ -1452,14 +1653,28 @@ def main(argv=None) -> int:
 
     kernels = [
         {
-            "name": "quantize_rows", "route": "cuda",
+            "name": "quantize_kv_write", "route": "cuda",
             "source": "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
             "replaces": "ps_pytorch_tpu/ops/quantize.py:101",
-            "launches": serve["launches"]["quantize_rows"],
-            "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
-            "ms": k1["prefill"]["ms"], "plain_ms": k1["prefill"]["plain_ms"],
-            "bound_ms": k1["prefill"]["bound_ms"],
-            "bound_by": k1["prefill"]["bound_by"], "library_ms": None,
+            "launches": serve["launches"]["quantize_kv_write"],
+            "max_abs_err": max(k1[c]["max_abs_err"] for c in ("prefill", "decode")),
+            # a decode tick's write (most of the serve run's launches)
+            **{k: k1["decode"][k] for k in ("ms", "device_us", "plain_ms", "bound_ms",
+                                            "bound_by")},
+            "library_ms": None,
+            "empty_launch_device_us": k1["empty_launch_floor"]["device_us"],
+            "prefill": {k: k1["prefill"][k] for k in ("ms", "device_us", "plain_ms",
+                                                      "bound_ms", "bound_by")},
+        },
+        {
+            "name": "quantize_rows_many", "route": "cuda",
+            "source": "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
+            "replaces": "ps_pytorch_tpu/ops/quantize.py:101",
+            "launches": wires["2round_dequant_block128"]["launches"]["quantize_rows_many"],
+            "max_abs_err": k1s["resnet18_round2"]["max_abs_err"],
+            **{k: k1s["resnet18_round2"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                     "bound_by")},
+            "library_ms": None,
         },
         {
             "name": "quantize_rows_scaled_many", "route": "cuda",

@@ -1,4 +1,4 @@
-// K1 quantize_rows: per-row symmetric int8 quantization, one pass.
+// K1: per-row (per-block) symmetric int8 quantization.
 //
 // Replaces ps_pytorch_tpu/ops/quantize.py:_quant_rows_kernel (launched by
 // _pallas_quantize_rows, quantize.py:101). On the TPU the row absmax and
@@ -6,26 +6,53 @@
 // workers, quantize.py:152-154), and only the scale-round-clip-cast ran
 // in the Pallas kernel, under 128-lane / 8-row conditions. Two entries:
 //
-//   ps_quantize_rows              fused: one warp owns one row [bs] end
-//                                 to end, absmax of the row (warp max),
-//                                 then quantize (the serving KV cache,
-//                                 and the two-round wire's round 2 at
-//                                 block size);
-//   ps_quantize_rows_scaled_many  the block-scale gradient wire's shared
-//                                 scales, every piece of a step in one
-//                                 call: per piece x [N, n] (N workers,
-//                                 n elements each) cut into nb = ceil(n
-//                                 / bs) blocks, one warp owns block r of
-//                                 EVERY worker: absmax[r] = max over the
-//                                 N workers and the block's elements
-//                                 (JAX's max(abs) + pmax), then worker
-//                                 w's q[w, r, :] with that shared scale.
+//   ps_quantize_kv_write          the serving KV cache's pool write, one
+//                                 launch a layer: K and V [R, H, hd] (any
+//                                 row and head strides) in one grid,
+//                                 every (position, head) row quantized
+//                                 with its own scale and stored straight
+//                                 into the pool's int8 rows and f32
+//                                 scales (JAX: serve/kv.py _quant_rows,
+//                                 then write_slot's dynamic_update_slice
+//                                 or write_token's scatter). Prefill:
+//                                 row t goes to (slot, t). Decode: row s
+//                                 goes to (s, pos[s]), pos read on the
+//                                 device; a negative position wraps
+//                                 once by max_len and one still outside
+//                                 [0, max_len) is dropped, as JAX's
+//                                 scatter drops it;
+//   ps_quantize_rows_scaled_many  every piece of a step in one call: per
+//                                 piece x [N, n] (N workers, n elements
+//                                 each) cut into nb = ceil(n / bs)
+//                                 blocks, one warp owns block r of EVERY
+//                                 worker: absmax[r] = max over the N
+//                                 workers and the block's elements (JAX's
+//                                 max(abs) + pmax), then worker w's
+//                                 q[w, r, :] with that shared scale.
 //                                 Padding to whole blocks is virtual:
 //                                 elements past n read as 0 and their
 //                                 int8 is written as 0 (no padded copy).
+//                                 At N = 1 a block's scale is its own:
+//                                 the per-row quantize of a list of
+//                                 [nb, bs] pieces (the two-round wire's
+//                                 round 2, ops/quantize.py
+//                                 quantize_rows_many) and of one
+//                                 (quantize_rows).
 //
-// Both then compute, per row, inv = absmax > 0 ? 127 / max(absmax, 1e-30)
-// : 0, int8(clip(rint(x * inv), -127, 127)) and scale = absmax * (1/127).
+// Both compute, per row, inv = absmax > 0 ? 127 / max(absmax, 1e-30) : 0,
+// int8(clip(rint(x * inv), -127, 127)) and scale = absmax * (1/127).
+//
+// The KV entry's rows are head vectors of 32-128 elements, and a decode
+// tick's call quantizes 2 x 64 rows of 64 bf16 (16 KB in): no launch of
+// any design comes near its byte time, so the design cuts launches and
+// lanes. One call replaces the quantize and the two index writes of each
+// of K and V (6 launches a layer become 1). A row is a group of
+// hd * sizeof(T) / 16 lanes (8 for 64 bf16: a warp holds 4 rows), each
+// lane one 16-byte load held in registers, the absmax a shuffle inside
+// the group, 4 or 8 int8 stored in one word a lane, the scale by the
+// group's first lane. A row width whose 16-byte count is not a power of
+// two up to 32, or a view that is not 16-byte aligned, runs the same
+// kernel's element loop, one warp a row.
 //
 // The multi-tensor entry's work unit is one block-row (all N workers);
 // a descriptor table (RowsTable: input and output pointers, length,
@@ -57,17 +84,15 @@
 // Elsewhere a warp reads its row twice (absmax, then quantize), but the
 // second read follows the first at once and touches N * bs elements: it
 // hits L1 or L2, so device memory sees one read either way, the part of
-// the design the TPU's whole-array pmax could not have. The multi-tensor entry loads float4
-// and stores char4 for every f32 piece whose input is 16-byte aligned
-// and whose n and bs are multiples of 4, decided per piece; other pieces
-// and bf16 go element by element. The fused entry's rows of head_dim
-// (64-128 elements) leave lanes idle past 32 elements per pass; wider
-// vector loads there are later work.
+// the design the TPU's whole-array pmax could not have. The multi-tensor
+// entry loads float4 and stores char4 for every f32 piece whose input is
+// 16-byte aligned and whose n and bs are multiples of 4, decided per
+// piece; other pieces and bf16 go element by element.
 //
-// Non-finite input (multi-tensor entry): fmaxf drops NaN, so an absmax
-// stays finite or +inf and no launch can fault or hang; such a step's
-// payload need not match the plain version (the non-finite guard turns
-// it into the identity).
+// Non-finite input: fmaxf drops NaN, so an absmax stays finite or +inf
+// and no launch can fault or hang; such a row's payload need not match
+// the plain version (on the wire the non-finite guard turns the step
+// into the identity).
 #include <cstring>
 
 #include "common.cuh"
@@ -76,28 +101,137 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-template <typename T>
-__device__ __forceinline__ void quantize_row(const T* __restrict__ xr,
-                                             int8_t* __restrict__ qr, int bs,
-                                             int lane, float inv) {
-  for (int c = lane; c < bs; c += 32) qr[c] = ps::quant_int8(ps::to_float(xr[c]), inv);
+// ------------------------------------------------ the KV cache pool write
+
+// Every field is an int64 word: the host fills it word by word
+// (ops/quantize.py _KV_WORDS) and checks its size against
+// ps_kv_write_words(). Index 0 is K, 1 is V.
+struct KvWrite {
+  long long x[2];       // [R, H, hd] inputs, the last dimension contiguous
+  long long x_row[2];   // element stride between positions
+  long long x_head[2];  // element stride between heads
+  long long q[2];       // int8 pool rows of this layer [slots, max_len, H, hd]
+  long long s[2];       // f32 scales of this layer [slots, max_len, H]
+  long long pos;        // decode: positions [R] on the device; 0: prefill
+  long long pos64;      // positions are int64 (else int32)
+  long long rows;       // R
+  long long heads;      // H
+  long long hd;
+  long long max_len;
+  long long slot;       // prefill: the slot written
+  long long group;      // lanes a row: hd * sizeof(T) / 16, or 32 (element loop)
+};
+
+// 16 bytes of T widened to f32 (exact for bf16)
+__device__ __forceinline__ void load16(const float* p, float* f) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+// a bf16 widens to the f32 of its bits shifted up 16; element 2i is the
+// low half of word i
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ unsigned pack4(const float* f, float inv) {
+  return (unsigned)(uint8_t)ps::quant_int8(f[0], inv) |
+         ((unsigned)(uint8_t)ps::quant_int8(f[1], inv) << 8) |
+         ((unsigned)(uint8_t)ps::quant_int8(f[2], inv) << 16) |
+         ((unsigned)(uint8_t)ps::quant_int8(f[3], inv) << 24);
+}
+
+// max over the aligned group of `group` lanes (a power of two); every
+// lane of the warp takes part
+__device__ __forceinline__ float group_max(float x, int group) {
+  for (int o = group >> 1; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(ps::kFullMask, x, o));
+  return x;
+}
+
+// One row of `len` elements quantized by its group of lanes (`sub`: the
+// lane's place in it). kVec: each lane holds one 16-byte load (len ==
+// group * 16 / sizeof(T)); else group == 32 and the lanes loop over the
+// row. xr == nullptr: no row here, the lanes only join the shuffles.
+template <typename T, bool kVec>
+__device__ __forceinline__ void quant_row(const T* __restrict__ xr, int8_t* __restrict__ qr,
+                                          float* __restrict__ sr, int len, int group, int sub) {
+  constexpr int kN = 16 / sizeof(T);
+  float f[kN];
+  float m = 0.0f;
+  if (xr != nullptr) {
+    if constexpr (kVec) {
+      load16(xr + sub * kN, f);
+#pragma unroll
+      for (int i = 0; i < kN; ++i) m = fmaxf(m, fabsf(f[i]));
+    } else {
+      for (int c = sub; c < len; c += 32) m = fmaxf(m, fabsf(ps::to_float(xr[c])));
+    }
+  }
+  m = group_max(m, group);
+  if (xr == nullptr) return;
+  const float inv = ps::inv_scale(m);
+  if constexpr (kVec && kN == 8) {  // one store of the lane's int8: 8 bytes, or 4
+    *reinterpret_cast<uint2*>(qr + sub * kN) = make_uint2(pack4(f, inv), pack4(f + 4, inv));
+  } else if constexpr (kVec) {
+    *reinterpret_cast<unsigned*>(qr + sub * kN) = pack4(f, inv);
+  } else {
+    for (int c = sub; c < len; c += 32) qr[c] = ps::quant_int8(ps::to_float(xr[c]), inv);
+  }
+  if (sub == 0) *sr = m * ps::kRecip127;
+}
+
+// blockIdx.y: 0 K, 1 V; the threads of a block cover whole groups
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    quantize_kv_write_kernel(const __grid_constant__ KvWrite a) {
+  const int which = blockIdx.y;
+  const int group = (int)a.group;
+  const long long u = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / group;
+  const T* xr = nullptr;
+  int8_t* qr = nullptr;
+  float* sr = nullptr;
+  if (u < a.rows * a.heads) {
+    const long long r = u / a.heads, h = u - r * a.heads;
+    long long p = r, slot = a.slot;
+    if (a.pos != 0) {
+      p = a.pos64 ? reinterpret_cast<const long long*>(a.pos)[r]
+                  : (long long)reinterpret_cast<const int*>(a.pos)[r];
+      if (p < 0) p += a.max_len;
+      slot = r;
+    }
+    if (p >= 0 && p < a.max_len) {  // else dropped, as JAX's scatter drops it
+      const long long dst = (slot * a.max_len + p) * a.heads + h;
+      xr = reinterpret_cast<const T*>(a.x[which]) + r * a.x_row[which] + h * a.x_head[which];
+      qr = reinterpret_cast<int8_t*>(a.q[which]) + dst * a.hd;
+      sr = reinterpret_cast<float*>(a.s[which]) + dst;
+    }
+  }
+  quant_row<T, kVec>(xr, qr, sr, (int)a.hd, group, threadIdx.x & (group - 1));
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                         float* __restrict__ scale, long long nb, int bs) {
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= nb) return;  // whole warp leaves together
-  const T* xr = x + row * (long long)bs;
-  float amax = 0.0f;
-  for (int c = lane; c < bs; c += 32) amax = fmaxf(amax, fabsf(ps::to_float(xr[c])));
-  amax = ps::warp_max(amax);
-  quantize_row(xr, q + row * (long long)bs, bs, lane, ps::inv_scale(amax));
-  if (lane == 0) scale[row] = amax * ps::kRecip127;
+cudaError_t launch_kv_write(const KvWrite& a, bool vec, cudaStream_t s) {
+  const long long threads = a.rows * a.heads * a.group;
+  const long long blocks = (threads + kWarpsPerBlock * 32 - 1) / (kWarpsPerBlock * 32);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, 2);
+  if (vec)
+    quantize_kv_write_kernel<T, true><<<grid, kWarpsPerBlock * 32, 0, s>>>(a);
+  else
+    quantize_kv_write_kernel<T, false><<<grid, kWarpsPerBlock * 32, 0, s>>>(a);
+  return cudaGetLastError();
 }
+
+// ------------------------------------------ the multi-tensor shared-scale entry
 
 // load kinds of the multi-tensor entry (ops/quantize.py _k1_kind)
 constexpr long long kF32Vec = 0;  // f32, x 16-byte aligned, n and bs multiples of 4
@@ -241,42 +375,55 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// Per-row multi-tensor quantize on the KV entry's lane groups (one-worker
+// pieces [nb, bs] of one type; the group the same for the whole call):
+// one thread group a row, a plain grid. Timed against the shared-scale
+// kernel at one worker for the two-round wire's round 2.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    quantize_rows_many_kernel(const __grid_constant__ RowsTable t, float* __restrict__ scale,
+                              int group) {
+  const long long u = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / group;
+  const T* xr = nullptr;
+  int8_t* qr = nullptr;
+  float* sr = nullptr;
+  if (u < t.total_rows) {
+    const int i = piece_of(t, u);
+    const long long r = u - t.first_row[i];
+    xr = reinterpret_cast<const T*>(t.x[i]) + r * t.bs;
+    qr = reinterpret_cast<int8_t*>(t.q[i]) + r * t.bs;
+    sr = scale + t.slot[i] + r;
+  }
+  quant_row<T, kVec>(xr, qr, sr, (int)t.bs, group, threadIdx.x & (group - 1));
+}
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-extern "C" int ps_quantize_rows(const void* x, int dtype, void* q, void* scale,
-                                long long nb, int bs, void* stream) {
-  if (nb <= 0 || bs <= 0) return (int)cudaSuccess;
-  const long long blocks = (nb + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
-  const dim3 block(kWarpsPerBlock * 32);
+extern "C" long long ps_kv_write_words() { return sizeof(KvWrite) / sizeof(long long); }
+
+// K1's KV entry: `words` is a KvWrite; dtype of K and V (ps::kFloat32 /
+// ps::kBFloat16); vec: the 16-byte lane-group path (group == hd *
+// sizeof(T) / 16), else the element loop (group == 32).
+extern "C" int ps_quantize_kv_write(const long long* words, int dtype, int vec, void* stream) {
+  KvWrite a;
+  memcpy(&a, words, sizeof a);
+  const long long elt = dtype == ps::kBFloat16 ? 2 : 4;
+  if ((dtype != ps::kFloat32 && dtype != ps::kBFloat16) || a.rows < 1 || a.heads < 1 ||
+      a.hd < 1 || a.hd > 0x7fffffffLL || a.max_len < 1 || a.slot < 0 ||
+      (vec ? (a.group < 1 || a.group > 32 || (a.group & (a.group - 1)) != 0 ||
+              a.group * (16 / elt) != a.hd)
+           : a.group != 32))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ps::kFloat32:
-      quantize_rows_kernel<float><<<grid, block, 0, s>>>(
-          static_cast<const float*>(x), static_cast<int8_t*>(q),
-          static_cast<float*>(scale), nb, bs);
-      break;
-    case ps::kBFloat16:
-      quantize_rows_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
-          static_cast<float*>(scale), nb, bs);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)(dtype == ps::kFloat32 ? launch_kv_write<float>(a, vec != 0, s)
+                                     : launch_kv_write<__nv_bfloat16>(a, vec != 0, s));
 }
 
 extern "C" long long ps_rows_table_words() { return sizeof(RowsTable) / sizeof(long long); }
 
-// One table of K1's multi-tensor shared-scale entry: `words` is a
-// RowsTable; absmax[slot + r] and scale[slot + r] receive piece i's
-// block-row r.
-extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax, void* scale,
-                                            void* stream) {
-  RowsTable t;
-  memcpy(&t, words, sizeof t);
+static int check_table(const RowsTable& t) {
   if (t.count < 1 || t.count > ps::kMaxPieces || t.total_rows < 1 ||
       t.total_rows != t.first_row[t.count] || t.workers < 1 || t.bs < 1 ||
       t.bs > 0x7fffffffLL || t.workers > 0x7fffffffLL)
@@ -285,6 +432,17 @@ extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax
     if (t.n[i] < 1 || t.nb[i] != (t.n[i] + t.bs - 1) / t.bs || t.kind[i] < kF32Vec ||
         t.kind[i] > kBF16)
       return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
+// One table of K1's multi-tensor shared-scale entry: `words` is a
+// RowsTable; absmax[slot + r] and scale[slot + r] receive piece i's
+// block-row r.
+extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax, void* scale,
+                                            void* stream) {
+  RowsTable t;
+  memcpy(&t, words, sizeof t);
+  if (const int err = check_table(t)) return err;
   static int resident[16];  // zero: not computed yet
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -303,6 +461,44 @@ extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax
   quantize_rows_scaled_many_kernel<<<(unsigned)(want < cap ? want : cap), kWarpsPerBlock * 32, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<float*>(absmax), static_cast<float*>(scale));
+  return (int)cudaGetLastError();
+}
+
+// One table of the lane-group multi-tensor per-row quantize: one-worker
+// pieces of `dtype`, every piece on the vector path (vec, group == bs *
+// sizeof(T) / 16) or none (group == 32).
+extern "C" int ps_quantize_rows_many(const long long* words, int dtype, int vec, int group,
+                                     void* scale, void* stream) {
+  RowsTable t;
+  memcpy(&t, words, sizeof t);
+  if (const int err = check_table(t)) return err;
+  const long long elt = dtype == ps::kBFloat16 ? 2 : 4;
+  if ((dtype != ps::kFloat32 && dtype != ps::kBFloat16) || t.workers != 1 ||
+      (vec ? (group < 1 || group > 32 || (group & (group - 1)) != 0 ||
+              group * (16 / elt) != t.bs)
+           : group != 32))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (t.total_rows * group + kWarpsPerBlock * 32 - 1) / (kWarpsPerBlock * 32);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scale);
+  const unsigned g = (unsigned)blocks;
+  if (dtype == ps::kFloat32) {
+    if (vec) quantize_rows_many_kernel<float, true><<<g, kWarpsPerBlock * 32, 0, s>>>(t, sc, group);
+    else quantize_rows_many_kernel<float, false><<<g, kWarpsPerBlock * 32, 0, s>>>(t, sc, group);
+  } else {
+    if (vec)
+      quantize_rows_many_kernel<__nv_bfloat16, true><<<g, kWarpsPerBlock * 32, 0, s>>>(t, sc, group);
+    else
+      quantize_rows_many_kernel<__nv_bfloat16, false><<<g, kWarpsPerBlock * 32, 0, s>>>(t, sc, group);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One launch of a kernel that does nothing, one warp: the device time
+// below which no launch goes (chip_smoke.py phase 3).
+extern "C" int ps_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

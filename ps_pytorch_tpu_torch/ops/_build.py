@@ -133,8 +133,14 @@ def build_log() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.ps_quantize_rows.argtypes = [vp, i32, vp, vp, i64, i32, vp]
-    lib.ps_quantize_rows.restype = i32
+    lib.ps_quantize_kv_write.argtypes = [vp, i32, i32, vp]
+    lib.ps_quantize_kv_write.restype = i32
+    lib.ps_kv_write_words.argtypes = []
+    lib.ps_kv_write_words.restype = i64
+    lib.ps_quantize_rows_many.argtypes = [vp, i32, i32, i32, vp, vp]
+    lib.ps_quantize_rows_many.restype = i32
+    lib.ps_empty_launch.argtypes = [vp]
+    lib.ps_empty_launch.restype = i32
     lib.ps_quantize_rows_scaled_many.argtypes = [vp, vp, vp, vp]
     lib.ps_quantize_rows_scaled_many.restype = i32
     lib.ps_rows_table_words.argtypes = []

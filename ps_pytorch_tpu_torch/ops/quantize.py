@@ -1,12 +1,18 @@
 """int8 symmetric quantization (the port of ops/quantize.py).
 
-Five wrappers, each of one hand-written kernel; CUDA tensors launch the
-kernel, CPU tensors take the plain version beside it, with no fallback
-between the two (the fifth, ``accumulate_rescale_int8``, is K3 below):
+Six wrappers of hand-written kernels; CUDA tensors launch the kernel,
+CPU tensors take the plain version beside it, with no fallback between
+the two (the sixth, ``accumulate_rescale_int8``, is K3 below):
 
-- ``quantize_rows`` — K1, fused entry (``csrc/quantize_rows.cu``): per-row
-  absmax, scale and quantize of ``[NB, BS]``. The serving slice's int8 KV
-  cache, and the block-scale wire without shared scales.
+- ``quantize_kv_write`` — K1, KV entry (``csrc/quantize_rows.cu``): one
+  layer's K and V ``[R, H, hd]``, every (position, head) row quantized
+  with its own scale and stored straight into the serving pool's int8
+  rows and f32 scales, in place, one launch (prefill: at ``(slot, 0..R)``;
+  decode: at ``(s, pos[s])``, positions read on the device).
+- ``quantize_rows_many`` — K1, per-row scales over a list of ``[NB, BS]``
+  pieces in one call (the two-round wire's round 2); ``quantize_rows`` is
+  its one-piece form. Both run the shared-scale kernel below at one
+  worker, where a block's scale is the row's own.
 - ``quantize_rows_scaled_many`` — K1, shared-scale entry, multi-tensor:
   every worker-stacked piece of a step in one call, each cut into blocks
   whose absmax is taken over every worker (the pmax) and shared by them
@@ -90,6 +96,71 @@ def quantize_rows_plain(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``[NB, BS]``, f32 scale ``[NB, 1]``)."""
     absmax = xb.float().abs().amax(dim=1, keepdim=True)
     return _quant(xb, _inv_scale(absmax)), absmax * RECIP_127
+
+
+def quantize_rows_many_plain(xs):
+    """Plain PyTorch version of ``quantize_rows_many``: ``[(q, scale)]``
+    of ``quantize_rows_plain`` over each piece."""
+    return [quantize_rows_plain(x) for x in xs]
+
+
+def _kv_geometry(k, v, k_q, k_s, v_q, v_s, slot, pos):
+    """Check a KV pool write's operands -> (rows, heads, head_dim,
+    max_len)."""
+    if k.dim() != 3 or k.shape != v.shape or k.dtype != v.dtype:
+        raise ValueError(f"quantize_kv_write takes K and V [R, H, hd] of one dtype, got "
+                         f"{k.dtype} {tuple(k.shape)} and {v.dtype} {tuple(v.shape)}")
+    rows, heads, hd = k.shape
+    if (k_q.dim() != 4 or k_q.shape != v_q.shape or tuple(k_q.shape[2:]) != (heads, hd)
+            or k_q.dtype != torch.int8 or v_q.dtype != torch.int8):
+        raise ValueError(f"quantize_kv_write: int8 pools [slots, max_len, {heads}, {hd}], got "
+                         f"{k_q.dtype} {tuple(k_q.shape)} and {v_q.dtype} {tuple(v_q.shape)}")
+    slots, max_len = k_q.shape[:2]
+    want = (slots, max_len, heads, 1)
+    if (tuple(k_s.shape) != want or tuple(v_s.shape) != want
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32):
+        raise ValueError(f"quantize_kv_write: f32 scale pools {want}, got {k_s.dtype} "
+                         f"{tuple(k_s.shape)} and {v_s.dtype} {tuple(v_s.shape)}")
+    if not all(t.is_contiguous() for t in (k_q, k_s, v_q, v_s)):
+        raise ValueError("quantize_kv_write: the pool views must be contiguous")
+    if (slot is None) == (pos is None):
+        raise ValueError("quantize_kv_write takes a slot (prefill) or positions (decode)")
+    if pos is None:
+        if not 0 <= slot < slots or rows > max_len:
+            raise ValueError(f"quantize_kv_write: slot {slot} of {slots}, {rows} positions of "
+                             f"{max_len}")
+    elif (tuple(pos.shape) != (rows,) or pos.dtype not in (torch.int32, torch.int64)
+          or rows > slots):
+        raise ValueError(f"quantize_kv_write: int positions [{rows}] for {slots} slots, got "
+                         f"{pos.dtype} {tuple(pos.shape)}")
+    operands = (k, v, k_q, k_s, v_q, v_s) + (() if pos is None else (pos,))
+    if any(t.device != k.device for t in operands):
+        raise ValueError(f"quantize_kv_write: operands on {sorted({str(t.device) for t in operands})}")
+    return rows, heads, hd, max_len
+
+
+def quantize_kv_write_plain(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
+    """Plain PyTorch version of K1's KV entry: ``quantize_rows_plain`` of
+    every (position, head) row of K and V, then JAX's pool writes
+    (serve/kv.py:62-113): a slice at a prefill, an index write at each
+    slot's own position at a decode, where a negative position wraps once
+    by ``max_len`` and one still outside ``[0, max_len)`` is dropped, as
+    JAX's scatter drops it."""
+    rows, heads, hd, max_len = _kv_geometry(k, v, k_q, k_s, v_q, v_s, slot, pos)
+    if pos is not None:
+        p = pos.long()
+        p = torch.where(p < 0, p + max_len, p)
+        keep = (p >= 0) & (p < max_len)
+        sl, p = torch.arange(rows, device=p.device)[keep], p[keep]
+    for x, q_pool, s_pool in ((k, k_q, k_s), (v, v_q, v_s)):
+        q, s = quantize_rows_plain(x.reshape(rows * heads, hd))
+        q, s = q.reshape(rows, heads, hd), s.reshape(rows, heads, 1)
+        if pos is None:
+            q_pool[slot, :rows] = q
+            s_pool[slot, :rows] = s
+        else:
+            q_pool[sl, p] = q[keep]
+            s_pool[sl, p] = s[keep]
 
 
 def quantize_rows_scaled_plain(x: torch.Tensor, block_size: int):
@@ -198,6 +269,8 @@ class _Layout:
 _K2_TABLE = _Layout(2, ["x", "q", "n", "kind", "slot", "first"])
 _K1_TABLE = _Layout(4, ["x", "q", "n", "nb", "kind", "slot", "first"])
 _F32_VEC, _F32, _BF16 = 0, 1, 2  # the kernels' load kinds
+# int64 words of csrc/quantize_rows.cu KvWrite
+_KV_WORDS = 18
 
 
 def _padded(n: int) -> int:
@@ -275,11 +348,12 @@ def _lib():
 
     lib = _build.load()
     if not _checked_tables:
-        got = (lib.ps_tensor_table_words(), lib.ps_rows_table_words())
-        if got != (_K2_TABLE.words, _K1_TABLE.words):
+        got = (lib.ps_tensor_table_words(), lib.ps_rows_table_words(),
+               lib.ps_kv_write_words())
+        want = (_K2_TABLE.words, _K1_TABLE.words, _KV_WORDS)
+        if got != want:
             raise _build.KernelBuildError(
-                f"descriptor tables of {got} words in the library, "
-                f"{(_K2_TABLE.words, _K1_TABLE.words)} here")
+                f"descriptor tables of {got} words in the library, {want} here")
         _checked_tables = True
     return lib
 
@@ -309,40 +383,203 @@ def _kernel_input(x: torch.Tensor, what: str) -> torch.Tensor:
     return x.contiguous()
 
 
+def _rows_scaled_launch(xs_card, workers: int, block_size: int):
+    """Launch K1's shared-scale kernel over card pieces ``[N, ...]`` (one
+    launch per descriptor table) -> (the int8 buffer, the f32 buffer of
+    every absmax row then every scale row, ``_rows_call``'s views, whether
+    anything launched)."""
+    from . import _build
+
+    lengths = tuple(x.numel() // workers for x in xs_card)
+    tables, views, q_len, rows = _rows_call(workers, lengths, block_size)
+    dev = xs_card[0].device
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i], lengths[i],
+                                                         block_size) for i in t.pieces])
+                code = lib.ps_quantize_rows_scaled_many(
+                    words.ctypes.data, stats.data_ptr(), stats.data_ptr() + 4 * rows, stream)
+                _build.check(code, "quantize_rows_scaled_many")
+    return q, stats, views, bool(tables)
+
+
+def _row_views(q, stats, views, block_size: int):
+    """The per-row outputs of a one-worker launch: (q ``[nb, bs]``, scale
+    ``[nb, 1]``) per piece."""
+    return [(q.as_strided((ss[0], block_size), (block_size, 1), qo), stats.as_strided(ss, sst, so))
+            for _, _, qo, ss, sst, so, _ in views]
+
+
+def _rows_width(xs, what: str) -> int:
+    if not xs or any(x.dim() != 2 or x.shape[1] != xs[0].shape[1] for x in xs) \
+            or xs[0].shape[1] < 1:
+        raise ValueError(f"{what} takes [NB, BS] pieces of one BS >= 1, got "
+                         f"{[tuple(x.shape) for x in xs]}")
+    return int(xs[0].shape[1])
+
+
 def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: per-row int8 quantization of ``[NB, BS]`` (f32 or bf16) ->
-    (int8 ``[NB, BS]``, f32 scale ``[NB, 1]``).
+    (int8 ``[NB, BS]``, f32 scale ``[NB, 1]``): ``quantize_rows_many``'s
+    one-piece call, with its own ``.launches``.
 
     Replaces ps_pytorch_tpu/ops/quantize.py:_quant_rows_kernel (Pallas,
     quantize.py:64, launched at :101) and fuses the absmax/scale that
-    XLA computed outside it. Bound on the H100: bytes (one read of x,
-    one int8 write, one f32 scale per row); one warp per row, any row
-    width and count. A CPU tensor runs ``quantize_rows_plain``; a CUDA
-    tensor launches the kernel or raises."""
+    XLA computed outside it. Bound on the H100: bytes. A CPU tensor runs
+    ``quantize_rows_plain``; a CUDA tensor launches the kernel or
+    raises."""
     if xb.dim() != 2:
         raise ValueError(f"quantize_rows takes [NB, BS], got {tuple(xb.shape)}")
     if not xb.is_cuda:
         return quantize_rows_plain(xb)
-    from . import _build
-
     xb = _kernel_input(xb, "quantize_rows")
     nb, bs = xb.shape
-    q = torch.empty((nb, bs), dtype=torch.int8, device=xb.device)
-    scale = torch.empty((nb, 1), dtype=torch.float32, device=xb.device)
     if xb.numel() == 0:
-        return q, scale
-    lib = _build.load()
-    with torch.cuda.device(xb.device):
-        code = lib.ps_quantize_rows(
-            xb.data_ptr(), _build.DTYPE_CODES[xb.dtype], q.data_ptr(),
-            scale.data_ptr(), nb, bs, _build.stream_of(xb),
-        )
+        return (torch.empty((nb, bs), dtype=torch.int8, device=xb.device),
+                torch.empty((nb, 1), dtype=torch.float32, device=xb.device))
+    q, stats, views, _ = _rows_scaled_launch([xb], 1, bs)
     quantize_rows.launches += 1
-    _build.check(code, "quantize_rows")
-    return q, scale
+    return _row_views(q, stats, views, bs)[0]
 
 
 quantize_rows.launches = 0
+
+
+def quantize_rows_many(xs):
+    """K1, per-row scales over every piece of a list: each ``xs[i]`` is
+    ``[NB_i, BS]`` (one BS, f32 or bf16, one card, NB_i >= 0) -> ``[(q
+    int8 [NB_i, BS], scale f32 [NB_i, 1]), ...]``, each row with its own
+    absmax. The two-round wire's round 2 over a step's pieces.
+
+    Replaces ps_pytorch_tpu/ops/quantize.py:_quant_rows_kernel with the
+    row absmax XLA computed around it, one wrapper call for the list: the
+    shared-scale kernel at one worker (a block-row of one worker is one
+    row, so its scale is the row's own), a launch per table of
+    ``MAX_PIECES`` pieces. Bound on the H100: bytes. CPU pieces run
+    ``quantize_rows_many_plain``; CUDA pieces launch the kernel or raise.
+    ``.launches`` counts the calls that launch."""
+    xs = list(xs)
+    bs = _rows_width(xs, "quantize_rows_many")
+    xs_card = _card_pieces(xs, "quantize_rows_many")
+    if xs_card is None:
+        return quantize_rows_many_plain(xs)
+    q, stats, views, launched = _rows_scaled_launch(xs_card, 1, bs)
+    if launched:
+        quantize_rows_many.launches += 1
+    return _row_views(q, stats, views, bs)
+
+
+quantize_rows_many.launches = 0
+
+
+def _quantize_rows_many_groups(xs):
+    """``quantize_rows_many``'s function on a kernel of its own
+    (``ps_quantize_rows_many``: the KV entry's lane groups over a
+    descriptor table, a plain grid); pieces of one dtype. Timed against
+    ``quantize_rows_many`` by chip_smoke.py phase 8."""
+    from . import _build
+
+    xs = list(xs)
+    bs = _rows_width(xs, "_quantize_rows_many_groups")
+    xs_card = _card_pieces(xs, "_quantize_rows_many_groups")
+    if xs_card is None or any(x.dtype != xs_card[0].dtype for x in xs_card):
+        raise ValueError("_quantize_rows_many_groups takes card pieces of one dtype")
+    tables, views, q_len, rows = _rows_call(1, tuple(x.numel() for x in xs_card), bs)
+    dev = xs_card[0].device
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
+    per = 16 // xs_card[0].element_size()
+    group = bs // per
+    vec = (bs % per == 0 and group <= 32 and group & (group - 1) == 0
+           and all(x.data_ptr() % 16 == 0 for x in xs_card))
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                code = lib.ps_quantize_rows_many(
+                    words.ctypes.data, _build.DTYPE_CODES[xs_card[0].dtype], int(vec),
+                    group if vec else 32, stats.data_ptr() + 4 * rows, stream)
+                _build.check(code, "_quantize_rows_many_groups")
+    return _row_views(q, stats, views, bs)
+
+
+def kv_lanes(hd: int, elt: int, offsets) -> Tuple[bool, int]:
+    """The KV entry's lanes a row -> (vector path, group): a row of
+    ``hd`` elements of ``elt`` bytes is ``hd * elt / 16`` lanes, one
+    16-byte load each, when that is a power of two up to 32 and every
+    byte address and stride in ``offsets`` is 16-byte aligned; otherwise
+    one warp loops over the row (group 32)."""
+    lanes = hd * elt // 16
+    if (hd * elt % 16 == 0 and 1 <= lanes <= 32 and lanes & (lanes - 1) == 0
+            and all(int(a) % 16 == 0 for a in offsets)):
+        return True, lanes
+    return False, 32
+
+
+def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
+    """K1, KV entry: quantize one layer's K and V ``[R, H, hd]`` (f32 or
+    bf16, any row and head strides) per (position, head) row and store
+    the int8 rows into the layer's pool views ``k_q`` / ``v_q`` ``[slots,
+    max_len, H, hd]`` and the f32 scales into ``k_s`` / ``v_s`` ``[slots,
+    max_len, H, 1]``, in place. Prefill (``slot``): row t goes to ``(slot,
+    t)``. Decode (``pos``, int ``[R]`` on the card): row s goes to ``(s,
+    pos[s])``; a negative position wraps once by ``max_len`` and one
+    still outside ``[0, max_len)`` is dropped, as JAX's scatter drops it.
+
+    Replaces ps_pytorch_tpu/ops/quantize.py:_quant_rows_kernel as the
+    serving pool calls it (serve/kv.py:62-113: ``_quant_rows``, then
+    ``write_slot``'s ``dynamic_update_slice`` or ``write_token``'s
+    scatter), the quantize and both writes of K and of V in one launch.
+    The launch is the cost: a decode tick's call moves 16 KB at the
+    serving shape. A CPU tensor runs ``quantize_kv_write_plain``; a CUDA
+    tensor launches the kernel or raises. ``.launches`` counts calls."""
+    rows, heads, hd, max_len = _kv_geometry(k, v, k_q, k_s, v_q, v_s, slot, pos)
+    if not k.is_cuda:
+        return quantize_kv_write_plain(k, v, k_q, k_s, v_q, v_s, slot, pos)
+    from . import _build
+
+    if k.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"quantize_kv_write: unsupported dtype {k.dtype}")
+    k = k if k.stride(2) == 1 else k.contiguous()
+    v = v if v.stride(2) == 1 else v.contiguous()
+    elt = k.element_size()
+    offsets = [t.data_ptr() for t in (k, v, k_q, v_q)]
+    for x in (k, v):
+        offsets += [x.stride(0) * elt if rows > 1 else 0, x.stride(1) * elt if heads > 1 else 0]
+    vec, group = kv_lanes(hd, elt, offsets)
+    pos = None if pos is None else pos.contiguous()
+    words = np.array([
+        k.data_ptr(), v.data_ptr(), k.stride(0), v.stride(0), k.stride(1), v.stride(1),
+        k_q.data_ptr(), v_q.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
+        0 if pos is None else pos.data_ptr(),
+        int(pos is not None and pos.dtype == torch.int64),
+        rows, heads, hd, max_len, 0 if slot is None else slot, group,
+    ], dtype=np.int64)
+    lib = _lib()
+    with torch.cuda.device(k.device):
+        code = lib.ps_quantize_kv_write(words.ctypes.data, _build.DTYPE_CODES[k.dtype],
+                                        int(vec), _build.stream_of(k))
+    quantize_kv_write.launches += 1
+    _build.check(code, "quantize_kv_write")
+
+
+quantize_kv_write.launches = 0
 
 
 def quantize_rows_scaled_many(xs, block_size: int):
@@ -372,29 +609,8 @@ def quantize_rows_scaled_many(xs, block_size: int):
     xs_card = _card_pieces(xs, "quantize_rows_scaled_many")
     if xs_card is None:
         return quantize_rows_scaled_many_plain(xs, block_size)
-    from . import _build
-
-    workers = xs[0].shape[0]
-    lengths = tuple(x.numel() // workers for x in xs_card)
-    tables, views, q_len, rows = _rows_call(workers, lengths, block_size)
-    dev = xs_card[0].device
-    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
-    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
-    if tables:
-        lib = _lib()
-        ptrs = [x.data_ptr() for x in xs_card]
-        base = q.data_ptr()
-        with torch.cuda.device(dev):
-            stream = _build.stream_of(xs_card[0])
-            for t, template in tables:
-                words = template.copy()
-                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
-                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
-                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i], lengths[i],
-                                                         block_size) for i in t.pieces])
-                code = lib.ps_quantize_rows_scaled_many(
-                    words.ctypes.data, stats.data_ptr(), stats.data_ptr() + 4 * rows, stream)
-                _build.check(code, "quantize_rows_scaled_many")
+    q, stats, views, launched = _rows_scaled_launch(xs_card, xs[0].shape[0], block_size)
+    if launched:
         quantize_rows_scaled_many.launches += 1
     return [(q.as_strided(qs, qst, qo), stats.as_strided(ss, sst, so),
              stats.as_strided(ss, sst, ao)) for qs, qst, qo, ss, sst, so, ao in views]

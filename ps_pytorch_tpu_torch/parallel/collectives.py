@@ -60,7 +60,7 @@ from ..ops.quantize import (
     dequantize_int8,
     fold_recip,
     quantize_int8_many,
-    quantize_rows,
+    quantize_rows_many,
     quantize_tensors,
 )
 from .buckets import piece_stream, tree_flatten, tree_unflatten
@@ -241,16 +241,16 @@ def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int):
     the regions are disjoint) and all_gather int8 plus the scale rows ->
     each piece's dequantized full ``[n*s]``. Per tensor: ONE K2 call over
     every region of every piece (each region has its own absmax). Block
-    mode: one K1 fused launch per piece over all its regions' rows (rows
-    are independent, so this equals n per-region calls)."""
+    mode: ONE K1 ``quantize_rows_many`` call over the block rows of every
+    piece (rows are independent, so this equals n per-region calls per
+    piece)."""
     if block_size:
+        rows = quantize_rows_many([p.reshape(-1, block_size) for p in partials])
         outs = []
-        for partial in partials:
+        for partial, (q2, scale2) in zip(partials, rows):
             s = partial.shape[1]
-            nb_loc = s // block_size
-            q2, scale2 = quantize_rows(partial.reshape(n * nb_loc, block_size))
             full = axis.all_gather(q2.reshape(n, s))
-            scales2 = axis.all_gather(scale2.reshape(n, nb_loc, 1))  # [n*nb_loc, 1]
+            scales2 = axis.all_gather(scale2.reshape(n, s // block_size, 1))  # [n*nb_loc, 1]
             outs.append((full.reshape(-1, block_size).float() * scales2).reshape(-1))
         return outs
     regions = quantize_tensors([partial[w] for partial in partials for w in range(n)])
@@ -282,8 +282,9 @@ def quantized_allreduce_2round(
     int8), then per piece all_to_all and exact region sums ->
 
     - dequant wire: round 2 requantizes each region with local scales
-      (per tensor: every region of every piece in one K2 call),
-      all_gathers int8 plus the scale rows, and dequantizes; then * 1/K;
+      (every region of every piece in one call: K2 per tensor, K1's
+      ``quantize_rows_many`` per block), all_gathers int8 plus the scale
+      rows, and dequantizes; then * 1/K;
     - homomorphic wire: K3 sums each region's worker rows and rescales
       them by K back onto the int8 lattice, the result is all_gathered,
       and ONE deferred multiply by the round-1 scales dequantizes it (the

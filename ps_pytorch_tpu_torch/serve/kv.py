@@ -8,28 +8,30 @@ an independent sequence at its own position. Two formats, selected by
 - compute-dtype (f32/bf16) K/V, attended by the single-request decoder's
   own ``_attend_cached`` (per-slot length vector) — the token-exactness
   oracle path;
-- int8 K/V with one f32 absmax scale per (position, head) vector,
-  quantized by kernel K1 (ops/quantize.quantize_int8, block = head_dim).
+- int8 K/V with one f32 absmax scale per (position, head) vector.
   Attention upcasts the int8 payload for the products and folds the
   scales into the f32 score and probability rows instead of
   materializing a dequantized pool (kv.py:127-147).
 
 Writes update the pool IN PLACE (the JAX version returns new buffers):
-a slice assignment at admission (prefill) and an indexed assignment at
-each slot's own position inside the decode step. The attention products
-stay ``torch.einsum`` (matmul work JAX leaves to XLA).
+a slice at admission (prefill) and each slot's own position inside the
+decode step. On the int8 pool one launch a layer of kernel K1's KV entry
+(ops/quantize.quantize_kv_write) quantizes K and V and stores them, a
+decode position read on the device (JAX: ``_quant_rows`` then the
+update, kv.py:62-113). The attention products stay ``torch.einsum``
+(matmul work JAX leaves to XLA).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from .. import DeviceLike, resolve_device
 from ..models.decode import NEG_INF, _attend_cached
 from ..models.transformer import TransformerConfig
-from ..ops.quantize import quantize_int8
+from ..ops.quantize import quantize_kv_write
 
 
 def init_kv_pool(cfg: TransformerConfig, slots: int, max_len: int,
@@ -55,47 +57,36 @@ def pool_is_int8(pool: Dict) -> bool:
     return "k_q" in pool
 
 
-def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantize ``[..., H, hd]`` to int8 with one scale per head vector:
-    block = head_dim divides the flattened size, so no block straddles a
-    (position, head) boundary. bf16 input goes to K1 as it is (the
-    kernel widens it to f32 exactly, as kv.py:70's cast does)."""
-    hd = x.shape[-1]
-    q, s = quantize_int8(x, block_size=hd)
-    return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
+def _int8_views(pool: Dict, block: int):
+    return (pool["k_q"][block], pool["k_s"][block], pool["v_q"][block], pool["v_s"][block])
 
 
 def write_slot(pool: Dict, block: int, slot: int,
                k: torch.Tensor, v: torch.Tensor) -> Dict:
     """Admission write: this block's full-prompt K/V ``[T, H, hd]`` into
     slot positions ``[0, T)``."""
-    t = k.shape[0]
     if not pool_is_int8(pool):
+        t = k.shape[0]
         for name, val in (("k", k), ("v", v)):
             buf = pool[name]
             buf[block, slot, :t] = val.to(buf.dtype)
         return pool
-    for name, val in (("k", k), ("v", v)):
-        q, s = _quant_rows(val)
-        pool[name + "_q"][block, slot, :t] = q
-        pool[name + "_s"][block, slot, :t] = s
+    quantize_kv_write(k, v, *_int8_views(pool, block), slot=slot)
     return pool
 
 
 def write_token(pool: Dict, block: int, pos: torch.Tensor,
                 k: torch.Tensor, v: torch.Tensor) -> Dict:
     """Decode-step write: one token's K/V ``[S, H, hd]`` at each slot's
-    OWN position (``pos`` int ``[S]``)."""
-    sl = torch.arange(k.shape[0], device=k.device)
+    OWN position (``pos`` int ``[S]``); the int8 pool drops a position
+    outside ``[0, max_len)``, as JAX's scatter does."""
     if not pool_is_int8(pool):
+        sl = torch.arange(k.shape[0], device=k.device)
         for name, val in (("k", k), ("v", v)):
             buf = pool[name]
             buf[block, sl, pos] = val.to(buf.dtype)
         return pool
-    for name, val in (("k", k), ("v", v)):
-        q, s = _quant_rows(val)
-        pool[name + "_q"][block, sl, pos] = q
-        pool[name + "_s"][block, sl, pos] = s
+    quantize_kv_write(k, v, *_int8_views(pool, block), pos=pos)
     return pool
 
 

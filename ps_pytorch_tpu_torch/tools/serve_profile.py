@@ -10,9 +10,16 @@ and one decode step), then ``--ticks`` steady full-batch decode ticks.
 Prints one JSON line: the card (nvidia-smi name and power limit) and, per
 window, the wall time, the device's busy time and idle share (summed CUDA
 kernel time over wall time; one stream, so kernels do not overlap), the
-per-tick wall and device times, the device time of the two port kernels
-(K1 ``quantize_rows_kernel``, K4 ``flash_fwd_*_kernel``) and the top CUDA
-kernels by device time. Needs a CUDA card.
+per-tick wall and device times, the device launches and device time a tick
+split by kernel category (``CATEGORIES``: K1's KV pool write
+``quantize_kv_write_kernel``, or a parent tree's ``quantize_rows_kernel``
+with its index writes; K4 ``flash_fwd_*_kernel``; cuBLAS; copies; the
+rest), the two port kernels' launches and mean device time, and the top
+CUDA kernels by device time. Needs a CUDA card.
+
+To compare a parent checkout with this one on one card, run this file
+against each package in turns (``PYTHONPATH=<parent> python
+ps_pytorch_tpu_torch/tools/serve_profile.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,25 @@ def _card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+# substrings of CUDA kernel names, checked in this order
+CATEGORIES = (
+    ("K1 quantize_kv_write", ("quantize_kv_write_kernel",)),
+    ("K1 quantize_rows", ("quantize_rows_kernel",)),  # a parent tree's pool write
+    ("K4 flash_fwd", ("flash_fwd_",)),
+    ("index gather / scatter", ("index_elementwise", "index_put", "indexSelect",
+                                "index_kernel", "scatter_gather")),
+    ("cuBLAS", ("gemm", "gemv", "nvjet", "cutlass", "xmma")),
+    ("copy / cast", ("copy", "CatArray")),
+)
+
+
+def _category(name: str) -> str:
+    for cat, keys in CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "other"
 
 
 def _window(step, n: int) -> dict:
@@ -61,13 +87,21 @@ def _window(step, n: int) -> dict:
         return {"launches": count, "device_s": total,
                 "mean_us": total / count * 1e6 if count else None}
 
+    by_cat = {}
+    for name, (c, t) in kernels.items():
+        rec = by_cat.setdefault(_category(name), {"launches_per_tick": 0.0,
+                                                  "device_us_per_tick": 0.0})
+        rec["launches_per_tick"] += c / n
+        rec["device_us_per_tick"] += t / n * 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
     return {
         "ticks": n, "wall_s": wall_s, "wall_ms_per_tick": wall_s / n * 1e3,
         "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s,
         "device_ms_per_tick": busy_s / n * 1e3,
         "cuda_kernel_launches": sum(c for c, _ in kernels.values()),
-        "K1_quantize_rows": port("quantize_rows_kernel"),
+        "launches_per_tick": sum(c for c, _ in kernels.values()) / n,
+        "by_category": by_cat,
+        "K1_quantize_kv_write": port("quantize_kv_write_kernel"),
         "K4_flash_fwd": port("flash_fwd_"),  # both routes: mma and tf32
         "top_kernels": [{"name": k[:90], "count": c, "device_s": t}
                         for k, (c, t) in top],

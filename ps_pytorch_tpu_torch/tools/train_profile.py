@@ -38,8 +38,9 @@ import torch
 # substrings of CUDA kernel names, checked in this order
 CATEGORIES = (
     ("K2 quantize_tensors", ("absmax_many_kernel", "quantize_many_kernel")),
+    # rounds 1 and 2 of the block-scale wires (round 2 at one worker)
     ("K1 quantize_rows_scaled_many", ("quantize_rows_scaled_many_kernel",)),
-    ("K1 quantize_rows", ("quantize_rows_kernel",)),
+    ("K1 quantize_rows", ("quantize_rows_kernel",)),  # a parent tree's round 2
     ("K3 accumulate_rescale", ("accum_rescale_kernel",)),
     ("integer sum over workers", ("sum_functor<int", "sum_functor<short")),
     ("cuDNN convolution", ("cudnn", "xmma", "conv", "implicit", "winograd", "fft",
@@ -51,7 +52,7 @@ CATEGORIES = (
 # the port's own kernels, reported launch by launch
 PORT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
                 "quantize_rows_scaled_many_kernel", "quantize_rows_kernel",
-                "accum_rescale_kernel")
+                "accum_rescale_kernel")  # quantize_rows_kernel: a parent tree's
 
 
 def _card() -> str:

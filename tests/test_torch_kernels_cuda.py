@@ -1,6 +1,8 @@
 """The port's hand-written kernels on the card, against their plain
-PyTorch versions (K1 quantize_rows and its multi-tensor shared-scale
-entry quantize_rows_scaled_many, K2's multi-tensor quantize_tensors and
+PyTorch versions (K1's KV pool write quantize_kv_write, its multi-tensor
+shared-scale entry quantize_rows_scaled_many and the per-row calls that
+run it at one worker, quantize_rows_many and quantize_rows, K2's
+multi-tensor quantize_tensors and
 its one-piece call quantize_tensor, K3 accumulate_rescale_int8, K4
 flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
 flash_bwd_dkv), the serving engine on the card against the same engine on the
@@ -41,7 +43,11 @@ from ps_pytorch_tpu_torch.ops.quantize import (
     accumulate_rescale_int8,
     accumulate_rescale_plain,
     quantize_int8,
+    quantize_kv_write,
+    quantize_kv_write_plain,
     quantize_rows,
+    quantize_rows_many,
+    quantize_rows_many_plain,
     quantize_rows_plain,
     quantize_rows_scaled_many,
     quantize_rows_scaled_many_plain,
@@ -76,6 +82,7 @@ def cuda_device():
     (17, 500, torch.bfloat16),
 ])
 def test_torch_quantize_rows_kernel_bit_exact_on_card(cuda_device, nb, bs, dtype):
+    """quantize_rows runs the shared-scale kernel at one worker."""
     g = torch.Generator(device=cuda_device).manual_seed(nb + bs)
     x = (torch.randn((nb, bs), generator=g, device=cuda_device) * 3).to(dtype)
     x[1] = 0.0
@@ -86,6 +93,129 @@ def test_torch_quantize_rows_kernel_bit_exact_on_card(cuda_device, nb, bs, dtype
     assert quantize_rows.launches == before + 1
     assert torch.equal(q, qp)
     assert torch.equal(s, sp)
+    (qm, sm), = quantize_rows_many([x])
+    assert torch.equal(qm, qp) and torch.equal(sm, sp)
+
+
+def _kv_pool(slots, max_len, heads, hd, dev):
+    """One layer's sentinel-filled int8 pool views (k_q, k_s, v_q, v_s)."""
+    g = torch.Generator(device=dev).manual_seed(hd)
+    shape = (slots, max_len, heads, hd)
+    q = [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int32)
+         .to(torch.int8) for _ in range(2)]
+    s = [torch.full(shape[:-1] + (1,), c, device=dev) for c in (-3.5, 7.25)]
+    return [q[0], s[0], q[1], s[1]]
+
+
+def _kv_inputs(rows, heads, hd, dtype, dev, seed, layout="fused"):
+    """K and V ``[rows, H, hd]``: head splits of one projection (strided,
+    as the engine hands them over), or views 4 bytes past a 16-byte
+    boundary (the element loop); an all-zero head vector."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "fused":
+        qkv = (torch.randn((rows, 3 * heads * hd), generator=g, device=dev) * 3).to(dtype)
+        k, v = (a.reshape(rows, heads, hd) for a in qkv.split(heads * hd, dim=1)[1:])
+    else:
+        n = rows * heads * hd
+        flat = (torch.randn((2 * n + 2,), generator=g, device=dev) * 3).to(dtype)
+        k, v = (flat[2 + i * n:2 + (i + 1) * n].view(rows, heads, hd) for i in range(2))
+    k[0, 0] = 0.0
+    return k, v
+
+
+def _kv_write_both(k, v, pool, **where):
+    """The kernel and the plain version on copies of one pool: the
+    kernel's pool, the plain version's, and the kernel's launches."""
+    plain = [t.clone() for t in pool]
+    before = quantize_kv_write.launches
+    quantize_kv_write(k, v, *pool, **where)
+    launches = quantize_kv_write.launches - before
+    quantize_kv_write_plain(k, v, *plain, **where)
+    torch.cuda.synchronize()
+    return pool, plain, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 77, 128])
+def test_torch_kv_write_kernel_prefill_bit_exact_on_card(cuda_device, dtype, hd, t):
+    """A prefill write into slot 5 of an 8-slot pool: every pool tensor
+    equals the plain version's, rows past T and the other slots
+    untouched, one launch."""
+    heads = 8
+    pool = _kv_pool(8, 256, heads, hd, cuda_device)
+    before = [x.clone() for x in pool]
+    k, v = _kv_inputs(t, heads, hd, dtype, cuda_device, seed=t + hd)
+    got, want, launches = _kv_write_both(k, v, pool, slot=5)
+    assert launches == 1
+    for a, b, orig in zip(got, want, before):
+        assert torch.equal(a, b)
+        assert torch.equal(a[:5], orig[:5]) and torch.equal(a[6:], orig[6:])
+        assert torch.equal(a[5, t:], orig[5, t:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+def test_torch_kv_write_kernel_decode_bit_exact_on_card(cuda_device, dtype, hd, pos_dtype):
+    """A decode write for 8 slots: positions 0, max_len - 1 and -1 are
+    written, max_len and -(max_len + 1) dropped; every pool tensor equals
+    the plain version's and only the written rows changed."""
+    heads, max_len = 8, 256
+    pool = _kv_pool(8, max_len, heads, hd, cuda_device)
+    before = [x.clone() for x in pool]
+    pos = torch.tensor([3, max_len - 1, max_len, 0, -1, 100, -(max_len + 1), 17],
+                       dtype=pos_dtype, device=cuda_device)
+    k, v = _kv_inputs(8, heads, hd, dtype, cuda_device, seed=hd)
+    got, want, launches = _kv_write_both(k, v, pool, pos=pos)
+    assert launches == 1
+    written = {(0, 3), (1, max_len - 1), (3, 0), (4, max_len - 1), (5, 100), (7, 17)}
+    for a, b, orig in zip(got, want, before):
+        assert torch.equal(a, b)
+        changed = (a != orig).reshape(8, max_len, -1).any(-1).nonzero().tolist()
+        assert {tuple(c) for c in changed} <= written
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,layout", [
+    (torch.bfloat16, 64, "misaligned"),  # 4 bytes past a boundary: the element loop
+    (torch.float32, 64, "misaligned"),
+    (torch.bfloat16, 96, "fused"),       # 12 lanes a row: the element loop
+    (torch.float32, 256, "fused"),       # 64 lanes a row: the element loop
+])
+def test_torch_kv_write_kernel_element_loop_on_card(cuda_device, dtype, hd, layout):
+    pool = _kv_pool(4, 32, 2, hd, cuda_device)
+    k, v = _kv_inputs(4, 2, hd, dtype, cuda_device, seed=hd, layout=layout)
+    for where in (dict(slot=2), dict(pos=torch.tensor([31, 32, 0, 5], device=cuda_device,
+                                                      dtype=torch.int32))):
+        got, want, launches = _kv_write_both(k, v, pool, **where)
+        assert launches == 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_torch_quantize_rows_many_kernel_resnet18_round2_on_card(cuda_device):
+    """The block-128 two-round wire's round 2 on ResNet18's 62 leaves:
+    each leaf's region sums [8, s] as [8 s / 128, 128] rows, all in ONE
+    call, bit-exact against the plain version, the same bits twice."""
+    xs = []
+    for x in _resnet18_pieces(cuda_device, seed=3):
+        n = x[0].numel()
+        s = (-(-n // 8) + 127) // 128 * 128
+        flat = torch.nn.functional.pad(x.reshape(8, n), (0, 8 * s - n)).reshape(8, 8 * s)
+        xs.append(flat.sum(0).reshape(-1, 128))  # a partial sum's rows
+    before = quantize_rows_many.launches
+    got = quantize_rows_many(xs)
+    again = quantize_rows_many(xs)
+    torch.cuda.synchronize()
+    assert quantize_rows_many.launches == before + 2
+    want = quantize_rows_many_plain(xs)
+    for (q, s), (q2, s2), (qp, sp) in zip(got, again, want):
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        assert torch.equal(q2, q) and torch.equal(s2, s)
 
 
 @pytest.mark.cuda
@@ -529,7 +659,8 @@ def test_torch_flash_attention_grads_on_card_match_cpu(cuda_device, t, causal, d
 def test_torch_engine_on_card_matches_cpu_engine(cuda_device, int8):
     """The engine on the card (kernels) emits the tokens the same engine
     emits on the CPU (plain versions), and launches K4 once per block per
-    prefill and K1 twice per block per prefill and per decode step."""
+    prefill and K1's KV entry once per block per prefill and per decode
+    step (nothing else of K1)."""
     cfg = TransformerConfig(vocab_size=97, dim=128, depth=2, heads=2,
                             max_seq_len=64, attention_impl="flash")
     params = init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -542,7 +673,9 @@ def test_torch_engine_on_card_matches_cpu_engine(cuda_device, int8):
     for dev in ("cpu", cuda_device):
         engine = ServingEngine(cfg, params, serve, device=dev)
         engine.warmup()
-        k4, k1 = flash_fwd.launches, quantize_rows.launches
+        k4, k1 = flash_fwd.launches, quantize_kv_write.launches
+        others = (quantize_rows.launches, quantize_rows_many.launches,
+                  quantize_rows_scaled_many.launches)
         p0, d0 = engine.n_prefills, engine.n_decode_steps
         outs[str(dev)] = [c.tokens for c in
                           engine.decode_requests([dataclasses.replace(r) for r in reqs])]
@@ -551,8 +684,10 @@ def test_torch_engine_on_card_matches_cpu_engine(cuda_device, int8):
             steps = engine.n_decode_steps - d0
             assert prefills == 3
             assert flash_fwd.launches - k4 == cfg.depth * prefills
-            assert quantize_rows.launches - k1 == (
-                2 * cfg.depth * (prefills + steps) if int8 else 0)
+            assert quantize_kv_write.launches - k1 == (
+                cfg.depth * (prefills + steps) if int8 else 0)
+            assert (quantize_rows.launches, quantize_rows_many.launches,
+                    quantize_rows_scaled_many.launches) == others
     assert outs["cpu"] == outs["cuda"]
 
 
