@@ -4,7 +4,7 @@
 // _pallas_quantize_rows, quantize.py:101). On the TPU the row absmax and
 // the scale/inverse were XLA ops (and, on the gradient wire, a pmax over
 // workers, quantize.py:152-154), and only the scale-round-clip-cast ran
-// in the Pallas kernel, under 128-lane / 8-row conditions. Two entries:
+// in the Pallas kernel, under 128-lane / 8-row conditions. Three entries:
 //
 //   ps_quantize_kv_write          the serving KV cache's pool write, one
 //                                 launch a layer: K and V [R, H, hd] (any
@@ -21,6 +21,13 @@
 //                                 once by max_len and one still outside
 //                                 [0, max_len) is dropped, as JAX's
 //                                 scatter drops it;
+//   ps_quantize_rows_many         per-row scales over every [nb, bs]
+//                                 piece of a list (the two-round wire's
+//                                 round 2, ops/quantize.py
+//                                 quantize_rows_many; quantize_rows is
+//                                 its one-piece call), on the KV entry's
+//                                 lane groups, one plain grid over a
+//                                 descriptor table;
 //   ps_quantize_rows_scaled_many  every piece of a step in one call: per
 //                                 piece x [N, n] (N workers, n elements
 //                                 each) cut into nb = ceil(n / bs)
@@ -32,14 +39,8 @@
 //                                 Padding to whole blocks is virtual:
 //                                 elements past n read as 0 and their
 //                                 int8 is written as 0 (no padded copy).
-//                                 At N = 1 a block's scale is its own:
-//                                 the per-row quantize of a list of
-//                                 [nb, bs] pieces (the two-round wire's
-//                                 round 2, ops/quantize.py
-//                                 quantize_rows_many) and of one
-//                                 (quantize_rows).
 //
-// Both compute, per row, inv = absmax > 0 ? 127 / max(absmax, 1e-30) : 0,
+// All compute, per row, inv = absmax > 0 ? 127 / max(absmax, 1e-30) : 0,
 // int8(clip(rint(x * inv), -127, 127)) and scale = absmax * (1/127).
 //
 // The KV entry's rows are head vectors of 32-128 elements, and a decode
@@ -54,7 +55,13 @@
 // two up to 32, or a view that is not 16-byte aligned, runs the same
 // kernel's element loop, one warp a row.
 //
-// The multi-tensor entry's work unit is one block-row (all N workers);
+// The per-row multi-tensor entry gives every row its own lane group in
+// one grid of (rows x group) threads; a thread finds its row's piece by a
+// binary search of the table's first rows. At a ResNet18 step's round 2
+// (87552 rows of 128 f32) it takes 27 us where the shared-scale kernel
+// at one worker, a warp a row in a grid-stride loop, took 46 (PERF.md).
+//
+// The shared-scale entry's work unit is one block-row (all N workers);
 // a descriptor table (RowsTable: input and output pointers, length,
 // block count, load kind, output slot and first row of each piece) goes
 // by value as a __grid_constant__ kernel parameter, kMaxPieces pieces
@@ -78,13 +85,14 @@
 // Bound on the H100: bytes. Each input element is read once from device
 // memory and one int8 written per element, plus one f32 scale (and one
 // absmax) per row: a few flops per byte (far below the card's ~20 f32
-// flops/byte balance). At block 128 and up to 8 workers (the wire's
-// case) each lane keeps its float4 of every worker's block in registers
+// flops/byte balance). The lane-group entries hold each lane's 16 bytes
+// in registers from the absmax to the quantize: one read. At block 128
+// and up to 8 workers (the shared-scale wire's case) each lane keeps its float4 of every worker's block in registers
 // (scaled_block_row_128): the row is read once, its loads all in flight.
 // Elsewhere a warp reads its row twice (absmax, then quantize), but the
 // second read follows the first at once and touches N * bs elements: it
 // hits L1 or L2, so device memory sees one read either way, the part of
-// the design the TPU's whole-array pmax could not have. The multi-tensor
+// the design the TPU's whole-array pmax could not have. The shared-scale
 // entry loads float4 and stores char4 for every f32 piece whose input is
 // 16-byte aligned and whose n and bs are multiples of 4, decided per
 // piece; other pieces and bf16 go element by element.
@@ -377,8 +385,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
 // Per-row multi-tensor quantize on the KV entry's lane groups (one-worker
 // pieces [nb, bs] of one type; the group the same for the whole call):
-// one thread group a row, a plain grid. Timed against the shared-scale
-// kernel at one worker for the two-round wire's round 2.
+// one thread group a row, a plain grid.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     quantize_rows_many_kernel(const __grid_constant__ RowsTable t, float* __restrict__ scale,
@@ -464,9 +471,10 @@ extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax
   return (int)cudaGetLastError();
 }
 
-// One table of the lane-group multi-tensor per-row quantize: one-worker
-// pieces of `dtype`, every piece on the vector path (vec, group == bs *
-// sizeof(T) / 16) or none (group == 32).
+// One table of K1's per-row multi-tensor entry: `words` is a RowsTable of
+// one-worker pieces of `dtype` (their kinds unused); scale[slot + r]
+// receives piece i's row r. Every piece on the vector path (vec, group
+// == bs * sizeof(T) / 16) or none (group == 32).
 extern "C" int ps_quantize_rows_many(const long long* words, int dtype, int vec, int group,
                                      void* scale, void* stream) {
   RowsTable t;

@@ -10,9 +10,9 @@ the two (the sixth, ``accumulate_rescale_int8``, is K3 below):
   rows and f32 scales, in place, one launch (prefill: at ``(slot, 0..R)``;
   decode: at ``(s, pos[s])``, positions read on the device).
 - ``quantize_rows_many`` — K1, per-row scales over a list of ``[NB, BS]``
-  pieces in one call (the two-round wire's round 2); ``quantize_rows`` is
-  its one-piece form. Both run the shared-scale kernel below at one
-  worker, where a block's scale is the row's own.
+  pieces in one call (the two-round wire's round 2), on the KV entry's
+  lane groups over descriptor tables; ``quantize_rows`` is its one-piece
+  form.
 - ``quantize_rows_scaled_many`` — K1, shared-scale entry, multi-tensor:
   every worker-stacked piece of a step in one call, each cut into blocks
   whose absmax is taken over every worker (the pmax) and shared by them
@@ -383,21 +383,43 @@ def _kernel_input(x: torch.Tensor, what: str) -> torch.Tensor:
     return x.contiguous()
 
 
-def _rows_scaled_launch(xs_card, workers: int, block_size: int):
-    """Launch K1's shared-scale kernel over card pieces ``[N, ...]`` (one
-    launch per descriptor table) -> (the int8 buffer, the f32 buffer of
-    every absmax row then every scale row, ``_rows_call``'s views, whether
-    anything launched)."""
+def _rows_width(xs, what: str) -> int:
+    if (not xs or any(x.dim() != 2 or x.shape[1] != xs[0].shape[1] or x.dtype != xs[0].dtype
+                      for x in xs) or xs[0].shape[1] < 1):
+        raise ValueError(f"{what} takes [NB, BS] pieces of one BS >= 1 and one dtype, got "
+                         f"{[(tuple(x.shape), str(x.dtype)) for x in xs]}")
+    return int(xs[0].shape[1])
+
+
+def row_lanes(hd: int, elt: int, offsets) -> Tuple[bool, int]:
+    """K1's lanes a row (the KV entry, ``quantize_rows_many``) -> (vector
+    path, group): a row of ``hd`` elements of ``elt`` bytes is ``hd * elt
+    / 16`` lanes, one 16-byte load each, when that is a power of two up
+    to 32 and every byte address and stride in ``offsets`` is 16-byte
+    aligned; otherwise one warp loops over the row (group 32)."""
+    lanes = hd * elt // 16
+    if (hd * elt % 16 == 0 and 1 <= lanes <= 32 and lanes & (lanes - 1) == 0
+            and all(int(a) % 16 == 0 for a in offsets)):
+        return True, lanes
+    return False, 32
+
+
+def _rows_many_launch(xs_card, bs: int):
+    """Launch K1's per-row kernel over card pieces ``[NB, BS]`` of one
+    dtype (a launch per descriptor table) -> ``[(q [NB, BS], scale [NB,
+    1])]`` views of one int8 and one f32 buffer, and whether anything
+    launched. Every row's lanes load 16 bytes each when BS and every
+    piece allow it (``row_lanes``), else one warp loops over the row."""
     from . import _build
 
-    lengths = tuple(x.numel() // workers for x in xs_card)
-    tables, views, q_len, rows = _rows_call(workers, lengths, block_size)
+    tables, views, q_len, rows = _rows_call(1, tuple(x.numel() for x in xs_card), bs)
     dev = xs_card[0].device
     q = torch.empty((q_len,), dtype=torch.int8, device=dev)
-    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
+    scale = torch.empty((rows,), dtype=torch.float32, device=dev)
+    ptrs = [x.data_ptr() for x in xs_card]
+    vec, group = row_lanes(bs, xs_card[0].element_size(), ptrs)
     if tables:
         lib = _lib()
-        ptrs = [x.data_ptr() for x in xs_card]
         base = q.data_ptr()
         with torch.cuda.device(dev):
             stream = _build.stream_of(xs_card[0])
@@ -405,27 +427,14 @@ def _rows_scaled_launch(xs_card, workers: int, block_size: int):
                 words = template.copy()
                 _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
                 _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
-                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i], lengths[i],
-                                                         block_size) for i in t.pieces])
-                code = lib.ps_quantize_rows_scaled_many(
-                    words.ctypes.data, stats.data_ptr(), stats.data_ptr() + 4 * rows, stream)
-                _build.check(code, "quantize_rows_scaled_many")
-    return q, stats, views, bool(tables)
-
-
-def _row_views(q, stats, views, block_size: int):
-    """The per-row outputs of a one-worker launch: (q ``[nb, bs]``, scale
-    ``[nb, 1]``) per piece."""
-    return [(q.as_strided((ss[0], block_size), (block_size, 1), qo), stats.as_strided(ss, sst, so))
-            for _, _, qo, ss, sst, so, _ in views]
-
-
-def _rows_width(xs, what: str) -> int:
-    if not xs or any(x.dim() != 2 or x.shape[1] != xs[0].shape[1] for x in xs) \
-            or xs[0].shape[1] < 1:
-        raise ValueError(f"{what} takes [NB, BS] pieces of one BS >= 1, got "
-                         f"{[tuple(x.shape) for x in xs]}")
-    return int(xs[0].shape[1])
+                code = lib.ps_quantize_rows_many(
+                    words.ctypes.data, _build.DTYPE_CODES[xs_card[0].dtype], int(vec), group,
+                    scale.data_ptr(), stream)
+                _build.check(code, "quantize_rows_many")
+    # the scale of piece i starts at row slot[i] (its views' absmax offset)
+    out = [(q.as_strided((ss[0], bs), (bs, 1), qo), scale.as_strided(ss, sst, ao))
+           for _, _, qo, ss, sst, _, ao in views]
+    return out, bool(tables)
 
 
 def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -447,9 +456,9 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if xb.numel() == 0:
         return (torch.empty((nb, bs), dtype=torch.int8, device=xb.device),
                 torch.empty((nb, 1), dtype=torch.float32, device=xb.device))
-    q, stats, views, _ = _rows_scaled_launch([xb], 1, bs)
+    (out,), _ = _rows_many_launch([xb], bs)
     quantize_rows.launches += 1
-    return _row_views(q, stats, views, bs)[0]
+    return out
 
 
 quantize_rows.launches = 0
@@ -457,79 +466,30 @@ quantize_rows.launches = 0
 
 def quantize_rows_many(xs):
     """K1, per-row scales over every piece of a list: each ``xs[i]`` is
-    ``[NB_i, BS]`` (one BS, f32 or bf16, one card, NB_i >= 0) -> ``[(q
-    int8 [NB_i, BS], scale f32 [NB_i, 1]), ...]``, each row with its own
-    absmax. The two-round wire's round 2 over a step's pieces.
+    ``[NB_i, BS]`` (one BS and one dtype, f32 or bf16, one card, NB_i >=
+    0) -> ``[(q int8 [NB_i, BS], scale f32 [NB_i, 1]), ...]``, each row
+    with its own absmax. The two-round wire's round 2 over a step's
+    pieces.
 
     Replaces ps_pytorch_tpu/ops/quantize.py:_quant_rows_kernel with the
-    row absmax XLA computed around it, one wrapper call for the list: the
-    shared-scale kernel at one worker (a block-row of one worker is one
-    row, so its scale is the row's own), a launch per table of
-    ``MAX_PIECES`` pieces. Bound on the H100: bytes. CPU pieces run
-    ``quantize_rows_many_plain``; CUDA pieces launch the kernel or raise.
-    ``.launches`` counts the calls that launch."""
+    row absmax XLA computed around it, one wrapper call for the list and
+    a launch per descriptor table of ``MAX_PIECES`` pieces
+    (``plan_rows_tables``): a row is a group of lanes, 16 bytes a lane
+    (a warp a 128-wide f32 row), one plain grid. Bound on the H100:
+    bytes. CPU pieces run ``quantize_rows_many_plain``; CUDA pieces launch
+    the kernel or raise. ``.launches`` counts the calls that launch."""
     xs = list(xs)
     bs = _rows_width(xs, "quantize_rows_many")
     xs_card = _card_pieces(xs, "quantize_rows_many")
     if xs_card is None:
         return quantize_rows_many_plain(xs)
-    q, stats, views, launched = _rows_scaled_launch(xs_card, 1, bs)
+    out, launched = _rows_many_launch(xs_card, bs)
     if launched:
         quantize_rows_many.launches += 1
-    return _row_views(q, stats, views, bs)
+    return out
 
 
 quantize_rows_many.launches = 0
-
-
-def _quantize_rows_many_groups(xs):
-    """``quantize_rows_many``'s function on a kernel of its own
-    (``ps_quantize_rows_many``: the KV entry's lane groups over a
-    descriptor table, a plain grid); pieces of one dtype. Timed against
-    ``quantize_rows_many`` by chip_smoke.py phase 8."""
-    from . import _build
-
-    xs = list(xs)
-    bs = _rows_width(xs, "_quantize_rows_many_groups")
-    xs_card = _card_pieces(xs, "_quantize_rows_many_groups")
-    if xs_card is None or any(x.dtype != xs_card[0].dtype for x in xs_card):
-        raise ValueError("_quantize_rows_many_groups takes card pieces of one dtype")
-    tables, views, q_len, rows = _rows_call(1, tuple(x.numel() for x in xs_card), bs)
-    dev = xs_card[0].device
-    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
-    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
-    per = 16 // xs_card[0].element_size()
-    group = bs // per
-    vec = (bs % per == 0 and group <= 32 and group & (group - 1) == 0
-           and all(x.data_ptr() % 16 == 0 for x in xs_card))
-    if tables:
-        lib = _lib()
-        ptrs = [x.data_ptr() for x in xs_card]
-        base = q.data_ptr()
-        with torch.cuda.device(dev):
-            stream = _build.stream_of(xs_card[0])
-            for t, template in tables:
-                words = template.copy()
-                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
-                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
-                code = lib.ps_quantize_rows_many(
-                    words.ctypes.data, _build.DTYPE_CODES[xs_card[0].dtype], int(vec),
-                    group if vec else 32, stats.data_ptr() + 4 * rows, stream)
-                _build.check(code, "_quantize_rows_many_groups")
-    return _row_views(q, stats, views, bs)
-
-
-def kv_lanes(hd: int, elt: int, offsets) -> Tuple[bool, int]:
-    """The KV entry's lanes a row -> (vector path, group): a row of
-    ``hd`` elements of ``elt`` bytes is ``hd * elt / 16`` lanes, one
-    16-byte load each, when that is a power of two up to 32 and every
-    byte address and stride in ``offsets`` is 16-byte aligned; otherwise
-    one warp loops over the row (group 32)."""
-    lanes = hd * elt // 16
-    if (hd * elt % 16 == 0 and 1 <= lanes <= 32 and lanes & (lanes - 1) == 0
-            and all(int(a) % 16 == 0 for a in offsets)):
-        return True, lanes
-    return False, 32
 
 
 def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
@@ -562,7 +522,7 @@ def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
     offsets = [t.data_ptr() for t in (k, v, k_q, v_q)]
     for x in (k, v):
         offsets += [x.stride(0) * elt if rows > 1 else 0, x.stride(1) * elt if heads > 1 else 0]
-    vec, group = kv_lanes(hd, elt, offsets)
+    vec, group = row_lanes(hd, elt, offsets)
     pos = None if pos is None else pos.contiguous()
     words = np.array([
         k.data_ptr(), v.data_ptr(), k.stride(0), v.stride(0), k.stride(1), v.stride(1),
@@ -609,8 +569,29 @@ def quantize_rows_scaled_many(xs, block_size: int):
     xs_card = _card_pieces(xs, "quantize_rows_scaled_many")
     if xs_card is None:
         return quantize_rows_scaled_many_plain(xs, block_size)
-    q, stats, views, launched = _rows_scaled_launch(xs_card, xs[0].shape[0], block_size)
-    if launched:
+    from . import _build
+
+    workers = xs[0].shape[0]
+    lengths = tuple(x.numel() // workers for x in xs_card)
+    tables, views, q_len, rows = _rows_call(workers, lengths, block_size)
+    dev = xs_card[0].device
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    stats = torch.empty((2 * rows,), dtype=torch.float32, device=dev)
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i], lengths[i],
+                                                         block_size) for i in t.pieces])
+                code = lib.ps_quantize_rows_scaled_many(
+                    words.ctypes.data, stats.data_ptr(), stats.data_ptr() + 4 * rows, stream)
+                _build.check(code, "quantize_rows_scaled_many")
         quantize_rows_scaled_many.launches += 1
     return [(q.as_strided(qs, qst, qo), stats.as_strided(ss, sst, so),
              stats.as_strided(ss, sst, ao)) for qs, qst, qo, ss, sst, so, ao in views]

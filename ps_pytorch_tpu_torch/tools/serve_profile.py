@@ -6,7 +6,11 @@ the port.
     python -m ps_pytorch_tpu_torch.tools.serve_profile [--ticks 40]
 
 Two windows: the tick that admits 8 requests (8 prefills of 128 tokens
-and one decode step), then ``--ticks`` steady full-batch decode ticks.
+and one decode step), then ``--ticks`` steady full-batch decode ticks;
+between them as many decode ticks without the profiler, each timed by
+the host clock (mean, median and least: the profiler's own host cost a
+recorded op inflates the windows' wall time, and the host's noise moves
+single ticks).
 Prints one JSON line: the card (nvidia-smi name and power limit) and, per
 window, the wall time, the device's busy time and idle share (summed CUDA
 kernel time over wall time; one stream, so kernels do not overlap), the
@@ -111,7 +115,8 @@ def _window(step, n: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ticks", type=int, default=40,
-                    help="decode ticks inside the profiled window")
+                    help="decode ticks in the unprofiled and in the profiled window "
+                         "(at most 63: 128-token prompts in 256 positions)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile: no CUDA device is available", file=sys.stderr)
@@ -133,13 +138,25 @@ def main(argv=None) -> int:
     for i in range(8):
         engine.submit(Request(
             rid=i, prompt=rng.randint(0, cfg.vocab_size, 128).astype(np.int32),
-            max_new_tokens=args.ticks + 1))
+            max_new_tokens=2 * args.ticks + 1))
     admit = _window(engine.tick, 1)  # 8 prefills + one decode step
-    steady = _window(engine.tick, args.ticks)  # full-batch decode ticks
+    # full-batch decode ticks without the profiler (its per-op host cost
+    # inflates the windows' wall time), then with it
+    ticks_ms = []
+    for _ in range(args.ticks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.tick()  # ends in the host's read of the new tokens
+        torch.cuda.synchronize()
+        ticks_ms.append((time.perf_counter() - t0) * 1e3)
+    steady = _window(engine.tick, args.ticks)
     print(json.dumps({
         "card": _card(), "kind": torch.cuda.get_device_name(0),
         "config": "d512x6 vocab2048 bf16 flash-prefill int8-kv, 8 slots",
         "admit_tick": admit, "steady_decode": steady,
+        "steady_decode_unprofiled": {
+            "ticks": args.ticks, "mean_ms": float(np.mean(ticks_ms)),
+            "p50_ms": float(np.median(ticks_ms)), "min_ms": float(np.min(ticks_ms))},
     }))
     return 0
 

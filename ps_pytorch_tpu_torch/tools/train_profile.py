@@ -16,7 +16,8 @@ wall time per step with and without the profiler, the device's busy time
 and idle share (summed CUDA kernel time over wall time, against either
 wall time; one stream, so kernels do not overlap), the device time by category (K2's
 ``absmax_many_kernel`` + ``quantize_many_kernel``, K1's shared-scale
-``quantize_rows_scaled_many_kernel``, the int32 sum over workers, cuDNN
+``quantize_rows_scaled_many_kernel``, K1's round-2
+``quantize_rows_many_kernel``, the int32 sum over workers, cuDNN
 convolutions and the other kernels; the fill that zeroes K2's absmax
 slots counts as other) and
 the top CUDA kernels by device time, and each port kernel's mean and
@@ -38,9 +39,9 @@ import torch
 # substrings of CUDA kernel names, checked in this order
 CATEGORIES = (
     ("K2 quantize_tensors", ("absmax_many_kernel", "quantize_many_kernel")),
-    # rounds 1 and 2 of the block-scale wires (round 2 at one worker)
     ("K1 quantize_rows_scaled_many", ("quantize_rows_scaled_many_kernel",)),
-    ("K1 quantize_rows", ("quantize_rows_kernel",)),  # a parent tree's round 2
+    # round 2 of the block-scale two-round wire (a parent tree's: quantize_rows_kernel)
+    ("K1 quantize_rows_many", ("quantize_rows_many_kernel", "quantize_rows_kernel")),
     ("K3 accumulate_rescale", ("accum_rescale_kernel",)),
     ("integer sum over workers", ("sum_functor<int", "sum_functor<short")),
     ("cuDNN convolution", ("cudnn", "xmma", "conv", "implicit", "winograd", "fft",
@@ -51,8 +52,9 @@ CATEGORIES = (
 
 # the port's own kernels, reported launch by launch
 PORT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
-                "quantize_rows_scaled_many_kernel", "quantize_rows_kernel",
-                "accum_rescale_kernel")  # quantize_rows_kernel: a parent tree's
+                "quantize_rows_scaled_many_kernel", "quantize_rows_many_kernel",
+                "quantize_rows_kernel",  # a parent tree's round 2
+                "accum_rescale_kernel")
 
 
 def _card() -> str:

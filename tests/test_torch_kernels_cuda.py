@@ -414,6 +414,33 @@ def test_torch_quantize_many_kernels_non_finite_piece_on_card(cuda_device):
         _same_many(got[:2] + got[3:], want[:2] + want[3:])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,dtype", [(128, torch.float32), (64, torch.bfloat16),
+                                      (33, torch.float32), (500, torch.bfloat16)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_torch_quantize_rows_many_kernel_300_pieces_on_card(cuda_device, bs, dtype, misaligned):
+    """300 pieces of 0-40 rows (five descriptor tables) in one call, on
+    the lane groups or, for odd widths and a piece 4 bytes past a 16-byte
+    boundary, the element loop; an all-zero row among them."""
+    g = torch.Generator(device=cuda_device).manual_seed(bs)
+    rng = np.random.RandomState(bs)
+    xs = []
+    for i in range(300):
+        r = int(rng.randint(0, 41))
+        flat = (torch.randn(r * bs + 2, generator=g, device=cuda_device)
+                * float(np.exp(rng.randn() * 3))).to(dtype)
+        xs.append((flat[2:] if misaligned and i == 7 else flat[:-2]).view(r, bs))
+    xs[3] = torch.zeros((5, bs), device=cuda_device, dtype=dtype)
+    assert len(tq.plan_rows_tables([x.shape[0] for x in xs])) == 5
+    before = quantize_rows_many.launches
+    got = quantize_rows_many(xs)
+    torch.cuda.synchronize()
+    assert quantize_rows_many.launches == before + 1
+    for (q, s), (qp, sp) in zip(got, quantize_rows_many_plain(xs)):
+        assert q.shape == qp.shape and s.shape == sp.shape
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
 def _attn_inputs(b, t, h, d, dtype, seed, dev, layout):
     """q, k, v ``[B, T, H, D]``: ``"fused"`` head splits of one [B, T, 3 H
     D] projection (strided rows, no copy), ``"dense"`` contiguous tensors,

@@ -144,7 +144,7 @@ def test_torch_kv_write_on_cpu_launches_nothing():
     (33, 4, [0], (False, 32)),
 ])
 def test_torch_kv_lanes_picks_the_vector_path(hd, elt, offsets, want):
-    assert tq.kv_lanes(hd, elt, offsets) == want
+    assert tq.row_lanes(hd, elt, offsets) == want
 
 
 # ------------------------------------------------- the wire's round 2
@@ -201,13 +201,15 @@ def test_torch_2round_block_round2_over_two_tables_matches_jax(mesh, monkeypatch
 def test_torch_quantize_rows_many_is_the_plain_version_on_cpu():
     rng = np.random.RandomState(1)
     xs = [torch.from_numpy(rng.randn(r, 128).astype(np.float32)) for r in (3, 0, 17)]
-    xs.append(torch.from_numpy(rng.randn(5, 128).astype(np.float32)).to(torch.bfloat16))
-    before = tq.quantize_rows_many.launches
-    got = tq.quantize_rows_many(xs)
-    assert tq.quantize_rows_many.launches == before
-    for (q, s), x in zip(got, xs):
-        qp, sp = tq.quantize_rows_plain(x)
-        assert q.shape == (x.shape[0], 128) and s.shape == (x.shape[0], 1)
-        assert torch.equal(q, qp) and torch.equal(s, sp)
+    for pieces in (xs, [x.to(torch.bfloat16) for x in xs]):
+        before = tq.quantize_rows_many.launches
+        got = tq.quantize_rows_many(pieces)
+        assert tq.quantize_rows_many.launches == before
+        for (q, s), x in zip(got, pieces):
+            qp, sp = tq.quantize_rows_plain(x)
+            assert q.shape == (x.shape[0], 128) and s.shape == (x.shape[0], 1)
+            assert torch.equal(q, qp) and torch.equal(s, sp)
     with pytest.raises(ValueError, match="one BS"):
         tq.quantize_rows_many([torch.zeros(2, 128), torch.zeros(2, 64)])
+    with pytest.raises(ValueError, match="one dtype"):
+        tq.quantize_rows_many([torch.zeros(2, 128), torch.zeros(2, 128, dtype=torch.bfloat16)])
