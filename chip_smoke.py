@@ -23,10 +23,12 @@ Phases, one line each:
 3. K1's KV entry quantize_kv_write vs its plain version, bit-exact over
    the whole pool, at the serving path's shapes (a prefill write of 128
    positions x 8 heads x 64 bf16 into one slot; a decode write of 8
-   slots, one position max_len: dropped): device time a launch
-   (profiler), wall time a call (CUDA events), the plain version's, the
-   bound and the empty-launch floor (``ps_empty_launch``: the device time
-   no launch goes under); the serving pool's write a call and a tick
+   slots, held once more with one position max_len, which is dropped):
+   device time a launch (profiler), wall time a call (CUDA events), the
+   plain version's and the bound, for the decode write at 8 positions in
+   range as the serve path sends them; the empty-launch floor (the device
+   time of a fill of one element: no launch goes under it); the serving
+   pool's write a call and a tick
    through ``serve.kv``; then quantize_rows (K1's per-row kernel, one
    piece) bit-exact at a ragged f32 and an odd bf16 shape;
 4. K4 flash_fwd vs its plain version at the prefill shape [1, 128, 8, 64]
@@ -128,8 +130,7 @@ against the
 checks this tree's kernel list; another checkout:
 a parent commit timed in turns with this one on the same card; a parent
 without the multi-tensor entries runs its per-leaf loop of
-``quantize_int8``, one without ``quantize_rows_many`` its round 2 piece
-by piece), and prints their lines; no kernels line, no result line.
+``quantize_int8``), and prints their lines; no kernels line, no result line.
 """
 
 from __future__ import annotations
@@ -379,8 +380,10 @@ def phase_build() -> dict:
 # phase 5's serving pool: 8 slots of 256 positions, 8 heads of 64, bf16
 # K / V, 128-token prompts, depth 6
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PROMPT, SERVE_HEADS, SERVE_HD = 8, 256, 128, 8, 64
-# a decode tick's positions, one of them max_len: dropped
-DECODE_POS = (5, 200, 255, SERVE_MAX_LEN, 17, 64, 130, 0)
+# a decode tick's positions, one a slot, all in range as the serve path
+# sends them; phase 3 also holds the write with slot 3's at max_len,
+# which is dropped
+DECODE_POS = (5, 200, 255, 100, 17, 64, 130, 0)
 
 
 def _serve_kv(rows: int, seed: int, dev):
@@ -402,23 +405,20 @@ def _serve_layer_pool(dev, seed: int) -> list:
 
 
 def empty_launch_floor(dev) -> dict:
-    """The device time of one launch of a kernel that does nothing (the
-    floor under every launch: profiler), and the time a call of such
-    launches back to back (CUDA events: the launch rate from Python)."""
-    from ps_pytorch_tpu_torch.ops import _build
-
-    lib = _build.load()
-    stream = _build.stream_of(torch.empty(0, device=dev))
-    fn = lambda: _build.check(lib.ps_empty_launch(stream), "empty launch")
+    """The device time of one launch that does next to nothing, PyTorch's
+    fill of a one-element tensor (the floor under every launch:
+    profiler), and the time a call of such launches back to back (CUDA
+    events: the launch rate from Python)."""
+    one = torch.empty(1, device=dev)
+    fn = lambda: one.fill_(1.0)
     dev_total, _, launches = device_profile(fn, iters=50)
     require(sum(launches.values()) == 1, f"empty launch: {launches}")
     return {"device_us": dev_total * 1e3, "ms": time_ms(fn)}
 
 
 def kv_pool_write_case(dev) -> dict:
-    """The serving pool's int8 write through ``serve.kv`` (any tree: a
-    parent's quantize and index writes, or this tree's one launch), at
-    phase 5's shapes: a prefill write of 128 positions and a decode write
+    """The serving pool's int8 write through ``serve.kv`` at phase 5's
+    shapes: a prefill write of 128 positions and a decode write
     of 8 slots, per call and per tick (x depth): wall ms (CUDA events),
     device us and device launches (profiler)."""
     from ps_pytorch_tpu_torch.serve import kv
@@ -427,7 +427,7 @@ def kv_pool_write_case(dev) -> dict:
     pool = kv.init_kv_pool(cfg, SERVE_SLOTS, SERVE_MAX_LEN, int8=True, device=dev)
     kp, vp = _serve_kv(SERVE_PROMPT, 21, dev)
     kd, vd = _serve_kv(SERVE_SLOTS, 22, dev)
-    pos = torch.tensor([p % SERVE_MAX_LEN for p in DECODE_POS], dtype=torch.int32, device=dev)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
     out = {}
     for name, fn in (("prefill", lambda: kv.write_slot(pool, 0, 3, kp, vp)),
                      ("decode", lambda: kv.write_token(pool, 0, pos, kd, vd))):
@@ -441,14 +441,32 @@ def kv_pool_write_case(dev) -> dict:
     return out
 
 
+def _kv_write_exact(what: str, k, v, pool, **where) -> float:
+    """K1's KV entry and its plain version on copies of one pool: one
+    launch counted, the whole pool bit-exact; the largest difference."""
+    from ps_pytorch_tpu_torch.ops.quantize import quantize_kv_write, quantize_kv_write_plain
+
+    plain = [t.clone() for t in pool]
+    c0 = quantize_kv_write.launches
+    quantize_kv_write(k, v, *pool, **where)
+    calls = quantize_kv_write.launches - c0
+    quantize_kv_write_plain(k, v, *plain, **where)
+    torch.cuda.synchronize()
+    require(calls == 1, f"K1 kv {what}: {calls} launches counted for one call")
+    for got, want in zip(pool, plain):
+        require(torch.equal(got, want), f"K1 kv {what}: the pool differs from plain")
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(pool, plain))
+
+
 def phase_k1(dev) -> dict:
     """Phase 3: K1's KV entry at the serving shapes (a prefill write of 128
-    positions into one slot, a decode write of 8 slots, one position out of
-    range) against its plain version on a copy of the same pool, bit-exact
-    over the whole pool; its device time a launch, wall time a call, the
-    plain version's, the bound and the empty-launch floor; the pool write
-    a tick; then ``quantize_rows`` (the shared-scale kernel at one
-    worker) bit-exact at a ragged f32 and an odd bf16 shape."""
+    positions into one slot, a decode write of 8 slots; that decode write
+    once more with one position at max_len, which is dropped) against its
+    plain version on a copy of the same pool, bit-exact over the whole
+    pool; its device time a launch, wall time a call, the plain version's,
+    the bound and the empty-launch floor; the pool write a tick; then
+    ``quantize_rows`` (``quantize_rows_many``'s one-piece call on the
+    lane-group kernel) bit-exact at a ragged f32 and an odd bf16 shape."""
     from ps_pytorch_tpu_torch.ops.quantize import (
         quantize_kv_write,
         quantize_kv_write_plain,
@@ -463,21 +481,17 @@ def phase_k1(dev) -> dict:
         k, v = _serve_kv(rows, 31 + rows, dev)
         k[0, 0] = 0.0  # an all-zero head vector: scale 0, inv 0
         pool = _serve_layer_pool(dev, rows)
+        if name == "decode":
+            dropped = pos.clone()
+            dropped[3] = SERVE_MAX_LEN
+            _kv_write_exact("decode, one position dropped", k, v, pool, pos=dropped)
+        err = _kv_write_exact(name, k, v, pool, **where)
         plain = [t.clone() for t in pool]
-        c0 = quantize_kv_write.launches
-        quantize_kv_write(k, v, *pool, **where)
-        calls = quantize_kv_write.launches - c0
-        quantize_kv_write_plain(k, v, *plain, **where)
-        torch.cuda.synchronize()
-        require(calls == 1, f"K1 kv {name}: {calls} launches counted for one call")
-        for got, want in zip(pool, plain):
-            require(torch.equal(got, want), f"K1 kv {name}: the pool differs from plain")
-        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pool, plain))
         fn = lambda: quantize_kv_write(k, v, *pool, **where)
         dev_total, by_name, launches = device_profile(fn, iters=50)
-        require(OTHER_TREE or list(launches) and all(
-            "quantize_kv_write_kernel" in n for n in launches) and sum(launches.values()) == 1,
-            f"K1 kv {name}: launched {launches}")
+        require(list(launches) and all("quantize_kv_write_kernel" in n for n in launches)
+                and sum(launches.values()) == 1, f"K1 kv {name}: launched {launches}")
+        # every row is written: the bound counts all of them
         n_elt = rows * SERVE_HEADS * SERVE_HD
         n_bytes = 2 * (2 * n_elt + n_elt + 4 * rows * SERVE_HEADS) + (4 * rows if "pos" in where
                                                                          else 0)
@@ -632,9 +646,8 @@ def phase_serve(card: str, dev) -> dict:
 
     engine.tick = recording_tick
     p0, d0 = engine.n_prefills, engine.n_decode_steps
-    # K1's entries (a parent tree lacks some)
-    k1 = [name for name in ("quantize_kv_write", "quantize_rows", "quantize_rows_many",
-                            "quantize_rows_scaled_many") if hasattr(qz, name)]
+    # K1's entries: the KV entry first
+    k1 = ["quantize_kv_write", "quantize_rows", "quantize_rows_many", "quantize_rows_scaled_many"]
     flash_fwd.launches = 0
     for name in k1:
         getattr(qz, name).launches = 0
@@ -836,37 +849,24 @@ def resnet18_round2_rows(dev) -> list:
     return out
 
 
-def _round2_entry():
-    """Round 2's requantize of a step's rows through the package's own
-    entry, and its counter: one ``quantize_rows_many`` call, or (a parent
-    tree) ``quantize_rows`` piece by piece, as its round 2 calls it."""
+def round2_step_case(dev) -> dict:
+    """Round 2 of a block-128 two-round ResNet18 step (62 pieces) in one
+    ``quantize_rows_many`` call, held bit-exact against the same call on
+    CPU copies (the plain version); device time, wall and host time,
+    launches counted and device launches a step beside the bound (the
+    rows read once, int8 and a scale a row written once)."""
     from ps_pytorch_tpu_torch.ops import quantize as q
 
-    if hasattr(q, "quantize_rows_many"):
-        return q.quantize_rows_many, q.quantize_rows_many
-    return (lambda xs: [q.quantize_rows(x) for x in xs]), q.quantize_rows
-
-
-def round2_step_case(dev, fn=None, counter=None) -> dict:
-    """Round 2 of a block-128 two-round ResNet18 step (62 pieces), held
-    bit-exact against the same call on CPU copies; device time, wall and
-    host time, wrapper calls and device launches a step beside the bound
-    (the rows read once, int8 and a scale a row written once)."""
-    from ps_pytorch_tpu_torch.ops import quantize as q
-
-    if fn is None:
-        fn, counter = _round2_entry()
+    fn, plain = q.quantize_rows_many, q.quantize_rows_many_plain
     xs = resnet18_round2_rows(dev)
-    c0 = counter.launches
+    c0 = fn.launches
     got = fn(xs)
     torch.cuda.synchronize()
-    calls = counter.launches - c0
-    plain = lambda ys: [q.quantize_rows_plain(y) for y in ys]  # in every tree
+    calls = fn.launches - c0
     for i, ((qg, sg), (qw, sw)) in enumerate(zip(got, plain([x.cpu() for x in xs]))):
         require(torch.equal(qg.cpu(), qw) and torch.equal(sg.cpu(), sw),
                 f"round 2: piece {i} differs from the plain version")
-    if not OTHER_TREE:
-        require(calls == 1, f"round 2: {calls} wrapper calls, expected 1")
+    require(calls == 1, f"round 2: {calls} launches counted, expected 1")
     rows = sum(x.shape[0] for x in xs)
     n_in = sum(x.numel() for x in xs)
     dev_total, by_name, launches = device_profile(lambda: fn(xs))

@@ -404,8 +404,6 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   quant_row<T, kVec>(xr, qr, sr, (int)t.bs, group, threadIdx.x & (group - 1));
 }
 
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 extern "C" long long ps_kv_write_words() { return sizeof(KvWrite) / sizeof(long long); }
@@ -500,13 +498,6 @@ extern "C" int ps_quantize_rows_many(const long long* words, int dtype, int vec,
     else
       quantize_rows_many_kernel<__nv_bfloat16, false><<<g, kWarpsPerBlock * 32, 0, s>>>(t, sc, group);
   }
-  return (int)cudaGetLastError();
-}
-
-// One launch of a kernel that does nothing, one warp: the device time
-// below which no launch goes (chip_smoke.py phase 3).
-extern "C" int ps_empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

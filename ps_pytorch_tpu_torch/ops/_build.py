@@ -139,8 +139,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ps_kv_write_words.restype = i64
     lib.ps_quantize_rows_many.argtypes = [vp, i32, i32, i32, vp, vp]
     lib.ps_quantize_rows_many.restype = i32
-    lib.ps_empty_launch.argtypes = [vp]
-    lib.ps_empty_launch.restype = i32
     lib.ps_quantize_rows_scaled_many.argtypes = [vp, vp, vp, vp]
     lib.ps_quantize_rows_scaled_many.restype = i32
     lib.ps_rows_table_words.argtypes = []

@@ -24,9 +24,10 @@ the two (the sixth, ``accumulate_rescale_int8``, is K3 below):
 
 ``quantize_int8_many`` is the gradient wire's entry over a step's pieces
 (``quantize_int8(..., return_absmax=True)`` of each, one kernel call).
-Each multi-tensor wrapper's ``.launches`` counts its calls that launch:
-one per call, however many pieces and launches the call takes. A call
-cuts its list into descriptor tables of at most ``MAX_PIECES`` pieces
+``quantize_rows_many.launches`` (and ``quantize_rows``') counts device
+launches, one a descriptor table; each other multi-tensor wrapper's
+``.launches`` counts its calls that launch: one per call, however many
+pieces and launches the call takes. A call cuts its list into descriptor tables of at most ``MAX_PIECES`` pieces
 (``plan_tensor_tables``, ``plan_rows_tables``: pure Python) that go to
 the card as kernel parameters.
 
@@ -407,9 +408,9 @@ def row_lanes(hd: int, elt: int, offsets) -> Tuple[bool, int]:
 def _rows_many_launch(xs_card, bs: int):
     """Launch K1's per-row kernel over card pieces ``[NB, BS]`` of one
     dtype (a launch per descriptor table) -> ``[(q [NB, BS], scale [NB,
-    1])]`` views of one int8 and one f32 buffer, and whether anything
-    launched. Every row's lanes load 16 bytes each when BS and every
-    piece allow it (``row_lanes``), else one warp loops over the row."""
+    1])]`` views of one int8 and one f32 buffer, and the launches made.
+    Every row's lanes load 16 bytes each when BS and every piece allow
+    it (``row_lanes``), else one warp loops over the row."""
     from . import _build
 
     tables, views, q_len, rows = _rows_call(1, tuple(x.numel() for x in xs_card), bs)
@@ -418,6 +419,7 @@ def _rows_many_launch(xs_card, bs: int):
     scale = torch.empty((rows,), dtype=torch.float32, device=dev)
     ptrs = [x.data_ptr() for x in xs_card]
     vec, group = row_lanes(bs, xs_card[0].element_size(), ptrs)
+    launches = 0
     if tables:
         lib = _lib()
         base = q.data_ptr()
@@ -430,11 +432,12 @@ def _rows_many_launch(xs_card, bs: int):
                 code = lib.ps_quantize_rows_many(
                     words.ctypes.data, _build.DTYPE_CODES[xs_card[0].dtype], int(vec), group,
                     scale.data_ptr(), stream)
+                launches += 1
                 _build.check(code, "quantize_rows_many")
     # the scale of piece i starts at row slot[i] (its views' absmax offset)
     out = [(q.as_strided((ss[0], bs), (bs, 1), qo), scale.as_strided(ss, sst, ao))
            for _, _, qo, ss, sst, _, ao in views]
-    return out, bool(tables)
+    return out, launches
 
 
 def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -456,8 +459,8 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if xb.numel() == 0:
         return (torch.empty((nb, bs), dtype=torch.int8, device=xb.device),
                 torch.empty((nb, 1), dtype=torch.float32, device=xb.device))
-    (out,), _ = _rows_many_launch([xb], bs)
-    quantize_rows.launches += 1
+    (out,), launches = _rows_many_launch([xb], bs)
+    quantize_rows.launches += launches
     return out
 
 
@@ -477,15 +480,14 @@ def quantize_rows_many(xs):
     (``plan_rows_tables``): a row is a group of lanes, 16 bytes a lane
     (a warp a 128-wide f32 row), one plain grid. Bound on the H100:
     bytes. CPU pieces run ``quantize_rows_many_plain``; CUDA pieces launch
-    the kernel or raise. ``.launches`` counts the calls that launch."""
+    the kernel or raise. ``.launches`` counts the launches, one a table."""
     xs = list(xs)
     bs = _rows_width(xs, "quantize_rows_many")
     xs_card = _card_pieces(xs, "quantize_rows_many")
     if xs_card is None:
         return quantize_rows_many_plain(xs)
-    out, launched = _rows_many_launch(xs_card, bs)
-    if launched:
-        quantize_rows_many.launches += 1
+    out, launches = _rows_many_launch(xs_card, bs)
+    quantize_rows_many.launches += launches
     return out
 
 

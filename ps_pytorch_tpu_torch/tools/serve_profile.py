@@ -16,10 +16,10 @@ window, the wall time, the device's busy time and idle share (summed CUDA
 kernel time over wall time; one stream, so kernels do not overlap), the
 per-tick wall and device times, the device launches and device time a tick
 split by kernel category (``CATEGORIES``: K1's KV pool write
-``quantize_kv_write_kernel``, or a parent tree's ``quantize_rows_kernel``
-with its index writes; K4 ``flash_fwd_*_kernel``; cuBLAS; copies; the
-rest), the two port kernels' launches and mean device time, and the top
-CUDA kernels by device time. Needs a CUDA card.
+``quantize_kv_write_kernel``; K4 ``flash_fwd_*_kernel``; index gathers
+and scatters; cuBLAS; copies; the rest), the two port kernels' launches
+and mean device time, and the top CUDA kernels by device time. Needs a
+CUDA card.
 
 To compare a parent checkout with this one on one card, run this file
 against each package in turns (``PYTHONPATH=<parent> python
@@ -48,7 +48,6 @@ def _card() -> str:
 # substrings of CUDA kernel names, checked in this order
 CATEGORIES = (
     ("K1 quantize_kv_write", ("quantize_kv_write_kernel",)),
-    ("K1 quantize_rows", ("quantize_rows_kernel",)),  # a parent tree's pool write
     ("K4 flash_fwd", ("flash_fwd_",)),
     ("index gather / scatter", ("index_elementwise", "index_put", "indexSelect",
                                 "index_kernel", "scatter_gather")),

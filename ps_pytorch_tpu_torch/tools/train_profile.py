@@ -40,8 +40,8 @@ import torch
 CATEGORIES = (
     ("K2 quantize_tensors", ("absmax_many_kernel", "quantize_many_kernel")),
     ("K1 quantize_rows_scaled_many", ("quantize_rows_scaled_many_kernel",)),
-    # round 2 of the block-scale two-round wire (a parent tree's: quantize_rows_kernel)
-    ("K1 quantize_rows_many", ("quantize_rows_many_kernel", "quantize_rows_kernel")),
+    # round 2 of the block-scale two-round wire
+    ("K1 quantize_rows_many", ("quantize_rows_many_kernel",)),
     ("K3 accumulate_rescale", ("accum_rescale_kernel",)),
     ("integer sum over workers", ("sum_functor<int", "sum_functor<short")),
     ("cuDNN convolution", ("cudnn", "xmma", "conv", "implicit", "winograd", "fft",
@@ -53,7 +53,6 @@ CATEGORIES = (
 # the port's own kernels, reported launch by launch
 PORT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
                 "quantize_rows_scaled_many_kernel", "quantize_rows_many_kernel",
-                "quantize_rows_kernel",  # a parent tree's round 2
                 "accum_rescale_kernel")
 
 

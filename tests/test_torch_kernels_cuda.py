@@ -82,7 +82,8 @@ def cuda_device():
     (17, 500, torch.bfloat16),
 ])
 def test_torch_quantize_rows_kernel_bit_exact_on_card(cuda_device, nb, bs, dtype):
-    """quantize_rows runs the shared-scale kernel at one worker."""
+    """quantize_rows is quantize_rows_many's one-piece call, on the
+    lane-group kernel: one launch, bit-exact."""
     g = torch.Generator(device=cuda_device).manual_seed(nb + bs)
     x = (torch.randn((nb, bs), generator=g, device=cuda_device) * 3).to(dtype)
     x[1] = 0.0
@@ -419,9 +420,10 @@ def test_torch_quantize_many_kernels_non_finite_piece_on_card(cuda_device):
                                       (33, torch.float32), (500, torch.bfloat16)])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_torch_quantize_rows_many_kernel_300_pieces_on_card(cuda_device, bs, dtype, misaligned):
-    """300 pieces of 0-40 rows (five descriptor tables) in one call, on
-    the lane groups or, for odd widths and a piece 4 bytes past a 16-byte
-    boundary, the element loop; an all-zero row among them."""
+    """300 pieces of 0-40 rows (five descriptor tables) in one call, a
+    launch a table, on the lane groups or, for odd widths and a piece 4
+    bytes past a 16-byte boundary, the element loop; an all-zero row
+    among them."""
     g = torch.Generator(device=cuda_device).manual_seed(bs)
     rng = np.random.RandomState(bs)
     xs = []
@@ -435,7 +437,7 @@ def test_torch_quantize_rows_many_kernel_300_pieces_on_card(cuda_device, bs, dty
     before = quantize_rows_many.launches
     got = quantize_rows_many(xs)
     torch.cuda.synchronize()
-    assert quantize_rows_many.launches == before + 1
+    assert quantize_rows_many.launches == before + 5
     for (q, s), (qp, sp) in zip(got, quantize_rows_many_plain(xs)):
         assert q.shape == qp.shape and s.shape == sp.shape
         assert torch.equal(q, qp) and torch.equal(s, sp)
