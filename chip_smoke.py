@@ -30,7 +30,9 @@ Phases, one line each:
    time of a fill of one element: no launch goes under it); the serving
    pool's write a call and a tick
    through ``serve.kv``; then quantize_rows (K1's per-row kernel, one
-   piece) bit-exact at a ragged f32 and an odd bf16 shape;
+   piece) bit-exact at a ragged f32 and an odd bf16 shape; phases 3, 7
+   and 8 also hold rows and pieces that hold a NaN and no inf (a NaN
+   scale, a zero payload), compared as bits;
 4. K4 flash_fwd vs its plain version at the prefill shape [1, 128, 8, 64]
    (bf16 and f32, causal), at head dims 32 and 128 (both types) and an
    odd T = 100, twice (the same bits); timed with CUDA events and
@@ -84,6 +86,19 @@ Phases, one line each:
    ``quantize_rows_many`` call for round 2) and 3 at block 128 fused
    (``--bucket-bytes 0``: one piece), and 3 of the ZeRO-1 placement on
    the two-round wire (one K2 call per bucket);
+12b. checkpoints on the same path: ResNet18 (phase 9's configuration)
+   through ``cli.train.main --train-dir DIR --eval-freq 5``, 10 steps:
+   ``model_step_5``, ``model_step_10`` and ``elastic.json`` written, each
+   file's CRC trailer verifies, step 10 restores to the trainer's live
+   state bit for bit; ``--resume --max-steps 15`` logs its resume at 10
+   and runs steps 11-15 (finite losses, one K2 call a step) with the
+   ``ckpt_corrupt`` fault at 15; a further ``--resume`` quarantines step 15
+   and falls back to 10; ``cli.evaluate --once --device cuda`` within 1e-5
+   (relative) of ``Trainer.validate()`` on that state; a 3-step
+   ``--error-feedback`` run restores its residuals bit for bit; the bytes
+   on disk, a save's host half and background write, load + restore and
+   the evaluator a checkpoint, in seconds (every other phase runs with
+   ``--no-checkpoints``);
 13. one LeNet step at 8 workers, card vs CPU (phase 10's rule, with K
    times its bound on the two-round wires' coarser second rounding), on the
    autotune-best wire with EF, int8 homomorphic in 64 KiB buckets, the
@@ -171,6 +186,14 @@ class SmokeError(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeError(what)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality: an f32 tensor is compared as int32, so a NaN equals
+    a NaN of the same bits."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
 
 
 def nvidia_smi_line() -> str:
@@ -502,6 +525,20 @@ def phase_k1(dev) -> dict:
             "plain_ms": time_ms(lambda: quantize_kv_write_plain(k, v, *plain, **where)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
+    # a NaN and no inf (F1): the rows holding one get a NaN scale and a
+    # zero payload, bit for bit the plain version's
+    k, v = _serve_kv(SERVE_SLOTS, 41, dev)
+    k[2, 3, 9] = float("nan")
+    v[5] = float("nan")
+    for name, where in (("prefill", dict(slot=3)), ("decode", dict(pos=pos))):
+        pool = _serve_layer_pool(dev, 7)
+        plain = [t.clone() for t in pool]
+        quantize_kv_write(k, v, *pool, **where)
+        quantize_kv_write_plain(k, v, *plain, **where)
+        torch.cuda.synchronize()
+        require(all(same_bits(a, b) for a, b in zip(pool, plain)),
+                f"K1 kv {name} NaN-only: the pool differs from plain")
+    out["nan_only"] = {"bit_exact": True, "max_abs_err": 0.0}
     out["empty_launch_floor"] = empty_launch_floor(dev)
     out["pool_write"] = kv_pool_write_case(dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -515,6 +552,12 @@ def phase_k1(dev) -> dict:
         require(torch.equal(q, qp) and torch.equal(s, sp), f"K1 {name}: differs from plain")
         out[name] = {"shape": [nb, bs], "max_abs_err": 0.0,
                      "ms": time_ms(lambda: quantize_rows(x))}
+        x[3, 1] = float("nan")  # NaN-only rows (F1)
+        x[9] = float("nan")
+        q, s = quantize_rows(x)
+        qp, sp = quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        require(same_bits(q, qp) and same_bits(s, sp), f"K1 {name} NaN-only: differs from plain")
     print("phase 3 K1 quantize_kv_write bit-exact vs plain: " + json.dumps(out))
     return out
 
@@ -909,6 +952,17 @@ def phase_k2(dev) -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
             "two_pass_floor_ms": (8 * n + n + 4) / HBM_BYTES_PER_S * 1e3,
         }
+    # a NaN and no inf (F1): NaN absmax and scale, zero payload, the
+    # finite pieces beside it unchanged; bit for bit the plain version's
+    from ps_pytorch_tpu_torch.ops.quantize import quantize_tensors, quantize_tensors_plain
+
+    xs = [torch.randn((WORKERS, n), generator=g, device=dev) * 0.01 for n in (4099, 12345, 10)]
+    xs[1][3, 100] = float("nan")
+    for i, (got, want) in enumerate(zip(quantize_tensors(xs), quantize_tensors_plain(xs))):
+        require(all(same_bits(a, b) for a, b in zip(got, want)),
+                f"K2 NaN-only: piece {i} differs from plain")
+    require(bool(torch.isnan(quantize_tensors(xs)[1][1])), "K2 NaN-only: the scale is not NaN")
+    out["nan_only"] = {"bit_exact": True, "max_abs_err": 0.0}
     out["resnet18_step"] = wire_step_case(dev, 0)
     print("phase 7 K2 quantize_tensors bit-exact vs plain: " + json.dumps(out))
     return out
@@ -931,7 +985,20 @@ def phase_k1_scaled(dev) -> dict:
     require(torch.equal(s, sp) and torch.equal(a, ap), "K1 scaled: scales differ from plain")
     n = x.numel()
     b_ms, b_by = bound_ms(4 * n + n + 8 * nb, 4.0 * n, PEAK_OPS_PER_S[torch.float32])
-    out = {"shape": [WORKERS, nb, 128], "shared_rows": nb,
+    # a NaN and no inf (F1), in one block of one worker, and a NaN round-2
+    # row: bit for bit the plain versions'
+    from ps_pytorch_tpu_torch.ops.quantize import quantize_rows_many, quantize_rows_many_plain
+
+    xn = x.clone()
+    xn.view(WORKERS, nb, 128)[6, 9, 17] = float("nan")
+    for got, want in zip(quantize_rows_scaled_many([xn], 128)[0],
+                         quantize_rows_scaled_many_plain([xn], 128)[0]):
+        require(same_bits(got, want), "K1 scaled NaN-only: differs from plain")
+    rows = xn.view(-1, 128)[:4096]
+    for got, want in zip(quantize_rows_many([rows])[0], quantize_rows_many_plain([rows])[0]):
+        require(same_bits(got, want), "K1 rows_many NaN-only: differs from plain")
+    torch.cuda.synchronize()
+    out = {"shape": [WORKERS, nb, 128], "shared_rows": nb, "nan_only": {"bit_exact": True},
            "max_abs_err": float((q.int() - qp.int()).abs().max()),
            "ms": time_ms(lambda: quantize_rows_scaled_many([x], 128)),
            "plain_ms": time_ms(lambda: quantize_rows_scaled_many_plain([x], 128)),
@@ -946,13 +1013,18 @@ def phase_k1_scaled(dev) -> dict:
 TRAIN_ARGS = ["--network", "ResNet18", "--dataset", "Cifar10", "--num-workers",
               str(WORKERS), "--batch-size", "128", "--lr", "0.1", "--momentum", "0.9",
               "--num-aggregate", "5", "--compress-grad", "compress", "--log-interval",
-              "1", "--device", "cuda", "--no-checkpoints"]
+              "1", "--device", "cuda"]
 
 
-def _train(steps: int, extra=()) -> dict:
+def _train(steps: int, extra=(), checkpoints: bool = False) -> dict:
+    """``cli.train.main`` on the Train configuration; without
+    ``checkpoints`` (every phase but 12b) it writes none."""
     from ps_pytorch_tpu_torch.cli import train as cli_train
 
-    return cli_train.main(TRAIN_ARGS + ["--max-steps", str(steps), *extra])
+    args = TRAIN_ARGS + ["--max-steps", str(steps), *extra]
+    if not checkpoints:
+        args.append("--no-checkpoints")
+    return cli_train.main(args)
 
 
 def phase_train(card: str) -> dict:
@@ -1144,6 +1216,152 @@ def phase_train_wires(card: str) -> dict:
     print("phase 12 train ResNet18 on the two-round / homomorphic / ZeRO-1 wires: "
           + json.dumps(out))
     return out
+
+
+def _state_bits(a, b) -> bool:
+    """Two states' checkpoint dicts equal leaf for leaf, bit for bit."""
+    from ps_pytorch_tpu_torch.utils.serialization import to_state_dict
+
+    def leaves(sd, path=""):
+        if isinstance(sd, dict):
+            for k, v in sd.items():
+                yield from leaves(v, f"{path}/{k}")
+        else:
+            yield path, sd
+
+    la, lb = list(leaves(to_state_dict(a))), list(leaves(to_state_dict(b)))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        (x is None and y is None) or (np.asarray(x).dtype == np.asarray(y).dtype
+                                      and np.asarray(x).shape == np.asarray(y).shape
+                                      and np.asarray(x).tobytes() == np.asarray(y).tobytes())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def phase_checkpoint(card: str) -> dict:
+    """Phase 12b: checkpoints on the paper's main path. ResNet18 8 x 128
+    on the int8 per-tensor wire through ``cli.train.main --train-dir``:
+    10 steps saving at 5 and 10; every file's trailer verifies and step
+    10 restores to the trainer's live state bit for bit; ``--resume
+    --max-steps 15`` resumes at 10 and runs 11-15 (one K2 call a step),
+    its step-15 file truncated by the ``ckpt_corrupt`` fault; a further
+    ``--resume`` quarantines 15 and falls back to 10; ``cli.evaluate
+    --once`` within 1e-5 of ``Trainer.validate()`` on that state; a
+    3-step ``--error-feedback`` run restores its residuals bit for bit.
+    Timed: the bytes on disk, a save's host half (gather + submit) and
+    its background write, load + restore, the evaluator a checkpoint."""
+    import logging
+    import tempfile
+
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.cli import evaluate as cli_evaluate
+    from ps_pytorch_tpu_torch.resilience import elastic
+
+    lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    grab = Grab()
+    log = logging.getLogger("ps_pytorch_tpu_torch")
+    log.addHandler(grab)
+    rec = {"card": card}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            d = os.path.join(tmp, "models")
+            ck = ["--train-dir", d, "--eval-freq", "5"]
+            reset_counts()
+            first = _train(10, ck, checkpoints=True)
+            torch.cuda.synchronize()
+            require(read_counts()["quantize_tensors"] == 10,
+                    f"checkpoint: launches {read_counts()} in 10 steps")
+            trainer = first["trainer"]
+            require(ckpt.available_steps(d) == [5, 10]
+                    and os.path.exists(os.path.join(d, elastic.GEOMETRY_FILE)),
+                    f"checkpoint: files {sorted(os.listdir(d))}")
+            for step in (5, 10):
+                ckpt.verify_checkpoint(d, step)
+            t0 = time.perf_counter()
+            restored = trainer._restore_step(10)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            require(_state_bits(restored, trainer.state),
+                    "checkpoint: step 10 restored differs from the live state")
+            # the two halves of a save, timed apart: the caller's copy to
+            # the host and submit, then the writer thread's msgpack + write
+            t0 = time.perf_counter()
+            trainer._ckpt.save(trainer.checkpoint_state(), os.path.join(tmp, "timed"), 10)
+            host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trainer._ckpt.wait()
+            write_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(ckpt.checkpoint_path(d, 10))
+
+            lines.clear()
+            reset_counts()
+            res = _train(15, ck + ["--resume", "--fault-plan", '{"ckpt_corrupt": [15]}'],
+                         checkpoints=True)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            steps = [h["step"] for h in res["history"]]
+            losses = [h["loss"] for h in res["history"]]
+            require(any(x.startswith("resumed from") and x.endswith("model_step_10")
+                        for x in lines), "checkpoint: no 'resumed from ... model_step_10' line")
+            require(steps == [11, 12, 13, 14, 15] and all(np.isfinite(losses)),
+                    f"checkpoint resume: steps {steps}, losses {losses}")
+            require(counts["quantize_tensors"] == 5
+                    and sum(counts.values()) == counts["quantize_tensors"],
+                    f"checkpoint resume: launches {counts}, expected K2 once a step")
+            require(ckpt.latest_valid_step(d) == 10, "checkpoint: step 15 is not damaged")
+
+            lines.clear()
+            back = _train(10, ck + ["--resume"], checkpoints=True)
+            require(os.path.exists(ckpt.checkpoint_path(d, 15) + ckpt.QUARANTINE_SUFFIX)
+                    and ckpt.available_steps(d) == [5, 10]
+                    and back["trainer"].state.step == 10 and back["history"] == [],
+                    "checkpoint: step 15 not quarantined or no fall back to 10")
+            require(any("quarantined corrupt checkpoint" in x for x in lines),
+                    "checkpoint: no quarantine line")
+            val = back["val"]
+            # validate()'s batches: test-batch-size 500 cut to whole workers
+            ev = cli_evaluate.Evaluator("ResNet18", "Cifar10", d,
+                                        eval_batch_size=500 // WORKERS * WORKERS,
+                                        device="cuda")
+            t0 = time.perf_counter()
+            got = ev.run(once=True)
+            eval_first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ev.evaluate_step(10)
+            eval_s = time.perf_counter() - t0
+            require(list(got) == [10] and all(np.isfinite(list(got[10].values()))),
+                    f"checkpoint: evaluator {got}")
+            for k in ("loss", "prec1", "prec5"):
+                require(abs(got[10][k] - val[k]) <= 1e-5 * max(abs(val[k]), 1e-6),
+                        f"checkpoint: evaluator {k} {got[10][k]} vs validate {val[k]}")
+            cli = cli_evaluate.main(["--model-dir", d, "--network", "ResNet18", "--dataset",
+                                     "Cifar10", "--once", "--device", "cuda"])
+            require(list(cli) == [10] and np.isfinite(cli[10]["loss"]),
+                    f"checkpoint: cli.evaluate {cli}")
+
+            de = os.path.join(tmp, "ef")
+            ef = _train(3, ["--train-dir", de, "--eval-freq", "3", "--error-feedback"],
+                        checkpoints=True)
+            live = ef["trainer"]
+            ef_back = live._restore_step(3)
+            require(_state_bits(ef_back, live.state) and live.state.comm_state is not None,
+                    "checkpoint: EF residuals not restored bit for bit")
+            ef_bytes = os.path.getsize(ckpt.checkpoint_path(de, 3))
+    finally:
+        log.removeHandler(grab)
+    rec.update({
+        "files": [5, 10, 15], "bytes_on_disk": nbytes, "ef_bytes_on_disk": ef_bytes,
+        "save_host_s": host_s, "save_write_s": write_s, "load_restore_s": load_s,
+        "evaluator_first_s": eval_first_s, "evaluator_s": eval_s,
+        "resume_steps": steps, "resume_losses": losses, "resume_launches": counts,
+        "evaluator": got[10], "validate": val})
+    print("phase 12b checkpoints ResNet18 save / resume / quarantine / evaluate: "
+          + json.dumps(rec))
+    return rec
 
 
 def _lenet_pair(dev, cfg_kw, faults=None):
@@ -1613,6 +1831,7 @@ def main(argv=None) -> int:
     phase_held(dev)
     k3 = phase_k3(dev)
     wires = phase_train_wires(smi)
+    ckpt_rec = phase_checkpoint(smi)
     phase_held_wires(dev)
     fk = phase_flash_train_kernels(dev)
     lm1 = phase_lm(smi, "phase 15 LM-1 train_lm dp 1 x sp 1 flash", 20, 1, 8, 1024)
@@ -1684,6 +1903,8 @@ def main(argv=None) -> int:
             "source": "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
             "replaces": "ps_pytorch_tpu/ops/quantize.py:78",
             "launches": train["launches"]["quantize_tensors"],
+            # phase 12b's resumed run (steps 11-15), this slice's path
+            "launches_checkpoint_resume": ckpt_rec["resume_launches"]["quantize_tensors"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],

@@ -10,7 +10,9 @@ Slices in place, on hand-written Hopper kernels (``csrc/``):
   cache, continuous-batching greedy decode, open-loop traffic (K1, K4);
 - synchronous PS training: ``cli.train`` -> ``Trainer`` -> the PS step on
   N virtual workers stacked on one card, with the per-leaf int8
-  gradient wire (K2 per tensor, K1's shared-scale entry per block).
+  gradient wire (K2 per tensor, K1's shared-scale entry per block);
+- checkpoints: ``model_step_N`` in the JAX package's bytes, ``--resume``
+  and the polling evaluator ``cli.evaluate`` (``checkpoint.py``).
 
 What is still to port is listed in ROADMAP.md.
 

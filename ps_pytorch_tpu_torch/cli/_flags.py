@@ -60,7 +60,8 @@ def add_train_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--straggler-storm-n", type=int, default=d.straggler_storm_n)
     a("--max-consecutive-skips", type=int, default=d.max_consecutive_skips)
     a("--fault-plan", type=str, default=None,
-      help="a JSON FaultPlan ({\"nan_grads\": [...], \"inf_grads\": [...]}) or @path")
+      help="a JSON FaultPlan (nan_grads, inf_grads, ckpt_write_fail, ckpt_corrupt: "
+           "lists of steps) or @path")
     a("--adapt-window", type=int, default=d.adapt_window)
     a("--wire-budget-bytes", type=int, default=None)
     return parser

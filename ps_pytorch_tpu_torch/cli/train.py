@@ -9,6 +9,10 @@ card, with 8 virtual workers stacked on it:
 
 ``--device cpu`` runs the plain versions on the CPU (the tests do).
 Without ``--device cpu`` and without a card it raises.
+
+Checkpoints: ``model_step_N`` in ``--train-dir`` every ``--eval-freq``
+steps and after the last (``--no-checkpoints``: none), in the JAX
+package's bytes; ``--resume`` continues from the newest valid one.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def main(argv=None) -> dict:
     metrics = trainer.train()
     logger.info("training done: %s", metrics)
     val = trainer.validate()
-    return {"train": metrics, "val": val, "history": trainer.history}
+    return {"train": metrics, "val": val, "history": trainer.history, "trainer": trainer}
 
 
 if __name__ == "__main__":

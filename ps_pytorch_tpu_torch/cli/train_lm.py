@@ -16,7 +16,13 @@ without a card it raises unless ``--device cpu``). ``--num-sp 0`` means
 all remaining devices, which on the one card is 1. Values this slice
 does not run are refused with a pointer to ROADMAP.md: the other
 ``--parallelism`` schemes, ``--optimizer adam|amsgrad``,
-``--metrics-file``, ``--profile-dir`` and ``--train-dir`` (checkpoints).
+``--metrics-file`` and ``--profile-dir``.
+
+``--train-dir DIR`` writes ``model_step_N`` every ``--eval-freq`` steps
+and after the last: the dict the JAX CLI's ``save_lm_checkpoint`` writes
+(plain-layout params, ``step``, the ``model`` and ``data`` metadata a
+structure-free evaluator rebuilds the model from), in its bytes, so the
+JAX package's ``cli.evaluate_lm`` reads it unchanged.
 
 Data is the JAX CLI's synthetic Markov chain (``make_synthetic_tokens``,
 numpy, so both packages draw the same corpus and batches); the weights
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..checkpoint import save_checkpoint
 from ..models.transformer import TransformerConfig, init_transformer
 from ..optim import build_optimizer
 from ..optim.schedules import (
@@ -154,10 +161,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "--profile-dir is not ported yet (ROADMAP.md queue 1 item 16); "
             "tools/train_lm_profile.py profiles the card")
-    if args.train_dir is not None:
-        raise NotImplementedError(
-            "--train-dir (LM checkpoints) is not ported yet (ROADMAP.md queue 1 "
-            "item 9)")
     if args.shard_vocab:
         raise ValueError(
             "--shard-vocab is implemented for --parallelism tp/dp_tp only "
@@ -200,6 +203,23 @@ def main(argv=None) -> dict:
     logger.info("LM %dx d%d h%d (%d params), seq %d, %s on %s", args.depth, args.dim,
                 args.heads, n_params, args.seq_len, layout, dev)
 
+    def save_lm_checkpoint(step_no: int) -> None:
+        # cli/train_lm.py:397-420 of the JAX package: the dp_sp params are
+        # already the plain layout
+        if args.train_dir is None:
+            return
+        save_checkpoint({
+            "params": params,
+            "step": step_no,
+            "model": {
+                "kind": "dense", "vocab_size": cfg.vocab_size, "dim": cfg.dim,
+                "depth": cfg.depth, "heads": cfg.heads, "mlp_ratio": cfg.mlp_ratio,
+                "max_seq_len": cfg.max_seq_len, "num_experts": args.num_experts,
+                "capacity_factor": float(args.capacity_factor), "top_k": args.top_k,
+            },
+            "data": {"seed": args.seed + 1, "seq_len": args.seq_len},
+        }, args.train_dir, step_no)
+
     rng = np.random.RandomState(args.seed + 2)
     loss = float("nan")
     history = []
@@ -230,10 +250,14 @@ def main(argv=None) -> dict:
             ))
             history.append({"kind": "train_lm", "parallelism": args.parallelism,
                             "step": step_no, "loss": loss, "time_cost": round(dt, 6)})
+        if args.eval_freq > 0 and step_no % args.eval_freq == 0:
+            save_lm_checkpoint(step_no)
     if steady_t0 is not None:
         host_sync(params)
         steady = {"steady_steps": args.max_steps - warmup,
                   "steady_elapsed_s": time.perf_counter() - steady_t0}
+    if args.eval_freq <= 0 or args.max_steps % args.eval_freq:
+        save_lm_checkpoint(args.max_steps)
     # history: the per-log-window records the JAX CLI appends to
     # --metrics-file, kept in memory here
     return {"loss": float(loss), "params": n_params, **steady, "history": history}

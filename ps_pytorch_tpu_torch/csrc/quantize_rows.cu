@@ -97,10 +97,13 @@
 // 16-byte aligned and whose n and bs are multiples of 4, decided per
 // piece; other pieces and bf16 go element by element.
 //
-// Non-finite input: fmaxf drops NaN, so an absmax stays finite or +inf
-// and no launch can fault or hang; such a row's payload need not match
-// the plain version (on the wire the non-finite guard turns the step
-// into the identity).
+// Non-finite input, as JAX's max(abs) and the plain versions take it:
+// every max keeps a NaN (ps::max_abs, a max over the bits of |x|, where a
+// positive NaN lies above +inf), so a row holding a NaN gets a NaN absmax
+// and scale, inverse 0 and an all-zero payload; a row whose absmax is
+// +inf gets inverse 0 too, and its inf * 0 products are NaN, which
+// quant_int8's conversion sends to 0. Bit-exact with the plain versions
+// either way (the serving int8 pool has no guard in front of it).
 #include <cstring>
 
 #include "common.cuh"
@@ -161,7 +164,8 @@ __device__ __forceinline__ unsigned pack4(const float* f, float inv) {
 // max over the aligned group of `group` lanes (a power of two); every
 // lane of the warp takes part
 __device__ __forceinline__ float group_max(float x, int group) {
-  for (int o = group >> 1; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(ps::kFullMask, x, o));
+  for (int o = group >> 1; o > 0; o >>= 1)
+    x = ps::max_nonneg(x, __shfl_xor_sync(ps::kFullMask, x, o));
   return x;
 }
 
@@ -179,9 +183,9 @@ __device__ __forceinline__ void quant_row(const T* __restrict__ xr, int8_t* __re
     if constexpr (kVec) {
       load16(xr + sub * kN, f);
 #pragma unroll
-      for (int i = 0; i < kN; ++i) m = fmaxf(m, fabsf(f[i]));
+      for (int i = 0; i < kN; ++i) m = ps::max_abs(m, f[i]);
     } else {
-      for (int c = sub; c < len; c += 32) m = fmaxf(m, fabsf(ps::to_float(xr[c])));
+      for (int c = sub; c < len; c += 32) m = ps::max_abs(m, ps::to_float(xr[c]));
     }
   }
   m = group_max(m, group);
@@ -290,13 +294,13 @@ __device__ __forceinline__ void scaled_block_row(const T* __restrict__ x, int8_t
       const float4* xw = reinterpret_cast<const float4*>(x + w * n + c0);
       for (int j = lane; j < (live >> 2); j += 32) {
         const float4 v = __ldg(xw + j);
-        m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+        m = ps::max_abs(ps::max_abs(ps::max_abs(ps::max_abs(m, v.x), v.y), v.z), v.w);
       }
     }
   } else {
     for (int w = 0; w < workers; ++w) {
       const T* xw = x + w * n + c0;
-      for (int j = lane; j < live; j += 32) m = fmaxf(m, fabsf(ps::to_float(xw[j])));
+      for (int j = lane; j < live; j += 32) m = ps::max_abs(m, ps::to_float(xw[j]));
     }
   }
   m = ps::warp_max(m);
@@ -339,7 +343,7 @@ __device__ __forceinline__ void scaled_block_row_128(const float* __restrict__ x
   for (int w = 0; w < 8; ++w) {
     v[w] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (w < workers && live) v[w] = __ldg(reinterpret_cast<const float4*>(x + w * n + c0) + lane);
-    m = fmaxf(m, fmaxf(fmaxf(fabsf(v[w].x), fabsf(v[w].y)), fmaxf(fabsf(v[w].z), fabsf(v[w].w))));
+    m = ps::max_abs(ps::max_abs(ps::max_abs(ps::max_abs(m, v[w].x), v[w].y), v[w].z), v[w].w);
   }
   m = ps::warp_max(m);
   const float inv = ps::inv_scale(m);

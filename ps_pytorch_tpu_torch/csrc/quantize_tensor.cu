@@ -44,7 +44,8 @@
 // The absmax slots start at 0 (one zeroing of the call's slots by the
 // host). Bit-exactness: a max is order-free, and the atomicMax works on
 // the float's bits, which order like the floats because every value is
-// non-negative (fabsf); any grid or chunk size gives the same bits.
+// non-negative (fabsf), NaN above +inf; any grid or chunk size gives the
+// same bits.
 // '/' is the IEEE quotient (no --use_fast_math) and rintf rounds half to
 // even (jnp.round). The scale multiplies by the f32 constant 1/127: under
 // jit XLA rewrites `absmax / 127.0` into `absmax * (1/127)`
@@ -55,10 +56,13 @@
 // (char4) for every f32 piece whose input is 16-byte aligned, decided per
 // piece; other pieces and bf16 go element by element.
 //
-// Non-finite input: fmaxf drops NaN, so an absmax stays finite or +inf;
-// no launch can fault or hang on it. The payload of such a step is not
-// bit-exact with the plain version, and need not be: the non-finite
-// guard turns that step into the identity.
+// Non-finite input, as JAX's max(abs) and the plain version take it: every
+// max keeps a NaN (ps::max_abs, a max over the bits of |x|, where a
+// positive NaN lies above +inf), so a piece holding a NaN gets a NaN
+// absmax and scale, inverse 0 and an all-zero payload; a piece whose
+// absmax is +inf gets inverse 0 too, and its inf * 0 products are NaN,
+// which quant_int8's conversion sends to 0. Bit-exact with the plain version
+// either way.
 #include <cstring>
 
 #include "common.cuh"
@@ -130,11 +134,11 @@ __device__ __forceinline__ float span_absmax(const T* __restrict__ x, long long 
 #pragma unroll 4
     for (long long i = (e0 >> 2) + threadIdx.x; i < (v1 >> 2); i += kThreads) {
       const float4 v = __ldg(x4 + i);
-      m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+      m = ps::max_abs(ps::max_abs(ps::max_abs(ps::max_abs(m, v.x), v.y), v.z), v.w);
     }
     e = v1;
   }
-  for (long long i = e + threadIdx.x; i < e1; i += kThreads) m = fmaxf(m, fabsf(ps::to_float(x[i])));
+  for (long long i = e + threadIdx.x; i < e1; i += kThreads) m = ps::max_abs(m, ps::to_float(x[i]));
   return m;
 }
 
@@ -187,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (i < 0) break;
     cur = i;
-    m = fmaxf(m, chunk_absmax(t, i, c));
+    m = ps::max_nonneg(m, chunk_absmax(t, i, c));
   }
 }
 

@@ -1,4 +1,6 @@
-"""Resilience of the port: the non-finite gradient guard."""
+"""Resilience of the port: the non-finite gradient guard (``guard``),
+fault injection (``faults``), I/O retry with backoff (``retry``) and the
+elastic geometry manifest (``elastic``)."""
 
 from .guard import GuardState, init_guard_state, tree_all_finite, update_guard_state
 

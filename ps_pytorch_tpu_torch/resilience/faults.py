@@ -1,28 +1,45 @@
-"""Deterministic fault injection, gradient half (the port's subset of
+"""Deterministic fault injection (the port's subset of
 resilience/faults.py).
 
-A ``FaultPlan`` names the host steps (1-based, as the JAX step numbers
-them) whose gradients are replaced by NaN or +Inf on every worker: the
-chaos drill that proves the non-finite guard end to end. The plan's
-other keys (slow steps, checkpoint faults, SIGTERM, the serving side)
-are not ported yet and raise (ROADMAP.md).
+A ``FaultPlan`` names host steps (1-based, as the JAX step numbers them):
+
+  nan_grads / inf_grads  every worker's gradients replaced by NaN or +Inf
+                         -> the non-finite guard skips the step
+  ckpt_write_fail        the checkpoint write of that step raises EIO on
+                         every attempt -> CheckpointWriteError
+  ckpt_corrupt           the checkpoint file of that step is truncated to
+                         half its size once written -> the CRC check
+                         fails, --resume quarantines it and falls back
+
+The plan's other keys (slow steps, SIGTERM, the serving side) are not
+ported yet and raise (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import errno
 import json
 import os
 from typing import Optional, Tuple
 
 FAULTS_ENV = "PS_TPU_FAULTS"
-_PORTED = ("nan_grads", "inf_grads")
+_PORTED = ("nan_grads", "inf_grads", "ckpt_write_fail", "ckpt_corrupt")
+
+
+def _truncate_half(path: str) -> None:
+    """Shear a file to half its size in place (faults.py:65)."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(size // 2, 1))
 
 
 @dataclasses.dataclass(frozen=True)
 class FaultPlan:
     nan_grads: Tuple[int, ...] = ()
     inf_grads: Tuple[int, ...] = ()
+    ckpt_write_fail: Tuple[int, ...] = ()
+    ckpt_corrupt: Tuple[int, ...] = ()
 
     @classmethod
     def parse(cls, spec: str) -> "FaultPlan":
@@ -39,7 +56,13 @@ class FaultPlan:
                 f"fault plan keys {rest} are not ported yet (only {list(_PORTED)}; "
                 f"see ROADMAP.md queue 1 item 15)"
             )
-        return cls(**{k: tuple(int(s) for s in raw[k]) for k in raw})
+        steps = {k: raw[k] or [] for k in raw}
+        for k, v in steps.items():
+            # bool is an int subclass: [true] would silently hit step 1
+            if not isinstance(v, list) or any(
+                    isinstance(s, bool) or not isinstance(s, int) for s in v):
+                raise ValueError(f"fault plan {k!r} must be a list of integer steps")
+        return cls(**{k: tuple(sorted(v)) for k, v in steps.items()})
 
     def poison(self, host_step: int) -> Optional[float]:
         """The value every gradient element takes at ``host_step``, or
@@ -49,6 +72,17 @@ class FaultPlan:
         if host_step in self.nan_grads:
             return float("nan")
         return None
+
+    def maybe_fail_ckpt_write(self, step: int) -> None:
+        """Raise EIO from inside the checkpoint writer, on every retry
+        attempt of the step, so the failure surfaces."""
+        if step in self.ckpt_write_fail:
+            raise OSError(errno.EIO, f"injected checkpoint write failure (step {step})")
+
+    def maybe_corrupt_ckpt(self, path: str, step: int) -> None:
+        """Truncate the just-written checkpoint to half its size."""
+        if step in self.ckpt_corrupt:
+            _truncate_half(path)
 
 
 def resolve_fault_plan(spec: Optional[str]) -> Optional[FaultPlan]:

@@ -49,6 +49,20 @@ def init_guard_state(loss_scale: float = 1.0, dynamic: bool = False,
                       dyn=i32(int(dynamic)))
 
 
+def reconcile_guard_state(stored: dict, fresh: dict) -> dict:
+    """Merge a checkpointed guard-state dict into the current config's
+    fresh one (both state dicts; guard.py:73 of the JAX package). Stored
+    counters win, but a dynamic-OFF checkpoint (dyn 0) resumed with
+    dynamic scaling on starts from the fresh loss scale; the dyn flag
+    always reflects the current config."""
+    sd, td = stored.get("dyn"), fresh.get("dyn")
+    if sd is not None and td is not None:
+        if int(td) == 1 and int(sd) == 0:
+            stored["scale"] = fresh.get("scale")
+        stored["dyn"] = td
+    return stored
+
+
 def tree_all_finite(tree) -> torch.Tensor:
     """Device bool scalar: every element of every leaf is finite."""
     leaves = tree_leaves(tree)

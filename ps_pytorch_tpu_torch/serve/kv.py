@@ -78,13 +78,21 @@ def write_slot(pool: Dict, block: int, slot: int,
 def write_token(pool: Dict, block: int, pos: torch.Tensor,
                 k: torch.Tensor, v: torch.Tensor) -> Dict:
     """Decode-step write: one token's K/V ``[S, H, hd]`` at each slot's
-    OWN position (``pos`` int ``[S]``); the int8 pool drops a position
-    outside ``[0, max_len)``, as JAX's scatter does."""
+    OWN position (``pos`` int ``[S]``). Both pools wrap a negative
+    position once by ``max_len`` and drop one still outside ``[0,
+    max_len)``, as JAX's scatter does."""
     if not pool_is_int8(pool):
+        max_len = pool["k"].shape[2]
+        p = pos.long()
+        p = torch.where(p < 0, p + max_len, p)
+        # a dropped row writes its slot's current value back (no host
+        # sync: the mask stays on the device)
+        keep = ((p >= 0) & (p < max_len))[:, None, None]
+        p = p.clamp(0, max_len - 1)
         sl = torch.arange(k.shape[0], device=k.device)
         for name, val in (("k", k), ("v", v)):
             buf = pool[name]
-            buf[block, sl, pos] = val.to(buf.dtype)
+            buf[block, sl, p] = torch.where(keep, val.to(buf.dtype), buf[block, sl, p])
         return pool
     quantize_kv_write(k, v, *_int8_views(pool, block), pos=pos)
     return pool

@@ -98,6 +98,9 @@ def test_torch_quantize_rows_kernel_bit_exact_on_card(cuda_device, nb, bs, dtype
     assert torch.equal(qm, qp) and torch.equal(sm, sp)
 
 
+SLOTS_KV = 4
+
+
 def _kv_pool(slots, max_len, heads, hd, dev):
     """One layer's sentinel-filled int8 pool views (k_q, k_s, v_q, v_s)."""
     g = torch.Generator(device=dev).manual_seed(hd)
@@ -413,6 +416,55 @@ def test_torch_quantize_many_kernels_non_finite_piece_on_card(cuda_device):
                        quantize_rows_scaled_many_plain(xs, 128))):
         torch.cuda.synchronize()
         _same_many(got[:2] + got[3:], want[:2] + want[3:])
+
+
+def _bits(t):
+    """A tensor's bits: an f32 tensor as int32 (NaN equal to NaN of the
+    same bits), any other as it is."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_torch_quantize_kernels_non_finite_only_pieces_bit_exact_on_card(cuda_device, bad):
+    """A piece or row holding NaN and no inf (or inf and no NaN) through
+    each entry of K1 and K2: the absmax keeps the NaN (scale NaN, payload
+    0) or is +inf (inverse 0, inf * 0 sent to 0), bit for bit the plain
+    version's, beside finite pieces that stay bit-exact."""
+    dev = cuda_device
+    # K2 and K1's shared-scale entry: worker-stacked pieces, f32 and bf16
+    xs = _resnet18_pieces(dev, seed=5)[:6] + [_resnet18_pieces(dev, torch.bfloat16, 6)[3]]
+    xs[2].view(-1)[77] = bad
+    xs[4].view(-1)[-1] = -bad
+    xs[6].view(-1)[100] = bad
+    _same_bits(quantize_tensors(xs), quantize_tensors_plain(xs))
+    _same_bits(quantize_rows_scaled_many(xs, 128), quantize_rows_scaled_many_plain(xs, 128))
+    _same_bits(quantize_rows_scaled_many(xs, 33), quantize_rows_scaled_many_plain(xs, 33))
+    # K1's per-row entries: one bad element in a row, and a whole bad row
+    g = torch.Generator(device=dev).manual_seed(9)
+    for bs, dtype in ((128, torch.float32), (64, torch.bfloat16), (33, torch.float32)):
+        x = (torch.randn((40, bs), generator=g, device=dev) * 3).to(dtype)
+        x[3, 5] = bad
+        x[11] = -bad
+        _same_bits([quantize_rows(x)], [quantize_rows_plain(x)])
+        _same_bits(quantize_rows_many([x, x[20:]]), quantize_rows_many_plain([x, x[20:]]))
+    # K1's KV entry: prefill and decode writes into the int8 pool
+    for dtype in (torch.bfloat16, torch.float32):
+        k, v = _kv_inputs(SLOTS_KV, 8, 64, dtype, dev, seed=12)
+        k[1, 2, 7] = bad
+        v[2, 5] = -bad
+        for where in (dict(slot=1), dict(pos=torch.tensor([0, 5, 9, 2], device=dev))):
+            pool, plain, launches = _kv_write_both(k, v, _kv_pool(4, 16, 8, 64, dev), **where)
+            assert launches == 1
+            _same_bits([pool], [plain])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -109,6 +109,31 @@ def test_torch_kv_write_plain_drops_out_of_range_positions():
         assert c.nonzero().tolist() == [[1, MAX_LEN - 1]]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_kv_compute_dtype_pool_write_token_matches_jax(dtype):
+    """The compute-dtype pool's decode write against JAX's jitted
+    write_token: positions ``max_len`` and ``-(max_len + 1)`` are dropped
+    (an index write would raise on them), ``-1`` wraps to the last
+    position, and the pool is bit for bit JAX's."""
+    hd = 32
+    shape = (DEPTH, SLOTS, MAX_LEN, HEADS, hd)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    jpool = {"k": jnp.full(shape, 5.0, jdt), "v": jnp.full(shape, -5.0, jdt)}
+    tpool = {"k": torch.full(shape, 5.0, dtype=dtype), "v": torch.full(shape, -5.0, dtype=dtype)}
+    for tick, pos in enumerate(([3, MAX_LEN, 0, -1], [MAX_LEN - 1, 2, -(MAX_LEN + 1), 7])):
+        (k, v), (jk, jv) = _kv(SLOTS, hd, dtype, seed=50 + tick)
+        p = np.asarray(pos, np.int32)
+        jpool = _JWRITE_TOKEN(jpool, 1, jnp.asarray(p), jk, jv)
+        tkv.write_token(tpool, 1, torch.from_numpy(p), k, v)
+        for name in ("k", "v"):
+            np.testing.assert_array_equal(tpool[name].float().numpy(),
+                                          np.asarray(jpool[name].astype(jnp.float32)),
+                                          err_msg=name)
+    # slot 1 dropped MAX_LEN, then wrote 2; slot 2 wrote 0, then dropped
+    assert (tpool["k"][1, 1, 3:] == 5.0).all() and not (tpool["k"][1, 1, 2] == 5.0).all()
+    assert (tpool["v"][1, 2, 1:] == -5.0).all()
+
+
 @pytest.mark.parametrize("kwargs,match", [
     (dict(), "a slot"),
     (dict(slot=0, pos=torch.zeros(SLOTS, dtype=torch.int32)), "a slot"),

@@ -105,7 +105,7 @@ def test_torch_sgd_reads_a_schedule_at_the_step_count():
     (["--optimizer", "amsgrad"], NotImplementedError, "ROADMAP.md"),
     (["--metrics-file", "m.jsonl"], NotImplementedError, "ROADMAP.md"),
     (["--profile-dir", "prof"], NotImplementedError, "ROADMAP.md"),
-    (["--train-dir", "ckpt"], NotImplementedError, "ROADMAP.md"),
+    (["--parallelism", "moe"], NotImplementedError, "ROADMAP.md"),
     (["--shard-vocab"], ValueError, "tp/dp_tp"),
     (["--num-sp", "3"], ValueError, "divisible by num_sp"),
     (["--num-dp", "3"], ValueError, "divisible by num_dp"),

@@ -25,7 +25,9 @@ BASE = ["--network", "LeNet", "--num-workers", "8", "--batch-size", "16",
 
 
 def _run(*extra):
-    return cli_train.main(BASE + ["--device", "cpu", *extra])
+    # --no-checkpoints: the default --train-dir is output/models/ in the
+    # working directory, shared by every test process
+    return cli_train.main(BASE + ["--device", "cpu", "--no-checkpoints", *extra])
 
 
 def test_torch_cli_train_runs_on_cpu_with_finite_losses(caplog):
@@ -65,7 +67,7 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--resume"], ["--bucket-bytes", "0", "--overlap", "on"],
+    ["--compress-checkpoints"], ["--bucket-bytes", "0", "--overlap", "on"],
     ["--opt-placement", "sharded", "--bn-mode", "synced"],
     ["--metrics-file", "m.jsonl"], ["--optimizer", "adam"], ["--network", "VGG16"],
     ["--dtype", "bfloat16"], ["--overlap", "on", "--opt-placement", "sharded"],
@@ -93,7 +95,8 @@ def test_torch_trainer_log_lines_parse_with_the_reference_parser(caplog):
     try:
         d = make_synthetic("MNIST", train_size=256, test_size=32)
         t = Trainer(TrainConfig(network="LeNet", dataset="MNIST", batch_size=8,
-                                max_steps=4, log_interval=2, test_batch_size=32),
+                                max_steps=4, log_interval=2, test_batch_size=32,
+                                save_checkpoints=False),
                     PSConfig(num_workers=4, compress="int8"), dataset=d, device="cpu")
         t.train()
         val = t.validate()
