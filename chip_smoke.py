@@ -97,7 +97,8 @@ Phases, one line each:
    (relative) of ``Trainer.validate()`` on that state; a 3-step
    ``--error-feedback`` run restores its residuals bit for bit; the bytes
    on disk, a save's host half and background write, load + restore and
-   the evaluator a checkpoint, in seconds (every other phase runs with
+   the evaluator a checkpoint (on the trainer's 992 whole-batch test
+   images and on a 10,000-image synthetic test split), in seconds (every other phase runs with
    ``--no-checkpoints``);
 13. one LeNet step at 8 workers, card vs CPU (phase 10's rule, with K
    times its bound on the two-round wires' coarser second rounding), on the
@@ -134,12 +135,13 @@ Phases, one line each:
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,14 [--package-root DIR]
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12b,14 [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
 through ``serve.kv`` alone; the flash kernels 4 and 14; the serve run of
 5, its K1 counts reported, not required, on another tree; the 62-leaf
-wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9),
+wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9;
+the checkpoints of 12b),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -1237,6 +1239,9 @@ def _state_bits(a, b) -> bool:
         for (_, x), (_, y) in zip(la, lb))
 
 
+FULL_TEST = 10000  # CIFAR-10's test split
+
+
 def phase_checkpoint(card: str) -> dict:
     """Phase 12b: checkpoints on the paper's main path. ResNet18 8 x 128
     on the int8 per-tensor wire through ``cli.train.main --train-dir``:
@@ -1245,15 +1250,18 @@ def phase_checkpoint(card: str) -> dict:
     --max-steps 15`` resumes at 10 and runs 11-15 (one K2 call a step),
     its step-15 file truncated by the ``ckpt_corrupt`` fault; a further
     ``--resume`` quarantines 15 and falls back to 10; ``cli.evaluate
-    --once`` within 1e-5 of ``Trainer.validate()`` on that state; a
-    3-step ``--error-feedback`` run restores its residuals bit for bit.
-    Timed: the bytes on disk, a save's host half (gather + submit) and
-    its background write, load + restore, the evaluator a checkpoint."""
+    --once`` within 1e-5 of ``Trainer.validate()`` on that state (the
+    trainer's 1024-image synthetic test split, 992 images in whole
+    batches); a 3-step ``--error-feedback`` run restores its residuals
+    bit for bit. Timed: the bytes on disk, a save's host half (gather +
+    submit) and its background write, load + restore, the evaluator a
+    checkpoint on that split and on a FULL_TEST-image one."""
     import logging
     import tempfile
 
     from ps_pytorch_tpu_torch import checkpoint as ckpt
     from ps_pytorch_tpu_torch.cli import evaluate as cli_evaluate
+    from ps_pytorch_tpu_torch.data import make_synthetic
     from ps_pytorch_tpu_torch.resilience import elastic
 
     lines = []
@@ -1342,6 +1350,18 @@ def phase_checkpoint(card: str) -> dict:
                                      "Cifar10", "--once", "--device", "cuda"])
             require(list(cli) == [10] and np.isfinite(cli[10]["loss"]),
                     f"checkpoint: cli.evaluate {cli}")
+            # the evaluator's time a checkpoint at CIFAR-10's test-split
+            # size, 10,000 images in batches of the CLI's default 1000
+            full = cli_evaluate.Evaluator("ResNet18", "Cifar10", d, device="cuda")
+            full.dataset = make_synthetic("Cifar10", train_size=WORKERS, test_size=FULL_TEST)
+            t0 = time.perf_counter()
+            full.evaluate_step(10)
+            eval_full_first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got_full = full.evaluate_step(10)
+            eval_full_s = time.perf_counter() - t0
+            require(all(np.isfinite(list(got_full.values()))),
+                    f"checkpoint: evaluator on {FULL_TEST} images {got_full}")
 
             de = os.path.join(tmp, "ef")
             ef = _train(3, ["--train-dir", de, "--eval-freq", "3", "--error-feedback"],
@@ -1356,9 +1376,13 @@ def phase_checkpoint(card: str) -> dict:
     rec.update({
         "files": [5, 10, 15], "bytes_on_disk": nbytes, "ef_bytes_on_disk": ef_bytes,
         "save_host_s": host_s, "save_write_s": write_s, "load_restore_s": load_s,
+        "evaluator_images": ev.eval_batch_size * (len(ev.dataset.test_labels)
+                                                  // ev.eval_batch_size),
         "evaluator_first_s": eval_first_s, "evaluator_s": eval_s,
         "resume_steps": steps, "resume_losses": losses, "resume_launches": counts,
-        "evaluator": got[10], "validate": val})
+        "evaluator": got[10], "validate": val,
+        "evaluator_full": {"images": FULL_TEST, "first_s": eval_full_first_s,
+                           "s": eval_full_s, **got_full}})
     print("phase 12b checkpoints ResNet18 save / resume / quarantine / evaluate: "
           + json.dumps(rec))
     return rec
@@ -1772,7 +1796,7 @@ def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 14; "
+                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12b, 14; "
                          "2 on this tree only)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
@@ -1811,10 +1835,12 @@ def main(argv=None) -> int:
                                   + json.dumps({"round1": wire_step_case(dev, 128),
                                                 "round2": round2_step_case(dev)})),
                  9: lambda: phase_train(smi),
+                 "12b": lambda: phase_checkpoint(smi),
                  14: lambda: phase_flash_train_kernels(dev)}
-        phases = [int(x) for x in args.phases.split(",")]
+        alone = {str(k): v for k, v in alone.items()}
+        phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
-        require(not (2 in phases and OTHER_TREE), "--phases: 2 checks this tree's kernels")
+        require(not ("2" in phases and OTHER_TREE), "--phases: 2 checks this tree's kernels")
         for n in phases:
             alone[n]()
         return 0

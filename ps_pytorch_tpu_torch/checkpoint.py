@@ -8,9 +8,9 @@ same bytes the JAX package writes for the same values) followed by an
 8-byte integrity trailer, ``b'PSC1'`` + the little-endian CRC32 of every
 byte before it. A trailer-less file (written before the trailer existed)
 loads; its damage shows as a decode failure. Checkpoints are tree-shaped
-whatever the live state's layout (a ``FlatVector`` converts at the
-serialization edge), so the JAX package and the port resume each other's
-files.
+whatever the live state's layout (``parallel/buckets.py`` registers a
+``FlatVector``'s conversion to and from its tree with the serializer), so
+the JAX package and the port resume each other's files.
 
 Not ported, and refused: the native codec's compressed form (files that
 start with ``b'PSCK'``; ROADMAP.md queue 1 item 22) and the multi-process
@@ -75,10 +75,10 @@ def checkpoint_path(model_dir: str, step: int) -> str:
     return os.path.join(model_dir, f"model_step_{step}")
 
 
-def save_checkpoint(state, model_dir: str, step: int, faults=None) -> str:
+def save_checkpoint(state, model_dir: str, step: int) -> str:
     """Write ``state`` (anything ``to_state_dict`` takes, or a state dict
     of host arrays) for ``step``, synchronously."""
-    return _write_host_state(to_state_dict(state), model_dir, step, faults=faults)
+    return _write_host_state(to_state_dict(state), model_dir, step)
 
 
 def _write_host_state(state: dict, model_dir: str, step: int, faults=None) -> str:
@@ -306,14 +306,12 @@ def _await_readable(model_dir: str, step: int, attempts: int, base_delay_s: floa
 
 
 def poll_checkpoints(model_dir: str, start_after: int = 0, interval_s: float = 10.0,
-                     timeout_s: Optional[float] = None, validate: bool = True,
-                     validate_attempts: int = 5,
+                     timeout_s: Optional[float] = None, validate_attempts: int = 5,
                      validate_delay_s: float = 0.2) -> Iterator[int]:
     """Yield new checkpoint steps in order as they appear (the
     evaluator's loop; the reference polls every 10 s). Stops when
-    ``timeout_s`` passes with no new checkpoint (None: never). With
-    ``validate``, a step listed but not readable is retried with backoff,
-    then skipped."""
+    ``timeout_s`` passes with no new checkpoint (None: never). A step
+    listed but not readable is retried with backoff, then skipped."""
     seen = start_after
     waited = 0.0
     while True:
@@ -322,8 +320,7 @@ def poll_checkpoints(model_dir: str, start_after: int = 0, interval_s: float = 1
             waited = 0.0
             for s in fresh:
                 seen = s
-                if validate and not _await_readable(model_dir, s, validate_attempts,
-                                                    validate_delay_s):
+                if not _await_readable(model_dir, s, validate_attempts, validate_delay_s):
                     continue
                 yield s
             continue

@@ -22,7 +22,8 @@ module carries that geometry:
   (``bucket_bytes=None``, the default ``--bucket-bytes -1``) ships the
   leaves; the bucketed wires (``0`` = one fused buffer, ``N`` = ~N-byte
   buckets) ship the buckets of each worker's flattened, padded tree;
-- ``_np_tree_to_flat``: the host-side pack.
+- ``_np_tree_to_flat``: the host-side pack; with it, ``FlatVector``'s
+  checkpoint handlers, which store it as its tree (buckets.py:364-404).
 
 The pipelined order (``--overlap on``) raises ``NotImplementedError``
 until its slice (ROADMAP.md queue 1 item 13).
@@ -35,6 +36,8 @@ from typing import Any, List, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.serialization import from_state_dict, register_serialization_state
 
 
 class _Leaf:
@@ -232,6 +235,27 @@ def _np_tree_to_flat(layout: TreeLayout, plan: BucketPlan, tree) -> np.ndarray:
         arr = leaf.detach().to("cpu", torch.float32).numpy().reshape(-1)
         flat[off:off + arr.size] = arr
     return flat
+
+
+def _flat_state_tree(fv: FlatVector):
+    """A FlatVector's checkpoint form, its tree on the host: one copy of
+    the flat buffer, then numpy views cut from it in the layout's leaf
+    order (bf16 leaves stay CPU tensors, numpy has no bf16)."""
+    leaves = tree_leaves(flat_to_tree(fv.layout, fv.flat.detach().to("cpu", copy=True)))
+    leaves = [leaf if leaf.dtype == torch.bfloat16 else leaf.numpy() for leaf in leaves]
+    return tree_unflatten(fv.layout.treedef, leaves)
+
+
+def _flat_from_state(target: FlatVector, state, path: str) -> FlatVector:
+    """Restore a checkpoint's tree into ``target``'s flat geometry."""
+    template = flat_to_tree(target.layout, target.flat.detach().to("cpu"))
+    tree = from_state_dict(template, state, path)
+    flat = _np_tree_to_flat(target.layout, target.plan, tree)
+    return dataclasses.replace(
+        target, flat=torch.from_numpy(flat).to(target.flat.device, target.flat.dtype))
+
+
+register_serialization_state(FlatVector, _flat_state_tree, _flat_from_state)
 
 
 def piece_stream(tree, bucket_bytes, align: int = 1, flat_output: bool = False,

@@ -7,11 +7,14 @@ nor msgpack).
   such as ``PSTrainState``, ``SGDState`` and ``GuardState``, ``FlatVector``,
   nested dicts and lists, tensors) to and from flax's state dict: a
   dataclass is a dict of its fields in declaration order, a list is
-  ``{'0': ...}``, a ``FlatVector`` is its TREE (buckets.py:364-404 of the
-  JAX package), and every plain dict has its keys sorted, as they come out
-  of ``jax.device_get`` on the JAX side. Tensors come to the host as numpy
-  arrays (copies, so a later in-place update of the live state cannot
-  reach them); bf16 tensors stay CPU torch tensors, numpy has no bf16.
+  ``{'0': ...}``, a type registered with ``register_serialization_state``
+  is what its handler makes of it (``parallel/buckets.py`` registers
+  ``FlatVector``, which is stored as its TREE, as the JAX package's
+  buckets.py:364-404 handlers store it), and every plain dict has its keys
+  sorted, as they come out of ``jax.device_get`` on the JAX side. Tensors
+  come to the host as numpy arrays (copies, so a later in-place update of
+  the live state cannot reach them); bf16 tensors stay CPU torch tensors,
+  numpy has no bf16.
 - ``packb`` / ``unpackb``: the msgpack subset flax emits
   (``msgpack_serialize``: ``strict_types=True``, ``use_bin_type=True``):
   maps, str, bool, None, ints in msgpack's smallest form, Python floats as
@@ -28,12 +31,10 @@ from __future__ import annotations
 
 import dataclasses
 import struct
-from typing import Any, List
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
-
-from ..parallel.buckets import FlatVector, _np_tree_to_flat, tree_unflatten
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
@@ -42,6 +43,17 @@ MAX_CHUNK_SIZE = 2 ** 30  # flax's: arrays above it are written chunked
 
 # ----------------------------------------------------------- state dicts
 
+_STATE_HANDLERS: Dict[type, Tuple[Callable, Callable]] = {}
+
+
+def register_serialization_state(ty: type, ty_to_state: Callable,
+                                 ty_from_state: Callable) -> None:
+    """flax's registry, for a type this module does not know:
+    ``ty_to_state(x)`` gives a structure that ``to_state_dict`` then
+    converts, and ``ty_from_state(target, state, path)`` restores a state
+    dict into ``target`` (``from_state_dict`` is its recursion)."""
+    _STATE_HANDLERS[ty] = (ty_to_state, ty_from_state)
+
 
 def host_array(t: torch.Tensor):
     """A tensor's host copy: a numpy array, or a contiguous CPU bf16 tensor."""
@@ -49,22 +61,11 @@ def host_array(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def _flat_to_tree(fv: FlatVector):
-    """A FlatVector's tree of host arrays: one copy of the flat buffer,
-    then numpy views cut from it in the layout's leaf order."""
-    flat = fv.flat.detach().to("cpu", copy=True)
-    leaves = []
-    for shape, dtype, off in zip(fv.layout.shapes, fv.layout.dtypes, fv.layout.offsets):
-        n = int(np.prod(shape, dtype=np.int64))
-        leaf = flat[off:off + n].reshape(shape).to(dtype)
-        leaves.append(host_array(leaf) if dtype == torch.bfloat16 else leaf.numpy())
-    return tree_unflatten(fv.layout.treedef, leaves)
-
-
 def to_state_dict(x) -> Any:
     """flax's state dict of ``x`` with host leaves (see the module text)."""
-    if isinstance(x, FlatVector):
-        return to_state_dict(_flat_to_tree(x))
+    handler = _STATE_HANDLERS.get(type(x))
+    if handler is not None:
+        return to_state_dict(handler[0](x))
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return {f.name: to_state_dict(getattr(x, f.name)) for f in dataclasses.fields(x)}
     if isinstance(x, dict):
@@ -99,12 +100,9 @@ def from_state_dict(target, state, path: str = ""):
     shapes checked. A missing or unexpected key raises ValueError, as
     flax's restore does."""
     where = path or "."
-    if isinstance(target, FlatVector):
-        template = _flat_to_tree(target)
-        tree = from_state_dict(_as_tensors(template), state, path)
-        flat = _np_tree_to_flat(target.layout, target.plan, tree)
-        return dataclasses.replace(
-            target, flat=torch.from_numpy(flat).to(target.flat.device, target.flat.dtype))
+    handler = _STATE_HANDLERS.get(type(target))
+    if handler is not None:
+        return handler[1](target, state, path)
     if dataclasses.is_dataclass(target) and not isinstance(target, type):
         names = [f.name for f in dataclasses.fields(target)]
         _same_keys(names, state, where)
@@ -137,14 +135,6 @@ def _same_keys(names: List[str], state, where: str) -> None:
     if missing or extra:
         raise ValueError(f"checkpoint keys at {where} do not match the target: missing "
                          f"{sorted(missing)}, unexpected {sorted(extra)}")
-
-
-def _as_tensors(tree):
-    if isinstance(tree, dict):
-        return {k: _as_tensors(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_as_tensors(v) for v in tree]
-    return tree if isinstance(tree, torch.Tensor) else torch.from_numpy(tree)
 
 
 # --------------------------------------------------------------- msgpack
