@@ -131,17 +131,40 @@ Phases, one line each:
    CPU (plain versions) on the one-way ring, the bidirectional ring and
    Ulysses (K4 normalized + K5/K6 in the input dtype), each with its
    launch counts;
-18. the kernels JSON line, then the result line.
+18. VGG16 (BN) at full width on phase 9's configuration through
+   ``cli.train.main``, 20 steps: every loss finite, no skipped step, the
+   launches derived from its 58-leaf tree (K2 once a step); step p50,
+   images/s, peak device memory; then VGG16NoBN and VGG11 3 steps each;
+19. ResNet18 at ``--dtype bfloat16`` on phase 9's configuration, 20 steps
+   (finite losses, K2 once a step), its step p50 and peak memory beside
+   phase 9's f32 ones; then ``--dtype bfloat16 --remat``, 3 steps, its
+   peak memory beside the bf16 run's (every run's peak measured after a
+   one-step run of its configuration, whose peak is printed too); and
+   one worker's forward and backward at 128 images in f32, bf16 and
+   bf16 + remat, each one's peak memory;
+20. one step at 8 workers of a narrow VGG11-BN (an eighth of VGG11's
+   widths) with injected draws (augmentation, mask, Dropout keep-masks),
+   card vs CPU under phase 10's rule, with local and with synced BN;
+21. the event stream on phase 9's configuration: the tracer's host cost
+   (8 steps without ``--trace`` and 8 with, in turns, twice); then
+   ``--metrics-file``, ``--trace``, ``--mode straggler --kill-threshold
+   0.02``, ``--straggler-storm-n 2`` and the ``{"sigterm": 4}`` fault:
+   the run stops at step 4 with ``model_step_4`` written, ``--resume``
+   runs 5-6, every record validates, ``straggler`` comes before
+   ``straggler_storm``, the trace holds ``dispatch``, ``sync`` and
+   ``ckpt_save`` spans, K2 ran once a step;
+22. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12b,14 [--package-root DIR]
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12b,14,18,19,20,21 [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
 through ``serve.kv`` alone; the flash kernels 4 and 14; the serve run of
 5, its K1 counts reported, not required, on another tree; the 62-leaf
 wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9;
-the checkpoints of 12b),
+the checkpoints of 12b; the VGG runs of 18; the bf16 runs of 19, after
+phase 9's f32 run; the held steps of 20; the event stream of 21),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -1029,6 +1052,76 @@ def _train(steps: int, extra=(), checkpoints: bool = False) -> dict:
     return cli_train.main(args)
 
 
+def _peak_of(fn) -> tuple:
+    """``fn(base)`` and its device-memory high-water mark: bytes above
+    ``base``, what was allocated when it started (``max_memory_allocated``
+    after ``reset_peak_memory_stats``; garbage collected first, so no
+    earlier run's tensors are freed inside the window)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(base)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _step_memory(base: int, rows: list):
+    """A stand-in for the trainer's ``make_ps_train_step`` whose steps
+    each append ``(bytes allocated, high-water mark so far)`` above
+    ``base`` to ``rows`` once the step's kernels are done."""
+    import ps_pytorch_tpu_torch.trainer as trainer_mod
+
+    make = trainer_mod.make_ps_train_step
+
+    def probed_make(*a, **k):
+        step = make(*a, **k)
+
+        def probed(*sa, **sk):
+            out = step(*sa, **sk)
+            torch.cuda.synchronize()
+            rows.append((torch.cuda.memory_allocated() - base,
+                         torch.cuda.max_memory_allocated() - base))
+            return out
+
+        return probed
+
+    return probed_make
+
+
+def _train_peak(steps: int, extra=(), reset=lambda: None, per_step=None) -> tuple:
+    """``_train`` of ``steps`` and its peak memory, after a one-step run
+    of the same configuration whose peak is returned too: the first run
+    of a shape holds cuDNN's trial workspaces while it picks the shape's
+    engine (PyTorch then caches the plan), so the two differ. ``reset``
+    runs between them (the launch counters). A ``per_step`` list gets
+    each step's memory (``_step_memory``) of the second run."""
+    import ps_pytorch_tpu_torch.trainer as trainer_mod
+
+    first = _peak_of(lambda base: _train(1, extra))[1]
+    reset()
+
+    def run(base):
+        if per_step is None:
+            return _train(steps, extra)
+        make = trainer_mod.make_ps_train_step
+        trainer_mod.make_ps_train_step = _step_memory(base, per_step)
+        try:
+            return _train(steps, extra)
+        finally:
+            trainer_mod.make_ps_train_step = make
+
+    out, peak = _peak_of(run)
+    return out, peak, first
+
+
+def _step_p50(hist, warm: int = 3) -> float:
+    """Median step seconds after ``warm`` steps (cuDNN's algorithm search)."""
+    return float(np.median([h["time_cost"] for h in hist[warm:]]))
+
+
 def phase_train(card: str) -> dict:
     """Phase 9. On another tree (``--package-root``) the launch counts
     are reported, not required: a parent counts its calls per leaf."""
@@ -1036,10 +1129,12 @@ def phase_train(card: str) -> dict:
     _, k1c = _wire_entry(128)
 
     steps = 20
-    k2c.launches = 0
-    k1c.launches = 0
-    out = _train(steps)
-    torch.cuda.synchronize()
+
+    def reset():
+        k2c.launches = 0
+        k1c.launches = 0
+
+    out, peak, first_peak = _train_peak(steps, reset=reset)
     k2, k1s = k2c.launches, k1c.launches
     hist = out["history"]
     losses = [h["loss"] for h in hist]
@@ -1058,7 +1153,8 @@ def phase_train(card: str) -> dict:
            "loss_first": losses[0], "loss_last": losses[-1],
            "step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
            "step_ms_max": max(times) * 1e3,
-           "images_per_s": WORKERS * 128 / p50, "val": out["val"]}
+           "images_per_s": WORKERS * 128 / p50, "peak_mem_bytes": peak,
+           "peak_mem_first_run_bytes": first_peak, "val": out["val"]}
     print("phase 9 train ResNet18 int8 per-tensor: " + json.dumps(rec))
 
     steps_b = 3
@@ -1409,6 +1505,20 @@ def _lenet_pair(dev, cfg_kw, faults=None):
     return out
 
 
+def _held_rule(name: str, pc, pg, p0, bound: float = 1e-2) -> dict:
+    """Phase 10's card-vs-CPU rule on the params after one step: every
+    param within ``bound`` (1%) of the step's largest update, at most 1%
+    of them off by more than 1e-6."""
+    moved = float((pc - p0).abs().max())
+    diff = (pc - pg).abs()
+    require(float(diff.max()) <= bound * moved,
+            f"held {name}: card vs CPU params differ by {float(diff.max())} "
+            f"(update {moved}, bound {bound} of it)")
+    frac = float((diff > 1e-6).float().mean())
+    require(frac <= 0.01, f"held {name}: {frac:.4f} of params differ by > 1e-6")
+    return {"max_abs_diff": float(diff.max()), "max_update": moved, "frac_diff_gt_1e-6": frac}
+
+
 def phase_held(dev) -> dict:
     """One LeNet step at 8 workers: card (kernels) vs CPU (plain
     versions). Tolerance: the two devices' f32 convolutions differ in
@@ -1436,18 +1546,11 @@ def phase_held(dev) -> dict:
                         quantize_tensors.launches - k2,
                         quantize_rows_scaled_many.launches - k1s)
         (pc, p0, lc, _, _), (pg, _, lg, k2g, k1g) = res["cpu"], res["cuda"]
-        moved = float((pc - p0).abs().max())
-        diff = (pc - pg).abs()
-        require(float(diff.max()) <= 1e-2 * moved,
-                f"held {name}: card vs CPU params differ by {float(diff.max())} "
-                f"(update {moved})")
-        frac = float((diff > 1e-6).float().mean())
-        require(frac <= 0.01, f"held {name}: {frac:.4f} of params differ by > 1e-6")
+        out[name] = _held_rule(name, pc, pg, p0)
         want = (1, 0) if name == "per_tensor" else (0, 1)  # LeNet's 8 leaves, one call
         require((k2g, k1g) == want,
                 f"held {name}: calls K2 {k2g}, K1 scaled {k1g}, expected {want}")
-        out[name] = {"max_abs_diff": float(diff.max()), "max_update": moved,
-                     "frac_diff_gt_1e-6": frac, "loss_cpu": lc, "loss_cuda": lg}
+        out[name].update({"loss_cpu": lc, "loss_cuda": lg})
     pair = _lenet_pair(dev, dict(compress="int8"), faults={"nan_grads": [1]})
     st, step = pair["cuda"]
     p0 = st.params.flat.clone()
@@ -1497,21 +1600,246 @@ def phase_held_wires(dev) -> dict:
         cfg = PSConfig(num_workers=WORKERS, **kw)
         coarse = cfg.compress == "int8_2round" and cfg.opt_placement != "sharded"
         bound = 1e-2 * (cfg.effective_aggregate if coarse else 1)
-        moved = float((pc - p0).abs().max())
-        diff = (pc - pg).abs()
-        require(float(diff.max()) <= bound * moved,
-                f"held {name}: card vs CPU params differ by {float(diff.max())} "
-                f"(update {moved}, bound {bound} of it)")
-        frac = float((diff > 1e-6).float().mean())
-        require(frac <= 0.01, f"held {name}: {frac:.4f} of params differ by > 1e-6")
+        out[name] = _held_rule(name, pc, pg, p0, bound)
         require(skipped == 0.0, f"held {name}: the card skipped the step")
         want = expected_launches(cfg, pair["cpu"][0].params.tree())
         require(counts == want, f"held {name}: launches {counts}, expected {want}")
-        out[name] = {"max_abs_diff": float(diff.max()), "max_update": moved,
-                     "bound_fraction": bound, "frac_diff_gt_1e-6": frac, "loss_cpu": lc,
-                     "loss_cuda": lg, "launches": counts}
+        out[name].update({"bound_fraction": bound, "loss_cpu": lc, "loss_cuda": lg,
+                          "launches": counts})
     print("phase 13 wires held on the card vs CPU (LeNet, 8 workers): " + json.dumps(out))
     return out
+
+
+def phase_vgg(card: str) -> dict:
+    """Phase 18: the VGG family at full width through ``cli.train.main``
+    on phase 9's configuration (8 workers x 128, int8 per-tensor wire,
+    num-aggregate 5, f32 with TF32 off): VGG16 (BN) 20 steps with every
+    loss finite, no skipped step and the launches ``expected_launches``
+    derives from VGG16's 58-leaf tree (K2 once a step); its step p50 after
+    warm-up, images/s and peak memory, and the memory held after steps 1,
+    2, 3, 10 and 20, required flat from step 3 to 20 (or a step keeps what
+    it should free). Then
+    VGG16NoBN and VGG11 (BN) 3 steps each: finite losses, the same launch
+    rule."""
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.models import build_model
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    out = {}
+    for name, steps in (("VGG16", 20), ("VGG16NoBN", 3), ("VGG11", 3)):
+        flags = ["--network", name]
+        cfg = ps_config_from(parser.parse_args(TRAIN_ARGS + flags), WORKERS)
+        with torch.device("meta"):  # the tree's shapes, for the launch rule
+            params, _ = build_model(name).init(torch.Generator())
+        want = {k: v * steps for k, v in expected_launches(cfg, params).items()}
+        mem = []
+        res, peak, first_peak = _train_peak(steps, flags, reset_counts, per_step=mem)
+        got = read_counts()
+        losses = [h["loss"] for h in res["history"]]
+        require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                f"train {name}: losses {losses}")
+        require(got == want, f"train {name}: launches {got}, expected {want}")
+        rec = {"card": card, "steps": steps, "leaves": len(tree_leaves(params)),
+               "launches": got, "skipped_steps": res["train"]["skipped_steps"],
+               "loss_first": losses[0], "loss_last": losses[-1], "peak_mem_bytes": peak,
+               "peak_mem_first_run_bytes": first_peak,
+               "mem_after_step_bytes": {s_: mem[s_ - 1][0] for s_ in (1, 2, 3, 10, 20)
+                                        if s_ <= len(mem)},
+               "peak_after_step_bytes": {s_: mem[s_ - 1][1] for s_ in (1, 2, 3, 10, 20)
+                                         if s_ <= len(mem)}}
+        if steps >= 10:
+            require(res["train"]["skipped_steps"] == 0.0, f"train {name}: a step was skipped")
+            # what a step holds once it is done stays flat (64 MB of slack)
+            require(mem[-1][0] <= mem[2][0] + 2 ** 26,
+                    f"train {name}: {mem[-1][0]} bytes held after step {steps}, "
+                    f"{mem[2][0]} after step 3")
+            times = [h["time_cost"] for h in res["history"][3:]]
+            p50 = _step_p50(res["history"])
+            rec.update({"step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
+                        "step_ms_max": max(times) * 1e3, "images_per_s": WORKERS * 128 / p50})
+        out[name] = rec
+    print("phase 18 train VGG16 / VGG16NoBN / VGG11 int8 per-tensor: " + json.dumps(out))
+    return out
+
+
+def _fwd_bwd_peak(dtype, remat: bool) -> int:
+    """Peak memory of one worker's ResNet18 forward and backward on 128
+    CIFAR-10 images (the activations remat trades, and the gradients),
+    on its second run (the first picks cuDNN's engines)."""
+    from ps_pytorch_tpu_torch.models import apply_model, build_model, init_model
+    from ps_pytorch_tpu_torch.ops.metrics import cross_entropy_loss
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_flatten, tree_unflatten
+
+    dev = torch.device("cuda")
+    model = build_model("ResNet18", dtype=dtype, remat=remat)
+    params, bs = init_model(model, torch.Generator().manual_seed(0), device=dev)
+    leaves, skel = tree_flatten(params)
+    leaves = [t.requires_grad_(True) for t in leaves]
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(128, 32, 32, 3, generator=g, device=dev)
+    y = torch.randint(0, 10, (128,), generator=g, device=dev)
+
+    def run(base):
+        logits, _ = apply_model(model, tree_unflatten(skel, leaves), bs, x, train=True)
+        return torch.autograd.grad(cross_entropy_loss(logits, y), leaves)
+
+    _peak_of(run)
+    return _peak_of(run)[1]
+
+
+def phase_bf16(card: str, f32: dict) -> dict:
+    """Phase 19: phase 9's configuration at ``--dtype bfloat16``, 20 steps
+    (finite losses, K2 once a step), its step p50 and peak memory beside
+    phase 9's f32 ones from this run (``f32``); then ``--dtype bfloat16
+    --remat``, 3 steps (finite losses, K2 once a step), its peak memory
+    beside the bf16 run's (reported, not required to be lower)."""
+    _, k2c = _wire_entry(0)
+    out = {}
+    for name, steps, flags in (("bf16", 20, ["--dtype", "bfloat16"]),
+                               ("bf16_remat", 3, ["--dtype", "bfloat16", "--remat"])):
+        res, peak, first_peak = _train_peak(steps, flags,
+                                            lambda: setattr(k2c, "launches", 0))
+        k2 = k2c.launches
+        losses = [h["loss"] for h in res["history"]]
+        require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                f"train ResNet18 {name}: losses {losses}")
+        require(OTHER_TREE or k2 == steps,
+                f"train ResNet18 {name}: K2 called {k2} times, expected once a step")
+        rec = {"card": card, "flags": " ".join(flags), "steps": steps,
+               "launches": {k2c.__name__: k2}, "loss_first": losses[0],
+               "loss_last": losses[-1], "peak_mem_bytes": peak,
+               "peak_mem_first_run_bytes": first_peak}
+        if steps >= 10:
+            p50 = _step_p50(res["history"])
+            rec.update({"step_ms_p50": p50 * 1e3, "images_per_s": WORKERS * 128 / p50})
+        out[name] = rec
+    out["f32_phase9"] = {k: f32[k] for k in ("step_ms_p50", "images_per_s", "peak_mem_bytes",
+                                             "peak_mem_first_run_bytes")}
+    out["one_worker_fwd_bwd_peak_bytes"] = {
+        "f32": _fwd_bwd_peak(torch.float32, False),
+        "bf16": _fwd_bwd_peak(torch.bfloat16, False),
+        "bf16_remat": _fwd_bwd_peak(torch.bfloat16, True)}
+    print("phase 19 train ResNet18 bf16 / bf16 + remat beside f32: " + json.dumps(out))
+    return out
+
+
+def phase_held_vgg(dev) -> dict:
+    """Phase 20: one step at 8 workers (16 images each, synthetic
+    CIFAR-10, int8 per-tensor wire, num-aggregate 5) of a narrow VGG11-BN
+    (VGG11's table at an eighth of its widths), card against CPU on the
+    same params, batch and draws (augmentation, mask and Dropout
+    keep-masks from one ``draw_step``): with local BN statistics, and with
+    synced BN (``bn_mode="synced"``, a model built with ``bn_axis_name``).
+    Phase 10's rule; one K2 call a step on the card."""
+    from ps_pytorch_tpu_torch.data import make_preprocessor, make_synthetic
+    from ps_pytorch_tpu_torch.models import VGG, init_model
+    from ps_pytorch_tpu_torch.models.vgg import CFGS
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.mesh import WORKER_AXIS
+    from ps_pytorch_tpu_torch.parallel.ps import (
+        PSConfig,
+        draw_step,
+        init_ps_state,
+        make_ps_train_step,
+    )
+
+    narrow = tuple(v if v == "M" else v // 8 for v in CFGS["A"])
+    d = make_synthetic("Cifar10", train_size=WORKERS * 16, test_size=8, seed=4)
+    batch = {"image": d.train_images, "label": d.train_labels}
+    pre = make_preprocessor("Cifar10", True)
+    out = {}
+    for name, bn_mode, axis in (("vgg11_bn_narrow", "pmean", None),
+                                ("vgg11_bn_narrow_synced", "synced", WORKER_AXIS)):
+        model = VGG(cfg=narrow, batch_norm=True, bn_axis_name=axis)
+        cfg = PSConfig(num_workers=WORKERS, compress="int8", num_aggregate=5, bn_mode=bn_mode)
+        params, bs = init_model(model, torch.Generator().manual_seed(5), device="cpu")
+        draws = draw_step(cfg, 3, 0, 16, pre, model)
+        res = {}
+        for key in ("cpu", "cuda"):
+            d_ = "cpu" if key == "cpu" else dev
+            tx = build_optimizer("sgd", 0.02, momentum=0.9)
+            st = init_ps_state(model, tx, cfg, params=params, batch_stats=bs, device=d_)
+            step = make_ps_train_step(model, tx, cfg, preprocess=pre, device=d_)
+            p0 = st.params.flat.detach().cpu().clone()
+            reset_counts()
+            st, m = step(st, batch, draws)
+            res[key] = (st.params.flat.detach().cpu(), p0, float(m["loss"]), read_counts(),
+                        float(m["skipped_steps"]))
+        (pc, p0, lc, _, _), (pg, _, lg, counts, skipped) = res["cpu"], res["cuda"]
+        rec = _held_rule(name, pc, pg, p0)
+        require(skipped == 0.0, f"held {name}: the card skipped the step")
+        require(counts["quantize_tensors"] == 1 and sum(counts.values()) == 1,
+                f"held {name}: launches {counts}, expected one K2 call")
+        rec.update({"loss_cpu": lc, "loss_cuda": lg, "launches": counts})
+        out[name] = rec
+    print("phase 20 VGG11-BN narrow and synced BN held on the card vs CPU: "
+          + json.dumps(out))
+    return out
+
+
+def phase_events(card: str) -> dict:
+    """Phase 21: the trainer's event stream on phase 9's configuration.
+    First the tracer's host cost: 8 steps without ``--trace`` and 8 with,
+    in turns, twice, each run's step p50 after warm-up. Then one run with
+    ``--metrics-file``, ``--trace``, ``--mode straggler --kill-threshold
+    0.02`` (below a step), ``--straggler-storm-n 2`` and the fault plan
+    ``{"sigterm": 4}`` for up to 6 steps: it stops at step 4 with
+    ``model_step_4`` written and validation skipped; ``--resume`` runs
+    steps 5-6. Every record passes the port's ``validate_event``, the
+    stream holds ``straggler`` before ``straggler_storm``, the trace holds
+    ``dispatch``, ``sync`` and ``ckpt_save`` spans, and K2 ran once a
+    step."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.obs.schema import validate_event
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_events_")
+    cost = {"off": [], "on": []}
+    for rep in range(2):
+        for mode in ("off", "on"):
+            extra = ["--trace", os.path.join(tmp, f"cost{rep}")] if mode == "on" else []
+            cost[mode].append(_step_p50(_train(8, extra)["history"]) * 1e3)
+    mfile, tdir, cdir = (os.path.join(tmp, x) for x in ("m.jsonl", "trace", "ck"))
+    args = ["--metrics-file", mfile, "--trace", tdir, "--mode", "straggler",
+            "--kill-threshold", "0.02", "--straggler-storm-n", "2", "--train-dir", cdir,
+            "--eval-freq", "0"]
+    _, k2c = _wire_entry(0)
+    k2c.launches = 0
+    first = _train(6, args + ["--fault-plan", '{"sigterm": 4}'], checkpoints=True)
+    steps1 = [h["step"] for h in first["history"]]
+    require(steps1 == [1, 2, 3, 4] and first["val"] is None,
+            f"events: the SIGTERM run took steps {steps1} (val {first['val']})")
+    require(ckpt.available_steps(cdir) == [4],
+            f"events: checkpoints {ckpt.available_steps(cdir)} after the stop")
+    second = _train(6, args + ["--resume"], checkpoints=True)
+    steps2 = [h["step"] for h in second["history"]]
+    require(steps2 == [5, 6], f"events: the resume took steps {steps2}")
+    require(ckpt.available_steps(cdir) == [4, 6], "events: no model_step_6 after the resume")
+    k2 = k2c.launches
+    require(OTHER_TREE or k2 == 6, f"events: K2 called {k2} times in 6 steps")
+    with open(mfile) as f:
+        recs = [json.loads(line) for line in f]
+    for r in recs:
+        validate_event(dict(r))
+    kinds = [r["kind"] for r in recs]
+    require("straggler" in kinds and "straggler_storm" in kinds
+            and kinds.index("straggler") < kinds.index("straggler_storm"),
+            f"events: no straggler then straggler_storm in {kinds}")
+    with open(os.path.join(tdir, "trace_train_p0.jsonl")) as f:
+        spans = [json.loads(line) for line in f]
+    names = {r.get("name") for r in spans if r["kind"] == "span"}
+    require({"dispatch", "sync", "ckpt_save"} <= names, f"events: trace spans {sorted(names)}")
+    rec = {"card": card, "records": len(recs),
+           "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+           "spans": {n: sum(1 for r in spans if r.get("name") == n) for n in sorted(names)},
+           "steps": steps1 + steps2, "launches": {k2c.__name__: k2},
+           "checkpoints": ckpt.available_steps(cdir),
+           "tracer_cost_step_ms_p50": cost,
+           "tracer_cost_fraction": float(np.median(cost["on"]) / np.median(cost["off"]) - 1)}
+    print("phase 21 event stream, watchdog, SIGTERM stop and resume: " + json.dumps(rec))
+    return rec
 
 
 def _flash_counters():
@@ -1796,8 +2124,8 @@ def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12b, 14; "
-                         "2 on this tree only)")
+                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12b, 14, "
+                         "18, 19, 20, 21; 2 on this tree only)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
     args = ap.parse_args(argv)
@@ -1836,7 +2164,11 @@ def main(argv=None) -> int:
                                                 "round2": round2_step_case(dev)})),
                  9: lambda: phase_train(smi),
                  "12b": lambda: phase_checkpoint(smi),
-                 14: lambda: phase_flash_train_kernels(dev)}
+                 14: lambda: phase_flash_train_kernels(dev),
+                 18: lambda: phase_vgg(smi),
+                 19: lambda: phase_bf16(smi, phase_train(smi)),
+                 20: lambda: phase_held_vgg(dev),
+                 21: lambda: phase_events(smi)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -1865,6 +2197,10 @@ def main(argv=None) -> int:
                        "float32")
     phase_lm(smi, "phase 16 LM-ring train_lm dp 1 x sp 4 flash", 5, 4, 2, 8192)
     held = phase_lm_held(dev)
+    vgg = phase_vgg(smi)
+    bf16 = phase_bf16(smi, train)
+    phase_held_vgg(dev)
+    events = phase_events(smi)
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -1929,8 +2265,11 @@ def main(argv=None) -> int:
             "source": "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
             "replaces": "ps_pytorch_tpu/ops/quantize.py:78",
             "launches": train["launches"]["quantize_tensors"],
-            # phase 12b's resumed run (steps 11-15), this slice's path
+            # phase 12b's resumed run (steps 11-15), and phases 18, 19, 21
             "launches_checkpoint_resume": ckpt_rec["resume_launches"]["quantize_tensors"],
+            "launches_vgg16": vgg["VGG16"]["launches"]["quantize_tensors"],
+            "launches_resnet18_bf16": bf16["bf16"]["launches"]["quantize_tensors"],
+            "launches_event_stream": events["launches"]["quantize_tensors"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],

@@ -113,13 +113,15 @@ class AsyncCheckpointer:
     thread, at a consistent step boundary; the msgpack and the atomic
     write run on one background thread, at most one write in flight
     (``save`` waits for the previous one). ``wait()`` drains it. A write
-    that fails is logged on the writer thread when it fails, then raised
-    from the next ``save()`` / ``wait()`` as a ``CheckpointWriteError``
-    carrying the step and path."""
+    that fails is logged, and reported through ``event_sink`` as a
+    ``ckpt_write_failed`` record, on the writer thread when it fails, then
+    raised from the next ``save()`` / ``wait()`` as a
+    ``CheckpointWriteError`` carrying the step and path."""
 
-    def __init__(self, faults=None):
+    def __init__(self, event_sink=None, faults=None):
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
         self._pending = None
+        self._event_sink = event_sink
         self._faults = faults
 
     def save(self, state, model_dir: str, step: int) -> None:
@@ -133,6 +135,12 @@ class AsyncCheckpointer:
             return _write_host_state(host_state, model_dir, step, faults=self._faults)
         except Exception as e:
             logger.error("checkpoint write failed (step %d, %s): %s", step, path, e)
+            if self._event_sink is not None:
+                try:
+                    self._event_sink({"kind": "ckpt_write_failed", "step": step,
+                                      "path": path, "error": str(e)})
+                except Exception:
+                    logger.exception("ckpt_write_failed event sink raised")
             raise CheckpointWriteError(step, path, e) from e
 
     def wait(self) -> None:

@@ -50,9 +50,14 @@ def add_train_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--profile-dir", type=str, default=None)
     a("--profile-start", type=int, default=None)
     a("--profile-steps", type=int, default=d.profile_steps)
-    a("--trace", type=str, default=None, metavar="DIR")
-    a("--remat", action="store_true")
-    a("--metrics-file", type=str, default=None)
+    a("--trace", type=str, default=None, metavar="DIR",
+      help="write the loop's host spans to DIR/trace_train_p0.jsonl")
+    a("--remat", action="store_true",
+      help="recompute each ResNet block in the backward pass (saves memory)")
+    a("--metrics-file", type=str, default=None,
+      help="append the run's events, one JSON record a line")
+    # --mode other than normal arms the straggler watchdog at
+    # --kill-threshold seconds a step (a record, nothing is killed)
     a("--mode", type=str, default="normal")
     a("--kill-threshold", type=float, default=7.0)
     a("--comm-type", type=str, default="Bcast")
@@ -60,8 +65,8 @@ def add_train_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--straggler-storm-n", type=int, default=d.straggler_storm_n)
     a("--max-consecutive-skips", type=int, default=d.max_consecutive_skips)
     a("--fault-plan", type=str, default=None,
-      help="a JSON FaultPlan (nan_grads, inf_grads, ckpt_write_fail, ckpt_corrupt: "
-           "lists of steps) or @path")
+      help="a JSON FaultPlan (nan_grads, inf_grads, slow_steps, ckpt_write_fail, "
+           "ckpt_corrupt: lists of steps; slow_s: seconds; sigterm: one step) or @path")
     a("--adapt-window", type=int, default=d.adapt_window)
     a("--wire-budget-bytes", type=int, default=None)
     return parser

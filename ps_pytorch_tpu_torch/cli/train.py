@@ -13,6 +13,13 @@ Without ``--device cpu`` and without a card it raises.
 Checkpoints: ``model_step_N`` in ``--train-dir`` every ``--eval-freq``
 steps and after the last (``--no-checkpoints``: none), in the JAX
 package's bytes; ``--resume`` continues from the newest valid one.
+SIGTERM / SIGINT stop the run gracefully after the current step, with a
+checkpoint written and validation skipped.
+
+The event stream: ``--metrics-file F`` (one JSON record a line),
+``--trace DIR`` (host spans, ``tools/trace_report.py DIR`` merges them),
+``--mode straggler --kill-threshold S`` (the straggler watchdog) with
+``--straggler-storm-n K``.
 """
 
 from __future__ import annotations
@@ -43,9 +50,22 @@ def main(argv=None) -> dict:
     tcfg = train_config_from(args)
     pcfg = ps_config_from(args, args.num_workers or 1)
     trainer = Trainer(tcfg, pcfg, device=args.device)
-    metrics = trainer.train()
+    # SIGTERM / SIGINT -> checkpoint and a clean return; rerun with --resume
+    trainer.install_signal_handlers()
+    try:
+        metrics = trainer.train()
+    finally:
+        # past the loop nothing reads the stop flag: Ctrl-C during
+        # validation (or in an embedding program) acts as before
+        trainer.restore_signal_handlers()
     logger.info("training done: %s", metrics)
-    val = trainer.validate()
+    val = None
+    if trainer.stop_requested:
+        # preemption: the checkpoint is written; exit inside the grace
+        # window instead of starting a validation pass
+        logger.warning("stopped by signal: skipping validation")
+    else:
+        val = trainer.validate()
     return {"train": metrics, "val": val, "history": trainer.history, "trainer": trainer}
 
 

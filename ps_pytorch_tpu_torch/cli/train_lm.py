@@ -15,8 +15,9 @@ Every flag of the JAX CLI parses, plus ``--device`` (default ``cuda``;
 without a card it raises unless ``--device cpu``). ``--num-sp 0`` means
 all remaining devices, which on the one card is 1. Values this slice
 does not run are refused with a pointer to ROADMAP.md: the other
-``--parallelism`` schemes, ``--optimizer adam|amsgrad``,
-``--metrics-file`` and ``--profile-dir``.
+``--parallelism`` schemes, ``--optimizer adam|amsgrad`` and
+``--profile-dir``. ``--metrics-file F`` appends a ``run_header`` and one
+``train_lm`` record a log window, as the JAX CLI does.
 
 ``--train-dir DIR`` writes ``model_step_N`` every ``--eval-freq`` steps
 and after the last: the dict the JAX CLI's ``save_lm_checkpoint`` writes
@@ -42,6 +43,7 @@ import torch
 from .. import resolve_device
 from ..checkpoint import save_checkpoint
 from ..models.transformer import TransformerConfig, init_transformer
+from ..obs import run_header
 from ..optim import build_optimizer
 from ..optim.schedules import (
     constant_schedule,
@@ -51,6 +53,7 @@ from ..optim.schedules import (
 )
 from ..parallel.buckets import tree_leaves
 from ..parallel.dp_sp import make_lm_train_step, make_mesh_2d, shard_tokens_2d
+from ..trainer import append_metrics_line
 from ..utils import format_iter_line, get_logger, host_sync
 
 logger = get_logger()
@@ -153,10 +156,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             f"--parallelism {args.parallelism} is not ported yet (ROADMAP.md "
             "queue 1 item 19): the port runs dp_sp")
-    if args.metrics_file is not None:
-        raise NotImplementedError(
-            "--metrics-file (the metrics JSONL) is not ported yet (ROADMAP.md "
-            "queue 1 item 10)")
     if args.profile_dir is not None:
         raise NotImplementedError(
             "--profile-dir is not ported yet (ROADMAP.md queue 1 item 16); "
@@ -202,6 +201,9 @@ def main(argv=None) -> dict:
     n_params = sum(int(x.numel()) for x in tree_leaves(params))
     logger.info("LM %dx d%d h%d (%d params), seq %d, %s on %s", args.depth, args.dim,
                 args.heads, n_params, args.seq_len, layout, dev)
+    append_metrics_line(args.metrics_file, run_header("train_lm", geometry={
+        "parallelism": args.parallelism, "dim": args.dim, "depth": args.depth,
+        "heads": args.heads, "seq_len": args.seq_len, "params": n_params}))
 
     def save_lm_checkpoint(step_no: int) -> None:
         # cli/train_lm.py:397-420 of the JAX package: the dp_sp params are
@@ -248,8 +250,10 @@ def main(argv=None) -> dict:
                 total=args.max_steps * args.batch_size, loss=loss, time_cost=dt,
                 forward=dt,
             ))
-            history.append({"kind": "train_lm", "parallelism": args.parallelism,
-                            "step": step_no, "loss": loss, "time_cost": round(dt, 6)})
+            record = {"kind": "train_lm", "parallelism": args.parallelism,
+                      "step": step_no, "loss": loss, "time_cost": round(dt, 6)}
+            history.append(record)
+            append_metrics_line(args.metrics_file, record)
         if args.eval_freq > 0 and step_no % args.eval_freq == 0:
             save_lm_checkpoint(step_no)
     if steady_t0 is not None:
@@ -258,8 +262,7 @@ def main(argv=None) -> dict:
                   "steady_elapsed_s": time.perf_counter() - steady_t0}
     if args.eval_freq <= 0 or args.max_steps % args.eval_freq:
         save_lm_checkpoint(args.max_steps)
-    # history: the per-log-window records the JAX CLI appends to
-    # --metrics-file, kept in memory here
+    # history: the per-log-window records, also in --metrics-file
     return {"loss": float(loss), "params": n_params, **steady, "history": history}
 
 

@@ -1,12 +1,15 @@
 """Models of the port: the CNN zoo of the PS training path (LeNet, the
-ResNet family) and the dense transformer LM of the serving path.
+ResNet family, VGG11-19 with and without BatchNorm) and the dense
+transformer LM of the serving path.
 
 ``build_model`` / ``init_model`` / ``apply_model`` keep the JAX factory's
 contract (models/__init__.py): a model is a small frozen description,
 its params and BatchNorm stats are trees of tensors with the flax names
 and layouts, and ``apply_model`` returns ``(logits, new_batch_stats)``.
-The VGG names are registered as in JAX and raise ``NotImplementedError``
-until they are ported (ROADMAP.md).
+``dtype`` is the compute dtype (f32 or bf16 over f32 params), ``remat``
+recomputes the ResNets' blocks in the backward pass, and
+``bn_axis_name`` marks a synced-BatchNorm model, which the PS step runs
+layer-synchronously over its workers (``parallel/ps.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,10 @@ from .transformer import (
     apply_transformer,
     init_transformer,
 )
+from .vgg import VGG, vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16, vgg16_bn, vgg19, vgg19_bn
 
+# names as the reference CLI spells them (util.py:10-19), and the depths it
+# defines but never wires
 MODEL_REGISTRY = {
     "LeNet": LeNet,
     "ResNet18": ResNet18,
@@ -43,39 +49,41 @@ MODEL_REGISTRY = {
     "ResNet50": ResNet50,
     "ResNet101": ResNet101,
     "ResNet152": ResNet152,
+    "VGG11": vgg11_bn,  # the reference maps "VGG11" to vgg11_bn (util.py:18-19)
+    "VGG11NoBN": vgg11,
+    "VGG13": vgg13_bn,
+    "VGG13NoBN": vgg13,
+    "VGG16": vgg16_bn,
+    "VGG16NoBN": vgg16,
+    "VGG19": vgg19_bn,
+    "VGG19NoBN": vgg19,
 }
-# registered in the JAX package (models/vgg.py), not ported yet
-VGG_NAMES = ("VGG11", "VGG11NoBN", "VGG13", "VGG13NoBN", "VGG16", "VGG16NoBN",
-             "VGG19", "VGG19NoBN")
 
 INPUT_SHAPES = {"LeNet": (28, 28, 1)}
 DEFAULT_INPUT_SHAPE = (32, 32, 3)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_model(model_name: str, num_classes: int = 10,
-                dtype: torch.dtype = torch.float32, bn_axis_name=None,
+                dtype: torch.dtype = torch.float32, bn_axis_name: Optional[str] = None,
                 remat: bool = False):
-    """Construct a model by CLI name (parity: util.py:8-19)."""
-    if model_name in VGG_NAMES:
-        raise NotImplementedError(
-            f"{model_name}: the VGG family is not ported yet (ROADMAP.md queue 1 "
-            f"item 2)"
-        )
+    """Construct a model by CLI name (parity: util.py:8-19). ``remat``
+    is for the ResNet family only (LeNet and VGG are too shallow for it
+    to matter), as in the JAX factory."""
     if model_name not in MODEL_REGISTRY:
         raise ValueError(
-            f"unknown model {model_name!r}; choose from "
-            f"{sorted(MODEL_REGISTRY) + list(VGG_NAMES)}"
+            f"unknown model {model_name!r}; choose from {sorted(MODEL_REGISTRY)}"
         )
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "bf16 compute for the CNNs is not ported yet (ROADMAP.md); f32 only"
-        )
-    if bn_axis_name is not None:
-        raise NotImplementedError(
-            "synced (cross-replica) BatchNorm is not ported yet (ROADMAP.md)")
-    if remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP.md)")
-    return MODEL_REGISTRY[model_name](num_classes=num_classes)
+    if dtype not in COMPUTE_DTYPES.values():
+        raise ValueError(f"unsupported compute dtype {dtype} (float32 or bfloat16)")
+    kwargs = dict(num_classes=num_classes, dtype=dtype)
+    if model_name != "LeNet":
+        kwargs["bn_axis_name"] = bn_axis_name
+    if model_name.startswith("ResNet"):
+        kwargs["remat"] = remat
+    elif remat:
+        raise ValueError(f"remat is only supported for the ResNet family, not {model_name!r}")
+    return MODEL_REGISTRY[model_name](**kwargs)
 
 
 def input_shape_for(model_name: str) -> Tuple[int, int, int]:
@@ -93,9 +101,19 @@ def init_model(model, generator: Optional[torch.Generator] = None,
     return on_device(params, dev), on_device(batch_stats, dev)
 
 
-def apply_model(model, params, batch_stats, x: torch.Tensor, train: bool = False):
-    """Uniform apply: NHWC ``x`` -> ``(logits, new_batch_stats)``."""
-    return model.apply(params, batch_stats, x, train=train)
+def apply_model(model, params, batch_stats, x: torch.Tensor, train: bool = False,
+                dropout=None):
+    """Uniform apply: NHWC ``x`` -> ``(logits, new_batch_stats)``.
+    ``dropout``: the Dropout keep-masks a train-mode VGG needs (the role
+    of JAX's ``dropout_rng``; ``draw_dropout`` makes them)."""
+    return model.apply(params, batch_stats, x, train=train, dropout=dropout)
+
+
+def draw_dropout(model, batch_size: int, generator: torch.Generator) -> list:
+    """One batch's Dropout keep-masks for ``model`` (none for a model
+    without Dropout), drawn from ``generator`` on its device."""
+    draw = getattr(model, "draw_dropout", None)
+    return draw(batch_size, generator) if draw is not None else []
 
 
 def param_count(params) -> int:
@@ -113,10 +131,12 @@ __all__ = [
     "ResNet18",
     "TransformerConfig",
     "TransformerLM",
+    "VGG",
     "apply_model",
     "apply_transformer",
     "build_model",
     "cnn_from_jax",
+    "draw_dropout",
     "generate",
     "init_kv_cache",
     "init_model",

@@ -13,6 +13,20 @@ update ``var = 0.9 * var + 0.1 * batch_var`` (PyTorch's own BatchNorm
 keeps the unbiased one). Initializers keep flax's distributions
 (variance scaling, truncated normal); the values come from a
 ``torch.Generator`` and differ from ``jax.random``'s.
+
+Compute dtype (flax's ``dtype=``): each layer runs in its input's dtype
+and casts its f32 params to it, so a model that casts its input to bf16
+computes in bf16 over f32 params, and the gradients land back in f32.
+BatchNorm follows flax's casts: statistics reduced in f32, the normalize
+in f32, the output in the input's dtype, the running stats in f32.
+
+Worker-stacked params (synced BatchNorm): a leaf with a leading worker
+dim (a ``[N, kh, kw, in, out]`` kernel, ``[N, C]`` BN scale) is each of
+N workers' own copy, and the batch's rows are the N workers' batches in
+order. Each worker's rows go through its own copy; BatchNorm reduces its
+statistics over every worker's rows, as flax's ``axis_name`` pmean does
+across devices, so one backward of the summed losses gives each copy
+its gradient, the cross-worker terms included.
 """
 
 from __future__ import annotations
@@ -58,15 +72,42 @@ def lecun_normal(shape, generator):
     return variance_scaling(shape, 1.0, "fan_in", generator)
 
 
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
 def conv(x: torch.Tensor, p: Dict, stride: int = 1, padding=0) -> torch.Tensor:
-    """NCHW ``x`` through an HWIO kernel (and bias, if the leaf has one)."""
-    w = p["kernel"].permute(3, 2, 0, 1)
-    return F.conv2d(x, w, p.get("bias"), stride=stride, padding=padding)
+    """NCHW ``x`` through an HWIO kernel (and bias, if the leaf has one),
+    in ``x``'s dtype; a worker-stacked kernel convolves each worker's
+    rows with its own copy."""
+    w, b = p["kernel"].to(x.dtype), _cast(p.get("bias"), x.dtype)
+    if w.dim() == 4:
+        return F.conv2d(x, w.permute(3, 2, 0, 1), b, stride=stride, padding=padding)
+    return torch.cat([
+        F.conv2d(xw, w[i].permute(3, 2, 0, 1), None if b is None else b[i], stride=stride,
+                 padding=padding)
+        for i, xw in enumerate(x.chunk(w.shape[0]))])
 
 
 def dense(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    out = x @ p["kernel"]
-    return out + p["bias"] if "bias" in p else out
+    """``x @ kernel + bias`` in ``x``'s dtype; a worker-stacked kernel
+    multiplies each worker's rows by its own copy."""
+    k, b = p["kernel"].to(x.dtype), _cast(p.get("bias"), x.dtype)
+    if k.dim() == 2:
+        out = x @ k
+        return out + b if b is not None else out
+    out = torch.bmm(x.reshape(k.shape[0], -1, x.shape[-1]), k)
+    if b is not None:
+        out = out + b[:, None, :]
+    return out.reshape(-1, k.shape[-1])
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(keep, x / (1 - rate), 0)``, the
+    division as the reciprocal multiply XLA makes of it under jit
+    (``x * 2`` at rate 0.5). ``keep`` is the caller's boolean draw."""
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
 
 
 def init_batch_norm(c: int) -> Tuple[Dict, Dict]:
@@ -74,22 +115,45 @@ def init_batch_norm(c: int) -> Tuple[Dict, Dict]:
             {"mean": torch.zeros(c), "var": torch.ones(c)})
 
 
+def _running(stats: Dict, x: torch.Tensor) -> Dict:
+    """flax's running update from the biased batch statistics of ``x``,
+    reduced in f32."""
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+        return {"mean": BN_MOMENTUM * stats["mean"] + (1.0 - BN_MOMENTUM) * mean,
+                "var": BN_MOMENTUM * stats["var"] + (1.0 - BN_MOMENTUM) * var}
+
+
 def batch_norm(x: torch.Tensor, p: Dict, stats: Dict, train: bool,
                new_stats: Dict, name: str) -> torch.Tensor:
     """flax ``nn.BatchNorm`` over NCHW ``x``. In train mode it normalizes
     with the batch statistics and writes ``name``'s updated running
-    stats into ``new_stats``; in eval mode it reads the running ones."""
+    stats into ``new_stats``; in eval mode it reads the running ones.
+    A bf16 ``x`` is normalized in f32 against f32 params and stats
+    (``F.batch_norm``'s mixed-dtype path) and comes out in bf16."""
+    scale, bias = p["scale"], p["bias"]
+    if scale.dim() == 2:
+        return _synced_batch_norm(x, scale, bias, stats, train, new_stats, name)
     if not train:
-        return F.batch_norm(x, stats["mean"], stats["var"], p["scale"], p["bias"],
-                            training=False, eps=BN_EPS)
-    with torch.no_grad():
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-        new_stats[name] = {
-            "mean": BN_MOMENTUM * stats["mean"] + (1.0 - BN_MOMENTUM) * mean,
-            "var": BN_MOMENTUM * stats["var"] + (1.0 - BN_MOMENTUM) * var,
-        }
-    return F.batch_norm(x, None, None, p["scale"], p["bias"], training=True,
-                        eps=BN_EPS)
+        return F.batch_norm(x, stats["mean"], stats["var"], scale, bias, training=False,
+                            eps=BN_EPS)
+    new_stats[name] = _running(stats, x)
+    return F.batch_norm(x, None, None, scale, bias, training=True, eps=BN_EPS)
+
+
+def _synced_batch_norm(x, scale, bias, stats, train, new_stats, name):
+    """BatchNorm over the rows of every worker (statistics shared), then
+    each worker's own affine, in f32; the output in ``x``'s dtype."""
+    n = scale.shape[0]
+    if train:
+        new_stats[name] = _running(stats, x)
+        xhat = F.batch_norm(x.float(), None, None, training=True, eps=BN_EPS)
+    else:
+        xhat = F.batch_norm(x.float(), stats["mean"], stats["var"], training=False,
+                            eps=BN_EPS)
+    y = xhat.reshape(n, -1, *x.shape[1:]) * scale[:, None, :, None, None] \
+        + bias[:, None, :, None, None]
+    return y.reshape(x.shape).to(x.dtype)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -40,8 +40,10 @@ class LeNet:
         return params, {}
 
     def apply(self, params: Dict, batch_stats: Dict, x: torch.Tensor,
-              train: bool = False) -> Tuple[torch.Tensor, Dict]:
-        x = nhwc_to_nchw(x.float())
+              train: bool = False, dropout=None) -> Tuple[torch.Tensor, Dict]:
+        """NHWC ``x`` -> f32 logits, computed in ``dtype`` (no BatchNorm,
+        no Dropout: ``train`` and ``dropout`` change nothing)."""
+        x = nhwc_to_nchw(x.to(self.dtype))
         x = F.relu(F.max_pool2d(conv(x, params["Conv_0"]), 2, 2))
         x = F.relu(F.max_pool2d(conv(x, params["Conv_1"]), 2, 2))
         x = dense(flatten_nhwc(x), params["Dense_0"])

@@ -9,16 +9,22 @@ ResNet18 has 62 parameter leaves.
 
 Convolutions and their gradients are cuDNN calls (``F.conv2d`` and
 autograd), as the JAX package left them to XLA: no Pallas kernel runs on
-this path. ``remat`` and bf16 compute are not ported (ROADMAP.md).
+this path. ``dtype`` is the compute dtype (bf16 over f32 params, logits
+in f32). ``remat`` recomputes each residual block's activations in the
+backward pass (``torch.utils.checkpoint``, non-reentrant), as flax's
+``nn.remat`` does; the tree keeps the same keys. The recompute writes
+no BatchNorm stats: the block's first run records them, so they are the
+forward's bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import (
     batch_norm,
@@ -106,6 +112,8 @@ class ResNet:
     num_blocks: Sequence[int]
     num_classes: int = 10
     dtype: torch.dtype = torch.float32
+    bn_axis_name: Optional[str] = None
+    remat: bool = False
 
     def _blocks(self):
         """(name, block, in_planes) of every residual block in order."""
@@ -135,21 +143,45 @@ class ResNet:
         return params, stats
 
     def apply(self, params: Dict, batch_stats: Dict, x: torch.Tensor,
-              train: bool = False) -> Tuple[torch.Tensor, Dict]:
+              train: bool = False, dropout=None) -> Tuple[torch.Tensor, Dict]:
+        """NHWC ``x`` -> ``(f32 logits, batch stats)`` (no Dropout:
+        ``dropout`` changes nothing)."""
         new_stats: Dict = {}
-        x = nhwc_to_nchw(x.float())
+        x = nhwc_to_nchw(x.to(self.dtype))
         x = conv(x, params["Conv_0"], 1, 1)
         x = F.relu(batch_norm(x, params["BatchNorm_0"], batch_stats["BatchNorm_0"],
                               train, new_stats, "BatchNorm_0"))
         blocks, _ = self._blocks()
+        remat = self.remat and torch.is_grad_enabled()
         for name, blk, _ in blocks:
             sub: Dict = {}
-            x = blk(x, params[name], batch_stats[name], train, sub)
+            if remat:
+                x = _remat_block(blk, x, params[name], batch_stats[name], train, sub)
+            else:
+                x = blk(x, params[name], batch_stats[name], train, sub)
             if train:
                 new_stats[name] = sub
         x = F.avg_pool2d(x, 4, 4)
         logits = dense(flatten_nhwc(x), params["Dense_0"]).float()
         return logits, (new_stats if train else batch_stats)
+
+
+def _remat_block(blk, x, p, stats, train, new_stats):
+    """``blk`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward pass. Only the first run writes its
+    BatchNorm stats into ``new_stats``: the recompute (whose convolutions
+    may pick other algorithms) leaves them alone."""
+    ran = []
+
+    def run(inp):
+        sub: Dict = {}
+        out = blk(inp, p, stats, train, sub)
+        if not ran:
+            new_stats.update(sub)
+            ran.append(True)
+        return out
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def ResNet18(num_classes: int = 10, **kw) -> ResNet:

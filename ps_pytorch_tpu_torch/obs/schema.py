@@ -1,6 +1,7 @@
 """The event schema for the port's JSONL streams (a host-only copy of the
-JAX package's obs/schema.py, trimmed to the kinds the serving slice
-emits; the training kinds arrive with the training slice).
+JAX package's obs/schema.py, with the kinds the port emits: the serving
+loop's and the training loop's; ``mask_adapt`` and ``precision_adapt``
+come with the adaptive controllers, ROADMAP.md queue 1 item 15).
 
 ``validate_event`` rejects unknown kinds and missing fields and coerces
 the declared int fields. A stream begins with one ``run_header`` record
@@ -33,6 +34,56 @@ EVENT_KINDS: Dict[str, EventSpec] = {
         required=("run_id", "schema_version", "component", "t_mono"),
         int_fields=("schema_version", "pid"),
         doc="stream identity + clock base; first record of every stream",
+    ),
+    "train": EventSpec(
+        required=("step", "loss", "time_cost"),
+        int_fields=("step", "epoch", "skipped_steps", "skip_streak"),
+        doc="one per log window: window-averaged step walltime + metrics",
+    ),
+    "eval": EventSpec(
+        required=("step", "loss"),
+        int_fields=("step",),
+        doc="full-test-split validation pass",
+    ),
+    "train_lm": EventSpec(
+        required=("step", "loss", "time_cost"),
+        int_fields=("step",),
+        doc="LM trainer log window (cli/train_lm.py)",
+    ),
+    "grad_skip": EventSpec(
+        required=("step", "skipped_steps", "skip_streak"),
+        int_fields=("step", "skipped_steps", "skip_streak"),
+        doc="non-finite guard skipped >=1 step since the last window",
+    ),
+    "straggler": EventSpec(
+        required=("step", "time_cost", "threshold"),
+        int_fields=("step",),
+        doc="one slow step (watchdog armed, below storm escalation)",
+    ),
+    "straggler_storm": EventSpec(
+        required=("step", "start_step", "consecutive", "threshold"),
+        int_fields=("step", "start_step", "consecutive"),
+        doc="N consecutive slow steps escalated into one condition",
+    ),
+    "straggler_storm_end": EventSpec(
+        required=("step", "start_step", "consecutive"),
+        int_fields=("step", "start_step", "consecutive"),
+        doc="storm closed; carries the true span length",
+    ),
+    "resume_reshape": EventSpec(
+        required=("step", "from", "to"),
+        int_fields=("step",),
+        doc="elastic resume re-carved the checkpoint onto a new geometry",
+    ),
+    "ckpt_quarantined": EventSpec(
+        required=("step", "path"),
+        int_fields=("step",),
+        doc="corrupt checkpoint renamed *.corrupt during resume fallback",
+    ),
+    "ckpt_write_failed": EventSpec(
+        required=("step", "path", "error"),
+        int_fields=("step",),
+        doc="checkpoint write failed (reported at failure time)",
     ),
     "span": EventSpec(
         required=("name", "t", "dur"),
@@ -95,9 +146,11 @@ def validate_event(record: dict) -> dict:
     return record
 
 
-def run_header(component: str, run_id: Optional[str] = None) -> dict:
+def run_header(component: str, run_id: Optional[str] = None,
+               geometry: Optional[dict] = None) -> dict:
     """The stream-opening run_header record (t_wall and t_mono are one
-    paired sample; pid 0: one process per stream)."""
+    paired sample; pid 0: one process per stream); ``geometry`` says
+    enough to read the stream without the command line that made it."""
     rec = {
         "kind": "run_header",
         "run_id": run_id or new_run_id(),
@@ -107,4 +160,6 @@ def run_header(component: str, run_id: Optional[str] = None) -> dict:
         "t_mono": round(time.perf_counter(), 6),
         "pid": 0,
     }
+    if geometry is not None:
+        rec["geometry"] = geometry
     return rec

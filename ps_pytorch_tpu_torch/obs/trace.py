@@ -1,5 +1,5 @@
-"""Low-overhead host-side span tracer for the serve tick (a host-only copy
-of the JAX package's obs/trace.py).
+"""Low-overhead host-side span tracer for the serve tick and the training
+loop (a host-only copy of the JAX package's obs/trace.py).
 
 A span reads ``time.perf_counter()`` twice and appends a dict to a
 bounded ring; nothing here touches the device, so tracing adds no
@@ -101,11 +101,12 @@ class Tracer:
     enabled = True
 
     def __init__(self, component: str, path: Optional[str] = None,
-                 ring: int = 65536, annotate: bool = False):
+                 ring: int = 65536, annotate: bool = False,
+                 run_id: Optional[str] = None, geometry: Optional[dict] = None):
         self.component = component
         self.path = path
-        self.run_id = new_run_id()
-        self.header = run_header(component, run_id=self.run_id)
+        self.run_id = run_id or new_run_id()
+        self.header = run_header(component, run_id=self.run_id, geometry=geometry)
         self._base = self.header["t_mono"]
         self._buf: collections.deque = collections.deque(maxlen=max(ring, 1))
         self._stack: List[str] = []

@@ -49,20 +49,24 @@ class _Leaf:
         self.index = index
 
 
+def _skeleton(node, leaves: List[Any]):
+    """``node``'s skeleton, its leaves appended to ``leaves``. A module
+    function, not a recursive closure: a closure that names itself is a
+    reference cycle, which would keep every leaf (a step's gradients on
+    the card) alive until the garbage collector runs."""
+    if isinstance(node, dict):
+        return {k: _skeleton(node[k], leaves) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_skeleton(x, leaves) for x in node)
+    leaves.append(node)
+    return _Leaf(len(leaves) - 1)
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, skeleton) in ``jax.tree_util`` order: dict keys sorted,
     list/tuple order kept."""
     leaves: List[Any] = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(x) for x in node)
-        leaves.append(node)
-        return _Leaf(len(leaves) - 1)
-
-    return leaves, walk(tree)
+    return leaves, _skeleton(tree, leaves)
 
 
 def tree_unflatten(skeleton, leaves: List[Any]):

@@ -27,7 +27,11 @@ One call of the train step is one global step of the reference protocol
                                      1/N shard of every bucket and the
                                      updates are all_gathered
   BN stats                           bn_mode pmean (averaged) or local
-                                     (per worker, stacked)
+                                     (per worker, stacked); synced BN
+                                     (a model built with bn_axis_name)
+                                     runs every worker's forward in one
+                                     layer-synchronous pass over
+                                     per-worker copies of the params
 
 The non-finite guard checks every worker's gradients before the mask
 (ps.py:1227-1242): a NaN in a worker the mask drops still skips the
@@ -35,14 +39,22 @@ step. The decision stays on the card: the state update is selected
 against the flag with ``torch.where``, with no host read.
 
 The step's random draws (the random_k permutation, each worker's crop
-offsets and flips) come from a ``torch.Generator`` seeded from the run
-seed and the step number, or are injected (``StepDraws``) so the parity
-tests can feed the draws JAX made (``jax.random`` cannot be reproduced in
-torch).
+offsets and flips and its Dropout keep-masks) come from a
+``torch.Generator`` seeded from the run seed and the step number, or are
+injected (``StepDraws``) so the parity tests can feed the draws JAX made
+(``jax.random`` cannot be reproduced in torch).
+
+Synced BN: JAX runs the workers on devices under ``shard_map(...,
+check_vma=False)``, where BatchNorm pmeans its statistics and the
+transpose of that pmean carries every worker's loss back to every
+worker's copy of the params: worker j's gradient is ``d(sum_i L_i) /
+d theta_j``. The port gets the same by one forward of all the workers'
+rows over worker-stacked copies of the leaves (``models/common.py``) and
+one backward of the summed losses.
 
 Not ported yet, and refused with a pointer to ROADMAP.md: the pipelined
-schedule, synced BN, the hierarchical wire, stochastic rounding,
-adaptive aggregation and adaptive precision.
+schedule, the hierarchical wire, stochastic rounding, adaptive
+aggregation and adaptive precision.
 """
 
 from __future__ import annotations
@@ -53,7 +65,7 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 import torch
 
 from .. import DeviceLike, resolve_device
-from ..models import apply_model, init_model
+from ..models import apply_model, draw_dropout, init_model
 from ..ops.metrics import accuracy, cross_entropy_loss
 from ..ops.quantize import accum_dtype, dequantize_int8, fold_recip, quantize_int8
 from ..optim.sgd import SGDState, apply_updates
@@ -206,7 +218,6 @@ class PSConfig:
             (hierarchical, "hierarchical data parallelism (dcn_hosts > 1, a tuple "
              "axis_name; item 14)"),
             (self.overlap == "pipelined", "the pipelined schedule (--overlap on; item 13)"),
-            (self.bn_mode == "synced", "synced (cross-replica) BatchNorm (item 2)"),
             (self.quant_rounding != "nearest", "stochastic rounding (item 5)"),
             (self.num_aggregate_min is not None, "adaptive partial aggregation (item 15)"),
             (self.precision_adapt, "adaptive per-bucket precision (item 15)"),
@@ -322,12 +333,15 @@ def init_ps_state(model, tx, cfg: PSConfig, generator: Optional[torch.Generator]
 @dataclasses.dataclass
 class StepDraws:
     """One step's random draws: the random_k permutation of the workers
-    (``[N]`` int, or None when no mask is drawn) and each worker's
+    (``[N]`` int, or None when no mask is drawn), each worker's
     augmentation draws (a list of N ``CropFlipDraws``, or None when the
-    preprocessor does not augment)."""
+    preprocessor does not augment) and each worker's Dropout keep-masks
+    (a list of N lists, one ``[B, features]`` bool mask per Dropout
+    layer, or None when the model has no Dropout)."""
 
     perm: Optional[torch.Tensor] = None
     aug: Optional[List[Any]] = None
+    dropout: Optional[List[List[torch.Tensor]]] = None
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -337,7 +351,12 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 
 def draw_step(cfg: PSConfig, seed: int, step: int, batch_per_worker: int,
-              preprocess=None) -> StepDraws:
+              preprocess=None, model=None, device: DeviceLike = "cpu") -> StepDraws:
+    """The step's draws from ``step_generator``: the permutation, then
+    each worker's augmentation, then the seed of each worker's Dropout
+    masks. The masks are drawn on ``device`` (the step's), so the forward
+    copies nothing from the host: a CPU and a card run of one seed draw
+    different masks."""
     g = step_generator(seed, step)
     perm = None
     if cfg.effective_aggregate != cfg.num_workers and cfg.mask_mode == "random_k":
@@ -345,7 +364,12 @@ def draw_step(cfg: PSConfig, seed: int, step: int, batch_per_worker: int,
     aug = None
     if preprocess is not None and getattr(preprocess, "augment", False):
         aug = [preprocess.draw(g, batch_per_worker) for _ in range(cfg.num_workers)]
-    return StepDraws(perm=perm, aug=aug)
+    drop = None
+    if getattr(model, "draw_dropout", None) is not None:
+        gd = torch.Generator(device=device).manual_seed(
+            int(torch.randint(2 ** 62, (1,), generator=g)))
+        drop = [draw_dropout(model, batch_per_worker, gd) for _ in range(cfg.num_workers)]
+    return StepDraws(perm=perm, aug=aug, dropout=drop)
 
 
 def _select(finite: torch.Tensor, new, old):
@@ -482,7 +506,17 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
     n, a = cfg.num_workers, cfg.grad_accum_steps
     is_flat = cfg.state_layout == "flat"
 
-    def worker_grads(params_t, bs_in, x, y, scale):
+    synced = getattr(model, "bn_axis_name", None) is not None
+    if synced and cfg.bn_mode == "local":
+        raise NotImplementedError(
+            f"a synced-BatchNorm model under bn_mode='local' (per-worker running stats) "
+            f"{_ROADMAP} item 2")
+
+    def micro(masks, i):
+        """Microbatch ``i``'s rows of each Dropout mask (or None)."""
+        return None if masks is None else [m.chunk(a)[i] for m in masks]
+
+    def worker_grads(params_t, bs_in, x, y, scale, masks):
         """One worker's forward/backward on its shard (``a``
         microbatches, BN stats carried through them)."""
         if x.shape[0] % a:
@@ -491,11 +525,11 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         leaves, skel = tree_flatten(params_t)
         xs, ys = x.chunk(a), y.chunk(a)
         gsum, lsum, p1sum, p5sum, bs_c = None, 0.0, 0.0, 0.0, bs_in
-        for xi, yi in zip(xs, ys):
+        for i, (xi, yi) in enumerate(zip(xs, ys)):
             leaves_g = [leaf.detach().requires_grad_(True) for leaf in leaves]
             with torch.enable_grad():
                 logits, bs_c = apply_model(model, tree_unflatten(skel, leaves_g),
-                                           bs_c, xi, train=True)
+                                           bs_c, xi, train=True, dropout=micro(masks, i))
                 loss = cross_entropy_loss(logits, yi)
                 if scale is not None:
                     loss = loss * scale
@@ -516,6 +550,47 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             lsum, p1sum, p5sum = lsum * r, p1sum * r, p5sum * r
         return gsum, bs_c, lsum, p1sum, p5sum
 
+    def synced_grads(params_t, bs_in, xs, ys, scale, masks):
+        """Synced BN: each microbatch runs every worker's rows in one
+        layer-synchronous forward over worker-stacked copies of the
+        leaves, and one backward of the summed losses gives each copy its
+        gradient (``[N, *leaf]`` per leaf). Returns those, the new BN
+        stats and each worker's loss, prec1, prec5."""
+        if xs[0].shape[0] % a:
+            raise ValueError(f"per-worker batch {xs[0].shape[0]} not divisible by "
+                             f"grad_accum_steps={a}")
+        leaves, skel = tree_flatten(params_t)
+        gsum, bs_c = None, bs_in
+        lsum, p1sum, p5sum = [0.0] * n, [0.0] * n, [0.0] * n
+        for i in range(a):
+            xi = torch.cat([x.chunk(a)[i] for x in xs])
+            yis = [y.chunk(a)[i] for y in ys]
+            mi = None if masks is None else [torch.cat(ms) for ms in
+                                             zip(*(micro(m, i) for m in masks))]
+            stacked = [leaf.detach().unsqueeze(0).repeat(n, *([1] * leaf.dim()))
+                       .requires_grad_(True) for leaf in leaves]
+            with torch.enable_grad():
+                logits, bs_c = apply_model(model, tree_unflatten(skel, stacked), bs_c, xi,
+                                           train=True, dropout=mi)
+                per = logits.chunk(n)
+                losses = torch.stack([cross_entropy_loss(lw, yw) for lw, yw in zip(per, yis)])
+                if scale is not None:
+                    losses = losses * scale
+                g = torch.autograd.grad(losses.sum(), stacked)
+            losses = losses.detach()
+            if scale is not None:
+                losses = losses / scale
+                g = [t / scale for t in g]
+            gsum = list(g) if gsum is None else [s + t for s, t in zip(gsum, g)]
+            for w in range(n):
+                p1, p5 = accuracy(per[w].detach(), yis[w], (1, 5))
+                lsum[w], p1sum[w], p5sum[w] = lsum[w] + losses[w], p1sum[w] + p1, p5sum[w] + p5
+        if a > 1:
+            r = reciprocal(a)  # `/ a` inside jit
+            gsum = [t * r for t in gsum]
+            lsum, p1sum, p5sum = ([v * r for v in vs] for vs in (lsum, p1sum, p5sum))
+        return gsum, bs_c, lsum, p1sum, p5sum
+
     def step(state: PSTrainState, batch, draws: Optional[StepDraws] = None):
         images = torch.as_tensor(batch["image"]).to(dev)
         labels = torch.as_tensor(batch["label"]).to(dev).long()
@@ -524,30 +599,41 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
                              f"{n} workers")
         b = images.shape[0] // n
         if draws is None:
-            draws = draw_step(cfg, seed, state.step, b, preprocess)
+            draws = draw_step(cfg, seed, state.step, b, preprocess, model, dev)
         params_t = tree_view(state.params)
         bs = state.batch_stats
         scale = (state.guard_state.scale
                  if cfg.nonfinite_guard and cfg.dynamic_loss_scale else None)
 
-        per_worker, new_bs_w, losses, p1s, p5s = [], [], [], [], []
+        xs, ys = [], []
         for w in range(n):
             x = images[w * b:(w + 1) * b]
             if preprocess is not None:
                 x = preprocess(x, draws.aug[w] if draws.aug is not None else None)
-            bs_w = tree_map(lambda s: s[w], bs) if cfg.bn_mode == "local" else bs
-            g, nbs, loss, p1, p5 = worker_grads(params_t, bs_w, x.float(),
-                                                labels[w * b:(w + 1) * b], scale)
-            per_worker.append(g)
-            new_bs_w.append(nbs)
-            losses.append(loss)
-            p1s.append(p1)
-            p5s.append(p5)
-        # the wire sees [N, *leaf] per leaf, as shard_map's psum sees the
-        # per-device gradients
+            xs.append(x.float())
+            ys.append(labels[w * b:(w + 1) * b])
+        masks = draws.dropout
         skel = tree_flatten(params_t)[1]
-        grads = tree_unflatten(skel, [torch.stack([gw[i] for gw in per_worker])
-                                      for i in range(len(per_worker[0]))])
+        if synced:
+            leaf_grads, nbs, losses, p1s, p5s = synced_grads(params_t, bs, xs, ys, scale,
+                                                             masks)
+            new_bs_w = [nbs] * n
+        else:
+            per_worker, new_bs_w, losses, p1s, p5s = [], [], [], [], []
+            for w in range(n):
+                bs_w = tree_map(lambda s: s[w], bs) if cfg.bn_mode == "local" else bs
+                g, nbs, loss, p1, p5 = worker_grads(params_t, bs_w, xs[w], ys[w], scale,
+                                                    None if masks is None else masks[w])
+                per_worker.append(g)
+                new_bs_w.append(nbs)
+                losses.append(loss)
+                p1s.append(p1)
+                p5s.append(p5)
+            # the wire sees [N, *leaf] per leaf, as shard_map's psum sees
+            # the per-device gradients
+            leaf_grads = [torch.stack([gw[i] for gw in per_worker])
+                          for i in range(len(per_worker[0]))]
+        grads = tree_unflatten(skel, leaf_grads)
         if faults is not None:
             val = faults.poison(state.step + 1)
             if val is not None:

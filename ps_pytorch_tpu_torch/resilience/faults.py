@@ -10,9 +10,14 @@ A ``FaultPlan`` names host steps (1-based, as the JAX step numbers them):
   ckpt_corrupt           the checkpoint file of that step is truncated to
                          half its size once written -> the CRC check
                          fails, --resume quarantines it and falls back
+  slow_steps (slow_s)    a host stall of slow_s seconds (default 1.5)
+                         inside the step phase -> the straggler watchdog
+                         and its storm escalation
+  sigterm                one step number: the process SIGTERMs itself at
+                         that step boundary -> the graceful stop, a final
+                         checkpoint, a clean --resume
 
-The plan's other keys (slow steps, SIGTERM, the serving side) are not
-ported yet and raise (ROADMAP.md).
+The plan's serving keys are not ported yet and raise (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ import dataclasses
 import errno
 import json
 import os
+import signal
+import time
 from typing import Optional, Tuple
 
 FAULTS_ENV = "PS_TPU_FAULTS"
-_PORTED = ("nan_grads", "inf_grads", "ckpt_write_fail", "ckpt_corrupt")
+_STEP_LISTS = ("nan_grads", "inf_grads", "slow_steps", "ckpt_write_fail", "ckpt_corrupt")
+_PORTED = _STEP_LISTS + ("slow_s", "sigterm")
 
 
 def _truncate_half(path: str) -> None:
@@ -34,12 +42,18 @@ def _truncate_half(path: str) -> None:
         f.truncate(max(size // 2, 1))
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class FaultPlan:
     nan_grads: Tuple[int, ...] = ()
     inf_grads: Tuple[int, ...] = ()
+    slow_steps: Tuple[int, ...] = ()
+    slow_s: float = 1.5
     ckpt_write_fail: Tuple[int, ...] = ()
     ckpt_corrupt: Tuple[int, ...] = ()
+    sigterm: Optional[int] = None
+
+    def __post_init__(self):
+        self._sigterm_fired = False
 
     @classmethod
     def parse(cls, spec: str) -> "FaultPlan":
@@ -56,13 +70,22 @@ class FaultPlan:
                 f"fault plan keys {rest} are not ported yet (only {list(_PORTED)}; "
                 f"see ROADMAP.md queue 1 item 15)"
             )
-        steps = {k: raw[k] or [] for k in raw}
-        for k, v in steps.items():
+        kw = {}
+        for k in _STEP_LISTS:
+            v = raw.get(k) or []
             # bool is an int subclass: [true] would silently hit step 1
             if not isinstance(v, list) or any(
                     isinstance(s, bool) or not isinstance(s, int) for s in v):
                 raise ValueError(f"fault plan {k!r} must be a list of integer steps")
-        return cls(**{k: tuple(sorted(v)) for k, v in steps.items()})
+            kw[k] = tuple(sorted(v))
+        sig = raw.get("sigterm")
+        if sig is not None and (isinstance(sig, bool) or not isinstance(sig, int)):
+            raise ValueError(f"fault plan 'sigterm' must be a single step number "
+                             f"(the process can only die once), got {sig!r}")
+        slow_s = float(raw.get("slow_s", cls.slow_s))
+        if slow_s < 0:
+            raise ValueError(f"fault plan 'slow_s' must be >= 0, got {slow_s}")
+        return cls(slow_s=slow_s, sigterm=sig, **kw)
 
     def poison(self, host_step: int) -> Optional[float]:
         """The value every gradient element takes at ``host_step``, or
@@ -72,6 +95,17 @@ class FaultPlan:
         if host_step in self.nan_grads:
             return float("nan")
         return None
+
+    def maybe_sleep(self, step: int) -> None:
+        """Stall the host inside the step phase (straggler injection)."""
+        if step in self.slow_steps:
+            time.sleep(self.slow_s)
+
+    def maybe_sigterm(self, step: int) -> None:
+        """Deliver SIGTERM to this process once, at the planned step."""
+        if self.sigterm == step and not self._sigterm_fired:
+            self._sigterm_fired = True
+            os.kill(os.getpid(), signal.SIGTERM)
 
     def maybe_fail_ckpt_write(self, step: int) -> None:
         """Raise EIO from inside the checkpoint writer, on every retry

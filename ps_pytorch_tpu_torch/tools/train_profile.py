@@ -2,11 +2,12 @@
 window over the chip_smoke training configuration (ResNet18, synthetic
 CIFAR-10, 8 stacked workers of batch 128, lr 0.1, momentum 0.9,
 num-aggregate 5 random_k, f32 with TF32 off) on a chosen gradient wire
-(default: the int8 per-tensor, per-leaf wire).
+(default: the int8 per-tensor, per-leaf wire), network and compute dtype.
 
     python -m ps_pytorch_tpu_torch.tools.train_profile [--steps 5] [--block 0] \
         [--compress-grad compress|2round|none] [--wire-domain dequant|homomorphic] \
-        [--bucket-bytes -1|0|N] [--opt-placement replicated|sharded]
+        [--bucket-bytes -1|0|N] [--opt-placement replicated|sharded] \
+        [--network ResNet18|VGG16|...] [--dtype float32|bfloat16]
 
 After ``--warmup`` steps (cuDNN picks its algorithms there), times
 ``--steps`` steps without the profiler, then profiles as many, each ended
@@ -20,8 +21,9 @@ wall time; one stream, so kernels do not overlap), the device time by category (
 ``quantize_rows_many_kernel``, the int32 sum over workers, cuDNN
 convolutions and the other kernels; the fill that zeroes K2's absmax
 slots counts as other) and
-the top CUDA kernels by device time, and each port kernel's mean and
-largest device time per launch. ``--block 128`` profiles the
+the top CUDA kernels by device time, each port kernel's mean and
+largest device time per launch, and the host's synchronizing CUDA
+runtime calls a step (count and host ms). ``--block 128`` profiles the
 block-scale wire instead; the wire flags take the values of
 ``cli.train``'s. Needs a CUDA card.
 """
@@ -56,6 +58,12 @@ PORT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
                 "accum_rescale_kernel")
 
 
+# CUDA runtime calls that block the host until the card catches up (a
+# pageable host-to-device copy is cudaMemcpyAsync and then a stream sync)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
+              "cudaEventSynchronize")
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,6 +88,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bucket-bytes", type=int, default=-1,
                     help="-1 per-leaf, 0 one fused buffer, N ~N-byte buckets")
     ap.add_argument("--opt-placement", default="replicated", choices=("replicated", "sharded"))
+    ap.add_argument("--network", default="ResNet18")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device is available", file=sys.stderr)
@@ -100,7 +110,7 @@ def main(argv=None) -> int:
                    quant_block_size=args.block, wire_domain=args.wire_domain,
                    bucket_bytes=None if args.bucket_bytes < 0 else args.bucket_bytes,
                    opt_placement=args.opt_placement)
-    model = build_model("ResNet18")
+    model = build_model(args.network, dtype=getattr(torch, args.dtype))
     tx = build_optimizer("sgd", 0.1, momentum=0.9)
     state = init_ps_state(model, tx, cfg, torch.Generator().manual_seed(1), device=dev)
     step = make_ps_train_step(model, tx, cfg, preprocess=make_preprocessor("Cifar10", True),
@@ -129,8 +139,12 @@ def main(argv=None) -> int:
             one()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    kernels, port = {}, {}
+    kernels, port, runtime = {}, {}, {}
     for evt in prof.events():
+        if evt.name in SYNC_CALLS:
+            rec = runtime.setdefault(evt.name, [0, 0.0])
+            rec[0] += 1
+            rec[1] += evt.time_range.elapsed_us() / 1e3
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             us = evt.time_range.elapsed_us()
             rec = kernels.setdefault(evt.name, [0, 0.0])
@@ -151,7 +165,8 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({
         "card": _card(), "kind": torch.cuda.get_device_name(0),
-        "config": (f"ResNet18 synthetic Cifar10 f32 (TF32 off), {n} workers x {b}, "
+        "config": (f"{args.network} synthetic Cifar10 {args.dtype} (TF32 off), "
+                   f"{n} workers x {b}, "
                    f"num-aggregate 5 random_k, --compress-grad {args.compress_grad} "
                    f"{'block-%d' % args.block if args.block else 'per-tensor'} "
                    f"--wire-domain {args.wire_domain} --bucket-bytes {args.bucket_bytes} "
@@ -164,6 +179,9 @@ def main(argv=None) -> int:
         "unprofiled_images_per_s": n * b * args.steps / plain_wall_s,
         "cuda_kernel_launches_per_step": sum(c for c, _ in kernels.values()) / args.steps,
         "categories": cats,
+        # host waits on the card, and the copies that may hide one
+        "host_calls_per_step": {k: {"calls": c / args.steps, "host_ms": t / args.steps}
+                                for k, (c, t) in runtime.items()},
         "port_kernels": {k: {"launches_per_step": len(v) / args.steps,
                              "mean_us": sum(v) / len(v), "max_us": max(v)}
                          for k, v in port.items()},

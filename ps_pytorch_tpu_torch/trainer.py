@@ -1,5 +1,5 @@
-"""The training loop: the host side around the PS train step (the port's
-subset of trainer.py).
+"""The training loop: the host side around the PS train step (the port of
+trainer.py).
 
 One host loop drives the N virtual workers of the stacked backend: each
 worker keeps its own epoch-shuffled iterator over its shard (the
@@ -9,6 +9,20 @@ loop reads the metrics only once per log window (the per-step host sync
 the JAX trainer also avoids), logs the reference-format line, and runs
 the host half of the non-finite guard there.
 
+The event stream: every record goes through ``append_metrics_line`` into
+the metrics JSONL (``--metrics-file``), validated against
+``obs/schema.py``: a ``run_header``, one ``train`` record a log window,
+``eval``, ``grad_skip``, the watchdog's ``straggler`` /
+``straggler_storm`` / ``straggler_storm_end``, ``ckpt_quarantined`` and
+``ckpt_write_failed``. ``--trace DIR`` writes the loop's host spans
+(``fetch``, ``dispatch``, ``sync``, ``guard``, ``ckpt_save``) to
+``DIR/trace_train_p0.jsonl`` under the same run id; with tracing off the
+tracer is ``NULL_TRACER`` and adds no host sync. The straggler watchdog
+(``straggler_threshold_s``) waits for each step on the host only when
+armed. ``request_stop`` (SIGTERM / SIGINT through
+``install_signal_handlers``) finishes the step, writes a checkpoint and
+returns; ``--resume`` continues the step count.
+
 Checkpoints (checkpoint.py): ``model_step_N`` every ``eval_freq`` steps
 and once at the end, written by one background thread from a host copy
 taken at the step boundary, with an ``elastic.json`` geometry manifest;
@@ -17,14 +31,17 @@ and falling back to the next older. The files are the JAX trainer's,
 byte for byte, so either package resumes the other's directory.
 
 Not ported yet, and refused when asked for (ROADMAP.md): compressed
-checkpoints, a resume onto another mesh geometry, the metrics JSONL,
-span tracing, the profiler window, the straggler watchdog and the
-adaptive controllers.
+checkpoints, a resume onto another mesh geometry, the profiler window
+and the adaptive controllers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
+import os
+import signal
 import time
 from typing import List, Optional
 
@@ -34,7 +51,8 @@ import torch
 from . import DeviceLike, resolve_device
 from . import checkpoint as ckpt
 from .data import BatchIterator, Dataset, make_preprocessor, prepare_data, shard_for_worker
-from .models import build_model, param_count
+from .models import COMPUTE_DTYPES, build_model, param_count
+from .obs import NULL_TRACER, Tracer, new_run_id, run_header, validate_event
 from .optim import build_optimizer
 from .parallel.buckets import FlatVector
 from .parallel.mesh import make_mesh
@@ -52,6 +70,21 @@ from .utils import format_eval_line, format_iter_line, get_logger
 logger = get_logger()
 
 _ROADMAP = "is not ported yet (ROADMAP.md queue 1)"
+
+
+def append_metrics_line(path: Optional[str], record: dict) -> None:
+    """The metrics JSONL's one write choke point (trainer.py:67 of the JAX
+    package): each record is validated against ``obs/schema.py``
+    (unknown kinds and missing fields raise, counters become ints) and
+    stamped with a ``t_wall`` second, so the stream merges onto the span
+    trace's timeline (tools/trace_report.py)."""
+    if not path:
+        return
+    record = validate_event(record)
+    record.setdefault("t_wall", round(time.time(), 6))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
 
 
 def average_metrics(step_fn, batches) -> dict:
@@ -108,13 +141,7 @@ class TrainConfig:
         refused = [
             (self.compress_checkpoints,
              "compressed checkpoints (--compress-checkpoints, the PSCK codec; item 22)"),
-            (self.metrics_file is not None, "the metrics JSONL (--metrics-file)"),
-            (self.trace_dir is not None, "span tracing (--trace)"),
-            (self.profile_dir is not None, "the profiler window (--profile-dir)"),
-            (self.straggler_threshold_s is not None,
-             "the straggler watchdog (--mode / --kill-threshold)"),
-            (self.dtype != "float32", "bf16 compute (--dtype bfloat16)"),
-            (self.remat, "remat (--remat)"),
+            (self.profile_dir is not None, "the profiler window (--profile-dir; item 16)"),
         ]
         for hit, what in refused:
             if hit:
@@ -128,15 +155,32 @@ class Trainer:
     def __init__(self, tcfg: TrainConfig, pcfg: PSConfig,
                  dataset: Optional[Dataset] = None, device: DeviceLike = None):
         tcfg.refuse_unported()
+        if tcfg.straggler_storm_n < 1:
+            # 0 would swallow both the per-step straggler events and the
+            # storm event (trainer.py:192 of the JAX package)
+            raise ValueError(
+                f"straggler_storm_n must be >= 1, got {tcfg.straggler_storm_n} (1 = "
+                f"escalate immediately; use a large value to effectively disable storms)")
         self.tcfg, self.pcfg = tcfg, pcfg
         self.device = resolve_device(device)
+        self._stop_requested = False
+        self._prev_handlers: dict = {}
+        # the watchdog's counters and the open storm's length
+        self.straggler_steps = 0
+        self.straggler_storms = 0
+        self._straggler_streak = 0
         self.faults = resolve_fault_plan(tcfg.fault_plan)
         if self.faults is not None:
             logger.warning("fault injection ACTIVE: %s", self.faults)
         self.dataset = dataset or prepare_data(tcfg.dataset, root=tcfg.data_root,
                                                allow_synthetic=tcfg.allow_synthetic)
         self.mesh = make_mesh(pcfg.num_workers)
-        self.model = build_model(tcfg.network, num_classes=self.dataset.num_classes)
+        # bf16 compute over f32 params, optimizer state and loss when asked
+        self.model = build_model(
+            tcfg.network, num_classes=self.dataset.num_classes,
+            dtype=COMPUTE_DTYPES[tcfg.dtype],
+            bn_axis_name=pcfg.axis_name if pcfg.bn_mode == "synced" else None,
+            remat=tcfg.remat)
         self.tx = build_optimizer(tcfg.optimizer, tcfg.lr, momentum=tcfg.momentum,
                                   weight_decay=tcfg.weight_decay)
         self.state = init_ps_state(self.model, self.tx, pcfg,
@@ -150,7 +194,18 @@ class Trainer:
             self.model, pcfg, self.mesh,
             preprocess=make_preprocessor(tcfg.dataset, train=False), device=self.device)
         self._skipped_seen = 0
-        self._ckpt = ckpt.AsyncCheckpointer(faults=self.faults)
+        # the sink holds the path, not the trainer: no reference cycle keeps
+        # a finished trainer's device state alive until a garbage collection
+        self._event = functools.partial(append_metrics_line, tcfg.metrics_file)
+        self._ckpt = ckpt.AsyncCheckpointer(event_sink=self._event, faults=self.faults)
+        # one run id ties the metrics stream and the span trace together
+        # (one process: the JAX package's _shared_run_id broadcasts nothing)
+        self.run_id = new_run_id()
+        self.tracer = NULL_TRACER
+        if tcfg.trace_dir:
+            self.tracer = Tracer(
+                "train", path=os.path.join(tcfg.trace_dir, "trace_train_p0.jsonl"),
+                run_id=self.run_id, annotate=True, geometry=self._geometry())
         # one record per log window: step, loss, time_cost (seconds per
         # step over the window, measured after the window's metrics read)
         self.history: List[dict] = []
@@ -160,6 +215,12 @@ class Trainer:
                     tcfg.network, n_params, self.dataset.name,
                     " [synthetic]" if self.dataset.synthetic else "",
                     pcfg.num_workers, self.device)
+
+    def _geometry(self) -> dict:
+        """The run header's geometry block (trainer.py:364)."""
+        return {"num_workers": self.pcfg.num_workers, "network": self.tcfg.network,
+                "dataset": self.tcfg.dataset, "opt_placement": self.pcfg.opt_placement,
+                "state_layout": self.pcfg.state_layout, "processes": 1}
 
     # ------------------------------------------------------------- checkpoints
     def checkpoint_state(self) -> PSTrainState:
@@ -215,7 +276,9 @@ class Trainer:
             except ckpt.CheckpointCorruptError as e:
                 logger.warning("resume: checkpoint step %d is corrupt (%s); quarantining "
                                "and falling back", step, e)
-                ckpt.quarantine_checkpoint(self.tcfg.train_dir, step)
+                path = ckpt.quarantine_checkpoint(self.tcfg.train_dir, step)
+                self._event({"kind": "ckpt_quarantined", "step": step, "path": path,
+                             "error": str(e)})
                 continue
             except OSError as e:
                 logger.warning("resume: checkpoint step %d unreadable (%s); trying older "
@@ -267,7 +330,8 @@ class Trainer:
 
     def _guard_check(self, m: dict, step_no: int, abort: bool = True) -> None:
         """Host half of the non-finite guard, on metrics already read:
-        log new skips, abort past ``max_consecutive_skips``."""
+        one ``grad_skip`` record for new skips, abort past
+        ``max_consecutive_skips``."""
         if "skipped_steps" not in m:
             return
         skipped, streak = int(m["skipped_steps"]), int(m["skip_streak"])
@@ -275,6 +339,11 @@ class Trainer:
             logger.warning("non-finite gradients: %d step(s) skipped so far "
                            "(current streak %d) — params were NOT updated on those",
                            skipped, streak)
+            rec = {"kind": "grad_skip", "step": step_no, "skipped_steps": skipped,
+                   "skip_streak": streak}
+            if "loss_scale" in m:
+                rec["loss_scale"] = float(m["loss_scale"])
+            self._event(rec)
             self._skipped_seen = skipped
         k = self.tcfg.max_consecutive_skips
         if abort and k > 0 and streak >= k:
@@ -283,12 +352,94 @@ class Trainer:
                 f"non-finite gradients (threshold {k}); params are stuck at step "
                 f"{step_no - streak}")
 
+    # ------------------------------------------------------------ graceful stop
+    def request_stop(self) -> None:
+        """Ask the loop to stop after the current step (and write a final
+        checkpoint). Safe from signal handlers and threads."""
+        self._stop_requested = True
+
+    @property
+    def stop_requested(self) -> bool:
+        return self._stop_requested
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM / SIGINT -> graceful stop: finish the step, checkpoint,
+        return, so a preempted run resumes exactly with ``--resume``
+        (trainer.py:692). Call from the main thread; a second signal takes
+        the default action."""
+        def handler(signum, frame):
+            logger.warning("signal %d: stopping after current step (next one kills)",
+                           signum)
+            self.request_stop()
+            signal.signal(signum, signal.SIG_DFL)
+
+        self._prev_handlers = {sig: signal.signal(sig, handler)
+                               for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    def restore_signal_handlers(self) -> None:
+        """Put back the handlers ``install_signal_handlers`` replaced (one
+        installed from C cannot be put back: the default takes its place)."""
+        for signum, prev in self._prev_handlers.items():
+            signal.signal(signum, signal.SIG_DFL if prev is None else prev)
+        self._prev_handlers = {}
+
+    # ------------------------------------------------------- straggler watchdog
+    def _watchdog(self, step_no: int, step_s: float, first_step: int) -> None:
+        """One armed step's verdict (trainer.py:907-971): a slow step is a
+        ``straggler`` record until ``straggler_storm_n`` in a row, which
+        become one ``straggler_storm``; a fast step closes an open storm.
+        The run's first step (cuDNN's algorithm search) is exempt."""
+        t = self.tcfg
+        if step_s > t.straggler_threshold_s and step_no != first_step:
+            self.straggler_steps += 1
+            self._straggler_streak += 1
+            if self._straggler_streak < t.straggler_storm_n:
+                logger.warning("straggler step: Step: %d took %.4fs (threshold %.4fs)",
+                               step_no, step_s, t.straggler_threshold_s)
+                self._event({"kind": "straggler", "step": step_no,
+                             "time_cost": round(step_s, 6),
+                             "threshold": t.straggler_threshold_s})
+            elif self._straggler_streak == t.straggler_storm_n:
+                self.straggler_storms += 1
+                logger.warning("straggler storm: %d consecutive slow steps (through step "
+                               "%d, threshold %.4fs) — suppressing per-step warnings until "
+                               "it clears", self._straggler_streak, step_no,
+                               t.straggler_threshold_s)
+                self._event({"kind": "straggler_storm", "step": step_no,
+                             "start_step": step_no - t.straggler_storm_n + 1,
+                             "consecutive": self._straggler_streak,
+                             "threshold": t.straggler_threshold_s})
+        else:
+            self._maybe_end_storm(step_no - 1)
+            self._straggler_streak = 0
+
+    def _maybe_end_storm(self, last_slow_step: int) -> None:
+        """Close an open storm with one record carrying its true length
+        (trainer.py:590)."""
+        streak = self._straggler_streak
+        if streak < self.tcfg.straggler_storm_n:
+            return
+        logger.warning("straggler storm cleared: %d consecutive slow steps (steps %d-%d)",
+                       streak, last_slow_step - streak + 1, last_slow_step)
+        self._event({"kind": "straggler_storm_end", "step": last_slow_step,
+                     "start_step": last_slow_step - streak + 1, "consecutive": streak})
+
+    def _wait_for_device(self) -> None:
+        """The watchdog's per-step barrier: the card finishes the step
+        (nothing is read back)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def train(self) -> dict:
-        """Run up to epochs/max_steps; returns the last window's metrics.
-        With ``resume`` the newest valid checkpoint is restored first; the
-        data iterators then start again at epoch 1, as the JAX trainer's
-        do (each step's draws depend only on the seed and the step)."""
+        """Run up to epochs/max_steps, or until a stop is requested;
+        returns the last window's metrics (plus the watchdog's counts when
+        it saw a slow step). With ``resume`` the newest valid checkpoint
+        is restored first; the data iterators then start again at epoch
+        1, as the JAX trainer's do (each step's draws depend only on the
+        seed and the step)."""
         t, n = self.tcfg, self.pcfg.num_workers
+        # the stream's first record, before a resume can emit events
+        self._event(run_header("train", run_id=self.run_id, geometry=self._geometry()))
         if t.resume:
             self.try_resume()
         iters = []
@@ -300,6 +451,9 @@ class Trainer:
         total, steps_per_epoch = iters[0].num_samples, len(iters[0])
         metrics: dict = {}
         step_no = self.state.step
+        first_step = step_no + 1
+        armed = t.straggler_threshold_s is not None
+        tr = self.tracer
         window_t0, window_steps, unsynced = time.perf_counter(), 0, 0
         done = False
         last_saved = None
@@ -315,18 +469,36 @@ class Trainer:
                         done = True
                         break
                     t0 = time.perf_counter()
-                    parts = [next(ei) for ei in epoch_iters]
-                    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+                    with tr.span("fetch", step=step_no + 1):
+                        parts = [next(ei) for ei in epoch_iters]
+                        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
                     t1 = time.perf_counter()
-                    self.state, metrics = self._train_step(self.state, batch)
+                    with tr.span("dispatch", step=step_no + 1):
+                        self.state, metrics = self._train_step(self.state, batch)
+                    if self.faults is not None:
+                        # an injected stall inside the timed step, so the
+                        # watchdog sees a real slow step
+                        self.faults.maybe_sleep(step_no + 1)
+                    if armed:
+                        # the watchdog times the step's walltime: a host
+                        # wait each step, only when it is armed
+                        with tr.span("sync", step=step_no + 1):
+                            self._wait_for_device()
                     t2 = time.perf_counter()
                     step_no += 1
+                    if self.faults is not None:
+                        # injected preemption at the step boundary: the
+                        # installed handler raises the stop flag
+                        self.faults.maybe_sigterm(step_no)
                     window_steps += 1
                     unsynced += 1
+                    if armed:
+                        self._watchdog(step_no, t2 - t0, first_step)
                     if t.log_interval > 0 and (step_no % t.log_interval == 0 or step_no == 1):
                         # the once-per-window read: it waits for every step
                         # in flight, so the window's walltime is honest
-                        metrics = {k: float(v) for k, v in metrics.items()}
+                        with tr.span("sync", step=step_no):
+                            metrics = {k: float(v) for k, v in metrics.items()}
                         unsynced = 0
                         step_time = (time.perf_counter() - window_t0) / max(window_steps, 1)
                         self.history.append({"step": step_no, "loss": metrics["loss"],
@@ -337,31 +509,55 @@ class Trainer:
                             seen=batch_idx * t.batch_size * n, total=total * n,
                             loss=metrics["loss"], time_cost=step_time,
                             fetch=t1 - t0, forward=t2 - t1))
-                        self._guard_check(metrics, step_no)
+                        self._event({"kind": "train", "step": step_no, "epoch": epoch,
+                                     "time_cost": round(step_time, 6), **metrics})
+                        # after the window's train record, so an aborting
+                        # window is still in the stream
+                        with tr.span("guard", step=step_no):
+                            self._guard_check(metrics, step_no)
+                        # span I/O where the host already waited
+                        tr.flush()
                     if unsynced >= 32:
                         # backpressure: bound the host's run-ahead and keep
                         # the guard's abort live when no window reads the
                         # metrics
-                        metrics = {k: float(v) for k, v in metrics.items()}
-                        self._guard_check(metrics, step_no)
+                        with tr.span("sync", step=step_no):
+                            metrics = {k: float(v) for k, v in metrics.items()}
+                        with tr.span("guard", step=step_no):
+                            self._guard_check(metrics, step_no)
                         unsynced = 0
                     # eval_freq 0: no periodic saves (the final one still
                     # writes; save_checkpoints=False suppresses every write)
                     if t.save_checkpoints and t.eval_freq > 0 and step_no % t.eval_freq == 0:
-                        self._save(step_no)
+                        # the span covers the host half; the write is async
+                        with tr.span("ckpt_save", step=step_no):
+                            self._save(step_no)
                         last_saved = step_no
                     if step_no >= t.max_steps:
                         done = True
                         break
+                    if self._stop_requested:
+                        logger.warning("graceful stop at step %d (resume with --resume)",
+                                       step_no)
+                        done = True
+                        break
             if t.save_checkpoints and metrics and last_saved != step_no:
-                self._save(step_no)
+                with tr.span("ckpt_save", step=step_no):
+                    self._save(step_no)
         finally:
             # a submitted checkpoint is durable (or its failure raised)
             # before the caller sees the outcome, even on error
             self._ckpt.wait()
+            tr.flush()
         out = {k: float(v) for k, v in metrics.items()}
         if out:
+            # a skip in a trailing partial window still lands its event
             self._guard_check(out, step_no, abort=False)
+            # a storm still open at the end gets its closing record too
+            self._maybe_end_storm(step_no)
+        if self.straggler_steps:
+            out["straggler_steps"] = float(self.straggler_steps)
+            out["straggler_storms"] = float(self.straggler_storms)
         return out
 
     def validate(self) -> dict:
@@ -374,4 +570,5 @@ class Trainer:
         if out:
             logger.info(format_eval_line(self.state.step, out["loss"], out["prec1"],
                                          out["prec5"]))
+            self._event({"kind": "eval", "step": self.state.step, **out})
         return out

@@ -174,10 +174,12 @@ def test_torch_lenet_flattens_nhwc():
     assert flat[0, 1] == act[0, 1, 0, 0] and flat[0, 50] == act[0, 0, 0, 1]
 
 
-@pytest.mark.parametrize("name", ["VGG16", "VGG11NoBN"])
-def test_torch_vgg_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(name)
+@pytest.mark.parametrize("name,leaves", [("VGG16", 58), ("VGG11NoBN", 22)])
+def test_torch_vgg_builds(name, leaves):
+    """Once refused: the VGG names build, with flax's leaf count (conv
+    kernel + bias, BN scale + bias, three dense layers)."""
+    params, _ = init_model(build_model(name), torch.Generator().manual_seed(0), device="cpu")
+    assert len(tree_leaves(params)) == leaves
 
 
 def test_torch_cnn_init_follows_flax_scales():

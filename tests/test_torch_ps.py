@@ -205,7 +205,7 @@ def test_torch_ps_state_geometry_matches_jax():
 @pytest.mark.parametrize("kw", [
     dict(opt_placement="sharded", overlap="pipelined"),
     dict(overlap="pipelined", bucket_bytes=0),
-    dict(bn_mode="synced"), dict(dcn_hosts=2), dict(compress="int8_2round", dcn_hosts=2),
+    dict(dcn_hosts=2), dict(compress="int8_2round", dcn_hosts=2),
     dict(precision_adapt=True, compress="int8", bucket_bytes=0),
     dict(compress="int8", quant_rounding="stochastic"),
     dict(num_aggregate_min=2, num_aggregate_max=4),
@@ -213,6 +213,70 @@ def test_torch_ps_state_geometry_matches_jax():
 def test_torch_ps_config_refuses_unported_paths(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSConfig(num_workers=N, **kw)
+
+
+def test_torch_ps_synced_bn_step_runs():
+    """Once refused: ``bn_mode="synced"`` with a synced-BN model (a small
+    VGG-BN at 8 workers) takes a step, and its new running stats come from
+    every worker's rows pooled (tests/test_torch_synced_bn.py holds the
+    step against JAX's)."""
+    from ps_pytorch_tpu_torch.models import VGG, init_model
+    from ps_pytorch_tpu_torch.models.common import conv, nhwc_to_nchw
+    from ps_pytorch_tpu_torch.parallel.mesh import WORKER_AXIS
+    from ps_pytorch_tpu_torch.parallel.ps import draw_step
+
+    model = VGG(cfg=(8, "M"), batch_norm=True, bn_axis_name=WORKER_AXIS)
+    tx = build_optimizer("sgd", LR, momentum=MOMENTUM)
+    cfg = PSConfig(num_workers=N, bn_mode="synced", compress="int8")
+    pre = make_preprocessor("Cifar10", True)
+    params, bs = init_model(model, torch.Generator().manual_seed(1), device="cpu")
+    st = init_ps_state(model, tx, cfg, params=params, batch_stats=bs, device="cpu")
+    step = make_ps_train_step(model, tx, cfg, preprocess=pre, device="cpu")
+    batch = _batches(1, name="Cifar10")[0]
+    draws = draw_step(cfg, 0, 0, B, pre, model)
+    st, m = step(st, batch, draws)
+    assert np.isfinite(float(m["loss"])) and float(m["skipped_steps"]) == 0.0
+    x = torch.cat([pre(torch.as_tensor(batch["image"][w * B:(w + 1) * B]), draws.aug[w])
+                   for w in range(N)])
+    var, mean = torch.var_mean(conv(nhwc_to_nchw(x.float()), params["Conv_0"], 1, 1),
+                               dim=(0, 2, 3), unbiased=False)
+    torch.testing.assert_close(st.batch_stats["BatchNorm_0"]["mean"], 0.1 * mean,
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(st.batch_stats["BatchNorm_0"]["var"], 0.9 + 0.1 * var,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_torch_ps_step_leaves_no_reference_cycle():
+    """A step's tensors are freed by reference counting: none waits in a
+    reference cycle for the garbage collector, which on the card would
+    keep a step's gradients allocated until a collection (a small VGG-BN
+    with Dropout, the int8 wire, 5 of 8 workers aggregated)."""
+    import gc
+
+    from ps_pytorch_tpu_torch.models import VGG, init_model
+
+    model = VGG(cfg=(8, "M"), batch_norm=True)
+    tx = build_optimizer("sgd", LR, momentum=MOMENTUM)
+    cfg = PSConfig(num_workers=N, num_aggregate=5, compress="int8")
+    params, bs = init_model(model, torch.Generator().manual_seed(1), device="cpu")
+    st = init_ps_state(model, tx, cfg, params=params, batch_stats=bs, device="cpu")
+    step = make_ps_train_step(model, tx, cfg, preprocess=make_preprocessor("Cifar10", True),
+                              device="cpu")
+    batch = _batches(1, name="Cifar10")[0]
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(2):
+            st, m = step(st, batch)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        cyclic = [tuple(o.shape) for o in gc.garbage if torch.is_tensor(o)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert np.isfinite(float(m["loss"]))
+    assert cyclic == []
 
 
 def test_torch_ps_config_keeps_jax_validation():

@@ -9,6 +9,8 @@ the dp x sp step) and optim/schedules.py, against the JAX package.
   with ``--device cpu``, and without it raises on a machine with no card.
 """
 
+import json
+
 import numpy as np
 import optax
 import pytest
@@ -103,7 +105,6 @@ def test_torch_sgd_reads_a_schedule_at_the_step_count():
     (["--parallelism", "pp_moe"], NotImplementedError, "ROADMAP.md"),
     (["--optimizer", "adam"], NotImplementedError, "ROADMAP.md"),
     (["--optimizer", "amsgrad"], NotImplementedError, "ROADMAP.md"),
-    (["--metrics-file", "m.jsonl"], NotImplementedError, "ROADMAP.md"),
     (["--profile-dir", "prof"], NotImplementedError, "ROADMAP.md"),
     (["--parallelism", "moe"], NotImplementedError, "ROADMAP.md"),
     (["--shard-vocab"], ValueError, "tp/dp_tp"),
@@ -113,6 +114,23 @@ def test_torch_sgd_reads_a_schedule_at_the_step_count():
 def test_torch_cli_train_lm_refuses(flags, exc, match):
     with pytest.raises(exc, match=match):
         train_lm.main(SMALL + ["--device", "cpu"] + flags)
+
+
+def test_torch_cli_train_lm_writes_the_metrics_file(tmp_path):
+    """Once refused: ``--metrics-file`` gets a run header, then one
+    ``train_lm`` record a log window, each valid under both packages'
+    schemas."""
+    from ps_pytorch_tpu.obs.schema import validate_event as jvalidate
+    from ps_pytorch_tpu_torch.obs.schema import validate_event
+
+    path = tmp_path / "m.jsonl"
+    out = train_lm.main(SMALL + ["--device", "cpu", "--metrics-file", str(path)])
+    recs = [json.loads(x) for x in open(path)]
+    assert [r["kind"] for r in recs] == ["run_header"] + ["train_lm"] * len(out["history"])
+    assert [r["step"] for r in recs[1:]] == [h["step"] for h in out["history"]]
+    for r in recs:
+        validate_event(dict(r))
+        jvalidate(dict(r))
 
 
 @pytest.mark.parametrize("flags", [

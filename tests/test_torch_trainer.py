@@ -8,6 +8,7 @@ refused, never ignored. The card runs the full-width ResNet18 path in
 chip_smoke.py.
 """
 
+import json
 import math
 
 import numpy as np
@@ -68,16 +69,56 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 @pytest.mark.parametrize("extra", [
     ["--compress-checkpoints"], ["--bucket-bytes", "0", "--overlap", "on"],
-    ["--opt-placement", "sharded", "--bn-mode", "synced"],
-    ["--metrics-file", "m.jsonl"], ["--optimizer", "adam"], ["--network", "VGG16"],
-    ["--dtype", "bfloat16"], ["--overlap", "on", "--opt-placement", "sharded"],
+    ["--optimizer", "adam"], ["--overlap", "on", "--opt-placement", "sharded"],
     ["--compress-grad", "2round", "--dcn-hosts", "2"],
-    ["--trace", "t"], ["--fault-plan", '{"slow_steps": [1]}'],
     ["--coordinator-address", "localhost:1234"], ["--data-root", "/nonexistent"],
 ])
 def test_torch_cli_train_refuses_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run("--max-steps", "1", *extra)
+
+
+def _small_run(tmp_path, network="LeNet", tcfg=None, pcfg=None):
+    """Trainer on 2 workers x 2 images of a tiny synthetic split (the
+    CLI's own split would make VGG's validation pass a CPU-minute)."""
+    name = "MNIST" if network == "LeNet" else "Cifar10"
+    d = make_synthetic(name, train_size=8, test_size=4, seed=3)
+    t = Trainer(TrainConfig(network=network, dataset=name, batch_size=2, max_steps=2,
+                            log_interval=1, test_batch_size=4, save_checkpoints=False,
+                            **(tcfg or {})),
+                PSConfig(num_workers=2, compress="int8", **(pcfg or {})), dataset=d,
+                device="cpu")
+    out = t.train()
+    return t, out, t.validate()
+
+
+# each once refused (the port's parent raised NotImplementedError for it)
+@pytest.mark.parametrize("case", [
+    dict(network="VGG11", pcfg=dict(opt_placement="sharded", bn_mode="synced")),
+    dict(tcfg=dict(metrics_file="m.jsonl")),
+    dict(network="VGG16"),
+    dict(tcfg=dict(dtype="bfloat16")),
+    dict(tcfg=dict(trace_dir="t")),
+    dict(tcfg=dict(fault_plan='{"slow_steps": [2], "slow_s": 0.01}',
+                   straggler_threshold_s=0.0)),
+], ids=["synced", "metrics_file", "vgg16", "bf16", "trace", "slow_steps"])
+def test_torch_trainer_runs_what_it_refused(tmp_path, case):
+    tcfg = dict(case.get("tcfg", {}))
+    for k in ("metrics_file", "trace_dir"):
+        if k in tcfg:
+            tcfg[k] = str(tmp_path / tcfg[k])
+    t, out, val = _small_run(tmp_path, case.get("network", "LeNet"), tcfg, case.get("pcfg"))
+    assert all(math.isfinite(h["loss"]) for h in t.history) and len(t.history) == 2
+    assert out["skipped_steps"] == 0.0 and math.isfinite(val["loss"])
+    if "metrics_file" in tcfg:
+        kinds = [json.loads(x)["kind"] for x in open(tcfg["metrics_file"])]
+        assert kinds == ["run_header", "train", "train", "eval"]
+    if "trace_dir" in tcfg:
+        names = {json.loads(x).get("name") for x in open(tmp_path / "t" / "trace_train_p0.jsonl")}
+        assert {"fetch", "dispatch", "sync", "guard"} <= names
+    if "fault_plan" in tcfg:
+        # threshold 0: every step but the exempt first is a straggler
+        assert out["straggler_steps"] == 1.0
 
 
 def test_torch_trainer_log_lines_parse_with_the_reference_parser(caplog):
