@@ -153,11 +153,35 @@ Phases, one line each:
    runs 5-6, every record validates, ``straggler`` comes before
    ``straggler_storm``, the trace holds ``dispatch``, ``sync`` and
    ``ckpt_save`` spans, K2 ran once a step;
-22. the kernels JSON line, then the result line.
+22. Adam and AMSGrad on phase 9's configuration (lr 0.001), 5 steps
+   each through ``cli.train.main``: finite losses, the last below the
+   first, K2 once a step, Adam's step 5 saved and resumed bit for bit;
+   each optimizer update's device time on the flat state beside its
+   bound (p, g and the moments read once, p and the moments written
+   once); step p50 beside phase 9's SGD; then LM-1 bf16 with
+   ``--optimizer adam``, 4 steps, with K4-K6's launch counts;
+23. one process on ``torch.distributed`` NCCL at world size 1
+   (``--coordinator-address``), the 8 workers on the process-spanning
+   axis, phase 9's configuration with EF residuals on three wires
+   (per-tensor int8 through K2's split route, block 128 through K1's
+   shared-scale split route, the autotune-best two-round homomorphic
+   fused wire: K2's split route then K3), 5 steps each: params, EF
+   residuals and ``model_step_5`` bit for bit the stacked backend's run
+   of the same seed (cuDNN deterministic in both), each split half once
+   a step and the fused entries never; both step p50s;
+24. two processes sharing the card, 4 workers each, the collectives
+   over a gloo group through host memory: the same three wires, each
+   ``model_step_5`` byte for byte phase 23's stacked one, the split
+   routes' launches per process, step p50 and the host-copy share; a
+   NaN-only piece in process 1's rows gives both processes scale NaN and
+   an all-zero payload (K2 and K1 block 128); then both split routes at
+   the ResNet18 step against their plain versions and the fused entries
+   (a NaN-only piece too), timed beside the fused entry;
+25. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12b,14,18,19,20,21 [--package-root DIR]
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12b,14,18,19,20,21,22,23,24 [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
 through ``serve.kv`` alone; the flash kernels 4 and 14; the serve run of
@@ -370,7 +394,8 @@ def ptxas_report(log: str) -> dict:
 # K2's and K1's kernels, whose registers and spills phase 2 prints
 QUANT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
                  "quantize_rows_scaled_many_kernel", "quantize_kv_write_kernel",
-                 "quantize_rows_many_kernel")
+                 "quantize_rows_many_kernel", "rows_absmax_many_kernel",
+                 "rows_quantize_given_many_kernel")
 
 
 def ptxas_quant_report(log: str) -> dict:
@@ -2031,14 +2056,14 @@ LM_ARGS = ["--parallelism", "dp_sp", "--attention-impl", "flash", "--vocab-size"
 
 
 def phase_lm(card: str, phase: str, steps: int, n_sp: int, batch: int, seq: int,
-             dtype: str = "bfloat16") -> dict:
+             dtype: str = "bfloat16", extra=()) -> dict:
     """Phases 15-16: LM training through ``cli.train_lm.main``, with the
     flash launch counts of the formula (L n (1 + remat) K4-partial, L n
     K5, L n K6 per step)."""
     from ps_pytorch_tpu_torch.cli import train_lm
 
     flags = ["--dtype", dtype, "--seq-len", str(seq), "--batch-size", str(batch),
-             "--num-sp", str(n_sp), "--max-steps", str(steps)]
+             "--num-sp", str(n_sp), "--max-steps", str(steps), *extra]
     reset_flash_counts()
     res = train_lm.main(LM_ARGS + flags)
     torch.cuda.synchronize()
@@ -2120,18 +2145,392 @@ def phase_lm_held(dev) -> dict:
 
 
 
+# ----------------------------------- phases 22-24: Adam, the process backend
+
+ADAM_ARGS = ["--lr", "0.001"]  # Adam's rate (phase 9's 0.1 is SGD's)
+# phases 23 / 24: phase 9's configuration on three wires, with EF residuals
+PROC_WIRES = {
+    "compress": ["--error-feedback"],
+    "block128": ["--quant-block-size", "128", "--error-feedback"],
+    "2round_homomorphic": ["--compress-grad", "2round", "--bucket-bytes", "0",
+                           "--wire-domain", "homomorphic", "--error-feedback"],
+}
+PROC_STEPS = 5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _split_counters():
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    return {name: getattr(q, name) for name in (
+        "tensors_absmax", "quantize_tensors_given", "rows_scaled_absmax",
+        "quantize_rows_scaled_given")}
+
+
+def reset_split_counts() -> None:
+    for fn in _split_counters().values():
+        fn.launches = 0
+
+
+def read_split_counts() -> dict:
+    return {name: fn.launches for name, fn in _split_counters().items()}
+
+
+def adam_update_case(name: str) -> dict:
+    """One ResNet18 step's optimizer update on the flat state (the padded
+    11,173,968 f32): ``tx.update`` + ``apply_updates``, device time
+    (profiler) and CUDA-event time, beside its bound: p, g and the
+    moments read once, p and the moments written once."""
+    from ps_pytorch_tpu_torch.optim import apply_updates, build_optimizer
+
+    n = RESNET18_PADDED
+    g = torch.Generator(device="cuda").manual_seed(3)
+    p = torch.randn(n, generator=g, device="cuda")
+    grad = torch.randn(n, generator=g, device="cuda") * 1e-3
+    tx = build_optimizer(name, 1e-3, flat=True)
+    _, st = tx.update(grad, tx.init(p), p)  # a state past its first step
+
+    def step():
+        u, _ = tx.update(grad, st, p)
+        return apply_updates(p, u)
+
+    moments = 3 if name == "amsgrad" else 2
+    n_bytes = 4 * n * ((2 + moments) + (1 + moments))
+    b_ms, b_by = bound_ms(n_bytes, 13.0 * n, PEAK_OPS_PER_S[torch.float32])
+    dev_ms, by_name = device_ms(step)
+    return {"elements": n, "bytes": n_bytes, "device_ms": dev_ms, "ms": time_ms(step, iters=50),
+            "device_launches": len(by_name), "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_adam(card: str, sgd: dict) -> dict:
+    """Phase 22: Adam and AMSGrad on phase 9's configuration (ResNet18 8 x
+    128, int8 per-tensor wire) through ``cli.train.main``, 5 steps each:
+    finite losses, the last below the first, K2 once a step; Adam's step
+    5 saved and resumed bit for bit; each update's device time beside its
+    bound; step p50 beside phase 9's SGD. Then LM-1 bf16 with ``--optimizer
+    adam`` through ``cli.train_lm.main`` (K4-K6's launch counts)."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.optim import AdamState
+
+    steps = 5
+    t0 = time.perf_counter()
+    rec = {"card": card, "steps": steps, "sgd_step_ms_p50": sgd["step_ms_p50"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("adam", "amsgrad"):
+            d = os.path.join(tmp, name)
+            flags = ADAM_ARGS + ["--optimizer", name]
+            ck = ["--train-dir", d, "--eval-freq", str(steps)] if name == "adam" else []
+            reset_counts()
+            out = _train(steps, flags + ck, checkpoints=bool(ck))
+            torch.cuda.synchronize()
+            k2 = read_counts()["quantize_tensors"]
+            losses = [h["loss"] for h in out["history"]]
+            trainer = out["trainer"]
+            require(len(losses) == steps and all(np.isfinite(losses)),
+                    f"phase 22 {name}: losses {losses}")
+            require(losses[-1] < losses[0], f"phase 22 {name}: losses do not fall {losses}")
+            require(k2 == steps, f"phase 22 {name}: K2 called {k2} times in {steps} steps")
+            require(isinstance(trainer.state.opt_state, AdamState)
+                    and (trainer.state.opt_state.max_exp_avg_sq is None) == (name == "adam"),
+                    f"phase 22 {name}: optimizer state {type(trainer.state.opt_state)}")
+            r = {"losses": losses, "launches": {"quantize_tensors": k2},
+                 "step_ms_p50": _step_p50(out["history"], warm=2) * 1e3,
+                 "update": adam_update_case(name)}
+            if ck:
+                require(ckpt.available_steps(d) == [steps], f"phase 22: files {os.listdir(d)}")
+                back = _train(steps, flags + ck + ["--resume"], checkpoints=True)
+                require(back["history"] == [] and back["trainer"].state.step == steps
+                        and _state_bits(back["trainer"].state, trainer.state),
+                        "phase 22 adam: step 5 not resumed bit for bit")
+                r["resume_bit_exact"] = True
+            rec[name] = r
+            del out, trainer
+    rec["seconds"] = time.perf_counter() - t0
+    print("phase 22 ResNet18 Adam / AMSGrad: " + json.dumps(rec))
+    rec["lm"] = phase_lm(card, "phase 22b LM-1 train_lm --optimizer adam", 4, 1, 8, 1024,
+                         extra=["--optimizer", "adam", "--lr", "0.001"])
+    return rec
+
+
+def _files_equal(a: str, b: str) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def phase_nccl_one(card: str, root: str) -> dict:
+    """Phase 23: one process on ``torch.distributed`` NCCL at world size 1
+    (``cli.train --coordinator-address``), the 8 workers on the
+    ``ProcessWorkerAxis``, phase 9's configuration on three wires with EF
+    residuals, 5 steps each, against the stacked backend's run of the same
+    seed: params, EF residuals (the live states) and ``model_step_5``
+    bit for bit (cuDNN deterministic for both); the split routes' launches
+    (K2's per tensor, K1's shared-scale per block, each half once a step;
+    the fused entries none); both step p50s. The stacked files stay in
+    ``root`` for phase 24."""
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.parallel.mesh import ProcessWorkerAxis, WorkerAxis
+
+    t0 = time.perf_counter()
+    rec = {"card": card, "steps": PROC_STEPS}
+    for wire, flags in PROC_WIRES.items():
+        dirs = {k: os.path.join(root, f"{k}_{wire}") for k in ("stacked", "nccl")}
+        runs = {}
+        for kind in ("stacked", "nccl"):
+            extra = ["--train-dir", dirs[kind], "--eval-freq", str(PROC_STEPS)]
+            if kind == "nccl":
+                extra += ["--coordinator-address", f"localhost:{_free_port()}",
+                          "--num-processes", "1", "--process-id", "0"]
+            reset_counts()
+            reset_split_counts()
+            out = _train(PROC_STEPS, flags + extra, checkpoints=True)
+            torch.cuda.synchronize()
+            counts = {**read_counts(), **read_split_counts()}
+            losses = [h["loss"] for h in out["history"]]
+            require(len(losses) == PROC_STEPS and all(np.isfinite(losses)),
+                    f"phase 23 {wire} {kind}: losses {losses}")
+            axis_ok = isinstance(out["trainer"].mesh,
+                                 ProcessWorkerAxis if kind == "nccl" else WorkerAxis)
+            require(axis_ok, f"phase 23 {wire} {kind}: axis {out['trainer'].mesh!r}")
+            runs[kind] = (out, counts)
+            require(ckpt.available_steps(dirs[kind]) == [PROC_STEPS],
+                    f"phase 23 {wire} {kind}: files {os.listdir(dirs[kind])}")
+        (so, sc), (po, pc) = runs["stacked"], runs["nccl"]
+        require(_state_bits(so["trainer"].state, po["trainer"].state),
+                f"phase 23 {wire}: params / EF residuals differ from the stacked run")
+        require(so["trainer"].state.comm_state is not None, f"phase 23 {wire}: no EF residuals")
+        require(_files_equal(ckpt.checkpoint_path(dirs["stacked"], PROC_STEPS),
+                             ckpt.checkpoint_path(dirs["nccl"], PROC_STEPS)),
+                f"phase 23 {wire}: model_step_{PROC_STEPS} bytes differ")
+        block = wire == "block128"
+        fused, absmax, given = (("quantize_rows_scaled_many", "rows_scaled_absmax",
+                                 "quantize_rows_scaled_given") if block else
+                                ("quantize_tensors", "tensors_absmax", "quantize_tensors_given"))
+        require(sc[fused] == PROC_STEPS and pc[fused] == 0
+                and pc[absmax] == pc[given] == PROC_STEPS
+                and sc[absmax] == sc[given] == 0,
+                f"phase 23 {wire}: launches stacked {sc}, nccl {pc}")
+        if wire == "2round_homomorphic":
+            require(pc["accumulate_rescale_int8"] == sc["accumulate_rescale_int8"] == PROC_STEPS,
+                    f"phase 23 {wire}: K3 launches stacked {sc}, nccl {pc}")
+        rec[wire] = {"flags": " ".join(flags), "bit_exact": True,
+                     "launches_stacked": sc, "launches_nccl": pc,
+                     "loss_last": so["history"][-1]["loss"],
+                     "stacked_step_ms_p50": _step_p50(so["history"], warm=2) * 1e3,
+                     "nccl_step_ms_p50": _step_p50(po["history"], warm=2) * 1e3}
+        del runs, so, po
+    rec["seconds"] = time.perf_counter() - t0
+    print("phase 23 NCCL world size 1 vs stacked, bit for bit: " + json.dumps(rec))
+    return rec
+
+
+def split_route_case(dev, block: int) -> dict:
+    """The split route of one ResNet18 wire step (62 stacked leaves):
+    this process's absmax, then the quantize with it (no cross-process max
+    between: one process), bit for bit against the plain versions on CPU
+    copies and against the fused entry; device time of the two halves,
+    CUDA-event time, beside the fused entry's bound."""
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    xs = resnet18_step_pieces(dev)
+    if block:
+        halves = (lambda ys: q.rows_scaled_absmax(ys, block),
+                  lambda ys, a: q.quantize_rows_scaled_given(ys, block, a))
+        plain = (lambda ys: q.rows_scaled_absmax_plain(ys, block),
+                 lambda ys, a: q.quantize_rows_scaled_given_plain(ys, block, a))
+        fused = lambda ys: q.quantize_rows_scaled_many(ys, block)
+    else:
+        halves = (q.tensors_absmax, q.quantize_tensors_given)
+        plain = (q.tensors_absmax_plain, q.quantize_tensors_given_plain)
+        fused = q.quantize_tensors
+    fn = lambda ys: halves[1](ys, halves[0](ys))
+    got = fn(xs)
+    cpu = [x.cpu() for x in xs]
+    want = plain[1](cpu, plain[0](cpu))
+    ref = fused(xs)
+    torch.cuda.synchronize()
+    for i, (g_, w_, r_) in enumerate(zip(got, want, ref)):
+        require(all(same_bits(a.cpu(), b) for a, b in zip(g_, w_))
+                and all(same_bits(a, b) for a, b in zip(g_, r_)),
+                f"split route block {block}: piece {i} differs from the plain / fused version")
+    # NaN-only rows in one piece (F1 across the hop): scale NaN, payload
+    # 0; the plain version on the card's tensors, as phase 7 holds K2's
+    # NaN case (the card's f32 multiply returns its canonical NaN, the
+    # CPU's keeps the operand's payload)
+    ys = [x.clone() for x in xs[:3]]
+    ys[1][3] = float("nan")
+    got_nan = fn(ys)
+    for i, (g_, w_) in enumerate(zip(got_nan, plain[1](ys, plain[0](ys)))):
+        require(all(same_bits(a, b) for a, b in zip(g_, w_)),
+                f"split route block {block}: NaN case piece {i} differs from plain")
+    require(bool(torch.isnan(got_nan[1][1]).any()) and not bool(got_nan[1][0][3].any()),
+            f"split route block {block}: the NaN-only rows did not give scale NaN, payload 0")
+    n_in = sum(x.numel() for x in xs)
+    n_out = sum(g_[0].numel() + 4 * g_[1].numel() + 4 * g_[2].numel() for g_ in got)
+    b_ms, b_by = bound_ms(4 * n_in + n_out, 4.0 * n_in, PEAK_OPS_PER_S[torch.float32])
+    dev_total, by_name, launches = device_profile(lambda: fn(xs))
+    return {"pieces": len(xs), "elements": n_in, "device_ms": dev_total,
+            "device_launches": sum(launches.values()),
+            "device_kernels": {k[:60]: v for k, v in by_name.items()},
+            "ms": time_ms(lambda: fn(xs), iters=50), "fused_ms": time_ms(lambda: fused(xs),
+                                                                         iters=50),
+            "plain_ms": time_ms(lambda: plain[1](xs, plain[0](xs)), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+
+
+def phase_split(dev) -> dict:
+    split = {"k2": split_route_case(dev, 0), "k1": split_route_case(dev, 128)}
+    print("phase 24b split routes at the ResNet18 step, bit-exact vs plain and fused: "
+          + json.dumps(split))
+    return split
+
+
+def phase24_child(rank: int, port: int, root: str, out_path: str) -> int:
+    """One of phase 24's two processes on the one card: a gloo group
+    (``init_process_group`` at ``tcp://localhost:port``), 4 of the 8
+    workers, ``cli.train.main`` on each wire (the trainer takes the
+    group's ``ProcessWorkerAxis``, whose gloo hops copy through host
+    memory); then K2's and K1's split routes with a NaN-only piece in
+    process 1's rows. Writes its record to ``out_path``."""
+    import torch.distributed as dist
+
+    from ps_pytorch_tpu_torch.ops import quantize as q
+    from ps_pytorch_tpu_torch.parallel.mesh import ProcessWorkerAxis
+
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    rec = {"rank": rank}
+    try:
+        for wire, flags in PROC_WIRES.items():
+            reset_counts()
+            reset_split_counts()
+            out = _train(PROC_STEPS, flags + ["--train-dir", os.path.join(root, f"two_{wire}"),
+                                              "--eval-freq", str(PROC_STEPS)], checkpoints=True)
+            torch.cuda.synchronize()
+            axis = out["trainer"].mesh
+            hist = out["history"]
+            require(isinstance(axis, ProcessWorkerAxis) and axis.local_size == WORKERS // 2,
+                    f"phase 24 rank {rank}: axis {axis!r}")
+            step_s = sum(h["time_cost"] for h in hist)
+            rec[wire] = {"losses": [h["loss"] for h in hist],
+                         "launches": {**read_counts(), **read_split_counts()},
+                         "step_ms_p50": _step_p50(hist, warm=2) * 1e3,
+                         "host_copy_s": axis.host_copy_s, "steps_s": step_s,
+                         "host_copy_share": axis.host_copy_s / step_s}
+            dev = out["trainer"].device
+            del out
+        axis = ProcessWorkerAxis(WORKERS)
+        g = torch.Generator().manual_seed(21)
+        pieces = [(torch.randn((WORKERS, n), generator=g)[axis.first:][:4] * 0.01).to(dev)
+                  for n in (4099, 12345, 10)]
+        if rank == 1:
+            pieces[1][:] = float("nan")
+        nan = {}
+        for block in (0, 128):
+            got = q.quantize_int8_many(pieces, axis, block)
+            torch.cuda.synchronize()
+            nan[block] = {"scale_nan": bool(torch.isnan(got[1][1]).all()),
+                          "payload_zero": not bool(got[1][0].any()),
+                          "finite_scales": all(bool(torch.isfinite(got[i][1]).all())
+                                               for i in (0, 2))}
+        rec["nan_only"] = nan
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def phase_two_processes(card: str, root: str, nccl: dict) -> dict:
+    """Phase 24: two processes share the card, 4 workers each, the
+    collectives over a gloo group through host memory; the same three
+    wires, each ``model_step_5`` byte for byte phase 23's stacked run's;
+    the split routes' launches in each process; the NaN-only piece of
+    process 1 gives both processes scale NaN and payload 0. Step p50 and
+    the host-copy share (the staged copies' seconds over the steps'
+    seconds, the step-5 checkpoint's gather included)."""
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    outs = [os.path.join(root, f"p24_{r}.json") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase24-child",
+                               str(r), str(port), root, outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"phase 24 process {r} failed:\n{log[-3000:]}")
+    recs = []
+    for path in outs:
+        with open(path) as f:
+            recs.append(json.load(f))
+    rec = {"card": card, "processes": 2, "workers_per_process": WORKERS // 2}
+    for wire in PROC_WIRES:
+        two = ckpt.checkpoint_path(os.path.join(root, f"two_{wire}"), PROC_STEPS)
+        require(_files_equal(two, ckpt.checkpoint_path(os.path.join(root, f"stacked_{wire}"),
+                                                       PROC_STEPS)),
+                f"phase 24 {wire}: model_step_{PROC_STEPS} bytes differ from the stacked run")
+        block = wire == "block128"
+        absmax, given = (("rows_scaled_absmax", "quantize_rows_scaled_given") if block else
+                         ("tensors_absmax", "quantize_tensors_given"))
+        for r in recs:
+            la = r[wire]["launches"]
+            require(la[absmax] == la[given] == PROC_STEPS,
+                    f"phase 24 {wire} rank {r['rank']}: launches {la}")
+        rec[wire] = {"bit_exact_vs_stacked": True,
+                     "step_ms_p50": [r[wire]["step_ms_p50"] for r in recs],
+                     "stacked_step_ms_p50": nccl[wire]["stacked_step_ms_p50"],
+                     "host_copy_share": [r[wire]["host_copy_share"] for r in recs],
+                     "launches": [r[wire]["launches"] for r in recs]}
+    for r in recs:
+        for block, v in r["nan_only"].items():
+            require(v["scale_nan"] and v["payload_zero"] and v["finite_scales"],
+                    f"phase 24 rank {r['rank']} block {block}: NaN-only piece {v}")
+    rec["nan_only"] = [r["nan_only"] for r in recs]
+    rec["seconds"] = time.perf_counter() - t0
+    print("phase 24 two processes on the card (gloo through host memory) vs stacked: "
+          + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12b, 14, "
-                         "18, 19, 20, 21; 2 on this tree only)")
+                         "18, 19, 20, 21, 22, 23, 24; 2 on this tree only; 22 runs 9 "
+                         "first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
+    ap.add_argument("--phase24-child", nargs=4, default=None, metavar=("RANK", "PORT", "DIR", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.phase24_child is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rank, port, root, out = args.phase24_child
+        return phase24_child(int(rank), int(port), root, out)
     if args.package_root is not None:
         sys.path.insert(0, os.path.abspath(args.package_root))
         OTHER_TREE = True
@@ -2147,6 +2546,21 @@ def main(argv=None) -> int:
     print(smi)
     print(f"phase 1 device: {card} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | tf32 off")
+
+    def procs(two: bool) -> tuple:
+        """Phases 23 and (``two``) 24 in one scratch directory: 24 holds
+        its files against 23's stacked ones. cuDNN picks deterministic
+        algorithms for both, so runs of one seed are comparable bit for
+        bit."""
+        import tempfile
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            with tempfile.TemporaryDirectory() as root:
+                nccl = phase_nccl_one(smi, root)
+                return nccl, (phase_two_processes(smi, root, nccl) if two else None)
+        finally:
+            torch.backends.cudnn.deterministic = False
 
     if args.phases is not None:
         import ps_pytorch_tpu_torch
@@ -2168,7 +2582,10 @@ def main(argv=None) -> int:
                  18: lambda: phase_vgg(smi),
                  19: lambda: phase_bf16(smi, phase_train(smi)),
                  20: lambda: phase_held_vgg(dev),
-                 21: lambda: phase_events(smi)}
+                 21: lambda: phase_events(smi),
+                 22: lambda: phase_adam(smi, phase_train(smi)),
+                 23: lambda: procs(False),
+                 24: lambda: (procs(True), phase_split(dev))}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -2201,6 +2618,9 @@ def main(argv=None) -> int:
     bf16 = phase_bf16(smi, train)
     phase_held_vgg(dev)
     events = phase_events(smi)
+    phase_adam(smi, train)
+    nccl, two = procs(True)
+    split = phase_split(dev)
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -2224,6 +2644,22 @@ def main(argv=None) -> int:
             **{k: f32[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_device_ms")}}
         return entry
+
+    def split_entry(name, source, site, rec, wire, absmax, given):
+        """A split route: launches from phase 23's NCCL run of its wire
+        (each half once a step; the quantize half is the entry's count),
+        phase 24's per process beside them; times at the ResNet18 step."""
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"ps_pytorch_tpu/ops/quantize.py:{site}",
+            "launches": nccl[wire]["launches_nccl"][given],
+            "launches_absmax_half": nccl[wire]["launches_nccl"][absmax],
+            "launches_two_processes": [la[given] for la in two[wire]["launches"]],
+            "max_abs_err": rec["max_abs_err"],
+            **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "fused_ms")},
+            "library_ms": None,
+        }
 
     kernels = [
         {
@@ -2306,6 +2742,11 @@ def main(argv=None) -> int:
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_device_ms")}},
         },
+        split_entry("quantize_tensors_split", "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
+                    78, split["k2"], "compress", "tensors_absmax", "quantize_tensors_given"),
+        split_entry("quantize_rows_scaled_split", "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
+                    101, split["k1"], "block128", "rows_scaled_absmax",
+                    "quantize_rows_scaled_given"),
         flash_entry("flash_partial", "ps_pytorch_tpu_torch/csrc/flash_fwd.cu", 199, "partial"),
         flash_entry("flash_bwd_dq", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 319, "dq"),
         flash_entry("flash_bwd_dkv", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 337, "dkv"),

@@ -12,7 +12,12 @@ Slices in place, on hand-written Hopper kernels (``csrc/``):
   N virtual workers stacked on one card, with the per-leaf int8
   gradient wire (K2 per tensor, K1's shared-scale entry per block);
 - checkpoints: ``model_step_N`` in the JAX package's bytes, ``--resume``
-  and the polling evaluator ``cli.evaluate`` (``checkpoint.py``).
+  and the polling evaluator ``cli.evaluate`` (``checkpoint.py``);
+- Adam / AMSGrad (``optim/adam.py``), and the workers spread over the
+  processes of a ``torch.distributed`` group (``parallel/mesh.py``
+  ``ProcessWorkerAxis``: NCCL one process a card, gloo on the CPU), the
+  shared scale's cross-process max between the halves of K2's and K1's
+  split routes.
 
 What is still to port is listed in ROADMAP.md.
 

@@ -12,10 +12,15 @@ whatever the live state's layout (``parallel/buckets.py`` registers a
 ``FlatVector``'s conversion to and from its tree with the serializer), so
 the JAX package and the port resume each other's files.
 
+Over processes (``AsyncCheckpointer.save_collective``, JAX
+checkpoint.py:108-169 and :244): the caller gathers every worker's rows
+to every process, rank 0 alone writes, at once, its outcome is broadcast
+and a barrier follows, so no process returns before the file is durable
+and a failed write raises on every process.
+
 Not ported, and refused: the native codec's compressed form (files that
-start with ``b'PSCK'``; ROADMAP.md queue 1 item 22) and the multi-process
-save and resume (the port runs one process). Reading a compressed file
-raises ``NotImplementedError``: such a file is not damaged, so it is
+start with ``b'PSCK'``; ROADMAP.md queue 1 item 22). Reading a compressed
+file raises ``NotImplementedError``: such a file is not damaged, so it is
 neither classed as corrupt nor quarantined.
 """
 
@@ -128,6 +133,30 @@ class AsyncCheckpointer:
         host_state = to_state_dict(state)
         self.wait()
         self._pending = self._pool.submit(self._write_logged, host_state, model_dir, step)
+
+    def save_collective(self, state, model_dir: str, step: int, axis) -> None:
+        """The save of a run over processes (``axis`` a
+        ``ProcessWorkerAxis``; ``state`` already holds every worker's
+        rows): every process calls it at the same step. Rank 0 writes
+        synchronously, then every process learns its outcome (a
+        broadcast) and meets the others at a barrier, so the file is
+        durable before any returns, and a failed write raises a
+        ``CheckpointWriteError`` on every process, not on rank 0 alone
+        (raising before the barrier would strand the others in it)."""
+        err = None
+        if axis.rank == 0:
+            try:
+                self.save(state, model_dir, step)
+                self.wait()
+            except BaseException as e:  # held across the broadcast, raised below
+                err = e
+        ok = axis.broadcast_object(err is None)
+        axis.barrier()
+        if err is not None:
+            raise err
+        if not ok:
+            raise CheckpointWriteError(step, checkpoint_path(model_dir, step),
+                                       RuntimeError("checkpoint write failed on process 0"))
 
     def _write_logged(self, host_state: dict, model_dir: str, step: int) -> str:
         path = checkpoint_path(model_dir, step)

@@ -117,7 +117,9 @@ def add_ps_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--dynamic-loss-scale", action="store_true")
     a("--loss-scale-init", type=float, default=2.0 ** 15)
     a("--loss-scale-growth-interval", type=int, default=2000)
-    a("--coordinator-address", type=str, default=None)
+    a("--coordinator-address", type=str, default=None,
+      help="host:port of rank 0's rendezvous: run one process per --process-id "
+           "(NCCL, one process per card; gloo with --device cpu)")
     a("--num-processes", type=int, default=None)
     a("--process-id", type=int, default=None)
     return parser
@@ -125,9 +127,6 @@ def add_ps_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def refuse_unported_flags(args: argparse.Namespace) -> None:
     """Flags with no home in a config object that this slice refuses."""
-    if (args.coordinator_address is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(f"multi-process training {_ROADMAP}")
     if getattr(args, "config_json", None) is not None:
         raise NotImplementedError(f"--config-json (autotune records) {_ROADMAP}")
 

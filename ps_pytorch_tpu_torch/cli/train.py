@@ -10,6 +10,12 @@ card, with 8 virtual workers stacked on it:
 ``--device cpu`` runs the plain versions on the CPU (the tests do).
 Without ``--device cpu`` and without a card it raises.
 
+Over processes (the reference's MPI job): the same command once per
+process with ``--coordinator-address HOST:PORT --num-processes P
+--process-id i``; each process holds ``--num-workers / P`` of the
+workers. NCCL on the card (one process per card), gloo with ``--device
+cpu``.
+
 Checkpoints: ``model_step_N`` in ``--train-dir`` every ``--eval-freq``
 steps and after the last (``--no-checkpoints``: none), in the JAX
 package's bytes; ``--resume`` continues from the newest valid one.
@@ -27,6 +33,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ..parallel.mesh import initialize_multihost
 from ..trainer import Trainer
 from ..utils import get_logger
 from ._flags import (
@@ -47,6 +54,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--config-json", metavar="FILE", default=None)
     args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
     refuse_unported_flags(args)
+    joined = initialize_multihost(args.coordinator_address, args.num_processes,
+                                  args.process_id, device=args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args) -> dict:
     tcfg = train_config_from(args)
     pcfg = ps_config_from(args, args.num_workers or 1)
     trainer = Trainer(tcfg, pcfg, device=args.device)

@@ -15,8 +15,8 @@ Every flag of the JAX CLI parses, plus ``--device`` (default ``cuda``;
 without a card it raises unless ``--device cpu``). ``--num-sp 0`` means
 all remaining devices, which on the one card is 1. Values this slice
 does not run are refused with a pointer to ROADMAP.md: the other
-``--parallelism`` schemes, ``--optimizer adam|amsgrad`` and
-``--profile-dir``. ``--metrics-file F`` appends a ``run_header`` and one
+``--parallelism`` schemes and ``--profile-dir``. ``--optimizer
+adam|amsgrad`` runs ``optim.adam`` (``--momentum`` is then unused). ``--metrics-file F`` appends a ``run_header`` and one
 ``train_lm`` record a log window, as the JAX CLI does.
 
 ``--train-dir DIR`` writes ``model_step_N`` every ``--eval-freq`` steps

@@ -38,7 +38,12 @@
 //                                 q[w, r, :] with that shared scale.
 //                                 Padding to whole blocks is virtual:
 //                                 elements past n read as 0 and their
-//                                 int8 is written as 0 (no padded copy).
+//                                 int8 is written as 0 (no padded copy);
+//   ps_rows_scaled_absmax_many +  the same entry split in two around a
+//   ps_quantize_rows_scaled_given_many  cross-process max of the block
+//                                 absmax, for a worker axis over
+//                                 processes (each process's N is its
+//                                 local workers).
 //
 // All compute, per row, inv = absmax > 0 ? 127 / max(absmax, 1e-30) : 0,
 // int8(clip(rint(x * inv), -127, 127)) and scale = absmax * (1/127).
@@ -387,6 +392,84 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// The shared-scale entry's split route, for a worker axis that spans
+// processes: block r's absmax is the max over EVERY process's workers, so
+// the cross-process max (an all_reduce of the int32 bits, ops/quantize.py)
+// sits between a pass that takes this process's block absmax and one that
+// quantizes with the reduced one. One warp a block-row, as above, the
+// lanes over consecutive elements (coalesced); padding reads as 0.
+template <typename T>
+__device__ __forceinline__ float local_block_absmax(const T* __restrict__ x, long long n,
+                                                    long long r, int workers, int bs,
+                                                    int lane) {
+  const long long c0 = r * bs;
+  const int live = (int)min((long long)bs, n - c0);
+  float m = 0.0f;
+  for (int w = 0; w < workers; ++w) {
+    const T* xw = x + w * n + c0;
+    for (int j = lane; j < live; j += 32) m = ps::max_abs(m, ps::to_float(xw[j]));
+  }
+  return ps::warp_max(m);
+}
+
+template <typename T>
+__device__ __forceinline__ void given_block_quantize(const T* __restrict__ x,
+                                                     int8_t* __restrict__ q, long long n,
+                                                     long long nb, long long r, int workers,
+                                                     int bs, int lane, float inv) {
+  const long long c0 = r * bs;
+  const int live = (int)min((long long)bs, n - c0);
+  for (int w = 0; w < workers; ++w) {
+    const T* xw = x + w * n + c0;
+    int8_t* qw = q + (w * nb + r) * bs;
+    for (int j = lane; j < bs; j += 32)
+      qw[j] = ps::quant_int8(j < live ? ps::to_float(xw[j]) : 0.0f, inv);
+  }
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    rows_absmax_many_kernel(const __grid_constant__ RowsTable t, float* __restrict__ absmax) {
+  const int lane = threadIdx.x & 31;
+  const int workers = (int)t.workers, bs = (int)t.bs;
+  const long long warps = (long long)gridDim.x * kWarpsPerBlock;
+  for (long long u = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       u < t.total_rows; u += warps) {  // warp-uniform
+    const int i = piece_of(t, u);
+    const long long r = u - t.first_row[i];
+    const float m =
+        t.kind[i] == kBF16
+            ? local_block_absmax(reinterpret_cast<const __nv_bfloat16*>(t.x[i]), t.n[i], r,
+                                 workers, bs, lane)
+            : local_block_absmax(reinterpret_cast<const float*>(t.x[i]), t.n[i], r, workers,
+                                 bs, lane);
+    if (lane == 0) absmax[t.slot[i] + r] = m;
+  }
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    rows_quantize_given_many_kernel(const __grid_constant__ RowsTable t,
+                                    const float* __restrict__ absmax,
+                                    float* __restrict__ scale) {
+  const int lane = threadIdx.x & 31;
+  const int workers = (int)t.workers, bs = (int)t.bs;
+  const long long warps = (long long)gridDim.x * kWarpsPerBlock;
+  for (long long u = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+       u < t.total_rows; u += warps) {  // warp-uniform
+    const int i = piece_of(t, u);
+    const long long r = u - t.first_row[i];
+    const float m = absmax[t.slot[i] + r];
+    const float inv = ps::inv_scale(m);
+    int8_t* q = reinterpret_cast<int8_t*>(t.q[i]);
+    if (t.kind[i] == kBF16)
+      given_block_quantize(reinterpret_cast<const __nv_bfloat16*>(t.x[i]), q, t.n[i], t.nb[i],
+                           r, workers, bs, lane, inv);
+    else
+      given_block_quantize(reinterpret_cast<const float*>(t.x[i]), q, t.n[i], t.nb[i], r,
+                           workers, bs, lane, inv);
+    if (lane == 0) scale[t.slot[i] + r] = m * ps::kRecip127;
+  }
+}
+
 // Per-row multi-tensor quantize on the KV entry's lane groups (one-worker
 // pieces [nb, bs] of one type; the group the same for the whole call):
 // one thread group a row, a plain grid.
@@ -470,6 +553,38 @@ extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax
   quantize_rows_scaled_many_kernel<<<(unsigned)(want < cap ? want : cap), kWarpsPerBlock * 32, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<float*>(absmax), static_cast<float*>(scale));
+  return (int)cudaGetLastError();
+}
+
+// the split route's grid: a grid-stride walk over the table's rows, at
+// most 4096 blocks of kWarpsPerBlock warps
+static unsigned split_grid(const RowsTable& t) {
+  const long long want = (t.total_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  return (unsigned)(want < 4096 ? want : 4096);
+}
+
+// One table of K1's shared-scale split route, first half: absmax[slot + r]
+// receives piece i's block-row r's max over this process's workers.
+extern "C" int ps_rows_scaled_absmax_many(const long long* words, void* absmax,
+                                          void* stream) {
+  RowsTable t;
+  memcpy(&t, words, sizeof t);
+  if (const int err = check_table(t)) return err;
+  rows_absmax_many_kernel<<<split_grid(t), kWarpsPerBlock * 32, 0,
+                            static_cast<cudaStream_t>(stream)>>>(t, static_cast<float*>(absmax));
+  return (int)cudaGetLastError();
+}
+
+// Second half: every worker's block-row r of piece i quantized with the
+// reduced absmax[slot + r]; scale[slot + r] = absmax * (1/127).
+extern "C" int ps_quantize_rows_scaled_given_many(const long long* words, const void* absmax,
+                                                  void* scale, void* stream) {
+  RowsTable t;
+  memcpy(&t, words, sizeof t);
+  if (const int err = check_table(t)) return err;
+  rows_quantize_given_many_kernel<<<split_grid(t), kWarpsPerBlock * 32, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<const float*>(absmax), static_cast<float*>(scale));
   return (int)cudaGetLastError();
 }
 

@@ -244,26 +244,63 @@ unsigned grid_for(long long work, int resident) {
 
 extern "C" long long ps_tensor_table_words() { return sizeof(TensorTable) / sizeof(long long); }
 
+static int read_table(const long long* words, TensorTable* t) {
+  memcpy(t, words, sizeof *t);
+  if (t->count < 1 || t->count > ps::kMaxPieces || t->total_chunks != t->first_chunk[t->count] ||
+      t->total_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  for (long long i = 0; i < t->count; ++i)
+    if (t->n[i] < 1 || t->kind[i] < kF32Vec || t->kind[i] > kBF16)
+      return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
+static int launch_absmax(const TensorTable& t, float* absmax, cudaStream_t s) {
+  const int ra = resident_blocks((const void*)absmax_many_kernel, 0);
+  if (ra < 1) return (int)cudaErrorInvalidConfiguration;
+  absmax_many_kernel<<<grid_for(t.total_chunks, ra), kThreads, 0, s>>>(t, absmax);
+  return (int)cudaGetLastError();
+}
+
+static int launch_quantize(const TensorTable& t, const float* absmax, float* scale,
+                           cudaStream_t s) {
+  const int rq = resident_blocks((const void*)quantize_many_kernel, 1);
+  if (rq < 1) return (int)cudaErrorInvalidConfiguration;
+  quantize_many_kernel<<<grid_for(t.total_chunks, rq), kThreads, 0, s>>>(t, absmax, scale);
+  return (int)cudaGetLastError();
+}
+
 // One table of K2's multi-tensor entry: `words` is a TensorTable, slots
 // absmax[slot] (zeroed by the caller) and scale[slot].
 extern "C" int ps_quantize_tensors(const long long* words, void* absmax, void* scale,
                                    void* stream) {
   TensorTable t;
-  memcpy(&t, words, sizeof t);
-  if (t.count < 1 || t.count > ps::kMaxPieces || t.total_chunks != t.first_chunk[t.count] ||
-      t.total_chunks < 1)
-    return (int)cudaErrorInvalidValue;
-  for (long long i = 0; i < t.count; ++i)
-    if (t.n[i] < 1 || t.kind[i] < kF32Vec || t.kind[i] > kBF16) return (int)cudaErrorInvalidValue;
+  if (const int err = read_table(words, &t)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(absmax);
-  const int ra = resident_blocks((const void*)absmax_many_kernel, 0);
-  const int rq = resident_blocks((const void*)quantize_many_kernel, 1);
-  if (ra < 1 || rq < 1) return (int)cudaErrorInvalidConfiguration;
-  absmax_many_kernel<<<grid_for(t.total_chunks, ra), kThreads, 0, s>>>(t, a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  quantize_many_kernel<<<grid_for(t.total_chunks, rq), kThreads, 0, s>>>(
-      t, a, static_cast<float*>(scale));
-  return (int)cudaGetLastError();
+  if (const int err = launch_absmax(t, a, s)) return err;
+  return launch_quantize(t, a, static_cast<float*>(scale), s);
+}
+
+// K2's split route, for a worker axis that spans processes: the
+// cross-process max of the absmax (a torch.distributed all_reduce over
+// its int32 bits, ops/quantize.py) has to sit between the two kernels of
+// ps_quantize_tensors, so each gets its own entry over the same table.
+// ps_absmax_tensors: this process's absmax of every piece into
+// absmax[slot] (zeroed by the caller); ps_quantize_tensors_given: the
+// quantize with the reduced absmax[slot], scale[slot] = absmax * (1/127).
+// The kernels are the fused entry's, so each process's half of the work
+// is bit for bit what the one-process call computes.
+extern "C" int ps_absmax_tensors(const long long* words, void* absmax, void* stream) {
+  TensorTable t;
+  if (const int err = read_table(words, &t)) return err;
+  return launch_absmax(t, static_cast<float*>(absmax), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ps_quantize_tensors_given(const long long* words, const void* absmax,
+                                         void* scale, void* stream) {
+  TensorTable t;
+  if (const int err = read_table(words, &t)) return err;
+  return launch_quantize(t, static_cast<const float*>(absmax), static_cast<float*>(scale),
+                         static_cast<cudaStream_t>(stream));
 }

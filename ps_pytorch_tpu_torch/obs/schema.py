@@ -147,10 +147,11 @@ def validate_event(record: dict) -> dict:
 
 
 def run_header(component: str, run_id: Optional[str] = None,
-               geometry: Optional[dict] = None) -> dict:
+               geometry: Optional[dict] = None, pid: int = 0) -> dict:
     """The stream-opening run_header record (t_wall and t_mono are one
-    paired sample; pid 0: one process per stream); ``geometry`` says
-    enough to read the stream without the command line that made it."""
+    paired sample; ``pid`` the writing process's rank, one process per
+    stream); ``geometry`` says enough to read the stream without the
+    command line that made it."""
     rec = {
         "kind": "run_header",
         "run_id": run_id or new_run_id(),
@@ -158,7 +159,7 @@ def run_header(component: str, run_id: Optional[str] = None,
         "component": component,
         "t_wall": round(time.time(), 6),
         "t_mono": round(time.perf_counter(), 6),
-        "pid": 0,
+        "pid": int(pid),
     }
     if geometry is not None:
         rec["geometry"] = geometry

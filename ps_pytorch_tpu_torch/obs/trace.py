@@ -102,11 +102,12 @@ class Tracer:
 
     def __init__(self, component: str, path: Optional[str] = None,
                  ring: int = 65536, annotate: bool = False,
-                 run_id: Optional[str] = None, geometry: Optional[dict] = None):
+                 run_id: Optional[str] = None, geometry: Optional[dict] = None,
+                 pid: int = 0):
         self.component = component
         self.path = path
         self.run_id = run_id or new_run_id()
-        self.header = run_header(component, run_id=self.run_id, geometry=geometry)
+        self.header = run_header(component, run_id=self.run_id, geometry=geometry, pid=pid)
         self._base = self.header["t_mono"]
         self._buf: collections.deque = collections.deque(maxlen=max(ring, 1))
         self._stack: List[str] = []

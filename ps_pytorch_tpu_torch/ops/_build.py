@@ -145,6 +145,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ps_rows_table_words.restype = i64
     lib.ps_quantize_tensors.argtypes = [vp, vp, vp, vp]
     lib.ps_quantize_tensors.restype = i32
+    lib.ps_absmax_tensors.argtypes = [vp, vp, vp]
+    lib.ps_absmax_tensors.restype = i32
+    lib.ps_quantize_tensors_given.argtypes = [vp, vp, vp, vp]
+    lib.ps_quantize_tensors_given.restype = i32
+    lib.ps_rows_scaled_absmax_many.argtypes = [vp, vp, vp]
+    lib.ps_rows_scaled_absmax_many.restype = i32
+    lib.ps_quantize_rows_scaled_given_many.argtypes = [vp, vp, vp, vp]
+    lib.ps_quantize_rows_scaled_given_many.restype = i32
     lib.ps_tensor_table_words.argtypes = []
     lib.ps_tensor_table_words.restype = i64
     lib.ps_accumulate_rescale.argtypes = [vp, i64, i64, vp, vp, vp]

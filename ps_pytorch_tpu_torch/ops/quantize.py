@@ -21,6 +21,11 @@ the two (the sixth, ``accumulate_rescale_int8``, is K3 below):
   every piece of a step in one call, each with one absmax over the whole
   (worker-stacked) piece and one shared scale. ``quantize_tensor`` is its
   one-piece call.
+- the split routes of K2 (``tensors_absmax``, ``quantize_tensors_given``)
+  and of K1's shared-scale entry (``rows_scaled_absmax``,
+  ``quantize_rows_scaled_given``): the same functions cut in two around
+  the cross-process max of the absmax, for a worker axis that spans
+  processes (``quantize_int8_many`` takes them there).
 
 ``quantize_int8_many`` is the gradient wire's entry over a step's pieces
 (``quantize_int8(..., return_absmax=True)`` of each, one kernel call).
@@ -674,20 +679,254 @@ def quantize_tensor(x: torch.Tensor, return_absmax: bool = False):
     return (q, scale, absmax) if return_absmax else (q, scale)
 
 
+# ------------------------------------- the split route (a process-spanning axis)
+
+
+def tensors_absmax_plain(xs) -> torch.Tensor:
+    """Plain PyTorch version of ``tensors_absmax``."""
+    dev = xs[0].device if xs else "cpu"
+    return torch.stack([x.float().abs().amax() if x.numel() else
+                        torch.zeros((), dtype=torch.float32, device=dev) for x in xs])
+
+
+def quantize_tensors_given_plain(xs, absmax: torch.Tensor):
+    """Plain PyTorch version of ``quantize_tensors_given``."""
+    return [(_quant(x, _inv_scale(am)), am * RECIP_127, am) for x, am in zip(xs, absmax)]
+
+
+def _split_check(xs, absmax, rows: int, what: str) -> None:
+    if (absmax.dtype != torch.float32 or tuple(absmax.shape) != (rows,)
+            or any(x.device != absmax.device for x in xs)):
+        raise ValueError(f"{what} takes the f32 absmax [{rows}] on the pieces' device, got "
+                         f"{absmax.dtype} {tuple(absmax.shape)} on {absmax.device}")
+
+
+def tensors_absmax(xs) -> torch.Tensor:
+    """K2's split route, first half: this process's absmax of every piece
+    (the worker-stacked pieces of its local workers) -> f32 ``[len(xs)]``,
+    0 for an empty piece. Launches ``absmax_many_kernel`` per descriptor
+    table (``ps_absmax_tensors``, csrc/quantize_tensor.cu): the first of
+    ``quantize_tensors``' two kernels, on its own so that the
+    cross-process max can follow it. CPU pieces run
+    ``tensors_absmax_plain``; ``.launches`` counts the calls that launch."""
+    xs = list(xs)
+    xs_card = _card_pieces(xs, "tensors_absmax")
+    if xs_card is None:
+        return tensors_absmax_plain(xs)
+    from . import _build
+
+    tables, _, _ = _tensor_call(tuple(x.shape for x in xs_card))
+    absmax = torch.zeros((len(xs),), dtype=torch.float32, device=xs_card[0].device)
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        with torch.cuda.device(absmax.device):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K2_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K2_TABLE, "kind", [_k2_kind(xs_card[i].dtype, ptrs[i])
+                                                for i in t.pieces])
+                _build.check(lib.ps_absmax_tensors(words.ctypes.data, absmax.data_ptr(), stream),
+                             "tensors_absmax")
+        tensors_absmax.launches += 1
+    return absmax
+
+
+tensors_absmax.launches = 0
+
+
+def quantize_tensors_given(xs, absmax: torch.Tensor):
+    """K2's split route, second half: every piece quantized with the given
+    (cross-process) absmax ``[len(xs)]`` -> ``[(q int8 like xs[i], scale
+    f32 0-d, absmax f32 0-d), ...]``, as ``quantize_tensors`` returns.
+    Launches ``quantize_many_kernel`` per descriptor table
+    (``ps_quantize_tensors_given``). A NaN absmax gives scale NaN and an
+    all-zero payload. CPU pieces run ``quantize_tensors_given_plain``;
+    ``.launches`` counts the calls that launch."""
+    xs = list(xs)
+    _split_check(xs, absmax, len(xs), "quantize_tensors_given")
+    xs_card = _card_pieces(xs, "quantize_tensors_given")
+    if xs_card is None:
+        return quantize_tensors_given_plain(xs, absmax)
+    from . import _build
+
+    tables, views, q_len = _tensor_call(tuple(x.shape for x in xs_card))
+    dev = xs_card[0].device
+    absmax = absmax.contiguous()
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    scale = torch.zeros((len(xs),), dtype=torch.float32, device=dev)
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K2_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K2_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                _put(words, _K2_TABLE, "kind", [_k2_kind(xs_card[i].dtype, ptrs[i])
+                                                for i in t.pieces])
+                _build.check(lib.ps_quantize_tensors_given(
+                    words.ctypes.data, absmax.data_ptr(), scale.data_ptr(), stream),
+                    "quantize_tensors_given")
+        quantize_tensors_given.launches += 1
+    return [(q.as_strided(*view), sc, am)
+            for view, sc, am in zip(views, scale.unbind(), absmax.unbind())]
+
+
+quantize_tensors_given.launches = 0
+
+
+def _rows_split_plan(xs, block_size: int, what: str):
+    if block_size < 1:
+        raise ValueError(f"{what}: block_size {block_size} < 1")
+    for x in xs:
+        if x.dim() == 0 or x.shape[0] < 1 or x.shape[0] != xs[0].shape[0]:
+            raise ValueError(f"{what} takes worker-stacked [N, ...] pieces of one N, got "
+                             f"{[tuple(x.shape) for x in xs]}")
+    workers = xs[0].shape[0] if xs else 1
+    return _rows_call(workers, tuple(x.numel() // workers for x in xs), block_size)
+
+
+def rows_scaled_absmax_plain(xs, block_size: int) -> torch.Tensor:
+    """Plain PyTorch version of ``rows_scaled_absmax``."""
+    dev = xs[0].device if xs else "cpu"
+    parts = [quantize_rows_scaled_plain(x, block_size)[2].reshape(-1) for x in xs]
+    return torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.float32, device=dev)
+
+
+def quantize_rows_scaled_given_plain(xs, block_size: int, absmax: torch.Tensor):
+    """Plain PyTorch version of ``quantize_rows_scaled_given``."""
+    out, at = [], 0
+    for x in xs:
+        workers = x.shape[0]
+        flat = x.reshape(workers, -1)
+        nb = -(-flat.shape[1] // block_size)
+        flat = F.pad(flat, (0, nb * block_size - flat.shape[1]))
+        am = absmax[at:at + nb].reshape(nb, 1)
+        at += nb
+        out.append((_quant(flat.reshape(workers, nb, block_size), _inv_scale(am)[None]),
+                    am * RECIP_127, am))
+    return out
+
+
+def rows_scaled_absmax(xs, block_size: int) -> torch.Tensor:
+    """K1's shared-scale split route, first half: block r's absmax of
+    every piece over this process's workers -> f32 ``[sum of nb_i]``,
+    piece by piece (``quantize_rows_scaled_many``'s blocking: each
+    worker's flattened piece zero-padded to whole blocks). One launch of
+    ``rows_absmax_many_kernel`` per descriptor table
+    (``ps_rows_scaled_absmax_many``, csrc/quantize_rows.cu). CPU pieces
+    run ``rows_scaled_absmax_plain``; ``.launches`` counts the calls that
+    launch."""
+    xs = list(xs)
+    tables, _, _, rows = _rows_split_plan(xs, block_size, "rows_scaled_absmax")
+    xs_card = _card_pieces(xs, "rows_scaled_absmax")
+    if xs_card is None:
+        return rows_scaled_absmax_plain(xs, block_size)
+    from . import _build
+
+    workers = xs[0].shape[0]
+    lengths = [x.numel() // workers for x in xs_card]
+    absmax = torch.empty((rows,), dtype=torch.float32, device=xs_card[0].device)
+    if tables:
+        lib = _lib()
+        ptrs = [x.data_ptr() for x in xs_card]
+        with torch.cuda.device(absmax.device):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i], lengths[i],
+                                                         block_size) for i in t.pieces])
+                _build.check(lib.ps_rows_scaled_absmax_many(words.ctypes.data,
+                                                            absmax.data_ptr(), stream),
+                             "rows_scaled_absmax")
+        rows_scaled_absmax.launches += 1
+    return absmax
+
+
+rows_scaled_absmax.launches = 0
+
+
+def quantize_rows_scaled_given(xs, block_size: int, absmax: torch.Tensor):
+    """K1's shared-scale split route, second half: every worker's block r
+    of every piece quantized with the given (cross-process) block absmax,
+    laid out as ``rows_scaled_absmax`` returns it -> ``[(q int8 [N_loc,
+    nb, bs], scale f32 [nb, 1], absmax f32 [nb, 1]), ...]``, as
+    ``quantize_rows_scaled_many`` returns. One launch of
+    ``rows_quantize_given_many_kernel`` per descriptor table
+    (``ps_quantize_rows_scaled_given_many``). A NaN absmax gives its
+    block scale NaN and an all-zero payload. CPU pieces run
+    ``quantize_rows_scaled_given_plain``; ``.launches`` counts the calls
+    that launch."""
+    xs = list(xs)
+    tables, views, q_len, rows = _rows_split_plan(xs, block_size, "quantize_rows_scaled_given")
+    _split_check(xs, absmax, rows, "quantize_rows_scaled_given")
+    xs_card = _card_pieces(xs, "quantize_rows_scaled_given")
+    if xs_card is None:
+        return quantize_rows_scaled_given_plain(xs, block_size, absmax)
+    from . import _build
+
+    dev = xs_card[0].device
+    absmax = absmax.contiguous()
+    q = torch.empty((q_len,), dtype=torch.int8, device=dev)
+    scale = torch.empty((rows,), dtype=torch.float32, device=dev)
+    if tables:
+        lib = _lib()
+        workers = xs[0].shape[0]
+        ptrs = [x.data_ptr() for x in xs_card]
+        base = q.data_ptr()
+        with torch.cuda.device(dev):
+            stream = _build.stream_of(xs_card[0])
+            for t, template in tables:
+                words = template.copy()
+                _put(words, _K1_TABLE, "x", [ptrs[i] for i in t.pieces])
+                _put(words, _K1_TABLE, "q", [base + views[i][2] for i in t.pieces])
+                _put(words, _K1_TABLE, "kind", [_k1_kind(xs_card[i].dtype, ptrs[i],
+                                                         xs_card[i].numel() // workers,
+                                                         block_size) for i in t.pieces])
+                _build.check(lib.ps_quantize_rows_scaled_given_many(
+                    words.ctypes.data, absmax.data_ptr(), scale.data_ptr(), stream),
+                    "quantize_rows_scaled_given")
+        quantize_rows_scaled_given.launches += 1
+    return [(q.as_strided(qs, qst, qo), scale.as_strided(ss, sst, ao),
+             absmax.as_strided(ss, sst, ao)) for qs, qst, qo, ss, sst, _, ao in views]
+
+
+quantize_rows_scaled_given.launches = 0
+
+
 def quantize_int8_many(xs, axis_name, block_size: int = 0):
     """``quantize_int8(x, axis_name=axis_name, block_size=block_size,
     return_absmax=True)`` of every piece of ``xs`` (worker-stacked ``[N,
     *shape]``) in one kernel call: K2 per tensor, K1's shared-scale entry
-    per block. The gradient wire's quantize of a step."""
+    per block. The gradient wire's quantize of a step.
+
+    On an axis that spans processes (``parallel.mesh.ProcessWorkerAxis``:
+    ``xs`` holds this process's workers) the call takes the split route:
+    this process's absmax (``tensors_absmax`` / ``rows_scaled_absmax``),
+    the axis's cross-process max of it (``absmax_max``, NaN kept), then
+    the quantize with that (``quantize_tensors_given`` /
+    ``quantize_rows_scaled_given``): every process gets the one-process
+    call's scales and its own workers' payloads."""
     if not hasattr(axis_name, "size"):
         raise TypeError(f"axis_name must be a parallel.mesh.WorkerAxis, got {axis_name!r}")
     xs = list(xs)
+    split = hasattr(axis_name, "absmax_max")
     if not block_size:
+        if split:
+            return quantize_tensors_given(xs, axis_name.absmax_max(tensors_absmax(xs)))
         return quantize_tensors(xs)
     for x in xs:
-        if x.dim() == 0 or x.shape[0] != axis_name.size:
-            raise ValueError(f"shared-scale quantize_int8 takes [{axis_name.size}, ...], got "
-                             f"{tuple(x.shape)}")
+        if x.dim() == 0 or x.shape[0] != axis_name.local_size:
+            raise ValueError(f"shared-scale quantize_int8 takes [{axis_name.local_size}, ...], "
+                             f"got {tuple(x.shape)}")
+    if split:
+        absmax = axis_name.absmax_max(rows_scaled_absmax(xs, block_size))
+        return quantize_rows_scaled_given(xs, block_size, absmax)
     return quantize_rows_scaled_many(xs, block_size)
 
 
@@ -723,6 +962,10 @@ def quantize_int8(
             f"axis_name must be a parallel.mesh.WorkerAxis, got {axis_name!r}"
         )
     if not block_size:
+        if hasattr(axis_name, "absmax_max"):
+            # a process-spanning axis: the split route's pmax
+            q, scale, absmax = quantize_int8_many([x], axis_name)[0]
+            return (q, scale, absmax) if return_absmax else (q, scale)
         # one absmax over the whole (stacked) tensor is the pmax
         return quantize_tensor(x, return_absmax)
     if axis_name is not None:

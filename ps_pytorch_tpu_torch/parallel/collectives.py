@@ -42,6 +42,12 @@ true division (an IEEE quotient): for the accumulations it sees,
 mask takes its permutation from a ``torch.Generator``, or the caller
 injects one (the parity tests inject JAX's).
 
+The same functions run on ``mesh.ProcessWorkerAxis``, where each
+process holds its own workers' rows ``[N_loc, *shape]`` and the axis's
+collectives cross the processes (its docstring has the dtype and order
+rules); the quantize stage then takes the split route
+(``quantize_int8_many``).
+
 Not ported yet, and refused with a pointer to ROADMAP.md: the
 hierarchical wire (a tuple axis), the pipelined order, stochastic
 rounding, a traced (adaptive) ``num_aggregate`` and ``bucket_peaks``.
@@ -64,7 +70,7 @@ from ..ops.quantize import (
     quantize_tensors,
 )
 from .buckets import piece_stream, tree_flatten, tree_unflatten
-from .mesh import WorkerAxis
+from .mesh import ProcessWorkerAxis, WorkerAxis
 
 _ROADMAP = "is not ported yet (ROADMAP.md queue 1"
 
@@ -76,11 +82,11 @@ def reciprocal(denominator: float) -> float:
 
 
 def _check_axis(axis) -> None:
-    if not isinstance(axis, WorkerAxis):
+    if not isinstance(axis, (WorkerAxis, ProcessWorkerAxis)):
         raise NotImplementedError(
-            f"axis {axis!r}: only the stacked WorkerAxis backend is ported; "
-            f"tuple axes (the hierarchical DCN x ICI wire) {_ROADMAP} item 14) "
-            f"and torch.distributed {_ROADMAP} item 1)"
+            f"axis {axis!r}: the stacked WorkerAxis and the process-spanning "
+            f"ProcessWorkerAxis are ported; tuple axes (the hierarchical DCN x ICI "
+            f"wire) {_ROADMAP} item 14)"
         )
 
 
@@ -110,16 +116,17 @@ def aggregation_mask(
     mode: str = "random_k",
     device=None,
 ) -> torch.Tensor:
-    """Per-worker {0,1} f32 ``[N]``: does worker w's gradient enter the
-    sum? With num_aggregate None or >= num_workers every worker does.
+    """Per-worker {0,1} f32 ``[N]`` (this process's ``[N_loc]`` rows on
+    a process-spanning axis): does worker w's gradient enter the sum?
+    With num_aggregate None or >= num_workers every worker does.
     ``random_k`` selects ``perm[:num_aggregate]`` (``perm`` a permutation
-    of ``range(N)``: the caller draws it, see ``random_permutation``),
-    ``first_k`` selects ``w < num_aggregate``."""
+    of ``range(N)``, the same on every process: the caller draws it, see
+    ``random_permutation``), ``first_k`` selects ``w < num_aggregate``."""
     _check_axis(axis)
     if isinstance(num_aggregate, torch.Tensor):
         raise NotImplementedError(f"a traced (adaptive) num_aggregate {_ROADMAP} item 15)")
     if num_aggregate is None or num_aggregate >= num_workers:
-        return torch.ones((num_workers,), dtype=torch.float32, device=device)
+        return torch.ones((axis.local_size,), dtype=torch.float32, device=device)
     if mode == "first_k":
         return (axis.axis_index(device) < num_aggregate).float()
     if mode == "random_k":
@@ -127,7 +134,7 @@ def aggregation_mask(
             raise ValueError("random_k masking needs a permutation of the workers")
         perm = torch.as_tensor(perm, dtype=torch.long).to(device)
         selected = torch.zeros((num_workers,), dtype=torch.float32, device=device)
-        return selected.index_fill(0, perm[:num_aggregate], 1.0)
+        return axis.local(selected.index_fill(0, perm[:num_aggregate], 1.0))
     raise ValueError(f"unknown aggregation mode {mode!r}")
 
 
@@ -217,12 +224,12 @@ def _q2r_scatter_stage(q1: torch.Tensor, scale1: torch.Tensor, axis: WorkerAxis,
     sums -> dequantize each region with its own rows of the shared
     scales. Returns ``partial [n, s]`` f32: row w is worker w's region of
     the sum (an int8-wire reduce_scatter)."""
-    recv = axis.all_to_all(q1.reshape(axis.size, n, s))  # [n(region), N(sender), s]
+    recv = axis.all_to_all(q1.reshape(-1, n, s))  # [n(region), N(sender), s]
     partial = recv.to(torch.int32).sum(1, dtype=torch.int32)
     if block_size:
         nb_loc = s // block_size
-        my_scales = scale1.reshape(n, nb_loc, 1)
-        return (partial.reshape(n, nb_loc, block_size).float() * my_scales).reshape(n, s)
+        my_scales = axis.local(scale1.reshape(n, nb_loc, 1))
+        return (partial.reshape(-1, nb_loc, block_size).float() * my_scales).reshape(-1, s)
     return partial.float() * scale1
 
 
@@ -249,16 +256,17 @@ def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int):
         outs = []
         for partial, (q2, scale2) in zip(partials, rows):
             s = partial.shape[1]
-            full = axis.all_gather(q2.reshape(n, s))
-            scales2 = axis.all_gather(scale2.reshape(n, s // block_size, 1))  # [n*nb_loc, 1]
+            full = axis.all_gather(q2.reshape(-1, s))
+            scales2 = axis.all_gather(scale2.reshape(-1, s // block_size, 1))  # [n*nb_loc, 1]
             outs.append((full.reshape(-1, block_size).float() * scales2).reshape(-1))
         return outs
-    regions = quantize_tensors([partial[w] for partial in partials for w in range(n)])
+    nl = axis.local_size
+    regions = quantize_tensors([partial[w] for partial in partials for w in range(nl)])
     outs = []
     for i, partial in enumerate(partials):
-        mine = regions[i * n:(i + 1) * n]
+        mine = regions[i * nl:(i + 1) * nl]
         full = axis.all_gather(torch.stack([q for q, _, _ in mine]))
-        scales2 = axis.all_gather(torch.stack([sc for _, sc, _ in mine]).reshape(n, 1))
+        scales2 = axis.all_gather(torch.stack([sc for _, sc, _ in mine]).reshape(nl, 1))
         outs.append((full.reshape(n, partial.shape[1]).float() * scales2[:, None]).reshape(-1))
     return outs
 
@@ -315,15 +323,20 @@ def quantized_allreduce_2round(
     shapes = [tuple(g.shape[1:]) for g in pieces]
     totals = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
     slices = [_slice_len(total, n, block_size) for total in totals]
-    padded = [torch.nn.functional.pad(g.float().reshape(n, total), (0, n * s - total))
+    nl = axis.local_size
+    padded = [torch.nn.functional.pad(g.float().reshape(nl, total), (0, n * s - total))
               for g, total, s in zip(pieces, totals, slices)]
     round1 = quantize_int8_many(padded, axis, block_size)  # every piece, one call
     if wire_domain == "homomorphic":
-        # the all_to_all that would hand worker w the [N, s] rows of its
-        # region is not spelled out: in the stacked backend the regions
-        # lie side by side in q1 [N, n*s], and K3 over it computes every
-        # worker's region at once
-        deqs = [_deq_shared(accumulate_rescale_int8(q1.reshape(n, n * s), denominator),
+        # the all_to_all hands this process's workers the [N, s] rows of
+        # their regions; K3 over them side by side ([N, n_loc*s]) computes
+        # every local region at once, and the all_gather concatenates the
+        # regions. In the stacked backend the all_to_all is a transposed
+        # view and its inverse gives q1 [N, n*s] back without a copy: one
+        # K3 launch over it, as before
+        deqs = [_deq_shared(axis.all_gather(accumulate_rescale_int8(
+                    axis.all_to_all(q1.reshape(nl, n, s)).transpose(0, 1).reshape(n, nl * s),
+                    denominator).reshape(nl, s)),
                             scale1, 1.0, block_size)  # denominator folded into K3
                 for (q1, scale1, _), s in zip(round1, slices)]
     else:
@@ -336,10 +349,10 @@ def quantized_allreduce_2round(
         return agg
     contribs = []
     for (q1, scale1, _), total, shape, s in zip(round1, totals, shapes, slices):
-        qc = q1.reshape((n, -1, block_size) if block_size else (n, n * s))
+        qc = q1.reshape((nl, -1, block_size) if block_size else (nl, n * s))
         c = dequantize_int8(qc.to(torch.int32), scale1, block_size=block_size,
                             shape=(n * s,))
-        contribs.append(c[:, :total].reshape((n,) + shape))
+        contribs.append(c[:, :total].reshape((nl,) + shape))
     return agg, piece_stream(tree, bucket_bytes, align=align)[2](contribs)
 
 

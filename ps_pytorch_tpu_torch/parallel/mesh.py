@@ -13,14 +13,24 @@ replicated result of a JAX collective is.
 ``ppermute`` moves rows between workers (the sequence ring's K/V
 rotation); ``Mesh2D`` is the (dp x sp) grid of the LM training step.
 
-This is the analogue of the reference's 8-device virtual CPU mesh. The
-``torch.distributed`` backend (gloo / NCCL, one rank per card) is a
-later slice (ROADMAP.md).
+This is the analogue of the reference's 8-device virtual CPU mesh.
+
+``ProcessWorkerAxis`` is the same axis spread over the processes of a
+``torch.distributed`` group (the reference's MPI job: SURVEY.md section
+1). Each process holds ``local_size = N / world`` stacked workers, and a
+collective is the local reduction over them, one ``torch.distributed``
+call over the group, then the result for the local rows. Where the order
+of a float sum matters, the worker rows are gathered and reduced with
+the stacked backend's own op, so a run over processes gives the stacked
+run's bits. ``initialize_multihost`` joins the group (NCCL for a card,
+gloo for the CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Any, Optional
 
 import torch
 
@@ -37,6 +47,23 @@ class WorkerAxis:
     def __post_init__(self):
         if self.size < 1:
             raise ValueError(f"a worker axis needs >= 1 worker, got {self.size}")
+
+    # this process's workers are ids [first, first + local_size): all
+    first = 0
+
+    @property
+    def local_size(self) -> int:
+        """Workers stacked in this process: all of them."""
+        return self.size
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a per-worker ``[N, ...]`` tensor that
+        every process computes alike: all of them."""
+        return x
+
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        """A bool every process agrees on (one process: the flag)."""
+        return flag
 
     def _check(self, x: torch.Tensor) -> None:
         if x.dim() == 0 or x.shape[0] != self.size:
@@ -133,6 +160,260 @@ def make_mesh(num_workers: int) -> WorkerAxis:
     """The worker axis of ``num_workers`` virtual workers (``make_mesh``
     builds a device mesh; here every worker shares the one device)."""
     return WorkerAxis(num_workers)
+
+
+# int16 has no torch.distributed type on gloo or NCCL: it crosses as int32
+_WIDEN = {torch.int16: torch.int32}
+
+
+class ProcessWorkerAxis:
+    """N workers over the ``world`` processes of a ``torch.distributed``
+    group, ``local_size = N / world`` stacked in each: worker ids
+    ``[first, first + local_size)`` live in this process. Per-worker
+    tensors are stacked ``[local_size, ...]``; a reduced value comes back
+    whole on every process, as on ``WorkerAxis``.
+
+    The rules each collective keeps, so that a run over processes gives
+    the stacked backend's bits:
+
+    - integer sums (``psum``, ``psum_scatter`` of int8 payloads) sum the
+      local rows, then ``all_reduce(SUM)`` them: exact in any order.
+      int16 (the homomorphic wire's accumulator) crosses as int32 and is
+      narrowed back, the same integers at twice the bytes on the hop;
+    - float sums, means, maxima and minima gather every worker's rows
+      (``all_gather``) and reduce ``[N, ...]`` with the stacked op, so the
+      order of the additions is the stacked backend's;
+    - ``absmax_max`` (the gradient wire's shared scale) is a MAX over the
+      int32 bit patterns of non-negative floats, which order like the
+      floats with a positive NaN above +inf, so a NaN survives the hop
+      as it survives the kernels' own max (``csrc/common.cuh``);
+    - ``all_to_all`` and ``all_gather`` move int8 and f32 rows as they are.
+
+    ``group`` may be any process group. Over gloo a CUDA tensor is copied
+    through host memory for every call (gloo's CUDA support does not
+    cover ``all_gather`` / ``all_to_all``); ``host_copy_s`` sums the time
+    those copies take, synchronised."""
+
+    def __init__(self, size: int, group: Any = None):
+        import torch.distributed as dist
+
+        self.size, self.group = size, group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        if size < 1 or size % self.world:
+            raise ValueError(f"{size} workers do not split over {self.world} processes")
+        self.first = self.rank * (size // self.world)
+        self._staged = dist.get_backend(group) == "gloo"
+        self.host_copy_s = 0.0
+
+    def __repr__(self) -> str:
+        return (f"ProcessWorkerAxis(size={self.size}, world={self.world}, "
+                f"rank={self.rank})")
+
+    @property
+    def local_size(self) -> int:
+        return self.size // self.world
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self.first:self.first + self.local_size]
+
+    def _check(self, x: torch.Tensor) -> None:
+        if x.dim() == 0 or x.shape[0] != self.local_size:
+            raise ValueError(f"expected this process's worker-stacked tensor "
+                             f"[{self.local_size}, ...], got {tuple(x.shape)}")
+
+    # ------------------------------------------------------------ the hops
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the group's backend takes it: widened where it has no
+        type, on the host where gloo meets a CUDA tensor."""
+        x = x.to(_WIDEN.get(x.dtype, x.dtype)).contiguous()
+        if self._staged and x.is_cuda:
+            t0 = time.perf_counter()
+            x = x.cpu()
+            self.host_copy_s += time.perf_counter() - t0
+        return x
+
+    def _back(self, y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        if y.device != like.device:
+            t0 = time.perf_counter()
+            y = y.to(like.device)
+            torch.cuda.synchronize(like.device)
+            self.host_copy_s += time.perf_counter() - t0
+        return y.to(like.dtype)
+
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        import torch.distributed as dist
+
+        y = self._out(x)
+        y = y.clone() if y.data_ptr() == x.data_ptr() else y
+        dist.all_reduce(y, op=op, group=self.group)
+        return self._back(y, x)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's rows, ``[N, ...]`` on every process."""
+        import torch.distributed as dist
+
+        self._check(x)
+        y = self._out(x)
+        parts = [torch.empty_like(y) for _ in range(self.world)]
+        dist.all_gather(parts, y, group=self.group)
+        return self._back(torch.cat(parts), x)
+
+    # --------------------------------------------------- the WorkerAxis API
+    def axis_index(self, device=None) -> torch.Tensor:
+        return torch.arange(self.first, self.first + self.local_size, device=device)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._check(x)
+        if not x.dtype.is_floating_point:
+            return self._all_reduce(x.sum(0, dtype=x.dtype), dist.ReduceOp.SUM)
+        return self.gather_rows(x).sum(0)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather_rows(x).amax(0)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather_rows(x).amin(0)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather_rows(x).mean(0)
+
+    def absmax_max(self, absmax: torch.Tensor) -> torch.Tensor:
+        """The cross-process max of a local absmax (any shape, f32,
+        non-negative or NaN), NaN kept: a MAX over the int32 bits."""
+        import torch.distributed as dist
+
+        bits = absmax.abs().contiguous().view(torch.int32)
+        return self._all_reduce(bits, dist.ReduceOp.MAX).view(torch.float32)
+
+    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        return self._all_reduce(flag.to(torch.int32), dist.ReduceOp.MIN).bool()
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._check(x)
+        n = self.size
+        if x.dim() < 2 or x.shape[1] % n:
+            raise ValueError(f"psum_scatter needs [{self.local_size}, L, ...] with L % {n} == 0, "
+                             f"got {tuple(x.shape)}")
+        tail = (n, x.shape[1] // n) + tuple(x.shape[2:])
+        if not x.dtype.is_floating_point:
+            total = self._all_reduce(x.sum(0, dtype=x.dtype), dist.ReduceOp.SUM)
+            return self.local(total.reshape(tail))
+        full = self.gather_rows(x)
+        return self.local(full.reshape((n,) + tail).sum(0, dtype=x.dtype))
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Local ``[n_loc, N, s...]`` (row j of local worker i: its slice
+        of region j) -> ``[n_loc(region), N(sender), s...]``, as
+        ``WorkerAxis.all_to_all`` returns this process's regions."""
+        import torch.distributed as dist
+
+        self._check(x)
+        nl, p = self.local_size, self.world
+        if x.dim() < 2 or x.shape[1] != self.size:
+            raise ValueError(f"all_to_all needs [{nl}, {self.size}, ...], got {tuple(x.shape)}")
+        rest = tuple(x.shape[2:])
+        # to process q: every local sender's slices of q's regions
+        send = self._out(x.reshape((nl, p, nl) + rest).transpose(0, 1))
+        recv = torch.empty_like(send)  # [p(from), nl(its senders), nl(my regions), ...]
+        dist.all_to_all_single(recv, send, group=self.group)
+        recv = self._back(recv, x)
+        return recv.permute((2, 0, 1) + tuple(range(3, recv.dim()))).reshape(
+            (nl, self.size) + rest)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() < 2:
+            raise ValueError(f"tiled all_gather needs [n_loc, m, ...], got {tuple(x.shape)}")
+        return self.gather_rows(x).reshape((-1,) + tuple(x.shape[2:]))
+
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        return self.local(WorkerAxis(self.size).ppermute(self.gather_rows(x), perm))
+
+    # ------------------------------------------------- host-side agreement
+    def broadcast_object(self, obj):
+        """Rank 0's Python object on every process."""
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self.group, 0)
+                                   if self.group is not None else 0, group=self.group)
+        return box[0]
+
+    def any_host(self, flag: bool) -> bool:
+        """OR of a host flag over the processes."""
+        import torch.distributed as dist
+
+        box = [None] * self.world
+        dist.all_gather_object(box, bool(flag), group=self.group)
+        return any(box)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier(group=self.group)
+
+
+def batch_sharding(axis) -> range:
+    """The global worker ids whose batches this process feeds (the role
+    of ``batch_sharding``'s split of the global batch over the worker
+    axis): all of them on ``WorkerAxis``."""
+    return range(axis.first, axis.first + axis.local_size)
+
+
+def make_worker_axis(num_workers: int):
+    """The trainer's worker axis: ``ProcessWorkerAxis`` over the default
+    group once ``torch.distributed`` is initialised (at any world size),
+    else the stacked ``WorkerAxis``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return ProcessWorkerAxis(num_workers)
+    return WorkerAxis(num_workers)
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None, device="cuda") -> bool:
+    """Join a multi-process training job (JAX ``initialize_multihost``,
+    mesh.py:139-201; the reference's mpirun spawn and rendezvous): a
+    no-op without a coordinator (returns False). ``init_process_group``
+    at ``tcp://<coordinator_address>`` with the given world size and
+    rank; NCCL when ``device`` is a card (each process on card ``rank %
+    cards``), gloo on the CPU. NCCL takes one process per card: more
+    processes than this host has cards raise, naming the rule, and
+    nothing switches to gloo behind the caller's back. Every process
+    calls this with the same arguments but its own ``process_id``."""
+    if coordinator_address is None:
+        return False
+    import torch.distributed as dist
+
+    if num_processes is None or process_id is None:
+        raise ValueError("a coordinator address needs --num-processes and --process-id")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process id {process_id} outside [0, {num_processes})")
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        if num_processes > cards:
+            raise RuntimeError(
+                f"{num_processes} processes over NCCL on a host with {cards} card(s): NCCL "
+                f"takes one process per card (two ranks on one GPU are refused as a "
+                f"duplicate GPU); run at most {cards} process(es) per host, or --device cpu "
+                f"for gloo")
+        torch.cuda.set_device(process_id % cards)
+    address = coordinator_address
+    if not address.startswith("tcp://"):
+        address = "tcp://" + address
+    dist.init_process_group(backend, init_method=address, world_size=num_processes,
+                            rank=process_id)
+    return True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,7 +68,7 @@ from .. import DeviceLike, resolve_device
 from ..models import apply_model, draw_dropout, init_model
 from ..ops.metrics import accuracy, cross_entropy_loss
 from ..ops.quantize import accum_dtype, dequantize_int8, fold_recip, quantize_int8
-from ..optim.sgd import SGDState, apply_updates
+from ..optim.sgd import apply_updates
 from ..resilience.guard import init_guard_state, tree_all_finite, update_guard_state
 from .buckets import (
     BucketPlan,
@@ -91,7 +91,7 @@ from .collectives import (
     random_permutation,
     reciprocal,
 )
-from .mesh import WORKER_AXIS, WorkerAxis
+from .mesh import WORKER_AXIS, ProcessWorkerAxis, WorkerAxis
 
 _ROADMAP = "is not ported yet (see ROADMAP.md queue 1)"
 
@@ -280,7 +280,7 @@ class PSTrainState:
 
     step: int
     params: Any
-    opt_state: SGDState
+    opt_state: Any  # optim.SGDState or optim.AdamState
     batch_stats: Any
     comm_state: Any = None
     guard_state: Any = None
@@ -288,17 +288,20 @@ class PSTrainState:
 
 def init_ps_state(model, tx, cfg: PSConfig, generator: Optional[torch.Generator] = None,
                   device: DeviceLike = None, params=None,
-                  batch_stats=None) -> PSTrainState:
+                  batch_stats=None, mesh=None) -> PSTrainState:
     """The initial state: params from ``generator`` (or the given
     ``params``/``batch_stats`` trees, e.g. converted JAX weights), laid
-    out as the config asks, on ``device`` (default ``cuda``)."""
+    out as the config asks, on ``device`` (default ``cuda``). On a
+    process-spanning ``mesh`` the per-worker state (ZeRO-1 moments, EF
+    residuals, local BN stats) holds this process's workers only; every
+    process draws the same params from the same generator."""
     dev = resolve_device(device)
     if params is None:
         params, batch_stats = init_model(model, generator, device=dev)
     params = tree_map(lambda p: p.to(dev, torch.float32), params)
     batch_stats = tree_map(lambda s: s.to(dev), batch_stats or {})
     total = tree_layout(params).total
-    n = cfg.num_workers
+    n = cfg.num_workers if mesh is None else mesh.local_size
     master = (to_flat_vector(params, state_plan(cfg, total))
               if cfg.state_layout == "flat" else params)
     if cfg.opt_placement == "sharded":
@@ -314,7 +317,7 @@ def init_ps_state(model, tx, cfg: PSConfig, generator: Optional[torch.Generator]
     if cfg.error_feedback and cfg.opt_placement == "sharded":
         # the sharded wire transforms the FLAT padded gradient, so its
         # residual lives there: one [shard * N] row per worker
-        comm_state = torch.zeros((n, _zero1_shard_size(total, cfg) * n),
+        comm_state = torch.zeros((n, _zero1_shard_size(total, cfg) * cfg.num_workers),
                                  dtype=torch.float32, device=dev)
     elif cfg.error_feedback:
         comm_state = tree_map(
@@ -380,11 +383,12 @@ def _select(finite: torch.Tensor, new, old):
     return tree_map(lambda a, b: torch.where(finite, a, b), new, old)
 
 
-def _worker_region(flat: torch.Tensor, plan: BucketPlan, n: int) -> torch.Tensor:
+def _worker_region(flat: torch.Tensor, plan: BucketPlan, n: int, axis) -> torch.Tensor:
     """Every worker's region of a bucketed flat buffer (ps.py:631),
     worker-stacked ``[N, shard]``: row w is its 1/n slice of every
-    bucket, concatenated in bucket order."""
-    return concat_buckets([flat[start:start + size].reshape(n, size // n)
+    bucket, concatenated in bucket order; this process's rows of it
+    (``axis.local``: all of them when stacked)."""
+    return concat_buckets([axis.local(flat[start:start + size].reshape(n, size // n))
                            for start, size in zip(plan.starts, plan.sizes)])
 
 
@@ -421,17 +425,17 @@ def _shard_reduce_bucket(bucket: torch.Tensor, size: int, axis: WorkerAxis, n: i
         contrib = dequantize_int8(q.to(torch.int32), scale, block_size=bsz, shape=(size,))
     if cfg.compress == "int8":
         acc_dt = accum_dtype(n) if homomorphic else torch.int32
-        sb = axis.psum_scatter(q.reshape(n, size).to(acc_dt))  # [N, s]
+        sb = axis.psum_scatter(q.reshape(-1, size).to(acc_dt))  # [N, s]
     else:
-        recv = axis.all_to_all(q.reshape(n, n, s))  # int8 [n(region), N, s]
+        recv = axis.all_to_all(q.reshape(-1, n, s))  # int8 [n(region), N, s]
         sb = recv.to(torch.int32).sum(1, dtype=torch.int32)
     if bsz:
         nb_loc = s // bsz
-        my_scales = scale.reshape(n, nb_loc, 1)
-        rows = sb.reshape(n, nb_loc, bsz).float()
+        my_scales = axis.local(scale.reshape(n, nb_loc, 1))
+        rows = sb.reshape(-1, nb_loc, bsz).float()
         if homomorphic:
-            return (rows * (my_scales * recip)).reshape(n, s), contrib
-        return (rows * my_scales).reshape(n, s) * recip, contrib
+            return (rows * (my_scales * recip)).reshape(-1, s), contrib
+        return (rows * my_scales).reshape(-1, s) * recip, contrib
     if homomorphic:
         return dequantize_int8(sb, absmax * fold_recip(k)), contrib
     return dequantize_int8(sb, scale) * recip, contrib
@@ -470,7 +474,7 @@ def _sharded_ps_update(params, opt_state, grads, tx, cfg: PSConfig, axis: Worker
     new_err = flat_g - concat_buckets(contribs) if err is not None else None
     is_flat = isinstance(params, FlatVector)
     flat_p = params.flat if is_flat else pad_flat(tree_to_flat(params), plan)
-    p_shard = _worker_region(flat_p, plan, n)
+    p_shard = _worker_region(flat_p, plan, n, axis)
     upd_shard, new_opt = tx.update(g_shard, opt_state, p_shard)
     # reassemble: each bucket's shard segment gathers back tiled, in
     # bucket order, inverting _worker_region
@@ -504,6 +508,8 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
     if axis.size != cfg.num_workers:
         raise ValueError(f"mesh holds {axis.size} workers, cfg says {cfg.num_workers}")
     n, a = cfg.num_workers, cfg.grad_accum_steps
+    # this process's workers: ids [lo, lo + nl) (all of them when stacked)
+    nl, lo = axis.local_size, axis.first
     is_flat = cfg.state_layout == "flat"
 
     synced = getattr(model, "bn_axis_name", None) is not None
@@ -511,6 +517,10 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         raise NotImplementedError(
             f"a synced-BatchNorm model under bn_mode='local' (per-worker running stats) "
             f"{_ROADMAP} item 2")
+    if synced and isinstance(axis, ProcessWorkerAxis):
+        raise NotImplementedError(
+            f"synced BatchNorm over processes (a cross-process BatchNorm with its "
+            f"backward all_reduce) {_ROADMAP} item 1; run bn_mode pmean or local")
 
     def micro(masks, i):
         """Microbatch ``i``'s rows of each Dropout mask (or None)."""
@@ -594,25 +604,27 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
     def step(state: PSTrainState, batch, draws: Optional[StepDraws] = None):
         images = torch.as_tensor(batch["image"]).to(dev)
         labels = torch.as_tensor(batch["label"]).to(dev).long()
-        if images.shape[0] % n:
-            raise ValueError(f"global batch {images.shape[0]} not divisible by "
-                             f"{n} workers")
-        b = images.shape[0] // n
+        if images.shape[0] % nl:
+            raise ValueError(f"batch {images.shape[0]} not divisible by "
+                             f"{nl} workers")
+        b = images.shape[0] // nl
         if draws is None:
             draws = draw_step(cfg, seed, state.step, b, preprocess, model, dev)
+        # every process draws all N workers' draws; it keeps its own
+        aug = None if draws.aug is None else draws.aug[lo:lo + nl]
+        masks = None if draws.dropout is None else draws.dropout[lo:lo + nl]
         params_t = tree_view(state.params)
         bs = state.batch_stats
         scale = (state.guard_state.scale
                  if cfg.nonfinite_guard and cfg.dynamic_loss_scale else None)
 
         xs, ys = [], []
-        for w in range(n):
+        for w in range(nl):
             x = images[w * b:(w + 1) * b]
             if preprocess is not None:
-                x = preprocess(x, draws.aug[w] if draws.aug is not None else None)
+                x = preprocess(x, aug[w] if aug is not None else None)
             xs.append(x.float())
             ys.append(labels[w * b:(w + 1) * b])
-        masks = draws.dropout
         skel = tree_flatten(params_t)[1]
         if synced:
             leaf_grads, nbs, losses, p1s, p5s = synced_grads(params_t, bs, xs, ys, scale,
@@ -620,7 +632,7 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             new_bs_w = [nbs] * n
         else:
             per_worker, new_bs_w, losses, p1s, p5s = [], [], [], [], []
-            for w in range(n):
+            for w in range(nl):
                 bs_w = tree_map(lambda s: s[w], bs) if cfg.bn_mode == "local" else bs
                 g, nbs, loss, p1, p5 = worker_grads(params_t, bs_w, xs[w], ys[w], scale,
                                                     None if masks is None else masks[w])
@@ -639,7 +651,8 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             if val is not None:
                 grads = tree_map(lambda t: torch.full_like(t, val), grads)
 
-        finite = tree_all_finite(grads) if cfg.nonfinite_guard else None
+        # every process's verdict: a NaN in any worker skips the step everywhere
+        finite = axis.all_true(tree_all_finite(grads)) if cfg.nonfinite_guard else None
         new_comm = state.comm_state
         master = state.params.flat if is_flat else state.params
         if cfg.opt_placement == "sharded":
@@ -687,10 +700,10 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             # params, optimizer state, BN stats and EF residuals; only the
             # guard counters advance
             new_master = _select(finite, new_master, master)
-            new_opt = SGDState(
-                count=torch.where(finite, new_opt.count, state.opt_state.count),
-                momentum_buffer=_select(finite, new_opt.momentum_buffer,
-                                        state.opt_state.momentum_buffer))
+            new_opt = dataclasses.replace(new_opt, **{
+                f.name: _select(finite, getattr(new_opt, f.name),
+                                getattr(state.opt_state, f.name))
+                for f in dataclasses.fields(new_opt)})
             out_bs = _select(finite, out_bs, bs) if out_bs else out_bs
             new_comm = _select(finite, new_comm, state.comm_state)
             new_guard = update_guard_state(state.guard_state, finite,
@@ -715,7 +728,7 @@ def make_ps_eval_step(model, cfg: PSConfig, mesh: Optional[WorkerAxis] = None,
     workers' shards of loss, prec1, prec5; device scalars)."""
     dev = resolve_device(device)
     axis = mesh if mesh is not None else WorkerAxis(cfg.num_workers)
-    n = cfg.num_workers
+    n = axis.local_size
 
     @torch.no_grad()
     def step(state: PSTrainState, batch):

@@ -4,7 +4,14 @@ trainer.py).
 One host loop drives the N virtual workers of the stacked backend: each
 worker keeps its own epoch-shuffled iterator over its shard (the
 reference's per-worker DataLoaders), the global batch stacks the
-workers' batches, and one call of the train step is one global step. The
+workers' batches, and one call of the train step is one global step.
+Over processes (``torch.distributed`` initialised, the axis a
+``ProcessWorkerAxis``) each process runs this loop for its own workers'
+ids (``mesh.batch_sharding``) with the same step schedule; the run id is
+rank 0's, the stop flag is agreed every step (a SIGTERM on one process
+stops all at the same step), rank 0 picks the step a ``--resume``
+restores, and a checkpoint gathers the per-worker state to rank 0, the
+single writer (checkpoint.py). The
 loop reads the metrics only once per log window (the per-step host sync
 the JAX trainer also avoids), logs the reference-format line, and runs
 the host half of the non-finite guard there.
@@ -16,7 +23,7 @@ the metrics JSONL (``--metrics-file``), validated against
 ``straggler_storm`` / ``straggler_storm_end``, ``ckpt_quarantined`` and
 ``ckpt_write_failed``. ``--trace DIR`` writes the loop's host spans
 (``fetch``, ``dispatch``, ``sync``, ``guard``, ``ckpt_save``) to
-``DIR/trace_train_p0.jsonl`` under the same run id; with tracing off the
+``DIR/trace_train_p{rank}.jsonl`` under the same run id; with tracing off the
 tracer is ``NULL_TRACER`` and adds no host sync. The straggler watchdog
 (``straggler_threshold_s``) waits for each step on the host only when
 armed. ``request_stop`` (SIGTERM / SIGINT through
@@ -54,8 +61,8 @@ from .data import BatchIterator, Dataset, make_preprocessor, prepare_data, shard
 from .models import COMPUTE_DTYPES, build_model, param_count
 from .obs import NULL_TRACER, Tracer, new_run_id, run_header, validate_event
 from .optim import build_optimizer
-from .parallel.buckets import FlatVector
-from .parallel.mesh import make_mesh
+from .parallel.buckets import FlatVector, tree_map
+from .parallel.mesh import ProcessWorkerAxis, batch_sharding, make_worker_axis
 from .parallel.ps import (
     PSConfig,
     PSTrainState,
@@ -85,6 +92,13 @@ def append_metrics_line(path: Optional[str], record: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
+
+
+def _moments(opt) -> dict:
+    """The optimizer state's moment fields (every field but ``count``):
+    SGD's ``momentum_buffer``, Adam's ``exp_avg`` / ``exp_avg_sq`` /
+    ``max_exp_avg_sq``."""
+    return {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt) if f.name != "count"}
 
 
 def average_metrics(step_fn, batches) -> dict:
@@ -150,7 +164,9 @@ class TrainConfig:
 
 class Trainer:
     """Drives PS data-parallel training of one model on N virtual
-    workers of one device (default ``cuda``)."""
+    workers of one device (default ``cuda``), over the processes of the
+    ``torch.distributed`` group once one is initialised
+    (``make_worker_axis``)."""
 
     def __init__(self, tcfg: TrainConfig, pcfg: PSConfig,
                  dataset: Optional[Dataset] = None, device: DeviceLike = None):
@@ -174,7 +190,9 @@ class Trainer:
             logger.warning("fault injection ACTIVE: %s", self.faults)
         self.dataset = dataset or prepare_data(tcfg.dataset, root=tcfg.data_root,
                                                allow_synthetic=tcfg.allow_synthetic)
-        self.mesh = make_mesh(pcfg.num_workers)
+        self.mesh = make_worker_axis(pcfg.num_workers)
+        self.multi = isinstance(self.mesh, ProcessWorkerAxis)
+        self.rank = self.mesh.rank if self.multi else 0
         # bf16 compute over f32 params, optimizer state and loss when asked
         self.model = build_model(
             tcfg.network, num_classes=self.dataset.num_classes,
@@ -185,7 +203,7 @@ class Trainer:
                                   weight_decay=tcfg.weight_decay)
         self.state = init_ps_state(self.model, self.tx, pcfg,
                                    torch.Generator().manual_seed(tcfg.seed),
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self._train_step = make_ps_train_step(
             self.model, self.tx, pcfg, self.mesh,
             preprocess=make_preprocessor(tcfg.dataset, train=True),
@@ -198,14 +216,15 @@ class Trainer:
         # a finished trainer's device state alive until a garbage collection
         self._event = functools.partial(append_metrics_line, tcfg.metrics_file)
         self._ckpt = ckpt.AsyncCheckpointer(event_sink=self._event, faults=self.faults)
-        # one run id ties the metrics stream and the span trace together
-        # (one process: the JAX package's _shared_run_id broadcasts nothing)
-        self.run_id = new_run_id()
+        # one run id ties the metrics streams and the span traces of every
+        # process together (JAX _shared_run_id: rank 0's, broadcast)
+        self.run_id = (self.mesh.broadcast_object(new_run_id()) if self.multi
+                       else new_run_id())
         self.tracer = NULL_TRACER
         if tcfg.trace_dir:
             self.tracer = Tracer(
-                "train", path=os.path.join(tcfg.trace_dir, "trace_train_p0.jsonl"),
-                run_id=self.run_id, annotate=True, geometry=self._geometry())
+                "train", path=os.path.join(tcfg.trace_dir, f"trace_train_p{self.rank}.jsonl"),
+                run_id=self.run_id, annotate=True, geometry=self._geometry(), pid=self.rank)
         # one record per log window: step, loss, time_cost (seconds per
         # step over the window, measured after the window's metrics read)
         self.history: List[dict] = []
@@ -220,7 +239,8 @@ class Trainer:
         """The run header's geometry block (trainer.py:364)."""
         return {"num_workers": self.pcfg.num_workers, "network": self.tcfg.network,
                 "dataset": self.tcfg.dataset, "opt_placement": self.pcfg.opt_placement,
-                "state_layout": self.pcfg.state_layout, "processes": 1}
+                "state_layout": self.pcfg.state_layout,
+                "processes": self.mesh.world if self.multi else 1}
 
     # ------------------------------------------------------------- checkpoints
     def checkpoint_state(self) -> PSTrainState:
@@ -231,11 +251,14 @@ class Trainer:
         vector; under ZeRO-1 the optimizer's ``count`` has one entry per
         worker, where the port keeps one scalar."""
         st = dataclasses.replace(self.state, step=np.asarray(self.state.step, np.int32))
+        if self.multi:
+            # every worker's rows, gathered on every process (a collective)
+            st = self._per_worker(st, self.mesh.gather_rows)
         opt = st.opt_state
-        if isinstance(st.params, FlatVector) and isinstance(opt.momentum_buffer, torch.Tensor) \
-                and self.pcfg.opt_placement != "sharded":
-            opt = dataclasses.replace(
-                opt, momentum_buffer=dataclasses.replace(st.params, flat=opt.momentum_buffer))
+        if isinstance(st.params, FlatVector) and self.pcfg.opt_placement != "sharded":
+            opt = dataclasses.replace(opt, **{
+                name: dataclasses.replace(st.params, flat=m)
+                for name, m in _moments(opt).items() if isinstance(m, torch.Tensor)})
         if self.pcfg.opt_placement == "sharded":
             opt = dataclasses.replace(
                 opt, count=np.full((self.pcfg.num_workers,), int(opt.count), np.int32))
@@ -253,16 +276,74 @@ class Trainer:
                                  f"differ ({counts})")
             opt = dataclasses.replace(opt, count=torch.tensor(
                 counts[0], dtype=torch.int32, device=self.device))
-        if isinstance(opt.momentum_buffer, FlatVector):
-            opt = dataclasses.replace(opt, momentum_buffer=opt.momentum_buffer.flat)
-        return dataclasses.replace(view, step=int(np.asarray(view.step)), opt_state=opt)
+        opt = dataclasses.replace(opt, **{name: m.flat for name, m in _moments(opt).items()
+                                          if isinstance(m, FlatVector)})
+        view = dataclasses.replace(view, step=int(np.asarray(view.step)), opt_state=opt)
+        return (self._per_worker(view, lambda t: self.mesh.local(t).clone()) if self.multi
+                else view)
+
+    def _per_worker(self, st: PSTrainState, fn) -> PSTrainState:
+        """``fn`` over the state's per-worker parts, whose rows are this
+        process's workers in the live state and every worker's in a
+        checkpoint: the EF residuals, local BN stats and ZeRO-1 moments."""
+        rows = lambda tree: None if tree is None else tree_map(fn, tree)
+        opt = st.opt_state
+        if self.pcfg.opt_placement == "sharded":
+            opt = dataclasses.replace(opt, **{k: rows(v) for k, v in _moments(opt).items()})
+        bs = rows(st.batch_stats) if self.pcfg.bn_mode == "local" else st.batch_stats
+        return dataclasses.replace(st, comm_state=rows(st.comm_state), batch_stats=bs,
+                                   opt_state=opt)
 
     def _save(self, step_no: int) -> None:
         """Record this run's geometry for the step (trainer.py:646), then
-        copy the state to the host and hand it to the writer thread."""
-        elastic.save_geometry(self.tcfg.train_dir, elastic.geometry_of(self.pcfg),
-                              step=step_no)
-        self._ckpt.save(self.checkpoint_state(), self.tcfg.train_dir, step_no)
+        copy the state to the host and hand it to the writer thread. Over
+        processes every process gathers, rank 0 alone writes, at once,
+        and no process returns before the file is durable
+        (``AsyncCheckpointer.save_collective``)."""
+        if not self.multi:
+            elastic.save_geometry(self.tcfg.train_dir, elastic.geometry_of(self.pcfg),
+                                  step=step_no)
+            self._ckpt.save(self.checkpoint_state(), self.tcfg.train_dir, step_no)
+            return
+        state = self.checkpoint_state()
+        if self.rank == 0:
+            elastic.save_geometry(self.tcfg.train_dir, elastic.geometry_of(self.pcfg),
+                                  step=step_no)
+        self._ckpt.save_collective(state, self.tcfg.train_dir, step_no, self.mesh)
+
+    def _quarantine(self, step: int, err: BaseException) -> None:
+        logger.warning("resume: checkpoint step %d is corrupt (%s); quarantining "
+                       "and falling back", step, err)
+        path = ckpt.quarantine_checkpoint(self.tcfg.train_dir, step)
+        self._event({"kind": "ckpt_quarantined", "step": step, "path": path,
+                     "error": str(err)})
+
+    def _try_resume_multihost(self) -> Optional[int]:
+        """Agreed resume (trainer.py:512-540): rank 0 picks the newest
+        step whose file passes the integrity check (it alone quarantines,
+        so no two processes rename one file), the choice is broadcast, and
+        every process restores that step. A process whose read of it then
+        fails raises: a crashed run beats diverged replicas."""
+        chosen = -1
+        if self.rank == 0:
+            for step in reversed(ckpt.available_steps(self.tcfg.train_dir)):
+                try:
+                    ckpt.verify_checkpoint(self.tcfg.train_dir, step)
+                    chosen = step
+                    break
+                except ckpt.CheckpointCorruptError as e:
+                    self._quarantine(step, e)
+                except OSError as e:
+                    logger.warning("resume: checkpoint step %d unreadable (%s); trying older "
+                                   "(file left in place)", step, e)
+        chosen = int(self.mesh.broadcast_object(chosen))
+        if chosen < 0:
+            return None
+        self.state = self._restore_step(chosen)
+        self._sync_guard_baseline()
+        logger.info("resumed from %s (agreed by the processes)",
+                    ckpt.checkpoint_path(self.tcfg.train_dir, chosen))
+        return chosen
 
     def try_resume(self) -> Optional[int]:
         """Restore the newest VALID checkpoint of train_dir, if any
@@ -270,15 +351,13 @@ class Trainer:
         ``*.corrupt``) and the next older one tried; an unreadable one is
         skipped and left in place. Structure mismatches (e.g. EF residuals
         for a run with EF off) raise: they are configuration errors."""
+        if self.multi:
+            return self._try_resume_multihost()
         for step in reversed(ckpt.available_steps(self.tcfg.train_dir)):
             try:
                 restored = self._restore_step(step)
             except ckpt.CheckpointCorruptError as e:
-                logger.warning("resume: checkpoint step %d is corrupt (%s); quarantining "
-                               "and falling back", step, e)
-                path = ckpt.quarantine_checkpoint(self.tcfg.train_dir, step)
-                self._event({"kind": "ckpt_quarantined", "step": step, "path": path,
-                             "error": str(e)})
+                self._quarantine(step, e)
                 continue
             except OSError as e:
                 logger.warning("resume: checkpoint step %d unreadable (%s); trying older "
@@ -362,6 +441,16 @@ class Trainer:
     def stop_requested(self) -> bool:
         return self._stop_requested
 
+    def _stop_consensus(self) -> bool:
+        """The stop flag every process agrees on, once a step
+        (trainer.py:667-690): one process, its own flag; over processes
+        the OR of every process's (a collective each reaches at the same
+        step), promoted into the local flag so every process takes the
+        preemption exit."""
+        if self.multi and self.mesh.any_host(self._stop_requested):
+            self._stop_requested = True
+        return self._stop_requested
+
     def install_signal_handlers(self) -> None:
         """SIGTERM / SIGINT -> graceful stop: finish the step, checkpoint,
         return, so a preempted run resumes exactly with ``--resume``
@@ -439,11 +528,12 @@ class Trainer:
         seed and the step)."""
         t, n = self.tcfg, self.pcfg.num_workers
         # the stream's first record, before a resume can emit events
-        self._event(run_header("train", run_id=self.run_id, geometry=self._geometry()))
+        self._event(run_header("train", run_id=self.run_id, geometry=self._geometry(),
+                               pid=self.rank))
         if t.resume:
             self.try_resume()
         iters = []
-        for w in range(n):
+        for w in batch_sharding(self.mesh):  # this process's workers
             imgs, labels, seed = shard_for_worker(
                 self.dataset.train_images, self.dataset.train_labels, w, n,
                 mode=t.shard_mode, seed=t.seed)
@@ -536,7 +626,7 @@ class Trainer:
                     if step_no >= t.max_steps:
                         done = True
                         break
-                    if self._stop_requested:
+                    if self._stop_consensus():
                         logger.warning("graceful stop at step %d (resume with --resume)",
                                        step_no)
                         done = True
@@ -563,10 +653,14 @@ class Trainer:
     def validate(self) -> dict:
         """One pass over the test split (parity: nn_ops.py:90-106)."""
         n = self.pcfg.num_workers
-        bs = max(self.tcfg.test_batch_size // n, 1) * n
-        it = BatchIterator(self.dataset.test_images, self.dataset.test_labels, bs,
+        per = max(self.tcfg.test_batch_size // n, 1)
+        it = BatchIterator(self.dataset.test_images, self.dataset.test_labels, per * n,
                            shuffle=False)
-        out = average_metrics(lambda batch: self._eval_step(self.state, batch), it)
+        ids = batch_sharding(self.mesh)  # this process's workers' rows of each batch
+        rows = slice(ids[0] * per, (ids[-1] + 1) * per)
+        out = average_metrics(
+            lambda batch: self._eval_step(self.state, {k: v[rows] for k, v in batch.items()}),
+            it)
         if out:
             logger.info(format_eval_line(self.state.step, out["loss"], out["prec1"],
                                          out["prec5"]))

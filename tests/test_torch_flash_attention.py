@@ -27,7 +27,7 @@ from ps_pytorch_tpu_torch.ops.flash_attention import (
     flash_partial_plain,
 )
 from ps_pytorch_tpu_torch.parallel.ring_attention import full_attention
-from tests.test_torch_flash_backward import _products, _slot_maps
+from tests.test_torch_flash_backward import _products, _slot_maps, _one_thread
 
 
 def _qkv(b, t, h, d, seed):
@@ -217,6 +217,7 @@ def test_torch_flash_fwd_normalized_hi_lo_products_match_jax(d):
 F32_KEY_TILE = 32
 
 
+@_one_thread
 def _tf32_forward(q, k, v, block, split=True, chain=False):
     """The f32 K4's arithmetic emulated in torch on the CPU, causal, one
     ``block``-key tile at a time as the kernel visits them: S = Q.K^T as
@@ -248,6 +249,18 @@ def _tf32_forward(q, k, v, block, split=True, chain=False):
     return acc, m, l
 
 
+@functools.lru_cache(maxsize=None)
+def _tf32_forward_cached(d, split):
+    return _tf32_forward(*_f32_qkv(d), F32_KEY_TILE, split=split)
+
+
+def _tf32_forward_of(d, split):
+    """``_tf32_forward`` on ``_f32_qkv(d)``, computed once per (d, split)
+    and shared by the partial and normalized cases; each call gets its
+    own copies of the triple."""
+    return tuple(t.clone() for t in _tf32_forward_cached(d, split))
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("entry", ["partial", "normalized"])
 def test_torch_flash_fwd_3xtf32_products_match_jax(entry, d):
@@ -259,9 +272,8 @@ def test_torch_flash_fwd_3xtf32_products_match_jax(entry, d):
     2e-5, m 2e-6 of the largest magnitude) and the normalized (o, lse)
     within phase 4's 1e-5 of ``_flash_fwd(normalize=True)``; one TF32
     product each does not, which is why the kernel takes three."""
-    q, k, v = _f32_qkv(d)
-    three = _tf32_forward(q, k, v, F32_KEY_TILE)
-    one = _tf32_forward(q, k, v, F32_KEY_TILE, split=False)
+    three = _tf32_forward_of(d, split=True)
+    one = _tf32_forward_of(d, split=False)
     if entry == "partial":
         want = dict(zip(("pv", "m", "l"), _jax_fwd(d, False, f32=True)))
         got = dict(zip(("pv", "m", "l"), three))

@@ -432,6 +432,26 @@ def _jax_f32_grads(d):
     return out
 
 
+def _one_thread(fn):
+    """Run ``fn`` on one CPU thread (the thread count put back after):
+    the TF32 emulations are thousands of small ops, and in a parallel
+    test run each op on a full thread pool waits on every core (the
+    long-row test took 4 s alone and 852 s beside five other test
+    processes). Their values do not depend on it: ``_products`` sums
+    exact float64 products of TF32 operands and truncates elementwise."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_num_threads(threads)
+
+    return run
+
+
+@_one_thread
 def _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split, chain=False):
     """The f32 K5 / K6 arithmetic emulated in torch on the CPU, causal:
     K5's S = Q.K^T and dP = dO.V^T, K6's S^T = K.Q^T and dP^T = V.dO^T,
@@ -459,6 +479,19 @@ def _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split, chain=False):
     return {"dq": dq, "dk": prod(dst, qf, **perms), "dv": prod(pt, dof, **perms)}
 
 
+@functools.lru_cache(maxsize=None)
+def _tf32_grads_of(d, split):
+    """``_tf32_kernel_grads`` on ``_jax_f32_grads(d)``'s inputs, computed
+    once per (d, split) and shared by the three gradients' cases as
+    read-only numpy arrays (the emulation yields dq, dk and dv together)."""
+    (q, k, v, do), lse, delta, _ = _jax_f32_grads(d)
+    out = {g: t.numpy() for g, t in
+           _tf32_kernel_grads(q, k, v, do, lse, delta, d ** -0.5, split=split).items()}
+    for a in out.values():
+        a.setflags(write=False)  # shared by the cases: no case may write it
+    return out
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("grad", ["dq", "dk", "dv"])
 def test_torch_flash_bwd_3xtf32_products_match_jax(grad, d):
@@ -469,13 +502,12 @@ def test_torch_flash_bwd_3xtf32_products_match_jax(grad, d):
     accumulator-fed products in the kernels' permuted order) stays within
     5e-5 of the largest gradient of ``_flash_bwd`` on f32 inputs; one TF32
     product (hi.hi) does not, which is why the kernels take three."""
-    (q, k, v, do), lse, delta, want = _jax_f32_grads(d)
-    scale = d ** -0.5
+    want = _jax_f32_grads(d)[3]
     bound = PRODUCT_TOL * float(np.abs(want[grad]).max())
-    three = _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split=True)[grad]
-    one = _tf32_kernel_grads(q, k, v, do, lse, delta, scale, split=False)[grad]
-    err_three = float(np.abs(three.numpy() - want[grad]).max())
-    err_one = float(np.abs(one.numpy() - want[grad]).max())
+    three = _tf32_grads_of(d, split=True)[grad]
+    one = _tf32_grads_of(d, split=False)[grad]
+    err_three = float(np.abs(three - want[grad]).max())
+    err_one = float(np.abs(one - want[grad]).max())
     assert err_three <= bound, (err_three, bound)
     assert err_one > bound, (err_one, bound)
 

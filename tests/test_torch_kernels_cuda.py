@@ -2,8 +2,9 @@
 PyTorch versions (K1's KV pool write quantize_kv_write, its multi-tensor
 shared-scale entry quantize_rows_scaled_many and the per-row calls that
 run it at one worker, quantize_rows_many and quantize_rows, K2's
-multi-tensor quantize_tensors and
-its one-piece call quantize_tensor, K3 accumulate_rescale_int8, K4
+multi-tensor quantize_tensors and its one-piece call quantize_tensor,
+the split routes of K2 and of K1's shared-scale entry, K3
+accumulate_rescale_int8, K4
 flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
 flash_bwd_dkv), the serving engine on the card against the same engine on the
 CPU, and the gradient wires on the card against the same wires on the CPU
@@ -390,6 +391,42 @@ def test_torch_quantize_rows_scaled_many_kernel_300_pieces_on_card(cuda_device):
         torch.cuda.synchronize()
         assert quantize_rows_scaled_many.launches == before + 1
         _same_many(got, quantize_rows_scaled_many_plain(xs, bs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [0, 128, 33])
+def test_torch_split_routes_bit_exact_on_card(cuda_device, block):
+    """The split routes (absmax, then the quantize with a given absmax:
+    K2's per tensor, K1's shared-scale per block) over 300 assorted
+    pieces equal their plain versions and the fused entry; one wrapper
+    call a half; a NaN-only worker row gives its piece scale NaN and an
+    all-zero payload, as a NaN absmax from another process would."""
+    xs = _odd_pieces(cuda_device, 300, 5)
+    if block:
+        absmax, given = tq.rows_scaled_absmax, tq.quantize_rows_scaled_given
+        plain = (lambda ys: tq.rows_scaled_absmax_plain(ys, block),
+                 lambda ys, a: tq.quantize_rows_scaled_given_plain(ys, block, a))
+        run = lambda ys: given(ys, block, absmax(ys, block))
+        fused = lambda ys: quantize_rows_scaled_many(ys, block)
+    else:
+        absmax, given = tq.tensors_absmax, tq.quantize_tensors_given
+        plain = (tq.tensors_absmax_plain, tq.quantize_tensors_given_plain)
+        run = lambda ys: given(ys, absmax(ys))
+        fused = quantize_tensors
+    before = (absmax.launches, given.launches)
+    got = run(xs)
+    torch.cuda.synchronize()
+    assert (absmax.launches, given.launches) == (before[0] + 1, before[1] + 1)
+    _same_many(got, plain[1](xs, plain[0](xs)))
+    _same_many(got, fused(xs))
+    ys = [x.float().clone() for x in xs[:4]]
+    ys[2][5] = float("nan")
+    got = run(ys)
+    want = plain[1](ys, plain[0](ys))
+    for (q, s, a), (qp, sp, ap) in zip(got, want):
+        assert torch.equal(q, qp)
+        assert torch.equal(s.view(torch.int32), sp.view(torch.int32))
+    assert bool(torch.isnan(got[2][1]).all()) and not bool(got[2][0].any())
 
 
 @pytest.mark.cuda

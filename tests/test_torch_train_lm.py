@@ -103,8 +103,8 @@ def test_torch_sgd_reads_a_schedule_at_the_step_count():
 @pytest.mark.parametrize("flags,exc,match", [
     (["--parallelism", "tp"], NotImplementedError, "ROADMAP.md"),
     (["--parallelism", "pp_moe"], NotImplementedError, "ROADMAP.md"),
-    (["--optimizer", "adam"], NotImplementedError, "ROADMAP.md"),
-    (["--optimizer", "amsgrad"], NotImplementedError, "ROADMAP.md"),
+    (["--parallelism", "dp_tp"], NotImplementedError, "ROADMAP.md"),
+    (["--parallelism", "ep_sp"], NotImplementedError, "ROADMAP.md"),
     (["--profile-dir", "prof"], NotImplementedError, "ROADMAP.md"),
     (["--parallelism", "moe"], NotImplementedError, "ROADMAP.md"),
     (["--shard-vocab"], ValueError, "tp/dp_tp"),

@@ -69,9 +69,9 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 @pytest.mark.parametrize("extra", [
     ["--compress-checkpoints"], ["--bucket-bytes", "0", "--overlap", "on"],
-    ["--optimizer", "adam"], ["--overlap", "on", "--opt-placement", "sharded"],
+    ["--profile-dir", "prof"], ["--overlap", "on", "--opt-placement", "sharded"],
     ["--compress-grad", "2round", "--dcn-hosts", "2"],
-    ["--coordinator-address", "localhost:1234"], ["--data-root", "/nonexistent"],
+    ["--quant-rounding", "stochastic"], ["--data-root", "/nonexistent"],
 ])
 def test_torch_cli_train_refuses_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
