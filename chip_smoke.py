@@ -177,18 +177,49 @@ Phases, one line each:
    an all-zero payload (K2 and K1 block 128); then both split routes at
    the ResNet18 step against their plain versions and the fused entries
    (a NaN-only piece too), timed beside the fused entry;
-25. the kernels JSON line, then the result line.
+25. the data path at full width: CIFAR-10 written in its on-disk form
+   (``cifar-10-batches-py``, 50,000 + 10,000 images from
+   ``make_synthetic``) and read back equal through ``prepare_data``, then
+   phase 9's configuration from those files (``--data-root DIR
+   --no-synthetic --trace``) for 10 steps: finite losses, K2 once a step,
+   one ``h2d`` span a dispatched batch inside a ``fetch`` span; the step
+   p50 beside phase 9's, the fetch's share of the step, the native
+   gather's time for one 8 x 128 batch against numpy indexing; MNIST
+   (gzipped idx) and SVHN (.mat) written small and read back equal;
+26. the adaptive wire: ResNet18 8 x 128 on the autotune-best wire in 4 MiB
+   buckets with ``--precision-adapt`` under a budget of 0.6 of the
+   all-int8 effective bytes and the count adapting in [4, 8] over
+   2-step windows, steps 4-5 stalled past the armed watchdog, 12 steps:
+   the ``mask_adapt`` records the controller's rule implies, at least one
+   ``precision_adapt``, K3 once a bucket a step and no K1 / K2 call; then
+   the step called directly: the full count bit for bit the static
+   step's params and EF residuals over 3 steps, all-int8 tags within
+   1e-6 of the largest update after one step (the lattice scale is a
+   quotient by the peak, as in JAX: its last bit) and within phase 13's
+   K x 1e-2 after three, no host sync added by the device count and tags,
+   and one K3 launch with the count as its device divisor held against
+   its plain version;
+27. stochastic rounding: ResNet18 8 x 128, 3 steps each on the int8 and
+   the two-round wires with ``--quant-rounding stochastic``: finite
+   losses and no K1 / K2 launch; the mean round-trip error over 64 of the
+   card's draws of a 1 M-element tensor within 4 standard errors of 0;
+   ``pack_int4`` / ``unpack_int4`` / ``quantize_lattice`` on the card bit
+   for bit the CPU's;
+28. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12b,14,18,19,20,21,22,23,24 [--package-root DIR]
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,19,20,21,22,23,24,25,26,27 \
+        [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
 through ``serve.kv`` alone; the flash kernels 4 and 14; the serve run of
 5, its K1 counts reported, not required, on another tree; the 62-leaf
 wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9;
+the two-round, homomorphic and ZeRO-1 wires of 12;
 the checkpoints of 12b; the VGG runs of 18; the bf16 runs of 19, after
-phase 9's f32 run; the held steps of 20; the event stream of 21),
+phase 9's f32 run; the held steps of 20; the event stream of 21; the
+data path of 25, the adaptive wire of 26, stochastic rounding of 27),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -2511,13 +2542,498 @@ def phase_two_processes(card: str, root: str, nccl: dict) -> dict:
     return rec
 
 
+# ---------------- phases 25-27: the data path, the adaptive wire, stochastic rounding
+
+DATA_STEPS = 10
+PER_WORKER = 128  # the Train configuration's per-worker batch
+
+
+def _chw_rows(x: np.ndarray) -> np.ndarray:
+    """CIFAR's on-disk rows: each image as 3072 bytes, channel-major."""
+    return np.ascontiguousarray(x.transpose(0, 3, 1, 2).reshape(len(x), -1))
+
+
+def write_cifar10(root: str, d) -> str:
+    """CIFAR-10's python layout under ``root``: ``cifar-10-batches-py``
+    with ``data_batch_1..5`` (the train split in five) and
+    ``test_batch``, each a pickled dict of bytes keys."""
+    import pickle
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    parts = np.array_split(np.arange(len(d.train_images)), 5)
+    for i, idx in enumerate(parts, 1):
+        with open(os.path.join(base, f"data_batch_{i}"), "wb") as f:
+            pickle.dump({b"batch_label": f"training batch {i} of 5".encode(),
+                         b"data": _chw_rows(d.train_images[idx]),
+                         b"labels": d.train_labels[idx].tolist()}, f)
+    with open(os.path.join(base, "test_batch"), "wb") as f:
+        pickle.dump({b"batch_label": b"testing batch 1 of 1", b"data": _chw_rows(d.test_images),
+                     b"labels": d.test_labels.tolist()}, f)
+    return base
+
+
+def write_mnist_gz(root: str, d) -> None:
+    """MNIST's four gzipped idx files (magic 0x0000 08 ndim, big-endian
+    dims, the bytes)."""
+    import gzip
+    import struct
+
+    os.makedirs(root, exist_ok=True)
+    for stem, a in (("train-images-idx3-ubyte", d.train_images[..., 0]),
+                    ("train-labels-idx1-ubyte", d.train_labels),
+                    ("t10k-images-idx3-ubyte", d.test_images[..., 0]),
+                    ("t10k-labels-idx1-ubyte", d.test_labels)):
+        a = np.ascontiguousarray(a, np.uint8)
+        with gzip.open(os.path.join(root, stem + ".gz"), "wb") as f:
+            f.write(struct.pack(">I", 0x0800 | a.ndim))
+            f.write(struct.pack(">" + "I" * a.ndim, *a.shape))
+            f.write(a.tobytes())
+
+
+def write_svhn(root: str, d) -> None:
+    """SVHN's ``train_32x32.mat`` / ``test_32x32.mat``: X is HWCN, y
+    holds 10 for the digit 0."""
+    import scipy.io
+
+    os.makedirs(root, exist_ok=True)
+    for name, x, y in (("train_32x32.mat", d.train_images, d.train_labels),
+                       ("test_32x32.mat", d.test_images, d.test_labels)):
+        scipy.io.savemat(os.path.join(root, name), {
+            "X": x.transpose(1, 2, 3, 0), "y": np.where(y == 0, 10, y).astype(np.uint8)[:, None]})
+
+
+def _same_arrays(got, want) -> bool:
+    return all(getattr(got, f).dtype == getattr(want, f).dtype
+               and np.array_equal(getattr(got, f), getattr(want, f))
+               for f in ("train_images", "train_labels", "test_images", "test_labels"))
+
+
+def _spans(trace_dir: str) -> list:
+    with open(os.path.join(trace_dir, "trace_train_p0.jsonl")) as f:
+        return [r for r in (json.loads(line) for line in f) if r["kind"] == "span"]
+
+
+def phase_data(card: str, synthetic_p50_ms=None) -> dict:
+    """Phase 25: CIFAR-10 written in its on-disk form at its real size
+    (50,000 + 10,000 images from ``make_synthetic``), read back equal
+    through ``prepare_data(root=...)``, then ``cli.train --data-root DIR
+    --no-synthetic`` on phase 9's configuration with ``--trace``, 10
+    steps: finite losses, no skipped step, K2 once a step, one ``h2d``
+    span a dispatched batch, each inside a ``fetch`` span; the step p50
+    beside phase 9's synthetic run, the fetch's share of it, and
+    ``psl_gather``'s time for one 8 x 128 batch against numpy indexing.
+    MNIST (gzipped idx) and SVHN (.mat) are written small and read back
+    equal."""
+    import shutil
+    import tempfile
+
+    from ps_pytorch_tpu_torch.data import gather_rows, make_synthetic, prepare_data
+
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        d = make_synthetic("Cifar10", train_size=50000, test_size=10000)
+        t0 = time.perf_counter()
+        base = write_cifar10(root, d)
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(base, f)) for f in os.listdir(base))
+        t0 = time.perf_counter()
+        got = prepare_data("Cifar10", root=root, allow_synthetic=False)
+        read_s = time.perf_counter() - t0
+        require(not got.synthetic and _same_arrays(got, d),
+                "data: the CIFAR-10 files read back differ from what was written")
+        small = {}
+        for name, writer, sub in (("MNIST", write_mnist_gz, "mnist"), ("SVHN", write_svhn, "svhn")):
+            s = make_synthetic(name, train_size=600, test_size=100, seed=3)
+            writer(os.path.join(root, sub), s)
+            back = prepare_data(name, root=root, allow_synthetic=False)
+            require(not back.synthetic and _same_arrays(back, s),
+                    f"data: the {name} files read back differ from what was written")
+            small[name] = list(back.train_images.shape)
+        # one 8 x 128 batch: the native gather against numpy indexing
+        idx = np.random.RandomState(0).randint(0, len(d.train_images), WORKERS * PER_WORKER)
+        require(np.array_equal(gather_rows(d.train_images, idx), d.train_images[idx]),
+                "data: psl_gather differs from numpy indexing")
+
+        def host_ms(fn, reps=50):
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            return float(np.median(ts)) * 1e3
+
+        gather_ms = host_ms(lambda: gather_rows(d.train_images, idx))
+        numpy_ms = host_ms(lambda: d.train_images[idx])
+        tdir = os.path.join(root, "trace")
+        reset_counts()
+        out = _train(DATA_STEPS, ["--data-root", root, "--no-synthetic", "--trace", tdir])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        spans = _spans(os.path.join(root, "trace")) if os.path.exists(
+            os.path.join(root, "trace", "trace_train_p0.jsonl")) else []
+        shutil.rmtree(root, ignore_errors=True)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    require(len(losses) == DATA_STEPS and all(np.isfinite(v) for v in losses),
+            f"data: losses {losses}")
+    require(out["train"]["skipped_steps"] == 0.0, "data: a step was skipped")
+    require(OTHER_TREE or counts["quantize_tensors"] == DATA_STEPS,
+            f"data: launches {counts}, expected one K2 call a step")
+    fetch = [s for s in spans if s["name"] == "fetch"]
+    h2d = [s for s in spans if s["name"] == "h2d"]
+    # the first fetch dispatches two batches, each later one the next
+    require(len(fetch) == DATA_STEPS and len(h2d) == DATA_STEPS + 1,
+            f"data: {len(fetch)} fetch and {len(h2d)} h2d spans in {DATA_STEPS} steps")
+    for s in h2d:
+        require(any(f["t"] <= s["t"] and s["t"] + s["dur"] <= f["t"] + f["dur"] + 1e-6
+                    and s["depth"] == f["depth"] + 1 for f in fetch),
+                f"data: an h2d span outside every fetch span: {s}")
+    p50 = _step_p50(hist)
+    fetch_ms = float(np.median([f["dur"] for f in fetch[3:]])) * 1e3
+    rec = {"card": card, "model": "ResNet18 Cifar10 from its on-disk files, f32 (TF32 off)",
+           "workers": WORKERS, "batch_per_worker": PER_WORKER, "steps": DATA_STEPS,
+           "files": {"cifar10_bytes": disk, "write_s": write_s, "read_s": read_s,
+                     "train_images": list(got.train_images.shape),
+                     "test_images": list(got.test_images.shape), **small},
+           "launches": counts, "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_p50": p50 * 1e3, "synthetic_step_ms_p50": synthetic_p50_ms,
+           "fetch_ms_p50": fetch_ms, "fetch_share_of_step": fetch_ms / (p50 * 1e3),
+           "h2d_spans": len(h2d), "h2d_ms_p50": float(np.median([s["dur"] for s in h2d])) * 1e3,
+           "gather_8x128_ms": {"psl_gather": gather_ms, "numpy": numpy_ms},
+           "val": out["val"], "seconds": time.perf_counter() - t_start}
+    print("phase 25 data path: CIFAR-10 files, native gather, pinned prefetch: "
+          + json.dumps(rec))
+    return rec
+
+
+ADAPT_WIRE = ["--compress-grad", "2round", "--wire-domain", "homomorphic",
+              "--bucket-bytes", "4194304"]
+ADAPT_STEPS = 12
+ADAPT_SLOW = [4, 5]        # the fault plan's stalled steps
+ADAPT_THRESHOLD_S = 1.0    # the watchdog's threshold: a step takes ~0.2 s
+ADAPT_STALL_S = 1.5
+
+
+def _resnet_total() -> int:
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_layout
+
+    params, _ = init_model(build_model("ResNet18"), torch.Generator().manual_seed(0),
+                           device="cpu")
+    return tree_layout(params).total
+
+
+def _sync_calls(prof) -> dict:
+    """The CUDA runtime calls that block the host until the card catches
+    up (a D2H read or a pageable H2D copy ends in one), and beside them the
+    async copies (device-to-device ones among them)."""
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+    names = [evt.name for evt in prof.events()]
+    return {"waits": sum(names.count(n) for n in waits),
+            "memcpy_async": names.count("cudaMemcpyAsync")}
+
+
+def _adaptive_step_checks(dev, n_buckets: int) -> dict:
+    """Steps of the phase-26 wire called directly (error feedback on,
+    every step's draws the same for each configuration): the full
+    count's step against the static step, bit for bit, for 3 steps;
+    all-int8 tags against it (the lattice scale is a quotient by the
+    peak, as in JAX: 1e-6 of the update after one step, K x 1e-2 after
+    three, where a payload at a half may round the other way); the host syncs of one adaptive
+    step (count and tags as device tensors) against the static masked
+    step's; and one K3 launch held against its plain version on the same
+    payload and device divisor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ps_pytorch_tpu_torch.data import (
+        BatchIterator,
+        make_preprocessor,
+        make_synthetic,
+        prefetch_to_device,
+    )
+    from ps_pytorch_tpu_torch.models import build_model
+    from ps_pytorch_tpu_torch.ops import quantize as q
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel import collectives
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+    from ps_pytorch_tpu_torch.parallel.ps import (
+        PSConfig,
+        draw_step,
+        init_ps_state,
+        make_ps_train_step,
+    )
+
+    base = dict(num_workers=WORKERS, compress="int8_2round", wire_domain="homomorphic",
+                bucket_bytes=4194304, error_feedback=True)
+    cfgs = {"static": PSConfig(**base),
+            "count": PSConfig(num_aggregate_min=4, num_aggregate_max=8, **base),
+            "int8_tags": PSConfig(num_aggregate_min=4, num_aggregate_max=8,
+                                  precision_adapt=True, **base),
+            "static_masked": PSConfig(num_aggregate=5, **base)}
+    model = build_model("ResNet18")
+    pre = make_preprocessor("Cifar10", True)
+    data = make_synthetic("Cifar10", train_size=WORKERS * PER_WORKER * 3)
+    host = list(BatchIterator(data.train_images, data.train_labels, WORKERS * PER_WORKER,
+                              seed=0).epoch())
+    batches = list(prefetch_to_device(iter(host), device=dev))
+    count8 = torch.tensor(8, dtype=torch.int32, device=dev)
+    int8 = torch.full((n_buckets,), 2, dtype=torch.int32, device=dev)
+    extras = {"static": {}, "count": {"agg_count": count8},
+              "int8_tags": {"agg_count": count8, "prec_tags": int8}, "static_masked": {}}
+    states, steps = {}, {}
+    p0 = None
+    for name, cfg in cfgs.items():
+        tx = build_optimizer("sgd", 0.1, momentum=0.9)
+        states[name] = init_ps_state(model, tx, cfg, torch.Generator().manual_seed(1),
+                                     device=dev)
+        steps[name] = make_ps_train_step(model, tx, cfg, preprocess=pre, seed=2, device=dev)
+        p0 = states[name].params.flat.clone()  # the same seed: the same params
+    # one set of draws a step for every configuration (the adaptive
+    # configurations draw a permutation, which the static step ignores)
+    draws = [draw_step(cfgs["count"], 2, i, PER_WORKER, pre, model, dev) for i in range(3)]
+    first_diff = None
+    # bit for bit across runs needs cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, batch in enumerate(batches):
+            for name in ("static", "count", "int8_tags"):
+                states[name], _ = steps[name](states[name], batch, draws[i], **extras[name])
+            if i == 0:
+                first_diff = float((states["int8_tags"].params.flat
+                                    - states["static"].params.flat).abs().max())
+                first_moved = float((states["static"].params.flat - p0).abs().max())
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    s, c, t = states["static"], states["count"], states["int8_tags"]
+
+    def leaves(st):
+        return [st.params.flat] + tree_leaves(st.comm_state)
+
+    require(all(torch.equal(a, b) for a, b in zip(leaves(c), leaves(s))),
+            "adaptive: the full count's params or residuals differ from the static step's")
+    moved = float((s.params.flat - p0).abs().max())
+    tag_diff = float((t.params.flat - s.params.flat).abs().max())
+    # step 1: the scale's last bit only; later steps carry that into the
+    # gradients, where a payload at a half rounds the other way and K3
+    # moves it a lattice step: the parity rule's K x 1e-2 of the update
+    require(first_diff <= 1e-6 * first_moved and tag_diff <= WORKERS * 1e-2 * moved,
+            f"adaptive: all-int8 tags moved the params {first_diff} after step 1 (largest "
+            f"update {first_moved}), {tag_diff} after 3 (largest {moved})")
+    # host syncs of one step: the adaptive step's against the static masked one's
+    syncs = {}
+    for name, key in (("static_masked", "static_masked"), ("adaptive", "int8_tags")):
+        st = states[key]
+        st, _ = steps[key](st, batches[0], draws[0], **extras[key])  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            st, _ = steps[key](st, batches[1], draws[1], **extras[key])
+            torch.cuda.synchronize()
+        syncs[name] = _sync_calls(prof)
+        syncs[name]["waits"] -= 1  # the closing synchronize
+        states[key] = st
+    require(syncs["adaptive"]["waits"] <= syncs["static_masked"]["waits"],
+            f"adaptive: the count and tags added host waits {syncs}")
+    # one K3 launch of an adaptive step, held against its plain version
+    seen = []
+    real = collectives.accumulate_rescale_int8
+
+    def spy(recv, divisor):
+        out = real(recv, divisor)
+        if not seen:
+            seen.append((recv.clone(), divisor.clone(), out.clone()))
+        return out
+
+    k3_before = q.accumulate_rescale_int8.launches
+    collectives.accumulate_rescale_int8 = spy
+    try:
+        count5 = torch.tensor(5, dtype=torch.int32, device=dev)
+        states["count"], _ = steps["count"](states["count"], batches[2], draws[2],
+                                            agg_count=count5)
+    finally:
+        collectives.accumulate_rescale_int8 = real
+    torch.cuda.synchronize()
+    recv, divisor, out = seen[0]
+    require(divisor.device.type == dev.type and divisor.dtype == torch.float32
+            and float(divisor) == 5.0,
+            f"adaptive: K3's divisor {divisor}")
+    plain = q.accumulate_rescale_plain(recv, divisor)
+    require(torch.equal(out, plain), "adaptive: K3 differs from its plain version")
+    return {"full_count_bit_exact": True,
+            "int8_tags_vs_static": {"step1_max_abs_diff": first_diff,
+                                    "step1_largest_update": first_moved,
+                                    "step3_max_abs_diff": tag_diff, "step3_largest_update": moved},
+            "host_syncs_per_step": syncs,
+            "k3_held": {"shape": list(recv.shape), "divisor": float(divisor),
+                        "launches_in_step": q.accumulate_rescale_int8.launches - k3_before}}
+
+
+def phase_adaptive(card: str, dev) -> dict:
+    """Phase 26: ResNet18 8 x 128 on the autotune-best wire in 4 MiB
+    buckets (``--compress-grad 2round --wire-domain homomorphic
+    --bucket-bytes 4194304``), 12 steps through ``cli.train.main`` with
+    ``--precision-adapt``, a wire budget of 0.6 of the all-int8 effective
+    bytes, ``--num-aggregate-min 4 --num-aggregate-max 8`` from 8,
+    ``--adapt-window 2``, the watchdog armed at 1 s and steps 4-5 stalled
+    by the fault plan: the ``mask_adapt`` records the controller's rule
+    implies for those stalls (down, then back), at least one
+    ``precision_adapt`` record, K3 once a bucket a step and no K1 / K2
+    call (round 1 quantizes onto each bucket's lattice, plain PyTorch),
+    finite losses; then ``_adaptive_step_checks``."""
+    import argparse
+    import tempfile
+
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.obs.schema import validate_event
+    from ps_pytorch_tpu_torch.parallel.ps import precision_hi_peak, state_plan
+    from ps_pytorch_tpu_torch.resilience.elastic import AdaptiveMaskController
+    from ps_pytorch_tpu_torch.resilience.precision import effective_wire_bytes
+
+    t_start = time.perf_counter()
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    cfg0 = ps_config_from(parser.parse_args(TRAIN_ARGS + ADAPT_WIRE + ["--precision-adapt"]),
+                          WORKERS)
+    plan = state_plan(cfg0, _resnet_total())
+    static_bytes = effective_wire_bytes([2] * plan.n_buckets, plan.sizes,
+                                        precision_hi_peak(cfg0))
+    budget = int(0.6 * static_bytes)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_adapt_")
+    mfile = os.path.join(tmp, "m.jsonl")
+    flags = ADAPT_WIRE + [
+        "--precision-adapt", "--wire-budget-bytes", str(budget), "--num-aggregate", "8",
+        "--num-aggregate-min", "4", "--num-aggregate-max", "8", "--adapt-window", "2",
+        "--mode", "straggler", "--kill-threshold", str(ADAPT_THRESHOLD_S),
+        "--fault-plan", json.dumps({"slow_steps": ADAPT_SLOW, "slow_s": ADAPT_STALL_S}),
+        "--metrics-file", mfile]
+    cfg = ps_config_from(parser.parse_args(TRAIN_ARGS + flags), WORKERS)
+    reset_counts()
+    out = _train(ADAPT_STEPS, flags)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = [h["loss"] for h in out["history"]]
+    require(len(losses) == ADAPT_STEPS and all(np.isfinite(v) for v in losses),
+            f"adaptive: losses {losses}")
+    require(out["train"]["skipped_steps"] == 0.0, "adaptive: a step was skipped")
+    with open(mfile) as f:
+        recs = [validate_event(json.loads(line)) for line in f]
+    slow = sorted(r["step"] for r in recs if r["kind"] in ("straggler", "straggler_storm"))
+    require(slow == ADAPT_SLOW, f"adaptive: the watchdog saw slow steps {slow}, the fault "
+                                f"plan stalled {ADAPT_SLOW}")
+    # the rule, fed the same stalls (the first step is exempt)
+    want = []
+    rule = AdaptiveMaskController(cfg, ADAPT_THRESHOLD_S, 2, event_sink=want.append)
+    for step in range(2, ADAPT_STEPS + 1):
+        rule.record(step, 2 * ADAPT_THRESHOLD_S if step in ADAPT_SLOW else 0.0)
+    got = [{k: r[k] for k in ("step", "from", "to")} for r in recs if r["kind"] == "mask_adapt"]
+    want = [{k: r[k] for k in ("step", "from", "to")} for r in want]
+    require(got == want and min(r["to"] for r in got) < 8 and got[-1]["to"] == 8,
+            f"adaptive: mask_adapt records {got}, the rule implies {want}")
+    prec = [r for r in recs if r["kind"] == "precision_adapt"]
+    require(len(prec) >= 1, "adaptive: no precision_adapt record")
+    n_b = plan.n_buckets
+    require(OTHER_TREE or counts == {**{k: 0 for k in counts},
+                                     "accumulate_rescale_int8": n_b * ADAPT_STEPS},
+            f"adaptive: launches {counts}, expected K3 {n_b} a step and no K1 / K2 call")
+    checks = _adaptive_step_checks(dev, n_b)
+    rec = {"card": card, "flags": " ".join(flags[:-2]), "steps": ADAPT_STEPS,
+           "buckets": n_b, "static_int8_effective_bytes": static_bytes,
+           "budget_bytes": budget, "launches": counts, "mask_adapt": got,
+           "precision_adapt": [{k: r[k] for k in ("step", "changed", "effective_bytes", "n_skip",
+                                                  "n_4bit", "n_int8", "n_hi")} for r in prec],
+           "summary": {k: out["train"][k] for k in ("agg_count", "mask_adaptations",
+                                                    "precision_adaptations",
+                                                    "effective_wire_bytes")},
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_p50_unstalled": float(np.median(
+               [h["time_cost"] for h in out["history"][2:] if h["step"] not in ADAPT_SLOW]))
+           * 1e3, **checks, "seconds": time.perf_counter() - t_start}
+    print("phase 26 adaptive wire (count + per-bucket precision) on ResNet18: "
+          + json.dumps(rec))
+    return rec
+
+
+STOCH_STEPS = 3
+
+
+def phase_stochastic(card: str, dev) -> dict:
+    """Phase 27: ResNet18 8 x 128, 3 steps each on ``--compress-grad
+    compress --quant-rounding stochastic`` and ``--compress-grad 2round
+    --quant-rounding stochastic`` through ``cli.train.main``: finite
+    losses and no K1 / K2 launch (stochastic rounding is plain PyTorch, as
+    JAX takes no Pallas kernel there); the mean of ``dequant(quantize(x))
+    - x`` over 64 of the card's draws for a 1 M-element tensor within 4
+    standard errors of 0; ``pack_int4`` / ``unpack_int4`` /
+    ``quantize_lattice`` on the card bit for bit the CPU's."""
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    t_start = time.perf_counter()
+    rec = {"card": card}
+    for name, flags in (("int8", ["--quant-rounding", "stochastic"]),
+                        ("2round", ["--compress-grad", "2round", "--quant-rounding",
+                                    "stochastic"])):
+        reset_counts()
+        out = _train(STOCH_STEPS, flags)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        losses = [h["loss"] for h in out["history"]]
+        require(len(losses) == STOCH_STEPS and all(np.isfinite(v) for v in losses),
+                f"stochastic {name}: losses {losses}")
+        require(out["train"]["skipped_steps"] == 0.0, f"stochastic {name}: a step was skipped")
+        require(OTHER_TREE or not any(counts.values()),
+                f"stochastic {name}: launches {counts}, expected none")
+        rec[name] = {"flags": " ".join(flags), "launches": counts, "losses": losses,
+                     "step_ms_last": out["history"][-1]["time_cost"] * 1e3}
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.rand(1 << 20, generator=g, device=dev) * 2 - 1
+    total, total_sq, n = 0.0, 0.0, 0
+    for _ in range(64):
+        qx, s = q.quantize_int8(x, rounding="stochastic",
+                                uniform=torch.rand(x.shape, generator=g, device=dev))
+        e = (q.dequantize_int8(qx, s) - x).double()
+        total += float(e.sum())
+        total_sq += float((e * e).sum())
+        n += e.numel()
+    mean = total / n
+    se = float(np.sqrt(max(total_sq / n - mean * mean, 0.0) / n))
+    require(abs(mean) <= 4 * se, f"stochastic: mean error {mean} beyond 4 standard errors {se}")
+    rec["unbiased"] = {"elements": x.numel(), "draws": 64, "mean_error": mean,
+                       "standard_error": se}
+    rng = np.random.RandomState(2)
+    xs = torch.from_numpy((rng.randn(3, 1000, 129) * 2).astype(np.float32))
+    codec = {}
+    for peak in (0.0, 7.0, 127.0, 4095.0):
+        for block in (0, 128):
+            out_dt = torch.int16 if peak > 127 else torch.int8
+            qc, sc = q.quantize_lattice(xs, torch.tensor(peak), block_size=block,
+                                        hi_peak=max(int(peak), 127), out_dtype=out_dt)
+            qg, sg = q.quantize_lattice(xs.to(dev), torch.tensor(peak, device=dev),
+                                        block_size=block, hi_peak=max(int(peak), 127),
+                                        out_dtype=out_dt)
+            require(torch.equal(qg.cpu(), qc) and same_bits(sg.cpu(), sc),
+                    f"stochastic: quantize_lattice peak {peak} block {block} differs on the card")
+    q4 = torch.from_numpy(rng.randint(-7, 8, size=100001).astype(np.int8))
+    packed = q.pack_int4(q4.to(dev))
+    require(torch.equal(packed.cpu(), q.pack_int4(q4)), "stochastic: pack_int4 differs")
+    require(torch.equal(q.unpack_int4(packed, q4.numel()).cpu(), q4),
+            "stochastic: unpack_int4 does not invert pack_int4 on the card")
+    codec = {"lattice_peaks": [0, 7, 127, 4095], "blocks": [0, 128], "pack_int4_n": q4.numel(),
+             "bit_exact_vs_cpu": True}
+    rec["codec"] = codec
+    rec["seconds"] = time.perf_counter() - t_start
+    print("phase 27 stochastic rounding and the int4 / lattice codec: " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12b, 14, "
-                         "18, 19, 20, 21, 22, 23, 24; 2 on this tree only; 22 runs 9 "
-                         "first, 24 runs 23 first)")
+                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
+                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27; 2 on this tree only; 22 "
+                         "runs 9 first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
     ap.add_argument("--phase24-child", nargs=4, default=None, metavar=("RANK", "PORT", "DIR", "OUT"),
@@ -2566,6 +3082,7 @@ def main(argv=None) -> int:
         import ps_pytorch_tpu_torch
 
         print(f"package: {os.path.dirname(os.path.abspath(ps_pytorch_tpu_torch.__file__))}")
+        ran = {}  # phase 9's record, for phase 25's comparison
         alone = {2: phase_build,
                  3: lambda: print("phase 3 KV pool write: "
                                   + json.dumps(kv_pool_write_case(dev))),
@@ -2576,7 +3093,8 @@ def main(argv=None) -> int:
                  8: lambda: print("phase 8 K1 block-128 wire step, rounds 1 and 2: "
                                   + json.dumps({"round1": wire_step_case(dev, 128),
                                                 "round2": round2_step_case(dev)})),
-                 9: lambda: phase_train(smi),
+                 9: lambda: ran.setdefault(9, phase_train(smi)),
+                 12: lambda: phase_train_wires(smi),
                  "12b": lambda: phase_checkpoint(smi),
                  14: lambda: phase_flash_train_kernels(dev),
                  18: lambda: phase_vgg(smi),
@@ -2585,7 +3103,10 @@ def main(argv=None) -> int:
                  21: lambda: phase_events(smi),
                  22: lambda: phase_adam(smi, phase_train(smi)),
                  23: lambda: procs(False),
-                 24: lambda: (procs(True), phase_split(dev))}
+                 24: lambda: (procs(True), phase_split(dev)),
+                 25: lambda: phase_data(smi, ran[9]["step_ms_p50"] if 9 in ran else None),
+                 26: lambda: phase_adaptive(smi, dev),
+                 27: lambda: phase_stochastic(smi, dev)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -2621,6 +3142,9 @@ def main(argv=None) -> int:
     phase_adam(smi, train)
     nccl, two = procs(True)
     split = phase_split(dev)
+    data = phase_data(smi, train["step_ms_p50"])
+    adapt = phase_adaptive(smi, dev)
+    stoch = phase_stochastic(smi, dev)
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -2691,6 +3215,10 @@ def main(argv=None) -> int:
             "source": "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
             "replaces": "ps_pytorch_tpu/ops/quantize.py:101",
             "launches": train["block128"]["launches"]["quantize_rows_scaled_many"],
+            # phases 26-27: the lattice and stochastic round 1 take no kernel
+            "launches_adaptive": adapt["launches"]["quantize_rows_scaled_many"],
+            "launches_stochastic": {k: stoch[k]["launches"]["quantize_rows_scaled_many"]
+                                    for k in ("int8", "2round")},
             "max_abs_err": max(k1s["max_abs_err"], k1s["resnet18_step"]["max_abs_err"]),
             "ms": k1s["resnet18_step"]["ms"], "plain_ms": k1s["resnet18_step"]["plain_ms"],
             "bound_ms": k1s["resnet18_step"]["bound_ms"],
@@ -2706,6 +3234,11 @@ def main(argv=None) -> int:
             "launches_vgg16": vgg["VGG16"]["launches"]["quantize_tensors"],
             "launches_resnet18_bf16": bf16["bf16"]["launches"]["quantize_tensors"],
             "launches_event_stream": events["launches"]["quantize_tensors"],
+            # phase 25's run from the CIFAR-10 files; phases 26-27: none
+            "launches_data_path": data["launches"]["quantize_tensors"],
+            "launches_adaptive": adapt["launches"]["quantize_tensors"],
+            "launches_stochastic": {k: stoch[k]["launches"]["quantize_tensors"]
+                                    for k in ("int8", "2round")},
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],
@@ -2716,6 +3249,8 @@ def main(argv=None) -> int:
             "source": "ps_pytorch_tpu_torch/csrc/accum_rescale.cu",
             "replaces": "ps_pytorch_tpu/ops/quantize.py:424",
             "launches": wires["autotune_best"]["launches"]["accumulate_rescale_int8"],
+            # phase 26: one a bucket a step, dividing by the device count
+            "launches_adaptive": adapt["launches"]["accumulate_rescale_int8"],
             "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
             "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
             "bound_ms": k3["resnet18_fused"]["bound_ms"],

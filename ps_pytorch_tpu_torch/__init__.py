@@ -17,7 +17,14 @@ Slices in place, on hand-written Hopper kernels (``csrc/``):
   processes of a ``torch.distributed`` group (``parallel/mesh.py``
   ``ProcessWorkerAxis``: NCCL one process a card, gloo on the CPU), the
   shared scale's cross-process max between the halves of K2's and K1's
-  split routes.
+  split routes;
+- the on-disk datasets (``data.prepare_data``), the native batch gather
+  (``native/loader.cc`` through ``data/_native.py``) and the pinned
+  device prefetch (``data.prefetch_to_device``); the adaptive gradient
+  wire: stochastic rounding, the int4 / lattice codec, the adaptive
+  aggregation count and per-bucket precision with their controllers
+  (``resilience/elastic.py``, ``resilience/precision.py``), K3 dividing by
+  the device count.
 
 What is still to port is listed in ROADMAP.md.
 

@@ -9,6 +9,10 @@ valid checkpoint and exits; ``--timeout`` stops after that many idle
 seconds. The checkpoints may come from this package's trainer or the JAX
 package's: the files are the same.
 
+``--data-root DIR`` (with ``--no-synthetic`` to refuse the synthetic
+fallback) reads the test split from the on-disk formats
+``data.prepare_data`` reads (MNIST idx, CIFAR pickles, SVHN .mat).
+
 Checkpoints load structure-free (``checkpoint.load_checkpoint_raw``), so
 the evaluator needs only ``--network`` / ``--dataset``, never the
 trainer's optimizer, placement or BN mode. Per-worker (``bn_mode
@@ -29,7 +33,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from .. import checkpoint as ckpt
-from ..data import BatchIterator, make_preprocessor, prepare_data
+from ..data import BatchIterator, make_preprocessor, prefetch_to_device, prepare_data
 from ..models import apply_model, build_model, init_model
 from ..ops.metrics import accuracy, cross_entropy_loss
 from ..parallel.buckets import tree_leaves, tree_map
@@ -83,7 +87,9 @@ class Evaluator:
         params, batch_stats = self._extract(ckpt.load_checkpoint_raw(self.model_dir, step))
         it = BatchIterator(self.dataset.test_images, self.dataset.test_labels,
                            self.eval_batch_size, shuffle=False)
-        out = average_metrics(lambda b: self._eval_batch(params, batch_stats, b), it)
+        # the trainer's prefetch: pinned staging, a copy stream, two in flight
+        out = average_metrics(lambda b: self._eval_batch(params, batch_stats, b),
+                              prefetch_to_device(iter(it), size=2, device=self.device))
         logger.info(format_eval_line(step, out["loss"], out["prec1"], out["prec5"]))
         return out
 

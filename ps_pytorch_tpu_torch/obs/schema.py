@@ -1,7 +1,7 @@
 """The event schema for the port's JSONL streams (a host-only copy of the
 JAX package's obs/schema.py, with the kinds the port emits: the serving
-loop's and the training loop's; ``mask_adapt`` and ``precision_adapt``
-come with the adaptive controllers, ROADMAP.md queue 1 item 15).
+loop's and the training loop's, with the adaptive controllers'
+``mask_adapt`` and ``precision_adapt``).
 
 ``validate_event`` rejects unknown kinds and missing fields and coerces
 the declared int fields. A stream begins with one ``run_header`` record
@@ -74,6 +74,22 @@ EVENT_KINDS: Dict[str, EventSpec] = {
         required=("step", "from", "to"),
         int_fields=("step",),
         doc="elastic resume re-carved the checkpoint onto a new geometry",
+    ),
+    "mask_adapt": EventSpec(
+        required=("step", "from", "to", "window_start", "slow_steps",
+                  "window_steps"),
+        int_fields=("step", "from", "to", "window_start", "slow_steps",
+                    "window_steps"),
+        doc="adaptive partial-aggregation count change at a window close",
+    ),
+    "precision_adapt": EventSpec(
+        required=("step", "window_start", "changed", "n_skip", "n_4bit",
+                  "n_int8", "n_hi", "effective_bytes", "budget_bytes"),
+        int_fields=("step", "window_start", "changed", "n_skip", "n_4bit",
+                    "n_int8", "n_hi", "effective_bytes", "budget_bytes"),
+        doc="adaptive per-bucket precision retag at a window close: the "
+            "tag histogram plus the effective wire bytes it prices "
+            "(budget_bytes 0 = no --wire-budget-bytes cap)",
     ),
     "ckpt_quarantined": EventSpec(
         required=("step", "path"),

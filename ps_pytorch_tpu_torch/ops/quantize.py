@@ -57,8 +57,16 @@ lattice, and ``accumulate_rescale_int8`` fuses the two over the worker
 rows of a payload: K3 (``csrc/accum_rescale.cu``) on a CUDA tensor,
 ``accumulate_rescale_plain`` on a CPU one.
 
-Stochastic rounding, ``quantize_lattice`` and int4 belong to later
-slices and raise ``NotImplementedError`` (ROADMAP.md).
+Stochastic rounding (``rounding="stochastic"``: ``floor(x * inv + u)``
+with ``u`` the caller's U[0, 1) draws, one per rounded element) and the
+int4 / lattice codec (``quantize_lattice`` with a peak that may be a
+device tensor, ``quantize_int4``, ``pack_int4`` / ``unpack_int4``, the
+``PREC_*`` tags of the adaptive-precision wire) are computed in plain
+PyTorch on either device, as the JAX package computes them in jnp
+outside every Pallas kernel (quantize.py:145: no kernel unless the
+rounding is nearest). The stochastic sum ``x * inv + u`` is one fused
+multiply-add, as XLA contracts it on the CPU: the port takes the exact
+product in f64 and rounds the sum once to f32.
 """
 
 from __future__ import annotations
@@ -69,11 +77,6 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-_NOT_PORTED = (
-    "is not ported yet (see ROADMAP.md, queue 1 items 5 and 15: "
-    "stochastic rounding and the int4 lattice)"
-)
 
 _INT8_PEAK = 127  # symmetric int8 payloads live in [-127, 127]
 
@@ -930,12 +933,63 @@ def quantize_int8_many(xs, axis_name, block_size: int = 0):
     return quantize_rows_scaled_many(xs, block_size)
 
 
+def _round(x: torch.Tensor, inv: torch.Tensor, rounding: str,
+           uniform: Optional[torch.Tensor]) -> torch.Tensor:
+    """``round(x * inv)`` (nearest, half to even, as ``jnp.round``) or
+    ``floor(x * inv + u)`` (stochastic: ``P(up) = frac(x * inv)``, so
+    unbiased; quantize.py:119). XLA fuses the stochastic sum into one
+    multiply-add on the CPU; the product of two f32 is exact in f64, so
+    the sum is taken there and rounded once to f32."""
+    if rounding == "nearest":
+        return torch.round(x * inv)
+    if rounding == "stochastic":
+        if uniform is None:
+            raise ValueError("stochastic rounding needs uniform draws (U[0, 1) f32, "
+                             "shaped like the rounded operand)")
+        if tuple(uniform.shape) != tuple(x.shape):
+            raise ValueError(f"uniform draws {tuple(uniform.shape)} do not match the rounded "
+                             f"operand {tuple(x.shape)}")
+        return torch.floor((x.double() * inv.double() + uniform.double()).float())
+    raise ValueError(f"unknown rounding {rounding!r}")
+
+
+def _blocks(x: torch.Tensor, block_size: int, stacked: bool) -> torch.Tensor:
+    """The zero-padded block rows of ``x``'s flattened elements: ``[nb,
+    bs]``, or ``[N, nb, bs]`` per worker when ``stacked``."""
+    flat = x.reshape(x.shape[0], -1) if stacked else x.reshape(-1)
+    n = flat.shape[-1]
+    nb = -(-n // block_size)
+    if nb * block_size != n:
+        flat = F.pad(flat, (0, nb * block_size - n))
+    return flat.reshape(flat.shape[:-1] + (nb, block_size))
+
+
+def _shared_absmax(x: torch.Tensor, axis_name, block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(operand, absmax)`` of the plain quantizers: the operand is ``x``
+    or its block rows (``_blocks``), the absmax per tensor (0-d) or per
+    block row (``[nb, 1]``), over every worker when ``axis_name`` is
+    given (the pmax: a process-spanning axis takes its ``absmax_max``).
+    NaN propagates through the max, as through ``jnp.max``."""
+    stacked = axis_name is not None
+    if block_size:
+        xb = _blocks(x, block_size, stacked)
+        absmax = xb.abs().amax(dim=-1, keepdim=True)
+        if stacked:
+            absmax = absmax.amax(0)
+    else:
+        xb = x
+        absmax = x.abs().amax()
+    if hasattr(axis_name, "absmax_max"):
+        absmax = axis_name.absmax_max(absmax)
+    return xb, absmax
+
+
 def quantize_int8(
     x: torch.Tensor,
     axis_name=None,
     block_size: int = 0,
     rounding: str = "nearest",
-    key=None,
+    uniform: Optional[torch.Tensor] = None,
     return_absmax: bool = False,
 ):
     """Symmetric int8 quantization.
@@ -951,16 +1005,29 @@ def quantize_int8(
     flattened tensor is cut into blocks, q is ``[N, n_blocks,
     block_size]`` and the scale ``[n_blocks, 1]``.
 
+    ``rounding="stochastic"`` takes ``uniform``, the U[0, 1) draws of
+    every rounded element (shaped like q: the JAX function draws them from
+    its ``key`` over the same operand), and runs in plain PyTorch on
+    either device: the JAX function takes no Pallas kernel there either.
+
     ``return_absmax`` (shared or per-tensor scales) also returns the
     absmax the scales came from, shaped like them: a consumer that
     multiplies the scale by a constant multiplies the absmax by the
     folded constant instead (``fold_recip``)."""
-    if rounding != "nearest" or key is not None:
-        raise NotImplementedError(f"stochastic rounding {_NOT_PORTED}")
     if axis_name is not None and not hasattr(axis_name, "size"):
         raise TypeError(
             f"axis_name must be a parallel.mesh.WorkerAxis, got {axis_name!r}"
         )
+    if return_absmax and block_size and axis_name is None:
+        raise ValueError("return_absmax needs shared (axis_name) or per-tensor scales")
+    if rounding != "nearest":
+        xb, absmax = _shared_absmax(x.float(), axis_name, block_size)
+        q = torch.clamp(_round(xb, _inv_scale(absmax), rounding, uniform),
+                        -_INT8_PEAK, _INT8_PEAK).to(torch.int8)
+        scale = absmax * RECIP_127
+        return (q, scale, absmax) if return_absmax else (q, scale)
+    if uniform is not None:
+        raise ValueError("uniform draws are for rounding='stochastic'")
     if not block_size:
         if hasattr(axis_name, "absmax_max"):
             # a process-spanning axis: the split route's pmax
@@ -971,8 +1038,6 @@ def quantize_int8(
     if axis_name is not None:
         q, scale, absmax = quantize_int8_many([x], axis_name, block_size)[0]
         return (q, scale, absmax) if return_absmax else (q, scale)
-    if return_absmax:
-        raise ValueError("return_absmax needs shared (axis_name) or per-tensor scales")
     flat = x.reshape(-1)
     n = flat.shape[-1]
     nb = -(-n // block_size)
@@ -1009,6 +1074,123 @@ def dequantize_int8(
         lead = tuple(out.shape[:-2])
         out = out.reshape(lead + (-1,))[..., :n].reshape(lead + tuple(shape))
     return out
+
+
+# ------------------------------------------ int4 lattice codec + traced peak
+
+_INT4_PEAK = 7    # symmetric int4 payloads live in [-7, 7] (two per byte)
+_INT4_BIAS = 8    # nibble storage bias: value + 8 in [1, 15]
+
+# per-bucket precision tags of the adaptive-precision wire
+# (PSConfig.precision_adapt): a device int32 per bucket selects the
+# lattice peak that bucket quantizes onto this window; the payload's dtype
+# and the wire's bytes never change, only the values it carries
+PREC_SKIP = 0   # peak 0: q == 0, scale == 0, EF keeps the whole gradient
+PREC_4BIT = 1   # peak 7: the int4 lattice (pack_int4 ships 2 a byte)
+PREC_INT8 = 2   # peak 127: the int8 lattice
+PREC_HI = 3     # peak precision_hi_peak(cfg): the finest the payload carries
+PRECISION_TAGS = (PREC_SKIP, PREC_4BIT, PREC_INT8, PREC_HI)
+PRECISION_TAG_NAMES = ("skip", "4bit", "int8", "hi")
+
+
+def precision_peaks(hi_peak: int) -> np.ndarray:
+    """The tag -> lattice-peak table (f32 ``[4]``, indexed by a tag)."""
+    return np.asarray([0.0, float(_INT4_PEAK), float(_INT8_PEAK), float(hi_peak)],
+                      np.float32)
+
+
+def precision_bytes_per_element(hi_peak: int) -> Tuple[float, ...]:
+    """Effective wire bytes per gradient element by tag: skip ships
+    nothing, int4 half a byte, int8 one, the HI tag the least integer
+    width that holds its peak."""
+    hi_bytes = 1.0 if hi_peak <= _INT8_PEAK else (2.0 if hi_peak <= 2 ** 15 - 1 else 4.0)
+    return (0.0, 0.5, 1.0, hi_bytes)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 lattice values (int8 storage in [-7, 7]) two a byte: value + 8
+    in the low / high nibble of a uint8. An odd count pads the last high
+    nibble with the bias (value 0), so ``unpack_int4(pack_int4(q),
+    q.numel())`` round-trips any length. The bias is added in int8, as
+    JAX adds it."""
+    flat = q.reshape(-1).to(torch.int8)
+    if flat.numel() % 2:
+        flat = F.pad(flat, (0, 1))
+    lo = (flat[0::2] + _INT4_BIAS).to(torch.uint8)
+    hi = (flat[1::2] + _INT4_BIAS).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Invert ``pack_int4``: uint8 ``[ceil(n/2)]`` -> int8 ``[n]`` in [-7, 7]."""
+    lo = (packed & 0xF).to(torch.int8) - _INT4_BIAS
+    hi = ((packed >> 4) & 0xF).to(torch.int8) - _INT4_BIAS
+    return torch.stack([lo, hi], dim=1).reshape(-1)[:n]
+
+
+def quantize_lattice(x: torch.Tensor, peak, axis_name=None, block_size: int = 0,
+                     hi_peak: int = _INT8_PEAK, out_dtype: torch.dtype = torch.int8):
+    """Symmetric quantization onto a lattice of peak ``peak`` (0, 7, 127
+    or ``hi_peak``): quantize.py:267, the adaptive-precision
+    generalization of ``quantize_int8`` (the same block geometry and
+    shared scales). Peak 0 gives ``q == 0`` and ``scale == 0``: the skip
+    tag's bucket contributes nothing. Returns ``(q, scale)``, q in
+    ``out_dtype`` (the wire's payload dtype).
+
+    ``peak`` is a 0-d f32 tensor on ``x``'s device (a tag's peak, chosen on
+    the device) or a Python number (a constant), and the two divide
+    differently, as JAX does under jit:
+
+    - ``inv = where(absmax > 0, peak / max(absmax, 1e-30), 0)``: a
+      quotient either way (a tensor by a tensor here);
+    - ``scale = where(peak > 0, absmax / max(peak, 1), 0)``: a quotient
+      for a tensor peak; for a constant XLA folds ``max(peak, 1)`` and
+      multiplies by its f32 reciprocal, as it does for ``/ 127`` in
+      ``quantize_int8``. So at a tensor peak of 127 the payload equals
+      ``quantize_int8``'s bit for bit and the scale may differ from
+      ``absmax * (1/127)`` in its last bit (as in the JAX package).
+
+    Plain PyTorch on either device: the JAX function takes no Pallas
+    kernel. The traced clip at ``±peak`` bounds the values; the static
+    one at ``±hi_peak`` is JAX's, kept for the same result."""
+    x = x.float()
+    xb, absmax = _shared_absmax(x, axis_name, block_size)
+    if isinstance(peak, torch.Tensor):
+        peak_f = peak.to(device=x.device, dtype=torch.float32).reshape(())
+        scale = torch.where(peak_f > 0, absmax / torch.clamp_min(peak_f, 1.0),
+                            torch.zeros((), device=x.device))
+    else:
+        peak_f = torch.full((), float(peak), dtype=torch.float32, device=x.device)
+        scale = (absmax * float(np.float32(1.0) / np.float32(max(float(peak), 1.0)))
+                 if peak > 0 else torch.zeros_like(absmax))
+    inv = torch.where(absmax > 0, peak_f / torch.clamp_min(absmax, 1e-30),
+                      torch.zeros((), device=x.device))
+    q = torch.round(xb * inv)
+    q = torch.minimum(torch.maximum(q, -peak_f), peak_f)
+    q = torch.clamp(q, -float(hi_peak), float(hi_peak)).to(out_dtype)
+    return q, scale
+
+
+def quantize_int4(x: torch.Tensor, axis_name=None, block_size: int = 0):
+    """Symmetric 4-bit quantization: ``quantize_lattice`` at the constant
+    peak 7, int8 storage in [-7, 7] (``pack_int4`` ships two a byte)."""
+    return quantize_lattice(x, float(_INT4_PEAK), axis_name=axis_name,
+                            block_size=block_size, hi_peak=_INT4_PEAK, out_dtype=torch.int8)
+
+
+def quantization_error(x: torch.Tensor, block_size: int = 0) -> torch.Tensor:
+    """Max abs round-trip error of ``quantize_int8`` (quantize.py:459): a
+    0-d tensor. XLA fuses ``q * scale - x`` into one multiply-add under
+    jit; the product is exact in f64, so the difference is taken there
+    and rounded once to f32."""
+    x = x.float()
+    q, s = quantize_int8(x, block_size=block_size)
+    if block_size:
+        n = x.numel()
+        err = (q.double() * s.double()).reshape(-1)[:n].reshape(x.shape) - x.double()
+    else:
+        err = q.double() * s.double() - x.double()
+    return err.float().abs().max()
 
 
 # ------------------------------------------- homomorphic (compressed-domain)

@@ -34,13 +34,29 @@ step's pieces in one multi-tensor kernel call
 Division by the aggregation count: the JAX step divides by a Python
 float inside jit, which XLA turns into a multiply by the f32 reciprocal
 (``x / 5.0`` is ``x * f32(1/5)``); the port multiplies by that constant
-so the wire is bit-exact against the reference. K3's rescale is the one
-true division (an IEEE quotient): for the accumulations it sees,
-``|acc| <= 127 * K``, both spellings give the same rounded integer.
+so the wire is bit-exact against the reference. K3's rescale is a true
+division (an IEEE quotient): for the accumulations it sees, ``|acc| <=
+127 * K``, both spellings give the same rounded integer. The adaptive
+count (``num_aggregate`` a device int32 tensor, resilience/elastic.py)
+is traced in JAX, so there every division by it is a quotient, and the
+port divides tensor by tensor (``_divide``); K3 reads it from device
+memory.
 
 ``jax.random.permutation`` cannot be reproduced in torch: the random_k
 mask takes its permutation from a ``torch.Generator``, or the caller
-injects one (the parity tests inject JAX's).
+injects one (the parity tests inject JAX's). Stochastic rounding takes
+its U[0, 1) draws from a draw source, ``draws(piece_id, round, shape)
+-> f32 [N, *shape]`` (every worker's draws for one piece; the wire keeps
+this process's rows): JAX folds its key by the worker, then the piece's
+key id (the leaf's index, or on a bucketed wire the bucket's START
+OFFSET), then 1 for the two-round wire's round 2 (collectives.py:244,
+:474, :495). ``parallel.ps.draw_step`` makes one from the step's
+generator; the parity tests make JAX's.
+
+Adaptive per-bucket precision (``bucket_peaks``, a device f32 vector of
+lattice peaks, one per bucket of the wire's plan in canonical order):
+each bucket quantizes through ``quantize_lattice`` at its peak, in plain
+PyTorch (no K1 / K2 launch), as JAX takes no Pallas kernel there.
 
 The same functions run on ``mesh.ProcessWorkerAxis``, where each
 process holds its own workers' rows ``[N_loc, *shape]`` and the axis's
@@ -49,23 +65,28 @@ rules); the quantize stage then takes the split route
 (``quantize_int8_many``).
 
 Not ported yet, and refused with a pointer to ROADMAP.md: the
-hierarchical wire (a tuple axis), the pipelined order, stochastic
-rounding, a traced (adaptive) ``num_aggregate`` and ``bucket_peaks``.
+hierarchical wire (a tuple axis) and the pipelined order.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.quantize import (
+    _INT8_PEAK,
+    RECIP_127,
+    _inv_scale,
+    _round,
     accum_dtype,
     accumulate_rescale_int8,
     dequantize_int8,
     fold_recip,
+    quantize_int8,
     quantize_int8_many,
+    quantize_lattice,
     quantize_rows_many,
     quantize_tensors,
 )
@@ -90,9 +111,87 @@ def _check_axis(axis) -> None:
         )
 
 
-def _check_rounding(rounding: str, key) -> None:
-    if rounding != "nearest" or key is not None:
-        raise NotImplementedError(f"stochastic rounding {_ROADMAP} item 5)")
+# draws(piece_id, round, shape) -> f32 U[0, 1) [N, *shape]
+UniformDraws = Callable[[int, int, Tuple[int, ...]], torch.Tensor]
+
+
+def _check_rounding(rounding: str, draws) -> None:
+    if rounding not in ("nearest", "stochastic"):
+        raise ValueError(f"unknown rounding {rounding!r}")
+    if rounding == "stochastic" and draws is None:
+        raise ValueError("stochastic rounding needs a key (the port: a draw source, "
+                         "collectives.UniformDraws)")
+
+
+def _uniform(draws: Optional[UniformDraws], axis, piece_id: int, round_: int, shape,
+             device) -> Optional[torch.Tensor]:
+    """This process's workers' draws for one piece, on ``device`` (None
+    without a source)."""
+    if draws is None:
+        return None
+    return axis.local(draws(int(piece_id), round_, tuple(int(d) for d in shape))).to(device)
+
+
+def _divide(x: torch.Tensor, denominator) -> torch.Tensor:
+    """``x / K`` as the JAX step computes it: a static K is a Python
+    float, which XLA turns into a multiply by its f32 reciprocal; the
+    adaptive count is traced there, a true quotient (here a 0-d f32
+    device tensor, divided tensor by tensor)."""
+    if isinstance(denominator, torch.Tensor):
+        return x / denominator
+    return x * reciprocal(denominator)
+
+
+def _hom_scale(scale: torch.Tensor, absmax: torch.Tensor, denominator,
+               lattice: bool) -> torch.Tensor:
+    """The homomorphic wire's deferred scale ``scale / K``. For the int8
+    quantizer's static scale ``absmax / 127`` and a static K, XLA folds
+    both constants into one (``absmax * fold_recip(K)``); a traced K is a
+    quotient of the scale; a lattice scale (a quotient itself) is
+    multiplied by a static K's reciprocal."""
+    if isinstance(denominator, torch.Tensor):
+        return scale / denominator
+    if lattice:
+        return scale * reciprocal(denominator)
+    return absmax * fold_recip(denominator)
+
+
+def _bucket_ordinal(key_ids) -> dict:
+    """Each piece's canonical bucket ordinal (collectives.py:51): key ids
+    on a bucketed wire are start offsets, ascending, so the ordinal is
+    the offset's rank."""
+    order = sorted(key_ids)
+    return {i: order.index(i) for i in key_ids}
+
+
+def _lattice_payload_dtype(hi_peak: int) -> torch.dtype:
+    """The least integer dtype holding the HI tag's peak: the static
+    payload dtype every tag of an adaptive bucket rides
+    (collectives.py:61)."""
+    if hi_peak <= _INT8_PEAK:
+        return torch.int8
+    if hi_peak <= 2 ** 15 - 1:
+        return torch.int16
+    return torch.int32
+
+
+def _resolve_peak(bucket_peaks, ordinal, i):
+    """This piece's lattice peak (a 0-d device tensor), or None on the
+    static wire."""
+    if bucket_peaks is None:
+        return None
+    return bucket_peaks[ordinal[i]]
+
+
+def _check_adaptive(bucket_peaks, rounding: str, wire_domain: str) -> None:
+    """JAX's refusals of the adaptive and stochastic combinations
+    (collectives.py:225-239, :458-466)."""
+    if bucket_peaks is not None and rounding == "stochastic":
+        raise ValueError("adaptive precision needs rounding='nearest' (the traced-"
+                         "peak lattice is shared-scale by construction)")
+    if wire_domain == "homomorphic" and rounding == "stochastic":
+        raise ValueError("homomorphic wire needs rounding='nearest' (per-worker "
+                         "stochastic noise is incoherent on a shared lattice)")
 
 
 def _per_worker(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -121,11 +220,16 @@ def aggregation_mask(
     With num_aggregate None or >= num_workers every worker does.
     ``random_k`` selects ``perm[:num_aggregate]`` (``perm`` a permutation
     of ``range(N)``, the same on every process: the caller draws it, see
-    ``random_permutation``), ``first_k`` selects ``w < num_aggregate``."""
+    ``random_permutation``), ``first_k`` selects ``w < num_aggregate``.
+
+    ``num_aggregate`` may be a device int32 tensor (the adaptive count,
+    traced in JAX): the mask is then always computed, ``random_k`` by
+    each worker's rank in the permutation (``argsort(perm)[w] < k``: the
+    set ``perm[:k]``), so at ``k == N`` it is 1.0 everywhere and the step
+    multiplies by exactly 1.0."""
     _check_axis(axis)
-    if isinstance(num_aggregate, torch.Tensor):
-        raise NotImplementedError(f"a traced (adaptive) num_aggregate {_ROADMAP} item 15)")
-    if num_aggregate is None or num_aggregate >= num_workers:
+    dynamic = isinstance(num_aggregate, torch.Tensor)
+    if not dynamic and (num_aggregate is None or num_aggregate >= num_workers):
         return torch.ones((axis.local_size,), dtype=torch.float32, device=device)
     if mode == "first_k":
         return (axis.axis_index(device) < num_aggregate).float()
@@ -133,34 +237,65 @@ def aggregation_mask(
         if perm is None:
             raise ValueError("random_k masking needs a permutation of the workers")
         perm = torch.as_tensor(perm, dtype=torch.long).to(device)
+        if dynamic:
+            return axis.local((torch.argsort(perm) < num_aggregate).float())
         selected = torch.zeros((num_workers,), dtype=torch.float32, device=device)
         return axis.local(selected.index_fill(0, perm[:num_aggregate], 1.0))
     raise ValueError(f"unknown aggregation mode {mode!r}")
 
 
-def psum_mean(tree, axis: WorkerAxis, denominator: float,
+def psum_mean(tree, axis: WorkerAxis, denominator,
               bucket_bytes: Optional[int] = None, flat_output: bool = False):
     """Sum over workers / denominator, per piece (parity: _model_update
     divides the aggregate buffer by num_aggregate). ``flat_output``
     returns the padded flat vector instead of the tree."""
     _check_axis(axis)
-    recip = reciprocal(denominator)
     pieces, _, rebuild = piece_stream(tree, bucket_bytes, flat_output=flat_output)
-    return rebuild([axis.psum(g) * recip for g in pieces])
+    return rebuild([_divide(axis.psum(g), denominator) for g in pieces])
+
+
+def _quantize_pieces(pieces, key_ids, axis, block_size: int, rounding: str, draws,
+                     bucket_peaks, hi_peak: int, out_dtype: torch.dtype):
+    """Every piece's shared-scale quantize ``(q, scale, absmax)``: the
+    static nearest wire in ONE multi-tensor kernel call (K2 per tensor,
+    K1's shared-scale entry per block); stochastic rounding (round 1's
+    draws, fold 0) and each bucket's lattice piece by piece in plain
+    PyTorch, as JAX's jnp route. A lattice's absmax is None: its scale is
+    a quotient, nothing folds into it. ``pieces`` are f32
+    worker-stacked."""
+    if rounding == "nearest" and bucket_peaks is None:
+        return quantize_int8_many(pieces, axis, block_size)
+    ordinal = None if bucket_peaks is None else _bucket_ordinal(key_ids)
+    out = []
+    for i, g in zip(key_ids, pieces):
+        peak = _resolve_peak(bucket_peaks, ordinal, i)
+        if peak is not None:
+            q, scale = quantize_lattice(g, peak, axis_name=axis, block_size=block_size,
+                                        hi_peak=hi_peak, out_dtype=out_dtype)
+            out.append((q, scale, None))
+            continue
+        n = int(np.prod(g.shape[1:], dtype=np.int64))
+        shape = (-(-n // block_size), block_size) if block_size else tuple(g.shape[1:])
+        out.append(quantize_int8(g, axis_name=axis, block_size=block_size, rounding=rounding,
+                                 uniform=_uniform(draws, axis, i, 0, shape, g.device),
+                                 return_absmax=True))
+    return out
 
 
 def quantized_psum(
     tree,
     axis: WorkerAxis,
-    denominator: float,
+    denominator,
     block_size: int = 0,
     rounding: str = "nearest",
-    key=None,
+    draws: Optional[UniformDraws] = None,
     bucket_bytes: Optional[int] = None,
     flat_output: bool = False,
     wire_domain: str = "dequant",
     num_workers: Optional[int] = None,
     return_contribution: bool = False,
+    bucket_peaks=None,
+    lattice_hi_peak: int = _INT8_PEAK,
 ):
     """int8-quantized gradient all-reduce, per piece: shared absmax (the
     pmax) -> int8 quantize -> exact integer psum -> dequantize /
@@ -172,34 +307,44 @@ def quantized_psum(
     half the bytes, the same integers) and dequantizes once with
     ``scale / K``, which XLA folds with the scale's own ``* (1/127)``
     into ``absmax * fold_recip(K)`` (one f32 constant). The spellings
-    differ in the last bit, so each is copied as XLA runs it.
+    differ in the last bit, so each is copied as XLA runs it
+    (``_hom_scale``).
+
+    ``rounding="stochastic"`` takes each worker's draws from ``draws``
+    (round 0, the piece's key id); ``bucket_peaks`` quantizes each
+    bucket onto its lattice, into ``accum_dtype`` on the homomorphic
+    wire and the HI peak's payload dtype on the dequant one.
 
     ``return_contribution`` also returns each worker's dequantized
     payload (worker-stacked, tree-shaped): the value
     ``local_quantized_contribution`` computes, from the same
     quantization instead of a second one."""
     _check_axis(axis)
-    _check_rounding(rounding, key)
+    _check_adaptive(bucket_peaks, rounding, wire_domain)
+    _check_rounding(rounding, draws)
     homomorphic = wire_domain == "homomorphic"
     if homomorphic and num_workers is None:
         raise ValueError("homomorphic quantized_psum needs num_workers (it sizes "
                          "the exact accumulator dtype)")
-    recip = reciprocal(denominator)
     align = block_size or 1
-    pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=align,
-                                      flat_output=flat_output)
+    pieces, key_ids, rebuild = piece_stream(tree, bucket_bytes, align=align,
+                                            flat_output=flat_output)
+    payload = (accum_dtype(num_workers) if homomorphic
+               else _lattice_payload_dtype(lattice_hi_peak))
     outs, contribs = [], []
-    quantized = quantize_int8_many([g.float() for g in pieces], axis, block_size)
+    quantized = _quantize_pieces([g.float() for g in pieces], key_ids, axis, block_size,
+                                 rounding, draws, bucket_peaks, lattice_hi_peak, payload)
     for g, (q, scale, absmax) in zip(pieces, quantized):
         shape = tuple(g.shape[1:])
         if homomorphic:
             s = axis.psum(q.to(accum_dtype(num_workers)))
-            outs.append(dequantize_int8(s, absmax * fold_recip(denominator),
-                                        block_size=block_size, shape=shape))
+            outs.append(dequantize_int8(
+                s, _hom_scale(scale, absmax, denominator, bucket_peaks is not None),
+                block_size=block_size, shape=shape))
         else:
             s = axis.psum(q.to(torch.int32))
-            outs.append(dequantize_int8(s, scale, block_size=block_size, shape=shape)
-                        * recip)
+            outs.append(_divide(dequantize_int8(s, scale, block_size=block_size, shape=shape),
+                                denominator))
         if return_contribution:
             contribs.append(dequantize_int8(q.to(torch.int32), scale,
                                             block_size=block_size, shape=shape))
@@ -242,26 +387,55 @@ def _deq_shared(full: torch.Tensor, scale, gain: float, block_size: int) -> torc
     return full.float() * (scale * gain)
 
 
-def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int):
+def _requantize_regions(partials, key_ids, axis, block_size: int, rounding: str, draws):
+    """Round 2's requantize of every local region of every piece with
+    LOCAL scales (no cross-worker agreement: the regions are disjoint).
+    Per tensor: ``[(q [s], scale, absmax)]`` for each piece's local
+    regions in turn; block mode: ``[(q [nl*nb, bs], scale [nl*nb, 1])]``
+    a piece. Nearest: ONE kernel call over everything (K2 per tensor, K1's
+    ``quantize_rows_many`` per block: rows are independent). Stochastic:
+    each worker's region as JAX quantizes it (quantize.py:133, no axis:
+    its own absmax), with the round-2 draws (fold 1) of its piece, the
+    local regions of a piece in one pass."""
+    if rounding == "nearest":
+        if block_size:
+            return quantize_rows_many([p.reshape(-1, block_size) for p in partials])
+        return quantize_tensors([partial[w] for partial in partials
+                                 for w in range(axis.local_size)])
+    out = []
+    for i, partial in zip(key_ids, partials):
+        s = partial.shape[1]
+        shape = (s // block_size, block_size) if block_size else (s,)
+        u = _uniform(draws, axis, i, 1, shape, partial.device)
+        # every local region at once: its own absmax (per block row)
+        xb = partial.reshape((-1,) + shape)
+        absmax = xb.abs().amax(-1, keepdim=True)
+        q = torch.clamp(_round(xb, _inv_scale(absmax), rounding, u),
+                        -_INT8_PEAK, _INT8_PEAK).to(torch.int8)
+        scale = absmax * RECIP_127
+        if block_size:
+            out.append((q.reshape(-1, block_size), scale.reshape(-1, 1)))
+        else:
+            out.extend((q[w], scale[w, 0], None) for w in range(axis.local_size))
+    return out
+
+
+def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int, key_ids=None,
+                      rounding: str = "nearest", draws: Optional[UniformDraws] = None):
     """Round 2 (collectives.py:383) for every piece: requantize each
-    region's partial sum with LOCAL scales (no cross-worker agreement:
-    the regions are disjoint) and all_gather int8 plus the scale rows ->
-    each piece's dequantized full ``[n*s]``. Per tensor: ONE K2 call over
-    every region of every piece (each region has its own absmax). Block
-    mode: ONE K1 ``quantize_rows_many`` call over the block rows of every
-    piece (rows are independent, so this equals n per-region calls per
-    piece)."""
+    region's partial sum with LOCAL scales (``_requantize_regions``) and
+    all_gather int8 plus the scale rows -> each piece's dequantized full
+    ``[n*s]``."""
+    regions = _requantize_regions(partials, key_ids, axis, block_size, rounding, draws)
     if block_size:
-        rows = quantize_rows_many([p.reshape(-1, block_size) for p in partials])
         outs = []
-        for partial, (q2, scale2) in zip(partials, rows):
+        for partial, (q2, scale2) in zip(partials, regions):
             s = partial.shape[1]
             full = axis.all_gather(q2.reshape(-1, s))
             scales2 = axis.all_gather(scale2.reshape(-1, s // block_size, 1))  # [n*nb_loc, 1]
             outs.append((full.reshape(-1, block_size).float() * scales2).reshape(-1))
         return outs
     nl = axis.local_size
-    regions = quantize_tensors([partial[w] for partial in partials for w in range(nl)])
     outs = []
     for i, partial in enumerate(partials):
         mine = regions[i * nl:(i + 1) * nl]
@@ -274,15 +448,16 @@ def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int):
 def quantized_allreduce_2round(
     tree,
     axis: WorkerAxis,
-    denominator: float,
+    denominator,
     num_workers: int,
     block_size: int = 0,
     rounding: str = "nearest",
-    key=None,
+    draws: Optional[UniformDraws] = None,
     bucket_bytes: Optional[int] = None,
     flat_output: bool = False,
     wire_domain: str = "dequant",
     return_contribution: bool = False,
+    bucket_peaks=None,
 ):
     """The two-round int8 all-reduce whose wire carries int8
     (collectives.py:405). Each piece is flattened and padded to ``[n,
@@ -292,11 +467,19 @@ def quantized_allreduce_2round(
     - dequant wire: round 2 requantizes each region with local scales
       (every region of every piece in one call: K2 per tensor, K1's
       ``quantize_rows_many`` per block), all_gathers int8 plus the scale
-      rows, and dequantizes; then * 1/K;
+      rows, and dequantizes; then / K;
     - homomorphic wire: K3 sums each region's worker rows and rescales
       them by K back onto the int8 lattice, the result is all_gathered,
       and ONE deferred multiply by the round-1 scales dequantizes it (the
-      denominator is already folded into K3).
+      denominator is already folded into K3, which reads a device K from
+      device memory).
+
+    Stochastic rounding (dequant wire only) draws round 1 at fold 0 and
+    round 2 at fold 1 of each piece's key id; ``bucket_peaks`` quantizes
+    round 1 onto each bucket's lattice (int8 payload: the two-round
+    wire's HI peak is 127). Both take round 1 off the kernel (plain
+    PyTorch, as JAX); round 2 stays on its kernels under nearest
+    rounding.
 
     Stacked launch shape: worker w's K3 call would take its region's
     ``[N, s]`` rows after the all_to_all, and the all_gather would
@@ -312,21 +495,23 @@ def quantized_allreduce_2round(
     own quantization (the padding to ``n*s`` is zeros, which changes no
     scale and no block boundary)."""
     _check_axis(axis)
-    _check_rounding(rounding, key)
+    _check_adaptive(bucket_peaks, rounding, wire_domain)
+    _check_rounding(rounding, draws)
     if axis.size != num_workers:
         raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
     n = num_workers
-    recip = reciprocal(denominator)
     align = block_size or 1
-    pieces, _, rebuild = piece_stream(tree, bucket_bytes, align=align,
-                                      flat_output=flat_output)
+    pieces, key_ids, rebuild = piece_stream(tree, bucket_bytes, align=align,
+                                            flat_output=flat_output)
     shapes = [tuple(g.shape[1:]) for g in pieces]
     totals = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
     slices = [_slice_len(total, n, block_size) for total in totals]
     nl = axis.local_size
     padded = [torch.nn.functional.pad(g.float().reshape(nl, total), (0, n * s - total))
               for g, total, s in zip(pieces, totals, slices)]
-    round1 = quantize_int8_many(padded, axis, block_size)  # every piece, one call
+    # every piece, one call on the static nearest wire
+    round1 = _quantize_pieces(padded, key_ids, axis, block_size, rounding, draws,
+                              bucket_peaks, _INT8_PEAK, torch.int8)
     if wire_domain == "homomorphic":
         # the all_to_all hands this process's workers the [N, s] rows of
         # their regions; K3 over them side by side ([N, n_loc*s]) computes
@@ -342,7 +527,8 @@ def quantized_allreduce_2round(
     else:
         partials = [_q2r_scatter_stage(q1, scale1, axis, n, s, block_size)
                     for (q1, scale1, _), s in zip(round1, slices)]
-        deqs = [deq * recip for deq in _q2r_gather_stage(partials, axis, n, block_size)]
+        deqs = [_divide(deq, denominator) for deq in _q2r_gather_stage(
+            partials, axis, n, block_size, key_ids, rounding, draws)]
     outs = [deq[:total].reshape(shape) for deq, total, shape in zip(deqs, totals, shapes)]
     agg = rebuild(outs)
     if not return_contribution:
@@ -361,18 +547,24 @@ def local_quantized_contribution(
     axis: WorkerAxis,
     block_size: int = 0,
     rounding: str = "nearest",
-    key=None,
+    draws: Optional[UniformDraws] = None,
     bucket_bytes: Optional[int] = None,
+    bucket_peaks=None,
+    lattice_hi_peak: int = _INT8_PEAK,
 ):
     """What each worker's gradient becomes after its shared-scale int8
     round trip, worker-stacked and tree-shaped: the transmitted value
     whose difference from the gradient is the error-feedback residual
     (mirrors ``quantized_psum`` and round 1 of the two-round scheme
-    exactly: same pieces, same scales, same rounding)."""
+    exactly: same pieces, same scales, same rounding and draws, the same
+    lattice at each bucket's peak)."""
     _check_axis(axis)
-    _check_rounding(rounding, key)
-    pieces, _, rebuild = piece_stream(grads, bucket_bytes, align=block_size or 1)
-    quantized = quantize_int8_many([g.float() for g in pieces], axis, block_size)
+    _check_adaptive(bucket_peaks, rounding, "dequant")
+    _check_rounding(rounding, draws)
+    pieces, key_ids, rebuild = piece_stream(grads, bucket_bytes, align=block_size or 1)
+    quantized = _quantize_pieces([g.float() for g in pieces], key_ids, axis, block_size,
+                                 rounding, draws, bucket_peaks, lattice_hi_peak,
+                                 _lattice_payload_dtype(lattice_hi_peak))
     return rebuild([dequantize_int8(q.to(torch.int32), scale, block_size=block_size,
                                     shape=tuple(g.shape[1:]))
                     for g, (q, scale, _) in zip(pieces, quantized)])
@@ -388,13 +580,14 @@ def aggregate_gradients(
     compress: Optional[str] = None,
     quant_block_size: int = 0,
     quant_rounding: str = "nearest",
-    quant_key=None,
+    quant_draws: Optional[UniformDraws] = None,
     return_contribution: bool = False,
     bucket_bytes: Optional[int] = None,
     flat_output: bool = False,
     pipelined: bool = False,
     wire_domain: str = "dequant",
     bucket_peaks=None,
+    lattice_hi_peak: int = _INT8_PEAK,
 ):
     """The full PS aggregation: mask -> (bucket) -> (quantized) reduce ->
     / K.
@@ -406,9 +599,24 @@ def aggregate_gradients(
     ``return_contribution`` also returns each worker's transmitted
     (post-mask, post-round-trip) value, worker-stacked and tree-shaped:
     what error feedback subtracts. ``perm`` is random_k's permutation
-    (``random_permutation``)."""
+    (``random_permutation``); ``quant_draws`` stochastic rounding's draw
+    source (``UniformDraws``).
+
+    ``num_aggregate`` may be a device int32 tensor (the adaptive count):
+    the mask is then always applied (1.0 everywhere at the full count)
+    and the denominator is the count as an f32 device tensor, divided by
+    as a quotient (at a power-of-two worker count the full count is bit
+    for bit the static step). ``bucket_peaks`` (adaptive precision)
+    needs a compress mode and nearest rounding, as in JAX."""
     if wire_domain not in ("dequant", "homomorphic"):
         raise ValueError(f"bad wire_domain {wire_domain!r}")
+    if bucket_peaks is not None:
+        if compress in (None, "none"):
+            raise ValueError(
+                "adaptive precision (bucket_peaks) needs a compress mode — an "
+                "uncompressed f32 wire has no lattice to retune")
+        if quant_rounding == "stochastic":
+            raise ValueError("adaptive precision (bucket_peaks) needs quant_rounding='nearest'")
     if wire_domain == "homomorphic":
         if compress in (None, "none"):
             raise ValueError(
@@ -419,34 +627,38 @@ def aggregate_gradients(
     _check_axis(axis)
     if axis.size != num_workers:
         raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
-    if bucket_peaks is not None:
-        raise NotImplementedError(f"adaptive per-bucket precision {_ROADMAP} item 15)")
     if pipelined:
         raise NotImplementedError(f"the pipelined wire (--overlap on) {_ROADMAP} item 13)")
-    k = (num_aggregate
-         if (num_aggregate is not None and num_aggregate < num_workers)
-         else num_workers)
-    if k != num_workers:
+    dynamic = isinstance(num_aggregate, torch.Tensor)
+    if dynamic:
+        k = num_aggregate.to(torch.float32)
+    else:
+        k = (num_aggregate
+             if (num_aggregate is not None and num_aggregate < num_workers)
+             else num_workers)
+    if dynamic or k != num_workers:
         leaves, skeleton = tree_flatten(grads)
         sel = aggregation_mask(axis, num_workers, num_aggregate, perm, mask_mode,
                                device=leaves[0].device)
         grads = tree_unflatten(skeleton, [g * _per_worker(sel, g) for g in leaves])
+    denom = k if dynamic else float(k)
     wire = dict(bucket_bytes=bucket_bytes, flat_output=flat_output)
     if compress in (None, "none"):
-        agg = psum_mean(grads, axis, float(k), **wire)
+        agg = psum_mean(grads, axis, denom, **wire)
         contribution = grads  # lossless transmit: the residual is zero
     elif compress == "int8":
         out = quantized_psum(
-            grads, axis, float(k), block_size=quant_block_size,
-            rounding=quant_rounding, key=quant_key, wire_domain=wire_domain,
-            num_workers=num_workers, return_contribution=return_contribution, **wire,
+            grads, axis, denom, block_size=quant_block_size,
+            rounding=quant_rounding, draws=quant_draws, wire_domain=wire_domain,
+            num_workers=num_workers, return_contribution=return_contribution,
+            bucket_peaks=bucket_peaks, lattice_hi_peak=lattice_hi_peak, **wire,
         )
         agg, contribution = out if return_contribution else (out, None)
     elif compress == "int8_2round":
         out = quantized_allreduce_2round(
-            grads, axis, float(k), num_workers, block_size=quant_block_size,
-            rounding=quant_rounding, key=quant_key, wire_domain=wire_domain,
-            return_contribution=return_contribution, **wire,
+            grads, axis, denom, num_workers, block_size=quant_block_size,
+            rounding=quant_rounding, draws=quant_draws, wire_domain=wire_domain,
+            return_contribution=return_contribution, bucket_peaks=bucket_peaks, **wire,
         )
         agg, contribution = out if return_contribution else (out, None)
     else:

@@ -32,6 +32,7 @@ import dataclasses
 import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 WORKER_AXIS = "workers"
@@ -352,6 +353,17 @@ class ProcessWorkerAxis:
         box = [None] * self.world
         dist.all_gather_object(box, bool(flag), group=self.group)
         return any(box)
+
+    def min_over_hosts(self, values):
+        """The elementwise min over the processes of an int32 host vector
+        (the adaptive controllers' consensus): every process's vector
+        gathered, then the min, in integers."""
+        import torch.distributed as dist
+
+        mine = np.asarray(values, np.int32)
+        box = [None] * self.world
+        dist.all_gather_object(box, mine.tolist(), group=self.group)
+        return np.min(np.asarray(box, np.int32), axis=0).astype(np.int32)
 
     def barrier(self) -> None:
         import torch.distributed as dist

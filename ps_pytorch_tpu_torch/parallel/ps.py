@@ -39,10 +39,19 @@ step. The decision stays on the card: the state update is selected
 against the flag with ``torch.where``, with no host read.
 
 The step's random draws (the random_k permutation, each worker's crop
-offsets and flips and its Dropout keep-masks) come from a
-``torch.Generator`` seeded from the run seed and the step number, or are
-injected (``StepDraws``) so the parity tests can feed the draws JAX made
-(``jax.random`` cannot be reproduced in torch).
+offsets and flips, its Dropout keep-masks and its stochastic-rounding
+draws) come from a ``torch.Generator`` seeded from the run seed and the
+step number, or are injected (``StepDraws``) so the parity tests can
+feed the draws JAX made (``jax.random`` cannot be reproduced in torch).
+
+The adaptive controllers' values ride the step as device int32 tensors
+(ps.py:1093-1110): ``agg_count`` (the aggregation count, with
+``num_aggregate_min/max`` set) and ``prec_tags`` (one precision tag a
+bucket, with ``precision_adapt``), each clamped on the device to its
+declared range, so a changing value costs no host sync and no other
+code path. ``precision_adapt`` also adds ``bucket_sqnorm`` to the
+metrics: the mean over workers of each bucket's squared gradient norm,
+``[n_buckets]`` f32, which the trainer's precision controller reads.
 
 Synced BN: JAX runs the workers on devices under ``shard_map(...,
 check_vma=False)``, where BatchNorm pmeans its statistics and the
@@ -53,8 +62,7 @@ rows over worker-stacked copies of the leaves (``models/common.py``) and
 one backward of the summed losses.
 
 Not ported yet, and refused with a pointer to ROADMAP.md: the pipelined
-schedule, the hierarchical wire, stochastic rounding, adaptive
-aggregation and adaptive precision.
+schedule and the hierarchical wire.
 """
 
 from __future__ import annotations
@@ -67,7 +75,14 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..models import apply_model, draw_dropout, init_model
 from ..ops.metrics import accuracy, cross_entropy_loss
-from ..ops.quantize import accum_dtype, dequantize_int8, fold_recip, quantize_int8
+from ..ops.quantize import (
+    _INT8_PEAK,
+    accum_dtype,
+    dequantize_int8,
+    precision_peaks,
+    quantize_int8,
+    quantize_lattice,
+)
 from ..optim.sgd import apply_updates
 from ..resilience.guard import init_guard_state, tree_all_finite, update_guard_state
 from .buckets import (
@@ -86,6 +101,10 @@ from .buckets import (
     tree_view,
 )
 from .collectives import (
+    UniformDraws,
+    _divide,
+    _hom_scale,
+    _uniform,
     aggregate_gradients,
     aggregation_mask,
     random_permutation,
@@ -99,7 +118,7 @@ _ROADMAP = "is not ported yet (see ROADMAP.md queue 1)"
 @dataclasses.dataclass(frozen=True)
 class PSConfig:
     """The JAX PSConfig's knobs and validation (ps.py:85). The knobs of
-    paths this slice does not port are kept, so a config carries across
+    paths the port does not run yet are kept, so a config carries across
     unchanged, and refused when set."""
 
     num_workers: int
@@ -196,12 +215,18 @@ class PSConfig:
             raise ValueError(
                 "adaptive aggregation needs BOTH num_aggregate_min and "
                 "num_aggregate_max (set neither for the static mask)")
-        if self.num_aggregate_min is not None and not (
-                1 <= self.num_aggregate_min <= self.num_aggregate_max <= self.num_workers):
-            raise ValueError(
-                f"bad adaptive bounds [{self.num_aggregate_min}, "
-                f"{self.num_aggregate_max}]: need 1 <= min <= max <= "
-                f"num_workers ({self.num_workers})")
+        if self.num_aggregate_min is not None:
+            if not (1 <= self.num_aggregate_min <= self.num_aggregate_max <= self.num_workers):
+                raise ValueError(
+                    f"bad adaptive bounds [{self.num_aggregate_min}, "
+                    f"{self.num_aggregate_max}]: need 1 <= min <= max <= "
+                    f"num_workers ({self.num_workers})")
+            if self.num_aggregate is not None and not (
+                    self.num_aggregate_min <= self.num_aggregate <= self.num_aggregate_max):
+                raise ValueError(
+                    f"num_aggregate {self.num_aggregate} (the initial adaptive count) is "
+                    f"outside the declared bounds [{self.num_aggregate_min}, "
+                    f"{self.num_aggregate_max}]")
         if self.loss_scale_init <= 0.0:
             raise ValueError(f"bad loss_scale_init {self.loss_scale_init} (must be > 0)")
         if self.mask_mode not in ("random_k", "first_k"):
@@ -218,9 +243,6 @@ class PSConfig:
             (hierarchical, "hierarchical data parallelism (dcn_hosts > 1, a tuple "
              "axis_name; item 14)"),
             (self.overlap == "pipelined", "the pipelined schedule (--overlap on; item 13)"),
-            (self.quant_rounding != "nearest", "stochastic rounding (item 5)"),
-            (self.num_aggregate_min is not None, "adaptive partial aggregation (item 15)"),
-            (self.precision_adapt, "adaptive per-bucket precision (item 15)"),
         ]
         for hit, what in refused:
             if hit:
@@ -231,6 +253,22 @@ class PSConfig:
         if self.num_aggregate is None or self.num_aggregate >= self.num_workers:
             return self.num_workers
         return self.num_aggregate
+
+    @property
+    def adaptive_aggregate(self) -> bool:
+        """True when the train step takes a device ``agg_count`` instead
+        of ``num_aggregate``."""
+        return self.num_aggregate_min is not None
+
+    @property
+    def initial_aggregate(self) -> int:
+        """The adaptive controller's first count: ``num_aggregate`` when
+        given (inside the bounds), else the max bound."""
+        if not self.adaptive_aggregate:
+            return self.effective_aggregate
+        if self.num_aggregate is not None:
+            return self.num_aggregate
+        return self.num_aggregate_max
 
 
 def wire_align(cfg: PSConfig) -> int:
@@ -286,6 +324,21 @@ class PSTrainState:
     guard_state: Any = None
 
 
+def precision_hi_peak(cfg: PSConfig) -> int:
+    """The peak a PREC_HI bucket quantizes to on this config's wire
+    (ps.py:491): the widest lattice its narrowest integer hop carries.
+    The two-round wire's all_to_all is int8 (127); the homomorphic int8
+    wire's accumulator holds ``dtype max // num_workers``; the dequant
+    int8 wire's int32 sum ``(2^31 - 1) // num_workers``; both capped at
+    32767 (an int16 payload at most)."""
+    n = cfg.num_workers
+    if cfg.compress == "int8_2round":
+        return _INT8_PEAK
+    if cfg.wire_domain == "homomorphic":
+        return min(int(torch.iinfo(accum_dtype(n)).max) // n, 32767)
+    return min((2 ** 31 - 1) // n, 32767)
+
+
 def init_ps_state(model, tx, cfg: PSConfig, generator: Optional[torch.Generator] = None,
                   device: DeviceLike = None, params=None,
                   batch_stats=None, mesh=None) -> PSTrainState:
@@ -338,13 +391,29 @@ class StepDraws:
     """One step's random draws: the random_k permutation of the workers
     (``[N]`` int, or None when no mask is drawn), each worker's
     augmentation draws (a list of N ``CropFlipDraws``, or None when the
-    preprocessor does not augment) and each worker's Dropout keep-masks
+    preprocessor does not augment), each worker's Dropout keep-masks
     (a list of N lists, one ``[B, features]`` bool mask per Dropout
-    layer, or None when the model has no Dropout)."""
+    layer, or None when the model has no Dropout) and the gradient
+    wire's stochastic-rounding draw source (``collectives.UniformDraws``,
+    or None under nearest rounding)."""
 
     perm: Optional[torch.Tensor] = None
     aug: Optional[List[Any]] = None
     dropout: Optional[List[List[torch.Tensor]]] = None
+    rounding: Optional[UniformDraws] = None
+
+
+def device_uniform_draws(num_workers: int, generator: torch.Generator) -> UniformDraws:
+    """A draw source on ``generator``'s device: each call draws every
+    worker's U[0, 1) f32 for one piece in the order the wire asks for
+    them (a function of the generator's seed and the wire's schedule;
+    the piece id and the round only name the call, as JAX's key folds
+    do)."""
+    def draws(piece_id: int, round_: int, shape) -> torch.Tensor:
+        return torch.rand((num_workers,) + tuple(shape), generator=generator,
+                          device=generator.device, dtype=torch.float32)
+
+    return draws
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -357,12 +426,14 @@ def draw_step(cfg: PSConfig, seed: int, step: int, batch_per_worker: int,
               preprocess=None, model=None, device: DeviceLike = "cpu") -> StepDraws:
     """The step's draws from ``step_generator``: the permutation, then
     each worker's augmentation, then the seed of each worker's Dropout
-    masks. The masks are drawn on ``device`` (the step's), so the forward
+    masks, then the seed of the stochastic-rounding draws. The masks and
+    the rounding draws are drawn on ``device`` (the step's), so the step
     copies nothing from the host: a CPU and a card run of one seed draw
-    different masks."""
+    different values."""
     g = step_generator(seed, step)
     perm = None
-    if cfg.effective_aggregate != cfg.num_workers and cfg.mask_mode == "random_k":
+    masked = cfg.adaptive_aggregate or cfg.effective_aggregate != cfg.num_workers
+    if masked and cfg.mask_mode == "random_k":
         perm = random_permutation(cfg.num_workers, g)
     aug = None
     if preprocess is not None and getattr(preprocess, "augment", False):
@@ -372,7 +443,12 @@ def draw_step(cfg: PSConfig, seed: int, step: int, batch_per_worker: int,
         gd = torch.Generator(device=device).manual_seed(
             int(torch.randint(2 ** 62, (1,), generator=g)))
         drop = [draw_dropout(model, batch_per_worker, gd) for _ in range(cfg.num_workers)]
-    return StepDraws(perm=perm, aug=aug, dropout=drop)
+    rounding = None
+    if cfg.quant_rounding == "stochastic" and cfg.compress in ("int8", "int8_2round"):
+        gq = torch.Generator(device=device).manual_seed(
+            int(torch.randint(2 ** 62, (1,), generator=g)))
+        rounding = device_uniform_draws(cfg.num_workers, gq)
+    return StepDraws(perm=perm, aug=aug, dropout=drop, rounding=rounding)
 
 
 def _select(finite: torch.Tensor, new, old):
@@ -393,7 +469,8 @@ def _worker_region(flat: torch.Tensor, plan: BucketPlan, n: int, axis) -> torch.
 
 
 def _shard_reduce_bucket(bucket: torch.Tensor, size: int, axis: WorkerAxis, n: int,
-                         k: int, cfg: PSConfig, want_contrib: bool):
+                         k, cfg: PSConfig, want_contrib: bool, uniform=None, peak=None,
+                         hi_peak: int = _INT8_PEAK):
     """One bucket of the ZeRO-1 wire (ps.py:732): (quantize) ->
     psum_scatter / int8 all_to_all -> every worker's dequantized 1/n
     shard divided by the aggregation count. ``bucket`` is worker-stacked
@@ -406,18 +483,27 @@ def _shard_reduce_bucket(bucket: torch.Tensor, size: int, axis: WorkerAxis, n: i
       Round 1 is the whole wire here (each worker keeps its region), so
       there is no round 2 and no K3.
 
+    ``k`` is the static count (a Python int) or the adaptive one (a 0-d
+    f32 device tensor, a quotient: ``collectives._divide``);
+    ``uniform`` this bucket's stochastic draws; ``peak`` its lattice peak
+    (adaptive precision: ``quantize_lattice``, int32 payload, as JAX).
     The dequantize copies XLA's spelling per wire domain: ``(sb * scale)
     * (1/K)`` on the dequant wire, ``sb * (scale / K)`` on the
     homomorphic one, where XLA folds ``/ K`` into the per-tensor scale's
     own constant (``absmax * fold``) but not into a block-row slice."""
     s = size // n
     bsz = cfg.quant_block_size
-    recip = reciprocal(k)
     if cfg.compress not in ("int8", "int8_2round"):
-        return axis.psum_scatter(bucket) * recip, None
+        return _divide(axis.psum_scatter(bucket), k), None
     homomorphic = cfg.wire_domain == "homomorphic"
-    q, scale, absmax = quantize_int8(bucket, axis_name=axis, block_size=bsz,
-                                     return_absmax=True)
+    if peak is not None:
+        q, scale = quantize_lattice(bucket, peak, axis_name=axis, block_size=bsz,
+                                    hi_peak=hi_peak, out_dtype=torch.int32)
+        absmax = None
+    else:
+        q, scale, absmax = quantize_int8(bucket, axis_name=axis, block_size=bsz,
+                                         rounding=cfg.quant_rounding, uniform=uniform,
+                                         return_absmax=True)
     contrib = None
     if want_contrib:
         # what the wire carries after the int8 round trip: a masked-out
@@ -427,22 +513,23 @@ def _shard_reduce_bucket(bucket: torch.Tensor, size: int, axis: WorkerAxis, n: i
         acc_dt = accum_dtype(n) if homomorphic else torch.int32
         sb = axis.psum_scatter(q.reshape(-1, size).to(acc_dt))  # [N, s]
     else:
-        recv = axis.all_to_all(q.reshape(-1, n, s))  # int8 [n(region), N, s]
+        recv = axis.all_to_all(q.reshape(-1, n, s).to(torch.int8))  # [n(region), N, s]
         sb = recv.to(torch.int32).sum(1, dtype=torch.int32)
     if bsz:
         nb_loc = s // bsz
         my_scales = axis.local(scale.reshape(n, nb_loc, 1))
         rows = sb.reshape(-1, nb_loc, bsz).float()
         if homomorphic:
-            return (rows * (my_scales * recip)).reshape(-1, s), contrib
-        return (rows * my_scales).reshape(-1, s) * recip, contrib
+            return (rows * _divide(my_scales, k)).reshape(-1, s), contrib
+        return _divide((rows * my_scales).reshape(-1, s), k), contrib
     if homomorphic:
-        return dequantize_int8(sb, absmax * fold_recip(k)), contrib
-    return dequantize_int8(sb, scale) * recip, contrib
+        return dequantize_int8(sb, _hom_scale(scale, absmax, k, peak is not None)), contrib
+    return _divide(dequantize_int8(sb, scale), k), contrib
 
 
 def _sharded_ps_update(params, opt_state, grads, tx, cfg: PSConfig, axis: WorkerAxis,
-                       sel: Optional[torch.Tensor] = None, err: Optional[torch.Tensor] = None):
+                       sel: Optional[torch.Tensor] = None, err: Optional[torch.Tensor] = None,
+                       k=None, draws: Optional[UniformDraws] = None, bucket_peaks=None):
     """ZeRO-1 "sharded PS" (ps.py:814), serial: (EF add-back) -> mask ->
     (quantize) -> reduce_scatter per bucket -> every worker's update of
     its own shard -> all_gather of the parameter delta.
@@ -452,21 +539,31 @@ def _sharded_ps_update(params, opt_state, grads, tx, cfg: PSConfig, axis: Worker
     gradient, carved by ``_sharded_plan``. ``params`` is the replicated
     tree or a FlatVector already in the shard geometry; ``opt_state``'s
     moments are ``[N, shard]``; ``err`` is the ``[N, L]`` EF residual.
-    ``sel`` is the ``[N]`` aggregation mask or None. Returns
-    ``(new_params, new_opt, new_err)``, ``new_params`` of ``params``'
-    kind."""
+    ``sel`` is the ``[N]`` aggregation mask or None; ``k`` the count
+    (default the static one; a 0-d f32 device tensor when adaptive);
+    ``draws`` the stochastic draw source (a bucket's key id is its start
+    offset); ``bucket_peaks`` the adaptive lattice peaks, one a bucket.
+    Returns ``(new_params, new_opt, new_err)``, ``new_params`` of
+    ``params``' kind."""
     n = cfg.num_workers
-    k = cfg.effective_aggregate
+    k = cfg.effective_aggregate if k is None else k
     layout = tree_layout(grads, stacked=True)
     plan = _sharded_plan(cfg, layout.total)
+    hi = precision_hi_peak(cfg) if bucket_peaks is not None else _INT8_PEAK
     flat_g = pad_flat(tree_to_flat(grads, stacked=True), plan)
     if err is not None:
         flat_g = flat_g + err
     sent = flat_g * sel[:, None] if sel is not None else flat_g
+    bsz = cfg.quant_block_size
     g_shards, contribs = [], []
-    for start, size in zip(plan.starts, plan.sizes):
-        g_b, contrib = _shard_reduce_bucket(sent[:, start:start + size], size, axis, n, k,
-                                            cfg, want_contrib=err is not None)
+    for bi, (start, size) in enumerate(zip(plan.starts, plan.sizes)):
+        uniform = None
+        if cfg.compress in ("int8", "int8_2round"):
+            uniform = _uniform(draws, axis, start, 0, (size // bsz, bsz) if bsz else (size,),
+                               sent.device)
+        g_b, contrib = _shard_reduce_bucket(
+            sent[:, start:start + size], size, axis, n, k, cfg, want_contrib=err is not None,
+            uniform=uniform, peak=None if bucket_peaks is None else bucket_peaks[bi], hi_peak=hi)
         g_shards.append(g_b)
         if contrib is not None:
             contribs.append(contrib)
@@ -493,16 +590,22 @@ def _sharded_ps_update(params, opt_state, grads, tx, cfg: PSConfig, axis: Worker
 def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = None,
                        preprocess: Optional[Callable] = None, faults=None,
                        seed: int = 0, device: DeviceLike = None):
-    """Build the train step: ``step(state, batch, draws=None) -> (state,
-    metrics)``.
+    """Build the train step: ``step(state, batch, draws=None,
+    agg_count=None, prec_tags=None) -> (state, metrics)``.
 
     ``batch`` is ``{"image": uint8 [N*B, H, W, C], "label": int [N*B]}``
-    (numpy or torch); worker w takes rows ``[w*B, (w+1)*B)``. ``draws``
-    (StepDraws) overrides the step's own draws. ``metrics`` holds device
+    (device tensors from ``data.prefetch_to_device``, or numpy, which the
+    step copies in); worker w takes rows ``[w*B, (w+1)*B)``. ``draws``
+    (StepDraws) overrides the step's own draws. ``agg_count`` (with
+    ``cfg.adaptive_aggregate``) and ``prec_tags`` (``[n_buckets]``, with
+    ``cfg.precision_adapt``) are JAX's extra step arguments, in its order:
+    device int32 tensors, clamped on the device to ``[num_aggregate_min,
+    num_aggregate_max]`` and ``[0, 3]``. ``metrics`` holds device
     scalars (mean over workers of loss, prec1, prec5, plus the guard's
-    ``skipped_steps`` / ``skip_streak``): reading them is the caller's
-    host sync. ``faults`` (resilience.faults.FaultPlan) poisons every
-    gradient at its planned steps."""
+    ``skipped_steps`` / ``skip_streak``, and ``bucket_sqnorm`` with
+    ``precision_adapt``): reading them is the caller's host sync.
+    ``faults`` (resilience.faults.FaultPlan) poisons every gradient at
+    its planned steps."""
     dev = resolve_device(device)
     axis = mesh if mesh is not None else WorkerAxis(cfg.num_workers)
     if axis.size != cfg.num_workers:
@@ -511,6 +614,11 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
     # this process's workers: ids [lo, lo + nl) (all of them when stacked)
     nl, lo = axis.local_size, axis.first
     is_flat = cfg.state_layout == "flat"
+
+    hi_peak = precision_hi_peak(cfg)
+    # the tag -> peak table, on the device once (ps.py:1106-1110)
+    peak_table = (torch.from_numpy(precision_peaks(hi_peak)).to(dev)
+                  if cfg.precision_adapt else None)
 
     synced = getattr(model, "bn_axis_name", None) is not None
     if synced and cfg.bn_mode == "local":
@@ -601,7 +709,35 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             lsum, p1sum, p5sum = ([v * r for v in vs] for vs in (lsum, p1sum, p5sum))
         return gsum, bs_c, lsum, p1sum, p5sum
 
-    def step(state: PSTrainState, batch, draws: Optional[StepDraws] = None):
+    def extras(agg_count, prec_tags):
+        """The controllers' values clamped on the device: ``(agg_count
+        int32 or None, bucket_peaks f32 [n_buckets] or None)``."""
+        if cfg.adaptive_aggregate != (agg_count is not None):
+            raise ValueError("agg_count is the adaptive step's argument (num_aggregate_min/max "
+                             "set), and only its")
+        if cfg.precision_adapt != (prec_tags is not None):
+            raise ValueError("prec_tags is the precision_adapt step's argument, and only its")
+        if agg_count is not None:
+            agg_count = torch.clamp(torch.as_tensor(agg_count, device=dev).to(torch.int32),
+                                    cfg.num_aggregate_min, cfg.num_aggregate_max)
+        peaks = None
+        if prec_tags is not None:
+            tags = torch.clamp(torch.as_tensor(prec_tags, device=dev).to(torch.int64), 0, 3)
+            peaks = peak_table[tags]
+        return agg_count, peaks
+
+    def sqnorms(grads) -> torch.Tensor:
+        """Each bucket's squared norm of the raw gradients (before EF and
+        the mask), the mean over workers: ``[n_buckets]`` f32
+        (ps.py:1205-1217)."""
+        splan = state_plan(cfg, tree_layout(grads, stacked=True).total)
+        flat = pad_flat(tree_to_flat(grads, stacked=True), splan)
+        return axis.pmean(torch.stack([flat[:, s0:s0 + sz].square().sum(1)
+                                       for s0, sz in zip(splan.starts, splan.sizes)], dim=1))
+
+    def step(state: PSTrainState, batch, draws: Optional[StepDraws] = None,
+             agg_count=None, prec_tags=None):
+        agg_count, bucket_peaks = extras(agg_count, prec_tags)
         images = torch.as_tensor(batch["image"]).to(dev)
         labels = torch.as_tensor(batch["label"]).to(dev).long()
         if images.shape[0] % nl:
@@ -651,18 +787,23 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             if val is not None:
                 grads = tree_map(lambda t: torch.full_like(t, val), grads)
 
+        bucket_sqnorm = sqnorms(grads) if cfg.precision_adapt else None
         # every process's verdict: a NaN in any worker skips the step everywhere
         finite = axis.all_true(tree_all_finite(grads)) if cfg.nonfinite_guard else None
         new_comm = state.comm_state
         master = state.params.flat if is_flat else state.params
         if cfg.opt_placement == "sharded":
-            sel = None
-            if cfg.effective_aggregate != n:
-                sel = aggregation_mask(axis, n, cfg.num_aggregate, draws.perm,
-                                       cfg.mask_mode, device=dev)
+            sel, k = None, None
+            if agg_count is not None or cfg.effective_aggregate != n:
+                sel = aggregation_mask(
+                    axis, n, agg_count if agg_count is not None else cfg.num_aggregate,
+                    draws.perm, cfg.mask_mode, device=dev)
+            if agg_count is not None:
+                k = agg_count.to(torch.float32)
             new_params, new_opt, new_err = _sharded_ps_update(
                 state.params, state.opt_state, grads, tx, cfg, axis, sel=sel,
-                err=state.comm_state if cfg.error_feedback else None)
+                err=state.comm_state if cfg.error_feedback else None, k=k,
+                draws=draws.rounding, bucket_peaks=bucket_peaks)
             new_master = new_params.flat if is_flat else new_params
             if cfg.error_feedback:
                 new_comm = new_err
@@ -670,12 +811,16 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             if cfg.error_feedback:
                 grads = tree_map(torch.add, grads, state.comm_state)
             out = aggregate_gradients(
-                grads, axis, n, num_aggregate=cfg.num_aggregate, perm=draws.perm,
-                mask_mode=cfg.mask_mode, compress=cfg.compress,
+                grads, axis, n,
+                num_aggregate=agg_count if agg_count is not None else cfg.num_aggregate,
+                perm=draws.perm, mask_mode=cfg.mask_mode, compress=cfg.compress,
                 quant_block_size=cfg.quant_block_size,
                 quant_rounding=cfg.quant_rounding,
+                quant_draws=draws.rounding,
                 return_contribution=cfg.error_feedback, bucket_bytes=cfg.bucket_bytes,
                 flat_output=is_flat, wire_domain=cfg.wire_domain,
+                bucket_peaks=bucket_peaks,
+                lattice_hi_peak=hi_peak if cfg.precision_adapt else _INT8_PEAK,
             )
             if cfg.error_feedback:
                 agg, contribution = out
@@ -694,6 +839,9 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         metrics = {"loss": axis.pmean(torch.stack(losses)),
                    "prec1": axis.pmean(torch.stack(p1s)),
                    "prec5": axis.pmean(torch.stack(p5s))}
+        if bucket_sqnorm is not None:
+            # a vector row among the scalars: the trainer pops it first
+            metrics["bucket_sqnorm"] = bucket_sqnorm
         new_guard = state.guard_state
         if cfg.nonfinite_guard:
             # skip-step: a non-finite step is the identity update for

@@ -1,4 +1,5 @@
-"""The elastic manifest (the manifest half of resilience/elastic.py).
+"""The elastic manifest (the manifest half of resilience/elastic.py) and
+the adaptive partial-aggregation controller (``AdaptiveMaskController``).
 
 The trainer drops an ``elastic.json`` beside its checkpoints: the mesh
 geometry that wrote each step (``steps[str(step)]``) and, at the top
@@ -16,7 +17,7 @@ import dataclasses
 import json
 import logging
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 logger = logging.getLogger("ps_pytorch_tpu_torch")
 
@@ -137,3 +138,77 @@ def needs_reshape(src: MeshGeometry, dst: MeshGeometry) -> bool:
     src_local = src.bn_mode == "local"
     dst_local = dst.bn_mode == "local"
     return src_local != dst_local or (n_changed and src_local)
+
+
+# ----------------------------------------------------- adaptive aggregation
+
+class AdaptiveMaskController:
+    """The host half of adaptive partial aggregation (elastic.py:522): the
+    straggler watchdog's per-step walltimes pick the next window's
+    aggregation count inside ``[num_aggregate_min, num_aggregate_max]``.
+
+    - a window with slow steps (walltime above ``threshold_s``, the
+      watchdog's own) shrinks the count by their number, floored at min;
+    - a clean window grows it by one, ceilinged at max.
+
+    Every change emits one ``mask_adapt`` record through ``event_sink``;
+    the step clamps the count again on the device. Over processes,
+    ``consensus`` (the trainer's: the min over processes, an int32
+    collective) is applied at each window close, whose step every process
+    reaches together (the windows are step-counted); ``slow_steps`` stays
+    the local observation."""
+
+    def __init__(self, cfg, threshold_s: Optional[float], window: int,
+                 event_sink: Optional[Callable[[dict], None]] = None,
+                 consensus: Optional[Callable[[int], int]] = None):
+        if not cfg.adaptive_aggregate:
+            raise ValueError("AdaptiveMaskController needs num_aggregate_min/max set")
+        if window < 1:
+            raise ValueError(f"adapt window must be >= 1, got {window}")
+        if threshold_s is None or threshold_s <= 0:
+            raise ValueError(
+                "adaptive aggregation needs the straggler watchdog's threshold (arm it "
+                "with --mode/--kill-threshold): the controller consumes its per-step "
+                "walltimes")
+        self.lo = cfg.num_aggregate_min
+        self.hi = cfg.num_aggregate_max
+        self.count = int(cfg.initial_aggregate)
+        self.threshold_s = float(threshold_s)
+        self.window = int(window)
+        self.adaptations = 0
+        self._sink = event_sink
+        self._consensus = consensus
+        self._steps = 0
+        self._slow = 0
+        self._win_start: Optional[int] = None
+
+    def record(self, step_no: int, seconds: float) -> int:
+        """One step's walltime; returns the count the NEXT step uses (it
+        changes only at window boundaries)."""
+        if self._win_start is None:
+            self._win_start = step_no
+        self._steps += 1
+        if seconds > self.threshold_s:
+            self._slow += 1
+        if self._steps >= self.window:
+            self._close_window(step_no)
+        return self.count
+
+    def _close_window(self, step_no: int) -> None:
+        old = self.count
+        new = max(self.lo, old - self._slow) if self._slow else min(self.hi, old + 1)
+        if self._consensus is not None:
+            new = min(max(int(self._consensus(new)), self.lo), self.hi)
+        if new != old:
+            self.adaptations += 1
+            logger.info("mask_adapt: aggregation count %d -> %d after window %d-%d "
+                        "(%d/%d slow steps)", old, new, self._win_start, step_no,
+                        self._slow, self._steps)
+            if self._sink is not None:
+                self._sink({"kind": "mask_adapt", "step": step_no,
+                            "window_start": self._win_start, "from": old, "to": new,
+                            "slow_steps": self._slow, "window_steps": self._steps})
+        self.count = new
+        self._steps = 0
+        self._slow = 0
+        self._win_start = None

@@ -9,7 +9,9 @@ num-aggregate 5 random_k, f32 with TF32 off) on a chosen gradient wire
         [--bucket-bytes -1|0|N] [--opt-placement replicated|sharded] \
         [--network ResNet18|VGG16|...] [--dtype float32|bfloat16]
 
-After ``--warmup`` steps (cuDNN picks its algorithms there), times
+The batches come as the trainer's do, through ``data.prefetch_to_device``
+(pinned staging, a copy stream, two in flight). After ``--warmup`` steps
+(cuDNN picks its algorithms there), times
 ``--steps`` steps without the profiler, then profiles as many, each ended
 by a host read of its metrics as the trainer's per-step log window does.
 Prints one JSON line: the card (nvidia-smi name and power limit), the
@@ -96,7 +98,12 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from ps_pytorch_tpu_torch.data import BatchIterator, make_preprocessor, make_synthetic
+    from ps_pytorch_tpu_torch.data import (
+        BatchIterator,
+        make_preprocessor,
+        make_synthetic,
+        prefetch_to_device,
+    )
     from ps_pytorch_tpu_torch.models import build_model
     from ps_pytorch_tpu_torch.optim import build_optimizer
     from ps_pytorch_tpu_torch.parallel.ps import PSConfig, init_ps_state, make_ps_train_step
@@ -116,7 +123,10 @@ def main(argv=None) -> int:
     step = make_ps_train_step(model, tx, cfg, preprocess=make_preprocessor("Cifar10", True),
                               seed=2, device=dev)
     data = make_synthetic("Cifar10", train_size=n * b * 4)
-    batches = BatchIterator(data.train_images, data.train_labels, n * b, seed=0).forever()
+    # the trainer's batch path: pinned staging, a copy stream, two in flight
+    batches = prefetch_to_device(
+        BatchIterator(data.train_images, data.train_labels, n * b, seed=0).forever(),
+        size=2, device=dev)
 
     def one():
         nonlocal state

@@ -16,15 +16,32 @@ loop reads the metrics only once per log window (the per-step host sync
 the JAX trainer also avoids), logs the reference-format line, and runs
 the host half of the non-finite guard there.
 
+The batches: each epoch the workers' host batches go through
+``data.prefetch_to_device`` (two in flight, pinned staging, a copy
+stream), so the step receives them on the card; validation and the
+evaluator ride the same prefetch.
+
 The event stream: every record goes through ``append_metrics_line`` into
 the metrics JSONL (``--metrics-file``), validated against
 ``obs/schema.py``: a ``run_header``, one ``train`` record a log window,
 ``eval``, ``grad_skip``, the watchdog's ``straggler`` /
-``straggler_storm`` / ``straggler_storm_end``, ``ckpt_quarantined`` and
+``straggler_storm`` / ``straggler_storm_end``, the controllers'
+``mask_adapt`` / ``precision_adapt``, ``ckpt_quarantined`` and
 ``ckpt_write_failed``. ``--trace DIR`` writes the loop's host spans
-(``fetch``, ``dispatch``, ``sync``, ``guard``, ``ckpt_save``) to
-``DIR/trace_train_p{rank}.jsonl`` under the same run id; with tracing off the
-tracer is ``NULL_TRACER`` and adds no host sync. The straggler watchdog
+(``fetch`` with the prefetch's ``h2d`` inside it, ``dispatch``, ``sync``,
+``guard``, ``ckpt_save``) to ``DIR/trace_train_p{rank}.jsonl`` under the
+same run id; with tracing off the tracer is ``NULL_TRACER`` and adds no
+host sync.
+
+The adaptive controllers (trainer.py:211-310 of the JAX package): with
+``num_aggregate_min/max`` an ``elastic.AdaptiveMaskController`` picks
+each window's aggregation count from the watchdog's step walltimes;
+with ``precision_adapt`` a ``precision.PrecisionController`` picks each
+window's bucket tags from the step's ``bucket_sqnorm`` row (read every
+step: that controller's own host sync). Both values reach the step as
+device int32 tensors, rebuilt only when they change. Over processes the
+min over processes of each (``_count_consensus``, ``_tags_consensus``)
+is taken at every window close. The straggler watchdog
 (``straggler_threshold_s``) waits for each step on the host only when
 armed. ``request_stop`` (SIGTERM / SIGINT through
 ``install_signal_handlers``) finishes the step, writes a checkpoint and
@@ -38,8 +55,8 @@ and falling back to the next older. The files are the JAX trainer's,
 byte for byte, so either package resumes the other's directory.
 
 Not ported yet, and refused when asked for (ROADMAP.md): compressed
-checkpoints, a resume onto another mesh geometry, the profiler window
-and the adaptive controllers.
+checkpoints, a resume onto another mesh geometry and the profiler
+window.
 """
 
 from __future__ import annotations
@@ -57,7 +74,14 @@ import torch
 
 from . import DeviceLike, resolve_device
 from . import checkpoint as ckpt
-from .data import BatchIterator, Dataset, make_preprocessor, prepare_data, shard_for_worker
+from .data import (
+    BatchIterator,
+    Dataset,
+    make_preprocessor,
+    prefetch_to_device,
+    prepare_data,
+    shard_for_worker,
+)
 from .models import COMPUTE_DTYPES, build_model, param_count
 from .obs import NULL_TRACER, Tracer, new_run_id, run_header, validate_event
 from .optim import build_optimizer
@@ -69,8 +93,10 @@ from .parallel.ps import (
     init_ps_state,
     make_ps_eval_step,
     make_ps_train_step,
+    state_plan,
 )
 from .resilience import elastic
+from .resilience.precision import PrecisionController
 from .resilience.faults import resolve_fault_plan
 from .utils import format_eval_line, format_iter_line, get_logger
 
@@ -230,10 +256,53 @@ class Trainer:
         self.history: List[dict] = []
         layout = getattr(self.state.params, "layout", None)
         n_params = layout.total if layout is not None else param_count(self.state.params)
+        # the adaptive controllers, the host halves of the step's agg_count
+        # and prec_tags; the precision tags are sized from the BucketPlan
+        # the wire carves, so tag b names wire bucket b
+        self._adaptive = None
+        if pcfg.adaptive_aggregate:
+            self._adaptive = elastic.AdaptiveMaskController(
+                pcfg, tcfg.straggler_threshold_s, tcfg.adapt_window, event_sink=self._event,
+                consensus=self._count_consensus if self.multi else None)
+        self._precision = None
+        if pcfg.precision_adapt:
+            self._precision = PrecisionController(
+                pcfg, state_plan(pcfg, n_params).sizes, tcfg.adapt_window,
+                budget_bytes=tcfg.wire_budget_bytes, event_sink=self._event,
+                consensus=self._tags_consensus if self.multi else None)
+        self._extras: dict = {}
         logger.info("model %s (%d params), dataset %s%s, %d workers on %s",
                     tcfg.network, n_params, self.dataset.name,
                     " [synthetic]" if self.dataset.synthetic else "",
                     pcfg.num_workers, self.device)
+
+    def _count_consensus(self, proposed: int) -> int:
+        """The next window's aggregation count every process adopts: the
+        min over processes of the proposals (trainer.py:617), an int32
+        collective each process reaches at the same step-counted window
+        close."""
+        return int(self.mesh.min_over_hosts(np.asarray([proposed], np.int32))[0])
+
+    def _tags_consensus(self, proposed: np.ndarray) -> np.ndarray:
+        """The next window's precision tags every process adopts: the
+        elementwise min over processes (trainer.py:632): the coarsest
+        lattice any process wants."""
+        return self.mesh.min_over_hosts(np.asarray(proposed, np.int32))
+
+    def _step_extras(self) -> dict:
+        """The controllers' current values as the step's device int32
+        arguments (JAX's order: ``agg_count``, then ``prec_tags``), copied
+        to the device only when a value changed."""
+        for name, ctl, value in (
+                ("agg_count", self._adaptive, lambda c: np.asarray(c.count, np.int32)),
+                ("prec_tags", self._precision, lambda c: np.asarray(c.tags, np.int32))):
+            if ctl is None:
+                continue
+            host = value(ctl)
+            held = self._extras.get(name)
+            if held is None or not np.array_equal(held[0], host):
+                self._extras[name] = (host.copy(), torch.from_numpy(host.copy()).to(self.device))
+        return {name: dev for name, (_, dev) in self._extras.items()}
 
     def _geometry(self) -> dict:
         """The run header's geometry block (trainer.py:364)."""
@@ -552,6 +621,17 @@ class Trainer:
                 if done:
                     break
                 epoch_iters = [it.epoch() for it in iters]
+
+                def host_batches(eis=epoch_iters):
+                    for _ in range(steps_per_epoch):
+                        parts = [next(ei) for ei in eis]
+                        yield {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+                # two batches in flight to the card; each fetch gathers the
+                # next one on the host and dispatches its copy (an h2d span
+                # inside the fetch span)
+                prefetched = prefetch_to_device(host_batches(), size=2, device=self.device,
+                                                tracer=tr)
                 for batch_idx in range(steps_per_epoch):
                     if step_no >= t.max_steps:
                         # checked BEFORE stepping: a resume of a finished
@@ -560,11 +640,11 @@ class Trainer:
                         break
                     t0 = time.perf_counter()
                     with tr.span("fetch", step=step_no + 1):
-                        parts = [next(ei) for ei in epoch_iters]
-                        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+                        batch = next(prefetched)
                     t1 = time.perf_counter()
                     with tr.span("dispatch", step=step_no + 1):
-                        self.state, metrics = self._train_step(self.state, batch)
+                        self.state, metrics = self._train_step(self.state, batch,
+                                                               **self._step_extras())
                     if self.faults is not None:
                         # an injected stall inside the timed step, so the
                         # watchdog sees a real slow step
@@ -581,6 +661,16 @@ class Trainer:
                         # installed handler raises the stop flag
                         self.faults.maybe_sigterm(step_no)
                     window_steps += 1
+                    if self._adaptive is not None and step_no != first_step:
+                        # the watchdog's walltime (its barrier is armed:
+                        # the controller needs a threshold); the first
+                        # step (cuDNN's search) is exempt
+                        self._adaptive.record(step_no, t2 - t0)
+                    if self._precision is not None:
+                        # popped before any window read sees it: the
+                        # controller's per-step read of a few floats
+                        self._precision.record(step_no,
+                                               metrics.pop("bucket_sqnorm").cpu().numpy())
                     unsynced += 1
                     if armed:
                         self._watchdog(step_no, t2 - t0, first_step)
@@ -648,19 +738,26 @@ class Trainer:
         if self.straggler_steps:
             out["straggler_steps"] = float(self.straggler_steps)
             out["straggler_storms"] = float(self.straggler_storms)
+        if self._adaptive is not None:
+            out["agg_count"] = float(self._adaptive.count)
+            out["mask_adaptations"] = float(self._adaptive.adaptations)
+        if self._precision is not None:
+            out["precision_adaptations"] = float(self._precision.adaptations)
+            out["effective_wire_bytes"] = float(self._precision.effective_bytes())
         return out
 
     def validate(self) -> dict:
-        """One pass over the test split (parity: nn_ops.py:90-106)."""
+        """One pass over the test split (parity: nn_ops.py:90-106), its
+        batches through the training loop's prefetch."""
         n = self.pcfg.num_workers
         per = max(self.tcfg.test_batch_size // n, 1)
         it = BatchIterator(self.dataset.test_images, self.dataset.test_labels, per * n,
                            shuffle=False)
         ids = batch_sharding(self.mesh)  # this process's workers' rows of each batch
         rows = slice(ids[0] * per, (ids[-1] + 1) * per)
-        out = average_metrics(
-            lambda batch: self._eval_step(self.state, {k: v[rows] for k, v in batch.items()}),
-            it)
+        mine = ({k: v[rows] for k, v in batch.items()} for batch in it)
+        out = average_metrics(lambda batch: self._eval_step(self.state, batch),
+                              prefetch_to_device(mine, size=2, device=self.device))
         if out:
             logger.info(format_eval_line(self.state.step, out["loss"], out["prec1"],
                                          out["prec5"]))

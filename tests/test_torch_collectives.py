@@ -201,20 +201,25 @@ def test_torch_worker_axis_primitives():
 
 
 def test_torch_collectives_refuse_unported_wires():
+    """The hierarchical (tuple-axis) and pipelined wires are refused,
+    naming ROADMAP.md. Stochastic rounding, a device count and bucket
+    peaks, refused here before the adaptive wire was ported, now run
+    (tests/test_torch_adaptive_wire.py holds them against JAX), and
+    stochastic rounding without draws raises JAX's ValueError."""
     g = _torch_tree(_grads())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.aggregate_gradients(g, ("dcn", WORKER_AXIS), N, compress="int8_2round")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0,
                                pipelined=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="stochastic rounding needs a key"):
         tc.quantized_psum(g, WorkerAxis(N), 8.0, rounding="stochastic")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.aggregate_gradients(g, ("dcn", WORKER_AXIS), N)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8",
-                               bucket_peaks=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.aggregation_mask(WorkerAxis(N), N, torch.tensor(5), _jax_perm())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    agg = tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0,
+                                 bucket_peaks=torch.full((1,), 127.0), flat_output=True)
+    assert bool(torch.isfinite(agg).all())
+    assert torch.equal(tc.aggregation_mask(WorkerAxis(N), N, torch.tensor(5), _jax_perm()),
+                       tc.aggregation_mask(WorkerAxis(N), N, 5, _jax_perm()))
+    with pytest.raises(ValueError, match="stochastic rounding needs a key"):
         tc.quantized_allreduce_2round(g, WorkerAxis(N), 8.0, N, rounding="stochastic")

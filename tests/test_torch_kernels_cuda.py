@@ -889,3 +889,98 @@ def test_torch_wires_on_card_match_cpu(cuda_device, compress, domain, block, buc
     pieces = 1 if bucket_bytes == 0 else (5 if bucket_bytes is None else None)
     if compress == "int8_2round" and domain == "homomorphic" and pieces:
         assert accumulate_rescale_int8.launches - k3 == pieces
+
+
+@pytest.mark.cuda
+def test_torch_accumulate_rescale_kernel_changing_device_divisor_on_card(cuda_device):
+    """K3 with the adaptive count's divisor: one device tensor refilled on
+    the card between launches (no host copy), each launch bit-exact
+    against the plain version at that divisor."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    recv = torch.randint(-127, 128, (8, 1 << 16), generator=g, device=cuda_device,
+                         dtype=torch.int32).to(torch.int8)
+    k = torch.empty((), dtype=torch.float32, device=cuda_device)
+    before = accumulate_rescale_int8.launches
+    outs = []
+    for count in (8, 7, 3, 5, 1, 8):
+        k.fill_(count)
+        outs.append((count, accumulate_rescale_int8(recv, k)))
+    torch.cuda.synchronize()
+    assert accumulate_rescale_int8.launches == before + 6
+    for count, out in outs:
+        assert torch.equal(out, accumulate_rescale_plain(recv, float(count)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [2, 3])
+def test_torch_prefetch_pinned_batches_equal_the_host_on_card(cuda_device, size):
+    """The pinned copy-stream prefetch: every batch arrives whole and in
+    order while the consumer's stream is kept busy (so staging buffers
+    are refilled and device blocks freed while earlier work is queued)."""
+    from ps_pytorch_tpu_torch.data import BatchIterator, make_synthetic, prefetch_to_device
+
+    d = make_synthetic("Cifar10", 2048, 4, seed=5)
+    host = list(BatchIterator(d.train_images, d.train_labels, 256, seed=2).epoch())
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    sums = []
+    for batch in prefetch_to_device(iter(host), size=size, device=cuda_device):
+        assert batch["image"].is_cuda and batch["label"].dtype == torch.int32
+        for _ in range(4):
+            busy = busy @ busy / 2048.0  # queue work ahead of the batch's use
+        sums.append((batch["image"].to(torch.int64).sum(), batch["label"].to(torch.int64).sum(),
+                     batch["image"].clone(), batch["label"].clone()))
+    torch.cuda.synchronize()
+    assert len(sums) == len(host) == 8
+    for (si, sl, img, lab), b in zip(sums, host):
+        assert int(si) == int(b["image"].astype(np.int64).sum())
+        assert int(sl) == int(b["label"].astype(np.int64).sum())
+        assert torch.equal(img.cpu(), torch.from_numpy(b["image"]))
+        assert torch.equal(lab.cpu(), torch.from_numpy(b["label"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress,domain,block", [
+    ("int8", "dequant", 0), ("int8", "homomorphic", 128),
+    ("int8_2round", "dequant", 128), ("int8_2round", "homomorphic", 0),
+])
+def test_torch_adaptive_wires_on_card_match_cpu(cuda_device, compress, domain, block):
+    """The adaptive routes on the card equal the CPU's bit for bit: a
+    device count with mixed lattice peaks, and (dequant wires) stochastic
+    rounding with the same injected draws. No K1 / K2 call on a lattice
+    or stochastic round 1."""
+    perm = torch.tensor([3, 0, 6, 1, 5, 2, 7, 4])
+    g = _grads("cpu")
+    pieces = len(collectives.piece_stream(g, 4096, align=block or 1)[1])
+    peaks = torch.tensor([0.0, 7.0, 127.0, 127.0 if compress == "int8_2round" else 4095.0]
+                         * pieces)[:pieces]
+    draws_cache = {}
+
+    def draws(pid, rnd, shape):
+        key = (pid, rnd, shape)
+        if key not in draws_cache:
+            gen = torch.Generator().manual_seed(pid * 2 + rnd)
+            draws_cache[key] = torch.rand((8,) + shape, generator=gen)
+        return draws_cache[key]
+
+    runs = [dict(num_aggregate=torch.tensor(6, dtype=torch.int32), bucket_peaks=peaks,
+                 lattice_hi_peak=127 if compress == "int8_2round" else 4095)]
+    if domain == "dequant":
+        runs.append(dict(num_aggregate=5, quant_rounding="stochastic", quant_draws=draws))
+    for extra in runs:
+        kw = dict(perm=perm, compress=compress, quant_block_size=block, bucket_bytes=4096,
+                  wire_domain=domain, flat_output=True, return_contribution=True, **extra)
+        if compress == "int8_2round":
+            kw.pop("lattice_hi_peak", None)
+        card_kw = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) and k != "perm" else v)
+                   for k, v in kw.items()}
+        k2, k1 = tq.quantize_tensors.launches, tq.quantize_rows_scaled_many.launches
+        agg_gpu, c_gpu = collectives.aggregate_gradients(
+            tree_map(lambda t: t.to(cuda_device), g), WorkerAxis(8), 8, **card_kw)
+        torch.cuda.synchronize()
+        if compress == "int8":
+            assert (tq.quantize_tensors.launches, tq.quantize_rows_scaled_many.launches) == (
+                k2, k1)
+        agg_cpu, c_cpu = collectives.aggregate_gradients(g, WorkerAxis(8), 8, **kw)
+        assert torch.equal(agg_gpu.cpu(), agg_cpu)
+        for a, b in zip(tree_leaves(c_gpu), tree_leaves(c_cpu)):
+            assert torch.equal(a.cpu(), b)

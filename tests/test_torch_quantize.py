@@ -246,5 +246,8 @@ def test_torch_quantize_shared_scales_bit_exact_vs_shard_map(mesh, bs, seed):
     {"block_size": 8, "rounding": "stochastic"},
 ])
 def test_torch_quantize_training_modes_not_ported_yet(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Stochastic rounding (refused before its port) needs its uniform
+    draws, as JAX's needs a key: ValueError without them
+    (tests/test_torch_quantize_lattice.py holds the draws' route)."""
+    with pytest.raises(ValueError, match="uniform draws"):
         quantize_int8(torch.zeros(16), **kwargs)

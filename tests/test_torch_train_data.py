@@ -124,12 +124,13 @@ def test_torch_preprocessor_policy():
 
 
 def test_torch_prepare_data_serves_synthetic_and_refuses_files():
-    d = prepare_data("MNIST", synthetic_train_size=32)
+    """No files under the root: the synthetic set, and with
+    ``allow_synthetic=False`` JAX's FileNotFoundError (the readers came
+    with their port: tests/test_torch_datasets.py)."""
+    d = prepare_data("MNIST", root="/nonexistent", synthetic_train_size=32)
     assert d.synthetic and d.train_images.shape == (32, 28, 28, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_data("MNIST", root="/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_data("MNIST", allow_synthetic=False)
+    with pytest.raises(FileNotFoundError):
+        prepare_data("MNIST", root="/nonexistent", allow_synthetic=False)
 
 
 def test_torch_log_lines_match_the_reference_format():

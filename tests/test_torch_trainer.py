@@ -71,10 +71,54 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
     ["--compress-checkpoints"], ["--bucket-bytes", "0", "--overlap", "on"],
     ["--profile-dir", "prof"], ["--overlap", "on", "--opt-placement", "sharded"],
     ["--compress-grad", "2round", "--dcn-hosts", "2"],
-    ["--quant-rounding", "stochastic"], ["--data-root", "/nonexistent"],
+    # the two flags refused here before their port (--quant-rounding
+    # stochastic, --data-root) run now: test_torch_cli_train_runs_what_it_refused
+    ["--config-json", "run.json"], ["--dcn-hosts", "2"],
 ])
 def test_torch_cli_train_refuses_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _run("--max-steps", "1", *extra)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--compress-grad", "compress", "--quant-rounding", "stochastic", "--error-feedback"],
+    ["--compress-grad", "2round", "--quant-rounding", "stochastic", "--quant-block-size", "128"],
+    ["--compress-grad", "compress", "--bucket-bytes", "65536", "--precision-adapt",
+     "--wire-budget-bytes", "200000", "--adapt-window", "1"],
+    ["--compress-grad", "2round", "--wire-domain", "homomorphic", "--bucket-bytes", "0",
+     "--num-aggregate-min", "2", "--num-aggregate-max", "4", "--mode", "straggler",
+     "--kill-threshold", "60", "--adapt-window", "1"],
+    ["--data-root", "/nonexistent"],
+], ids=["stochastic_ef", "stochastic_2round", "precision", "adaptive_count", "data_root"])
+def test_torch_cli_train_runs_what_it_refused(extra):
+    """Refused before this slice's port; JAX runs each of them (4 workers
+    of 4 images, 2 steps)."""
+    out = _run("--max-steps", "2", "--num-workers", "4", "--batch-size", "4",
+               "--test-batch-size", "256", *extra)
+    assert all(math.isfinite(h["loss"]) for h in out["history"])
+    assert out["train"]["skipped_steps"] == 0.0
+    if "--precision-adapt" in extra:
+        # a budget under the floor: every bucket at 4 bits, half of
+        # LeNet's 431080 int8 bytes, adopted after two agreeing windows
+        # (steps 1 and 2)
+        assert out["train"]["precision_adaptations"] == 1.0
+        assert out["train"]["effective_wire_bytes"] == 215540.0
+    if "--num-aggregate-min" in extra:
+        assert out["train"]["agg_count"] == 4.0 and out["train"]["mask_adaptations"] == 0.0
+
+
+@pytest.mark.parametrize("extra,err", [
+    (["--compress-grad", "compress", "--wire-domain", "homomorphic", "--quant-rounding",
+      "stochastic"], "nearest"),
+    (["--compress-grad", "compress", "--precision-adapt"], "bucketed"),
+    (["--compress-grad", "compress", "--bucket-bytes", "0", "--precision-adapt",
+      "--quant-rounding", "stochastic"], "nearest"),
+    (["--num-aggregate-min", "2"], "BOTH"),
+    (["--num-aggregate-min", "2", "--num-aggregate-max", "4"], "watchdog"),
+    (["--no-synthetic", "--data-root", "/nonexistent"], "no MNIST data"),
+])
+def test_torch_cli_train_refuses_what_jax_refuses(extra, err):
+    with pytest.raises((ValueError, FileNotFoundError), match=err):
         _run("--max-steps", "1", *extra)
 
 
