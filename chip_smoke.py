@@ -205,11 +205,30 @@ Phases, one line each:
    card's draws of a 1 M-element tensor within 4 standard errors of 0;
    ``pack_int4`` / ``unpack_int4`` / ``quantize_lattice`` on the card bit
    for bit the CPU's;
-28. the kernels JSON line, then the result line.
+28. the resume-reshape: ResNet18 8 x 128 ZeRO-1 with EF at 4 MiB buckets
+   stopped by SIGTERM at step 4, resumed on 4 workers at ``--bucket-bytes
+   0`` to step 6, then on 8 at 2 MiB to step 8: one ``resume_reshape``
+   record each, the step count continued, the moments the card restored
+   bit for bit the plain CPU reshape of the file, the EF residuals' sum
+   kept bit for bit; the reshape's host seconds;
+29. ``--overlap on`` at 4 MiB buckets on the per-tensor int8 and the
+   homomorphic two-round wires, 8 steps each in turns with the serial
+   schedule (twice): the step p50s, one K2 call (and K3 launch) a bucket
+   a step, the share of the wire's event time before the last worker's
+   backward ended; then 5 steps with EF called directly, params and EF
+   residuals bit for bit the serial step's (cuDNN deterministic); a
+   block-128 run's K1 calls (one a bucket);
+30. ``--dcn-hosts 2`` (a 2 x 4 grid) at ``--bucket-bytes 0`` on the dequant
+   (also block 128) and homomorphic two-round wires: the launches the code
+   implies (K3 two a piece on the homomorphic wire), one aggregate's K3
+   launches at the ICI and DCN hops bit for bit their plain versions, the
+   aggregate within JAX's bound of the exact mean, the homomorphic step
+   p50 beside phase 12's flat autotune-best run;
+31. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,19,20,21,22,23,24,25,26,27 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,19,20,21,22,23,24,25,26,27,28,29,30 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -219,7 +238,9 @@ wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9;
 the two-round, homomorphic and ZeRO-1 wires of 12;
 the checkpoints of 12b; the VGG runs of 18; the bf16 runs of 19, after
 phase 9's f32 run; the held steps of 20; the event stream of 21; the
-data path of 25, the adaptive wire of 26, stochastic rounding of 27),
+data path of 25, the adaptive wire of 26, stochastic rounding of 27, the
+resume-reshape of 28, the pipelined wire of 29, the hierarchical wire of
+30, which reports no flat run beside its own when run alone),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -1287,22 +1308,28 @@ def expected_launches(cfg, params) -> dict:
     block); the dequant two-round wire requantizes every region of every
     piece in a second call (K2 per tensor, K1's ``quantize_rows_many`` per
     block); the homomorphic two-round wire runs K3 once per piece; the
-    ZeRO-1 wire has round 1 only, one call per bucket. Nothing on a wire
-    calls ``quantize_rows`` or the KV entry."""
+    ZeRO-1 wire has round 1 only, one call per bucket. The pipelined
+    schedule (``--overlap on``) makes each of those calls once a bucket.
+    The hierarchical dequant wire (``--dcn-hosts``) quantizes twice
+    before its round 2 (the ICI round 1 and the DCN hop's round 1), and
+    its homomorphic wire runs K3 twice a piece (the ICI and DCN hops).
+    Nothing on a wire calls ``quantize_rows`` or the KV entry."""
     p = _pieces(cfg, params)
     block = bool(cfg.quant_block_size)
     sharded = cfg.opt_placement == "sharded"
     two_round = cfg.compress == "int8_2round" and not sharded
     hom = cfg.wire_domain == "homomorphic"
-    calls = p if sharded else 1
-    round2 = 1 if two_round and not hom else 0
+    hier = two_round and cfg.dcn_hosts > 1
+    calls = p if sharded or cfg.overlap == "pipelined" else 1
+    round1 = calls * (2 if hier and not hom else 1)
+    round2 = calls if two_round and not hom else 0
     return {
-        "quantize_tensors": 0 if block else calls + round2,
-        "quantize_rows_scaled_many": calls if block else 0,
+        "quantize_tensors": 0 if block else round1 + round2,
+        "quantize_rows_scaled_many": round1 if block else 0,
         "quantize_rows_many": round2 if block else 0,
         "quantize_rows": 0,
         "quantize_kv_write": 0,
-        "accumulate_rescale_int8": p if two_round and hom else 0,
+        "accumulate_rescale_int8": p * (2 if hier else 1) if two_round and hom else 0,
     }
 
 
@@ -1355,7 +1382,7 @@ def phase_train_wires(card: str) -> dict:
         require(res["train"]["skipped_steps"] == 0.0, f"train {name}: a step was skipped")
         require(got == want, f"train {name}: launches {got}, expected {want}")
         rec = {"flags": " ".join(flags), "steps": steps, "launches": got,
-               "loss_first": losses[0], "loss_last": losses[-1]}
+               "loss_first": losses[0], "loss_last": losses[-1], "losses": losses}
         if steps >= 10:
             times = [h["time_cost"] for h in hist[3:]]  # after cuDNN's warm-up
             p50 = float(np.median(times))
@@ -3027,12 +3054,411 @@ def phase_stochastic(card: str, dev) -> dict:
     return rec
 
 
+# ------------------------------------------------ phases 28-30 (the PS comm stack, the rest)
+
+RESHAPE_FLAGS = ["--opt-placement", "sharded", "--bucket-bytes", "4194304", "--error-feedback"]
+
+
+def _tree_bits_equal(a, b) -> bool:
+    """Two state dicts (nested dicts of arrays) equal key for key, bit for bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_tree_bits_equal(a[k], b[k]) for k in a))
+    x, y = np.asarray(a), np.asarray(b)
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and np.array_equal(x.reshape(-1).view(np.uint8), y.reshape(-1).view(np.uint8)))
+
+
+def phase_reshape(card: str) -> dict:
+    """Phase 28: the resume-reshape on the card. ResNet18 8 x 128 ZeRO-1
+    (``--opt-placement sharded --bucket-bytes 4194304``) with EF, stopped by
+    the ``sigterm`` fault at step 4 (``model_step_4`` and its manifest
+    written); resumed on 4 workers with ``--bucket-bytes 0``, then on 8
+    with ``--bucket-bytes 2097152``. Each resume writes one
+    ``resume_reshape`` record and continues the step count; the moments
+    the card restored equal, bit for bit, the plain CPU reshape of the
+    same file (``elastic.reshape_raw_state``, numpy), and the EF residuals'
+    sum is kept as JAX's rule keeps it: every new worker holds the file's
+    sum / n, which times n (a power of two) is that sum bit for bit. The
+    reshape's host seconds are reported."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.cli._flags import (
+        add_ps_flags,
+        add_train_flags,
+        ps_config_from,
+        train_config_from,
+    )
+    from ps_pytorch_tpu_torch.obs.schema import validate_event
+    from ps_pytorch_tpu_torch.resilience import elastic
+    from ps_pytorch_tpu_torch.trainer import Trainer
+    from ps_pytorch_tpu_torch.utils.serialization import to_state_dict
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reshape_")
+    d = os.path.join(tmp, "models")
+    first = _train(30, RESHAPE_FLAGS + ["--train-dir", d, "--fault-plan", '{"sigterm": 4}'],
+                   checkpoints=True)
+    require(first["trainer"].stop_requested and ckpt.latest_valid_step(d) == 4,
+            f"reshape: the SIGTERM run left {ckpt.available_steps(d)}")
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    rec = {"card": card, "flags": " ".join(RESHAPE_FLAGS), "stopped_at": 4, "resumes": []}
+    stop = 4
+    for n, bb, until in ((4, "0", 6), (8, "2097152", 8)):
+        mfile = os.path.join(tmp, f"m{n}.jsonl")
+        args = parser.parse_args(TRAIN_ARGS + RESHAPE_FLAGS + [
+            "--num-workers", str(n), "--bucket-bytes", bb, "--max-steps", str(until),
+            "--resume", "--train-dir", d, "--metrics-file", mfile])
+        t = Trainer(train_config_from(args), ps_config_from(args, n), device="cuda")
+        raw = ckpt.load_checkpoint_raw(d, stop)
+        src = elastic.load_geometry(d, stop)
+        require(src is not None and elastic.needs_reshape(src, elastic.geometry_of(t.pcfg)),
+                f"reshape: the manifest of step {stop} needs no reshape onto {n} workers")
+        t0 = time.perf_counter()
+        plain = elastic.reshape_raw_state(raw, src, t.pcfg, t.checkpoint_state())
+        reshape_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        require(t.try_resume() == stop, f"reshape: the {n}-worker run did not resume {stop}")
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        got = to_state_dict(t.checkpoint_state())
+        require(_tree_bits_equal(got["opt_state"], plain["opt_state"]),
+                f"reshape: the moments restored on {n} workers differ from the plain reshape")
+        # every new worker holds the file's summed residual / n (the padded
+        # tails, zeros, differ in length between the carvings), so n rows
+        # give back that sum exactly: n is a power of two
+        total = t.state.params.layout.total
+        rows = np.asarray(got["comm_state"])[:, :total]
+        ef_sum = np.asarray(raw["comm_state"], np.float32).sum(0)[:total]
+        require(all(_tree_bits_equal(r, rows[0]) for r in rows)
+                and _tree_bits_equal(rows[0] * np.float32(n), ef_sum),
+                f"reshape: the EF residuals' sum changed onto {n} workers")
+        t.tcfg.resume = False
+        out = t.train()
+        torch.cuda.synchronize()
+        with open(mfile) as f:
+            events = [validate_event(json.loads(line)) for line in f]
+        rr = [e for e in events if e["kind"] == "resume_reshape"]
+        steps = [e["step"] for e in events if e["kind"] == "train"]
+        require(len(rr) == 1 and rr[0]["from"]["num_workers"] == src.num_workers
+                and rr[0]["to"]["num_workers"] == n,
+                f"reshape: resume_reshape records {rr}")
+        require(steps == list(range(stop + 1, until + 1)),
+                f"reshape: the {n}-worker run took steps {steps}")
+        require(np.isfinite(out["loss"]), f"reshape: loss {out['loss']}")
+        rec["resumes"].append({
+            "workers": n, "bucket_bytes": int(bb), "from_step": stop, "steps": steps,
+            "from": {k: rr[0]["from"][k] for k in ("num_workers", "bucket_bytes")},
+            "reshape_host_s": reshape_s, "resume_s": resume_s,
+            "moments_bit_exact": True, "ef_sum_bit_exact": True, "loss_last": out["loss"]})
+        stop = until
+        del t
+    rec["seconds"] = time.perf_counter() - t_start
+    print("phase 28 resume-reshape ResNet18 8 -> 4 -> 8 workers (ZeRO-1, EF): "
+          + json.dumps(rec))
+    return rec
+
+
+OVERLAP_WIRES = {
+    "int8": ["--bucket-bytes", "4194304"],
+    "2round_homomorphic": ["--compress-grad", "2round", "--wire-domain", "homomorphic",
+                           "--bucket-bytes", "4194304"],
+}
+
+
+class _Timed:
+    """A stand-in for ``ps._BucketStream`` that records, on the card, a
+    timing event before and after each bucket's wire (on the side stream)
+    and one when the backward ends (``finish``, on the step's stream), so
+    a phase can read how much of the wire ran before the last worker's
+    backward ended. Installed only while the phase measures."""
+
+    def __init__(self, base):
+        self.base = base
+        self.records = []
+
+    def __call__(self, *a, **kw):
+        outer = self
+        stream = self.base(*a, **kw)
+        run, finish = stream._run, stream.finish
+
+        def timed_run(b):
+            side = stream.side
+            start = torch.cuda.Event(enable_timing=True)
+            side.wait_stream(torch.cuda.current_stream())
+            start.record(side)
+            run(b)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(side)
+            outer.records[-1]["buckets"].append((start, end))
+
+        def timed_finish():
+            done = torch.cuda.Event(enable_timing=True)
+            done.record(torch.cuda.current_stream())
+            outer.records[-1]["backward_end"] = done
+            return finish()
+
+        self.records.append({"buckets": [], "backward_end": None})
+        stream._run, stream.finish = timed_run, timed_finish
+        return stream
+
+
+def _allocator_counts() -> dict:
+    """The caching allocator's counters a turn's run moves: cudaMalloc /
+    cudaFree calls and the retries (a free of cached blocks, which
+    synchronises the device, before a cudaMalloc), and the bytes it
+    holds (GB)."""
+    st = torch.cuda.memory_stats()
+    return {"device_allocs": st.get("num_device_alloc", 0),
+            "device_frees": st.get("num_device_free", 0),
+            "alloc_retries": st.get("num_alloc_retries", 0),
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
+def _overlap_share(records) -> dict:
+    """From ``_Timed``'s events: the wire's summed event time a step and
+    the share of it before the backward's end (buckets finish() sent out
+    run after it)."""
+    total = before = 0.0
+    for r in records:
+        ref = r["backward_end"]
+        for start, end in r["buckets"]:
+            span = start.elapsed_time(end)
+            to_end = start.elapsed_time(ref)
+            total += span
+            before += min(max(to_end, 0.0), span)
+    return {"wire_event_ms_per_step": total / max(len(records), 1),
+            "share_before_backward_end": before / total if total else 0.0}
+
+
+def _direct_bits(dev, flags: list, steps: int) -> dict:
+    """The serial and the pipelined step of one wire called directly for
+    ``steps`` steps on the same batches and draws, with EF on and cuDNN
+    deterministic: params and EF residuals compared bit for bit."""
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.data import (
+        BatchIterator,
+        make_preprocessor,
+        make_synthetic,
+        prefetch_to_device,
+    )
+    from ps_pytorch_tpu_torch.models import build_model
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+    from ps_pytorch_tpu_torch.parallel.ps import draw_step, init_ps_state, make_ps_train_step
+
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    model = build_model("ResNet18")
+    pre = make_preprocessor("Cifar10", True)
+    data = make_synthetic("Cifar10", train_size=WORKERS * PER_WORKER * steps)
+    host = list(BatchIterator(data.train_images, data.train_labels, WORKERS * PER_WORKER,
+                              seed=0).epoch())
+    batches = list(prefetch_to_device(iter(host), device=dev))
+    states = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for overlap in ("off", "on"):
+            cfg = ps_config_from(parser.parse_args(
+                TRAIN_ARGS + flags + ["--error-feedback", "--overlap", overlap]), WORKERS)
+            tx = build_optimizer("sgd", 0.1, momentum=0.9)
+            st = init_ps_state(model, tx, cfg, torch.Generator().manual_seed(1), device=dev)
+            step = make_ps_train_step(model, tx, cfg, preprocess=pre, seed=2, device=dev)
+            for i, batch in enumerate(batches):
+                st, _ = step(st, batch, draw_step(cfg, 2, i, PER_WORKER, pre, model, dev))
+            torch.cuda.synchronize()
+            states[overlap] = [st.params.flat] + tree_leaves(st.comm_state)
+            del st, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = all(same_bits(a, b) for a, b in zip(states["off"], states["on"]))
+    require(same, f"overlap {' '.join(flags)}: the pipelined step's params / EF residuals "
+                  f"differ from the serial step's after {steps} steps")
+    return {"steps": steps, "params_and_ef_bit_exact": True}
+
+
+def phase_overlap(card: str, dev) -> dict:
+    """Phase 29: ``--overlap on`` on the canonical config at 4 MiB buckets,
+    on the per-tensor int8 wire and on the homomorphic two-round wire:
+    each ``cli.train.main`` run (8 steps) in turns with the serial
+    schedule, twice, the step p50 of each; one K2 call (and, homomorphic,
+    one K3 launch) a bucket a step, as ``expected_launches`` implies; the
+    share of the wire's event time before the last worker's backward
+    ended (``_Timed``); then the serial and pipelined steps called
+    directly for 5 steps with EF, params and EF residuals bit for bit.
+    A 3-step block-128 pipelined run gives K1's per-bucket count."""
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.parallel import ps as ps_mod
+
+    t_start = time.perf_counter()
+    resnet, _ = init_model(build_model("ResNet18"), torch.Generator().manual_seed(0),
+                           device="cpu")
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    steps = 8
+    rec = {"card": card}
+    runs = [(name, flags) for name, flags in OVERLAP_WIRES.items()] + [
+        ("block128", ["--bucket-bytes", "4194304", "--quant-block-size", "128"])]
+    for name, flags in runs:
+        turns = {"off": [], "on": []}
+        launches, alloc = {}, {"off": [], "on": []}
+        for turn in (("off", "on", "off", "on") if name != "block128" else ("on",)):
+            fl = flags + ["--overlap", turn]
+            cfg = ps_config_from(parser.parse_args(TRAIN_ARGS + fl), WORKERS)
+            n_steps = steps if name != "block128" else 3
+            want = {k: v * n_steps for k, v in expected_launches(cfg, resnet).items()}
+            timed = _Timed(ps_mod._BucketStream) if turn == "on" else None
+            if timed is not None:
+                ps_mod._BucketStream = timed
+            try:
+                reset_counts()
+                before = _allocator_counts()
+                out = _train(n_steps, fl)
+                torch.cuda.synchronize()
+                got = read_counts()
+                alloc[turn].append({k: v - before.get(k, 0)
+                                    for k, v in _allocator_counts().items()}
+                                   | {"reserved_gb_at_start": before["reserved_gb"]})
+            finally:
+                if timed is not None:
+                    ps_mod._BucketStream = timed.base
+            losses = [h["loss"] for h in out["history"]]
+            require(all(np.isfinite(v) for v in losses) and len(losses) == n_steps,
+                    f"overlap {name} {turn}: losses {losses}")
+            require(OTHER_TREE or got == want,
+                    f"overlap {name} {turn}: launches {got}, expected {want}")
+            launches[turn] = got
+            if name != "block128":
+                turns[turn].append(_step_p50(out["history"]) * 1e3)
+            if timed is not None:
+                rec.setdefault(name, {})["overlap"] = _overlap_share(timed.records[3:])
+        r = rec.setdefault(name, {})
+        r.update({"flags": " ".join(flags), "launches_serial": launches.get("off"),
+                  "launches_pipelined": launches["on"], "allocator": alloc,
+                  "buckets": _pieces(ps_config_from(parser.parse_args(
+                      TRAIN_ARGS + flags + ["--overlap", "on"]), WORKERS), resnet)})
+        if name != "block128":
+            r.update({"step_ms_p50_serial": turns["off"], "step_ms_p50_pipelined": turns["on"],
+                      "pipelined_over_serial": float(np.mean(turns["on"])
+                                                     / np.mean(turns["off"]))})
+            r["bit_exact"] = _direct_bits(dev, flags, 5)
+    rec["seconds"] = time.perf_counter() - t_start
+    print("phase 29 --overlap on (pipelined bucket wire) ResNet18 8 x 128: " + json.dumps(rec))
+    return rec
+
+
+# the hierarchical homomorphic run's first losses against the flat
+# autotune-best run's on the same weights and batches: the first equal (no
+# update yet), the next two within this relative tolerance (one and two
+# updates through a wire within JAX's bound of the exact mean; both climb on
+# this synthetic data at lr 0.1, so later steps are reported, not held)
+HIER_LOSS_RTOL = 0.02
+
+
+def phase_hier(card: str, dev, flat_best=None) -> dict:
+    """Phase 30: ``--dcn-hosts 2`` (a 2 x 4 grid) on the canonical config at
+    ``--bucket-bytes 0``, on the dequant (3 steps, and 3 at block 128) and
+    the homomorphic (10 steps) two-round wires: launches as
+    ``expected_launches`` implies (K3 exactly 2 a piece on the homomorphic
+    wire); one step's K3 launches at the ICI hop (divisor 4) and at the
+    DCN hop (divisor 2) held against their plain versions bit for bit;
+    the aggregate of ResNet18-sized gradients within JAX's bound of the
+    exact mean (tests/test_compression.py:613: 3.5 * max|g| * 1.5 / 127),
+    both domains; the homomorphic step p50 and losses beside phase 12's
+    flat autotune-best run (``flat_best``, its record, when phase 12 ran),
+    the first three losses held to it (``HIER_LOSS_RTOL``)."""
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.ops.quantize import accumulate_rescale_plain
+    from ps_pytorch_tpu_torch.parallel import collectives
+    from ps_pytorch_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+    t_start = time.perf_counter()
+    resnet, _ = init_model(build_model("ResNet18"), torch.Generator().manual_seed(0),
+                           device="cpu")
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    base = ["--dcn-hosts", "2", "--compress-grad", "2round", "--bucket-bytes", "0"]
+    rec = {"card": card, "grid": [2, 4]}
+    for name, steps, flags in (("dequant", 3, base), ("dequant_block128", 3,
+                                                      base + ["--quant-block-size", "128"]),
+                               ("homomorphic", 10, base + ["--wire-domain", "homomorphic"])):
+        cfg = ps_config_from(parser.parse_args(TRAIN_ARGS + flags), WORKERS)
+        want = {k: v * steps for k, v in expected_launches(cfg, resnet).items()}
+        reset_counts()
+        out = _train(steps, flags)
+        torch.cuda.synchronize()
+        got = read_counts()
+        losses = [h["loss"] for h in out["history"]]
+        require(all(np.isfinite(v) for v in losses) and len(losses) == steps,
+                f"hier {name}: losses {losses}")
+        require(OTHER_TREE or got == want, f"hier {name}: launches {got}, expected {want}")
+        r = {"flags": " ".join(flags), "steps": steps, "launches": got, "losses": losses}
+        if steps >= 10 and flat_best is not None:
+            flat = flat_best["losses"]
+            require(losses[0] == flat[0] and all(
+                abs(a - b) <= HIER_LOSS_RTOL * abs(b) for a, b in zip(losses[1:3], flat[1:3])),
+                f"hier {name}: losses {losses[:3]} not within {HIER_LOSS_RTOL} of the flat "
+                f"autotune-best run's {flat[:3]}")
+            r.update({"flat_autotune_best_step_ms_p50": flat_best["step_ms_p50"],
+                      "flat_autotune_best_losses": flat})
+        if steps >= 10:
+            r["step_ms_p50"] = _step_p50(out["history"]) * 1e3
+        rec[name] = r
+    require(OTHER_TREE or rec["homomorphic"]["launches"]["accumulate_rescale_int8"] == 20,
+            "hier homomorphic: K3 not 2 launches a piece a step")
+    # one aggregate of ResNet18-sized gradients on the grid: every K3 launch
+    # held against its plain version, and the bound
+    total = _resnet_total()
+    g = torch.Generator(device=dev).manual_seed(30)
+    scale = (1.0 + 0.05 * torch.arange(WORKERS, device=dev, dtype=torch.float32))[:, None]
+    grads = {"g": torch.randn((WORKERS, total), generator=g, device=dev) * scale * 1e-2}
+    exact = grads["g"].double().mean(0)
+    bound = 3.5 * float(grads["g"].abs().max()) * 1.5 / 127.0
+    seen = []
+    real = collectives.accumulate_rescale_int8
+
+    def spy(recv, divisor):
+        out = real(recv, divisor)
+        seen.append((recv, float(divisor), out))
+        return out
+
+    grid = make_hybrid_mesh(2, WORKERS // 2)
+    errs = {}
+    for domain in ("homomorphic", "dequant"):
+        collectives.accumulate_rescale_int8 = spy
+        try:
+            agg = collectives.aggregate_gradients(grads, grid, WORKERS, compress="int8_2round",
+                                                  wire_domain=domain, bucket_bytes=0,
+                                                  flat_output=True)
+            torch.cuda.synchronize()
+        finally:
+            collectives.accumulate_rescale_int8 = real
+        errs[domain] = float((agg[:total].double() - exact).abs().max())
+        require(errs[domain] <= bound, f"hier {domain}: error {errs[domain]} beyond the bound "
+                                       f"{bound}")
+    require([d for _, d, _ in seen] == [4.0, 2.0], f"hier: K3 divisors {[d for _, d, _ in seen]}")
+    hops = {}
+    for (recv, d, out), hop in zip(seen, ("ici", "dcn")):
+        plain = accumulate_rescale_plain(recv.cpu(), d)
+        require(torch.equal(out.cpu(), plain), f"hier: K3 at the {hop} hop differs from plain")
+        b_ms, b_by = bound_ms(recv.numel() + out.numel(), float(recv.numel()),
+                              PEAK_OPS_PER_S[torch.int8])
+        hops[hop] = {"shape": list(recv.shape), "divisor": d, "max_abs_err": 0.0,
+                     "ms": time_ms(lambda: real(recv, d), iters=50),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    rec.update({"k3_hops": hops, "bound": bound, "max_err_vs_exact_mean": errs,
+                "seconds": time.perf_counter() - t_start})
+    print("phase 30 --dcn-hosts 2 (hierarchical two-round wire) ResNet18 2 x 4: "
+          + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
-                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27; 2 on this tree only; 22 "
+                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30; 2 on this tree only; 22 "
                          "runs 9 first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
@@ -3082,7 +3508,7 @@ def main(argv=None) -> int:
         import ps_pytorch_tpu_torch
 
         print(f"package: {os.path.dirname(os.path.abspath(ps_pytorch_tpu_torch.__file__))}")
-        ran = {}  # phase 9's record, for phase 25's comparison
+        ran = {}  # phases 9's and 12's records, for phases 25's and 30's comparisons
         alone = {2: phase_build,
                  3: lambda: print("phase 3 KV pool write: "
                                   + json.dumps(kv_pool_write_case(dev))),
@@ -3094,7 +3520,7 @@ def main(argv=None) -> int:
                                   + json.dumps({"round1": wire_step_case(dev, 128),
                                                 "round2": round2_step_case(dev)})),
                  9: lambda: ran.setdefault(9, phase_train(smi)),
-                 12: lambda: phase_train_wires(smi),
+                 12: lambda: ran.setdefault(12, phase_train_wires(smi)),
                  "12b": lambda: phase_checkpoint(smi),
                  14: lambda: phase_flash_train_kernels(dev),
                  18: lambda: phase_vgg(smi),
@@ -3106,7 +3532,11 @@ def main(argv=None) -> int:
                  24: lambda: (procs(True), phase_split(dev)),
                  25: lambda: phase_data(smi, ran[9]["step_ms_p50"] if 9 in ran else None),
                  26: lambda: phase_adaptive(smi, dev),
-                 27: lambda: phase_stochastic(smi, dev)}
+                 27: lambda: phase_stochastic(smi, dev),
+                 28: lambda: phase_reshape(smi),
+                 29: lambda: phase_overlap(smi, dev),
+                 30: lambda: phase_hier(smi, dev, ran[12]["autotune_best"]
+                                        if 12 in ran else None)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -3145,6 +3575,9 @@ def main(argv=None) -> int:
     data = phase_data(smi, train["step_ms_p50"])
     adapt = phase_adaptive(smi, dev)
     stoch = phase_stochastic(smi, dev)
+    phase_reshape(smi)
+    overlap = phase_overlap(smi, dev)
+    hier = phase_hier(smi, dev, wires["autotune_best"])
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -3219,6 +3652,11 @@ def main(argv=None) -> int:
             "launches_adaptive": adapt["launches"]["quantize_rows_scaled_many"],
             "launches_stochastic": {k: stoch[k]["launches"]["quantize_rows_scaled_many"]
                                     for k in ("int8", "2round")},
+            # phase 29's block-128 run at 4 MiB buckets (one call a bucket a
+            # step), phase 30's hierarchical block-128 dequant run
+            "launches_pipelined": overlap["block128"]["launches_pipelined"][
+                "quantize_rows_scaled_many"],
+            "launches_hier": hier["dequant_block128"]["launches"]["quantize_rows_scaled_many"],
             "max_abs_err": max(k1s["max_abs_err"], k1s["resnet18_step"]["max_abs_err"]),
             "ms": k1s["resnet18_step"]["ms"], "plain_ms": k1s["resnet18_step"]["plain_ms"],
             "bound_ms": k1s["resnet18_step"]["bound_ms"],
@@ -3239,6 +3677,9 @@ def main(argv=None) -> int:
             "launches_adaptive": adapt["launches"]["quantize_tensors"],
             "launches_stochastic": {k: stoch[k]["launches"]["quantize_tensors"]
                                     for k in ("int8", "2round")},
+            # phase 29's last pipelined int8 run, phase 30's hierarchical dequant run
+            "launches_pipelined": overlap["int8"]["launches_pipelined"]["quantize_tensors"],
+            "launches_hier": hier["dequant"]["launches"]["quantize_tensors"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],
@@ -3251,6 +3692,11 @@ def main(argv=None) -> int:
             "launches": wires["autotune_best"]["launches"]["accumulate_rescale_int8"],
             # phase 26: one a bucket a step, dividing by the device count
             "launches_adaptive": adapt["launches"]["accumulate_rescale_int8"],
+            # phase 29's pipelined homomorphic run (one a bucket a step),
+            # phase 30's hierarchical homomorphic run (two a piece a step)
+            "launches_pipelined": overlap["2round_homomorphic"]["launches_pipelined"][
+                "accumulate_rescale_int8"],
+            "launches_hier": hier["homomorphic"]["launches"]["accumulate_rescale_int8"],
             "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
             "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
             "bound_ms": k3["resnet18_fused"]["bound_ms"],

@@ -22,17 +22,20 @@ module carries that geometry:
   (``bucket_bytes=None``, the default ``--bucket-bytes -1``) ships the
   leaves; the bucketed wires (``0`` = one fused buffer, ``N`` = ~N-byte
   buckets) ship the buckets of each worker's flattened, padded tree;
-- ``_np_tree_to_flat``: the host-side pack; with it, ``FlatVector``'s
-  checkpoint handlers, which store it as its tree (buckets.py:364-404).
-
-The pipelined order (``--overlap on``) raises ``NotImplementedError``
-until its slice (ROADMAP.md queue 1 item 13).
+- ``bucket_leaf_segments`` / ``assemble_bucket`` / ``leaves_from_buckets``
+  / ``readiness_bucket_order``: the pipelined wire's per-bucket dataflow
+  (``--overlap on``): a bucket built from its own leaves alone, the tree
+  rebuilt leaf by leaf from the buckets its bytes live in, and the order
+  buckets become ready in a backward;
+- ``_np_tree_to_flat`` / ``_np_flat_to_tree``: the host-side pack and
+  unpack; with them, ``FlatVector``'s checkpoint handlers, which store it
+  as its tree (buckets.py:364-404).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -204,6 +207,97 @@ def concat_buckets(buckets) -> torch.Tensor:
     return torch.cat(list(buckets), dim=-1)
 
 
+def bucket_leaf_segments(layout: TreeLayout, plan: BucketPlan):
+    """The leaf fragments of each bucket (buckets.py:179): one tuple per
+    bucket of ``(leaf_index, leaf_offset, length)`` in flat order, with
+    ``leaf_index`` None for the zero padding tail."""
+    leaf_spans = []
+    for i, (shape, off) in enumerate(zip(layout.shapes, layout.offsets)):
+        n = int(np.prod(shape, dtype=np.int64))
+        if n:
+            leaf_spans.append((off, off + n, i))
+    out, li = [], 0
+    for start, size in zip(plan.starts, plan.sizes):
+        end, cur, frags = start + size, start, []
+        while li < len(leaf_spans) and leaf_spans[li][1] <= cur:
+            li += 1
+        j = li
+        while j < len(leaf_spans) and leaf_spans[j][0] < end:
+            l0, l1, idx = leaf_spans[j]
+            s, e = max(cur, l0), min(end, l1)
+            if s < e:
+                frags.append((idx, s - l0, e - s))
+                cur = e
+            j += 1
+        if cur < end:
+            frags.append((None, 0, end - cur))
+        out.append(tuple(frags))
+    return tuple(out)
+
+
+def assemble_bucket(leaves, segments, stacked: bool = False) -> torch.Tensor:
+    """One contiguous f32 bucket from its own leaf fragments
+    (buckets.py:221): the values of the slice of the padded concat, from
+    this bucket's leaves alone. ``stacked``: the leaves are worker-stacked
+    ``[N, *shape]`` and the bucket is ``[N, size]``."""
+    # a leaf of this bucket (the others may not exist yet) gives the
+    # worker dimension and the device
+    ref = next((leaves[idx] for idx, _, _ in segments if idx is not None),
+               leaves[0] if leaves else None)
+    lead = (int(ref.shape[0]),) if stacked and ref is not None else ()
+    parts = []
+    for idx, off, n in segments:
+        if idx is None:
+            dev = ref.device if ref is not None else None
+            parts.append(torch.zeros(lead + (n,), dtype=torch.float32, device=dev))
+            continue
+        leaf = leaves[idx].float().reshape(lead + (-1,))
+        parts.append(leaf if off == 0 and n == leaf.shape[-1] else leaf[..., off:off + n])
+    if not parts:
+        return torch.zeros(lead + (0,), dtype=torch.float32)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def leaves_from_buckets(layout: TreeLayout, plan: BucketPlan, outs):
+    """The tree from per-bucket results in canonical order (buckets.py:241),
+    each leaf from the buckets its bytes live in. Leading dimensions of
+    the results (a worker-stacked ``[N, size]``) lead every leaf."""
+    lead = tuple(outs[0].shape[:-1]) if outs else ()
+    leaves = []
+    for shape, dtype, off in zip(layout.shapes, layout.dtypes, layout.offsets):
+        n = int(np.prod(shape, dtype=np.int64))
+        parts = []
+        for b, (bs, sz) in enumerate(zip(plan.starts, plan.sizes)):
+            s, e = max(off, bs), min(off + n, bs + sz)
+            if s < e:
+                piece = outs[b]
+                parts.append(piece if (s, e) == (bs, bs + sz) else piece[..., s - bs:e - bs])
+        if not parts:
+            flat = torch.zeros(lead + (0,), dtype=torch.float32)
+        else:
+            flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        leaf = flat.reshape(lead + tuple(shape))
+        leaves.append(leaf if dtype == leaf.dtype else leaf.to(dtype))
+    return tree_unflatten(layout.treedef, leaves)
+
+
+def readiness_bucket_order(plan: BucketPlan, layout: Optional[TreeLayout] = None,
+                           leaf_rank=None) -> Tuple[int, ...]:
+    """The pipelined wire's bucket order (buckets.py:277): the bucket whose
+    last-ready leaf is produced earliest goes first. ``leaf_rank[i]`` is
+    leaf i's production rank in the backward (``parallel.overlap.
+    grad_leaf_readiness`` measures it); without one, reverse bucket
+    enumeration (the last-built layers' gradients come first)."""
+    if layout is None or leaf_rank is None:
+        return tuple(reversed(range(plan.n_buckets)))
+    n_leaves = len(layout.shapes)
+    ready = []
+    for b, frags in enumerate(bucket_leaf_segments(layout, plan)):
+        ranks = [leaf_rank[idx] for idx, _, _ in frags if idx is not None and idx < n_leaves]
+        ready.append((max(ranks) if ranks else -1, b))
+    return tuple(b for _, b in sorted(ready))
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatVector:
     """One param-shaped quantity stored flat: the padded f32 vector
@@ -229,6 +323,17 @@ def tree_view(params):
     if isinstance(params, FlatVector):
         return params.tree()
     return params
+
+
+def _np_flat_to_tree(layout: TreeLayout, flat):
+    """Host-side ``flat_to_tree``: CPU tensor leaves (copies, in the
+    layout's dtypes) of a numpy flat vector; the pad tail is dropped."""
+    flat = torch.from_numpy(np.array(flat, np.float32))
+    leaves = []
+    for shape, dtype, off in zip(layout.shapes, layout.dtypes, layout.offsets):
+        n = int(np.prod(shape, dtype=np.int64))
+        leaves.append(flat[off:off + n].reshape(shape).to(dtype))
+    return tree_unflatten(layout.treedef, leaves)
 
 
 def _np_tree_to_flat(layout: TreeLayout, plan: BucketPlan, tree) -> np.ndarray:
@@ -287,12 +392,12 @@ def piece_stream(tree, bucket_bytes, align: int = 1, flat_output: bool = False,
       error-feedback contribution) rebuild worker-stacked. The pieces are
       the same for every rebuild.
 
-    ``pipelined=True`` (readiness order, per-bucket assembly) is not
-    ported yet and raises."""
-    if pipelined:
-        raise NotImplementedError(
-            "the pipelined piece order (--overlap on) is not ported yet "
-            "(ROADMAP.md queue 1 item 13)")
+    ``pipelined=True`` (bucketed wires) keeps the plan, the bytes of
+    every bucket and its key id, and changes the dataflow: each bucket is
+    assembled from its own leaves (``assemble_bucket``), the pieces come
+    in ``readiness_bucket_order``, and the tree is rebuilt leaf by leaf
+    (``leaves_from_buckets``); ``rebuild`` takes the results in the
+    pieces' order. Its values are the serial stream's, bit for bit."""
     if bucket_output and bucket_bytes is None:
         raise ValueError("bucket_output needs a bucketed wire "
                          "(bucket_bytes is None = per-leaf)")
@@ -310,6 +415,22 @@ def piece_stream(tree, bucket_bytes, align: int = 1, flat_output: bool = False,
         return leaves, key_ids, rebuild
     layout = tree_layout(tree, stacked=True)
     plan = plan_buckets(layout.total, bucket_bytes, align=align)
+    if pipelined:
+        order = readiness_bucket_order(plan)
+        segs = bucket_leaf_segments(layout, plan)
+        pieces = [assemble_bucket(leaves, segs[b], stacked=True) for b in order]
+
+        def rebuild(outs):
+            canon = [None] * plan.n_buckets
+            for b, o in zip(order, outs):
+                canon[b] = o
+            if bucket_output:
+                return canon
+            if flat_output:
+                return concat_buckets(canon)
+            return leaves_from_buckets(layout, plan, canon)
+
+        return pieces, tuple(plan.starts[b] for b in order), rebuild
     pieces = split_buckets(pad_flat(tree_to_flat(tree, stacked=True), plan), plan)
     if bucket_output:
         rebuild = list

@@ -1,5 +1,5 @@
 """Gradient aggregation on the stacked worker backend (the port of
-parallel/collectives.py: the flat wires, serial schedule).
+parallel/collectives.py).
 
 Every per-worker gradient leaf is worker-stacked ``[N, *shape]``; an
 aggregate comes back once, without the worker dimension (the replicated
@@ -64,8 +64,19 @@ collectives cross the processes (its docstring has the dtype and order
 rules); the quantize stage then takes the split route
 (``quantize_int8_many``).
 
-Not ported yet, and refused with a pointer to ROADMAP.md: the
-hierarchical wire (a tuple axis) and the pipelined order.
+The pipelined schedule (``pipelined=True``, a bucketed wire) has one
+implementation, ``_bucket_reduce``: one bucket's whole wire a call,
+under a profiler range named ``bucket_reduce_o<start>`` as JAX's named
+scope is, so each kernel stage takes one bucket a call. ``bucket_wire``
+puts the step's mask in front of it for the PS step, which calls it as
+each bucket's gradients exist (``ps._BucketStream``); ``_pipelined``
+drives it over a whole tree in readiness order for the wires'
+``pipelined=`` keyword. The values are the serial wire's, bit for bit.
+
+The hierarchical DCN x ICI wire (``quantized_allreduce_2round_hier``)
+runs on the hybrid grid ``mesh.HybridWorkerAxis`` (JAX's tuple axis):
+``aggregate_gradients`` routes ``int8_2round`` there, and every other
+wire reduces over the grid as over the flat axis.
 """
 
 from __future__ import annotations
@@ -91,10 +102,7 @@ from ..ops.quantize import (
     quantize_tensors,
 )
 from .buckets import piece_stream, tree_flatten, tree_unflatten
-from .mesh import ProcessWorkerAxis, WorkerAxis
-
-_ROADMAP = "is not ported yet (ROADMAP.md queue 1"
-
+from .mesh import HybridWorkerAxis, ProcessWorkerAxis, WorkerAxis
 
 def reciprocal(denominator: float) -> float:
     """The f32 constant XLA multiplies by where the JAX code divides by
@@ -104,11 +112,9 @@ def reciprocal(denominator: float) -> float:
 
 def _check_axis(axis) -> None:
     if not isinstance(axis, (WorkerAxis, ProcessWorkerAxis)):
-        raise NotImplementedError(
-            f"axis {axis!r}: the stacked WorkerAxis and the process-spanning "
-            f"ProcessWorkerAxis are ported; tuple axes (the hierarchical DCN x ICI "
-            f"wire) {_ROADMAP} item 14)"
-        )
+        raise TypeError(
+            f"axis {axis!r}: a worker axis is a mesh.WorkerAxis, a ProcessWorkerAxis, or "
+            f"the hybrid DCN x ICI grid (mesh.make_hybrid_mesh: JAX's tuple axis)")
 
 
 # draws(piece_id, round, shape) -> f32 U[0, 1) [N, *shape]
@@ -244,30 +250,54 @@ def aggregation_mask(
     raise ValueError(f"unknown aggregation mode {mode!r}")
 
 
+def _bucket_scope(key_id):
+    """One bucket's reduce chain under a profiler range named as JAX's
+    named scope is (``bucket_reduce_o<start offset>``, collectives.py:123),
+    so a trace shows each bucket of the pipelined wire."""
+    return torch.profiler.record_function(f"bucket_reduce_o{int(key_id)}")
+
+
+def _psum_pieces(pieces, axis, denominator):
+    """The uncompressed wire: the f32 sum / K; the transmitted value is
+    the piece itself."""
+    return [_divide(axis.psum(g), denominator) for g in pieces], list(pieces)
+
+
 def psum_mean(tree, axis: WorkerAxis, denominator,
-              bucket_bytes: Optional[int] = None, flat_output: bool = False):
+              bucket_bytes: Optional[int] = None, flat_output: bool = False,
+              pipelined: bool = False):
     """Sum over workers / denominator, per piece (parity: _model_update
     divides the aggregate buffer by num_aggregate). ``flat_output``
-    returns the padded flat vector instead of the tree."""
+    returns the padded flat vector instead of the tree; ``pipelined``
+    reduces the buckets one by one in readiness order (``_pipelined``:
+    the same values)."""
     _check_axis(axis)
+    if pipelined and bucket_bytes is not None:
+        return _pipelined(tree, bucket_bytes, 1, flat_output, False, lambda starts, _: (
+            _bucket_reduce(axis, axis.size, starts, denominator)))
     pieces, _, rebuild = piece_stream(tree, bucket_bytes, flat_output=flat_output)
-    return rebuild([_divide(axis.psum(g), denominator) for g in pieces])
+    return rebuild(_psum_pieces(pieces, axis, denominator)[0])
 
 
 def _quantize_pieces(pieces, key_ids, axis, block_size: int, rounding: str, draws,
-                     bucket_peaks, hi_peak: int, out_dtype: torch.dtype):
+                     bucket_peaks, hi_peak: int, out_dtype: torch.dtype, ordinal=None,
+                     round_: int = 0, rows=None):
     """Every piece's shared-scale quantize ``(q, scale, absmax)``: the
     static nearest wire in ONE multi-tensor kernel call (K2 per tensor,
-    K1's shared-scale entry per block); stochastic rounding (round 1's
-    draws, fold 0) and each bucket's lattice piece by piece in plain
+    K1's shared-scale entry per block); stochastic rounding (the draws of
+    ``round_``) and each bucket's lattice piece by piece in plain
     PyTorch, as JAX's jnp route. A lattice's absmax is None: its scale is
     a quotient, nothing folds into it. ``pieces`` are f32
-    worker-stacked."""
+    worker-stacked; ``ordinal`` maps a key id to its canonical bucket
+    (default: the rank among ``key_ids``). On the hierarchical grid a
+    piece may be one group of workers (its scales shared over ``axis``,
+    that group's axis): ``rows[j]`` selects piece j's rows of the draws."""
     if rounding == "nearest" and bucket_peaks is None:
         return quantize_int8_many(pieces, axis, block_size)
-    ordinal = None if bucket_peaks is None else _bucket_ordinal(key_ids)
+    if ordinal is None and bucket_peaks is not None:
+        ordinal = _bucket_ordinal(key_ids)
     out = []
-    for i, g in zip(key_ids, pieces):
+    for j, (i, g) in enumerate(zip(key_ids, pieces)):
         peak = _resolve_peak(bucket_peaks, ordinal, i)
         if peak is not None:
             q, scale = quantize_lattice(g, peak, axis_name=axis, block_size=block_size,
@@ -276,10 +306,40 @@ def _quantize_pieces(pieces, key_ids, axis, block_size: int, rounding: str, draw
             continue
         n = int(np.prod(g.shape[1:], dtype=np.int64))
         shape = (-(-n // block_size), block_size) if block_size else tuple(g.shape[1:])
+        u = _uniform(draws, axis, i, round_, shape, g.device)
         out.append(quantize_int8(g, axis_name=axis, block_size=block_size, rounding=rounding,
-                                 uniform=_uniform(draws, axis, i, 0, shape, g.device),
+                                 uniform=u if u is None or rows is None else u[rows[j]],
                                  return_absmax=True))
     return out
+
+
+def _qpsum_pieces(pieces, key_ids, axis, denominator, block_size: int, rounding: str, draws,
+                  wire_domain: str, num_workers, bucket_peaks, lattice_hi_peak: int,
+                  ordinal=None, want_contrib: bool = True):
+    """``quantized_psum``'s wire over ``pieces``: ``(aggregates, each
+    worker's dequantized payload, or [] without want_contrib)``."""
+    homomorphic = wire_domain == "homomorphic"
+    payload = (accum_dtype(num_workers) if homomorphic
+               else _lattice_payload_dtype(lattice_hi_peak))
+    outs, contribs = [], []
+    quantized = _quantize_pieces([g.float() for g in pieces], key_ids, axis, block_size,
+                                 rounding, draws, bucket_peaks, lattice_hi_peak, payload,
+                                 ordinal)
+    for g, (q, scale, absmax) in zip(pieces, quantized):
+        shape = tuple(g.shape[1:])
+        if homomorphic:
+            s = axis.psum(q.to(accum_dtype(num_workers)))
+            outs.append(dequantize_int8(
+                s, _hom_scale(scale, absmax, denominator, bucket_peaks is not None),
+                block_size=block_size, shape=shape))
+        else:
+            s = axis.psum(q.to(torch.int32))
+            outs.append(_divide(dequantize_int8(s, scale, block_size=block_size, shape=shape),
+                                denominator))
+        if want_contrib:
+            contribs.append(dequantize_int8(q.to(torch.int32), scale, block_size=block_size,
+                                            shape=shape))
+    return outs, contribs
 
 
 def quantized_psum(
@@ -296,6 +356,7 @@ def quantized_psum(
     return_contribution: bool = False,
     bucket_peaks=None,
     lattice_hi_peak: int = _INT8_PEAK,
+    pipelined: bool = False,
 ):
     """int8-quantized gradient all-reduce, per piece: shared absmax (the
     pmax) -> int8 quantize -> exact integer psum -> dequantize /
@@ -314,6 +375,9 @@ def quantized_psum(
     (round 0, the piece's key id); ``bucket_peaks`` quantizes each
     bucket onto its lattice, into ``accum_dtype`` on the homomorphic
     wire and the HI peak's payload dtype on the dequant one.
+    ``pipelined`` (a bucketed wire) quantizes and reduces one bucket a
+    call, in readiness order (``_pipelined``): one kernel call a bucket,
+    the same values.
 
     ``return_contribution`` also returns each worker's dequantized
     payload (worker-stacked, tree-shaped): the value
@@ -322,32 +386,24 @@ def quantized_psum(
     _check_axis(axis)
     _check_adaptive(bucket_peaks, rounding, wire_domain)
     _check_rounding(rounding, draws)
-    homomorphic = wire_domain == "homomorphic"
-    if homomorphic and num_workers is None:
+    if wire_domain == "homomorphic" and num_workers is None:
         raise ValueError("homomorphic quantized_psum needs num_workers (it sizes "
                          "the exact accumulator dtype)")
     align = block_size or 1
+    if pipelined and bucket_bytes is not None:
+        return _pipelined(tree, bucket_bytes, align, flat_output, return_contribution,
+                          lambda starts, _: _bucket_reduce(
+                              axis, num_workers, starts, denominator, compress="int8",
+                              block_size=block_size, rounding=rounding, draws=draws,
+                              wire_domain=wire_domain, bucket_peaks=bucket_peaks,
+                              lattice_hi_peak=lattice_hi_peak,
+                              want_contrib=return_contribution))
     pieces, key_ids, rebuild = piece_stream(tree, bucket_bytes, align=align,
                                             flat_output=flat_output)
-    payload = (accum_dtype(num_workers) if homomorphic
-               else _lattice_payload_dtype(lattice_hi_peak))
-    outs, contribs = [], []
-    quantized = _quantize_pieces([g.float() for g in pieces], key_ids, axis, block_size,
-                                 rounding, draws, bucket_peaks, lattice_hi_peak, payload)
-    for g, (q, scale, absmax) in zip(pieces, quantized):
-        shape = tuple(g.shape[1:])
-        if homomorphic:
-            s = axis.psum(q.to(accum_dtype(num_workers)))
-            outs.append(dequantize_int8(
-                s, _hom_scale(scale, absmax, denominator, bucket_peaks is not None),
-                block_size=block_size, shape=shape))
-        else:
-            s = axis.psum(q.to(torch.int32))
-            outs.append(_divide(dequantize_int8(s, scale, block_size=block_size, shape=shape),
-                                denominator))
-        if return_contribution:
-            contribs.append(dequantize_int8(q.to(torch.int32), scale,
-                                            block_size=block_size, shape=shape))
+    ordinal = None if bucket_peaks is None else _bucket_ordinal(key_ids)
+    outs, contribs = _qpsum_pieces(pieces, key_ids, axis, denominator, block_size, rounding,
+                                   draws, wire_domain, num_workers, bucket_peaks,
+                                   lattice_hi_peak, ordinal, return_contribution)
     agg = rebuild(outs)
     if not return_contribution:
         return agg
@@ -387,7 +443,8 @@ def _deq_shared(full: torch.Tensor, scale, gain: float, block_size: int) -> torc
     return full.float() * (scale * gain)
 
 
-def _requantize_regions(partials, key_ids, axis, block_size: int, rounding: str, draws):
+def _requantize_regions(partials, key_ids, axis, block_size: int, rounding: str, draws,
+                        round_: int = 1):
     """Round 2's requantize of every local region of every piece with
     LOCAL scales (no cross-worker agreement: the regions are disjoint).
     Per tensor: ``[(q [s], scale, absmax)]`` for each piece's local
@@ -406,7 +463,7 @@ def _requantize_regions(partials, key_ids, axis, block_size: int, rounding: str,
     for i, partial in zip(key_ids, partials):
         s = partial.shape[1]
         shape = (s // block_size, block_size) if block_size else (s,)
-        u = _uniform(draws, axis, i, 1, shape, partial.device)
+        u = _uniform(draws, axis, i, round_, shape, partial.device)
         # every local region at once: its own absmax (per block row)
         xb = partial.reshape((-1,) + shape)
         absmax = xb.abs().amax(-1, keepdim=True)
@@ -421,12 +478,13 @@ def _requantize_regions(partials, key_ids, axis, block_size: int, rounding: str,
 
 
 def _q2r_gather_stage(partials, axis: WorkerAxis, n: int, block_size: int, key_ids=None,
-                      rounding: str = "nearest", draws: Optional[UniformDraws] = None):
+                      rounding: str = "nearest", draws: Optional[UniformDraws] = None,
+                      round_: int = 1):
     """Round 2 (collectives.py:383) for every piece: requantize each
     region's partial sum with LOCAL scales (``_requantize_regions``) and
     all_gather int8 plus the scale rows -> each piece's dequantized full
     ``[n*s]``."""
-    regions = _requantize_regions(partials, key_ids, axis, block_size, rounding, draws)
+    regions = _requantize_regions(partials, key_ids, axis, block_size, rounding, draws, round_)
     if block_size:
         outs = []
         for partial, (q2, scale2) in zip(partials, regions):
@@ -458,6 +516,7 @@ def quantized_allreduce_2round(
     wire_domain: str = "dequant",
     return_contribution: bool = False,
     bucket_peaks=None,
+    pipelined: bool = False,
 ):
     """The two-round int8 all-reduce whose wire carries int8
     (collectives.py:405). Each piece is flattened and padded to ``[n,
@@ -488,6 +547,10 @@ def quantized_allreduce_2round(
     that concatenation: one K3 launch per piece (once per step at
     ``bucket_bytes=0``).
 
+    ``pipelined`` (a bucketed wire) runs both rounds one bucket a call,
+    in readiness order (``_pipelined``): each kernel stage launches once a
+    bucket.
+
     ``return_contribution`` also returns each worker's round-1 round
     trip, worker-stacked and tree-shaped (the EF contribution mirrors
     round 1 only; round 2's noise is not residual-tracked, as in JAX):
@@ -499,10 +562,30 @@ def quantized_allreduce_2round(
     _check_rounding(rounding, draws)
     if axis.size != num_workers:
         raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
-    n = num_workers
     align = block_size or 1
+    if pipelined and bucket_bytes is not None:
+        return _pipelined(tree, bucket_bytes, align, flat_output, return_contribution,
+                          lambda starts, _: _bucket_reduce(
+                              axis, num_workers, starts, denominator, compress="int8_2round",
+                              block_size=block_size, rounding=rounding, draws=draws,
+                              wire_domain=wire_domain, bucket_peaks=bucket_peaks,
+                              want_contrib=return_contribution))
     pieces, key_ids, rebuild = piece_stream(tree, bucket_bytes, align=align,
                                             flat_output=flat_output)
+    ordinal = None if bucket_peaks is None else _bucket_ordinal(key_ids)
+    outs, contribs = _q2r_pieces(pieces, key_ids, axis, denominator, num_workers, block_size,
+                                 rounding, draws, wire_domain, bucket_peaks, ordinal,
+                                 return_contribution)
+    agg = rebuild(outs)
+    if not return_contribution:
+        return agg
+    return agg, piece_stream(tree, bucket_bytes, align=align)[2](contribs)
+
+
+def _q2r_pieces(pieces, key_ids, axis, denominator, n: int, block_size: int, rounding: str,
+                draws, wire_domain: str, bucket_peaks, ordinal, want_contrib: bool):
+    """The two-round wire over ``pieces``: ``(aggregates, each worker's
+    round-1 round trip or [])``."""
     shapes = [tuple(g.shape[1:]) for g in pieces]
     totals = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
     slices = [_slice_len(total, n, block_size) for total in totals]
@@ -511,7 +594,7 @@ def quantized_allreduce_2round(
               for g, total, s in zip(pieces, totals, slices)]
     # every piece, one call on the static nearest wire
     round1 = _quantize_pieces(padded, key_ids, axis, block_size, rounding, draws,
-                              bucket_peaks, _INT8_PEAK, torch.int8)
+                              bucket_peaks, _INT8_PEAK, torch.int8, ordinal)
     if wire_domain == "homomorphic":
         # the all_to_all hands this process's workers the [N, s] rows of
         # their regions; K3 over them side by side ([N, n_loc*s]) computes
@@ -530,15 +613,194 @@ def quantized_allreduce_2round(
         deqs = [_divide(deq, denominator) for deq in _q2r_gather_stage(
             partials, axis, n, block_size, key_ids, rounding, draws)]
     outs = [deq[:total].reshape(shape) for deq, total, shape in zip(deqs, totals, shapes)]
-    agg = rebuild(outs)
-    if not return_contribution:
-        return agg
     contribs = []
-    for (q1, scale1, _), total, shape, s in zip(round1, totals, shapes, slices):
+    for (q1, scale1, _), total, shape, s in zip(round1 if want_contrib else (), totals, shapes,
+                                                slices):
         qc = q1.reshape((nl, -1, block_size) if block_size else (nl, n * s))
         c = dequantize_int8(qc.to(torch.int32), scale1, block_size=block_size,
                             shape=(n * s,))
         contribs.append(c[:, :total].reshape((nl,) + shape))
+    return outs, contribs
+
+
+def _grid_scale(q, scale, block_size: int, groups: int, per: int, s: int) -> torch.Tensor:
+    """Each group's region sums dequantized with its own rows of its
+    group's shared scales: ``q`` int32 ``[groups, per(region), s]``,
+    ``scale`` the groups' scales stacked (``[groups]``, or ``[groups,
+    per*s/bs, 1]``) -> f32 ``[groups, per, s]``."""
+    if block_size:
+        nb = s // block_size
+        return (q.reshape(groups, per, nb, block_size).float()
+                * scale.reshape(groups, per, nb, 1)).reshape(groups, per, s)
+    return q.float() * scale.reshape(groups, 1, 1)
+
+
+def _hier_gain_scale(scale, absmax, gain_num: int, denominator, lattice: bool):
+    """The hierarchical homomorphic wire's deferred scale ``scale * gain``
+    with ``gain = (per_host * hosts) / denominator`` (collectives.py:603),
+    as XLA runs it: a traced count is a quotient; a static gain of 1 drops
+    out; any other static gain folds with the int8 scale's own ``1/127``
+    into one f32 constant (``absmax * f32(f32(1/127) * f32(gain))``), and
+    multiplies a lattice scale (itself a quotient) as it is."""
+    if isinstance(denominator, torch.Tensor):
+        return scale * (torch.full_like(denominator, float(gain_num)) / denominator)
+    gain = float(np.float32(gain_num / float(denominator)))
+    if gain == 1.0:
+        return scale
+    if lattice:
+        return scale * gain
+    return absmax * float(np.float32(RECIP_127) * np.float32(gain))
+
+
+def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: str, draws,
+                 wire_domain: str, bucket_peaks, ordinal, want_contrib: bool):
+    """``quantized_allreduce_2round_hier`` over ``pieces`` on the stacked
+    grid: ``(aggregates, each worker's round-1 round trip or [])``.
+
+    Stacked launch shapes: an all_to_all is a permuted copy of the grid's
+    rows (``[hosts, per_host, ...]``, worker ``h * per_host + c``), so one
+    K3 launch covers every region of a hop: two launches a piece on the
+    homomorphic wire, one at the ICI hop (divisor per_host) and one at
+    the DCN hop (divisor hosts)."""
+    hh, pp = grid.hosts, grid.per_host
+    n = hh * pp
+    bs = block_size
+    homomorphic = wire_domain == "homomorphic"
+    shapes = [tuple(g.shape[1:]) for g in pieces]
+    totals = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
+    s1s = [_slice_len(total, pp, bs) for total in totals]
+    xs = [torch.nn.functional.pad(g.float().reshape(n, total), (0, pp * s1 - total))
+          for g, total, s1 in zip(pieces, totals, s1s)]
+    outs, contribs = [], []
+    if homomorphic:
+        # round 1 on ONE lattice: the scales shared over both axes
+        round1 = _quantize_pieces(xs, key_ids, grid, bs, rounding, draws, bucket_peaks,
+                                  _INT8_PEAK, torch.int8, ordinal)
+        for (q1, scale1, absmax), total, shape, s1 in zip(round1, totals, shapes, s1s):
+            s2 = _slice_len(s1, hh, bs)
+            q1 = q1.reshape(hh, pp, pp, s1)  # [h, j(sender), c(region), s1]
+            # ICI hop: worker (h, c) sums its region over j, rescaled / per_host
+            q_mid = accumulate_rescale_int8(
+                q1.permute(1, 0, 2, 3).reshape(pp, n * s1), float(pp)).reshape(n, s1)
+            q_mid = torch.nn.functional.pad(q_mid, (0, hh * s2 - s1))
+            # DCN hop: worker (h, c) sums chunk h over the hosts h', rescaled / hosts
+            q2 = accumulate_rescale_int8(
+                q_mid.reshape(hh, pp, hh, s2).permute(0, 2, 1, 3).reshape(hh, n * s2),
+                float(hh)).reshape(hh, pp, s2)
+            # int8 gathers: over DCN (the region), then over ICI (the piece)
+            full = q2.permute(1, 0, 2).reshape(pp, hh * s2)[:, :s1].reshape(-1)
+            scale = _hier_gain_scale(scale1, absmax, n, denominator, bucket_peaks is not None)
+            outs.append(_deq_shared(full, scale, 1.0, bs)[:total].reshape(shape))
+            if want_contrib:
+                qc = q1.reshape((n, -1, bs) if bs else (n, pp * s1))
+                c = dequantize_int8(qc.to(torch.int32), scale1, block_size=bs,
+                                    shape=(pp * s1,))
+                contribs.append(c[:, :total].reshape((n,) + shape))
+        return outs, contribs
+    ici, dcn = grid.ici, grid.dcn
+    # round 1 over ICI: each host's workers share scales
+    host_rows = [slice(h * pp, (h + 1) * pp) for h in range(hh)]
+    round1 = _quantize_pieces([x[r] for x in xs for r in host_rows],
+                              [i for i in key_ids for _ in host_rows], ici, bs, rounding, draws,
+                              bucket_peaks, _INT8_PEAK, torch.int8, ordinal,
+                              rows=host_rows * len(xs))
+    partials2 = []
+    for j, (total, shape, s1) in enumerate(zip(totals, shapes, s1s)):
+        r1 = round1[j * hh:(j + 1) * hh]
+        q1 = torch.stack([q.reshape(pp, pp * s1) for q, _, _ in r1])  # [h, j, c*s1]
+        scale1 = torch.stack([sc for _, sc, _ in r1])
+        part = q1.reshape(hh, pp, pp, s1).to(torch.int32).sum(1, dtype=torch.int32)
+        partial = _grid_scale(part, scale1, bs, hh, pp, s1).reshape(n, s1)
+        if want_contrib:
+            c = torch.cat([dequantize_int8(q.to(torch.int32), sc, block_size=bs,
+                                           shape=(pp * s1,)) for q, sc, _ in r1])
+            contribs.append(c[:, :total].reshape((n,) + shape))
+        s2 = _slice_len(s1, hh, bs)
+        partials2.append((torch.nn.functional.pad(partial, (0, hh * s2 - s1)), s1, s2))
+    # the DCN hop's round 1: the same ICI index on every host shares scales
+    col_rows = [torch.arange(c, n, pp) for c in range(pp)]
+    dcn_in = [p2.reshape(hh, pp, -1)[:, c].contiguous() for p2, _, _ in partials2
+              for c in range(pp)]
+    round_d = _quantize_pieces(dcn_in, [i for i in key_ids for _ in range(pp)], dcn, bs,
+                               rounding, draws, None, _INT8_PEAK, torch.int8, round_=2,
+                               rows=col_rows * len(xs))
+    regions = []
+    for j, (_, s1, s2) in enumerate(partials2):
+        rd = round_d[j * pp:(j + 1) * pp]
+        qd = torch.stack([q.reshape(hh, hh, s2) for q, _, _ in rd])  # [c, h', h(region), s2]
+        sums = qd.to(torch.int32).sum(1, dtype=torch.int32)  # [c, h, s2]
+        scale_d = torch.stack([sc for _, sc, _ in rd])
+        regions.append(_grid_scale(sums, scale_d, bs, pp, hh, s2)  # [c, h, s2]
+                       .permute(1, 0, 2).reshape(n, s2))
+    # the DCN hop's round 2 (local scales, fold 2 then 1: round 3) and its gather
+    fulls = _q2r_local_gather(regions, key_ids, grid, bs, rounding, draws)
+    for full, total, shape, s1, (_, _, s2) in zip(fulls, totals, shapes, s1s, partials2):
+        region = full.reshape(hh, pp, s2).permute(1, 0, 2).reshape(pp, hh * s2)[:, :s1]
+        # the ICI reassembly gather (f32) of the regions, then / K
+        outs.append(_divide(region.reshape(-1)[:total], denominator).reshape(shape))
+    return outs, contribs
+
+
+def _q2r_local_gather(regions, key_ids, axis, block_size: int, rounding: str, draws):
+    """Every worker's region ``[N, s]`` requantized with its own scales
+    (round 3 of the draws) and dequantized: the values an all_gather of
+    the int8 regions and their scale rows carries."""
+    req = _requantize_regions(regions, key_ids, axis, block_size, rounding, draws, round_=3)
+    if block_size:
+        return [(q2.float() * scale2).reshape(r.shape) for r, (q2, scale2) in zip(regions, req)]
+    nl = axis.local_size
+    return [torch.stack([q.float() * sc for q, sc, _ in req[j * nl:(j + 1) * nl]])
+            for j in range(len(regions))]
+
+
+def quantized_allreduce_2round_hier(
+    tree,
+    grid,
+    denominator,
+    block_size: int = 0,
+    rounding: str = "nearest",
+    draws: Optional[UniformDraws] = None,
+    bucket_bytes: Optional[int] = None,
+    flat_output: bool = False,
+    wire_domain: str = "dequant",
+    return_contribution: bool = False,
+    bucket_peaks=None,
+):
+    """The hierarchical (DCN x ICI) two-round int8 all-reduce
+    (collectives.py:513) on a ``mesh.HybridWorkerAxis`` grid of ``hosts x
+    per_host`` workers. Per piece:
+
+    - dequant wire: round 1 quantizes with scales shared over each host's
+      workers (ICI), all_to_all over ICI and exact region sums, each
+      worker's region dequantized with its host's scales; a full
+      two-round over DCN on that region (its round 1 shares scales over
+      the workers of one ICI index, its round 2 requantizes with local
+      scales); an f32 gather over ICI; / K;
+    - homomorphic wire: round 1 on ONE lattice (scales shared over both
+      axes), K3 at the ICI hop (divisor per_host), K3 at the DCN hop
+      (divisor hosts), int8 gathers over DCN and ICI, and one deferred
+      scale multiply with gain ``(per_host * hosts) / K``.
+
+    Stochastic rounding (dequant wire only) draws round 1 at round 0, the
+    DCN hop's round 1 at round 2 and its round 2 at round 3 of the
+    piece's key id (JAX: the leaf key, its fold 2, and fold 2 then 1; the
+    draw source folds the worker by its DCN index, then its ICI index).
+    ``return_contribution`` returns each worker's round-1 round trip: over
+    ICI scales on the dequant wire, over the global scales on the
+    homomorphic one, as JAX's EF mirror is."""
+    if not isinstance(grid, HybridWorkerAxis):
+        raise TypeError(f"the hierarchical wire takes a mesh.HybridWorkerAxis, got {grid!r}")
+    _check_adaptive(bucket_peaks, rounding, wire_domain)
+    _check_rounding(rounding, draws)
+    align = block_size or 1
+    pieces, key_ids, rebuild = piece_stream(tree, bucket_bytes, align=align,
+                                            flat_output=flat_output)
+    ordinal = None if bucket_peaks is None else _bucket_ordinal(key_ids)
+    outs, contribs = _hier_pieces(pieces, key_ids, grid, denominator, block_size, rounding,
+                                  draws, wire_domain, bucket_peaks, ordinal, return_contribution)
+    agg = rebuild(outs)
+    if not return_contribution:
+        return agg
     return agg, piece_stream(tree, bucket_bytes, align=align)[2](contribs)
 
 
@@ -570,6 +832,120 @@ def local_quantized_contribution(
                     for g, (q, scale, _) in zip(pieces, quantized)])
 
 
+def _bucket_reduce(axis, num_workers: int, starts, denominator, sel=None,
+                   compress: Optional[str] = None, block_size: int = 0,
+                   rounding: str = "nearest", draws: Optional[UniformDraws] = None,
+                   wire_domain: str = "dequant", bucket_peaks=None,
+                   lattice_hi_peak: int = _INT8_PEAK, want_contrib: bool = False,
+                   hier: bool = False):
+    """THE pipelined wire: ``reduce(key_id, piece) -> (aggregate [size],
+    contribution [N, size] or None)`` for one bucket of a plan with
+    ``starts``, ``piece`` worker-stacked (EF already added, before the
+    mask ``sel``). Each call is one bucket's whole wire, its kernel calls
+    and collectives, under its profiler scope; the values are the serial
+    wire's. ``hier`` runs the two-round wire's hierarchical form (``axis``
+    the hybrid grid)."""
+    ordinal = None if bucket_peaks is None else _bucket_ordinal(starts)
+
+    def wire(ps, ids):
+        if compress in (None, "none"):
+            return _psum_pieces(ps, axis, denominator)
+        if compress == "int8":
+            return _qpsum_pieces(ps, ids, axis, denominator, block_size, rounding, draws,
+                                 wire_domain, num_workers, bucket_peaks, lattice_hi_peak,
+                                 ordinal, want_contrib)
+        if hier:
+            return _hier_pieces(ps, ids, axis, denominator, block_size, rounding, draws,
+                                wire_domain, bucket_peaks, ordinal, want_contrib)
+        return _q2r_pieces(ps, ids, axis, denominator, num_workers, block_size, rounding,
+                           draws, wire_domain, bucket_peaks, ordinal, want_contrib)
+
+    def reduce(key_id, piece):
+        if sel is not None:
+            piece = piece * _per_worker(sel, piece)
+        with _bucket_scope(key_id):
+            outs, contribs = wire([piece], [key_id])
+        return outs[0], (contribs[0] if want_contrib else None)
+
+    return reduce
+
+
+def _pipelined(tree, bucket_bytes: int, align: int, flat_output: bool,
+               return_contribution: bool, make_reduce):
+    """The pipelined schedule over a whole tree: the pieces in readiness
+    order (``piece_stream(pipelined=True)``), each through the reduce
+    ``make_reduce(starts, device)`` builds (``_bucket_reduce``), the
+    results rebuilt into the tree (or the flat vector), the
+    contributions too with ``return_contribution``."""
+    pieces, key_ids, rebuild = piece_stream(tree, bucket_bytes, align=align,
+                                            flat_output=flat_output, pipelined=True)
+    reduce = make_reduce(sorted(key_ids), pieces[0].device)
+    outs, contribs = zip(*(reduce(i, g) for i, g in zip(key_ids, pieces)))
+    agg = rebuild(list(outs))
+    if not return_contribution:
+        return agg
+    return agg, piece_stream(tree, bucket_bytes, align=align, pipelined=True)[2](list(contribs))
+
+
+def bucket_wire(axis, num_workers: int, starts, num_aggregate=None, perm=None,
+                mask_mode: str = "random_k", compress: Optional[str] = None,
+                quant_block_size: int = 0, quant_rounding: str = "nearest",
+                quant_draws: Optional[UniformDraws] = None, wire_domain: str = "dequant",
+                bucket_peaks=None, lattice_hi_peak: int = _INT8_PEAK,
+                return_contribution: bool = False, device=None):
+    """The replicated wire of ``aggregate_gradients`` one bucket at a time:
+    the step's mask and count (``_mask_and_count``), then
+    ``_bucket_reduce``. The pipelined step calls its reduce as each
+    bucket's gradients exist."""
+    sel, denom = _mask_and_count(axis, num_workers, num_aggregate, perm, mask_mode,
+                                    compress, quant_rounding, wire_domain, bucket_peaks,
+                                    device)
+    return _bucket_reduce(axis, num_workers, starts, denom, sel, compress, quant_block_size,
+                          quant_rounding, quant_draws, wire_domain, bucket_peaks,
+                          lattice_hi_peak, return_contribution,
+                          hier=compress == "int8_2round" and isinstance(axis, HybridWorkerAxis))
+
+
+def _mask_and_count(axis, num_workers, num_aggregate, perm, mask_mode, compress,
+                    quant_rounding, wire_domain, bucket_peaks, device=None):
+    """The checks every wire shares, then ``(mask or None, the
+    denominator)``: the static count a Python float, the adaptive one an
+    f32 device tensor (a quotient)."""
+    if wire_domain not in ("dequant", "homomorphic"):
+        raise ValueError(f"bad wire_domain {wire_domain!r}")
+    if bucket_peaks is not None:
+        if compress in (None, "none"):
+            raise ValueError(
+                "adaptive precision (bucket_peaks) needs a compress mode — an "
+                "uncompressed f32 wire has no lattice to retune")
+        if quant_rounding == "stochastic":
+            raise ValueError("adaptive precision (bucket_peaks) needs quant_rounding='nearest'")
+    if wire_domain == "homomorphic":
+        if compress in (None, "none"):
+            raise ValueError(
+                "wire_domain='homomorphic' needs a compress mode — an "
+                "uncompressed f32 psum has no compressed domain to sum in")
+        if quant_rounding == "stochastic":
+            raise ValueError("wire_domain='homomorphic' needs quant_rounding='nearest'")
+    if compress not in (None, "none", "int8", "int8_2round"):
+        raise ValueError(f"unknown compression {compress!r}")
+    _check_axis(axis)
+    if axis.size != num_workers:
+        raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
+    dynamic = isinstance(num_aggregate, torch.Tensor)
+    if dynamic:
+        k = num_aggregate.to(torch.float32)
+    else:
+        k = (num_aggregate
+             if (num_aggregate is not None and num_aggregate < num_workers)
+             else num_workers)
+    sel = None
+    if dynamic or k != num_workers:
+        sel = aggregation_mask(axis, num_workers, num_aggregate, perm, mask_mode,
+                               device=device)
+    return sel, (k if dynamic else float(k))
+
+
 def aggregate_gradients(
     grads,
     axis: WorkerAxis,
@@ -594,13 +970,21 @@ def aggregate_gradients(
 
     ``grads`` is a tree of worker-stacked ``[N, *shape]`` leaves. The
     aggregate is the tree (or, with ``flat_output``, the padded flat f32
-    vector) without the worker dimension. ``bucket_bytes`` picks the wire granularity: None =
-    one piece per leaf, 0 = one fused buffer, N = ~N-byte buckets.
-    ``return_contribution`` also returns each worker's transmitted
-    (post-mask, post-round-trip) value, worker-stacked and tree-shaped:
-    what error feedback subtracts. ``perm`` is random_k's permutation
-    (``random_permutation``); ``quant_draws`` stochastic rounding's draw
-    source (``UniformDraws``).
+    vector) without the worker dimension. ``bucket_bytes`` picks the wire
+    granularity: None = one piece per leaf, 0 = one fused buffer, N =
+    ~N-byte buckets. ``return_contribution`` also returns each worker's
+    transmitted (post-mask, post-round-trip) value, worker-stacked and
+    tree-shaped: what error feedback subtracts. ``perm`` is random_k's
+    permutation (``random_permutation``); ``quant_draws`` stochastic
+    rounding's draw source (``UniformDraws``).
+
+    ``axis`` may be the hybrid grid (``mesh.HybridWorkerAxis``, JAX's
+    tuple axis): ``int8_2round`` then runs the hierarchical wire
+    (``quantized_allreduce_2round_hier``), and every other wire reduces
+    over the grid as over the flat axis. ``pipelined`` (a bucketed wire)
+    runs each bucket's whole wire in turn, in readiness order
+    (``_pipelined`` over ``bucket_wire``): one kernel call a bucket, the
+    values of the serial wire.
 
     ``num_aggregate`` may be a device int32 tensor (the adaptive count):
     the mask is then always applied (1.0 everywhere at the full count)
@@ -608,61 +992,36 @@ def aggregate_gradients(
     as a quotient (at a power-of-two worker count the full count is bit
     for bit the static step). ``bucket_peaks`` (adaptive precision)
     needs a compress mode and nearest rounding, as in JAX."""
-    if wire_domain not in ("dequant", "homomorphic"):
-        raise ValueError(f"bad wire_domain {wire_domain!r}")
-    if bucket_peaks is not None:
-        if compress in (None, "none"):
-            raise ValueError(
-                "adaptive precision (bucket_peaks) needs a compress mode — an "
-                "uncompressed f32 wire has no lattice to retune")
-        if quant_rounding == "stochastic":
-            raise ValueError("adaptive precision (bucket_peaks) needs quant_rounding='nearest'")
-    if wire_domain == "homomorphic":
-        if compress in (None, "none"):
-            raise ValueError(
-                "wire_domain='homomorphic' needs a compress mode — an "
-                "uncompressed f32 psum has no compressed domain to sum in")
-        if quant_rounding == "stochastic":
-            raise ValueError("wire_domain='homomorphic' needs quant_rounding='nearest'")
-    _check_axis(axis)
-    if axis.size != num_workers:
-        raise ValueError(f"axis holds {axis.size} workers, not {num_workers}")
-    if pipelined:
-        raise NotImplementedError(f"the pipelined wire (--overlap on) {_ROADMAP} item 13)")
-    dynamic = isinstance(num_aggregate, torch.Tensor)
-    if dynamic:
-        k = num_aggregate.to(torch.float32)
-    else:
-        k = (num_aggregate
-             if (num_aggregate is not None and num_aggregate < num_workers)
-             else num_workers)
-    if dynamic or k != num_workers:
-        leaves, skeleton = tree_flatten(grads)
-        sel = aggregation_mask(axis, num_workers, num_aggregate, perm, mask_mode,
-                               device=leaves[0].device)
+    if pipelined and bucket_bytes is not None:
+        align = (quant_block_size or 1) if compress not in (None, "none") else 1
+        return _pipelined(grads, bucket_bytes, align, flat_output, return_contribution,
+                          lambda starts, dev: bucket_wire(
+                              axis, num_workers, starts, num_aggregate, perm, mask_mode,
+                              compress, quant_block_size, quant_rounding, quant_draws,
+                              wire_domain, bucket_peaks, lattice_hi_peak,
+                              return_contribution, device=dev))
+    leaves, skeleton = tree_flatten(grads)
+    sel, denom = _mask_and_count(axis, num_workers, num_aggregate, perm, mask_mode,
+                                    compress, quant_rounding, wire_domain, bucket_peaks,
+                                    leaves[0].device)
+    if sel is not None:
         grads = tree_unflatten(skeleton, [g * _per_worker(sel, g) for g in leaves])
-    denom = k if dynamic else float(k)
     wire = dict(bucket_bytes=bucket_bytes, flat_output=flat_output)
     if compress in (None, "none"):
         agg = psum_mean(grads, axis, denom, **wire)
         contribution = grads  # lossless transmit: the residual is zero
-    elif compress == "int8":
-        out = quantized_psum(
-            grads, axis, denom, block_size=quant_block_size,
-            rounding=quant_rounding, draws=quant_draws, wire_domain=wire_domain,
-            num_workers=num_workers, return_contribution=return_contribution,
-            bucket_peaks=bucket_peaks, lattice_hi_peak=lattice_hi_peak, **wire,
-        )
-        agg, contribution = out if return_contribution else (out, None)
-    elif compress == "int8_2round":
-        out = quantized_allreduce_2round(
-            grads, axis, denom, num_workers, block_size=quant_block_size,
-            rounding=quant_rounding, draws=quant_draws, wire_domain=wire_domain,
-            return_contribution=return_contribution, bucket_peaks=bucket_peaks, **wire,
-        )
-        agg, contribution = out if return_contribution else (out, None)
     else:
-        raise ValueError(f"unknown compression {compress!r}")
+        kw = dict(block_size=quant_block_size, rounding=quant_rounding, draws=quant_draws,
+                  wire_domain=wire_domain, return_contribution=return_contribution,
+                  bucket_peaks=bucket_peaks, **wire)
+        if compress == "int8":
+            out = quantized_psum(grads, axis, denom, num_workers=num_workers,
+                                 lattice_hi_peak=lattice_hi_peak, **kw)
+        elif isinstance(axis, HybridWorkerAxis):
+            out = quantized_allreduce_2round_hier(grads, axis, denom, **kw)
+        else:
+            out = quantized_allreduce_2round(grads, axis, denom, num_workers, **kw)
+        agg, contribution = out if return_contribution else (out, None)
     if not return_contribution:
         return agg
     return agg, contribution

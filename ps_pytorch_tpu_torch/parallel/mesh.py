@@ -11,7 +11,9 @@ without the worker dimension: one copy, which every worker reads, as the
 replicated result of a JAX collective is.
 
 ``ppermute`` moves rows between workers (the sequence ring's K/V
-rotation); ``Mesh2D`` is the (dp x sp) grid of the LM training step.
+rotation); ``Mesh2D`` is the (dp x sp) grid of the LM training step;
+``HybridWorkerAxis`` (``make_hybrid_mesh``) the (hosts x per_host) grid
+of the hierarchical DCN x ICI gradient wire.
 
 This is the analogue of the reference's 8-device virtual CPU mesh.
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 WORKER_AXIS = "workers"
+DCN_AXIS = "dcn"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +164,56 @@ def make_mesh(num_workers: int) -> WorkerAxis:
     """The worker axis of ``num_workers`` virtual workers (``make_mesh``
     builds a device mesh; here every worker shares the one device)."""
     return WorkerAxis(num_workers)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridWorkerAxis(WorkerAxis):
+    """A (hosts x per_host) grid of virtual workers on one device, the
+    stacked counterpart of ``make_hybrid_mesh``'s device mesh (mesh.py:44):
+    the DCN axis outer, the ICI axis inner, so worker (h, c) is number
+    ``h * per_host + c``, as JAX's reshape of the flat device list numbers
+    it (``worker_ids``).
+
+    Per-worker tensors keep the flat axis's stacking ``[N, ...]``, which
+    is ``[hosts, per_host, ...]`` with the DCN dimension leading (a
+    reshape): unlike ``Mesh2D``, whose inner axis leads because every
+    attention call rotates along it, every collective of the PS step but
+    the hierarchical wire's reduces over the whole grid, and the grid's
+    tuple axis (``names``, JAX's ``(DCN_AXIS, WORKER_AXIS)``) reduces as
+    the flat axis does, bit for bit: the inherited ``WorkerAxis``
+    primitives are the tuple-axis ones. ``dcn`` / ``ici`` are the two
+    axes as worker axes of their own sizes: over ``[hosts, per_host,
+    ...]`` (DCN) or its transpose (ICI)."""
+
+    hosts: int = 1
+    per_host: int = 1
+
+    names = (DCN_AXIS, WORKER_AXIS)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.hosts < 1 or self.per_host < 1 or self.hosts * self.per_host != self.size:
+            raise ValueError(f"a {self.hosts} x {self.per_host} grid does not hold "
+                             f"{self.size} workers")
+
+    @property
+    def dcn(self) -> WorkerAxis:
+        return WorkerAxis(self.hosts)
+
+    @property
+    def ici(self) -> WorkerAxis:
+        return WorkerAxis(self.per_host)
+
+    def worker_ids(self) -> torch.Tensor:
+        """``[hosts, per_host]`` worker numbers, the DCN axis outer."""
+        return torch.arange(self.size).reshape(self.hosts, self.per_host)
+
+
+def make_hybrid_mesh(num_hosts: int, per_host: int) -> HybridWorkerAxis:
+    """The (hosts x per_host) grid of ``num_hosts * per_host`` virtual
+    workers on one device (``make_hybrid_mesh`` of the JAX package lays
+    hosts x chips out over devices)."""
+    return HybridWorkerAxis(num_hosts * per_host, hosts=num_hosts, per_host=per_host)
 
 
 # int16 has no torch.distributed type on gloo or NCCL: it crosses as int32

@@ -61,8 +61,24 @@ d theta_j``. The port gets the same by one forward of all the workers'
 rows over worker-stacked copies of the leaves (``models/common.py``) and
 one backward of the summed losses.
 
-Not ported yet, and refused with a pointer to ROADMAP.md: the pipelined
-schedule and the hierarchical wire.
+The pipelined schedule (``overlap="pipelined"``, ``--overlap on``;
+ps.py:644-730, :939-1025 of the JAX package) reduces the bucketed wire
+one bucket at a time, each bucket assembled from its own leaves. The
+stacked backend has every worker's gradient of a leaf once the LAST
+worker's backward (or, with synced BN, the one backward) has produced
+it: a hook on that backward's leaves hands each gradient to the bucket
+stream (``_BucketStream``), which launches a bucket's wire as soon as
+the last of its leaves exists, on a side stream on the card, and the
+step's own stream waits on the bucket's event before its update (one
+optimizer update a bucket). The values and bytes are the serial
+step's; the kernels launch once a bucket instead of once a step.
+
+The hierarchical wire (``dcn_hosts > 1``, JAX's tuple axis) runs on the
+hybrid grid ``mesh.HybridWorkerAxis``: ``int8_2round`` takes the DCN x
+ICI two-round wire (``collectives.quantized_allreduce_2round_hier``),
+every other wire reduces over the grid as over the flat axis. Over
+processes it is refused (ROADMAP.md queue 1 item 14: hosts are not
+mapped to processes yet).
 """
 
 from __future__ import annotations
@@ -70,6 +86,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
@@ -88,10 +105,14 @@ from ..resilience.guard import init_guard_state, tree_all_finite, update_guard_s
 from .buckets import (
     BucketPlan,
     FlatVector,
+    assemble_bucket,
+    bucket_leaf_segments,
     concat_buckets,
     flat_to_tree,
+    leaves_from_buckets,
     pad_flat,
     plan_buckets,
+    readiness_bucket_order,
     to_flat_vector,
     tree_flatten,
     tree_layout,
@@ -107,12 +128,41 @@ from .collectives import (
     _uniform,
     aggregate_gradients,
     aggregation_mask,
+    bucket_wire,
     random_permutation,
     reciprocal,
 )
-from .mesh import WORKER_AXIS, ProcessWorkerAxis, WorkerAxis
+from .mesh import (
+    DCN_AXIS,
+    WORKER_AXIS,
+    HybridWorkerAxis,
+    ProcessWorkerAxis,
+    WorkerAxis,
+    make_hybrid_mesh,
+)
 
 _ROADMAP = "is not ported yet (see ROADMAP.md queue 1)"
+
+
+def hier_sizes(cfg: "PSConfig", mesh) -> Optional[Tuple[int, int]]:
+    """``(hosts, per_host)`` of a hierarchical config's grid (ps.py:1079),
+    None on the flat axis; the grid must be the config's."""
+    if not cfg.hierarchical:
+        if isinstance(mesh, HybridWorkerAxis):
+            raise ValueError("a hybrid grid needs a hierarchical config (dcn_hosts > 1 "
+                             "or the tuple axis_name)")
+        return None
+    if isinstance(mesh, ProcessWorkerAxis):
+        raise NotImplementedError(
+            f"the hierarchical DCN x ICI wire over processes (hosts mapped to "
+            f"torch.distributed processes) {_ROADMAP} item 14; run dcn_hosts > 1 on the "
+            f"stacked grid of one process")
+    if not isinstance(mesh, HybridWorkerAxis):
+        raise ValueError(f"a hierarchical config (dcn_hosts {cfg.dcn_hosts}, axis "
+                         f"{cfg.axis_name!r}) needs the hybrid grid (mesh.make_hybrid_mesh)")
+    if cfg.dcn_hosts > 1 and mesh.hosts != cfg.dcn_hosts:
+        raise ValueError(f"the grid has {mesh.hosts} hosts, dcn_hosts says {cfg.dcn_hosts}")
+    return mesh.hosts, mesh.per_host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,9 +199,13 @@ class PSConfig:
         # the JAX package's own validation, same messages
         if self.num_workers < 1:
             raise ValueError(f"bad num_workers {self.num_workers}")
-        if self.dcn_hosts > 1 and self.num_workers % self.dcn_hosts:
-            raise ValueError(f"num_workers {self.num_workers} not divisible by "
-                             f"dcn_hosts {self.dcn_hosts}")
+        if self.dcn_hosts > 1:
+            if self.num_workers % self.dcn_hosts:
+                raise ValueError(f"num_workers {self.num_workers} not divisible by "
+                                 f"dcn_hosts {self.dcn_hosts}")
+            if isinstance(self.axis_name, str):
+                # frozen dataclass: the axis becomes JAX's tuple
+                object.__setattr__(self, "axis_name", (DCN_AXIS, self.axis_name))
         if self.grad_accum_steps < 1:
             raise ValueError(f"bad grad_accum_steps {self.grad_accum_steps}")
         if self.opt_placement not in ("replicated", "sharded"):
@@ -231,22 +285,18 @@ class PSConfig:
             raise ValueError(f"bad loss_scale_init {self.loss_scale_init} (must be > 0)")
         if self.mask_mode not in ("random_k", "first_k"):
             raise ValueError(f"unknown aggregation mode {self.mask_mode!r}")
-        hierarchical = self.dcn_hosts > 1 or not isinstance(self.axis_name, str)
-        if self.compress == "int8_2round" and self.opt_placement == "sharded" and hierarchical:
+        if (self.compress == "int8_2round" and self.opt_placement == "sharded"
+                and self.hierarchical):
             raise ValueError(
                 "int8_2round x sharded x dcn_hosts>1 is unsupported: the "
                 "sharded wire is one reduce_scatter over the whole mesh, so "
                 "there is no hierarchical structure for the 2-round scheme to "
                 "exploit — use compress='int8' there")
-        # what this slice does not port
-        refused = [
-            (hierarchical, "hierarchical data parallelism (dcn_hosts > 1, a tuple "
-             "axis_name; item 14)"),
-            (self.overlap == "pipelined", "the pipelined schedule (--overlap on; item 13)"),
-        ]
-        for hit, what in refused:
-            if hit:
-                raise NotImplementedError(f"{what} {_ROADMAP}")
+
+    @property
+    def hierarchical(self) -> bool:
+        """The DCN x ICI grid: ``dcn_hosts > 1`` or a tuple axis."""
+        return self.dcn_hosts > 1 or not isinstance(self.axis_name, str)
 
     @property
     def effective_aggregate(self) -> int:
@@ -587,6 +637,190 @@ def _sharded_ps_update(params, opt_state, grads, tx, cfg: PSConfig, axis: Worker
     return new_params, new_opt, new_err
 
 
+# ------------------------------------------------ the pipelined schedule
+
+def _bucket_opt_views(opt, seg_len: int):
+    """``(fields, is_seg)``: the optimizer state's fields and which are
+    per-element vectors of ``seg_len`` on their last dimension (the
+    moments, sliced a bucket at a time) rather than scalars such as the
+    step count (ps.py:671)."""
+    fields = {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)}
+    is_seg = {k: isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[-1] == seg_len
+              for k, v in fields.items()}
+    return fields, is_seg
+
+
+def _stitch_opt(opt, per_bucket, is_seg, first: int):
+    """The whole optimizer state from per-bucket updates (ps.py:684): the
+    moments concatenate in canonical bucket order, the scalars (every
+    bucket computed the same ``count + 1``) come from the first
+    dispatched bucket."""
+    return dataclasses.replace(opt, **{
+        k: (concat_buckets([pb[k] for pb in per_bucket]) if seg else per_bucket[first][k])
+        for k, seg in is_seg.items()})
+
+
+def _opt_slice(opt, fields, is_seg, a: int, b: int):
+    return dataclasses.replace(opt, **{k: (v[..., a:b] if is_seg[k] else v)
+                                       for k, v in fields.items()})
+
+
+def _pipelined_flat_update(tx, agg_buckets, opt_state, master: torch.Tensor, plan: BucketPlan,
+                           order, wait=None):
+    """The replicated flat-state update, one ``tx.update`` a bucket
+    (ps.py:700), in ``order``: bucket b's params and moments depend only
+    on bucket b's aggregate, and the update chain is elementwise, so the
+    result is the whole-vector update's, bit for bit. ``wait(b)`` (on the
+    card) makes the step's stream wait for bucket b's wire. Returns
+    ``(new_master, new_opt)``."""
+    fields, is_seg = _bucket_opt_views(opt_state, plan.padded_total)
+    new_p, new_opt = [None] * plan.n_buckets, [None] * plan.n_buckets
+    for b in order:
+        start, size = plan.starts[b], plan.sizes[b]
+        if wait is not None:
+            wait(b)
+        with torch.profiler.record_function(f"bucket_update_o{start}"):
+            p_b = master[start:start + size]
+            u_b, opt_b = tx.update(agg_buckets[b], _opt_slice(opt_state, fields, is_seg, start,
+                                                              start + size), p_b)
+            new_p[b] = apply_updates(p_b, u_b)
+            new_opt[b] = {f.name: getattr(opt_b, f.name) for f in dataclasses.fields(opt_b)}
+    return concat_buckets(new_p), _stitch_opt(opt_state, new_opt, is_seg, order[0])
+
+
+def _sharded_bucket_reduce(g_b, b: int, plan: BucketPlan, cfg: PSConfig, axis, k, sel, err,
+                           draws: Optional[UniformDraws], bucket_peaks, hi: int):
+    """One bucket of the ZeRO-1 pipelined wire (ps.py:978-991): the
+    bucket's worker-stacked gradient ``g_b`` (assembled from its own
+    leaves), plus its EF residual slice, masked, through the serial
+    schedule's own ``_shard_reduce_bucket``. Returns ``(g_shard [N,
+    size/n], the bucket's new EF residual or None)``."""
+    start, size = plan.starts[b], plan.sizes[b]
+    if err is not None:
+        g_b = g_b + err[:, start:start + size]
+    sent = g_b * sel[:, None] if sel is not None else g_b
+    bsz = cfg.quant_block_size
+    uniform = None
+    if cfg.compress in ("int8", "int8_2round"):
+        uniform = _uniform(draws, axis, start, 0, (size // bsz, bsz) if bsz else (size,),
+                           sent.device)
+    g_shard, contrib = _shard_reduce_bucket(
+        sent, size, axis, cfg.num_workers, k, cfg, want_contrib=err is not None,
+        uniform=uniform, peak=None if bucket_peaks is None else bucket_peaks[b], hi_peak=hi)
+    return g_shard, (g_b - contrib if err is not None else None)
+
+
+def _sharded_ps_update_pipelined(params, opt_state, reduced, tx, cfg: PSConfig, axis,
+                                 plan: BucketPlan, layout, order, wait=None):
+    """The ZeRO-1 update a bucket at a time (ps.py:939-1025), in
+    ``order``: each bucket's reduced shard (``reduced[b] = (g_shard,
+    new_err)``, from ``_sharded_bucket_reduce``) updates its own segment
+    of every worker's shard, and the update gathers back into the bucket.
+    The values are the serial ``_sharded_ps_update``'s. Returns
+    ``(new_params, new_opt, new_err)``."""
+    n = cfg.num_workers
+    is_flat = isinstance(params, FlatVector)
+    segs = None if is_flat else bucket_leaf_segments(layout, plan)
+    p_leaves = None if is_flat else tree_flatten(params)[0]
+    shard_len = plan.padded_total // n
+    fields, is_seg = _bucket_opt_views(opt_state, shard_len)
+    shard_off = np.cumsum((0,) + tuple(sz // n for sz in plan.sizes)).tolist()
+    nb = plan.n_buckets
+    new_p, new_opt, upd_full = [None] * nb, [None] * nb, [None] * nb
+    for b in order:
+        start, size = plan.starts[b], plan.sizes[b]
+        s = size // n
+        if wait is not None:
+            wait(b)
+        with torch.profiler.record_function(f"bucket_update_o{start}"):
+            bucket_p = (params.flat[start:start + size] if is_flat
+                        else assemble_bucket(p_leaves, segs[b]))
+            p_b = axis.local(bucket_p.reshape(n, s))
+            u_b, opt_b = tx.update(reduced[b][0], _opt_slice(opt_state, fields, is_seg,
+                                                              shard_off[b], shard_off[b] + s),
+                                   p_b)
+            gathered = axis.all_gather(u_b)
+            if is_flat:
+                new_p[b] = bucket_p + gathered
+            else:
+                upd_full[b] = gathered
+            new_opt[b] = {f.name: getattr(opt_b, f.name) for f in dataclasses.fields(opt_b)}
+    new_opt_state = _stitch_opt(opt_state, new_opt, is_seg, order[0])
+    if is_flat:
+        new_params = dataclasses.replace(params, flat=concat_buckets(new_p))
+    else:
+        new_params = apply_updates(params, leaves_from_buckets(layout, plan, upd_full))
+    errs = [r[1] for r in reduced]
+    new_err = concat_buckets(errs) if errs and errs[0] is not None else None
+    return new_params, new_opt_state, new_err
+
+
+class _BucketStream:
+    """One step's pipelined wire: the hooks of the backward hand in each
+    leaf's worker-stacked gradient (``leaf_ready``), and a bucket whose
+    leaves are all in is dispatched at once (``dispatch(b, piece)``, the
+    piece assembled from its own leaves). On the card a dispatch runs on
+    ``side`` (a CUDA stream) after the producing stream's work, its
+    results handed back to the step's stream (``record_stream``) and an
+    event recorded, on which ``wait(b)`` makes the step's stream wait.
+    Buckets the hooks did not complete (no early dispatch, or pure
+    padding) go out in ``finish``, in readiness order."""
+
+    def __init__(self, layout, plan: BucketPlan, dispatch, side=None, early: bool = True):
+        self.layout, self.plan = layout, plan
+        self._dispatch, self.side, self.early = dispatch, side, early
+        self.segs = bucket_leaf_segments(layout, plan)
+        self.leaf_buckets = [[] for _ in layout.shapes]
+        self.pending = []
+        for b, frags in enumerate(self.segs):
+            leaves = {idx for idx, _, _ in frags if idx is not None}
+            self.pending.append(len(leaves))
+            for idx in leaves:
+                self.leaf_buckets[idx].append(b)
+        self.stacked = [None] * len(layout.shapes)
+        self.results = [None] * plan.n_buckets
+        self.events = [None] * plan.n_buckets
+        self.order: List[int] = []
+
+    def leaf_ready(self, i: int, g: torch.Tensor) -> None:
+        # contiguous once: a bucket's slice of a strided leaf (a
+        # gradient through a permuted view) would copy the whole leaf
+        # for each of its buckets
+        self.stacked[i] = g.contiguous()
+        for b in self.leaf_buckets[i]:
+            self.pending[b] -= 1
+            if self.early and self.pending[b] == 0:
+                self._run(b)
+
+    def _run(self, b: int) -> None:
+        self.order.append(b)
+        if self.side is None:
+            self.results[b] = self._dispatch(b, assemble_bucket(self.stacked, self.segs[b],
+                                                                stacked=True))
+            return
+        main = torch.cuda.current_stream()
+        self.side.wait_stream(main)
+        with torch.cuda.stream(self.side):
+            out = self._dispatch(b, assemble_bucket(self.stacked, self.segs[b], stacked=True))
+            self.events[b] = torch.cuda.Event()
+            self.events[b].record(self.side)
+        for t in out:
+            if isinstance(t, torch.Tensor):
+                t.record_stream(main)
+        self.results[b] = out
+
+    def finish(self) -> List[torch.Tensor]:
+        """Dispatch what is left (readiness order); the stacked leaves."""
+        for b in readiness_bucket_order(self.plan):
+            if self.results[b] is None and b not in self.order:
+                self._run(b)
+        return self.stacked
+
+    def wait(self, b: int) -> None:
+        if self.events[b] is not None:
+            torch.cuda.current_stream().wait_event(self.events[b])
+
+
 def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = None,
                        preprocess: Optional[Callable] = None, faults=None,
                        seed: int = 0, device: DeviceLike = None):
@@ -607,9 +841,18 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
     ``faults`` (resilience.faults.FaultPlan) poisons every gradient at
     its planned steps."""
     dev = resolve_device(device)
-    axis = mesh if mesh is not None else WorkerAxis(cfg.num_workers)
+    axis = mesh
+    if axis is None:
+        axis = (make_hybrid_mesh(cfg.dcn_hosts, cfg.num_workers // cfg.dcn_hosts)
+                if cfg.dcn_hosts > 1 else WorkerAxis(cfg.num_workers))
     if axis.size != cfg.num_workers:
         raise ValueError(f"mesh holds {axis.size} workers, cfg says {cfg.num_workers}")
+    hier_sizes(cfg, axis)
+    pipelined = cfg.overlap == "pipelined"
+    # the pipelined wire's side stream (the card), made at the first step;
+    # over processes the buckets go out after the backward, on the step's stream
+    early = not isinstance(axis, ProcessWorkerAxis)
+    side_box: List[Any] = []
     n, a = cfg.num_workers, cfg.grad_accum_steps
     # this process's workers: ids [lo, lo + nl) (all of them when stacked)
     nl, lo = axis.local_size, axis.first
@@ -634,9 +877,26 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         """Microbatch ``i``'s rows of each Dropout mask (or None)."""
         return None if masks is None else [m.chunk(a)[i] for m in masks]
 
-    def worker_grads(params_t, bs_in, x, y, scale, masks):
+    def finishing_hooks(leaves, scale, prev, on_grad):
+        """Hooks on the last microbatch's leaves handing ``on_grad(i, g)``
+        each leaf's finished gradient as the backward produces it: the
+        arithmetic below (unscale, then the microbatch mean) on one leaf."""
+        def hook(j, t):
+            if scale is not None:
+                t = t / scale
+            if a > 1:
+                t = (prev[j] + t) * reciprocal(a)
+            on_grad(j, t)
+
+        for j, leaf in enumerate(leaves):
+            leaf.register_hook(lambda t, j=j: hook(j, t))
+
+    def worker_grads(params_t, bs_in, x, y, scale, masks, on_grad=None):
         """One worker's forward/backward on its shard (``a``
-        microbatches, BN stats carried through them)."""
+        microbatches, BN stats carried through them); ``on_grad`` (the
+        pipelined wire) receives each finished leaf gradient from the
+        last microbatch's backward, and the gradients returned are then
+        None: the hooks finished them."""
         if x.shape[0] % a:
             raise ValueError(f"per-worker batch {x.shape[0]} not divisible by "
                              f"grad_accum_steps={a}")
@@ -645,6 +905,9 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         gsum, lsum, p1sum, p5sum, bs_c = None, 0.0, 0.0, 0.0, bs_in
         for i, (xi, yi) in enumerate(zip(xs, ys)):
             leaves_g = [leaf.detach().requires_grad_(True) for leaf in leaves]
+            hooked = on_grad is not None and i == a - 1
+            if hooked:
+                finishing_hooks(leaves_g, scale, gsum, on_grad)
             with torch.enable_grad():
                 logits, bs_c = apply_model(model, tree_unflatten(skel, leaves_g),
                                            bs_c, xi, train=True, dropout=micro(masks, i))
@@ -658,22 +921,26 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
                 # see true-magnitude gradients (true division: the scale
                 # is a device value in JAX too)
                 loss = loss / scale
-                g = [t / scale for t in g]
+                if not hooked:
+                    g = [t / scale for t in g]
             p1, p5 = accuracy(logits.detach(), yi, (1, 5))
-            gsum = list(g) if gsum is None else [s + t for s, t in zip(gsum, g)]
+            if not hooked:
+                gsum = list(g) if gsum is None else [s + t for s, t in zip(gsum, g)]
             lsum, p1sum, p5sum = lsum + loss, p1sum + p1, p5sum + p5
         if a > 1:
             r = reciprocal(a)  # `/ a` inside jit
-            gsum = [t * r for t in gsum]
             lsum, p1sum, p5sum = lsum * r, p1sum * r, p5sum * r
-        return gsum, bs_c, lsum, p1sum, p5sum
+            if on_grad is None:
+                gsum = [t * r for t in gsum]
+        return None if on_grad is not None else gsum, bs_c, lsum, p1sum, p5sum
 
-    def synced_grads(params_t, bs_in, xs, ys, scale, masks):
+    def synced_grads(params_t, bs_in, xs, ys, scale, masks, on_grad=None):
         """Synced BN: each microbatch runs every worker's rows in one
         layer-synchronous forward over worker-stacked copies of the
         leaves, and one backward of the summed losses gives each copy its
-        gradient (``[N, *leaf]`` per leaf). Returns those, the new BN
-        stats and each worker's loss, prec1, prec5."""
+        gradient (``[N, *leaf]`` per leaf). Returns those (None with
+        ``on_grad``: its hooks finished them), the new BN stats and each
+        worker's loss, prec1, prec5."""
         if xs[0].shape[0] % a:
             raise ValueError(f"per-worker batch {xs[0].shape[0]} not divisible by "
                              f"grad_accum_steps={a}")
@@ -687,6 +954,9 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
                                              zip(*(micro(m, i) for m in masks))]
             stacked = [leaf.detach().unsqueeze(0).repeat(n, *([1] * leaf.dim()))
                        .requires_grad_(True) for leaf in leaves]
+            hooked = on_grad is not None and i == a - 1
+            if hooked:
+                finishing_hooks(stacked, scale, gsum, on_grad)
             with torch.enable_grad():
                 logits, bs_c = apply_model(model, tree_unflatten(skel, stacked), bs_c, xi,
                                            train=True, dropout=mi)
@@ -698,16 +968,19 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             losses = losses.detach()
             if scale is not None:
                 losses = losses / scale
-                g = [t / scale for t in g]
-            gsum = list(g) if gsum is None else [s + t for s, t in zip(gsum, g)]
+                if not hooked:
+                    g = [t / scale for t in g]
+            if not hooked:
+                gsum = list(g) if gsum is None else [s + t for s, t in zip(gsum, g)]
             for w in range(n):
                 p1, p5 = accuracy(per[w].detach(), yis[w], (1, 5))
                 lsum[w], p1sum[w], p5sum[w] = lsum[w] + losses[w], p1sum[w] + p1, p5sum[w] + p5
         if a > 1:
             r = reciprocal(a)  # `/ a` inside jit
-            gsum = [t * r for t in gsum]
             lsum, p1sum, p5sum = ([v * r for v in vs] for vs in (lsum, p1sum, p5sum))
-        return gsum, bs_c, lsum, p1sum, p5sum
+            if on_grad is None:
+                gsum = [t * r for t in gsum]
+        return None if on_grad is not None else gsum, bs_c, lsum, p1sum, p5sum
 
     def extras(agg_count, prec_tags):
         """The controllers' values clamped on the device: ``(agg_count
@@ -734,6 +1007,72 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         flat = pad_flat(tree_to_flat(grads, stacked=True), splan)
         return axis.pmean(torch.stack([flat[:, s0:s0 + sz].square().sum(1)
                                        for s0, sz in zip(splan.starts, splan.sizes)], dim=1))
+
+    def _bucket_stream(state, params_t, draws, agg_count, bucket_peaks, sel, k):
+        """This step's ``_BucketStream``, with the dispatch of its wire:
+        the ZeRO-1 bucket reduce, or the replicated ``bucket_wire``."""
+        layout = tree_layout(params_t)
+        if not side_box and dev.type == "cuda" and early:
+            side_box.append(torch.cuda.Stream(device=dev))
+        side = side_box[0] if side_box and early else None
+        if cfg.opt_placement == "sharded":
+            plan = _sharded_plan(cfg, layout.total)
+            hi = precision_hi_peak(cfg) if bucket_peaks is not None else _INT8_PEAK
+            err = state.comm_state if cfg.error_feedback else None
+
+            def dispatch(b, piece):
+                return _sharded_bucket_reduce(piece, b, plan, cfg, axis,
+                                              cfg.effective_aggregate if k is None else k, sel,
+                                              err, draws.rounding, bucket_peaks, hi)
+        else:
+            plan = state_plan(cfg, layout.total)
+            reduce = bucket_wire(
+                axis, n, plan.starts,
+                num_aggregate=agg_count if agg_count is not None else cfg.num_aggregate,
+                perm=draws.perm, mask_mode=cfg.mask_mode, compress=cfg.compress,
+                quant_block_size=cfg.quant_block_size, quant_rounding=cfg.quant_rounding,
+                quant_draws=draws.rounding, wire_domain=cfg.wire_domain,
+                bucket_peaks=bucket_peaks,
+                lattice_hi_peak=hi_peak if cfg.precision_adapt else _INT8_PEAK,
+                return_contribution=cfg.error_feedback, device=dev)
+            err_leaves = tree_flatten(state.comm_state)[0] if cfg.error_feedback else None
+
+            def dispatch(b, piece):
+                if err_leaves is not None:
+                    # EF-SGD: last step's residual added before the wire
+                    piece = piece + assemble_bucket(err_leaves, stream.segs[b], stacked=True)
+                return reduce(plan.starts[b], piece)
+
+        stream = _BucketStream(layout, plan, dispatch, side=side, early=early)
+        return stream
+
+    def _pipelined_update(state, pipe, grads, master):
+        """The optimizer a bucket at a time over the pipelined wire's
+        results: ``(new_master, new_opt, new_comm)``."""
+        plan, layout, order = pipe.plan, pipe.layout, pipe.order
+        if cfg.opt_placement == "sharded":
+            new_params, new_opt, new_err = _sharded_ps_update_pipelined(
+                state.params, state.opt_state, pipe.results, tx, cfg, axis, plan, layout,
+                order, pipe.wait)
+            return (new_params.flat if is_flat else new_params, new_opt,
+                    new_err if cfg.error_feedback else state.comm_state)
+        outs = [r[0] for r in pipe.results]
+        new_comm = state.comm_state
+        if cfg.error_feedback:
+            for b in order:
+                pipe.wait(b)
+            contribution = leaves_from_buckets(layout, plan, [r[1] for r in pipe.results])
+            new_comm = tree_map(torch.sub, tree_map(torch.add, grads, state.comm_state),
+                                contribution)
+        if is_flat:
+            new_master, new_opt = _pipelined_flat_update(tx, outs, state.opt_state, master,
+                                                         plan, order, pipe.wait)
+            return new_master, new_opt, new_comm
+        for b in order:
+            pipe.wait(b)
+        updates, new_opt = tx.update(leaves_from_buckets(layout, plan, outs), state.opt_state,
+                                     master)
+        return apply_updates(master, updates), new_opt, new_comm
 
     def step(state: PSTrainState, batch, draws: Optional[StepDraws] = None,
              agg_count=None, prec_tags=None):
@@ -762,44 +1101,63 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             xs.append(x.float())
             ys.append(labels[w * b:(w + 1) * b])
         skel = tree_flatten(params_t)[1]
+        poison = faults.poison(state.step + 1) if faults is not None else None
+        sel, k = None, None
+        if cfg.opt_placement == "sharded" and (agg_count is not None
+                                               or cfg.effective_aggregate != n):
+            sel = aggregation_mask(
+                axis, n, agg_count if agg_count is not None else cfg.num_aggregate,
+                draws.perm, cfg.mask_mode, device=dev)
+        if agg_count is not None:
+            k = agg_count.to(torch.float32)
+        pipe = (_bucket_stream(state, params_t, draws, agg_count, bucket_peaks, sel, k)
+                if pipelined else None)
+
+        def pipe_leaf(i, g):
+            """A finished leaf gradient, worker-stacked, into the stream."""
+            if poison is not None:
+                g = torch.full_like(g, poison)
+            pipe.leaf_ready(i, g)
+
         if synced:
-            leaf_grads, nbs, losses, p1s, p5s = synced_grads(params_t, bs, xs, ys, scale,
-                                                             masks)
+            leaf_grads, nbs, losses, p1s, p5s = synced_grads(
+                params_t, bs, xs, ys, scale, masks, on_grad=None if pipe is None else pipe_leaf)
             new_bs_w = [nbs] * n
         else:
             per_worker, new_bs_w, losses, p1s, p5s = [], [], [], [], []
             for w in range(nl):
                 bs_w = tree_map(lambda s: s[w], bs) if cfg.bn_mode == "local" else bs
+                on_grad = None
+                if pipe is not None and w == nl - 1:
+                    def on_grad(i, t):
+                        pipe_leaf(i, torch.stack([gw[i] for gw in per_worker] + [t]))
                 g, nbs, loss, p1, p5 = worker_grads(params_t, bs_w, xs[w], ys[w], scale,
-                                                    None if masks is None else masks[w])
+                                                    None if masks is None else masks[w],
+                                                    on_grad=on_grad)
                 per_worker.append(g)
                 new_bs_w.append(nbs)
                 losses.append(loss)
                 p1s.append(p1)
                 p5s.append(p5)
-            # the wire sees [N, *leaf] per leaf, as shard_map's psum sees
-            # the per-device gradients
-            leaf_grads = [torch.stack([gw[i] for gw in per_worker])
-                          for i in range(len(per_worker[0]))]
+            if pipe is None:
+                # the wire sees [N, *leaf] per leaf, as shard_map's psum sees
+                # the per-device gradients
+                leaf_grads = [torch.stack([gw[i] for gw in per_worker])
+                              for i in range(len(per_worker[0]))]
+        if pipe is not None:
+            leaf_grads = pipe.finish()
         grads = tree_unflatten(skel, leaf_grads)
-        if faults is not None:
-            val = faults.poison(state.step + 1)
-            if val is not None:
-                grads = tree_map(lambda t: torch.full_like(t, val), grads)
+        if poison is not None and pipe is None:
+            grads = tree_map(lambda t: torch.full_like(t, poison), grads)
 
         bucket_sqnorm = sqnorms(grads) if cfg.precision_adapt else None
         # every process's verdict: a NaN in any worker skips the step everywhere
         finite = axis.all_true(tree_all_finite(grads)) if cfg.nonfinite_guard else None
         new_comm = state.comm_state
         master = state.params.flat if is_flat else state.params
-        if cfg.opt_placement == "sharded":
-            sel, k = None, None
-            if agg_count is not None or cfg.effective_aggregate != n:
-                sel = aggregation_mask(
-                    axis, n, agg_count if agg_count is not None else cfg.num_aggregate,
-                    draws.perm, cfg.mask_mode, device=dev)
-            if agg_count is not None:
-                k = agg_count.to(torch.float32)
+        if pipe is not None:
+            new_master, new_opt, new_comm = _pipelined_update(state, pipe, grads, master)
+        elif cfg.opt_placement == "sharded":
             new_params, new_opt, new_err = _sharded_ps_update(
                 state.params, state.opt_state, grads, tx, cfg, axis, sel=sel,
                 err=state.comm_state if cfg.error_feedback else None, k=k,

@@ -68,7 +68,7 @@ class FaultPlan:
         if rest:
             raise NotImplementedError(
                 f"fault plan keys {rest} are not ported yet (only {list(_PORTED)}; "
-                f"see ROADMAP.md queue 1 item 15)"
+                f"the serving keys are ROADMAP.md queue 1 item 20)"
             )
         kw = {}
         for k in _STEP_LISTS:

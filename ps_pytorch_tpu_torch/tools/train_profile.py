@@ -7,7 +7,8 @@ num-aggregate 5 random_k, f32 with TF32 off) on a chosen gradient wire
     python -m ps_pytorch_tpu_torch.tools.train_profile [--steps 5] [--block 0] \
         [--compress-grad compress|2round|none] [--wire-domain dequant|homomorphic] \
         [--bucket-bytes -1|0|N] [--opt-placement replicated|sharded] \
-        [--network ResNet18|VGG16|...] [--dtype float32|bfloat16]
+        [--network ResNet18|VGG16|...] [--dtype float32|bfloat16] \
+        [--overlap off|on] [--dcn-hosts 1|H]
 
 The batches come as the trainer's do, through ``data.prefetch_to_device``
 (pinned staging, a copy stream, two in flight). After ``--warmup`` steps
@@ -17,7 +18,9 @@ by a host read of its metrics as the trainer's per-step log window does.
 Prints one JSON line: the card (nvidia-smi name and power limit), the
 wall time per step with and without the profiler, the device's busy time
 and idle share (summed CUDA kernel time over wall time, against either
-wall time; one stream, so kernels do not overlap), the device time by category (K2's
+wall time; one stream, so kernels do not overlap, except the pipelined
+wire's side stream under ``--overlap on``, where the summed time can
+exceed the busy time), the device time by category (K2's
 ``absmax_many_kernel`` + ``quantize_many_kernel``, K1's shared-scale
 ``quantize_rows_scaled_many_kernel``, K1's round-2
 ``quantize_rows_many_kernel``, the int32 sum over workers, cuDNN
@@ -27,7 +30,9 @@ the top CUDA kernels by device time, each port kernel's mean and
 largest device time per launch, and the host's synchronizing CUDA
 runtime calls a step (count and host ms). ``--block 128`` profiles the
 block-scale wire instead; the wire flags take the values of
-``cli.train``'s. Needs a CUDA card.
+``cli.train``'s: ``--overlap on`` the pipelined bucket wire (with a
+bucketed ``--bucket-bytes`` or ZeRO-1), ``--dcn-hosts H`` the
+hierarchical wire on an H x 8/H grid. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -92,6 +97,8 @@ def main(argv=None) -> int:
     ap.add_argument("--opt-placement", default="replicated", choices=("replicated", "sharded"))
     ap.add_argument("--network", default="ResNet18")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--overlap", default="off", choices=("off", "on"))
+    ap.add_argument("--dcn-hosts", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device is available", file=sys.stderr)
@@ -116,7 +123,9 @@ def main(argv=None) -> int:
     cfg = PSConfig(num_workers=n, num_aggregate=5, compress=compress,
                    quant_block_size=args.block, wire_domain=args.wire_domain,
                    bucket_bytes=None if args.bucket_bytes < 0 else args.bucket_bytes,
-                   opt_placement=args.opt_placement)
+                   opt_placement=args.opt_placement,
+                   overlap="pipelined" if args.overlap == "on" else "serial",
+                   dcn_hosts=args.dcn_hosts)
     model = build_model(args.network, dtype=getattr(torch, args.dtype))
     tx = build_optimizer("sgd", 0.1, momentum=0.9)
     state = init_ps_state(model, tx, cfg, torch.Generator().manual_seed(1), device=dev)
@@ -180,7 +189,8 @@ def main(argv=None) -> int:
                    f"num-aggregate 5 random_k, --compress-grad {args.compress_grad} "
                    f"{'block-%d' % args.block if args.block else 'per-tensor'} "
                    f"--wire-domain {args.wire_domain} --bucket-bytes {args.bucket_bytes} "
-                   f"--opt-placement {args.opt_placement}"),
+                   f"--opt-placement {args.opt_placement} --overlap {args.overlap} "
+                   f"--dcn-hosts {args.dcn_hosts}"),
         "steps": args.steps, "wall_ms_per_step": wall_s / args.steps * 1e3,
         "device_ms_per_step": busy_s / args.steps * 1e3,
         "device_idle_share": 1.0 - busy_s / wall_s,

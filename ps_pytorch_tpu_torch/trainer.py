@@ -54,9 +54,11 @@ taken at the step boundary, with an ``elastic.json`` geometry manifest;
 and falling back to the next older. The files are the JAX trainer's,
 byte for byte, so either package resumes the other's directory.
 
-Not ported yet, and refused when asked for (ROADMAP.md): compressed
-checkpoints, a resume onto another mesh geometry and the profiler
-window.
+A checkpoint written on another geometry (worker count, placement,
+ZeRO-1 carving, BN locality) is reshaped on resume
+(``elastic.reshape_raw_state``) and logged as a ``resume_reshape``
+record. Not ported yet, and refused when asked for (ROADMAP.md):
+compressed checkpoints and the profiler window.
 """
 
 from __future__ import annotations
@@ -86,7 +88,12 @@ from .models import COMPUTE_DTYPES, build_model, param_count
 from .obs import NULL_TRACER, Tracer, new_run_id, run_header, validate_event
 from .optim import build_optimizer
 from .parallel.buckets import FlatVector, tree_map
-from .parallel.mesh import ProcessWorkerAxis, batch_sharding, make_worker_axis
+from .parallel.mesh import (
+    ProcessWorkerAxis,
+    batch_sharding,
+    make_hybrid_mesh,
+    make_worker_axis,
+)
 from .parallel.ps import (
     PSConfig,
     PSTrainState,
@@ -217,6 +224,10 @@ class Trainer:
         self.dataset = dataset or prepare_data(tcfg.dataset, root=tcfg.data_root,
                                                allow_synthetic=tcfg.allow_synthetic)
         self.mesh = make_worker_axis(pcfg.num_workers)
+        if pcfg.dcn_hosts > 1 and not isinstance(self.mesh, ProcessWorkerAxis):
+            # the (hosts x per_host) grid of the hierarchical wire
+            # (trainer.py:242); over processes make_ps_train_step refuses it
+            self.mesh = make_hybrid_mesh(pcfg.dcn_hosts, pcfg.num_workers // pcfg.dcn_hosts)
         self.multi = isinstance(self.mesh, ProcessWorkerAxis)
         self.rank = self.mesh.rank if self.multi else 0
         # bf16 compute over f32 params, optimizer state and loss when asked
@@ -439,22 +450,26 @@ class Trainer:
         return None
 
     def _restore_step(self, step: int):
-        """Checkpoint ``step`` into the live state's structure. A file the
-        manifest says another geometry wrote needs the resume-reshape,
-        which is refused (ROADMAP.md queue 1 item 15)."""
+        """Checkpoint ``step`` into the live state's structure, through the
+        elastic reshape when the manifest says another geometry wrote the
+        file (trainer.py:430). Over processes every process reshapes the
+        same bytes (rank 0 verified them) into the gathered checkpoint
+        form, then keeps its own workers' rows."""
         raw = ckpt.load_checkpoint_raw(self.tcfg.train_dir, step)
         src = elastic.load_geometry(self.tcfg.train_dir, step=step)
         dst = elastic.geometry_of(self.pcfg)
+        target = self.checkpoint_state()
         if src is not None and elastic.needs_reshape(src, dst):
-            raise NotImplementedError(
-                f"checkpoint step {step} was written on {src.num_workers} workers "
-                f"({src.opt_placement} placement, bucket_bytes {src.bucket_bytes}, bn_mode "
-                f"{src.bn_mode}); resuming it on {dst.num_workers} workers "
-                f"({dst.opt_placement}, {dst.bucket_bytes}, {dst.bn_mode}) needs the "
-                f"resume-reshape (ROADMAP.md queue 1 item 15), which is not ported yet")
+            logger.warning("resume-reshape: checkpoint step %d was written on %d workers "
+                           "(%s placement); reshaping onto %d workers (%s placement)",
+                           step, src.num_workers, src.opt_placement, dst.num_workers,
+                           dst.opt_placement)
+            raw = elastic.reshape_raw_state(raw, src, self.pcfg, target)
+            self._event({"kind": "resume_reshape", "step": step, "from": src.to_json(),
+                         "to": dst.to_json()})
+            return self._live_state(ckpt.restore_from_raw(target, raw, step), step)
         try:
-            restored = self._live_state(
-                ckpt.restore_from_raw(self.checkpoint_state(), raw, step), step)
+            restored = self._live_state(ckpt.restore_from_raw(target, raw, step), step)
         except ValueError as e:
             if src is None:
                 raise ValueError(

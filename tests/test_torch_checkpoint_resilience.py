@@ -8,8 +8,8 @@ the JAX package's tests/test_resilience.py holds its own:
   file loads; a compressed (``PSCK``) file raises NotImplementedError and
   stays where it is; ``poll_checkpoints`` yields new steps in order, skips
   an unreadable one and stops at its timeout; resuming a finished run
-  takes no step; a manifest of another geometry and EF residuals into a
-  run with EF off are refused;
+  takes no step; a manifest of another geometry is reshaped, and EF
+  residuals into a run with EF off are refused;
 - the evaluator on a directory the JAX trainer wrote agrees with JAX's
   Evaluator (loss within the logits tolerance of
   tests/test_torch_cnn_models.py, 2e-5 relative; Prec@1 / Prec@5 equal),
@@ -149,12 +149,20 @@ def test_torch_resuming_a_finished_run_takes_no_step(tmp_path):
 
 
 def test_torch_resume_refuses_another_geometry_and_lost_ef_state(tmp_path):
-    _trainer(_tcfg(tmp_path, max_steps=2), compress="int8", error_feedback=True).train()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer(_tcfg(tmp_path, resume=True), PSConfig(num_workers=4, compress="int8",
-                                                       error_feedback=True),
-                dataset=make_synthetic("MNIST", train_size=64, test_size=32, seed=1),
-                device="cpu").try_resume()
+    """Another geometry, once refused, is reshaped now (the EF residuals'
+    sum kept over 2 -> 4 workers); EF residuals into a run with EF off
+    are still refused."""
+    t2 = _trainer(_tcfg(tmp_path, max_steps=2), compress="int8", error_feedback=True)
+    t2.train()
+    t4 = Trainer(_tcfg(tmp_path, resume=True), PSConfig(num_workers=4, compress="int8",
+                                                        error_feedback=True),
+                 dataset=make_synthetic("MNIST", train_size=64, test_size=32, seed=1),
+                 device="cpu")
+    assert t4.try_resume() == 2 and t4.state.step == 2
+    for a, b in zip(jax.tree_util.tree_leaves(to_state_dict(t2.state.comm_state)),
+                    jax.tree_util.tree_leaves(to_state_dict(t4.state.comm_state))):
+        assert a.shape[0] == 2 and b.shape[0] == 4
+        np.testing.assert_array_equal(b.sum(0), a.sum(0))
     os.remove(str(tmp_path / "models" / elastic.GEOMETRY_FILE))
     with pytest.raises(ValueError, match="error-feedback"):
         _trainer(_tcfg(tmp_path, resume=True), compress="int8").try_resume()

@@ -201,20 +201,23 @@ def test_torch_worker_axis_primitives():
 
 
 def test_torch_collectives_refuse_unported_wires():
-    """The hierarchical (tuple-axis) and pipelined wires are refused,
-    naming ROADMAP.md. Stochastic rounding, a device count and bucket
-    peaks, refused here before the adaptive wire was ported, now run
-    (tests/test_torch_adaptive_wire.py holds them against JAX), and
-    stochastic rounding without draws raises JAX's ValueError."""
+    """A tuple of axis names is not an axis: the hierarchical wire takes
+    the hybrid grid (mesh.make_hybrid_mesh; tests/test_torch_hier.py holds
+    it against JAX). The pipelined wire, refused here before its port,
+    runs and gives the serial wire's values. Stochastic rounding, a device
+    count and bucket peaks run too (tests/test_torch_adaptive_wire.py),
+    and stochastic rounding without draws raises JAX's ValueError."""
     g = _torch_tree(_grads())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_hybrid_mesh"):
         tc.aggregate_gradients(g, ("dcn", WORKER_AXIS), N, compress="int8_2round")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0,
-                               pipelined=True)
+    serial = tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0,
+                                    flat_output=True)
+    assert torch.equal(serial, tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8",
+                                                      bucket_bytes=0, flat_output=True,
+                                                      pipelined=True))
     with pytest.raises(ValueError, match="stochastic rounding needs a key"):
         tc.quantized_psum(g, WorkerAxis(N), 8.0, rounding="stochastic")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_hybrid_mesh"):
         tc.aggregate_gradients(g, ("dcn", WORKER_AXIS), N)
     agg = tc.aggregate_gradients(g, WorkerAxis(N), N, compress="int8", bucket_bytes=0,
                                  bucket_peaks=torch.full((1,), 127.0), flat_output=True)

@@ -20,6 +20,10 @@ over two CPU processes.
   wire with error feedback, 3 steps) writes the 1-process stacked run's
   ``model_step_3`` byte for byte; a SIGTERM on process 1 stops both at
   the same step; a ``--resume`` of both restores the same step.
+- The resume-reshape over processes: a 4-worker ZeRO-1 + EF checkpoint
+  the stacked trainer wrote, resumed by two processes of one worker each
+  on another carving, restores the stacked trainer's reshape of the same
+  file bit for bit (every field gathered), the EF sum kept.
 
 Every process is spawned with a free port and a timeout, single-threaded
 (the 1-process reference too, so their CPU convolutions add alike).
@@ -265,7 +269,7 @@ def _check_against_jax(want, n):
 
 def test_torch_process_axis_batch_sharding_and_refusals():
     assert list(batch_sharding(WorkerAxis(4))) == [0, 1, 2, 3]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="make_hybrid_mesh"):
         tc.aggregate_gradients({"w": torch.zeros(2, 3)}, ("dcn", WORKER_AXIS), 2)
     from ps_pytorch_tpu_torch.parallel.mesh import initialize_multihost
 
@@ -289,6 +293,11 @@ def test_torch_process_axis_batch_sharding_and_refusals():
         model = build_model("ResNet18", bn_axis_name=cfg.axis_name)
         with pytest.raises(NotImplementedError, match="item 1"):
             make_ps_train_step(model, build_optimizer("sgd", 0.1), cfg, axis, device="cpu")
+        # the hierarchical grid over processes: hosts are not mapped to them yet
+        with pytest.raises(NotImplementedError, match="item 14"):
+            make_ps_train_step(build_model("LeNet"), build_optimizer("sgd", 0.1),
+                               PSConfig(num_workers=2, dcn_hosts=2, compress="int8_2round"),
+                               axis, device="cpu")
     finally:
         dist.destroy_process_group()
 
@@ -339,3 +348,89 @@ def test_torch_two_process_sigterm_stops_both_then_resume_agrees(tmp_path):
     for out in outs:
         assert "model_step_2 (agreed by the processes)" in out and "Step: 3" in out
     assert tckpt.available_steps(str(d)) == [2, 3]
+
+
+RESHAPE = ["--opt-placement", "sharded", "--compress-grad", "compress", "--error-feedback"]
+
+
+def _child_resume(rank, world, port, train_dir, path):
+    """One process of the resume-reshape pin: a 2-worker trainer over two
+    processes resumes ``train_dir``; its gathered checkpoint form as an
+    npz."""
+    import argparse
+
+    from ps_pytorch_tpu_torch.cli._flags import (
+        add_ps_flags,
+        add_train_flags,
+        ps_config_from,
+        train_config_from,
+    )
+    from ps_pytorch_tpu_torch.parallel.mesh import initialize_multihost
+    from ps_pytorch_tpu_torch.trainer import Trainer
+    from ps_pytorch_tpu_torch.utils.serialization import to_state_dict
+
+    args = add_ps_flags(add_train_flags(argparse.ArgumentParser())).parse_args(
+        _train_argv(train_dir, RESHAPE + ["--num-workers", "2", "--bucket-bytes", "0",
+                                          "--resume"])[3:])
+    initialize_multihost(f"localhost:{port}", int(world), int(rank), device="cpu")
+    import torch.distributed as dist
+
+    try:
+        trainer = Trainer(train_config_from(args), ps_config_from(args, 2), device="cpu")
+        step = trainer.try_resume()
+        flat = _flat_dict(to_state_dict(trainer.checkpoint_state()))
+        np.savez(path, resumed_step=np.asarray(step), **flat)
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat_dict(sd, prefix=""):
+    """A state dict's leaves by path (None leaves dropped)."""
+    out = {}
+    for k, v in sd.items():
+        if isinstance(v, dict):
+            out.update(_flat_dict(v, f"{prefix}{k}/"))
+        elif v is not None:
+            out[f"{prefix}{k}"] = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def test_torch_two_process_resume_reshapes_as_the_stacked_trainer(tmp_path):
+    """A 4-worker ZeRO-1 + EF checkpoint (stacked, 2 steps) resumed on 2
+    processes x 1 worker with ``--bucket-bytes 0``: every rank reshapes
+    the bytes rank 0 verified and keeps its own rows; gathered, the state
+    equals the stacked 2-worker trainer's resume of the same file bit for
+    bit, and the EF residuals' sum is the file's."""
+    import argparse
+
+    from ps_pytorch_tpu_torch.cli._flags import (
+        add_ps_flags,
+        add_train_flags,
+        ps_config_from,
+        train_config_from,
+    )
+    from ps_pytorch_tpu_torch.trainer import Trainer
+    from ps_pytorch_tpu_torch.utils.serialization import to_state_dict
+
+    d = tmp_path / "ckpt"
+    _spawn([_train_argv(d, RESHAPE + ["--max-steps", "2", "--bucket-bytes", "4096"])])
+    assert tckpt.available_steps(str(d)) == [2]
+    port = free_port()
+    paths = [str(tmp_path / f"r{r}.npz") for r in range(2)]
+    _spawn([[sys.executable, "-c",
+             "import sys; from tests.test_torch_distributed import _child_resume as c; "
+             "c(*sys.argv[1:])", str(r), "2", str(port), str(d), paths[r]] for r in range(2)])
+    args = add_ps_flags(add_train_flags(argparse.ArgumentParser())).parse_args(
+        _train_argv(d, RESHAPE + ["--num-workers", "2", "--bucket-bytes", "0", "--resume"])[3:])
+    stacked = Trainer(train_config_from(args), ps_config_from(args, 2), device="cpu")
+    assert stacked.try_resume() == 2
+    want = _flat_dict(to_state_dict(stacked.checkpoint_state()))
+    assert want["opt_state/momentum_buffer"].shape[0] == 2  # the 2-worker ZeRO-1 rows
+    for path in paths:
+        got = dict(np.load(path))
+        assert int(got.pop("resumed_step")) == 2
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert _bits(got[k]) == _bits(want[k]), k
+    raw = tckpt.load_checkpoint_raw(str(d), 2)
+    assert _bits(want["comm_state"].sum(0)) == _bits(np.asarray(raw["comm_state"]).sum(0))

@@ -984,3 +984,94 @@ def test_torch_adaptive_wires_on_card_match_cpu(cuda_device, compress, domain, b
         assert torch.equal(agg_gpu.cpu(), agg_cpu)
         for a, b in zip(tree_leaves(c_gpu), tree_leaves(c_cpu)):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(compress="int8", error_feedback=True, bucket_bytes=65536),
+    dict(compress="int8_2round", wire_domain="homomorphic", error_feedback=True,
+         bucket_bytes=65536),
+    dict(opt_placement="sharded", compress="int8", quant_block_size=128, error_feedback=True,
+         bucket_bytes=65536),
+], ids=["int8_ef", "2round_homomorphic_ef", "zero1_block128_ef"])
+def test_torch_pipelined_step_equals_serial_on_card(cuda_device, kw):
+    """The pipelined step on the card (each bucket's wire launched from the
+    backward's hooks on a side stream, its update waiting on the bucket's
+    event) gives the serial step's params and EF residuals bit for bit
+    (cuDNN deterministic), with one K2 / K1 call a bucket where the serial
+    wire makes one a step."""
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.ps import (
+        PSConfig,
+        StepDraws,
+        init_ps_state,
+        make_ps_train_step,
+        state_plan,
+    )
+
+    model = build_model("LeNet")
+    g = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (2, 64, 28, 28, 1), generator=g).to(torch.uint8)
+    labels = torch.randint(0, 10, (2, 64), generator=g)
+    out, calls = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for overlap in ("serial", "pipelined"):
+            cfg = PSConfig(num_workers=8, num_aggregate=5, overlap=overlap, **kw)
+            tx = build_optimizer("sgd", 0.05, momentum=0.9)
+            st = init_ps_state(model, tx, cfg, torch.Generator().manual_seed(1),
+                               device=cuda_device)
+            step = make_ps_train_step(model, tx, cfg, device=cuda_device)
+            k2, k1 = tq.quantize_tensors.launches, tq.quantize_rows_scaled_many.launches
+            for i in range(2):
+                st, _ = step(st, {"image": images[i].to(cuda_device),
+                                  "label": labels[i].to(cuda_device)},
+                             StepDraws(perm=torch.tensor([3, 0, 6, 1, 5, 2, 7, 4])))
+            torch.cuda.synchronize()
+            calls[overlap] = (tq.quantize_tensors.launches - k2
+                              + tq.quantize_rows_scaled_many.launches - k1)
+            out[overlap] = [st.params.flat] + tree_leaves(st.comm_state)
+            n_buckets = state_plan(cfg, st.params.layout.total).n_buckets
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for a, b in zip(out["serial"], out["pipelined"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert n_buckets > 1 and calls["pipelined"] == 2 * n_buckets
+    assert calls["serial"] == (2 * n_buckets if kw.get("opt_placement") else 2)
+
+
+@pytest.mark.cuda
+def test_torch_hier_k3_at_both_hops_equals_plain_on_card(cuda_device):
+    """The hierarchical homomorphic wire on a 2 x 4 grid: K3 at the ICI
+    hop (divisor per_host) and at the DCN hop (divisor hosts), each
+    launch held against its plain version on its own input, and the
+    aggregate bit for bit the CPU's."""
+    from ps_pytorch_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+    seen = []
+    real = collectives.accumulate_rescale_int8
+
+    def spy(recv, divisor):
+        out = real(recv, divisor)
+        seen.append((recv.clone(), float(divisor), out))
+        return out
+
+    g = _grads("cpu")
+    grid = make_hybrid_mesh(2, 4)
+    kw = dict(num_aggregate=5, perm=torch.tensor([3, 0, 6, 1, 5, 2, 7, 4]),
+              compress="int8_2round", wire_domain="homomorphic", bucket_bytes=0,
+              flat_output=True)
+    collectives.accumulate_rescale_int8 = spy
+    try:
+        before = accumulate_rescale_int8.launches
+        agg_gpu = collectives.aggregate_gradients(tree_map(lambda t: t.to(cuda_device), g),
+                                                  grid, 8, **kw)
+        torch.cuda.synchronize()
+        launched = accumulate_rescale_int8.launches - before
+    finally:
+        collectives.accumulate_rescale_int8 = real
+    assert launched == 2 and [d for _, d, _ in seen] == [4.0, 2.0]
+    for recv, d, out in seen:
+        assert out.is_cuda and torch.equal(out.cpu(), accumulate_rescale_plain(recv.cpu(), d))
+    agg_cpu = collectives.aggregate_gradients(g, grid, 8, **kw)
+    assert torch.equal(agg_gpu.cpu(), agg_cpu)

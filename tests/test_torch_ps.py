@@ -211,16 +211,15 @@ def test_torch_ps_state_geometry_matches_jax():
     dict(num_aggregate_min=2, num_aggregate_max=4),
 ])
 def test_torch_ps_config_refuses_unported_paths(kw):
-    """The pipelined schedule and the hierarchical wire are refused,
-    naming ROADMAP.md; adaptive precision, stochastic rounding and the
-    adaptive count (refused before their port) build as JAX's do."""
-    if kw.get("overlap") == "pipelined" or kw.get("dcn_hosts", 1) > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PSConfig(num_workers=N, **kw)
-        return
+    """Every path here was refused before its port and builds as JAX's
+    does now: the pipelined schedule and the hierarchical wire (the axis
+    becomes JAX's tuple), adaptive precision, stochastic rounding and the
+    adaptive count."""
     cfg, jcfg = PSConfig(num_workers=N, **kw), JPSConfig(num_workers=N, **kw)
     assert (cfg.adaptive_aggregate, cfg.initial_aggregate) == (
         jcfg.adaptive_aggregate, jcfg.initial_aggregate)
+    assert (cfg.axis_name, cfg.overlap, cfg.dcn_hosts) == (
+        jcfg.axis_name, jcfg.overlap, jcfg.dcn_hosts)
 
 
 def test_torch_ps_synced_bn_step_runs():

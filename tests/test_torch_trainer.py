@@ -68,12 +68,13 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--compress-checkpoints"], ["--bucket-bytes", "0", "--overlap", "on"],
-    ["--profile-dir", "prof"], ["--overlap", "on", "--opt-placement", "sharded"],
-    ["--compress-grad", "2round", "--dcn-hosts", "2"],
-    # the two flags refused here before their port (--quant-rounding
-    # stochastic, --data-root) run now: test_torch_cli_train_runs_what_it_refused
-    ["--config-json", "run.json"], ["--dcn-hosts", "2"],
+    ["--compress-checkpoints"], ["--fault-plan", '{"slow_decode": [1]}'],
+    ["--profile-dir", "prof"], ["--fault-plan", '{"rollover_corrupt": [1]}'],
+    ["--fault-plan", '{"spike": [1]}'],
+    # the flags refused here before their port (--quant-rounding
+    # stochastic, --data-root, --overlap on, --dcn-hosts 2) run now:
+    # test_torch_cli_train_runs_what_it_refused
+    ["--config-json", "run.json"], ["--profile-dir", "prof", "--profile-start", "2"],
 ])
 def test_torch_cli_train_refuses_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -89,7 +90,13 @@ def test_torch_cli_train_refuses_unported_flags(extra):
      "--num-aggregate-min", "2", "--num-aggregate-max", "4", "--mode", "straggler",
      "--kill-threshold", "60", "--adapt-window", "1"],
     ["--data-root", "/nonexistent"],
-], ids=["stochastic_ef", "stochastic_2round", "precision", "adaptive_count", "data_root"])
+    ["--compress-grad", "compress", "--bucket-bytes", "65536", "--overlap", "on",
+     "--error-feedback"],
+    ["--overlap", "on", "--opt-placement", "sharded", "--compress-grad", "compress"],
+    ["--compress-grad", "2round", "--dcn-hosts", "2", "--wire-domain", "homomorphic"],
+    ["--dcn-hosts", "2"],
+], ids=["stochastic_ef", "stochastic_2round", "precision", "adaptive_count", "data_root",
+        "overlap", "overlap_zero1", "dcn_hosts_homomorphic", "dcn_hosts"])
 def test_torch_cli_train_runs_what_it_refused(extra):
     """Refused before this slice's port; JAX runs each of them (4 workers
     of 4 images, 2 steps)."""
