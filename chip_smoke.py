@@ -224,11 +224,31 @@ Phases, one line each:
    launches at the ICI and DCN hops bit for bit their plain versions, the
    aggregate within JAX's bound of the exact mean, the homomorphic step
    p50 beside phase 12's flat autotune-best run;
-31. the kernels JSON line, then the result line.
+31. ``cli.train --config-json runs/autotune_resnet18.json`` (the record's
+   best candidate: the homomorphic two-round wire in one fused bucket)
+   on phase 12's geometry, 3 steps, with ``--profile-dir`` and
+   ``--trace``: the launches the expanded flags imply (one K2 and one K3
+   a step), a Chrome trace naming K3's kernel and the loop's ``fetch`` /
+   ``dispatch`` / ``h2d`` spans, the capture's one-time host seconds;
+32. LM-1's model (bf16, remat, flash) through ``cli.train_lm.main`` under
+   ``tp 4 --shard-vocab``, ``dp_tp 2 x 4`` and ``pp 2 x 4 microbatches``,
+   8 steps each: finite losses, the last below the first, K4 (normalized)
+   2 c, K5 and K6 c launches a step, c the attention calls of a step
+   (depth for tp and dp_tp: one call a block over every shard's heads;
+   (M + S - 1) depth / S = 15 for pp: every stage's blocks run every
+   tick in one call); step p50 beside phase 15's; then ``cli.evaluate_lm
+   --once`` on the tp run's checkpoint (finite perplexity);
+33. one f32 step of tp 4 (vocab-parallel) and of pp 2 x 2 microbatches at
+   depth 2, card vs CPU under phase 17's rule, with launch counts;
+34. (run right after phase 14) K4 normalized, K5 and K6 (input-dtype
+   gradients) against their plain versions at phase 32's shapes, [8 x 4,
+   1024, 2, 64] (tp) and [2 x 2, 1024, 8, 64] (pp), bf16 and f32, each
+   twice (the same bits), timed beside the bound and aten's attention;
+35. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,19,20,21,22,23,24,25,26,27,28,29,30 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,30,31,32,33,34 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -240,7 +260,10 @@ the checkpoints of 12b; the VGG runs of 18; the bf16 runs of 19, after
 phase 9's f32 run; the held steps of 20; the event stream of 21; the
 data path of 25, the adaptive wire of 26, stochastic rounding of 27, the
 resume-reshape of 28, the pipelined wire of 29, the hierarchical wire of
-30, which reports no flat run beside its own when run alone),
+30, which reports no flat run beside its own when run alone, the
+``--config-json`` and profiler run of 31, the tp / dp_tp / pp runs of 32,
+which report no dp_sp run beside their own when run alone, the held
+steps of 33, the flash kernels at their shard shapes of 34),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -3453,13 +3476,281 @@ def phase_hier(card: str, dev, flat_best=None) -> dict:
     return rec
 
 
+
+# ------------------------- phases 31-34: --config-json, the profiler, tp / dp_tp / pp
+
+AUTOTUNE_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                               "autotune_resnet18.json")
+CONFIG_JSON_STEPS = 3
+
+
+def phase_config_json(card: str) -> dict:
+    """Phase 31: ``cli.train --config-json runs/autotune_resnet18.json``
+    (the record's best candidate sets the network, dataset and wire; the
+    rest is phase 12's geometry) for 3 steps with ``--profile-dir`` and
+    ``--trace``: the launches ``expected_launches`` implies for the
+    expanded flags (one K2 and one K3 a step, as phase 12's autotune-best
+    run), a Chrome trace that names K3's kernel and the tracer's spans,
+    and the capture's one-time host seconds."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch.cli import train as cli_train
+    from ps_pytorch_tpu_torch.cli._flags import expand_config_json, ps_config_from
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+
+    require(os.path.exists(AUTOTUNE_RECORD), f"config-json: no {AUTOTUNE_RECORD}")
+    owned = {"--network", "--dataset", "--compress-grad"}  # set by the record
+    base = [x for i in range(0, len(TRAIN_ARGS), 2) if TRAIN_ARGS[i] not in owned
+            for x in TRAIN_ARGS[i:i + 2]]
+    steps = CONFIG_JSON_STEPS
+    with tempfile.TemporaryDirectory() as root:
+        argv = base + ["--max-steps", str(steps), "--no-checkpoints", "--config-json",
+                       AUTOTUNE_RECORD, "--profile-dir", os.path.join(root, "prof"),
+                       "--trace", os.path.join(root, "trace")]
+        parser = cli_train.build_parser()
+        cfg = ps_config_from(parser.parse_args(expand_config_json(parser, list(argv))),
+                             WORKERS)
+        resnet, _ = init_model(build_model("ResNet18"), torch.Generator().manual_seed(0),
+                               device="cpu")
+        want = {k: v * steps for k, v in expected_launches(cfg, resnet).items()}
+        reset_counts()
+        res = cli_train.main(argv)
+        torch.cuda.synchronize()
+        got = read_counts()
+        losses = [h["loss"] for h in res["history"]]
+        require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                f"config-json: losses {losses}")
+        require(got == want, f"config-json: launches {got}, expected {want}")
+        require(got["accumulate_rescale_int8"] == steps and got["quantize_tensors"] == steps,
+                f"config-json: not one K3 and one K2 call a step: {got}")
+        pw = res["trainer"].profile_window
+        require(pw.trace_path is not None and os.path.exists(pw.trace_path),
+                "config-json: no profiler trace written")
+        with open(pw.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        k3 = [e for e in events if "accum_rescale_kernel" in e.get("name", "")
+              and e.get("cat") == "kernel"]
+        names = {e.get("name") for e in events}
+        spans = sorted({"fetch", "dispatch", "h2d"} & names)
+        require(len(k3) >= 1, "config-json: the trace names no K3 kernel")
+        require(spans == ["dispatch", "fetch", "h2d"], f"config-json: spans {spans}")
+        rec = {"card": card, "flags": " ".join(base) + f" --max-steps {steps} --config-json "
+               "runs/autotune_resnet18.json --profile-dir DIR --trace DIR",
+               "record_best": cfg.compress + " " + cfg.wire_domain,
+               "launches": got, "losses": losses,
+               "step_ms": [h["time_cost"] * 1e3 for h in res["history"]],
+               "window": [pw.start, pw.stop], "capture_host_s": pw.host_s,
+               "trace_bytes": os.path.getsize(pw.trace_path), "trace_events": len(events),
+               "k3_kernel_events": len(k3), "k3_kernel": k3[0]["name"], "spans": spans}
+    print("phase 31 cli.train --config-json autotune record, --profile-dir: "
+          + json.dumps(rec))
+    return rec
+
+
+LM_SCHEME_STEPS = 8
+# (name, flags, attention calls a step: depth for tp and dp_tp, (M + S - 1)
+# depth / S for pp)
+LM_SCHEMES = [
+    ("tp", ["--parallelism", "tp", "--num-shards", "4", "--shard-vocab"], LM_DEPTH),
+    ("dp_tp", ["--parallelism", "dp_tp", "--num-dp", "2", "--num-shards", "4"], LM_DEPTH),
+    ("pp", ["--parallelism", "pp", "--num-shards", "2", "--num-microbatches", "4"],
+     (4 + 2 - 1) * LM_DEPTH // 2),
+]
+
+
+def phase_lm_schemes(card: str, lm1=None) -> dict:
+    """Phase 32: LM-1's model (LM_ARGS, bf16, remat, flash) under ``tp 4
+    --shard-vocab``, ``dp_tp 2 x 4`` and ``pp 2 x 4 microbatches``, 8 steps
+    each through ``cli.train_lm.main``: finite losses, the last below the
+    first, K4 (normalized) 2 x calls, K5 and K6 calls a step (remat runs
+    the forward twice); the step p50 beside phase 15's dp_sp one (``lm1``).
+    Then ``cli.evaluate_lm --once`` on the tp run's checkpoint."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch.cli import evaluate_lm, train_lm
+
+    steps, batch, seq = LM_SCHEME_STEPS, 8, 1024
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, flags, calls in LM_SCHEMES:
+            extra = ["--train-dir", root] if name == "tp" else []
+            reset_flash_counts()
+            res = train_lm.main(LM_ARGS + ["--dtype", "bfloat16", "--seq-len", str(seq),
+                                           "--batch-size", str(batch), "--max-steps",
+                                           str(steps), *flags, *extra])
+            torch.cuda.synchronize()
+            got = read_flash_counts()
+            want = {"flash_fwd": 2 * calls * steps, "flash_partial": 0,
+                    "flash_bwd_dq": calls * steps, "flash_bwd_dkv": calls * steps}
+            losses = [h_["loss"] for h_ in res["history"]]
+            require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                    f"LM {name}: losses {losses}")
+            require(losses[-1] < losses[0], f"LM {name}: loss did not fall: {losses}")
+            require(got == want, f"LM {name}: launches {got}, expected {want}")
+            times = [h_["time_cost"] for h_ in res["history"][2:]]
+            p50 = float(np.median(times))
+            out[name] = {
+                "card": card, "layout": res["layout"], "flags": " ".join(flags),
+                "steps": steps, "launches": got, "attention_calls_per_step": calls,
+                "losses": losses, "step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
+                "step_ms_max": max(times) * 1e3, "tokens_per_s": batch * seq / p50,
+                "dp_sp_step_ms_p50": lm1["step_ms_p50"] if lm1 else None,
+                "params": res["params"]}
+            print(f"phase 32 LM-1 {name}: " + json.dumps(out[name]), flush=True)
+        t0 = time.perf_counter()
+        ev = evaluate_lm.main(["--device", "cuda", "--model-dir", root, "--once"])
+        ev_s = time.perf_counter() - t0
+    (r,) = ev.values()
+    require(r["step"] == steps and np.isfinite(r["perplexity"]),
+            f"evaluate_lm on the tp checkpoint: {r}")
+    out["evaluate_lm"] = {"step": r["step"], "loss": r["loss"],
+                          "perplexity": r["perplexity"], "seconds": ev_s}
+    print("phase 32 cli.evaluate_lm --once on the tp checkpoint: "
+          + json.dumps(out["evaluate_lm"]))
+    return out
+
+
+def phase_lm_schemes_held(dev) -> dict:
+    """Phase 33: one f32 step (TF32 off) of tp 4 (vocab-parallel) and of
+    pp 2 x 2 microbatches at depth 2, flash, remat: the card (kernels)
+    against the CPU (plain versions) from the same params and tokens,
+    under phase 17's rule (loss rtol 1e-5; params rtol 2e-4 / atol 2e-5),
+    each with its launch counts."""
+    from ps_pytorch_tpu_torch import on_device
+    from ps_pytorch_tpu_torch.cli.train_lm import make_synthetic_tokens
+    from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel import pp, tp
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+
+    depth = 2
+    cfg = TransformerConfig(vocab_size=256, dim=256, depth=depth, heads=4, max_seq_len=256,
+                            attention_impl="flash", remat=True)
+    plain = init_transformer(cfg, torch.Generator().manual_seed(9), device="cpu")
+    tokens = torch.from_numpy(make_synthetic_tokens(256, 4, 256, seed=3))
+    n, (s, m) = 4, (2, 2)
+    cases = {
+        "tp": (tp.shard_params_tp(cfg, tp.to_tp_layout(cfg, plain), tp.make_tp_mesh(n), True),
+               lambda tx: tp.make_tp_train_step(cfg, tx, tp.make_tp_mesh(n), True), depth),
+        "pp": (pp.to_pp_layout(cfg, plain),
+               lambda tx: pp.make_pp_train_step(cfg, tx, pp.make_pp_mesh(s), m),
+               (m + s - 1) * depth // s),
+    }
+    out = {}
+    for name, (params, make_step, calls) in cases.items():
+        res = {}
+        for d in ("cpu", dev):
+            tx = build_optimizer("sgd", 0.1, momentum=0.9)
+            p = on_device(params, torch.device(d))
+            reset_flash_counts()
+            p2, _, loss = make_step(tx)(p, tx.init(p), tokens.to(d))
+            leaves = [x.detach().cpu() for x in tree_leaves(p2)]
+            res[torch.device(d).type] = (leaves, float(loss), read_flash_counts())
+        (pc, lc, _), (pg, lg, counts) = res["cpu"], res[torch.device(dev).type]
+        require(abs(lg - lc) <= 1e-5 * abs(lc), f"held LM {name}: loss {lg} vs CPU {lc}")
+        worst = 0.0
+        for a, b in zip(pg, pc):
+            excess = (a - b).abs() - (2e-5 + 2e-4 * b.abs())
+            worst = max(worst, float((a - b).abs().max()))
+            require(bool((excess <= 0).all()), f"held LM {name}: params off by {worst}")
+        want = {"flash_fwd": 2 * calls, "flash_partial": 0, "flash_bwd_dq": calls,
+                "flash_bwd_dkv": calls}
+        require(counts == want, f"held LM {name}: launches {counts}, expected {want}")
+        out[name] = {"loss_cpu": lc, "loss_cuda": lg, "max_abs_param_diff": worst,
+                     "launches": counts}
+    print("phase 33 LM tp 4 / pp 2 step held on the card vs CPU: " + json.dumps(out))
+    return out
+
+
+def phase_flash_shard_kernels(dev) -> dict:
+    """Phase 34: K4 (normalized), K5 and K6 (input-dtype gradients, as
+    ``flash_attention``'s backward runs them) against their plain versions
+    at the shapes phase 32 gives them: a tp 4 shard's heads folded into
+    the batch, [8 x 4, 1024, 2, 64], and a pp tick's two stages' rows,
+    [2 x 2, 1024, 8, 64], as head splits of one fused projection, causal,
+    bf16 and f32; each twice (the same bits), timed beside the bound and
+    aten's attention (``_aten_yardsticks``). It runs beside phase 14:
+    after phase 24 a whole run's short profiler traces often come back
+    without their kernel records (PERF.md section 7)."""
+    from ps_pytorch_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_bwd_plain,
+        flash_fwd,
+        flash_fwd_plain,
+    )
+
+    cases = [("tp_bf16", 32, 2, torch.bfloat16), ("pp_bf16", 4, 8, torch.bfloat16),
+             ("tp_f32", 32, 2, torch.float32), ("pp_f32", 4, 8, torch.float32)]
+    t, d = 1024, 64
+    scale = d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(34)
+    out = {}
+    for name, b, h, dt in cases:
+        qkv = torch.randn((b, t, 3, h, d), generator=g, device=dev).to(dt)
+        q, k, v = qkv.unbind(2)  # the blocks' layout: strided head splits
+        do = torch.randn((b, t, h, d), generator=g, device=dev).to(dt)
+        o, lse = flash_fwd(q, k, v, causal=True)
+        o2, lse2 = flash_fwd(q, k, v, causal=True)
+        op, lsep = flash_fwd_plain(q, k, v, True, scale)
+        delta = (do.float() * op.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, lsep, delta, True, scale)
+        dq, (dk, dv) = flash_bwd_dq(*bwd), flash_bwd_dkv(*bwd)
+        dq2, (dk2, dv2) = flash_bwd_dq(*bwd), flash_bwd_dkv(*bwd)
+        want = flash_bwd_plain(*bwd)
+        torch.cuda.synchronize()
+        require(torch.equal(o, o2) and torch.equal(lse, lse2)
+                and torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                f"{name}: a kernel changed between two runs")
+        bf16 = dt == torch.bfloat16
+        err = (o.float() - op.float()).abs()
+        lim = (2e-2 + 1e-2 * op.float().abs()) if bf16 else torch.full_like(err, 1e-5)
+        require(bool((err <= lim).all()), f"{name}: K4 o off by {float(err.max())}")
+        lse_err = float((lse - lsep).abs().max())
+        require(lse_err <= (1e-4 if bf16 else 1e-5), f"{name}: K4 lse off by {lse_err}")
+        errs = {"o": float(err.max()), "lse": lse_err}
+        for key, got, ref in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+            errs[key] = _near(f"{name} {key}", got, ref, 1e-2 if bf16 else 5e-5)[0]
+        pairs = kept_pairs(b, h, t, t, True, 0, 0)
+        elt, act, stat = q.element_size(), b * t * h * d, b * h * t * 4
+        rate = TF32X3_OPS_PER_S if dt == torch.float32 else PEAK_OPS_PER_S[dt]
+        bounds = {"fwd": bound_ms(4 * act * elt + stat, 4.0 * d * pairs, rate),
+                  "dq": bound_ms(5 * act * elt + 2 * stat, 6.0 * d * pairs, rate),
+                  "dkv": bound_ms(6 * act * elt + 2 * stat, 8.0 * d * pairs, rate)}
+        iters, plain_iters = (50, 10) if not bf16 else (ITERS, 20)
+        fwd = lambda: flash_fwd(q, k, v, causal=True)
+        rec = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
+               "max_abs_err": errs}
+        dev_ms, kernels = _device_route(f"{name} K4", fwd, dt)
+        rec["fwd"] = {"ms": time_ms(fwd, iters), "device_ms": dev_ms, "device_kernels": kernels,
+                      "plain_ms": time_ms(lambda: flash_fwd_plain(q, k, v, True, scale),
+                                          iters=plain_iters),
+                      "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1]}
+        plain_bwd_ms = time_ms(lambda: flash_bwd_plain(*bwd), iters=plain_iters)
+        for part, family, fn in (("dq", "flash_dq", lambda: flash_bwd_dq(*bwd)),
+                                 ("dkv", "flash_dkv", lambda: flash_bwd_dkv(*bwd))):
+            dev_ms, kernels = _device_route(f"{name} {part}", fn, dt, family)
+            rec[part] = {"ms": time_ms(fn, iters), "device_ms": dev_ms,
+                         "device_kernels": kernels, "plain_ms": plain_bwd_ms,
+                         "bound_ms": bounds[part][0], "bound_by": bounds[part][1]}
+        lib = _aten_yardsticks(q, k, v, do, scale, True, iters)
+        rec["fwd"]["library_ms"] = lib["fwd_ms"]
+        rec["fwd"]["library_device_ms"] = lib["fwd_device_ms"]
+        for part in ("dq", "dkv"):
+            rec[part]["library_ms"] = lib["bwd_ms"]
+            rec[part]["library_device_ms"] = lib["bwd_device_ms"]
+        out[name] = rec
+        print(f"phase 34 {name}: " + json.dumps(rec), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
-                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30; 2 on this tree only; 22 "
-                         "runs 9 first, 24 runs 23 first)")
+                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34; 2 "
+                         "on this tree only; 22 runs 9 first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
     ap.add_argument("--phase24-child", nargs=4, default=None, metavar=("RANK", "PORT", "DIR", "OUT"),
@@ -3536,7 +3827,11 @@ def main(argv=None) -> int:
                  28: lambda: phase_reshape(smi),
                  29: lambda: phase_overlap(smi, dev),
                  30: lambda: phase_hier(smi, dev, ran[12]["autotune_best"]
-                                        if 12 in ran else None)}
+                                        if 12 in ran else None),
+                 31: lambda: phase_config_json(smi),
+                 32: lambda: phase_lm_schemes(smi),
+                 33: lambda: phase_lm_schemes_held(dev),
+                 34: lambda: phase_flash_shard_kernels(dev)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -3560,6 +3855,7 @@ def main(argv=None) -> int:
     ckpt_rec = phase_checkpoint(smi)
     phase_held_wires(dev)
     fk = phase_flash_train_kernels(dev)
+    shard_k = phase_flash_shard_kernels(dev)
     lm1 = phase_lm(smi, "phase 15 LM-1 train_lm dp 1 x sp 1 flash", 20, 1, 8, 1024)
     lm1_f32 = phase_lm(smi, "phase 15b LM-1 f32 train_lm dp 1 x sp 1 flash", 8, 1, 8, 1024,
                        "float32")
@@ -3578,6 +3874,21 @@ def main(argv=None) -> int:
     phase_reshape(smi)
     overlap = phase_overlap(smi, dev)
     hier = phase_hier(smi, dev, wires["autotune_best"])
+    cfg_json = phase_config_json(smi)
+    schemes = phase_lm_schemes(smi, lm1)
+    phase_lm_schemes_held(dev)
+
+    def shard_times(part):
+        """Phase 34's figures at the tp and pp shapes, phase 32's launches."""
+        return {
+            "launches_" + scheme: schemes[scheme]["launches"][
+                {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[part]]
+            for scheme in ("tp", "dp_tp", "pp")} | {"shard_shapes": {
+                case: {"shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
+                       **{k: rec[part][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "library_ms",
+                                                    "library_device_ms")}}
+                for case, rec in shard_k.items()}}
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -3600,6 +3911,8 @@ def main(argv=None) -> int:
                                if n_.endswith("f32") for k in key),
             **{k: f32[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_device_ms")}}
+        if part in ("dq", "dkv"):  # the input-dtype backward of tp, dp_tp and pp
+            entry.update(shard_times(part))
         return entry
 
     def split_entry(name, source, site, rec, wire, absmax, given):
@@ -3680,6 +3993,7 @@ def main(argv=None) -> int:
             # phase 29's last pipelined int8 run, phase 30's hierarchical dequant run
             "launches_pipelined": overlap["int8"]["launches_pipelined"]["quantize_tensors"],
             "launches_hier": hier["dequant"]["launches"]["quantize_tensors"],
+            "launches_config_json": cfg_json["launches"]["quantize_tensors"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],
@@ -3697,6 +4011,8 @@ def main(argv=None) -> int:
             "launches_pipelined": overlap["2round_homomorphic"]["launches_pipelined"][
                 "accumulate_rescale_int8"],
             "launches_hier": hier["homomorphic"]["launches"]["accumulate_rescale_int8"],
+            # phase 31's run from the committed autotune record
+            "launches_config_json": cfg_json["launches"]["accumulate_rescale_int8"],
             "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
             "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
             "bound_ms": k3["resnet18_fused"]["bound_ms"],
@@ -3722,6 +4038,8 @@ def main(argv=None) -> int:
                 **{k: k4["prefill_f32"][k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_device_ms")}},
+            # phases 32 and 34: the tp / dp_tp / pp runs and shapes
+            **shard_times("fwd"),
         },
         split_entry("quantize_tensors_split", "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
                     78, split["k2"], "compress", "tensors_absmax", "quantize_tensors_given"),

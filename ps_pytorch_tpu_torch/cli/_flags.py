@@ -3,22 +3,26 @@
 
 Every flag parses, so a reference command line carries over unchanged.
 A value this slice does not run is refused with a pointer to ROADMAP.md
-(by ``TrainConfig.refuse_unported``, ``PSConfig`` or here), never
-ignored. As in the JAX package, ``--enable-gpu`` and ``--comm-type`` are
-accepted and ignored (the device is ``--device``; weights never move).
+(by ``TrainConfig.refuse_unported`` or ``PSConfig``), never ignored. As
+in the JAX package, ``--enable-gpu`` and ``--comm-type`` are accepted and
+ignored (the device is ``--device``; weights never move).
+
+``expand_config_json`` applies ``--config-json FILE`` (an autotune
+record's best candidate, one candidate entry, or a bare ``{flag: value}``
+object) by expanding the file's flags into argv before parsing, with the
+JAX CLI's rejections and messages (cli/_flags.py:252-330 there).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 
 from ..parallel.ps import PSConfig
 from ..trainer import TrainConfig
 
 logger = logging.getLogger("ps_pytorch_tpu_torch")
-
-_ROADMAP = "is not ported yet (ROADMAP.md queue 1)"
 
 
 def add_train_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -125,10 +129,103 @@ def add_ps_flags(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return parser
 
 
-def refuse_unported_flags(args: argparse.Namespace) -> None:
-    """Flags with no home in a config object that this slice refuses."""
-    if getattr(args, "config_json", None) is not None:
-        raise NotImplementedError(f"--config-json (autotune records) {_ROADMAP}")
+def _config_json_flags(data) -> dict:
+    """The flag dict of a --config-json file: a full autotune evidence
+    record (the best candidate's flags apply), one candidate entry, or a
+    bare {flag: value} object."""
+    if not isinstance(data, dict):
+        raise SystemExit(
+            "--config-json: expected a JSON object (an autotune record "
+            f"or a flag dict), got {type(data).__name__}"
+        )
+    if data.get("kind") == "autotune":
+        best = data.get("best")
+        if not best or "flags" not in best:
+            raise SystemExit(
+                "--config-json: autotune record has no best candidate "
+                "to apply (every point was pruned?)"
+            )
+        return dict(best["flags"])
+    if "flags" in data and isinstance(data["flags"], dict):
+        return dict(data["flags"])
+    return dict(data)
+
+
+def expand_config_json(parser: argparse.ArgumentParser, argv: list) -> list:
+    """Apply ``--config-json FILE`` by expanding the file's flags into
+    the argv BEFORE parsing, so every value still goes through the
+    parser's own types and choices.
+
+    Rejections (SystemExit with the reason):
+    - an unknown key: the file names a flag this CLI does not define;
+    - a flag conflict: a flag set by the file ALSO appears explicitly
+      on the command line (argparse prefix abbreviations included: an
+      explicit ``--compress-g`` conflicts with a configured
+      ``--compress-grad``), so neither silently wins.
+    Flags NOT set by the file pass through untouched."""
+    path = None
+    rest: list = []
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok == "--config-json":
+            if i + 1 >= len(argv):
+                raise SystemExit("--config-json: missing FILE argument")
+            path = argv[i + 1]
+            i += 2
+            continue
+        if tok.startswith("--config-json="):
+            path = tok.split("=", 1)[1]
+            i += 1
+            continue
+        rest.append(tok)
+        i += 1
+    if path is None:
+        return argv
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            data = json.load(f)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"--config-json: cannot read {path}: {e}")
+    flags = _config_json_flags(data)
+
+    by_option = {s: a for a in parser._actions for s in a.option_strings}
+    unknown = sorted(k for k in flags if k not in by_option)
+    if unknown:
+        raise SystemExit(
+            f"--config-json: unknown flag(s) {unknown} in {path} — not "
+            f"part of this CLI (typo, or a record from a different tool?)"
+        )
+    explicit = set()
+    for t in rest:
+        if not t.startswith("--"):
+            continue
+        tok = t.split("=", 1)[0]
+        # resolve argparse's prefix abbreviations, or an abbreviated
+        # explicit flag would dodge the conflict check and then win
+        matches = [o for o in by_option if o.startswith(tok)]
+        explicit.add(matches[0] if len(matches) == 1 else tok)
+    conflicts = sorted(k for k in flags if k in explicit)
+    if conflicts:
+        raise SystemExit(
+            f"--config-json: flag(s) {conflicts} are set by {path} AND "
+            f"passed explicitly — drop one side (the config file owns "
+            f"the tuned knobs; explicit flags own everything else)"
+        )
+    expanded: list = []
+    for k, v in flags.items():
+        action = by_option[k]
+        if action.nargs == 0:  # store_true / store_false
+            if not isinstance(v, bool):
+                raise SystemExit(
+                    f"--config-json: {k} takes no value; expected a "
+                    f"JSON boolean, got {v!r}"
+                )
+            if v:
+                expanded.append(k)
+        else:
+            expanded.extend([k, str(v)])
+    return expanded + rest
 
 
 def train_config_from(args: argparse.Namespace) -> TrainConfig:

@@ -25,7 +25,16 @@ checkpoint written and validation skipped.
 The event stream: ``--metrics-file F`` (one JSON record a line),
 ``--trace DIR`` (host spans, ``tools/trace_report.py DIR`` merges them),
 ``--mode straggler --kill-threshold S`` (the straggler watchdog) with
-``--straggler-storm-n K``.
+``--straggler-storm-n K``, ``--profile-dir DIR`` (a ``torch.profiler``
+capture of steps ``[--profile-start, + --profile-steps)``, Chrome trace
+under DIR; obs/profiler.py).
+
+``--config-json FILE`` applies a tuned knob set, as README's autotune
+command does with the committed record:
+
+  python -m ps_pytorch_tpu_torch.cli.train --network ResNet18 \\
+      --dataset Cifar10 --num-workers 8 --batch-size 128 \\
+      --config-json runs/autotune_resnet18.json
 """
 
 from __future__ import annotations
@@ -39,21 +48,33 @@ from ..utils import get_logger
 from ._flags import (
     add_ps_flags,
     add_train_flags,
+    expand_config_json,
     ps_config_from,
-    refuse_unported_flags,
     train_config_from,
 )
 
 logger = get_logger()
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("ps_pytorch_tpu_torch.cli.train")
     add_train_flags(parser)
     add_ps_flags(parser)
-    parser.add_argument("--config-json", metavar="FILE", default=None)
-    args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
-    refuse_unported_flags(args)
+    parser.add_argument(
+        "--config-json", metavar="FILE",
+        help="apply a tuned knob set from an autotune evidence record (the best "
+             "candidate's flags) or a bare {flag: value} JSON object. Unknown keys "
+             "and flags that also appear explicitly on the command line are "
+             "rejected (cli/_flags.expand_config_json)")
+    return parser
+
+
+def main(argv=None) -> dict:
+    parser = build_parser()
+    # the file's flags become argv tokens BEFORE parsing, so its values
+    # ride the parser's own types and choices
+    argv = expand_config_json(parser, list(sys.argv[1:] if argv is None else argv))
+    args = parser.parse_args(argv)
     joined = initialize_multihost(args.coordinator_address, args.num_processes,
                                   args.process_id, device=args.device)
     try:

@@ -1,29 +1,44 @@
 """LM training entry of the port (the counterpart of
-ps_pytorch_tpu.cli.train_lm), ``--parallelism dp_sp``: a (dp x sp) grid
-of virtual workers stacked on the one card, batch shards over dp,
-sequence shards over sp, ring (one-way or ``--bidirectional-ring``) or
-Ulysses attention, naive or on the flash kernels (K4's partial triple
-per ring hop forward, K5 + K6 backward).
+ps_pytorch_tpu.cli.train_lm), every scheme on virtual workers stacked on
+the one card, selected by ``--parallelism``:
+
+- ``dp_sp`` (default): a (dp x sp) grid, batch shards over dp, sequence
+  shards over sp, ring (one-way or ``--bidirectional-ring``) or Ulysses
+  attention, naive or on the flash kernels (K4's partial triple per ring
+  hop forward, K5 + K6 backward);
+- ``tp``: Megatron tensor parallelism over ``--num-shards`` shards (heads
+  and MLP columns; ``--shard-vocab`` cuts the embedding and runs the loss
+  vocab-parallel);
+- ``dp_tp``: ``--num-dp`` data shards x ``--num-shards`` tensor shards;
+- ``pp``: GPipe over ``--num-shards`` stages, ``--num-microbatches`` a step.
+
+Under ``--attention-impl flash`` tp, dp_tp and pp run the within-device
+attention on K4 (normalized) forward, K5 + K6 backward.
 
   python -m ps_pytorch_tpu_torch.cli.train_lm --parallelism dp_sp \\
       --attention-impl flash --vocab-size 2048 --dim 512 --depth 6 \\
       --heads 8 --seq-len 1024 --batch-size 8 --dtype bfloat16 --remat \\
       --lr 0.01 --momentum 0.9 --max-steps 20
   ... --num-dp 2 --num-sp 4 --seq-len 256 --device cpu   # the plain versions
+  ... --parallelism tp --num-shards 4 --shard-vocab
+  ... --parallelism dp_tp --num-dp 2 --num-shards 4
+  ... --parallelism pp --num-shards 2 --num-microbatches 4
 
 Every flag of the JAX CLI parses, plus ``--device`` (default ``cuda``;
-without a card it raises unless ``--device cpu``). ``--num-sp 0`` means
-all remaining devices, which on the one card is 1. Values this slice
-does not run are refused with a pointer to ROADMAP.md: the other
-``--parallelism`` schemes and ``--profile-dir``. ``--optimizer
-adam|amsgrad`` runs ``optim.adam`` (``--momentum`` is then unused). ``--metrics-file F`` appends a ``run_header`` and one
-``train_lm`` record a log window, as the JAX CLI does.
+without a card it raises unless ``--device cpu``). ``--num-sp 0`` and
+``--num-shards 0`` mean all devices, which on the one card is 1. The MoE
+schemes (``moe``, ``ep_sp``, ``pp_moe``) are refused, naming ROADMAP.md
+queue 1 item 19. ``--optimizer adam|amsgrad`` runs ``optim.adam``
+(``--momentum`` is then unused). ``--metrics-file F`` appends a
+``run_header`` and one ``train_lm`` record a log window, as the JAX CLI
+does. ``--profile-dir DIR`` captures steps 3 to min(12, max-steps) with
+``torch.profiler`` (a Chrome trace under DIR; obs/profiler.py).
 
 ``--train-dir DIR`` writes ``model_step_N`` every ``--eval-freq`` steps
 and after the last: the dict the JAX CLI's ``save_lm_checkpoint`` writes
-(plain-layout params, ``step``, the ``model`` and ``data`` metadata a
-structure-free evaluator rebuilds the model from), in its bytes, so the
-JAX package's ``cli.evaluate_lm`` reads it unchanged.
+(plain-layout params whatever the scheme, ``step``, the ``model`` and
+``data`` metadata a structure-free evaluator rebuilds the model from), in
+its bytes, so either package's ``cli.evaluate_lm`` reads it unchanged.
 
 Data is the JAX CLI's synthetic Markov chain (``make_synthetic_tokens``,
 numpy, so both packages draw the same corpus and batches); the weights
@@ -43,7 +58,7 @@ import torch
 from .. import resolve_device
 from ..checkpoint import save_checkpoint
 from ..models.transformer import TransformerConfig, init_transformer
-from ..obs import run_header
+from ..obs import ProfileWindow, run_header
 from ..optim import build_optimizer
 from ..optim.schedules import (
     constant_schedule,
@@ -52,7 +67,7 @@ from ..optim.schedules import (
     warmup_cosine_decay_schedule,
 )
 from ..parallel.buckets import tree_leaves
-from ..parallel.dp_sp import make_lm_train_step, make_mesh_2d, shard_tokens_2d
+from ..parallel import dp_sp, dp_tp, pp, tp
 from ..trainer import append_metrics_line
 from ..utils import format_iter_line, get_logger, host_sync
 
@@ -152,19 +167,66 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.parallelism != "dp_sp":
+    if args.parallelism in ("moe", "ep_sp", "pp_moe"):
         raise NotImplementedError(
             f"--parallelism {args.parallelism} is not ported yet (ROADMAP.md "
-            "queue 1 item 19): the port runs dp_sp")
-    if args.profile_dir is not None:
-        raise NotImplementedError(
-            "--profile-dir is not ported yet (ROADMAP.md queue 1 item 16); "
-            "tools/train_lm_profile.py profiles the card")
-    if args.shard_vocab:
+            "queue 1 item 19, the MoE half): the port runs dp_sp, tp, dp_tp and pp")
+    if args.shard_vocab and args.parallelism not in ("tp", "dp_tp"):
         raise ValueError(
             "--shard-vocab is implemented for --parallelism tp/dp_tp only "
             "(the other schemes keep the embedding replicated and would "
             "silently ignore it)")
+
+
+def build_scheme(args: argparse.Namespace, cfg: TransformerConfig, tx, dev):
+    """The ``--parallelism`` scheme (cli/train_lm.py:201-260 of the JAX
+    package): (params, opt_state, run(params, opt_state, tokens [B, T]) ->
+    (params, opt_state, loss), to_plain(params) -> the plain-layout tree,
+    the layout string)."""
+    n_shards = args.num_shards or N_DEVICES
+    g = torch.Generator().manual_seed(args.seed)
+    if args.parallelism == "dp_sp":
+        num_sp = args.num_sp or max(N_DEVICES // args.num_dp, 1)
+        if args.seq_len % num_sp:
+            raise ValueError(f"--seq-len must be divisible by num_sp={num_sp}")
+        if args.batch_size % args.num_dp:
+            raise ValueError(f"--batch-size must be divisible by num_dp={args.num_dp}")
+        mesh = dp_sp.make_mesh_2d(args.num_dp, num_sp)
+        params = init_transformer(cfg, g, device=dev)
+        step = dp_sp.make_lm_train_step(cfg, tx, mesh)
+        return (params, tx.init(params),
+                lambda p, o, tok: step(p, o, dp_sp.shard_tokens_2d(tok, mesh)),
+                lambda p: p, f"dp {args.num_dp} x sp {num_sp} ({args.sp_attention})")
+    vocab = " (vocab-parallel)" if args.shard_vocab else ""
+
+    def tp_plain(p):
+        return tp.from_tp_layout(cfg, tp.unshard_params_tp(cfg, p, args.shard_vocab))
+
+    if args.parallelism == "tp":
+        mesh = tp.make_tp_mesh(n_shards)
+        params, opt_state = tp.init_tp_state(cfg, tx, g, mesh, args.shard_vocab, dev)
+        return (params, opt_state, tp.make_tp_train_step(cfg, tx, mesh, args.shard_vocab),
+                tp_plain, f"tp {n_shards}{vocab}")
+    if args.parallelism == "dp_tp":
+        num_tp = args.num_shards or max(N_DEVICES // args.num_dp, 1)
+        if args.batch_size % args.num_dp:
+            raise ValueError(f"--batch-size must be divisible by num_dp={args.num_dp}")
+        mesh = dp_tp.make_mesh_dp_tp(args.num_dp, num_tp)
+        params, opt_state = dp_tp.init_dp_tp_state(cfg, tx, g, mesh, args.shard_vocab, dev)
+        step = dp_tp.make_dp_tp_train_step(cfg, tx, mesh, args.shard_vocab)
+        return (params, opt_state,
+                lambda p, o, tok: step(p, o, dp_tp.shard_tokens_dp(tok, mesh)),
+                tp_plain, f"dp {args.num_dp} x tp {num_tp}{vocab}")
+    # pp
+    if args.batch_size % args.num_microbatches:
+        raise ValueError(f"--batch-size must be divisible by "
+                         f"num_microbatches={args.num_microbatches}")
+    mesh = pp.make_pp_mesh(n_shards)
+    params, opt_state = pp.init_pp_state(cfg, tx, g, mesh, dev)
+    return (params, opt_state,
+            pp.make_pp_train_step(cfg, tx, mesh, num_microbatches=args.num_microbatches),
+            lambda p: pp.from_pp_layout(cfg, p),
+            f"pp {n_shards} x {args.num_microbatches} microbatches")
 
 
 def main(argv=None) -> dict:
@@ -183,17 +245,8 @@ def main(argv=None) -> dict:
                                     args.max_steps),
         momentum=args.momentum, weight_decay=args.weight_decay,
     )
-    num_sp = args.num_sp or max(N_DEVICES // args.num_dp, 1)
-    if args.seq_len % num_sp:
-        raise ValueError(f"--seq-len must be divisible by num_sp={num_sp}")
-    if args.batch_size % args.num_dp:
-        raise ValueError(f"--batch-size must be divisible by num_dp={args.num_dp}")
     dev = resolve_device(args.device)
-    mesh = make_mesh_2d(args.num_dp, num_sp)
-    params = init_transformer(cfg, torch.Generator().manual_seed(args.seed), device=dev)
-    opt_state = tx.init(params)
-    step = make_lm_train_step(cfg, tx, mesh)
-    layout = f"dp {args.num_dp} x sp {num_sp} ({args.sp_attention})"
+    params, opt_state, run, to_plain, layout = build_scheme(args, cfg, tx, dev)
 
     corpus = make_synthetic_tokens(
         args.vocab_size, args.train_size, args.seq_len, seed=args.seed + 1
@@ -206,12 +259,11 @@ def main(argv=None) -> dict:
         "heads": args.heads, "seq_len": args.seq_len, "params": n_params}))
 
     def save_lm_checkpoint(step_no: int) -> None:
-        # cli/train_lm.py:397-420 of the JAX package: the dp_sp params are
-        # already the plain layout
+        # cli/train_lm.py:397-420 of the JAX package: plain-layout params
         if args.train_dir is None:
             return
         save_checkpoint({
-            "params": params,
+            "params": to_plain(params),
             "step": step_no,
             "model": {
                 "kind": "dense", "vocab_size": cfg.vocab_size, "dim": cfg.dim,
@@ -230,32 +282,42 @@ def main(argv=None) -> dict:
     warmup = min(2, args.max_steps - 1)
     steady_t0 = None
     steady = {}
-    for step_no in range(1, args.max_steps + 1):
-        if step_no == warmup + 1 and args.max_steps > warmup:
-            host_sync(params)
-            steady_t0 = time.perf_counter()
-        log_now = step_no % args.log_interval == 0 or step_no == 1
-        if log_now:
-            host_sync(params)  # dt measures ONE step, not the queue before it
-        t0 = time.perf_counter()
-        idx = rng.randint(0, len(corpus), args.batch_size)
-        tokens = shard_tokens_2d(torch.from_numpy(corpus[idx]).to(dev), mesh)
-        params, opt_state, loss = step(params, opt_state, tokens)
-        if log_now:
-            loss = float(loss)
-            host_sync(params)  # include the param update in dt
-            dt = time.perf_counter() - t0
-            logger.info(format_iter_line(
-                rank="mesh", step=step_no, epoch=1, seen=step_no * args.batch_size,
-                total=args.max_steps * args.batch_size, loss=loss, time_cost=dt,
-                forward=dt,
-            ))
-            record = {"kind": "train_lm", "parallelism": args.parallelism,
-                      "step": step_no, "loss": loss, "time_cost": round(dt, 6)}
-            history.append(record)
-            append_metrics_line(args.metrics_file, record)
-        if args.eval_freq > 0 and step_no % args.eval_freq == 0:
-            save_lm_checkpoint(step_no)
+    # the profiler captures steps 3 .. min(12, max_steps), after set-up
+    # and settling (cli/train_lm.py:434-486 of the JAX package)
+    if args.profile_dir and args.max_steps < 3:
+        logger.warning("--profile-dir set but max-steps < 3: tracing starts at step 3 "
+                       "(after set-up and settling), so no trace will be written")
+    pw = ProfileWindow(args.profile_dir, 3, max(min(12, args.max_steps) - 2, 1), device=dev)
+    try:
+        for step_no in range(1, args.max_steps + 1):
+            pw.before_step(step_no)
+            if step_no == warmup + 1 and args.max_steps > warmup:
+                host_sync(params)
+                steady_t0 = time.perf_counter()
+            log_now = step_no % args.log_interval == 0 or step_no == 1
+            if log_now:
+                host_sync(params)  # dt measures ONE step, not the queue before it
+            t0 = time.perf_counter()
+            idx = rng.randint(0, len(corpus), args.batch_size)
+            params, opt_state, loss = run(params, opt_state,
+                                          torch.from_numpy(corpus[idx]).to(dev))
+            if log_now:
+                loss = float(loss)
+                host_sync(params)  # include the param update in dt
+                dt = time.perf_counter() - t0
+                logger.info(format_iter_line(
+                    rank="mesh", step=step_no, epoch=1, seen=step_no * args.batch_size,
+                    total=args.max_steps * args.batch_size, loss=loss, time_cost=dt,
+                    forward=dt,
+                ))
+                record = {"kind": "train_lm", "parallelism": args.parallelism,
+                          "step": step_no, "loss": loss, "time_cost": round(dt, 6)}
+                history.append(record)
+                append_metrics_line(args.metrics_file, record)
+            if args.eval_freq > 0 and step_no % args.eval_freq == 0:
+                save_lm_checkpoint(step_no)
+    finally:
+        pw.close()
     if steady_t0 is not None:
         host_sync(params)
         steady = {"steady_steps": args.max_steps - warmup,
@@ -263,7 +325,8 @@ def main(argv=None) -> dict:
     if args.eval_freq <= 0 or args.max_steps % args.eval_freq:
         save_lm_checkpoint(args.max_steps)
     # history: the per-log-window records, also in --metrics-file
-    return {"loss": float(loss), "params": n_params, **steady, "history": history}
+    return {"loss": float(loss), "params": n_params, "layout": layout, **steady,
+            "history": history, "profile": pw}
 
 
 if __name__ == "__main__":

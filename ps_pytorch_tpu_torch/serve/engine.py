@@ -25,7 +25,7 @@ completed | shed | expired, each with a structured event through
 controller (``offered``, ``observe_tick``, ``record_admit``,
 ``slo_budget_s``), as serve/admission.AdmissionController provides.
 
-Not in this slice (ROADMAP.md): checkpoint loading and hot rollover
+Not in this slice (ROADMAP.md queue 1 item 20): checkpoint loading and hot rollover
 (``from_checkpoint``, ``poll_rollover``), serve-side fault injection,
 and slot sharding over a mesh — the constructor refuses ``model_dir`` and
 ``mesh``.
@@ -145,11 +145,12 @@ class ServingEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "slot sharding over a mesh is not ported yet (ROADMAP.md)")
+                "slot sharding over a mesh is not ported yet (ROADMAP.md queue 1 "
+                "item 20)")
         if model_dir is not None:
             raise NotImplementedError(
-                "checkpoint loading and hot rollover wait for the port of "
-                "checkpoint.py (ROADMAP.md)")
+                "checkpoint loading and hot rollover are not ported yet "
+                "(ROADMAP.md queue 1 item 20)")
         if not cfg.causal:
             raise ValueError("serving decode is autoregressive: cfg.causal")
         if serve.max_len > cfg.max_seq_len:

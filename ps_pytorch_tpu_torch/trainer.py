@@ -57,8 +57,15 @@ byte for byte, so either package resumes the other's directory.
 A checkpoint written on another geometry (worker count, placement,
 ZeRO-1 carving, BN locality) is reshaped on resume
 (``elastic.reshape_raw_state``) and logged as a ``resume_reshape``
-record. Not ported yet, and refused when asked for (ROADMAP.md):
-compressed checkpoints and the profiler window.
+record. Not ported yet, and refused when asked for (ROADMAP.md queue 1
+item 22): compressed checkpoints.
+
+The profiler window (obs/profiler.py): with ``profile_dir`` the loop
+captures a ``torch.profiler`` trace of steps ``[profile_start,
+profile_start + profile_steps)`` (``profile_start`` None: the run's first
+step + 1, after cuDNN's algorithm search), ends a capture the run leaves
+open from its ``finally``, and logs when the window misses the run's
+steps. ``Trainer.profile_window`` keeps the last run's window.
 """
 
 from __future__ import annotations
@@ -85,7 +92,7 @@ from .data import (
     shard_for_worker,
 )
 from .models import COMPUTE_DTYPES, build_model, param_count
-from .obs import NULL_TRACER, Tracer, new_run_id, run_header, validate_event
+from .obs import NULL_TRACER, ProfileWindow, Tracer, new_run_id, run_header, validate_event
 from .optim import build_optimizer
 from .parallel.buckets import FlatVector, tree_map
 from .parallel.mesh import (
@@ -185,14 +192,10 @@ class TrainConfig:
     fault_plan: Optional[str] = None
 
     def refuse_unported(self) -> None:
-        refused = [
-            (self.compress_checkpoints,
-             "compressed checkpoints (--compress-checkpoints, the PSCK codec; item 22)"),
-            (self.profile_dir is not None, "the profiler window (--profile-dir; item 16)"),
-        ]
-        for hit, what in refused:
-            if hit:
-                raise NotImplementedError(f"{what} {_ROADMAP}")
+        if self.compress_checkpoints:
+            raise NotImplementedError(
+                f"compressed checkpoints (--compress-checkpoints, the PSCK codec; "
+                f"item 22) {_ROADMAP}")
 
 
 class Trainer:
@@ -258,6 +261,7 @@ class Trainer:
         self.run_id = (self.mesh.broadcast_object(new_run_id()) if self.multi
                        else new_run_id())
         self.tracer = NULL_TRACER
+        self.profile_window: Optional[ProfileWindow] = None  # set by train()
         if tcfg.trace_dir:
             self.tracer = Tracer(
                 "train", path=os.path.join(tcfg.trace_dir, f"trace_train_p{self.rank}.jsonl"),
@@ -631,6 +635,18 @@ class Trainer:
         window_t0, window_steps, unsynced = time.perf_counter(), 0, 0
         done = False
         last_saved = None
+        # the profiler window: profile_steps steps after the first (the
+        # JAX trainer's auto start, trainer.py:783-801 there)
+        pw = self.profile_window = ProfileWindow(
+            t.profile_dir,
+            start_step=t.profile_start if t.profile_start is not None else first_step + 1,
+            num_steps=t.profile_steps, device=self.device)
+        if t.profile_dir and (pw.start > t.max_steps or pw.stop <= first_step):
+            # the window starts past max_steps, or (an explicit start on a
+            # resumed run) ended before the resume point
+            logger.info("profile-dir set but the capture window [%d, %d) misses this "
+                        "run's steps [%d, %d] — no trace will be written",
+                        pw.start, pw.stop, first_step, t.max_steps)
         try:
             for epoch in range(1, t.epochs + 1):
                 if done:
@@ -653,6 +669,7 @@ class Trainer:
                         # run does nothing
                         done = True
                         break
+                    pw.before_step(step_no + 1)
                     t0 = time.perf_counter()
                     with tr.span("fetch", step=step_no + 1):
                         batch = next(prefetched)
@@ -740,10 +757,16 @@ class Trainer:
                 with tr.span("ckpt_save", step=step_no):
                     self._save(step_no)
         finally:
-            # a submitted checkpoint is durable (or its failure raised)
-            # before the caller sees the outcome, even on error
-            self._ckpt.wait()
-            tr.flush()
+            try:
+                # a submitted checkpoint is durable (or its failure raised)
+                # before the caller sees the outcome, even on error, and
+                # before the profiler's close, whose synchronize re-raises
+                # a device fault and whose trace write may fail
+                self._ckpt.wait()
+                tr.flush()
+            finally:
+                # a run that ends (or raises) inside the window writes its trace
+                pw.close()
         out = {k: float(v) for k, v in metrics.items()}
         if out:
             # a skip in a trailing partial window still lands its event

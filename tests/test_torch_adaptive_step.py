@@ -30,7 +30,9 @@ import torch
 from ps_pytorch_tpu.parallel import shard_batch
 from ps_pytorch_tpu_torch.parallel.ps import StepDraws, state_plan
 from tests.test_torch_adaptive_wire import jax_draws
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_ps import KEY, _batches, _jax_perm, _pair
+
 
 STEPS = 2
 

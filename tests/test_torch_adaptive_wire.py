@@ -32,7 +32,9 @@ from ps_pytorch_tpu_torch.ops.quantize import precision_peaks
 from ps_pytorch_tpu_torch.parallel import collectives as tc
 from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_wires import KEY, N, jax_perm, torch_tree, wide_grads
+
 
 QKEY = jax.random.key(7)
 

@@ -48,6 +48,8 @@ from ps_pytorch_tpu_torch.parallel.ps import PSConfig
 from ps_pytorch_tpu_torch.resilience import elastic
 from ps_pytorch_tpu_torch.trainer import TrainConfig, Trainer
 from ps_pytorch_tpu_torch.utils.serialization import packb, to_state_dict
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 LOSS_RTOL = 2e-5  # tests/test_torch_cnn_models.py's logits tolerance
 

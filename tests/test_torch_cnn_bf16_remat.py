@@ -50,7 +50,9 @@ from ps_pytorch_tpu_torch.ops.metrics import cross_entropy_loss
 from ps_pytorch_tpu_torch.parallel.buckets import tree_flatten, tree_unflatten
 from ps_pytorch_tpu_torch.parallel.ps import PSConfig
 from ps_pytorch_tpu_torch.trainer import TrainConfig, Trainer
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_vgg import DropoutTap, _paths
+
 
 BF16_FLOOR = 2e-2
 NARROW = (8, "M", 16, "M")

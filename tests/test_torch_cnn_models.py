@@ -50,6 +50,8 @@ from ps_pytorch_tpu_torch.models import (
 from ps_pytorch_tpu_torch.models.common import flatten_nhwc
 from ps_pytorch_tpu_torch.ops.metrics import cross_entropy_loss
 from ps_pytorch_tpu_torch.parallel.buckets import tree_flatten, tree_leaves, tree_unflatten
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 CASES = {
     "LeNet": (lambda dt: jbuild("LeNet", dtype=dt), lambda: LeNet(), (28, 28, 1)),

@@ -21,6 +21,7 @@ import scipy.io
 from ps_pytorch_tpu.data import prepare_data as jprepare
 from ps_pytorch_tpu_torch.data import make_synthetic, prepare_data
 from ps_pytorch_tpu_torch.data import datasets as td
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 
 
 def write_idx(path, a: np.ndarray, gz: bool) -> None:

@@ -35,6 +35,8 @@ from ps_pytorch_tpu_torch.models import convert
 from ps_pytorch_tpu_torch.models.transformer import TransformerConfig as TConfig
 from ps_pytorch_tpu_torch.optim import build_optimizer
 from ps_pytorch_tpu_torch.parallel import dp_sp as tdp
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 B, T, V = 4, 32, 48
 SHAPE = dict(vocab_size=V, dim=32, depth=2, heads=2, max_seq_len=T)

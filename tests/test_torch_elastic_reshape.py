@@ -50,18 +50,7 @@ from ps_pytorch_tpu_torch.parallel.ps import PSConfig, PSTrainState, _worker_reg
 from ps_pytorch_tpu_torch.resilience import elastic
 from ps_pytorch_tpu_torch.trainer import TrainConfig, Trainer
 from ps_pytorch_tpu_torch.utils.serialization import to_state_dict
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The port on one CPU thread in this module: its steps are many small
-    ops, and beside other test processes each op on a full thread pool
-    waits on every core (tests/test_torch_flash_backward.py measured it).
-    The bit-for-bit comparisons run both of their sides at this count."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 
 
 def _assert_dicts_equal(a, b, path="."):

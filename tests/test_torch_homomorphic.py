@@ -28,7 +28,9 @@ from ps_pytorch_tpu_torch.ops import quantize as tq
 from ps_pytorch_tpu_torch.parallel import collectives as tc
 from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_wires import MASKS, check_wire_matches_jax, torch_tree, wide_grads
+
 
 N = 8
 DIVISORS = [1, 2, 3, 4, 5, 6, 7, 8, 10, 16]

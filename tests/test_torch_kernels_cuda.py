@@ -6,7 +6,8 @@ multi-tensor quantize_tensors and its one-piece call quantize_tensor,
 the split routes of K2 and of K1's shared-scale entry, K3
 accumulate_rescale_int8, K4
 flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
-flash_bwd_dkv), the serving engine on the card against the same engine on the
+flash_bwd_dkv, also at the tensor and pipeline schemes' shard shapes), the
+serving engine on the card against the same engine on the
 CPU, and the gradient wires on the card against the same wires on the CPU
 (bit-exact: every op on them is elementwise or an exact integer sum).
 
@@ -747,6 +748,44 @@ def test_torch_flash_bwd_kernels_key_length_on_card(cuda_device, dtype, tq, tk, 
         assert torch.equal(g, g2), f"{name} changed between two runs"
         _assert_near(g, w, 5e-5)
     assert not got[1][:, k_len:].any() and not got[2][:, k_len:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h", [(8 * 4, 2), (2 * 2, 8)], ids=["tp4_heads", "pp2_stages"])
+def test_torch_flash_kernels_at_shard_shapes_match_plain_on_card(cuda_device, b, h, dtype):
+    """K4 (normalized), K5 and K6 (input-dtype gradients, as
+    flash_attention's backward runs them) at the shapes the LM's tensor
+    and pipeline schemes give them: a tp 4 step of LM-1 folds its shards'
+    heads into the batch ([8 x 4, 1024, 2, 64]), a pp 2 tick its stages'
+    microbatch rows ([2 x 2, 1024, 8, 64]); head splits of one fused
+    projection, causal. The bounds of the tests above; two runs give the
+    same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * h)
+    t, d = 1024, 64
+    q, k, v = torch.randn((b, t, 3, h, d), generator=g, device=cuda_device).to(dtype).unbind(2)
+    do = torch.randn((b, t, h, d), generator=g, device=cuda_device).to(dtype)
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, causal=True)
+    o2, lse2 = flash_fwd(q, k, v, causal=True)
+    op, lsep = flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * op.float()).sum(-1).transpose(1, 2)
+    got = flash_bwd(q, k, v, do, lsep, delta, True, scale)
+    again = flash_bwd(q, k, v, do, lsep, delta, True, scale)
+    want = flash_bwd_plain(q, k, v, do, lsep, delta, True, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "K4 changed between two runs"
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(o.float(), op.float(), atol=2e-2, rtol=1e-2)
+        torch.testing.assert_close(lse, lsep, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(o, op, atol=1e-5, rtol=0)
+        torch.testing.assert_close(lse, lsep, atol=1e-5, rtol=0)
+    tol = 1e-2 if dtype == torch.bfloat16 else 5e-5
+    for name, g_, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g_.dtype == dtype and g_.shape == (b, t, h, d), name
+        assert torch.equal(g_, g2), f"{name} changed between two runs"
+        _assert_near(g_, w, tol)
 
 
 @pytest.mark.cuda

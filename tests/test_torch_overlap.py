@@ -50,20 +50,9 @@ from ps_pytorch_tpu_torch.parallel.overlap import grad_leaf_readiness
 from ps_pytorch_tpu_torch.parallel.ps import PSConfig, StepDraws, init_ps_state, make_ps_train_step
 from ps_pytorch_tpu_torch.resilience.faults import FaultPlan
 from ps_pytorch_tpu_torch.utils.serialization import to_state_dict
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_ps import KEY, _batches, _check, _jax_perm, _pair
 from tests.test_torch_wires import N, torch_tree, wide_grads
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The port on one CPU thread in this module: its steps are many small
-    ops, and beside other test processes each op on a full thread pool
-    waits on every core (tests/test_torch_flash_backward.py measured it).
-    The bit-for-bit comparisons run both of their sides at this count."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rand_tree(seed=0):

@@ -49,6 +49,8 @@ from ps_pytorch_tpu_torch.parallel.ps import (
     wire_align,
 )
 from ps_pytorch_tpu_torch.resilience.faults import FaultPlan
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 N = 8
 B = 4  # images per worker

@@ -22,6 +22,7 @@ from ps_pytorch_tpu_torch.parallel.ps import (
     init_ps_state,
     make_ps_train_step,
 )
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_ps import KEY, _batches, _check, _pair
 
 

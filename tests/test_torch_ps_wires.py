@@ -21,6 +21,7 @@ import pytest
 from ps_pytorch_tpu.parallel import shard_batch
 from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
 from ps_pytorch_tpu_torch.parallel.ps import StepDraws
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_ps import KEY, _batches, _check, _jax_perm, _pair
 from tests.test_torch_trainer import _run
 

@@ -37,6 +37,8 @@ from ps_pytorch_tpu_torch.models.resnet import BasicBlock, ResNet
 from ps_pytorch_tpu_torch.ops import quantize as tq
 from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 N = 8
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(tq.__file__))), "csrc")

@@ -30,6 +30,8 @@ from ps_pytorch_tpu.parallel.ulysses import ulysses_attention as j_ulysses
 from ps_pytorch_tpu_torch.parallel import ring_attention as tra
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
 from ps_pytorch_tpu_torch.parallel.ulysses import ulysses_attention
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 B, T_LOC, H, D = 2, 8, 2, 16
 

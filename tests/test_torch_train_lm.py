@@ -5,7 +5,8 @@ the dp x sp step) and optim/schedules.py, against the JAX package.
 - the learning-rate schedules the CLI builds (constant, linear warm-up
   joined to a constant, warm-up cosine decay) equal optax's values step by
   step, within 1e-6 relative (f32 ``cos`` of two libraries);
-- the CLI refuses what the port does not run, runs 3 steps on the CPU
+- the CLI refuses what the port does not run (the MoE schemes, naming
+  item 19), runs 3 steps on the CPU
   with ``--device cpu``, and without it raises on a machine with no card.
 """
 
@@ -101,11 +102,10 @@ def test_torch_sgd_reads_a_schedule_at_the_step_count():
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--parallelism", "tp"], NotImplementedError, "ROADMAP.md"),
+    # tp, dp_tp, pp and --profile-dir run since their port
+    # (tests/test_torch_{tp,dp_tp,pp,profiler}.py)
     (["--parallelism", "pp_moe"], NotImplementedError, "ROADMAP.md"),
-    (["--parallelism", "dp_tp"], NotImplementedError, "ROADMAP.md"),
     (["--parallelism", "ep_sp"], NotImplementedError, "ROADMAP.md"),
-    (["--profile-dir", "prof"], NotImplementedError, "ROADMAP.md"),
     (["--parallelism", "moe"], NotImplementedError, "ROADMAP.md"),
     (["--shard-vocab"], ValueError, "tp/dp_tp"),
     (["--num-sp", "3"], ValueError, "divisible by num_sp"),
@@ -144,7 +144,9 @@ def test_torch_cli_train_lm_writes_the_metrics_file(tmp_path):
 ])
 def test_torch_cli_train_lm_runs_on_cpu(flags):
     out = train_lm.main(SMALL + ["--device", "cpu"] + flags)
-    assert set(out) == {"loss", "params", "steady_steps", "steady_elapsed_s", "history"}
+    assert set(out) == {"loss", "params", "layout", "profile", "steady_steps",
+                        "steady_elapsed_s", "history"}
+    assert out["layout"].startswith("dp ") and out["profile"].dir is None
     assert out["params"] == 48 * 32 + 32 * 32 + 32 + 2 * (2 * 32 + 32 * 96 + 32 * 32
                                                            + 2 * 32 * 128)
     assert [h["step"] for h in out["history"]] == [1, 2, 3]

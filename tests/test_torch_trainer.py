@@ -20,6 +20,8 @@ from ps_pytorch_tpu_torch.cli import train as cli_train
 from ps_pytorch_tpu_torch.data import make_synthetic
 from ps_pytorch_tpu_torch.parallel.ps import PSConfig
 from ps_pytorch_tpu_torch.trainer import TrainConfig, Trainer
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 BASE = ["--network", "LeNet", "--num-workers", "8", "--batch-size", "16",
         "--test-batch-size", "64", "--log-interval", "1"]
@@ -69,12 +71,11 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 @pytest.mark.parametrize("extra", [
     ["--compress-checkpoints"], ["--fault-plan", '{"slow_decode": [1]}'],
-    ["--profile-dir", "prof"], ["--fault-plan", '{"rollover_corrupt": [1]}'],
-    ["--fault-plan", '{"spike": [1]}'],
+    ["--fault-plan", '{"rollover_corrupt": [1]}'], ["--fault-plan", '{"spike": [1]}'],
     # the flags refused here before their port (--quant-rounding
-    # stochastic, --data-root, --overlap on, --dcn-hosts 2) run now:
-    # test_torch_cli_train_runs_what_it_refused
-    ["--config-json", "run.json"], ["--profile-dir", "prof", "--profile-start", "2"],
+    # stochastic, --data-root, --overlap on, --dcn-hosts 2, --profile-dir,
+    # --config-json) run now: test_torch_cli_train_runs_what_it_refused
+    # and tests/test_torch_{profiler,config_json}.py
 ])
 def test_torch_cli_train_refuses_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -30,6 +30,8 @@ from ps_pytorch_tpu.parallel.buckets import plan_buckets as jplan
 from ps_pytorch_tpu_torch.parallel import collectives as tc
 from ps_pytorch_tpu_torch.parallel.buckets import piece_stream, tree_leaves
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
+
 
 N = 8
 KEY = jax.random.key(42)

@@ -43,9 +43,11 @@ from ps_pytorch_tpu_torch.parallel.buckets import (
     tree_to_flat,
 )
 from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
+from tests.test_torch_one_thread import _one_thread  # noqa: F401
 from tests.test_torch_ps import KEY as STEP_KEY
 from tests.test_torch_ps import LR, MOMENTUM, _batches, _check, _jax_perm, _pair
 from tests.test_torch_wires import jax_perm, torch_tree, wide_grads
+
 
 N = 8
 KEY = jax.random.key(42)  # the mask key of tests/test_torch_wires.py
