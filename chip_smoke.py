@@ -242,13 +242,26 @@ Phases, one line each:
    depth 2, card vs CPU under phase 17's rule, with launch counts;
 34. (run right after phase 14) K4 normalized, K5 and K6 (input-dtype
    gradients) against their plain versions at phase 32's shapes, [8 x 4,
-   1024, 2, 64] (tp) and [2 x 2, 1024, 8, 64] (pp), bf16 and f32, each
-   twice (the same bits), timed beside the bound and aten's attention;
-35. the kernels JSON line, then the result line.
+   1024, 2, 64] (tp) and [2 x 2, 1024, 8, 64] (pp), bf16 and f32, and
+   phase 35's dp_tp_pp tick [8, 1024, 4, 64] in bf16, each twice (the same
+   bits), timed beside the bound and aten's attention;
+35. LM-1's model (bf16, remat, flash) with 8 experts at capacity factor
+   1.25, 8 steps each: ``cli.train_lm.main`` under ``moe 4`` (top-1 and
+   top-2), ``ep_sp 2 x 2`` (the flash ring) and ``pp_moe 2 x 2 x 4
+   microbatches``, and the dp_tp_pp library at 2 x 2 x 2 (4
+   microbatches): finite losses, the last below the first, a finite
+   ``aux_loss`` in every MoE record, K4 / K4-partial / K5 / K6 launches a
+   step as MOE_SCHEMES counts them; step p50 beside phase 15's, each
+   run's peak memory; then ``cli.evaluate_lm --once --generate 8`` on the
+   moe run's checkpoint (finite perplexity);
+36. one f32 step at depth 2 of moe 4 top-2 with drops, ep_sp 2 x 2,
+   pp_moe 2 x 2 x 2 microbatches and dp_tp_pp 2 x 2 x 2, card vs CPU under
+   phase 33's rule, the expert choices equal, with launch counts;
+37. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,30,31,32,33,34 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,33,34,35,36 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -263,7 +276,9 @@ resume-reshape of 28, the pipelined wire of 29, the hierarchical wire of
 30, which reports no flat run beside its own when run alone, the
 ``--config-json`` and profiler run of 31, the tp / dp_tp / pp runs of 32,
 which report no dp_sp run beside their own when run alone, the held
-steps of 33, the flash kernels at their shard shapes of 34),
+steps of 33, the flash kernels at their shard shapes of 34, the MoE and
+dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
+alone, the held MoE and dp_tp_pp steps of 36),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -2024,8 +2039,13 @@ def _aten_yardsticks(q, k, v, do, scale, causal, iters) -> dict:
             "bwd_device_kernels": sorted(bwd_kernels)}
 
 
-def phase_flash_train_kernels(dev) -> dict:
-    """Phase 14: K4-partial, K5, K6 against their plain versions."""
+def _partial_case(label: str, b: int, t: int, h: int, dt, q_off, k_off, g,
+                  aten_rows=slice(None), aten_causal: bool = True) -> dict:
+    """K4-partial, K5 and K6 as a ring hop runs them (causal, the f32
+    gradients of ``flash_grads_partial``) at ``[b, t, h, 64]`` with the
+    hop's per-row offsets, against their plain versions, each twice (the
+    same bits), timed beside the bound and aten's attention on the rows
+    ``aten_rows`` (``aten_causal``: a diagonal block; else every key kept)."""
     from ps_pytorch_tpu_torch.ops.flash_attention import (
         flash_bwd_dkv,
         flash_bwd_dq,
@@ -2035,6 +2055,83 @@ def phase_flash_train_kernels(dev) -> dict:
         flash_partial_plain,
     )
 
+    d = 64
+    scale = d ** -0.5
+    dev = g.device
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(dt)
+                   for _ in range(4))
+    pv, m, l = flash_partial(q, k, v, True, scale, q_off, k_off)
+    again = flash_partial(q, k, v, True, scale, q_off, k_off)
+    pvp, mp, lp = flash_partial_plain(q, k, v, True, scale, q_off, k_off)
+    o, lse = flash_fwd_plain(q, k, v, True, scale, q_off=q_off, k_off=k_off)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, True, scale, q_off, k_off)
+    dq = flash_bwd_dq(*bwd, out_dtype=torch.float32)
+    dk, dv = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
+    dq2 = flash_bwd_dq(*bwd, out_dtype=torch.float32)
+    dk2, dv2 = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
+    want = flash_bwd_plain(*bwd, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    errs, rel = {}, {}
+    for key, got, ref, tol in (
+            ("pv", pv, pvp, 2e-5), ("m", m, mp, 2e-6), ("l", l, lp, 2e-5),
+            ("dq", dq, want[0], 5e-5), ("dk", dk, want[1], 5e-5), ("dv", dv, want[2], 5e-5)):
+        errs[key], rel[key] = _near(f"{label} {key}", got, ref, tol)
+    require(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+            f"{label}: K5/K6 changed between two runs")
+    require(all(torch.equal(x, y) for x, y in zip((pv, m, l), again)),
+            f"{label}: K4-partial changed between two runs")
+    pairs = kept_pairs(b, h, t, t, True, q_off, k_off)
+    elt, act = q.element_size(), b * t * h * d
+    stat = b * h * t * 4
+    # bounds: each input read once, each output written once; 4 D flops
+    # per kept pair forward (QK, PV), 6 D for K5, 8 D for K6, at the rate
+    # of the input type's products (f32: 3xTF32)
+    rate = TF32X3_OPS_PER_S if dt == torch.float32 else PEAK_OPS_PER_S[dt]
+    bounds = {
+        "partial": bound_ms(3 * act * elt + act * 4 + 2 * stat, 4.0 * d * pairs, rate),
+        "dq": bound_ms(4 * act * elt + 2 * stat + act * 4, 6.0 * d * pairs, rate),
+        "dkv": bound_ms(4 * act * elt + 2 * stat + 2 * act * 4, 8.0 * d * pairs, rate),
+    }
+    # fewer back-to-back calls where one call takes milliseconds
+    slow = t > 1024 or dt == torch.float32
+    iters, plain_iters = (50, 10) if slow else (ITERS, 20)
+    rec = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
+           "kept_pairs": pairs, "max_abs_err": errs, "err_of_largest": rel}
+    partial = lambda: flash_partial(q, k, v, True, scale, q_off, k_off)
+    dev_ms, kernels = _device_route(f"{label} K4-partial", partial, dt)
+    rec["partial"] = {
+        "ms": time_ms(partial, iters), "device_ms": dev_ms, "device_kernels": kernels,
+        "plain_ms": time_ms(lambda: flash_partial_plain(q, k, v, True, scale, q_off, k_off),
+                            iters=plain_iters),
+        "bound_ms": bounds["partial"][0], "bound_by": bounds["partial"][1]}
+    plain_bwd_ms = time_ms(lambda: flash_bwd_plain(*bwd, out_dtype=torch.float32),
+                           iters=plain_iters)
+    for part, family, fn in (
+            ("dq", "flash_dq", lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32)),
+            ("dkv", "flash_dkv", lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32))):
+        dev_ms, kernels = _device_route(f"{label} {part}", fn, dt, family)
+        rec[part] = {"ms": time_ms(fn, iters), "device_ms": dev_ms,
+                     "device_kernels": kernels, "plain_ms": plain_bwd_ms,
+                     "bound_ms": bounds[part][0], "bound_by": bounds[part][1]}
+    lib = _aten_yardsticks(q[aten_rows], k[aten_rows], v[aten_rows], do[aten_rows], scale,
+                           aten_causal, iters)
+    rec["partial"]["library_ms"] = lib["fwd_ms"]
+    rec["partial"]["library_device_ms"] = lib["fwd_device_ms"]
+    for part in ("dq", "dkv"):
+        rec[part]["library_ms"] = lib["bwd_ms"]
+        rec[part]["library_device_ms"] = lib["bwd_device_ms"]
+    rec["library_device_kernels"] = lib["bwd_device_kernels"]
+    rec["k5_plus_k6"] = {
+        "ms": rec["dq"]["ms"] + rec["dkv"]["ms"], "library_ms": lib["bwd_ms"],
+        "device_ms": rec["dq"]["device_ms"] + rec["dkv"]["device_ms"],
+        "library_device_ms": lib["bwd_device_ms"],
+        "bound_ms": rec["dq"]["bound_ms"] + rec["dkv"]["bound_ms"]}
+    return rec
+
+
+def phase_flash_train_kernels(dev) -> dict:
+    """Phase 14: K4-partial, K5, K6 against their plain versions."""
     n, t_loc = 4, 2048
     me = torch.arange(n, device=dev)
     # hop 3 of a 4-shard ring, batch 2 per shard: shard i meets key block
@@ -2045,85 +2142,15 @@ def phase_flash_train_kernels(dev) -> dict:
              ("lm1_f32", 8, 1024, torch.float32, 0, 0),
              ("ring_hop_bf16", 8, t_loc, torch.bfloat16, ring_q, ring_k),
              ("ring_hop_f32", 8, t_loc, torch.float32, ring_q, ring_k)]
-    h, d = 8, 64
-    scale = d ** -0.5
     g = torch.Generator(device=dev).manual_seed(14)
     out = {}
     for name, b, t, dt, q_off, k_off in cases:
-        q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(dt)
-                       for _ in range(4))
-        pv, m, l = flash_partial(q, k, v, True, scale, q_off, k_off)
-        again = flash_partial(q, k, v, True, scale, q_off, k_off)
-        pvp, mp, lp = flash_partial_plain(q, k, v, True, scale, q_off, k_off)
-        o, lse = flash_fwd_plain(q, k, v, True, scale, q_off=q_off, k_off=k_off)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        bwd = (q, k, v, do, lse, delta, True, scale, q_off, k_off)
-        dq = flash_bwd_dq(*bwd, out_dtype=torch.float32)
-        dk, dv = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
-        dq2 = flash_bwd_dq(*bwd, out_dtype=torch.float32)
-        dk2, dv2 = flash_bwd_dkv(*bwd, out_dtype=torch.float32)
-        want = flash_bwd_plain(*bwd, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        errs, rel = {}, {}
-        for key, got, ref, tol in (
-                ("pv", pv, pvp, 2e-5), ("m", m, mp, 2e-6), ("l", l, lp, 2e-5),
-                ("dq", dq, want[0], 5e-5), ("dk", dk, want[1], 5e-5), ("dv", dv, want[2], 5e-5)):
-            errs[key], rel[key] = _near(f"{name} {key}", got, ref, tol)
-        require(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
-                f"{name}: K5/K6 changed between two runs")
-        require(all(torch.equal(x, y) for x, y in zip((pv, m, l), again)),
-                f"{name}: K4-partial changed between two runs")
-        pairs = kept_pairs(b, h, t, t, True, q_off, k_off)
-        elt, act = q.element_size(), b * t * h * d
-        stat = b * h * t * 4
-        # bounds: each input read once, each output written once; 4 D
-        # flops per kept pair forward (QK, PV), 6 D for K5, 8 D for K6,
-        # at the rate of the input type's products (f32: 3xTF32)
-        rate = TF32X3_OPS_PER_S if dt == torch.float32 else PEAK_OPS_PER_S[dt]
-        bounds = {
-            "partial": bound_ms(3 * act * elt + act * 4 + 2 * stat, 4.0 * d * pairs, rate),
-            "dq": bound_ms(4 * act * elt + 2 * stat + act * 4, 6.0 * d * pairs, rate),
-            "dkv": bound_ms(4 * act * elt + 2 * stat + 2 * act * 4, 8.0 * d * pairs, rate),
-        }
-        # fewer back-to-back calls where one call takes milliseconds
-        slow = t > 1024 or dt == torch.float32
-        iters, plain_iters = (50, 10) if slow else (ITERS, 20)
-        rec = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
-               "kept_pairs": pairs, "max_abs_err": errs, "err_of_largest": rel}
-        partial = lambda: flash_partial(q, k, v, True, scale, q_off, k_off)
-        dev_ms, kernels = _device_route(f"{name} K4-partial", partial, dt)
-        rec["partial"] = {
-            "ms": time_ms(partial, iters), "device_ms": dev_ms, "device_kernels": kernels,
-            "plain_ms": time_ms(lambda: flash_partial_plain(q, k, v, True, scale, q_off,
-                                                            k_off), iters=plain_iters),
-            "bound_ms": bounds["partial"][0], "bound_by": bounds["partial"][1]}
-        plain_bwd_ms = time_ms(lambda: flash_bwd_plain(*bwd, out_dtype=torch.float32),
-                               iters=plain_iters)
-        for part, family, fn in (
-                ("dq", "flash_dq", lambda: flash_bwd_dq(*bwd, out_dtype=torch.float32)),
-                ("dkv", "flash_dkv", lambda: flash_bwd_dkv(*bwd, out_dtype=torch.float32))):
-            dev_ms, kernels = _device_route(f"{name} {part}", fn, dt, family)
-            rec[part] = {"ms": time_ms(fn, iters), "device_ms": dev_ms,
-                         "device_kernels": kernels, "plain_ms": plain_bwd_ms,
-                         "bound_ms": bounds[part][0], "bound_by": bounds[part][1]}
         # aten on the same work: causal at LM-1's offsets 0; on the ring
         # hop non-causal over the six rows whose shards keep every key (the
         # two of shard 0 keep none and get zeros)
-        rows = slice(None) if name.startswith("lm1") else slice(2, None)
-        lib = _aten_yardsticks(q[rows], k[rows], v[rows], do[rows], scale,
-                               name.startswith("lm1"), iters)
-        rec["partial"]["library_ms"] = lib["fwd_ms"]
-        rec["partial"]["library_device_ms"] = lib["fwd_device_ms"]
-        for part in ("dq", "dkv"):
-            rec[part]["library_ms"] = lib["bwd_ms"]
-            rec[part]["library_device_ms"] = lib["bwd_device_ms"]
-        rec["library_device_kernels"] = lib["bwd_device_kernels"]
-        rec["k5_plus_k6"] = {
-            "ms": rec["dq"]["ms"] + rec["dkv"]["ms"], "library_ms": lib["bwd_ms"],
-            "device_ms": rec["dq"]["device_ms"] + rec["dkv"]["device_ms"],
-            "library_device_ms": lib["bwd_device_ms"],
-            "bound_ms": rec["dq"]["bound_ms"] + rec["dkv"]["bound_ms"]}
-        out[name] = rec
+        lm1 = name.startswith("lm1")
+        out[name] = rec = _partial_case(name, b, t, 8, dt, q_off, k_off, g,
+                                        slice(None) if lm1 else slice(2, None), lm1)
         print(f"phase 14 {name}: " + json.dumps(rec), flush=True)
     return out
 
@@ -3667,9 +3694,13 @@ def phase_flash_shard_kernels(dev) -> dict:
     ``flash_attention``'s backward runs them) against their plain versions
     at the shapes phase 32 gives them: a tp 4 shard's heads folded into
     the batch, [8 x 4, 1024, 2, 64], and a pp tick's two stages' rows,
-    [2 x 2, 1024, 8, 64], as head splits of one fused projection, causal,
-    bf16 and f32; each twice (the same bits), timed beside the bound and
-    aten's attention (``_aten_yardsticks``). It runs beside phase 14:
+    [2 x 2, 1024, 8, 64] (also pp_moe's tick in phase 35), as head splits
+    of one fused projection, causal, bf16 and f32, and phase 35's dp_tp_pp
+    tick (2 stages x 2 tp shards x 2 dp rows of 4 heads, [8, 1024, 4, 64])
+    in bf16; each twice (the same bits), timed beside the bound and aten's
+    attention (``_aten_yardsticks``). Then phase 35's ep_sp 2 x 2 ring:
+    K4-partial, K5 and K6 with the f32 gradients the ring takes
+    (``_partial_case``) at both hops' offsets. It runs beside phase 14:
     after phase 24 a whole run's short profiler traces often come back
     without their kernel records (PERF.md section 7)."""
     from ps_pytorch_tpu_torch.ops.flash_attention import (
@@ -3681,6 +3712,7 @@ def phase_flash_shard_kernels(dev) -> dict:
     )
 
     cases = [("tp_bf16", 32, 2, torch.bfloat16), ("pp_bf16", 4, 8, torch.bfloat16),
+             ("dp_tp_pp_bf16", 8, 4, torch.bfloat16),
              ("tp_f32", 32, 2, torch.float32), ("pp_f32", 4, 8, torch.float32)]
     t, d = 1024, 64
     scale = d ** -0.5
@@ -3741,6 +3773,271 @@ def phase_flash_shard_kernels(dev) -> dict:
             rec[part]["library_device_ms"] = lib["bwd_device_ms"]
         out[name] = rec
         print(f"phase 34 {name}: " + json.dumps(rec), flush=True)
+    # phase 35's ep_sp ring: batch 8 over 2 expert shards and 1024 tokens
+    # over 2 sequence shards, so a hop is one call over [2 x 8, 512, 8, 64],
+    # rows shard-major; hop 0 meets the shard's own block (the diagonal),
+    # hop 1 block (i + 1) % 2, all in shard 0's future and all in shard 1's
+    # past (aten there: shard 1's rows, every key kept)
+    n_sp, rows, t_loc = 2, 8, 512
+    me = torch.arange(n_sp, device=dev)
+    q_off = (me * t_loc).repeat_interleave(rows)
+    for shift in range(n_sp):
+        name = f"ep_sp_ring_hop{shift}_bf16"
+        k_off = (((me + shift) % n_sp) * t_loc).repeat_interleave(rows)
+        out[name] = rec = _partial_case(
+            name, n_sp * rows, t_loc, 8, torch.bfloat16, q_off, k_off, g,
+            slice(None) if shift == 0 else slice(rows, None), shift == 0)
+        print(f"phase 34 {name}: " + json.dumps(rec), flush=True)
+    return out
+
+
+# ------------------------- phases 35-36: the MoE schemes and the 3-D grid
+
+# (name, flags or None for the dp_tp_pp library run, launches a step of
+# flash_fwd (K4 normalized), flash_partial (K4's partial triple), flash_bwd_dq
+# (K5), flash_bwd_dkv (K6)): with remat the forward runs twice
+#   moe: one attention call a block over every shard's rows: 2 L, 0, L, L;
+#   ep_sp: the ring over n_sp = 2, one call a hop a block: 0, 2 L n_sp, L n_sp,
+#     L n_sp;
+#   pp_moe and dp_tp_pp: every stage's (and column's) block in one call a tick,
+#     (M + S - 1) L / S = (4 + 2 - 1) 6 / 2 = 15 calls: 30, 0, 15, 15
+_TICKS = (4 + 2 - 1) * LM_DEPTH // 2
+MOE_SCHEMES = [
+    ("moe_top1", ["--parallelism", "moe", "--num-shards", "4"],
+     (2 * LM_DEPTH, 0, LM_DEPTH, LM_DEPTH)),
+    ("moe_top2", ["--parallelism", "moe", "--num-shards", "4", "--top-k", "2"],
+     (2 * LM_DEPTH, 0, LM_DEPTH, LM_DEPTH)),
+    ("ep_sp", ["--parallelism", "ep_sp", "--num-shards", "2", "--num-sp", "2"],
+     (0, 2 * LM_DEPTH * 2, LM_DEPTH * 2, LM_DEPTH * 2)),
+    ("pp_moe", ["--parallelism", "pp_moe", "--num-shards", "2", "--num-ep", "2",
+                "--num-microbatches", "4"], (2 * _TICKS, 0, _TICKS, _TICKS)),
+    ("dp_tp_pp", None, (2 * _TICKS, 0, _TICKS, _TICKS)),
+]
+MOE_ARGS = ["--num-experts", "8", "--capacity-factor", "1.25"]
+
+
+def _launches_want(per_step: tuple, steps: int) -> dict:
+    return dict(zip(("flash_fwd", "flash_partial", "flash_bwd_dq", "flash_bwd_dkv"),
+                    (c * steps for c in per_step)))
+
+
+def _dp_tp_pp_run(steps: int, batch: int, seq: int) -> dict:
+    """LM-1's model (bf16, remat, flash) on the dp_tp_pp library at 2 x 2 x
+    2 with 4 microbatches a dp column, timed as ``cli.train_lm`` times a
+    logged step (a host read before and after), on its corpus and SGD."""
+    from ps_pytorch_tpu_torch.cli.train_lm import make_synthetic_tokens
+    from ps_pytorch_tpu_torch.models import TransformerConfig
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel import dp_tp_pp
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+
+    cfg = TransformerConfig(vocab_size=2048, dim=512, depth=LM_DEPTH, heads=8,
+                            max_seq_len=seq, remat=True, attention_impl="flash",
+                            compute_dtype=torch.bfloat16)
+    mesh = dp_tp_pp.make_mesh_3d(2, 2, 2)
+    tx = build_optimizer("sgd", 0.01, momentum=0.9)
+    params, opt = dp_tp_pp.init_3d_state(cfg, tx, torch.Generator().manual_seed(1), mesh,
+                                         device="cuda")
+    step = dp_tp_pp.make_3d_train_step(cfg, tx, mesh, num_microbatches=4)
+    corpus = make_synthetic_tokens(2048, 512, seq, seed=2)
+    rng = np.random.RandomState(3)
+    hist = []
+    for _ in range(steps):
+        tok = torch.from_numpy(corpus[rng.randint(0, len(corpus), batch)]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, dp_tp_pp.shard_tokens_3d(tok, mesh))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        hist.append({"loss": loss, "time_cost": time.perf_counter() - t0})
+    return {"history": hist, "layout": "dp 2 x pp 2 x tp 2 (4 microbatches)",
+            "params": sum(int(x.numel()) for x in tree_leaves(params))}
+
+
+def phase_moe_schemes(card: str, lm1=None) -> dict:
+    """Phase 35: LM-1's model (LM_ARGS: bf16, remat, flash, seq 1024, batch
+    8) with 8 experts at capacity factor 1.25, 8 steps each, through
+    ``cli.train_lm.main`` under ``moe --num-shards 4`` (top-1 and
+    ``--top-k 2``), ``ep_sp 2 x 2`` (the flash ring) and ``pp_moe 2 x 2 x 4
+    microbatches``, and the dp_tp_pp library at 2 x 2 x 2 (4
+    microbatches): finite losses, the last below the first, a finite
+    ``aux_loss`` in every MoE record, the flash launches of MOE_SCHEMES a
+    step exactly; the step p50 beside phase 15's dp_sp p50 (``lm1``) and
+    each run's peak device memory above its start. Then ``cli.evaluate_lm
+    --once --generate 8`` on the top-1 moe run's checkpoint: a finite
+    perplexity."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch.cli import evaluate_lm, train_lm
+
+    steps, batch, seq = LM_SCHEME_STEPS, 8, 1024
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, flags, per_step in MOE_SCHEMES:
+            extra = ["--train-dir", root] if name == "moe_top1" else []
+            reset_flash_counts()
+            if flags is None:
+                res, peak = _peak_of(lambda base: _dp_tp_pp_run(steps, batch, seq))
+            else:
+                res, peak = _peak_of(lambda base: train_lm.main(
+                    LM_ARGS + MOE_ARGS + ["--dtype", "bfloat16", "--seq-len", str(seq),
+                                          "--batch-size", str(batch), "--max-steps",
+                                          str(steps), *flags, *extra]))
+            torch.cuda.synchronize()
+            got, want = read_flash_counts(), _launches_want(per_step, steps)
+            hist = res["history"]
+            losses = [h_["loss"] for h_ in hist]
+            require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                    f"LM {name}: losses {losses}")
+            require(losses[-1] < losses[0], f"LM {name}: loss did not fall: {losses}")
+            require(got == want, f"LM {name}: launches {got}, expected {want}")
+            auxes = [h_.get("aux_loss") for h_ in hist]
+            if flags is not None:
+                require(all(a is not None and np.isfinite(a) for a in auxes),
+                        f"LM {name}: aux_loss {auxes}")
+            times = [h_["time_cost"] for h_ in hist[2:]]
+            p50 = float(np.median(times))
+            out[name] = {
+                "card": card, "layout": res["layout"],
+                "flags": " ".join(flags) if flags else "library dp_tp_pp.make_3d_train_step",
+                "steps": steps, "launches": got, "launches_per_step": dict(zip(want, per_step)),
+                "losses": losses, "aux_loss": auxes if flags else None,
+                "step_ms_p50": p50 * 1e3, "step_ms_min": min(times) * 1e3,
+                "step_ms_max": max(times) * 1e3, "tokens_per_s": batch * seq / p50,
+                "dp_sp_step_ms_p50": lm1["step_ms_p50"] if lm1 else None,
+                "peak_bytes": peak, "params": res["params"]}
+            print(f"phase 35 LM-1 {name}: " + json.dumps(out[name]), flush=True)
+        t0 = time.perf_counter()
+        ev = evaluate_lm.main(["--device", "cuda", "--model-dir", root, "--once",
+                               "--generate", "8"])
+        ev_s = time.perf_counter() - t0
+    (r,) = ev.values()
+    require(r["step"] == steps and np.isfinite(r["perplexity"]),
+            f"evaluate_lm on the moe checkpoint: {r}")
+    require(np.asarray(r["samples"]).shape == (2, 16), f"evaluate_lm samples: {r}")
+    out["evaluate_lm"] = {"step": r["step"], "loss": r["loss"],
+                          "perplexity": r["perplexity"], "seconds": ev_s}
+    print("phase 35 cli.evaluate_lm --once --generate 8 on the moe checkpoint: "
+          + json.dumps(out["evaluate_lm"]))
+    return out
+
+
+def _record_dispatch(log: list):
+    """Wrap the MoE gate: each call's dispatch tensor (the expert choices
+    and slots) and, on the CPU, its inputs go to ``log``. Returns the undo."""
+    from ps_pytorch_tpu_torch.parallel import moe
+
+    orig = moe._gate_and_dispatch
+
+    def rec(x2d, wg, capacity, top_k=1):
+        out = orig(x2d, wg, capacity, top_k)
+        log.append((out[0].detach().cpu(), x2d.detach().cpu(), wg.detach().cpu(), top_k))
+        return out
+
+    moe._gate_and_dispatch = rec
+    return lambda: setattr(moe, "_gate_and_dispatch", orig)
+
+
+def _smallest_margins(log: list) -> tuple:
+    """The smallest top-1 / top-2 (and top-2 / top-3 for top-2 routing)
+    probability gaps over the recorded gate inputs (f64), rows with an
+    exact tie left out."""
+    m1 = m2 = float("inf")
+    for _, x2d, wg, top_k in log:
+        p = torch.softmax(x2d.double() @ wg.double(), dim=-1).sort(-1, descending=True)[0]
+        g1, g2 = p[..., 0] - p[..., 1], p[..., 1] - p[..., 2]
+        if (g1 > 0).any():
+            m1 = min(m1, float(g1[g1 > 0].min()))
+        if top_k == 2 and (g2 > 0).any():
+            m2 = min(m2, float(g2[g2 > 0].min()))
+    return m1, m2
+
+
+def phase_moe_schemes_held(dev) -> dict:
+    """Phase 36: one f32 step (TF32 off) at depth 2 (flash, remat) of moe 4
+    shards top-2 at capacity factor 1.0 (tokens drop), ep_sp 2 x 2 (the
+    flash ring), pp_moe 2 x 2 x 2 microbatches and dp_tp_pp 2 x 2 x 2 (2
+    microbatches): the card (kernels) against the CPU (plain versions)
+    from the same params and tokens, under phase 33's rule (loss rtol
+    1e-5; params rtol 2e-4 / atol 2e-5); every gate call's dispatch (the
+    expert choices) equal, and the launch counts exact."""
+    from ps_pytorch_tpu_torch import on_device
+    from ps_pytorch_tpu_torch.cli.train_lm import make_synthetic_tokens
+    from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel import dp_tp_pp, ep_sp, moe, pp, pp_moe
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+
+    depth = 2
+    cfg = TransformerConfig(vocab_size=256, dim=256, depth=depth, heads=4, max_seq_len=256,
+                            attention_impl="flash", remat=True)
+    tokens = torch.from_numpy(make_synthetic_tokens(256, 4, 256, seed=3))
+    top2 = moe.MoEConfig(num_experts=8, capacity_factor=1.0, top_k=2)
+    mcfg = moe.MoEConfig(num_experts=8)
+    plain = moe.init_moe_params(cfg, mcfg, torch.Generator().manual_seed(9), device="cpu")
+    dense = init_transformer(cfg, torch.Generator().manual_seed(9), device="cpu")
+    m_ep, m_es = moe.make_ep_mesh(4), ep_sp.make_mesh_ep_sp(2, 2)
+    m_pm, m_3d = pp_moe.make_mesh_pp_moe(2, 2), dp_tp_pp.make_mesh_3d(2, 2, 2)
+    ticks = (2 + 2 - 1) * depth // 2
+    # name: (params, step(tx), shard(tokens), flash launches of the step)
+    cases = {
+        "moe_top2_drops": (moe.shard_params_moe(cfg, plain, m_ep),
+                           lambda tx: moe.make_moe_train_step(cfg, top2, tx, m_ep),
+                           lambda t: moe.shard_moe_batch(t, m_ep),
+                           (2 * depth, 0, depth, depth)),
+        "ep_sp": (moe.shard_params_moe(cfg, plain, m_es.ep),
+                  lambda tx: ep_sp.make_ep_sp_train_step(cfg, mcfg, tx, m_es),
+                  lambda t: ep_sp.shard_tokens_ep_sp(t, m_es),
+                  (0, 2 * depth * 2, depth * 2, depth * 2)),
+        "pp_moe": (pp_moe.shard_params_pp_moe(cfg, pp.to_pp_layout(cfg, plain), m_pm),
+                   lambda tx: pp_moe.make_pp_moe_train_step(cfg, mcfg, tx, m_pm, 2),
+                   lambda t: pp_moe.shard_tokens_pp_moe(t, m_pm),
+                   (2 * ticks, 0, ticks, ticks)),
+        "dp_tp_pp": (dp_tp_pp.shard_params_3d(cfg, dp_tp_pp.to_3d_layout(cfg, dense), m_3d),
+                     lambda tx: dp_tp_pp.make_3d_train_step(cfg, tx, m_3d, 2),
+                     lambda t: dp_tp_pp.shard_tokens_3d(t, m_3d),
+                     (2 * ticks, 0, ticks, ticks)),
+    }
+    out = {}
+    for name, (params, make_step, shard, per_step) in cases.items():
+        res = {}
+        for d in ("cpu", dev):
+            tx = build_optimizer("sgd", 0.1, momentum=0.9)
+            p = on_device(params, torch.device(d))
+            log = []
+            undo = _record_dispatch(log)
+            try:
+                reset_flash_counts()
+                p2, _, loss, *aux = make_step(tx)(p, tx.init(p), shard(tokens.to(d)))
+            finally:
+                undo()
+            leaves = [x.detach().cpu() for x in tree_leaves(p2)]
+            res[torch.device(d).type] = (leaves, float(loss), read_flash_counts(), log,
+                                         [float(a) for a in aux])
+        (pc, lc, _, logc, auxc), (pg, lg, counts, logg, auxg) = (
+            res["cpu"], res[torch.device(dev).type])
+        m1, m2 = _smallest_margins(logc)
+        require(len(logc) == len(logg) and all(torch.equal(a[0], b[0])
+                                               for a, b in zip(logc, logg)),
+                f"held LM {name}: the card's expert choices differ from the CPU's "
+                f"(smallest top-1 margin {m1}, top-2 {m2})")
+        require(abs(lg - lc) <= 1e-5 * abs(lc), f"held LM {name}: loss {lg} vs CPU {lc}")
+        for a, b in zip(auxg, auxc):
+            require(abs(a - b) <= 1e-5 * abs(b), f"held LM {name}: aux {a} vs CPU {b}")
+        worst = 0.0
+        for a, b in zip(pg, pc):
+            excess = (a - b).abs() - (2e-5 + 2e-4 * b.abs())
+            worst = max(worst, float((a - b).abs().max()))
+            require(bool((excess <= 0).all()), f"held LM {name}: params off by {worst}")
+        want = _launches_want(per_step, 1)
+        require(counts == want, f"held LM {name}: launches {counts}, expected {want}")
+        out[name] = {"loss_cpu": lc, "loss_cuda": lg, "aux_cpu": auxc, "aux_cuda": auxg,
+                     "max_abs_param_diff": worst, "launches": counts,
+                     "gate_calls": len(logc),
+                     "smallest_top1_margin": m1 if m1 != float("inf") else None,
+                     "smallest_top2_margin": m2 if m2 != float("inf") else None}
+    print("phase 36 MoE schemes and dp_tp_pp step held on the card vs CPU: "
+          + json.dumps(out))
     return out
 
 
@@ -3749,7 +4046,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
-                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34; 2 "
+                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, "
+                         "36; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
@@ -3831,7 +4129,9 @@ def main(argv=None) -> int:
                  31: lambda: phase_config_json(smi),
                  32: lambda: phase_lm_schemes(smi),
                  33: lambda: phase_lm_schemes_held(dev),
-                 34: lambda: phase_flash_shard_kernels(dev)}
+                 34: lambda: phase_flash_shard_kernels(dev),
+                 35: lambda: phase_moe_schemes(smi),
+                 36: lambda: phase_moe_schemes_held(dev)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -3877,18 +4177,32 @@ def main(argv=None) -> int:
     cfg_json = phase_config_json(smi)
     schemes = phase_lm_schemes(smi, lm1)
     phase_lm_schemes_held(dev)
+    moe_runs = phase_moe_schemes(smi, lm1)
+    phase_moe_schemes_held(dev)
 
-    def shard_times(part):
-        """Phase 34's figures at the tp and pp shapes, phase 32's launches."""
-        return {
-            "launches_" + scheme: schemes[scheme]["launches"][
-                {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[part]]
-            for scheme in ("tp", "dp_tp", "pp")} | {"shard_shapes": {
-                case: {"shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
+    def moe_launches(counter):
+        """Phase 35's launches of one flash entry in each run (8 steps)."""
+        return {"launches_moe_schemes": {name: moe_runs[name]["launches"][counter]
+                                         for name, _, _ in MOE_SCHEMES}}
+
+    def shard_shapes(part):
+        """Phase 34's figures of one kernel at the shapes the LM schemes
+        give it (tp, pp, dp_tp_pp; ep_sp's ring hops)."""
+        return {case: {"shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
                        **{k: rec[part][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                     "bound_by", "library_ms",
                                                     "library_device_ms")}}
-                for case, rec in shard_k.items()}}
+                for case, rec in shard_k.items() if part in rec}
+
+    def shard_times(part):
+        """Phase 34's figures at the LM schemes' shapes, phase 32's launches."""
+        return {
+            "launches_" + scheme: schemes[scheme]["launches"][
+                {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}[part]]
+            for scheme in ("tp", "dp_tp", "pp")} | {"shard_shapes": shard_shapes(part)}
+
+    ring_cases = list(fk.values()) + [rec for case, rec in shard_k.items()
+                                      if case.startswith("ep_sp_ring")]
 
     def flash_entry(name, source, site, part):
         rec = fk["lm1_bf16"][part]
@@ -3897,7 +4211,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": f"ps_pytorch_tpu/ops/flash_attention.py:{site}",
             "launches": lm1["launches"][name],
-            "max_abs_err": max(c["max_abs_err"][k] for c in fk.values() for k in key),
+            # phase 14's cases and phase 34's ring hops (the same f32 gradients)
+            "max_abs_err": max(c["max_abs_err"][k] for c in ring_cases for k in key),
             "ms": rec["ms"], "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
@@ -3911,8 +4226,12 @@ def main(argv=None) -> int:
                                if n_.endswith("f32") for k in key),
             **{k: f32[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_device_ms")}}
-        if part in ("dq", "dkv"):  # the input-dtype backward of tp, dp_tp and pp
+        if part in ("dq", "dkv"):  # the backward at tp, dp_tp, pp and ep_sp's shapes
             entry.update(shard_times(part))
+        else:  # ep_sp's ring hops
+            entry["shard_shapes"] = shard_shapes(part)
+        # phase 35: the MoE schemes (ep_sp's ring takes the partial triple)
+        entry.update(moe_launches(name))
         return entry
 
     def split_entry(name, source, site, rec, wire, absmax, given):
@@ -4040,6 +4359,8 @@ def main(argv=None) -> int:
                     "library_device_ms")}},
             # phases 32 and 34: the tp / dp_tp / pp runs and shapes
             **shard_times("fwd"),
+            # phase 35: the MoE schemes and the dp_tp_pp library run
+            **moe_launches("flash_fwd"),
         },
         split_entry("quantize_tensors_split", "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
                     78, split["k2"], "compress", "tensors_absmax", "quantize_tensors_given"),

@@ -4,9 +4,10 @@ ps_pytorch_tpu.cli.evaluate_lm).
 The LM counterpart of cli/evaluate.py. It reads the scheme-agnostic
 checkpoints ``cli.train_lm`` writes, this package's or the JAX
 package's (the same bytes), whatever the producer ran (dp_sp, tp, dp_tp,
-pp): dense checkpoints replay through ``apply_transformer`` on one
-device. MoE checkpoints (``model.kind == "moe"``) are refused, naming
-ROADMAP.md queue 1 item 19.
+pp, moe, ep_sp, pp_moe): dense checkpoints replay through
+``apply_transformer`` on one device, MoE ones (``model.kind == "moe"``)
+through ``parallel.moe.apply_moe_transformer`` with every expert local,
+and ``--generate`` decodes either (``generate(..., moe=)``).
 
 The eval split regenerates the SAME Markov chain the trainer used (the
 transition table is fixed by the recorded data seed) but walks fresh
@@ -36,6 +37,7 @@ from ..models.convert import params_from_jax
 from ..models.decode import generate
 from ..models.transformer import TransformerConfig, apply_transformer
 from ..ops.metrics import next_token_nll
+from ..parallel.moe import MoEConfig, apply_moe_transformer
 from ..utils import get_logger
 from .train_lm import make_synthetic_tokens
 
@@ -55,16 +57,17 @@ def evaluate_checkpoint(model_dir: str, step: int, eval_size: int = 64,
     dev = resolve_device(device)
     raw = load_checkpoint_raw(model_dir, step)
     m = raw["model"]
-    if m["kind"] == "moe":
-        raise NotImplementedError(
-            "MoE LM checkpoints are not ported yet (ROADMAP.md queue 1 item 19, "
-            "the MoE half): the port evaluates dense checkpoints")
     params = params_from_jax(listify_raw(raw["params"]), device=dev)
     cfg = TransformerConfig(
         vocab_size=int(m["vocab_size"]), dim=int(m["dim"]), depth=int(m["depth"]),
         heads=int(m["heads"]), mlp_ratio=int(m["mlp_ratio"]),
         max_seq_len=int(m["max_seq_len"]),
     )
+    moe = None
+    if m["kind"] == "moe":
+        moe = MoEConfig(num_experts=int(m["num_experts"]),
+                        capacity_factor=float(m["capacity_factor"]),
+                        top_k=int(m.get("top_k", 1)))
     seq_len = int(raw["data"]["seq_len"])
     seed = int(raw["data"]["seed"])
     toks = torch.from_numpy(make_synthetic_tokens(
@@ -74,7 +77,9 @@ def evaluate_checkpoint(model_dir: str, step: int, eval_size: int = 64,
     total, count = 0.0, 0
     for i in range(0, eval_size, batch_size):
         t = toks[i: i + batch_size]
-        total += float(next_token_nll(apply_transformer(cfg, params, t), t)) * t.shape[0]
+        logits = (apply_transformer(cfg, params, t) if moe is None
+                  else apply_moe_transformer(cfg, moe, params, t)[0])
+        total += float(next_token_nll(logits, t)) * t.shape[0]
         count += t.shape[0]
     nll = total / count
     out = {"step": step, "loss": nll, "perplexity": math.exp(nll)}
@@ -89,7 +94,7 @@ def evaluate_checkpoint(model_dir: str, step: int, eval_size: int = 64,
                         generate_tokens, n_new, cfg.max_seq_len)
         sample = generate(cfg, params, prompt, max_new_tokens=n_new, temperature=0.8,
                           generator=torch.Generator(device=dev).manual_seed(step),
-                          max_len=prompt.shape[1] + n_new, device=dev)
+                          max_len=prompt.shape[1] + n_new, device=dev, moe=moe)
         out["samples"] = sample.cpu().tolist()
         for row in out["samples"]:
             logger.info("sample: %s", " ".join(map(str, row)))

@@ -10,10 +10,19 @@ the one card, selected by ``--parallelism``:
   and MLP columns; ``--shard-vocab`` cuts the embedding and runs the loss
   vocab-parallel);
 - ``dp_tp``: ``--num-dp`` data shards x ``--num-shards`` tensor shards;
-- ``pp``: GPipe over ``--num-shards`` stages, ``--num-microbatches`` a step.
+- ``pp``: GPipe over ``--num-shards`` stages, ``--num-microbatches`` a step;
+- ``moe``: Switch (``--top-k 1``) or GShard (``--top-k 2``) MoE, the
+  ``--num-experts`` experts and the batch over ``--num-shards`` expert
+  shards (``--capacity-factor``), two tiled all_to_alls a block;
+- ``ep_sp``: ``--num-shards`` expert shards x ``--num-sp`` sequence
+  shards (default 2), the ring or Ulysses over the sequence;
+- ``pp_moe``: ``--num-shards`` stages x ``--num-ep`` expert shards,
+  ``--num-microbatches`` a column.
 
-Under ``--attention-impl flash`` tp, dp_tp and pp run the within-device
-attention on K4 (normalized) forward, K5 + K6 backward.
+Under ``--attention-impl flash`` tp, dp_tp, pp, moe and pp_moe run the
+within-device attention on K4 (normalized) forward, K5 + K6 backward,
+ep_sp's ring K4's partial triple a hop. The MoE schemes log the router's
+load-balance aux and put it in each ``train_lm`` record (``aux_loss``).
 
   python -m ps_pytorch_tpu_torch.cli.train_lm --parallelism dp_sp \\
       --attention-impl flash --vocab-size 2048 --dim 512 --depth 6 \\
@@ -23,12 +32,15 @@ attention on K4 (normalized) forward, K5 + K6 backward.
   ... --parallelism tp --num-shards 4 --shard-vocab
   ... --parallelism dp_tp --num-dp 2 --num-shards 4
   ... --parallelism pp --num-shards 2 --num-microbatches 4
+  ... --parallelism moe --num-shards 4 --top-k 2
+  ... --parallelism ep_sp --num-shards 2 --num-sp 2
+  ... --parallelism pp_moe --num-shards 2 --num-ep 2 --num-microbatches 4
 
 Every flag of the JAX CLI parses, plus ``--device`` (default ``cuda``;
-without a card it raises unless ``--device cpu``). ``--num-sp 0`` and
-``--num-shards 0`` mean all devices, which on the one card is 1. The MoE
-schemes (``moe``, ``ep_sp``, ``pp_moe``) are refused, naming ROADMAP.md
-queue 1 item 19. ``--optimizer adam|amsgrad`` runs ``optim.adam``
+without a card it raises unless ``--device cpu``). ``--num-sp 0``,
+``--num-shards 0`` and ``--num-ep 0`` mean all devices (over the other
+axis), which on the one card is 1; ep_sp's ``--num-sp 0`` means 2, as in
+JAX. ``--optimizer adam|amsgrad`` runs ``optim.adam``
 (``--momentum`` is then unused). ``--metrics-file F`` appends a
 ``run_header`` and one ``train_lm`` record a log window, as the JAX CLI
 does. ``--profile-dir DIR`` captures steps 3 to min(12, max-steps) with
@@ -36,7 +48,8 @@ does. ``--profile-dir DIR`` captures steps 3 to min(12, max-steps) with
 
 ``--train-dir DIR`` writes ``model_step_N`` every ``--eval-freq`` steps
 and after the last: the dict the JAX CLI's ``save_lm_checkpoint`` writes
-(plain-layout params whatever the scheme, ``step``, the ``model`` and
+(plain-layout params whatever the scheme: the MoE schemes' with the
+expert shards joined, ``kind: "moe"``; ``step``, the ``model`` and
 ``data`` metadata a structure-free evaluator rebuilds the model from), in
 its bytes, so either package's ``cli.evaluate_lm`` reads it unchanged.
 
@@ -67,7 +80,7 @@ from ..optim.schedules import (
     warmup_cosine_decay_schedule,
 )
 from ..parallel.buckets import tree_leaves
-from ..parallel import dp_sp, dp_tp, pp, tp
+from ..parallel import dp_sp, dp_tp, ep_sp, moe, pp, pp_moe, tp
 from ..trainer import append_metrics_line
 from ..utils import format_iter_line, get_logger, host_sync
 
@@ -75,6 +88,7 @@ logger = get_logger()
 
 # one card: the JAX CLI's len(jax.devices())
 N_DEVICES = 1
+MOE_SCHEMES = ("moe", "ep_sp", "pp_moe")
 
 
 def make_synthetic_tokens(
@@ -166,11 +180,7 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    if args.parallelism in ("moe", "ep_sp", "pp_moe"):
-        raise NotImplementedError(
-            f"--parallelism {args.parallelism} is not ported yet (ROADMAP.md "
-            "queue 1 item 19, the MoE half): the port runs dp_sp, tp, dp_tp and pp")
+def check_flags(args: argparse.Namespace) -> None:
     if args.shard_vocab and args.parallelism not in ("tp", "dp_tp"):
         raise ValueError(
             "--shard-vocab is implemented for --parallelism tp/dp_tp only "
@@ -178,11 +188,19 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "silently ignore it)")
 
 
+def _no_aux(step, shard=lambda tok: tok):
+    """A dense scheme's run: its step on the sharded tokens, no aux."""
+    def run(p, o, tok):
+        return (*step(p, o, shard(tok)), None)
+
+    return run
+
+
 def build_scheme(args: argparse.Namespace, cfg: TransformerConfig, tx, dev):
-    """The ``--parallelism`` scheme (cli/train_lm.py:201-260 of the JAX
+    """The ``--parallelism`` scheme (cli/train_lm.py:201-372 of the JAX
     package): (params, opt_state, run(params, opt_state, tokens [B, T]) ->
-    (params, opt_state, loss), to_plain(params) -> the plain-layout tree,
-    the layout string)."""
+    (params, opt_state, loss, aux: None but for the MoE schemes),
+    to_plain(params) -> the plain-layout tree, the layout string)."""
     n_shards = args.num_shards or N_DEVICES
     g = torch.Generator().manual_seed(args.seed)
     if args.parallelism == "dp_sp":
@@ -195,7 +213,7 @@ def build_scheme(args: argparse.Namespace, cfg: TransformerConfig, tx, dev):
         params = init_transformer(cfg, g, device=dev)
         step = dp_sp.make_lm_train_step(cfg, tx, mesh)
         return (params, tx.init(params),
-                lambda p, o, tok: step(p, o, dp_sp.shard_tokens_2d(tok, mesh)),
+                _no_aux(step, lambda tok: dp_sp.shard_tokens_2d(tok, mesh)),
                 lambda p: p, f"dp {args.num_dp} x sp {num_sp} ({args.sp_attention})")
     vocab = " (vocab-parallel)" if args.shard_vocab else ""
 
@@ -205,7 +223,8 @@ def build_scheme(args: argparse.Namespace, cfg: TransformerConfig, tx, dev):
     if args.parallelism == "tp":
         mesh = tp.make_tp_mesh(n_shards)
         params, opt_state = tp.init_tp_state(cfg, tx, g, mesh, args.shard_vocab, dev)
-        return (params, opt_state, tp.make_tp_train_step(cfg, tx, mesh, args.shard_vocab),
+        return (params, opt_state,
+                _no_aux(tp.make_tp_train_step(cfg, tx, mesh, args.shard_vocab)),
                 tp_plain, f"tp {n_shards}{vocab}")
     if args.parallelism == "dp_tp":
         num_tp = args.num_shards or max(N_DEVICES // args.num_dp, 1)
@@ -215,23 +234,67 @@ def build_scheme(args: argparse.Namespace, cfg: TransformerConfig, tx, dev):
         params, opt_state = dp_tp.init_dp_tp_state(cfg, tx, g, mesh, args.shard_vocab, dev)
         step = dp_tp.make_dp_tp_train_step(cfg, tx, mesh, args.shard_vocab)
         return (params, opt_state,
-                lambda p, o, tok: step(p, o, dp_tp.shard_tokens_dp(tok, mesh)),
+                _no_aux(step, lambda tok: dp_tp.shard_tokens_dp(tok, mesh)),
                 tp_plain, f"dp {args.num_dp} x tp {num_tp}{vocab}")
-    # pp
-    if args.batch_size % args.num_microbatches:
-        raise ValueError(f"--batch-size must be divisible by "
-                         f"num_microbatches={args.num_microbatches}")
-    mesh = pp.make_pp_mesh(n_shards)
-    params, opt_state = pp.init_pp_state(cfg, tx, g, mesh, dev)
+    if args.parallelism == "pp":
+        if args.batch_size % args.num_microbatches:
+            raise ValueError(f"--batch-size must be divisible by "
+                             f"num_microbatches={args.num_microbatches}")
+        mesh = pp.make_pp_mesh(n_shards)
+        params, opt_state = pp.init_pp_state(cfg, tx, g, mesh, dev)
+        return (params, opt_state,
+                _no_aux(pp.make_pp_train_step(cfg, tx, mesh,
+                                              num_microbatches=args.num_microbatches)),
+                lambda p: pp.from_pp_layout(cfg, p),
+                f"pp {n_shards} x {args.num_microbatches} microbatches")
+    mcfg = moe.MoEConfig(num_experts=args.num_experts,
+                         capacity_factor=args.capacity_factor, top_k=args.top_k)
+    if args.parallelism == "ep_sp":
+        num_sp = args.num_sp or 2
+        num_ep = args.num_shards or max(N_DEVICES // num_sp, 1)
+        if args.seq_len % num_sp:
+            raise ValueError(f"--seq-len must be divisible by num_sp={num_sp}")
+        if args.batch_size % num_ep:
+            raise ValueError(f"--batch-size must be divisible by expert shards={num_ep}")
+        mesh = ep_sp.make_mesh_ep_sp(num_ep, num_sp)
+        params, opt_state = ep_sp.init_ep_sp_state(cfg, mcfg, tx, g, mesh, dev)
+        step = ep_sp.make_ep_sp_train_step(cfg, mcfg, tx, mesh)
+        return (params, opt_state,
+                lambda p, o, tok: step(p, o, ep_sp.shard_tokens_ep_sp(tok, mesh)),
+                lambda p: moe.unshard_params_moe(cfg, p),
+                f"ep {num_ep} ({args.num_experts} experts) x sp {num_sp} "
+                f"({args.sp_attention})")
+    if args.parallelism == "pp_moe":
+        num_ep = args.num_ep or max(N_DEVICES // n_shards, 1)
+        per_col = args.batch_size // num_ep if num_ep else 0
+        if args.batch_size % num_ep or per_col % args.num_microbatches:
+            raise ValueError(f"--batch-size must split over ep={num_ep} then "
+                             f"num_microbatches={args.num_microbatches}")
+        mesh = pp_moe.make_mesh_pp_moe(n_shards, num_ep)
+        params, opt_state = pp_moe.init_pp_moe_state(cfg, mcfg, tx, g, mesh, dev)
+        step = pp_moe.make_pp_moe_train_step(cfg, mcfg, tx, mesh,
+                                             num_microbatches=args.num_microbatches)
+        return (params, opt_state,
+                lambda p, o, tok: step(p, o, pp_moe.shard_tokens_pp_moe(tok, mesh)),
+                # the plain MoE layout, for the evaluator
+                lambda p: pp.from_pp_layout(cfg, pp_moe.unshard_params_pp_moe(cfg, p)),
+                f"pp {n_shards} x ep {num_ep} ({args.num_experts} experts, "
+                f"{args.num_microbatches} microbatches)")
+    # moe
+    if args.batch_size % n_shards:
+        raise ValueError(f"--batch-size must be divisible by expert shards={n_shards}")
+    mesh = moe.make_ep_mesh(n_shards)
+    params, opt_state = moe.init_moe_state(cfg, mcfg, tx, g, mesh, dev)
+    step = moe.make_moe_train_step(cfg, mcfg, tx, mesh)
     return (params, opt_state,
-            pp.make_pp_train_step(cfg, tx, mesh, num_microbatches=args.num_microbatches),
-            lambda p: pp.from_pp_layout(cfg, p),
-            f"pp {n_shards} x {args.num_microbatches} microbatches")
+            lambda p, o, tok: step(p, o, moe.shard_moe_batch(tok, mesh)),
+            lambda p: moe.unshard_params_moe(cfg, p),
+            f"moe {args.num_experts} experts over {n_shards} shards")
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    check_flags(args)
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, dim=args.dim, depth=args.depth,
         heads=args.heads, max_seq_len=args.seq_len, remat=args.remat,
@@ -266,7 +329,8 @@ def main(argv=None) -> dict:
             "params": to_plain(params),
             "step": step_no,
             "model": {
-                "kind": "dense", "vocab_size": cfg.vocab_size, "dim": cfg.dim,
+                "kind": "moe" if args.parallelism in MOE_SCHEMES else "dense",
+                "vocab_size": cfg.vocab_size, "dim": cfg.dim,
                 "depth": cfg.depth, "heads": cfg.heads, "mlp_ratio": cfg.mlp_ratio,
                 "max_seq_len": cfg.max_seq_len, "num_experts": args.num_experts,
                 "capacity_factor": float(args.capacity_factor), "top_k": args.top_k,
@@ -299,8 +363,8 @@ def main(argv=None) -> dict:
                 host_sync(params)  # dt measures ONE step, not the queue before it
             t0 = time.perf_counter()
             idx = rng.randint(0, len(corpus), args.batch_size)
-            params, opt_state, loss = run(params, opt_state,
-                                          torch.from_numpy(corpus[idx]).to(dev))
+            params, opt_state, loss, aux = run(params, opt_state,
+                                               torch.from_numpy(corpus[idx]).to(dev))
             if log_now:
                 loss = float(loss)
                 host_sync(params)  # include the param update in dt
@@ -312,6 +376,11 @@ def main(argv=None) -> dict:
                 ))
                 record = {"kind": "train_lm", "parallelism": args.parallelism,
                           "step": step_no, "loss": loss, "time_cost": round(dt, 6)}
+                if aux is not None:
+                    # router balance: aux == 1 is perfectly balanced; a climb
+                    # toward num_experts signals expert collapse
+                    record["aux_loss"] = round(float(aux), 6)
+                    logger.info("MoE load-balance aux: %.4f", record["aux_loss"])
                 history.append(record)
                 append_metrics_line(args.metrics_file, record)
             if args.eval_freq > 0 and step_no % args.eval_freq == 0:

@@ -34,6 +34,13 @@ def next_token_positions_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torc
     return -logp.gather(-1, tokens[..., 1:].long()[..., None])[..., 0]
 
 
+def shard_next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Each shard's mean next-token NLL: logits ``[n, ..., T, V]``, tokens
+    ``[n, ..., T]`` -> ``[n]`` (``next_token_nll`` on each device of a JAX
+    mesh)."""
+    return next_token_positions_nll(logits, tokens).flatten(1).mean(1)
+
+
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Mean next-token negative log-likelihood for an LM batch: the loss
     of the tensor- and pipeline-parallel steps and of the LM evaluator

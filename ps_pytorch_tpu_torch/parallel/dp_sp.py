@@ -54,8 +54,18 @@ def lm_loss_local(cfg: TransformerConfig, params, tokens: torch.Tensor,
     count_global. The global loss is its sum over sp; the step
     differentiates the local slices, never that sum's psum."""
     sp, dp, b, t = tokens.shape
+    logits = apply_transformer(cfg, params, tokens.reshape(sp, dp * b, t), seq_axis=mesh.sp)
+    return local_loss_slices(logits, tokens, mesh)
+
+
+def local_loss_slices(logits: torch.Tensor, tokens: torch.Tensor,
+                      mesh: Mesh2D) -> torch.Tensor:
+    """The loss slices of ``lm_loss_local`` from every worker's logits
+    ``[sp, dp * b, t, V]`` (parallel/ep_sp.py reuses them on the MoE
+    forward): boundary targets by the ring shift, the final global
+    position masked, each slice over the global count."""
+    sp, dp, b, t = tokens.shape
     toks = tokens.reshape(sp, dp * b, t)
-    logits = apply_transformer(cfg, params, toks, seq_axis=mesh.sp)
     # target of my last token = next shard's first token (ring shift left)
     nxt_first = mesh.sp.ppermute(toks[:, :, :1], [(j, (j - 1) % sp) for j in range(sp)])
     tgt = torch.cat([toks[:, :, 1:], nxt_first], dim=2).long()

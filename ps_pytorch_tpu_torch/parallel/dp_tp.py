@@ -49,10 +49,7 @@ def init_dp_tp_state(cfg, tx, generator, mesh: DPTPMesh, shard_vocab: bool = Fal
 
 def shard_tokens_dp(tokens: torch.Tensor, mesh: DPTPMesh) -> torch.Tensor:
     """``[B, T]`` -> ``[dp, B / dp, T]``: B over dp, read by every tp shard."""
-    b = tokens.shape[0]
-    if b % mesh.dp.size:
-        raise ValueError(f"batch {b} does not split over dp {mesh.dp.size}")
-    return tokens.reshape((mesh.dp.size, b // mesh.dp.size) + tuple(tokens.shape[1:]))
+    return mesh.dp.split_batch(tokens, f"dp {mesh.dp.size}")
 
 
 def make_dp_tp_train_step(cfg, tx, mesh: DPTPMesh, shard_vocab: bool = False):

@@ -113,6 +113,15 @@ class WorkerAxis:
         parts = x.reshape((n, n, x.shape[1] // n) + tuple(x.shape[2:]))
         return parts.sum(0, dtype=x.dtype)
 
+    def split_batch(self, tokens: torch.Tensor, over: str) -> torch.Tensor:
+        """``[B, ...]`` -> ``[N, B / N, ...]``: the batch cut over the
+        workers, each row one worker's (``over`` names them in the
+        error)."""
+        b = tokens.shape[0]
+        if b % self.size:
+            raise ValueError(f"batch {b} does not split over {over}")
+        return tokens.reshape((self.size, b // self.size) + tuple(tokens.shape[1:]))
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
         tiled=True)`` on per-worker ``[n, s]`` payloads: worker-stacked
@@ -125,6 +134,31 @@ class WorkerAxis:
             raise ValueError(f"all_to_all needs [{self.size}, {self.size}, ...], "
                              f"got {tuple(x.shape)}")
         return x.transpose(0, 1)
+
+    def all_to_all_tiled(self, x: torch.Tensor, split_axis: int,
+                         concat_axis: int) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+        on worker-stacked ``x [N, *s]`` (the axes index ``s``): every
+        worker cuts its ``split_axis`` into N chunks and sends chunk w to
+        worker w, which concatenates what it receives, in sender order,
+        along ``concat_axis``. The MoE dispatch (split 0, concat 1) takes
+        ``[N, E, C, D]`` to ``[N, E / N, N C, D]``: worker w's slot ``i C +
+        c`` of its local expert e is sender i's slot c of expert ``w E / N
+        + e``; its inverse (split 1, concat 0) puts every slot back. A
+        permuted copy on one device."""
+        self._check(x)
+        n = self.size
+        if split_axis == concat_axis or not (0 <= split_axis < x.dim() - 1
+                                             and 0 <= concat_axis < x.dim() - 1):
+            raise ValueError(f"all_to_all_tiled: bad axes {split_axis}, {concat_axis} "
+                             f"for a [{n}, ...] tensor of {x.dim()} dims")
+        if x.shape[1 + split_axis] % n:
+            raise ValueError(f"all_to_all_tiled: dim {x.shape[1 + split_axis]} does not "
+                             f"split over {n} workers")
+        # [src, ..., dst, chunk, ...] -> [dst, src, ..., chunk, ...]
+        y = x.unflatten(1 + split_axis, (n, -1)).movedim(1 + split_axis, 0)
+        # the senders go right before the concat axis, then fold into it
+        return y.movedim(1, 1 + concat_axis).flatten(1 + concat_axis, 2 + concat_axis)
 
     def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
         """``lax.ppermute(x, axis, perm)``: worker-stacked ``x``; each

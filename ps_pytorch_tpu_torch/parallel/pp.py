@@ -72,10 +72,12 @@ def shard_params_pp(cfg, params_pp: Dict, mesh: WorkerAxis) -> Dict:
     return params_pp
 
 
-def _stage_block(cfg, x: torch.Tensor, blk: Dict, attend) -> torch.Tensor:
+def _stage_block(cfg, x: torch.Tensor, blk: Dict, attend, mlp=None) -> torch.Tensor:
     """``models/transformer.transformer_block`` on every stage at once:
     activations ``[S, b, T, D]``, each leaf ``[S, ...]`` that stage's
-    block; the stages' rows share one attention call."""
+    block; the stages' rows share one attention call. ``mlp`` (the MoE
+    schemes') replaces the dense MLP: normed ``[S, b, T, D]`` -> the
+    same."""
     from ..models.transformer import _rms_norm
 
     cd = cfg.effective_compute_dtype
@@ -87,68 +89,97 @@ def _stage_block(cfg, x: torch.Tensor, blk: Dict, attend) -> torch.Tensor:
     q, k, v = qkv.reshape(s * b, t, 3, cfg.heads, cfg.head_dim).unbind(2)
     o = attend(q, k, v).reshape(s, b * t, d)
     x = x + torch.matmul(o, blk["wo"]).reshape(s, b, t, d)
-    h = _rms_norm(x, blk["ln2"][:, None, None]).reshape(s, b * t, d)
+    h = _rms_norm(x, blk["ln2"][:, None, None])
+    if mlp is not None:
+        return x + mlp(h)
+    h = h.reshape(s, b * t, d)
     up = F.gelu(torch.matmul(h, blk["w_up"]), approximate="tanh")
     return x + torch.matmul(up, blk["w_down"]).reshape(s, b, t, d)
 
 
 def gpipe_fold(axis: WorkerAxis, tokens: torch.Tensor, dim: int, cd,
-               embed: Callable, run_local: Callable, mb_loss: Callable) -> torch.Tensor:
-    """THE GPipe tick schedule (pp.py:108-170 there): tokens ``[M, b, T]``;
-    ``embed(i)`` -> microbatch i's activations ``[b, T, dim]``;
-    ``run_local(x)`` -> every stage's blocks over ``x [S, b, T, dim]``;
-    ``mb_loss(y, tok)`` -> one microbatch's loss.
+               embed: Callable, run_local: Callable, mb_loss: Callable):
+    """THE GPipe tick schedule (pp.py:108-170 there), shared by pp, pp_moe
+    and dp_tp_pp: tokens ``[M, ...]`` (one entry a microbatch, e.g. ``[M,
+    b, T]``, or ``[M, cols, b, T]`` for independent columns);
+    ``embed(i)`` -> microbatch i's activations ``[..., T, dim]``;
+    ``run_local(x)`` -> (every stage's blocks over ``x [S, ..., T, dim]``,
+    each stage's aux ``[S, ...]``: the MoE load-balance sum over its
+    blocks for pp_moe, None for the dense schemes); ``mb_loss(y, tok)`` ->
+    one microbatch's loss (a scalar, or one a column).
 
     M + S - 1 ticks: each tick the stages' last activations move one
     stage on (a ``ppermute``), stage 0 takes the next microbatch
     (``embed(min(tick, M - 1))``), every stage runs, and the last stage's
-    output of a finished microbatch goes into the loss. Returns the mean
-    of the M microbatch losses. (JAX's also sums a per-stage aux over the
-    valid ticks, for its MoE schemes: item 19's MoE half adds it here.)"""
+    output of a finished microbatch goes into the loss. Stage s holds
+    microbatch ``tick - s``, so its aux counts only where ``0 <= tick - s
+    < M``: warm-up and drain ticks run garbage activations whose router
+    statistics must not leak. Returns (the mean of the M microbatch
+    losses, the aux summed over each stage's valid ticks ``[S, ...]``, or
+    None when ``run_local`` gives none)."""
     n = axis.size
     m = tokens.shape[0]
+    dev = tokens.device
     perm = [(j, (j + 1) % n) for j in range(n)]
-    y = torch.zeros((n,) + tuple(tokens.shape[1:]) + (dim,), dtype=cd,
-                    device=tokens.device)
-    loss_sum = torch.zeros((), device=tokens.device)
+    y = torch.zeros((n,) + tuple(tokens.shape[1:]) + (dim,), dtype=cd, device=dev)
+    loss_sum = torch.zeros((), device=dev)
+    valid = aux_sum = None
     for tk in range(m + n - 1):
         inbound = axis.ppermute(y, perm)
-        y = run_local(torch.cat([embed(min(tk, m - 1))[None], inbound[1:]]))
+        y, aux = run_local(torch.cat([embed(min(tk, m - 1))[None], inbound[1:]]))
+        if aux is not None:
+            if valid is None:  # [ticks, S]: the microbatch stage s holds is valid
+                held = torch.arange(m + n - 1, device=dev)[:, None] - torch.arange(n, device=dev)
+                valid = (held >= 0) & (held < m)
+            mine = valid[tk].reshape((n,) + (1,) * (aux.dim() - 1))
+            aux = torch.where(mine, aux, torch.zeros((), dtype=aux.dtype, device=dev))
+            aux_sum = aux if aux_sum is None else aux_sum + aux
         done = tk - (n - 1)  # the microbatch the last stage finished
         if 0 <= done < m:
             loss_sum = loss_sum + mb_loss(y[n - 1], tokens[done])
-    return loss_sum / m
+    return loss_sum / m, aux_sum
 
 
-def _pp_logits_and_loss(cfg, params: Dict, tokens: torch.Tensor,
-                        axis: WorkerAxis) -> torch.Tensor:
-    """Run the pipeline over microbatched tokens ``[M, b, T]``; the mean
-    next-token loss."""
-    from ..models.transformer import _rms_norm, local_attention
+def pipeline_loss(cfg, params: Dict, tokens: torch.Tensor, axis: WorkerAxis,
+                  block: Callable, nll: Callable = next_token_nll):
+    """The GPipe loss body of pp, pp_moe and dp_tp_pp: microbatched tokens
+    ``[M, ..., T]`` (``[M, b, T]``, or ``[M, cols, b, T]`` for independent
+    columns), block leaves ``[depth, ...]`` (stage s owns rows ``[s depth /
+    S, (s + 1) depth / S)``); ``block(x, blk)`` runs one local block of
+    every stage over ``x [S, rows, T, D]`` with leaves ``[S, ...]`` ->
+    (x, its aux ``[S, ...]`` or None), recomputed under ``cfg.remat``;
+    ``nll(logits, tok)`` is a microbatch's loss. Returns ``gpipe_fold``'s
+    (task, aux summed over the valid ticks and each stage's blocks)."""
+    from ..models.transformer import _rms_norm
 
     n = axis.size
     per_stage = cfg.depth // n
-    pos = torch.arange(tokens.shape[2], device=tokens.device)
+    t = tokens.shape[-1]
+    pos = torch.arange(t, device=tokens.device)
     cd = cfg.effective_compute_dtype  # blocks emit compute-dtype activations
-    attend = local_attention(cfg)
     blocks = {k: v.reshape((n, per_stage) + tuple(v.shape[1:]))
               for k, v in params["blocks"].items()}
 
-    def local_blocks(x):
+    def local_blocks(x):  # [S, ..., T, D]
+        shape = x.shape
+        x = x.reshape(n, -1, t, cfg.dim)
+        aux_sum = None
         for j in range(per_stage):
             blk = {k: v[:, j] for k, v in blocks.items()}
             if cfg.remat:
-                x = checkpoint(_stage_block, cfg, x, blk, attend, use_reentrant=False)
+                x, aux = checkpoint(block, x, blk, use_reentrant=False)
             else:
-                x = _stage_block(cfg, x, blk, attend)
-        return x
+                x, aux = block(x, blk)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return x.reshape(shape), aux_sum
 
     def embed(i):
-        return (params["embed"][tokens[i].long()] + params["pos_embed"][pos][None]).to(cd)
+        return (params["embed"][tokens[i].long()] + params["pos_embed"][pos]).to(cd)
 
     def mb_loss(y, tok):
         xf = _rms_norm(y, params["out_norm"].to(cd))
-        return next_token_nll(xf @ params["embed"].T.to(cd), tok)
+        return nll(xf @ params["embed"].T.to(cd), tok)
 
     return gpipe_fold(axis, tokens, cfg.dim, cd, embed, local_blocks, mb_loss)
 
@@ -157,14 +188,18 @@ def make_pp_train_step(cfg, tx, mesh: WorkerAxis, num_microbatches: int):
     """The PP LM train step: (PP-layout params, opt_state, tokens ``[B,
     T]``) -> (params, opt_state, loss); the tokens are cut into
     ``num_microbatches`` equal microbatches inside the step."""
+    from ..models.transformer import local_attention
 
     def loss_fn(params, tokens):
+        attend = local_attention(cfg)
         bsz, t = tokens.shape
         if bsz % num_microbatches:
             raise ValueError(
                 f"batch {bsz} not divisible by {num_microbatches} microbatches")
         mb = tokens.reshape(num_microbatches, bsz // num_microbatches, t)
-        return _pp_logits_and_loss(cfg, params, mb, mesh)
+        task, _ = pipeline_loss(cfg, params, mb, mesh,
+                                lambda x, blk: (_stage_block(cfg, x, blk, attend), None))
+        return task
 
     def step(params, opt_state, tokens):
         return differentiate(loss_fn, tx, params, opt_state, tokens)

@@ -136,6 +136,34 @@ def unshard_params_tp(cfg, params: Dict, shard_vocab: bool = False) -> Dict:
     return _map_specs(join, params, tp_param_specs(cfg, shard_vocab))
 
 
+def tp_block(cfg, x: torch.Tensor, blk: Dict, attend) -> torch.Tensor:
+    """One Megatron block on every shard at once, over any leading dims
+    (none for tp, the stages for dp_tp_pp): activations ``x [..., N, T,
+    D]`` (one tensor that every shard reads), norms ``[..., D]``, each cut
+    leaf ``[..., n, ...]`` (``shard_params_tp``'s slices). The shards'
+    heads fold into the batch of one attention call, and each of the two
+    psums is a sum over the shard dim."""
+    from ..models.transformer import _rms_norm
+
+    cd = cfg.effective_compute_dtype
+    x = x.to(cd)
+    blk = {k: v.to(cd) for k, v in blk.items()}  # cast at use
+    *lead, b, t, d = x.shape
+    n = blk["wqkv"].shape[len(lead)]
+    hl, hd = cfg.heads // n, cfg.head_dim
+
+    def norm(y, gamma):  # -> [..., 1, N T, D], read by every shard
+        return _rms_norm(y, gamma.reshape(lead + [1, 1, d])).reshape(lead + [1, b * t, d])
+
+    qkv = torch.matmul(norm(x, blk["ln1"]), blk["wqkv"].reshape(lead + [n, d, 3 * hl * hd]))
+    q, k, v = qkv.reshape(-1, t, 3, hl, hd).unbind(2)  # shards fold into B
+    o = attend(q, k, v).reshape(lead + [n, b * t, hl * hd])  # local heads only
+    proj = torch.matmul(o, blk["wo"].reshape(lead + [n, hl * hd, d]))
+    x = x + proj.sum(-3).reshape(x.shape)  # the psum over the shards
+    up = F.gelu(torch.matmul(norm(x, blk["ln2"]), blk["w_up"]), approximate="tanh")
+    return x + torch.matmul(up, blk["w_down"]).sum(-3).reshape(x.shape)
+
+
 def apply_transformer_tp(cfg, params: Dict, tokens: torch.Tensor, axis: WorkerAxis,
                          shard_vocab: bool = False) -> torch.Tensor:
     """Forward of every shard at once: stacked TP-layout params, int
@@ -152,7 +180,6 @@ def apply_transformer_tp(cfg, params: Dict, tokens: torch.Tensor, axis: WorkerAx
     lead, t = tuple(tokens.shape[:-1]), tokens.shape[-1]
     tok = tokens.reshape(-1, t).long()
     b, d = tok.shape[0], cfg.dim
-    hl, hd = cfg.heads // n, cfg.head_dim
     pos = torch.arange(t, device=tok.device)
     if shard_vocab:
         # shard i owns ids [i * v_loc, (i + 1) * v_loc); the others'
@@ -170,22 +197,11 @@ def apply_transformer_tp(cfg, params: Dict, tokens: torch.Tensor, axis: WorkerAx
         x = params["embed"][tok] + params["pos_embed"][pos][None]
     cd = cfg.effective_compute_dtype
     attend = local_attention(cfg)
-
-    def block(x, blk):
-        x = x.to(cd)
-        blk = {k: v.to(cd) for k, v in blk.items()}  # cast at use
-        h = _rms_norm(x, blk["ln1"]).reshape(1, b * t, d)
-        qkv = torch.matmul(h, blk["wqkv"].reshape(n, d, 3 * hl * hd))
-        q, k, v = qkv.reshape(n * b, t, 3, hl, hd).unbind(2)  # shards fold into B
-        o = attend(q, k, v).reshape(n, b * t, hl * hd)  # local heads only
-        proj = torch.matmul(o, blk["wo"].reshape(n, hl * hd, d))
-        x = x + axis.psum(proj).reshape(b, t, d)
-        h = _rms_norm(x, blk["ln2"]).reshape(1, b * t, d)
-        up = F.gelu(torch.matmul(h, blk["w_up"]), approximate="tanh")
-        return x + axis.psum(torch.matmul(up, blk["w_down"])).reshape(b, t, d)
-
     for blk in params["blocks"]:
-        x = checkpoint(block, x, blk, use_reentrant=False) if cfg.remat else block(x, blk)
+        if cfg.remat:
+            x = checkpoint(tp_block, cfg, x, blk, attend, use_reentrant=False)
+        else:
+            x = tp_block(cfg, x, blk, attend)
     xf = _rms_norm(x.to(cd), params["out_norm"].to(cd))
     # tied unembedding: each shard's vocab rows only when sharded
     emb = params["embed"].to(cd)
@@ -257,17 +273,21 @@ def init_tp_state(cfg, tx, generator: Optional[torch.Generator], mesh: WorkerAxi
     return params, tx.init(params)
 
 
-def differentiate(loss_fn, tx, params, opt_state, tokens):
+def differentiate(loss_fn, tx, params, opt_state, tokens, has_aux: bool = False):
     """One optimizer step on the gradient of ``loss_fn(params, tokens)``
     (a scalar): one backward, then ``tx.update``. Returns (params,
-    opt_state, loss)."""
+    opt_state, loss); with ``has_aux`` ``loss_fn`` returns (scalar,
+    extras) and the step returns (params, opt_state, extras), detached."""
     from ..optim import apply_updates
 
     leaves, skeleton = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     loss = loss_fn(tree_unflatten(skeleton, leaves), tokens)
+    loss, extras = loss if has_aux else (loss, None)
     grads = tree_unflatten(skeleton, list(torch.autograd.grad(loss, leaves)))
     updates, new_opt = tx.update(grads, opt_state, params)
+    if has_aux:
+        return apply_updates(params, updates), new_opt, tuple(x.detach() for x in extras)
     return apply_updates(params, updates), new_opt, loss.detach()
 
 

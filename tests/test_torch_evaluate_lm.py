@@ -9,8 +9,12 @@ against the JAX package's cli/evaluate_lm.py.
   ``tp``, ``dp_tp`` and ``pp`` (the plain layout) loads in JAX's
   ``evaluate_checkpoint``, and both evaluators agree on it;
 - ``main --once`` takes the newest valid step, the generated length is
-  clamped to the model's positions, and a MoE checkpoint is refused,
-  naming item 19.
+  clamped to the model's positions;
+- MoE checkpoints both ways: a JAX MoE checkpoint (top-1 and top-2) gives
+  JAX's loss in the port's evaluator, the port's ``moe``, ``ep_sp`` and
+  ``pp_moe`` checkpoints (the plain MoE layout) load in JAX's evaluator
+  with the same loss, within 1e-5 relative; ``--generate`` samples a MoE
+  checkpoint.
 """
 
 import jax
@@ -82,7 +86,49 @@ def test_torch_evaluate_lm_main_once_and_generation(tmp_path):
         evaluate_lm.main(["--device", "cpu", "--model-dir", str(tmp_path / "none"), "--once"])
 
 
-def test_torch_evaluate_lm_refuses_moe_checkpoints(tmp_path):
-    d = _jax_dir(tmp_path, kind="moe")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        evaluate_lm.evaluate_checkpoint(d, 3, device="cpu")
+MOE_MODEL = {"num_experts": 8, "capacity_factor": 1.25}
+
+
+def _jax_moe_dir(path, top_k, step=3):
+    from ps_pytorch_tpu.parallel import moe as jmoe
+
+    cfg = JConfig(**MODEL)
+    params = jmoe.init_moe_params(cfg, jmoe.MoEConfig(top_k=top_k, **MOE_MODEL),
+                                  jax.random.key(step))
+    j_save({"params": jax.device_get(params), "step": step,
+            "model": {"kind": "moe", **MODEL, **MOE_MODEL, "top_k": top_k},
+            "data": {"seed": 5, "seq_len": 16}}, str(path), step)
+    return str(path)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_torch_evaluate_lm_matches_jax_on_a_jax_moe_checkpoint(tmp_path, top_k):
+    d = _jax_moe_dir(tmp_path, top_k)
+    want = jeval.evaluate_checkpoint(d, 3, eval_size=24, batch_size=8)
+    got = evaluate_lm.evaluate_checkpoint(d, 3, eval_size=24, batch_size=8, device="cpu")
+    assert np.isfinite(want["loss"])
+    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--parallelism", "moe", "--num-shards", "2", "--top-k", "2"],
+    ["--parallelism", "ep_sp", "--num-shards", "2", "--num-sp", "2"],
+    ["--parallelism", "pp_moe", "--num-shards", "2", "--num-ep", "2",
+     "--num-microbatches", "2"],
+], ids=["moe", "ep_sp", "pp_moe"])
+def test_torch_port_moe_checkpoint_loads_in_jax_evaluator(tmp_path, flags):
+    train_lm.main(LM + ["--max-steps", "2", "--train-dir", str(tmp_path), *flags])
+    want = jeval.evaluate_checkpoint(str(tmp_path), 2, eval_size=16, batch_size=8)
+    got = evaluate_lm.evaluate_checkpoint(str(tmp_path), 2, eval_size=16, batch_size=8,
+                                          device="cpu")
+    assert np.isfinite(want["loss"])
+    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+
+
+def test_torch_evaluate_lm_generates_from_a_moe_checkpoint(tmp_path):
+    d = _jax_moe_dir(tmp_path, 2, step=4)
+    res = evaluate_lm.main(["--device", "cpu", "--model-dir", d, "--once", "--eval-size",
+                            "8", "--batch-size", "4", "--generate", "6"])
+    samples = np.asarray(res[4]["samples"])
+    assert samples.shape == (2, 14) and np.isfinite(res[4]["perplexity"])
+    assert ((samples >= 0) & (samples < MODEL["vocab_size"])).all()

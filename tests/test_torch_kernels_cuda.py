@@ -8,8 +8,10 @@ accumulate_rescale_int8, K4
 flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
 flash_bwd_dkv, also at the tensor and pipeline schemes' shard shapes), the
 serving engine on the card against the same engine on the
-CPU, and the gradient wires on the card against the same wires on the CPU
-(bit-exact: every op on them is elementwise or an exact integer sum).
+CPU, the gradient wires on the card against the same wires on the CPU
+(bit-exact: every op on them is elementwise or an exact integer sum), and
+the MoE steps (moe, ep_sp) on the card against the CPU, with the same
+expert choices.
 
 Every test here needs a CUDA card and skips without one. This file
 imports neither JAX nor the JAX package (the card's machine has no JAX),
@@ -1114,3 +1116,89 @@ def test_torch_hier_k3_at_both_hops_equals_plain_on_card(cuda_device):
         assert out.is_cuda and torch.equal(out.cpu(), accumulate_rescale_plain(recv.cpu(), d))
     agg_cpu = collectives.aggregate_gradients(g, grid, 8, **kw)
     assert torch.equal(agg_gpu.cpu(), agg_cpu)
+
+
+def _moe_step_on(device, scheme, params, tokens, cfg, record):
+    """One SGD step of a MoE scheme on ``device``; every gate call's
+    dispatch (the expert choices and slots) goes to ``record``."""
+    from ps_pytorch_tpu_torch import on_device
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel import ep_sp, moe
+
+    real = moe._gate_and_dispatch
+
+    def rec(x2d, wg, capacity, top_k=1):
+        out = real(x2d, wg, capacity, top_k)
+        record.append(out[0].cpu())
+        return out
+
+    tx = build_optimizer("sgd", 0.1, momentum=0.9)
+    p = on_device(params, torch.device(device))
+    if scheme == "moe":
+        mesh = moe.make_ep_mesh(4)
+        step = moe.make_moe_train_step(
+            cfg, moe.MoEConfig(num_experts=8, capacity_factor=1.0, top_k=2), tx, mesh)
+        tok = moe.shard_moe_batch(tokens.to(device), mesh)
+    else:
+        mesh = ep_sp.make_mesh_ep_sp(2, 2)
+        step = ep_sp.make_ep_sp_train_step(cfg, moe.MoEConfig(num_experts=8), tx, mesh)
+        tok = ep_sp.shard_tokens_ep_sp(tokens.to(device), mesh)
+    moe._gate_and_dispatch = rec
+    try:
+        p2, _, task, aux = step(p, tx.init(p), tok)
+    finally:
+        moe._gate_and_dispatch = real
+    return [x.detach().cpu() for x in tree_leaves(p2)], float(task), float(aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["moe", "ep_sp"])
+def test_torch_moe_step_on_card_matches_cpu(cuda_device, scheme):
+    """One f32 step (TF32 off) of moe 4 shards top-2 at capacity factor 1.0
+    (tokens drop) and of ep_sp 2 x 2 on the flash ring (K4's partial
+    triple, K5, K6) against the same step on the CPU (plain versions):
+    every gate call's dispatch equal, the loss and aux within 1e-5
+    relative, the params within 2e-5 + 2e-4 |p| (chip_smoke phase 36's
+    rule)."""
+    from ps_pytorch_tpu_torch.cli.train_lm import make_synthetic_tokens
+    from ps_pytorch_tpu_torch.parallel import moe
+
+    cfg = TransformerConfig(vocab_size=256, dim=128, depth=2, heads=4, max_seq_len=128,
+                            attention_impl="flash", remat=True)
+    params = moe.init_moe_params(cfg, moe.MoEConfig(num_experts=8),
+                                 torch.Generator().manual_seed(5), device="cpu")
+    params = moe.shard_params_moe(cfg, params, moe.make_ep_mesh(4 if scheme == "moe" else 2))
+    tokens = torch.from_numpy(make_synthetic_tokens(256, 4, 128, seed=4))
+    gates = {"cpu": [], "cuda": []}
+    pc, lc, ac = _moe_step_on("cpu", scheme, params, tokens, cfg, gates["cpu"])
+    pg, lg, ag = _moe_step_on(cuda_device, scheme, params, tokens, cfg, gates["cuda"])
+    assert len(gates["cpu"]) == len(gates["cuda"]) > 0
+    for a, b in zip(gates["cuda"], gates["cpu"]):
+        assert torch.equal(a, b)  # the same expert choices and slots
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(ag - ac) <= 1e-5 * abs(ac)
+    for a, b in zip(pg, pc):
+        assert bool(((a - b).abs() <= 2e-5 + 2e-4 * b.abs()).all())
+
+
+@pytest.mark.cuda
+def test_torch_moe_bf16_lm1_width_step_on_card_is_finite(cuda_device):
+    """A bf16 moe step at LM-1's width (d512, 8 heads of 64, vocab 2048,
+    seq 1024, 8 experts over 4 shards, remat, flash) at depth 2: finite
+    loss, aux and params, with the f32 params kept f32."""
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel import moe
+
+    cfg = TransformerConfig(vocab_size=2048, dim=512, depth=2, heads=8, max_seq_len=1024,
+                            attention_impl="flash", remat=True, compute_dtype=torch.bfloat16)
+    mesh = moe.make_ep_mesh(4)
+    mcfg = moe.MoEConfig(num_experts=8)
+    tx = build_optimizer("sgd", 0.01, momentum=0.9)
+    p, opt = moe.init_moe_state(cfg, mcfg, tx, torch.Generator().manual_seed(1), mesh,
+                                device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    tok = torch.randint(0, 2048, (8, 1024), generator=g, device=cuda_device)
+    p, opt, task, aux = moe.make_moe_train_step(cfg, mcfg, tx, mesh)(
+        p, opt, moe.shard_moe_batch(tok, mesh))
+    assert np.isfinite(float(task)) and np.isfinite(float(aux))
+    for x in tree_leaves(p):
+        assert x.dtype == torch.float32 and bool(torch.isfinite(x).all())

@@ -5,9 +5,9 @@ the dp x sp step) and optim/schedules.py, against the JAX package.
 - the learning-rate schedules the CLI builds (constant, linear warm-up
   joined to a constant, warm-up cosine decay) equal optax's values step by
   step, within 1e-6 relative (f32 ``cos`` of two libraries);
-- the CLI refuses what the port does not run (the MoE schemes, naming
-  item 19), runs 3 steps on the CPU
-  with ``--device cpu``, and without it raises on a machine with no card.
+- the CLI refuses the flag combinations JAX refuses, runs 3 steps on the
+  CPU with ``--device cpu``, and without it raises on a machine with no
+  card.
 """
 
 import json
@@ -102,11 +102,8 @@ def test_torch_sgd_reads_a_schedule_at_the_step_count():
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    # tp, dp_tp, pp and --profile-dir run since their port
-    # (tests/test_torch_{tp,dp_tp,pp,profiler}.py)
-    (["--parallelism", "pp_moe"], NotImplementedError, "ROADMAP.md"),
-    (["--parallelism", "ep_sp"], NotImplementedError, "ROADMAP.md"),
-    (["--parallelism", "moe"], NotImplementedError, "ROADMAP.md"),
+    # every --parallelism and --profile-dir run since their port
+    # (tests/test_torch_{tp,dp_tp,pp,moe,ep_sp,pp_moe,profiler}.py)
     (["--shard-vocab"], ValueError, "tp/dp_tp"),
     (["--num-sp", "3"], ValueError, "divisible by num_sp"),
     (["--num-dp", "3"], ValueError, "divisible by num_dp"),
