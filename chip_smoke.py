@@ -257,11 +257,31 @@ Phases, one line each:
 36. one f32 step at depth 2 of moe 4 top-2 with drops, ep_sp 2 x 2,
    pp_moe 2 x 2 x 2 microbatches and dp_tp_pp 2 x 2 x 2, card vs CPU under
    phase 33's rule, the expert choices equal, with launch counts;
-37. the kernels JSON line, then the result line.
+37. the serving CLI: ``cli.train_lm`` writes checkpoints at steps 2 and 4
+   of bench.py's serve model (d512 x 6, 8 heads, vocab 2048, bf16), then
+   ``cli.serve --int8-kv --dtype bfloat16 --slots 8 --requests 32 --rate
+   100`` (prompts 64-128, 64-128 new tokens) three times, each with
+   ``--events`` and ``--trace``: from step 2 with ``--poll-interval
+   0.05`` (exactly one rollover, to 4), on a copy of the directory with
+   ``--fault-plan '{"rollover_corrupt": [4]}'`` (one abort, served on 2
+   throughout), and with ``--slo-budget`` and ``--traffic-spike``
+   (requests shed); every record validates, one terminal record a
+   request, the outcome counts add up to 32, K1's KV entry 6 launches a
+   prefill and a tick and no K4 (the CLI's prefill is naive, as JAX's);
+   tokens/s, p50 / p99 per-token latency and TTFT, the drain's, swap's
+   and abort's seconds; then an f32 d256 x 2 engine across a rollover,
+   each request's tokens the per-sequence ``generate`` on the weights of
+   its ``weights_step``;
+38. phase 12b's ResNet18 run with ``--compress-checkpoints``: the ``PSCK``
+   files verify, step 10 restores bit for bit (also from the plain form),
+   ``--resume`` continues at 11 (K2 once a step), ``cli.evaluate --once``
+   reads them; the bytes on disk, a save's host half and background write
+   in turns with the plain form, load + restore of each form;
+39. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,33,34,35,36 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,35,36,37,38 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -278,7 +298,8 @@ resume-reshape of 28, the pipelined wire of 29, the hierarchical wire of
 which report no dp_sp run beside their own when run alone, the held
 steps of 33, the flash kernels at their shard shapes of 34, the MoE and
 dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
-alone, the held MoE and dp_tp_pp steps of 36),
+alone, the held MoE and dp_tp_pp steps of 36, the serving CLI of 37, the
+compressed checkpoints of 38),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -4041,13 +4062,267 @@ def phase_moe_schemes_held(dev) -> dict:
     return out
 
 
+# phase 37: bench.py's serve model (_DEC_DEFAULTS, bench.py:120-125) as
+# cli.train_lm writes it, and the serving CLI's traffic (phase 5's shapes)
+SERVE_LM_ARGS = ["--vocab-size", "2048", "--dim", "512", "--depth", "6", "--heads", "8",
+                 "--seq-len", "256", "--batch-size", "8", "--dtype", "bfloat16",
+                 "--max-steps", "4", "--eval-freq", "2", "--log-interval", "1",
+                 "--device", "cuda"]
+SERVE_CLI_ARGS = ["--int8-kv", "--dtype", "bfloat16", "--slots", "8", "--requests", "32",
+                  "--rate", "100", "--prompt-min", "64", "--prompt-max", "128",
+                  "--new-min", "64", "--new-max", "128", "--device", "cuda"]
+
+
+def _serve_cli_run(name: str, model_dir: str, extra: list, tmp: str) -> dict:
+    """One ``cli.serve.main`` run with ``--events`` and ``--trace``: every
+    record validated, K1's KV entry held to 6 launches a prefill and a
+    tick (the warmup's included: the counts are reset just before the
+    call), no K4 and no other K1 entry; the engine read through a
+    recording subclass of the CLI's ServingEngine."""
+    from ps_pytorch_tpu_torch.cli import serve as cli_serve
+    from ps_pytorch_tpu_torch.obs import validate_event
+    from ps_pytorch_tpu_torch.ops import quantize as qz
+
+    events = os.path.join(tmp, f"{name}.events.jsonl")
+    trace = os.path.join(tmp, f"{name}.trace")
+    made = []
+
+    class Recorded(cli_serve.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    k1 = ["quantize_kv_write", "quantize_rows", "quantize_rows_many", "quantize_rows_scaled_many"]
+    plain_engine, cli_serve.ServingEngine = cli_serve.ServingEngine, Recorded
+    try:
+        reset_flash_counts()
+        for n in k1:
+            getattr(qz, n).launches = 0
+        summary = cli_serve.main(["--model-dir", model_dir, *SERVE_CLI_ARGS, "--events", events,
+                                  "--trace", trace, *extra])
+        torch.cuda.synchronize()
+        launches = {**read_flash_counts(), **{n: getattr(qz, n).launches for n in k1}}
+    finally:
+        cli_serve.ServingEngine = plain_engine
+    (engine,) = made
+    depth = engine.cfg.depth
+    recs = [json.loads(line) for line in open(events)]
+    for r in recs:
+        validate_event(dict(r))
+    terminal = ("request_done", "request_shed", "deadline_expired")
+    rids = sorted(r["rid"] for r in recs if r["kind"] in terminal)
+    require(rids == list(range(32)), f"phase 37 {name}: terminal records for rids {rids}")
+    counts = engine.outcome_counts
+    require(sum(counts.values()) == summary["requests_submitted"] == 32,
+            f"phase 37 {name}: outcome_counts {counts}")
+    require(launches["quantize_kv_write"] == depth * (engine.n_prefills + engine.n_decode_steps),
+            f"phase 37 {name}: K1's KV entry launched {launches['quantize_kv_write']} times, "
+            f"expected {depth} x ({engine.n_prefills} prefills + {engine.n_decode_steps} ticks)")
+    require(all(launches[n] == 0 for n in k1[1:]) and all(
+        launches[n] == 0 for n in ("flash_fwd", "flash_partial", "flash_bwd_dq",
+                                   "flash_bwd_dkv")),
+            f"phase 37 {name}: other kernels launched on the serving CLI: {launches}")
+    spans = [json.loads(line) for line in open(os.path.join(trace, "trace_serve_p0.jsonl"))]
+    drains = [(sp["outcome"], sp["dur"]) for sp in spans if sp.get("name") == "rollover_drain"]
+    swaps = [sp["dur"] for sp in spans if sp.get("name") == "rollover_swap"]
+    keys = ("tokens_per_sec", "p50_token_latency_s", "p99_token_latency_s", "p50_ttft_s",
+            "p99_ttft_s", "requests_completed", "requests_shed", "requests_expired",
+            "new_tokens", "weights_step", "elapsed_s")
+    return {"summary": {k: summary[k] for k in keys}, "rollovers": summary["rollovers"],
+            "rollover_aborts": [{k: a[k] for k in ("from_step", "staged_step", "reason")}
+                                for a in summary["rollover_aborts"]],
+            "outcome_counts": dict(counts), "prefills": engine.n_prefills,
+            "decode_steps": engine.n_decode_steps, "launches": launches,
+            "events": len(recs), "drain_s": drains, "swap_s": swaps}
+
+
+def _serve_f32_rollover_exact(tmp: str, dev) -> dict:
+    """An f32 d256 x 2 model's checkpoints at steps 2 and 4 (cli.train_lm
+    on the card) served from step 2 with a poll every 2 ticks, 12
+    requests on 4 slots: each completion's tokens are the per-sequence
+    ``generate`` on the weights of its ``weights_step`` (a divergence only
+    on a near-tie, as phase 6)."""
+    from ps_pytorch_tpu_torch.checkpoint import load_checkpoint_raw
+    from ps_pytorch_tpu_torch.cli import train_lm
+    from ps_pytorch_tpu_torch.models import generate
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_map
+    from ps_pytorch_tpu_torch.serve import Request, ServeConfig, ServingEngine
+    from ps_pytorch_tpu_torch.serve.engine import checkpoint_model
+
+    d = os.path.join(tmp, "f32")
+    train_lm.main(["--vocab-size", "2048", "--dim", "256", "--depth", "2", "--heads", "4",
+                   "--seq-len", "256", "--batch-size", "8", "--max-steps", "4", "--eval-freq",
+                   "2", "--log-interval", "4", "--device", "cuda", "--train-dir", d])
+    engine = ServingEngine.from_checkpoint(d, ServeConfig(slots=4, max_len=256,
+                                                          max_prompt_len=64),
+                                           step=2, device=dev)
+    engine.warmup()
+    rng = np.random.RandomState(5)
+    reqs = [Request(rid=i, prompt=rng.randint(0, 2048, int(p)).astype(np.int32),
+                    max_new_tokens=int(n))
+            for i, (p, n) in enumerate(zip(rng.randint(2, 64, 12), rng.randint(8, 48, 12)))]
+    outs = engine.decode_requests(reqs, poll_every=2)
+    require([r["to_step"] for r in engine.rollovers] == [4],
+            f"phase 37 f32: rollovers {engine.rollovers}")
+    weights = {}
+    for step in (2, 4):
+        cfg, params = checkpoint_model(load_checkpoint_raw(d, step), None)
+        weights[step] = (cfg, tree_map(lambda x: x.to(dev), params))
+    mismatches = []
+    for c, r in zip(outs, reqs):
+        cfg, params = weights[c.weights_step]
+        want = generate(cfg, params, torch.from_numpy(r.prompt)[None], r.max_new_tokens,
+                        max_len=256, device=dev)[0, len(r.prompt):].cpu().numpy()
+        got = np.asarray(c.tokens)
+        if not np.array_equal(got, want):
+            i = int(np.nonzero(got != want)[0][0])
+            margin = _top2_margin(cfg, params, r.prompt, i, dev)
+            mismatches.append({"rid": r.rid, "index": i, "top2_margin": margin})
+            require(margin < 1e-4, f"phase 37 f32: rid {r.rid} diverges at new token {i} "
+                    f"with top-2 margin {margin}")
+    by_step = {s: sum(c.weights_step == s for c in outs) for s in (2, 4)}
+    require(by_step[2] > 0 and by_step[4] > 0, f"phase 37 f32: completions by step {by_step}")
+    return {"requests": len(reqs), "completions_by_step": by_step,
+            "mismatches_on_near_ties": mismatches}
+
+
+def phase_serve_cli(card: str) -> dict:
+    """Phase 37: the serving CLI on the card. ``cli.train_lm`` writes
+    checkpoints at steps 2 and 4 of bench.py's serve model (d512 x 6, 8
+    heads, vocab 2048, bf16); ``cli.serve --int8-kv --dtype bfloat16
+    --slots 8 --requests 32 --rate 100`` then runs from step 2 with
+    ``--poll-interval 0.05`` (one rollover, to 4), on a copy of the
+    directory with ``--fault-plan '{"rollover_corrupt": [4]}'`` (one
+    abort, served on 2 throughout), and with ``--slo-budget`` and
+    ``--traffic-spike`` (sheds; every request accounted for). Then the
+    f32 d256 x 2 engine's tokens against ``generate`` across a rollover."""
+    import shutil
+    import tempfile
+
+    from ps_pytorch_tpu_torch.cli import train_lm
+
+    dev = torch.device("cuda")
+    rec = {"card": card, "model": "d512x6 vocab2048 bf16 (bench.py _DEC_DEFAULTS)",
+           "traffic": " ".join(SERVE_CLI_ARGS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "lm")
+        train_lm.main(SERVE_LM_ARGS + ["--train-dir", d])
+        steps = sorted(int(f.rsplit("_", 1)[1]) for f in os.listdir(d)
+                       if f.startswith("model_step_"))
+        require(steps == [2, 4], f"phase 37: checkpoints {steps}")
+        shutil.copytree(d, os.path.join(tmp, "lm_copy"))
+        roll = _serve_cli_run("rollover", d, ["--step", "2", "--poll-interval", "0.05"], tmp)
+        require([(r["from_step"], r["to_step"]) for r in roll["rollovers"]] == [(2, 4)]
+                and roll["summary"]["weights_step"] == 4 and not roll["rollover_aborts"]
+                and roll["summary"]["requests_completed"] == 32
+                and len(roll["swap_s"]) == 1,
+                f"phase 37 rollover: {roll['rollovers']} {roll['rollover_aborts']}")
+        abort = _serve_cli_run("abort", os.path.join(tmp, "lm_copy"),
+                               ["--step", "2", "--poll-interval", "0.05", "--fault-plan",
+                                '{"rollover_corrupt": [4]}'], tmp)
+        require(abort["rollovers"] == [] and abort["summary"]["weights_step"] == 2
+                and [(a["reason"], a["staged_step"]) for a in abort["rollover_aborts"]]
+                == [("corrupt_staged", 4)] and abort["summary"]["requests_completed"] == 32,
+                f"phase 37 abort: {abort['rollovers']} {abort['rollover_aborts']}")
+        # the spike starts after the first window closed with admissions
+        # (the controller's drain-rate evidence)
+        shed = _serve_cli_run("slo_spike", d, ["--slo-budget", "0.05", "--admit-window", "0.1",
+                                               "--traffic-spike", "10,0.15,1"], tmp)
+        require(shed["outcome_counts"]["shed"] >= 1,
+                f"phase 37 slo_spike: nothing shed {shed['outcome_counts']}")
+        rec.update({"rollover": roll, "abort": abort, "slo_spike": shed,
+                    "f32_exact": _serve_f32_rollover_exact(tmp, dev)})
+    print("phase 37 serving CLI rollover / abort / shedding: " + json.dumps(rec))
+    return rec
+
+
+def phase_compressed_checkpoint(card: str) -> dict:
+    """Phase 38: phase 12b's ResNet18 8 x 128 run with
+    ``--compress-checkpoints``: ``model_step_5`` and ``model_step_10`` in
+    the ``PSCK`` form, their trailers verify, step 10 restores to the live
+    state bit for bit, ``--resume`` continues at 11 (K2 once a step) and
+    ``cli.evaluate --once`` reads the files. Timed, in turns with the
+    plain form (twice each): a save's host half and background write,
+    load + restore, the bytes on disk."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.cli import evaluate as cli_evaluate
+    from ps_pytorch_tpu_torch.ops import codec
+
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "models")
+        ck = ["--train-dir", d, "--eval-freq", "5", "--compress-checkpoints"]
+        reset_counts()
+        first = _train(10, ck, checkpoints=True)
+        torch.cuda.synchronize()
+        require(read_counts()["quantize_tensors"] == 10,
+                f"phase 38: launches {read_counts()} in 10 steps")
+        require(ckpt.available_steps(d) == [5, 10], f"phase 38: files {os.listdir(d)}")
+        for step in (5, 10):
+            with open(ckpt.checkpoint_path(d, step), "rb") as f:
+                require(f.read(4) == ckpt.COMPRESSED_MAGIC, f"phase 38: step {step} not PSCK")
+            ckpt.verify_checkpoint(d, step)
+        trainer = first["trainer"]
+        times = {"plain": [], "psck": []}
+        for rnd in range(2):
+            for form in ("plain", "psck"):
+                out = os.path.join(tmp, f"timed_{form}_{rnd}")
+                t0 = time.perf_counter()
+                trainer._ckpt.save(trainer.checkpoint_state(), out, 10, form == "psck")
+                host_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                trainer._ckpt.wait()
+                write_s = time.perf_counter() - t0
+                times[form].append({"save_host_s": host_s, "save_write_s": write_s,
+                                    "bytes": os.path.getsize(ckpt.checkpoint_path(out, 10))})
+        # load + restore from each form (the trainer reads its train_dir)
+        load = {}
+        try:
+            for form, src in (("psck", d), ("plain", os.path.join(tmp, "timed_plain_1"))):
+                trainer.tcfg.train_dir = src
+                t0 = time.perf_counter()
+                restored = trainer._restore_step(10)
+                torch.cuda.synchronize()
+                load[form] = time.perf_counter() - t0
+                require(_state_bits(restored, trainer.state),
+                        f"phase 38: step 10 restored from the {form} file differs from "
+                        f"the live state")
+        finally:
+            trainer.tcfg.train_dir = d
+        t0 = time.perf_counter()
+        raw = open(ckpt.checkpoint_path(d, 10), "rb").read()[4:-8]
+        plain_bytes = len(codec.decompress_bytes(raw))
+        decode_s = time.perf_counter() - t0
+
+        reset_counts()
+        res = _train(12, ck + ["--resume"], checkpoints=True)
+        torch.cuda.synchronize()
+        steps = [h["step"] for h in res["history"]]
+        resume_launches = read_counts()["quantize_tensors"]
+        require(steps == [11, 12] and resume_launches == 2,
+                f"phase 38 resume: steps {steps}, launches {read_counts()}")
+        ev = cli_evaluate.main(["--model-dir", d, "--network", "ResNet18", "--dataset",
+                                "Cifar10", "--once", "--device", "cuda"])
+        require(list(ev) == [12] and all(np.isfinite(list(ev[12].values()))),
+                f"phase 38: cli.evaluate on the PSCK files {ev}")
+    rec.update({"files": [5, 10, 12], "times": times, "load_restore_s": load,
+                "codec_decode_s": decode_s, "msgpack_bytes": plain_bytes,
+                "ratio": times["psck"][-1]["bytes"] / times["plain"][-1]["bytes"],
+                "resume_steps": steps, "resume_launches": resume_launches,
+                "evaluator": ev[12]})
+    print("phase 38 compressed checkpoints ResNet18: " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
                          "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, "
-                         "36; 2 "
+                         "36, 37, 38; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
@@ -4131,7 +4406,9 @@ def main(argv=None) -> int:
                  33: lambda: phase_lm_schemes_held(dev),
                  34: lambda: phase_flash_shard_kernels(dev),
                  35: lambda: phase_moe_schemes(smi),
-                 36: lambda: phase_moe_schemes_held(dev)}
+                 36: lambda: phase_moe_schemes_held(dev),
+                 37: lambda: phase_serve_cli(smi),
+                 38: lambda: phase_compressed_checkpoint(smi)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -4179,6 +4456,8 @@ def main(argv=None) -> int:
     phase_lm_schemes_held(dev)
     moe_runs = phase_moe_schemes(smi, lm1)
     phase_moe_schemes_held(dev)
+    serve_cli = phase_serve_cli(smi)
+    psck = phase_compressed_checkpoint(smi)
 
     def moe_launches(counter):
         """Phase 35's launches of one flash entry in each run (8 steps)."""
@@ -4256,6 +4535,9 @@ def main(argv=None) -> int:
             "source": "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
             "replaces": "ps_pytorch_tpu/ops/quantize.py:101",
             "launches": serve["launches"]["quantize_kv_write"],
+            # phase 37: cli.serve --int8-kv, each run (6 a prefill and a tick)
+            "launches_serve_cli": {name: serve_cli[name]["launches"]["quantize_kv_write"]
+                                   for name in ("rollover", "abort", "slo_spike")},
             "max_abs_err": max(k1[c]["max_abs_err"] for c in ("prefill", "decode")),
             # a decode tick's write (most of the serve run's launches)
             **{k: k1["decode"][k] for k in ("ms", "device_us", "plain_ms", "bound_ms",
@@ -4313,6 +4595,8 @@ def main(argv=None) -> int:
             "launches_pipelined": overlap["int8"]["launches_pipelined"]["quantize_tensors"],
             "launches_hier": hier["dequant"]["launches"]["quantize_tensors"],
             "launches_config_json": cfg_json["launches"]["quantize_tensors"],
+            # phase 38: the --compress-checkpoints run's resumed steps 11-12
+            "launches_compressed_resume": psck["resume_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],

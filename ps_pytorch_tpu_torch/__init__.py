@@ -8,11 +8,14 @@ Slices in place, on hand-written Hopper kernels (``csrc/``):
 
 - serving: batched flash prefill into a slot pool, int8 block-scale KV
   cache, continuous-batching greedy decode, open-loop traffic (K1, K4);
+  ``cli.serve`` with hot checkpoint rollover, SLO admission control and
+  the serve-side faults;
 - synchronous PS training: ``cli.train`` -> ``Trainer`` -> the PS step on
   N virtual workers stacked on one card, with the per-leaf int8
   gradient wire (K2 per tensor, K1's shared-scale entry per block);
-- checkpoints: ``model_step_N`` in the JAX package's bytes, ``--resume``
-  and the polling evaluator ``cli.evaluate`` (``checkpoint.py``);
+- checkpoints: ``model_step_N`` in the JAX package's bytes, plain or
+  compressed by the native codec (``ops/codec.py``), ``--resume`` and the
+  polling evaluator ``cli.evaluate`` (``checkpoint.py``);
 - Adam / AMSGrad (``optim/adam.py``), and the workers spread over the
   processes of a ``torch.distributed`` group (``parallel/mesh.py``
   ``ProcessWorkerAxis``: NCCL one process a card, gloo on the CPU), the

@@ -18,10 +18,12 @@ to every process, rank 0 alone writes, at once, its outcome is broadcast
 and a barrier follows, so no process returns before the file is durable
 and a failed write raises on every process.
 
-Not ported, and refused: the native codec's compressed form (files that
-start with ``b'PSCK'``; ROADMAP.md queue 1 item 22). Reading a compressed
-file raises ``NotImplementedError``: such a file is not damaged, so it is
-neither classed as corrupt nor quarantined.
+Compressed checkpoints (``compress=True``, ``--compress-checkpoints``):
+the msgpack is wrapped in the native codec (ops/codec.py, itemsize 4)
+behind a ``b'PSCK'`` magic, and the trailer covers the compressed bytes,
+inside the same atomic write. Loading detects either form; a stream the
+codec rejects is a ``CheckpointCorruptError``. The bytes are the JAX
+package's for the same state.
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ QUARANTINE_SUFFIX = ".corrupt"
 # disabled in the target they are dropped; each maps to its module's
 # merge hook (stored_dict, fresh_dict) -> merged
 RESETTABLE_FIELDS = {"guard_state": reconcile_guard_state}
-_CODEC = "the compressed checkpoint form (PSCK) is not ported yet (ROADMAP.md queue 1 item 22)"
 
 
 class CheckpointError(Exception):
@@ -80,20 +81,29 @@ def checkpoint_path(model_dir: str, step: int) -> str:
     return os.path.join(model_dir, f"model_step_{step}")
 
 
-def save_checkpoint(state, model_dir: str, step: int) -> str:
+def save_checkpoint(state, model_dir: str, step: int, compress: bool = False) -> str:
     """Write ``state`` (anything ``to_state_dict`` takes, or a state dict
-    of host arrays) for ``step``, synchronously."""
-    return _write_host_state(to_state_dict(state), model_dir, step)
+    of host arrays) for ``step``, synchronously; ``compress`` writes the
+    ``PSCK`` form."""
+    return _write_host_state(to_state_dict(state), model_dir, step, compress)
 
 
-def _write_host_state(state: dict, model_dir: str, step: int, faults=None) -> str:
+def _write_host_state(state: dict, model_dir: str, step: int, compress: bool = False,
+                      faults=None) -> str:
     """The host half of a save, on a state dict already on the host: the
-    msgpack, the trailer over the final bytes, and the atomic tmp +
-    replace write, with transient OSErrors retried. An injected write
-    fault fails every attempt, so it surfaces."""
+    msgpack (wrapped in the codec when ``compress``), the trailer over
+    the final bytes, and the atomic tmp + replace write, with transient
+    OSErrors retried. An injected write fault fails every attempt, so it
+    surfaces."""
     os.makedirs(model_dir, exist_ok=True)
     path = checkpoint_path(model_dir, step)
     data = packb(state)
+    if compress:
+        from .ops import codec
+
+        # itemsize 4: f32 leaves dominate the payload, so a 4-byte
+        # shuffle feeds the LZ stage well
+        data = COMPRESSED_MAGIC + codec.compress_bytes(data, itemsize=4)
     trailer = TRAILER_MAGIC + struct.pack("<I", zlib.crc32(data))
 
     def write():
@@ -129,12 +139,14 @@ class AsyncCheckpointer:
         self._event_sink = event_sink
         self._faults = faults
 
-    def save(self, state, model_dir: str, step: int) -> None:
+    def save(self, state, model_dir: str, step: int, compress: bool = False) -> None:
         host_state = to_state_dict(state)
         self.wait()
-        self._pending = self._pool.submit(self._write_logged, host_state, model_dir, step)
+        self._pending = self._pool.submit(self._write_logged, host_state, model_dir, step,
+                                          compress)
 
-    def save_collective(self, state, model_dir: str, step: int, axis) -> None:
+    def save_collective(self, state, model_dir: str, step: int, axis,
+                        compress: bool = False) -> None:
         """The save of a run over processes (``axis`` a
         ``ProcessWorkerAxis``; ``state`` already holds every worker's
         rows): every process calls it at the same step. Rank 0 writes
@@ -146,7 +158,7 @@ class AsyncCheckpointer:
         err = None
         if axis.rank == 0:
             try:
-                self.save(state, model_dir, step)
+                self.save(state, model_dir, step, compress)
                 self.wait()
             except BaseException as e:  # held across the broadcast, raised below
                 err = e
@@ -158,10 +170,12 @@ class AsyncCheckpointer:
             raise CheckpointWriteError(step, checkpoint_path(model_dir, step),
                                        RuntimeError("checkpoint write failed on process 0"))
 
-    def _write_logged(self, host_state: dict, model_dir: str, step: int) -> str:
+    def _write_logged(self, host_state: dict, model_dir: str, step: int,
+                      compress: bool = False) -> str:
         path = checkpoint_path(model_dir, step)
         try:
-            return _write_host_state(host_state, model_dir, step, faults=self._faults)
+            return _write_host_state(host_state, model_dir, step, compress,
+                                     faults=self._faults)
         except Exception as e:
             logger.error("checkpoint write failed (step %d, %s): %s", step, path, e)
             if self._event_sink is not None:
@@ -201,11 +215,19 @@ def _read_payload(model_dir: str, step: int, read_attempts: int = 3):
 
 
 def _decode_payload(data: bytes, path: str):
-    """Trailer-stripped bytes -> the raw state dict. A compressed file
-    raises NotImplementedError (item 22); bytes that do not decode are
-    corruption."""
+    """Trailer-stripped bytes -> the raw state dict (codec, then
+    msgpack); bytes that do not decode are corruption. A codec library
+    that cannot be built is not: its ``NativeBuildError`` propagates."""
     if data[:4] == COMPRESSED_MAGIC:
-        raise NotImplementedError(f"{path}: {_CODEC}")
+        from .data._native import NativeBuildError
+        from .ops import codec
+
+        try:
+            data = codec.decompress_bytes(data[4:])
+        except NativeBuildError:
+            raise
+        except Exception as e:
+            raise CheckpointCorruptError(f"codec decompression failed for {path}: {e}") from e
     try:
         return unpackb(data)
     except ValueError as e:

@@ -2,8 +2,8 @@
 (same names, same defaults), plus ``--device``.
 
 Every flag parses, so a reference command line carries over unchanged.
-A value this slice does not run is refused with a pointer to ROADMAP.md
-(by ``TrainConfig.refuse_unported`` or ``PSConfig``), never ignored. As
+A value the port does not run is refused with a pointer to ROADMAP.md
+(by ``PSConfig``), never ignored. As
 in the JAX package, ``--enable-gpu`` and ``--comm-type`` are accepted and
 ignored (the device is ``--device``; weights never move).
 

@@ -12,7 +12,8 @@ first use. The flags are portable (no ``-march=native``), so a library
 built on one machine loads on another. A missing compiler, a failed
 build or a failed load raises ``NativeBuildError``: nothing falls back
 to numpy indexing. This binding never loads the JAX package's
-``_native/libpsnative.so``; ``native/codec.cc`` is not built here.
+``_native/libpsnative.so``. ``build(source, lib_name)`` compiles another
+source of ``native/`` the same way (ops/codec.py: ``native/codec.cc``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 class NativeBuildError(RuntimeError):
-    """The C++ compiler is missing, ``native/loader.cc`` failed to
+    """The C++ compiler is missing, a ``native/`` source failed to
     compile, or the library failed to load."""
 
 
@@ -49,29 +50,31 @@ def _cxx() -> str:
     raise NativeBuildError("no C++ compiler found ($CXX, c++, g++, clang++ on PATH)")
 
 
-def library_path() -> str:
-    if not os.path.exists(SOURCE):
-        raise NativeBuildError(f"{SOURCE} is missing")
+def library_path(source: str = SOURCE, lib_name: str = LIB_NAME) -> str:
+    """Where ``source``'s library lives: keyed by a hash of its bytes,
+    the compiler and the flags."""
+    if not os.path.exists(source):
+        raise NativeBuildError(f"{source} is missing")
     cxx = _cxx()
     h = hashlib.sha256(" ".join([cxx] + CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], lib_name)
 
 
-def build() -> str:
-    """Compile ``native/loader.cc`` (no-op when this hash's library
-    exists); returns the library's path."""
-    out = library_path()
+def build(source: str = SOURCE, lib_name: str = LIB_NAME) -> str:
+    """Compile ``source`` (default ``native/loader.cc``; a no-op when
+    this hash's library exists); returns the library's path."""
+    out = library_path(source, lib_name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_ROOT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
-        lib_tmp = os.path.join(tmp, LIB_NAME)
-        proc = subprocess.run([_cxx()] + CXX_FLAGS + [SOURCE, "-o", lib_tmp],
+        lib_tmp = os.path.join(tmp, lib_name)
+        proc = subprocess.run([_cxx()] + CXX_FLAGS + [source, "-o", lib_tmp],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            raise NativeBuildError(f"c++ failed on {SOURCE}:\n{proc.stdout}")
+            raise NativeBuildError(f"c++ failed on {source}:\n{proc.stdout}")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         os.replace(lib_tmp, out)  # atomic: a concurrent loader sees all or none
     return out

@@ -1,7 +1,8 @@
 """The event schema for the port's JSONL streams (a host-only copy of the
 JAX package's obs/schema.py, with the kinds the port emits: the serving
-loop's and the training loop's, with the adaptive controllers'
-``mask_adapt`` and ``precision_adapt``).
+loop's, with its ``rollover_abort`` and the admission controller's
+``admission_adapt``, and the training loop's, with the adaptive
+controllers' ``mask_adapt`` and ``precision_adapt``).
 
 ``validate_event`` rejects unknown kinds and missing fields and coerces
 the declared int fields. A stream begins with one ``run_header`` record
@@ -127,6 +128,21 @@ EVENT_KINDS: Dict[str, EventSpec] = {
         int_fields=("rid", "tokens_done"),
         doc="request deadline passed before completion; 'where' is "
             "submit | queue | decode",
+    ),
+    "rollover_abort": EventSpec(
+        required=("from_step", "staged_step", "reason"),
+        int_fields=("from_step", "staged_step"),
+        doc="a staged rollover was abandoned (corrupt/unreadable staged "
+            "checkpoint at swap time, or the drain watchdog expired); "
+            "service continues on from_step",
+    ),
+    "admission_adapt": EventSpec(
+        required=("state", "projected_wait_s", "queue_depth",
+                  "window_submits", "window_sheds"),
+        int_fields=("queue_depth", "window_submits", "window_sheds",
+                    "windows"),
+        doc="admission controller state change (admitting <-> shedding) "
+            "with the window evidence that drove it",
     ),
 }
 

@@ -51,6 +51,9 @@ class NullTracer:
     def add(self, name, t0, dur, cat="phase", **attrs):
         return None
 
+    def instant(self, name, cat="instant", **attrs):
+        return None
+
     def now(self) -> float:
         return 0.0
 
@@ -133,6 +136,10 @@ class Tracer:
         attrs = dict(attrs)
         attrs["async"] = True
         self._append(name, t0, dur, cat, len(self._stack), attrs)
+
+    def instant(self, name: str, cat: str = "instant", **attrs) -> None:
+        """A zero-length marker at ``now()`` (e.g. a rollover abort)."""
+        self._append(name, self.now(), 0.0, cat, len(self._stack), attrs)
 
     def _append(self, name, t, dur, cat, depth, attrs) -> None:
         if len(self._buf) == self._buf.maxlen:

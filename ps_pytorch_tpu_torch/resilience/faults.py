@@ -17,7 +17,17 @@ A ``FaultPlan`` names host steps (1-based, as the JAX step numbers them):
                          that step boundary -> the graceful stop, a final
                          checkpoint, a clean --resume
 
-The plan's serving keys are not ported yet and raise (ROADMAP.md).
+Serve-side faults, keyed by serve-loop TICK (numbered from 1 after the
+engine's warmup) or checkpoint step; the trainer ignores them:
+
+  slow_decode            a host stall of slow_decode_s seconds (default
+  (slow_decode_s)        0.05) inside the serve tick -> the queue grows,
+                         driving the admission controller into shedding
+  rollover_corrupt       the checkpoint file is truncated to half its size
+                         the moment the engine STAGES it for rollover ->
+                         the swap-time re-read aborts onto the old weights
+  spike                  [rate_mult, start_s, dur_s]: a traffic burst for
+                         the generator (serve/traffic.py) -> overload
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import time
 from typing import Optional, Tuple
 
 FAULTS_ENV = "PS_TPU_FAULTS"
-_STEP_LISTS = ("nan_grads", "inf_grads", "slow_steps", "ckpt_write_fail", "ckpt_corrupt")
-_PORTED = _STEP_LISTS + ("slow_s", "sigterm")
+_STEP_LISTS = ("nan_grads", "inf_grads", "slow_steps", "ckpt_write_fail", "ckpt_corrupt",
+               "slow_decode", "rollover_corrupt")
+_KNOWN_KEYS = set(_STEP_LISTS) | {"slow_s", "sigterm", "slow_decode_s", "spike"}
 
 
 def _truncate_half(path: str) -> None:
@@ -51,6 +62,11 @@ class FaultPlan:
     ckpt_write_fail: Tuple[int, ...] = ()
     ckpt_corrupt: Tuple[int, ...] = ()
     sigterm: Optional[int] = None
+    # serve side: ticks / checkpoint steps / traffic modulation
+    slow_decode: Tuple[int, ...] = ()
+    slow_decode_s: float = 0.05
+    rollover_corrupt: Tuple[int, ...] = ()
+    spike: Optional[Tuple[float, float, float]] = None
 
     def __post_init__(self):
         self._sigterm_fired = False
@@ -64,12 +80,10 @@ class FaultPlan:
         raw = json.loads(spec)
         if not isinstance(raw, dict):
             raise ValueError("fault plan must be a JSON object")
-        rest = sorted(set(raw) - set(_PORTED))
-        if rest:
-            raise NotImplementedError(
-                f"fault plan keys {rest} are not ported yet (only {list(_PORTED)}; "
-                f"the serving keys are ROADMAP.md queue 1 item 20)"
-            )
+        unknown = sorted(set(raw) - _KNOWN_KEYS)
+        if unknown:
+            raise ValueError(f"unknown fault plan key(s) {unknown}; known: "
+                             f"{sorted(_KNOWN_KEYS)}")
         kw = {}
         for k in _STEP_LISTS:
             v = raw.get(k) or []
@@ -85,7 +99,21 @@ class FaultPlan:
         slow_s = float(raw.get("slow_s", cls.slow_s))
         if slow_s < 0:
             raise ValueError(f"fault plan 'slow_s' must be >= 0, got {slow_s}")
-        return cls(slow_s=slow_s, sigterm=sig, **kw)
+        slow_decode_s = float(raw.get("slow_decode_s", cls.slow_decode_s))
+        if slow_decode_s < 0:
+            raise ValueError(f"fault plan 'slow_decode_s' must be >= 0, got {slow_decode_s}")
+        spike = raw.get("spike")
+        if spike is not None:
+            if not isinstance(spike, (list, tuple)) or len(spike) != 3 or any(
+                    isinstance(x, bool) or not isinstance(x, (int, float)) for x in spike):
+                raise ValueError(f"fault plan 'spike' must be [rate_mult, start_s, dur_s] "
+                                 f"(three numbers), got {spike!r}")
+            mult, start_s, dur_s = (float(x) for x in spike)
+            if mult <= 0 or start_s < 0 or dur_s <= 0:
+                raise ValueError(f"fault plan 'spike' needs rate_mult > 0, start_s >= 0, "
+                                 f"dur_s > 0, got {spike!r}")
+            spike = (mult, start_s, dur_s)
+        return cls(slow_s=slow_s, sigterm=sig, slow_decode_s=slow_decode_s, spike=spike, **kw)
 
     def poison(self, host_step: int) -> Optional[float]:
         """The value every gradient element takes at ``host_step``, or
@@ -116,6 +144,18 @@ class FaultPlan:
     def maybe_corrupt_ckpt(self, path: str, step: int) -> None:
         """Truncate the just-written checkpoint to half its size."""
         if step in self.ckpt_corrupt:
+            _truncate_half(path)
+
+    def maybe_slow_decode(self, tick: int, sleep=time.sleep) -> None:
+        """Stall the host inside a serve tick; ``sleep`` is injectable so
+        a virtual-clock test advances its clock instead of sleeping."""
+        if tick in self.slow_decode:
+            sleep(self.slow_decode_s)
+
+    def maybe_corrupt_staged(self, path: str, step: int) -> None:
+        """Truncate a checkpoint the serving engine just STAGED for
+        rollover, as ``maybe_corrupt_ckpt`` truncates a written one."""
+        if step in self.rollover_corrupt:
             _truncate_half(path)
 
 

@@ -13,7 +13,8 @@ lets the bench leg and the smoke leg assert on the result.
 virtual clock and reduces the completions to the serving headline:
 tokens/sec plus p50/p99 per-token latency (the per-token series is
 time-to-first-token for a request's first token, inter-token gap for
-the rest — the tail therefore covers prefill and queueing).
+the rest — the tail therefore covers prefill, queueing, AND rollover
+drains).
 """
 
 from __future__ import annotations
@@ -118,10 +119,13 @@ def make_requests(
 def run_open_loop(
     engine: ServingEngine,
     requests: Sequence[Request],
+    poll_interval_s: float = 0.0,
     clock: Optional[Callable[[], float]] = None,
 ) -> Dict:
     """Serve a fixed arrival schedule to completion; returns the summary.
 
+    ``poll_interval_s`` > 0 polls the engine's checkpoint directory for
+    a hot rollover at that cadence (drain-then-swap — see engine).
     ``clock`` defaults to time.perf_counter, rebased so the schedule's
     t=0 is the call time; the engine idles (sleeps) until the next
     arrival when nothing is in flight."""
@@ -140,11 +144,15 @@ def run_open_loop(
     t0 = now()
     pending = list(requests)
     completions: List[Completion] = []
-    while pending or not engine.scheduler.idle:
+    last_poll = t0
+    while pending or not engine.scheduler.idle or engine.draining:
         t = now()
         while pending and pending[0].arrival_s <= t:
             engine.submit(pending.pop(0))
-        if engine.scheduler.idle and pending:
+        if poll_interval_s > 0 and t - last_poll >= poll_interval_s:
+            last_poll = t
+            engine.poll_rollover()
+        if engine.scheduler.idle and not engine.draining and pending:
             if clock is None:
                 # open-loop idle: nothing to decode until the next arrival
                 time.sleep(min(pending[0].arrival_s - t, 0.01))

@@ -57,8 +57,8 @@ byte for byte, so either package resumes the other's directory.
 A checkpoint written on another geometry (worker count, placement,
 ZeRO-1 carving, BN locality) is reshaped on resume
 (``elastic.reshape_raw_state``) and logged as a ``resume_reshape``
-record. Not ported yet, and refused when asked for (ROADMAP.md queue 1
-item 22): compressed checkpoints.
+record. ``compress_checkpoints`` writes the ``PSCK`` form (the native
+codec, ops/codec.py); ``--resume`` reads either form.
 
 The profiler window (obs/profiler.py): with ``profile_dir`` the loop
 captures a ``torch.profiler`` trace of steps ``[profile_start,
@@ -115,8 +115,6 @@ from .resilience.faults import resolve_fault_plan
 from .utils import format_eval_line, format_iter_line, get_logger
 
 logger = get_logger()
-
-_ROADMAP = "is not ported yet (ROADMAP.md queue 1)"
 
 
 def append_metrics_line(path: Optional[str], record: dict) -> None:
@@ -191,12 +189,6 @@ class TrainConfig:
     wire_budget_bytes: Optional[int] = None
     fault_plan: Optional[str] = None
 
-    def refuse_unported(self) -> None:
-        if self.compress_checkpoints:
-            raise NotImplementedError(
-                f"compressed checkpoints (--compress-checkpoints, the PSCK codec; "
-                f"item 22) {_ROADMAP}")
-
 
 class Trainer:
     """Drives PS data-parallel training of one model on N virtual
@@ -206,7 +198,6 @@ class Trainer:
 
     def __init__(self, tcfg: TrainConfig, pcfg: PSConfig,
                  dataset: Optional[Dataset] = None, device: DeviceLike = None):
-        tcfg.refuse_unported()
         if tcfg.straggler_storm_n < 1:
             # 0 would swallow both the per-step straggler events and the
             # storm event (trainer.py:192 of the JAX package)
@@ -387,13 +378,15 @@ class Trainer:
         if not self.multi:
             elastic.save_geometry(self.tcfg.train_dir, elastic.geometry_of(self.pcfg),
                                   step=step_no)
-            self._ckpt.save(self.checkpoint_state(), self.tcfg.train_dir, step_no)
+            self._ckpt.save(self.checkpoint_state(), self.tcfg.train_dir, step_no,
+                            self.tcfg.compress_checkpoints)
             return
         state = self.checkpoint_state()
         if self.rank == 0:
             elastic.save_geometry(self.tcfg.train_dir, elastic.geometry_of(self.pcfg),
                                   step=step_no)
-        self._ckpt.save_collective(state, self.tcfg.train_dir, step_no, self.mesh)
+        self._ckpt.save_collective(state, self.tcfg.train_dir, step_no, self.mesh,
+                                   self.tcfg.compress_checkpoints)
 
     def _quarantine(self, step: int, err: BaseException) -> None:
         logger.warning("resume: checkpoint step %d is corrupt (%s); quarantining "

@@ -5,8 +5,8 @@ the JAX package's tests/test_resilience.py holds its own:
 - a truncated newest file (the ``ckpt_corrupt`` fault) is quarantined to
   ``*.corrupt`` and the resume falls back to the older step;
   ``ckpt_write_fail`` surfaces as CheckpointWriteError; a trailer-less
-  file loads; a compressed (``PSCK``) file raises NotImplementedError and
-  stays where it is; ``poll_checkpoints`` yields new steps in order, skips
+  file loads (the compressed ``PSCK`` form: tests/test_torch_codec.py);
+  ``poll_checkpoints`` yields new steps in order, skips
   an unreadable one and stops at its timeout; resuming a finished run
   takes no step; a manifest of another geometry is reshaped, and EF
   residuals into a run with EF off are refused;
@@ -20,8 +20,6 @@ LeNet, 2 workers, batch 8, at most 4 steps.
 
 import json
 import os
-import struct
-import zlib
 
 import jax
 import numpy as np
@@ -106,23 +104,6 @@ def test_torch_trailer_less_checkpoint_loads(tmp_path):
         f.write(packb(to_state_dict(t.checkpoint_state()))[:1000])
     with pytest.raises(ckpt.CheckpointCorruptError):
         ckpt.verify_checkpoint(d, 3)
-
-
-def test_torch_compressed_checkpoint_is_refused_in_place(tmp_path):
-    d = str(tmp_path / "models")
-    os.makedirs(d)
-    body = b"PSCK" + b"\0" * 64
-    with open(ckpt.checkpoint_path(d, 5), "wb") as f:
-        f.write(body + b"PSC1" + struct.pack("<I", zlib.crc32(body)))
-    ckpt.verify_checkpoint(d, 5)  # intact: not corrupt
-    with pytest.raises(NotImplementedError, match="item 22"):
-        ckpt.load_checkpoint_raw(d, 5)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        _trainer(_tcfg(tmp_path, resume=True)).try_resume()
-    assert ckpt.available_steps(d) == [5]
-    with pytest.raises(NotImplementedError, match="item 22"):
-        cli_train.main(["--device", "cpu", "--num-workers", "2", "--max-steps", "1",
-                        "--compress-checkpoints", "--train-dir", d])
 
 
 def test_torch_poll_checkpoints_in_order_skips_unreadable_and_times_out(tmp_path):

@@ -8,7 +8,7 @@ accumulate_rescale_int8, K4
 flash_fwd and its partial triple flash_partial, K5 flash_bwd_dq and K6
 flash_bwd_dkv, also at the tensor and pipeline schemes' shard shapes), the
 serving engine on the card against the same engine on the
-CPU, the gradient wires on the card against the same wires on the CPU
+CPU (also across a hot checkpoint rollover), the gradient wires on the card against the same wires on the CPU
 (bit-exact: every op on them is elementwise or an exact integer sum), and
 the MoE steps (moe, ep_sp) on the card against the CPU, with the same
 expert choices.
@@ -847,6 +847,58 @@ def test_torch_engine_on_card_matches_cpu_engine(cuda_device, int8):
                 cfg.depth * (prefills + steps) if int8 else 0)
             assert (quantize_rows.launches, quantize_rows_many.launches,
                     quantize_rows_scaled_many.launches) == others
+    assert outs["cpu"] == outs["cuda"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_torch_engine_rollover_on_card_matches_cpu_engine(cuda_device, int8, tmp_path):
+    """Hot rollover on the card: a request in flight when step 2 lands
+    finishes on step 1's weights, the queued one runs on step 2's, and
+    the tokens are the CPU engine's. The engine built from a checkpoint
+    prefills with naive attention (no K4, as JAX's), and an int8 pool
+    launches K1's KV entry once a block a prefill and a decode step."""
+    from ps_pytorch_tpu_torch.checkpoint import save_checkpoint
+    from ps_pytorch_tpu_torch.models.convert import params_to_numpy
+
+    cfg = TransformerConfig(vocab_size=97, dim=128, depth=2, heads=2, max_seq_len=64)
+    model = {"kind": "dense", "vocab_size": 97, "dim": 128, "depth": 2, "heads": 2,
+             "mlp_ratio": cfg.mlp_ratio, "max_seq_len": 64}
+    serve = ServeConfig(slots=3, max_len=48, max_prompt_len=12, kv_int8=int8)
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(0, 97, p).astype(np.int32),
+                    max_new_tokens=n) for i, (p, n) in enumerate([(5, 20), (6, 7)])]
+    def write(d, step):  # step s holds the weights of seed s - 1
+        p = init_transformer(cfg, torch.Generator().manual_seed(step - 1), device="cpu")
+        save_checkpoint({"params": params_to_numpy(p), "step": step, "model": model,
+                         "data": {"seed": 1, "seq_len": 32}}, str(d), step)
+
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        d = tmp_path / str(dev)
+        write(d, 1)
+        engine = ServingEngine.from_checkpoint(str(d), serve, step=1, device=dev)
+        engine.warmup()
+        k4, k1 = flash_fwd.launches, quantize_kv_write.launches
+        p0, d0 = engine.n_prefills, engine.n_decode_steps
+        engine.submit(dataclasses.replace(reqs[0]))
+        for _ in range(3):
+            engine.tick()
+        write(d, 2)
+        assert engine.poll_rollover() == 2
+        engine.submit(dataclasses.replace(reqs[1]))
+        done = {}
+        while not engine.scheduler.idle or engine.draining:
+            for c in engine.tick():
+                done[c.rid] = c
+        outs[str(dev)] = [(c.weights_step, c.tokens) for _, c in sorted(done.items())]
+        assert [c.weights_step for _, c in sorted(done.items())] == [1, 2]
+        if dev != "cpu":
+            prefills = engine.n_prefills - p0
+            steps = engine.n_decode_steps - d0
+            assert prefills == 2 and flash_fwd.launches == k4
+            assert quantize_kv_write.launches - k1 == (
+                cfg.depth * (prefills + steps) if int8 else 0)
     assert outs["cpu"] == outs["cuda"]
 
 

@@ -337,12 +337,15 @@ def test_torch_entry_points_raise_without_a_card(monkeypatch, weights):
 
 
 def test_torch_engine_refuses_what_is_not_ported(weights):
+    """What the JAX engine refuses: a MoE checkpoint (its checkpoint_model
+    decodes dense LMs only) and a pool past the model's positions."""
+    from ps_pytorch_tpu_torch.serve.engine import checkpoint_model
+
     _, tparams = weights
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ServingEngine(TCFG, tparams, ServeConfig(**POOL), model_dir="/nonexistent",
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServingEngine(TCFG, tparams, ServeConfig(**POOL), mesh=object(), device="cpu")
+    raw = {"params": {}, "model": {"kind": "moe", "vocab_size": 8, "dim": 8, "depth": 1,
+                                   "heads": 1, "mlp_ratio": 1, "max_seq_len": 8}}
+    with pytest.raises(ValueError, match="dense"):
+        checkpoint_model(raw, None)
     with pytest.raises(ValueError, match="positional range"):
         ServingEngine(TCFG, tparams, ServeConfig(slots=2, max_len=128), device="cpu")
 

@@ -3,7 +3,7 @@
 
 They run the whole slice end to end at a small size (LeNet, synthetic
 MNIST, 8 stacked workers) with ``--device cpu``; without it, on a
-machine with no card, they raise. Flags the slice does not run are
+machine with no card, they raise. Flags the port does not run are
 refused, never ignored. The card runs the full-width ResNet18 path in
 chip_smoke.py.
 """
@@ -70,19 +70,6 @@ def test_torch_cli_train_nan_fault_plan_skips_one_step():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--compress-checkpoints"], ["--fault-plan", '{"slow_decode": [1]}'],
-    ["--fault-plan", '{"rollover_corrupt": [1]}'], ["--fault-plan", '{"spike": [1]}'],
-    # the flags refused here before their port (--quant-rounding
-    # stochastic, --data-root, --overlap on, --dcn-hosts 2, --profile-dir,
-    # --config-json) run now: test_torch_cli_train_runs_what_it_refused
-    # and tests/test_torch_{profiler,config_json}.py
-])
-def test_torch_cli_train_refuses_unported_flags(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run("--max-steps", "1", *extra)
-
-
-@pytest.mark.parametrize("extra", [
     ["--compress-grad", "compress", "--quant-rounding", "stochastic", "--error-feedback"],
     ["--compress-grad", "2round", "--quant-rounding", "stochastic", "--quant-block-size", "128"],
     ["--compress-grad", "compress", "--bucket-bytes", "65536", "--precision-adapt",
@@ -96,13 +83,25 @@ def test_torch_cli_train_refuses_unported_flags(extra):
     ["--overlap", "on", "--opt-placement", "sharded", "--compress-grad", "compress"],
     ["--compress-grad", "2round", "--dcn-hosts", "2", "--wire-domain", "homomorphic"],
     ["--dcn-hosts", "2"],
+    ["--compress-checkpoints"],
+    # the serve-side fault keys parse and the trainer ignores them, as JAX's
+    ["--fault-plan", '{"slow_decode": [1], "slow_decode_s": 0.01}'],
+    ["--fault-plan", '{"rollover_corrupt": [1]}'],
+    ["--fault-plan", '{"spike": [5, 0, 1]}'],
 ], ids=["stochastic_ef", "stochastic_2round", "precision", "adaptive_count", "data_root",
-        "overlap", "overlap_zero1", "dcn_hosts_homomorphic", "dcn_hosts"])
-def test_torch_cli_train_runs_what_it_refused(extra):
-    """Refused before this slice's port; JAX runs each of them (4 workers
-    of 4 images, 2 steps)."""
-    out = _run("--max-steps", "2", "--num-workers", "4", "--batch-size", "4",
-               "--test-batch-size", "256", *extra)
+        "overlap", "overlap_zero1", "dcn_hosts_homomorphic", "dcn_hosts",
+        "compress_checkpoints", "slow_decode", "rollover_corrupt", "spike"])
+def test_torch_cli_train_runs_what_it_refused(extra, tmp_path):
+    """Refused before their port; JAX runs each of them (4 workers of 4
+    images, 2 steps)."""
+    args = ["--max-steps", "2", "--num-workers", "4", "--batch-size", "4",
+            "--test-batch-size", "256", *extra]
+    if "--compress-checkpoints" in extra:
+        d = tmp_path / "models"
+        out = cli_train.main(BASE + ["--device", "cpu", "--train-dir", str(d), *args])
+        assert (d / "model_step_2").read_bytes()[:4] == b"PSCK"
+    else:
+        out = _run(*args)
     assert all(math.isfinite(h["loss"]) for h in out["history"])
     assert out["train"]["skipped_steps"] == 0.0
     if "--precision-adapt" in extra:
