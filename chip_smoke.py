@@ -277,11 +277,23 @@ Phases, one line each:
    ``--resume`` continues at 11 (K2 once a step), ``cli.evaluate --once``
    reads them; the bytes on disk, a save's host half and background write
    in turns with the plain form, load + restore of each form;
-39. the kernels JSON line, then the result line.
+39. pscheck on the card: the whole contract registry
+   (``ps_pytorch_tpu_torch.check``, 37 configurations) recorded with
+   ``device="cuda"``: zero findings, PSC104 clean against the committed
+   ``check/comm_contract.json``; each spec's kernel nodes on the tape as
+   many, entry by entry, as its kernels' ``.launches`` counters grew; at
+   least one node each of K1's KV write, K2 and K3; the same accounting
+   rows and ``feeds_params`` flags as the same registry recorded on the
+   CPU in this run; then the canonical step (ResNet18, 8 workers x 128,
+   the int8 wire in 4 MiB buckets) recorded, its rows those of the
+   registry's ``ps_resnet18_int8_replicated_bucketed``, and timed with
+   no tape active (p50 of 9 steps after 3), beside phase 9's p50; the
+   phase's seconds;
+40. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,35,36,37,38 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,36,37,38,39 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -299,7 +311,8 @@ which report no dp_sp run beside their own when run alone, the held
 steps of 33, the flash kernels at their shard shapes of 34, the MoE and
 dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
 alone, the held MoE and dp_tp_pp steps of 36, the serving CLI of 37, the
-compressed checkpoints of 38),
+compressed checkpoints of 38, pscheck of 39, which reports no phase 9
+p50 beside its own when run alone),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -4316,13 +4329,110 @@ def phase_compressed_checkpoint(card: str) -> dict:
     return rec
 
 
+# ------------------------------------------------ phase 39: pscheck on the card
+
+# every kernel entry's launch counter, by entry name (a tape's kernel node
+# names its entry)
+_QUANT_ENTRIES = ("quantize_tensors", "quantize_rows_scaled_many", "quantize_rows_many",
+                  "quantize_rows", "quantize_kv_write", "accumulate_rescale_int8",
+                  "tensors_absmax", "quantize_tensors_given", "rows_scaled_absmax",
+                  "quantize_rows_scaled_given")
+_FLASH_ENTRIES = ("flash_fwd", "flash_partial", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _entry_counters() -> dict:
+    import importlib
+
+    from ps_pytorch_tpu_torch.ops import quantize as q
+
+    # the module: ``ops.flash_attention`` is the function the package re-exports
+    fa = importlib.import_module("ps_pytorch_tpu_torch.ops.flash_attention")
+    return {**{n: getattr(q, n) for n in _QUANT_ENTRIES},
+            **{n: getattr(fa, n) for n in _FLASH_ENTRIES}}
+
+
+def _collective_rows(r) -> list:
+    return [(c.kind, c.axes, c.dtype, c.bytes, c.feeds_params) for c in r.collectives]
+
+
+def phase_pscheck(card: str, phase9_p50_ms=None) -> dict:
+    """Phase 39: the registry recorded on the card, held against the
+    committed artifact and against the same registry on the CPU; the
+    canonical ResNet18 step recorded and timed with no tape active."""
+    from ps_pytorch_tpu_torch.check import get_contracts, load_contract, run_checks, trace_spec
+    from ps_pytorch_tpu_torch.check.contracts import canonical_spec
+    from ps_pytorch_tpu_torch.check.core import DEFAULT_CONTRACT
+
+    t_phase = time.perf_counter()
+    counters = _entry_counters()
+    specs = get_contracts()
+    results, nodes = [], {}
+    for spec in specs:
+        before = {k: fn.launches for k, fn in counters.items()}
+        r = trace_spec(spec, device="cuda")
+        torch.cuda.synchronize()
+        grew = {k: fn.launches - before[k] for k, fn in counters.items()
+                if fn.launches != before[k]}
+        mine = {k.split(":", 1)[1]: v for k, v in r.kernels.items()}
+        require(mine == grew, f"phase 39 {spec.name}: kernel nodes {mine} but launches {grew}")
+        results.append(r)
+        nodes[spec.name] = r.kernels
+    card_s = time.perf_counter() - t_phase
+    findings = run_checks(results, load_contract(DEFAULT_CONTRACT))
+    require(not findings, "phase 39 findings on the card: "
+            + "; ".join(f"{f.config}: {f.rule} {f.message}" for f in findings[:10]))
+    t_cpu = time.perf_counter()
+    for r in results:
+        c = trace_spec(r.spec, device="cpu")
+        require(r.summary == c.summary and _collective_rows(r) == _collective_rows(c),
+                f"phase 39 {r.spec.name}: card rows {_collective_rows(r)} != CPU rows "
+                f"{_collective_rows(c)}")
+    cpu_s = time.perf_counter() - t_cpu
+    by_kernel = {}
+    for per in nodes.values():
+        for k, v in per.items():
+            by_kernel[k] = by_kernel.get(k, 0) + v
+    for want in ("K1:quantize_kv_write", "K2:quantize_tensors", "K3:accumulate_rescale_int8"):
+        require(by_kernel.get(want, 0) > 0, f"phase 39: no {want} node on the registry's tapes "
+                                            f"({by_kernel})")
+    # the canonical step: recorded, then timed with no tape
+    canon = canonical_spec()
+    t_canon = time.perf_counter()
+    rc = trace_spec(canon, device="cuda")
+    torch.cuda.synchronize()
+    canon_s = time.perf_counter() - t_canon
+    reg = next(r for r in results if r.spec.name == "ps_resnet18_int8_replicated_bucketed")
+    require(rc.summary == reg.summary,
+            f"phase 39 canonical rows {rc.summary} != registry's {reg.summary}")
+    built = canon.build(torch.device("cuda"))
+    step, (state, batch, draws) = built.step, built.args
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, draws)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    require(np.isfinite(float(metrics["loss"])), "phase 39 canonical step: loss not finite")
+    rec = {"card": card, "configs": len(results), "findings": 0,
+           "kernel_nodes": by_kernel, "card_record_s": card_s, "cpu_record_s": cpu_s,
+           "canonical": {"name": canon.name, "record_s": canon_s, "rows": rc.summary,
+                         "kernels": rc.kernels,
+                         "step_ms_p50_no_tape": float(np.median(times[3:])) * 1e3,
+                         "step_ms_min_no_tape": min(times[3:]) * 1e3},
+           "phase9_step_ms_p50": phase9_p50_ms,
+           "seconds": time.perf_counter() - t_phase}
+    print("phase 39 pscheck on the card: " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
                          "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, "
-                         "36, 37, 38; 2 "
+                         "36, 37, 38, 39; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 23 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
@@ -4408,7 +4518,8 @@ def main(argv=None) -> int:
                  35: lambda: phase_moe_schemes(smi),
                  36: lambda: phase_moe_schemes_held(dev),
                  37: lambda: phase_serve_cli(smi),
-                 38: lambda: phase_compressed_checkpoint(smi)}
+                 38: lambda: phase_compressed_checkpoint(smi),
+                 39: lambda: phase_pscheck(smi, ran[9]["step_ms_p50"] if 9 in ran else None)}
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -4458,6 +4569,7 @@ def main(argv=None) -> int:
     phase_moe_schemes_held(dev)
     serve_cli = phase_serve_cli(smi)
     psck = phase_compressed_checkpoint(smi)
+    pscheck = phase_pscheck(smi, train["step_ms_p50"])
 
     def moe_launches(counter):
         """Phase 35's launches of one flash entry in each run (8 steps)."""
@@ -4538,6 +4650,8 @@ def main(argv=None) -> int:
             # phase 37: cli.serve --int8-kv, each run (6 a prefill and a tick)
             "launches_serve_cli": {name: serve_cli[name]["launches"]["quantize_kv_write"]
                                    for name in ("rollover", "abort", "slo_spike")},
+            # phase 39: the registry's tapes (serve_decode_int8kv)
+            "launches_pscheck": pscheck["kernel_nodes"].get("K1:quantize_kv_write", 0),
             "max_abs_err": max(k1[c]["max_abs_err"] for c in ("prefill", "decode")),
             # a decode tick's write (most of the serve run's launches)
             **{k: k1["decode"][k] for k in ("ms", "device_us", "plain_ms", "bound_ms",
@@ -4597,6 +4711,8 @@ def main(argv=None) -> int:
             "launches_config_json": cfg_json["launches"]["quantize_tensors"],
             # phase 38: the --compress-checkpoints run's resumed steps 11-12
             "launches_compressed_resume": psck["resume_launches"],
+            # phase 39: the registry's tapes (every int8 / int8_2round spec)
+            "launches_pscheck": pscheck["kernel_nodes"].get("K2:quantize_tensors", 0),
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],
@@ -4616,6 +4732,8 @@ def main(argv=None) -> int:
             "launches_hier": hier["homomorphic"]["launches"]["accumulate_rescale_int8"],
             # phase 31's run from the committed autotune record
             "launches_config_json": cfg_json["launches"]["accumulate_rescale_int8"],
+            # phase 39: the registry's tapes (the homomorphic two-round specs)
+            "launches_pscheck": pscheck["kernel_nodes"].get("K3:accumulate_rescale_int8", 0),
             "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
             "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
             "bound_ms": k3["resnet18_fused"]["bound_ms"],

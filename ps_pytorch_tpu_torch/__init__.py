@@ -27,7 +27,10 @@ Slices in place, on hand-written Hopper kernels (``csrc/``):
   wire: stochastic rounding, the int4 / lattice codec, the adaptive
   aggregation count and per-bucket precision with their controllers
   (``resilience/elastic.py``, ``resilience/precision.py``), K3 dividing by
-  the device count.
+  the device count;
+- pscheck (``check/``): the communication contracts PSC101-110 over a
+  recorded step, the registry of the JAX package's 37 configurations and
+  the port's committed accounting artifact.
 
 What is still to port is listed in ROADMAP.md.
 

@@ -47,6 +47,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ._tape import kernel_entry
+
 NEG_INF = -1e30
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -225,6 +227,7 @@ def _launch_fwd(q, k, v, causal, scale, k_len, q_off, k_off, normalize: bool):
     return o, lse, l
 
 
+@kernel_entry("K4")
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
               k_len: Optional[int] = None, q_off: Offset = 0, k_off: Offset = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -252,6 +255,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
 flash_fwd.launches = 0
 
 
+@kernel_entry("K4")
 def flash_partial(q, k, v, causal: bool, scale: float, q_off: Offset = 0,
                   k_off: Offset = 0, k_len: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -314,6 +318,7 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, scale, q_off, k_off, k_len,
         return dk, dv
 
 
+@kernel_entry("K5")
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                  q_off: Offset = 0, k_off: Offset = 0, k_len: Optional[int] = None,
                  out_dtype=None) -> torch.Tensor:
@@ -339,6 +344,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
 flash_bwd_dq.launches = 0
 
 
+@kernel_entry("K6")
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                   q_off: Offset = 0, k_off: Offset = 0, k_len: Optional[int] = None,
                   out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:

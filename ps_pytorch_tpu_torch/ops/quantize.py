@@ -78,6 +78,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ._tape import kernel_entry, shared_over
+
 _INT8_PEAK = 127  # symmetric int8 payloads live in [-127, 127]
 
 # the f32 constant XLA multiplies by where the JAX code divides by 127.0
@@ -448,6 +450,7 @@ def _rows_many_launch(xs_card, bs: int):
     return out, launches
 
 
+@kernel_entry("K1")
 def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: per-row int8 quantization of ``[NB, BS]`` (f32 or bf16) ->
     (int8 ``[NB, BS]``, f32 scale ``[NB, 1]``): ``quantize_rows_many``'s
@@ -475,6 +478,7 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 quantize_rows.launches = 0
 
 
+@kernel_entry("K1")
 def quantize_rows_many(xs):
     """K1, per-row scales over every piece of a list: each ``xs[i]`` is
     ``[NB_i, BS]`` (one BS and one dtype, f32 or bf16, one card, NB_i >=
@@ -502,6 +506,7 @@ def quantize_rows_many(xs):
 quantize_rows_many.launches = 0
 
 
+@kernel_entry("K1", writes=(2, 3, 4, 5))
 def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
     """K1, KV entry: quantize one layer's K and V ``[R, H, hd]`` (f32 or
     bf16, any row and head strides) per (position, head) row and store
@@ -552,6 +557,7 @@ def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
 quantize_kv_write.launches = 0
 
 
+@kernel_entry("K1", shared=True)
 def quantize_rows_scaled_many(xs, block_size: int):
     """K1, shared-scale entry over every piece of a step: each ``xs[i]``
     is worker-stacked ``[N, *shape]`` (f32 or bf16, the same N for all,
@@ -616,6 +622,7 @@ def _k1_kind(dtype, ptr: int, n: int, block_size: int) -> int:
     return _F32_VEC if ptr % 16 == 0 and n % 4 == 0 and block_size % 4 == 0 else _F32
 
 
+@kernel_entry("K2", shared=True)
 def quantize_tensors(xs):
     """K2: per-tensor int8 quantization of every piece of a step in one
     call: each ``xs[i]`` (any shape and length, 0 included; f32 or bf16;
@@ -675,9 +682,8 @@ def _k2_kind(dtype, ptr: int) -> int:
 def quantize_tensor(x: torch.Tensor, return_absmax: bool = False):
     """K2 on one piece: ``quantize_tensors([x])`` -> (int8 like ``x``, f32
     scalar scale) [, the device absmax the scale came from]. A CPU tensor
-    runs ``quantize_tensor_plain``."""
-    if not x.is_cuda:
-        return quantize_tensor_plain(x, return_absmax)
+    runs ``quantize_tensor_plain`` (through ``quantize_tensors``, so a
+    recorded step has the same K2 node on either device)."""
     q, scale, absmax = quantize_tensors([x])[0]
     return (q, scale, absmax) if return_absmax else (q, scale)
 
@@ -704,6 +710,7 @@ def _split_check(xs, absmax, rows: int, what: str) -> None:
                          f"{absmax.dtype} {tuple(absmax.shape)} on {absmax.device}")
 
 
+@kernel_entry("K2")
 def tensors_absmax(xs) -> torch.Tensor:
     """K2's split route, first half: this process's absmax of every piece
     (the worker-stacked pieces of its local workers) -> f32 ``[len(xs)]``,
@@ -739,6 +746,7 @@ def tensors_absmax(xs) -> torch.Tensor:
 tensors_absmax.launches = 0
 
 
+@kernel_entry("K2")
 def quantize_tensors_given(xs, absmax: torch.Tensor):
     """K2's split route, second half: every piece quantized with the given
     (cross-process) absmax ``[len(xs)]`` -> ``[(q int8 like xs[i], scale
@@ -815,6 +823,7 @@ def quantize_rows_scaled_given_plain(xs, block_size: int, absmax: torch.Tensor):
     return out
 
 
+@kernel_entry("K1")
 def rows_scaled_absmax(xs, block_size: int) -> torch.Tensor:
     """K1's shared-scale split route, first half: block r's absmax of
     every piece over this process's workers -> f32 ``[sum of nb_i]``,
@@ -854,6 +863,7 @@ def rows_scaled_absmax(xs, block_size: int) -> torch.Tensor:
 rows_scaled_absmax.launches = 0
 
 
+@kernel_entry("K1")
 def quantize_rows_scaled_given(xs, block_size: int, absmax: torch.Tensor):
     """K1's shared-scale split route, second half: every worker's block r
     of every piece quantized with the given (cross-process) block absmax,
@@ -922,7 +932,8 @@ def quantize_int8_many(xs, axis_name, block_size: int = 0):
     if not block_size:
         if split:
             return quantize_tensors_given(xs, axis_name.absmax_max(tensors_absmax(xs)))
-        return quantize_tensors(xs)
+        with shared_over(axis_name):  # a recorded step: the kernel's pmax
+            return quantize_tensors(xs)
     for x in xs:
         if x.dim() == 0 or x.shape[0] != axis_name.local_size:
             raise ValueError(f"shared-scale quantize_int8 takes [{axis_name.local_size}, ...], "
@@ -930,7 +941,8 @@ def quantize_int8_many(xs, axis_name, block_size: int = 0):
     if split:
         absmax = axis_name.absmax_max(rows_scaled_absmax(xs, block_size))
         return quantize_rows_scaled_given(xs, block_size, absmax)
-    return quantize_rows_scaled_many(xs, block_size)
+    with shared_over(axis_name):
+        return quantize_rows_scaled_many(xs, block_size)
 
 
 def _round(x: torch.Tensor, inv: torch.Tensor, rounding: str,
@@ -968,18 +980,23 @@ def _shared_absmax(x: torch.Tensor, axis_name, block_size: int) -> Tuple[torch.T
     """``(operand, absmax)`` of the plain quantizers: the operand is ``x``
     or its block rows (``_blocks``), the absmax per tensor (0-d) or per
     block row (``[nb, 1]``), over every worker when ``axis_name`` is
-    given (the pmax: a process-spanning axis takes its ``absmax_max``).
+    given (the pmax: the stacked axis's ``pmax`` over the workers' own
+    maxima, a process-spanning axis's ``absmax_max`` over this process's).
     NaN propagates through the max, as through ``jnp.max``."""
     stacked = axis_name is not None
+    split = hasattr(axis_name, "absmax_max")
     if block_size:
         xb = _blocks(x, block_size, stacked)
         absmax = xb.abs().amax(dim=-1, keepdim=True)
         if stacked:
-            absmax = absmax.amax(0)
+            absmax = absmax.amax(0) if split else axis_name.pmax(absmax)
     else:
         xb = x
-        absmax = x.abs().amax()
-    if hasattr(axis_name, "absmax_max"):
+        if stacked and not split:
+            absmax = axis_name.pmax(x.abs().reshape(x.shape[0], -1).amax(1))
+        else:
+            absmax = x.abs().amax()
+    if split:
         absmax = axis_name.absmax_max(absmax)
     return xb, absmax
 
@@ -1034,7 +1051,8 @@ def quantize_int8(
             q, scale, absmax = quantize_int8_many([x], axis_name)[0]
             return (q, scale, absmax) if return_absmax else (q, scale)
         # one absmax over the whole (stacked) tensor is the pmax
-        return quantize_tensor(x, return_absmax)
+        with shared_over(axis_name):
+            return quantize_tensor(x, return_absmax)
     if axis_name is not None:
         q, scale, absmax = quantize_int8_many([x], axis_name, block_size)[0]
         return (q, scale, absmax) if return_absmax else (q, scale)
@@ -1261,6 +1279,7 @@ def accumulate_rescale_plain(recv: torch.Tensor, divisor) -> torch.Tensor:
     return homomorphic_rescale(recv.to(torch.int32).sum(0, dtype=torch.int32), divisor)
 
 
+@kernel_entry("K3")
 def accumulate_rescale_int8(recv: torch.Tensor, divisor) -> torch.Tensor:
     """K3: exact integer accumulation over the worker rows of an int8
     payload ``[n, s]`` fused with the lattice rescale -> int8 ``[s]``.

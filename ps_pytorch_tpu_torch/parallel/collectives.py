@@ -679,16 +679,20 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
         for (q1, scale1, absmax), total, shape, s1 in zip(round1, totals, shapes, s1s):
             s2 = _slice_len(s1, hh, bs)
             q1 = q1.reshape(hh, pp, pp, s1)  # [h, j(sender), c(region), s1]
-            # ICI hop: worker (h, c) sums its region over j, rescaled / per_host
+            # ICI hop: worker (h, j) sends region c to (h, c) (the hosts ride
+            # along), which sums it over j, rescaled / per_host
+            recv = grid.ici.all_to_all(q1.permute(1, 2, 0, 3))  # [c, j, h, s1]
             q_mid = accumulate_rescale_int8(
-                q1.permute(1, 0, 2, 3).reshape(pp, n * s1), float(pp)).reshape(n, s1)
+                recv.permute(1, 2, 0, 3).reshape(pp, n * s1), float(pp)).reshape(n, s1)
             q_mid = torch.nn.functional.pad(q_mid, (0, hh * s2 - s1))
-            # DCN hop: worker (h, c) sums chunk h over the hosts h', rescaled / hosts
+            # DCN hop: worker (h', c) sends chunk h to (h, c), which sums it
+            # over the hosts h', rescaled / hosts
+            recv = grid.dcn.all_to_all(q_mid.reshape(hh, pp, hh, s2).permute(0, 2, 1, 3))
             q2 = accumulate_rescale_int8(
-                q_mid.reshape(hh, pp, hh, s2).permute(0, 2, 1, 3).reshape(hh, n * s2),
-                float(hh)).reshape(hh, pp, s2)
+                recv.permute(1, 0, 2, 3).reshape(hh, n * s2), float(hh)).reshape(hh, pp, s2)
             # int8 gathers: over DCN (the region), then over ICI (the piece)
-            full = q2.permute(1, 0, 2).reshape(pp, hh * s2)[:, :s1].reshape(-1)
+            chunks = grid.dcn.all_gather(q2.reshape(hh, 1, pp, s2))  # [h, c, s2]
+            full = _ici_gather(grid, _ici_region(chunks, s1))
             scale = _hier_gain_scale(scale1, absmax, n, denominator, bucket_peaks is not None)
             outs.append(_deq_shared(full, scale, 1.0, bs)[:total].reshape(shape))
             if want_contrib:
@@ -709,7 +713,10 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
         r1 = round1[j * hh:(j + 1) * hh]
         q1 = torch.stack([q.reshape(pp, pp * s1) for q, _, _ in r1])  # [h, j, c*s1]
         scale1 = torch.stack([sc for _, sc, _ in r1])
-        part = q1.reshape(hh, pp, pp, s1).to(torch.int32).sum(1, dtype=torch.int32)
+        # the ICI all_to_all (worker (h, j) sends region c to (h, c)), then
+        # the exact region sums over the senders j
+        recv = ici.all_to_all(q1.reshape(hh, pp, pp, s1).permute(1, 2, 0, 3))  # [c, j, h, s1]
+        part = recv.to(torch.int32).sum(1, dtype=torch.int32).permute(1, 0, 2)  # [h, c, s1]
         partial = _grid_scale(part, scale1, bs, hh, pp, s1).reshape(n, s1)
         if want_contrib:
             c = torch.cat([dequantize_int8(q.to(torch.int32), sc, block_size=bs,
@@ -728,29 +735,61 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
     for j, (_, s1, s2) in enumerate(partials2):
         rd = round_d[j * pp:(j + 1) * pp]
         qd = torch.stack([q.reshape(hh, hh, s2) for q, _, _ in rd])  # [c, h', h(region), s2]
-        sums = qd.to(torch.int32).sum(1, dtype=torch.int32)  # [c, h, s2]
+        # the DCN all_to_all (worker (h', c) sends chunk h to (h, c)), then
+        # the exact sums over the senders h'
+        recv = dcn.all_to_all(qd.permute(1, 2, 0, 3))  # [h, h', c, s2]
+        sums = recv.to(torch.int32).sum(1, dtype=torch.int32).permute(1, 0, 2)  # [c, h, s2]
         scale_d = torch.stack([sc for _, sc, _ in rd])
         regions.append(_grid_scale(sums, scale_d, bs, pp, hh, s2)  # [c, h, s2]
                        .permute(1, 0, 2).reshape(n, s2))
     # the DCN hop's round 2 (local scales, fold 2 then 1: round 3) and its gather
     fulls = _q2r_local_gather(regions, key_ids, grid, bs, rounding, draws)
-    for full, total, shape, s1, (_, _, s2) in zip(fulls, totals, shapes, s1s, partials2):
-        region = full.reshape(hh, pp, s2).permute(1, 0, 2).reshape(pp, hh * s2)[:, :s1]
+    for full, total, shape, s1 in zip(fulls, totals, shapes, s1s):
         # the ICI reassembly gather (f32) of the regions, then / K
-        outs.append(_divide(region.reshape(-1)[:total], denominator).reshape(shape))
+        outs.append(_divide(_ici_gather(grid, _ici_region(full, s1))[:total],
+                            denominator).reshape(shape))
     return outs, contribs
 
 
-def _q2r_local_gather(regions, key_ids, axis, block_size: int, rounding: str, draws):
-    """Every worker's region ``[N, s]`` requantized with its own scales
-    (round 3 of the draws) and dequantized: the values an all_gather of
-    the int8 regions and their scale rows carries."""
-    req = _requantize_regions(regions, key_ids, axis, block_size, rounding, draws, round_=3)
+def _ici_region(chunks: torch.Tensor, s1: int) -> torch.Tensor:
+    """Each ICI index's region ``[per_host, s1]`` from the DCN-gathered
+    chunks ``[hosts, per_host, s2]`` (chunk h of region c at ``[h, c]``)."""
+    hh, pp, s2 = chunks.shape
+    return chunks.permute(1, 0, 2).reshape(pp, hh * s2)[:, :s1]
+
+
+def _ici_gather(grid, region: torch.Tensor) -> torch.Tensor:
+    """The ICI all_gather of every worker's region (``region [per_host,
+    s1]``: every host holds the same one after the DCN gather) -> the
+    flat piece, ``[per_host * s1]``."""
+    hh, pp = grid.hosts, grid.per_host
+    s1 = region.shape[1]
+    every = region[:, None, None].expand(pp, 1, hh, s1)  # worker (h, c)'s region c
+    return grid.ici.all_gather(every)[:, 0].reshape(-1)
+
+
+def _q2r_local_gather(regions, key_ids, grid, block_size: int, rounding: str, draws):
+    """Every worker's region ``[N, s]`` (worker (h, c) holding chunk h of
+    ICI region c) requantized with its own scales (round 3 of the draws),
+    the int8 chunks and their scale rows all_gathered over DCN, and
+    dequantized: ``[hosts, per_host, s]`` a piece."""
+    req = _requantize_regions(regions, key_ids, grid, block_size, rounding, draws, round_=3)
+    hh, pp = grid.hosts, grid.per_host
+
+    def gather(x):  # [n, ...] -> the DCN all_gather, [hosts, per_host, ...]
+        return grid.dcn.all_gather(x.reshape(hh, 1, pp, *x.shape[1:]))
+
     if block_size:
-        return [(q2.float() * scale2).reshape(r.shape) for r, (q2, scale2) in zip(regions, req)]
-    nl = axis.local_size
-    return [torch.stack([q.float() * sc for q, sc, _ in req[j * nl:(j + 1) * nl]])
-            for j in range(len(regions))]
+        return [(gather(q2.reshape(hh * pp, -1, block_size)).float()
+                 * gather(scale2.reshape(hh * pp, -1, 1))).reshape(hh, pp, r.shape[1])
+                for r, (q2, scale2) in zip(regions, req)]
+    nl = grid.local_size
+    outs = []
+    for j in range(len(regions)):
+        mine = req[j * nl:(j + 1) * nl]
+        q = gather(torch.stack([q for q, _, _ in mine]))
+        outs.append(q.float() * gather(torch.stack([sc for _, sc, _ in mine]))[..., None])
+    return outs
 
 
 def quantized_allreduce_2round_hier(

@@ -127,7 +127,7 @@ def _3d_loss(cfg, params: Dict, tokens: torch.Tensor, mesh: Mesh3D) -> torch.Ten
 
     attend = local_attention(cfg)
     task, _ = pipeline_loss(cfg, params, tokens, mesh.pp,
-                            lambda x, blk: (tp_block(cfg, x, blk, attend), None),
+                            lambda x, blk: (tp_block(cfg, x, blk, attend, mesh.tp), None),
                             shard_next_token_nll)
     return task
 

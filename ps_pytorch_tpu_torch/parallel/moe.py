@@ -303,7 +303,9 @@ def make_moe_train_step(cfg, moe: MoEConfig, tx, mesh: WorkerAxis):
     def loss_fn(params, tokens):
         logits, aux = apply_moe_transformer(cfg, moe, params, tokens, mesh)
         task = shard_next_token_nll(logits, tokens)
-        return (task + moe.aux_loss_weight * aux).mean(), (task.mean(), aux.mean())
+        # the means over the shards are the axis's pmeans
+        return (mesh.pmean(task + moe.aux_loss_weight * aux),
+                (mesh.pmean(task), mesh.pmean(aux)))
 
     def step(params, opt_state, tokens):
         params, opt_state, (task, aux) = differentiate(loss_fn, tx, params, opt_state,

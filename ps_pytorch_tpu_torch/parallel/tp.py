@@ -136,13 +136,20 @@ def unshard_params_tp(cfg, params: Dict, shard_vocab: bool = False) -> Dict:
     return _map_specs(join, params, tp_param_specs(cfg, shard_vocab))
 
 
-def tp_block(cfg, x: torch.Tensor, blk: Dict, attend) -> torch.Tensor:
+def _shard_psum(y: torch.Tensor, axis: WorkerAxis) -> torch.Tensor:
+    """The psum over the shards of ``y [..., n, N T, D]`` (dim -3):
+    ``axis.psum`` over the shard dim moved to the front, the same sum in
+    the same order."""
+    return axis.psum(y.movedim(-3, 0))
+
+
+def tp_block(cfg, x: torch.Tensor, blk: Dict, attend, axis: WorkerAxis) -> torch.Tensor:
     """One Megatron block on every shard at once, over any leading dims
     (none for tp, the stages for dp_tp_pp): activations ``x [..., N, T,
     D]`` (one tensor that every shard reads), norms ``[..., D]``, each cut
     leaf ``[..., n, ...]`` (``shard_params_tp``'s slices). The shards'
     heads fold into the batch of one attention call, and each of the two
-    psums is a sum over the shard dim."""
+    psums is ``axis.psum`` over the shard dim (``axis`` the tp axis)."""
     from ..models.transformer import _rms_norm
 
     cd = cfg.effective_compute_dtype
@@ -159,9 +166,9 @@ def tp_block(cfg, x: torch.Tensor, blk: Dict, attend) -> torch.Tensor:
     q, k, v = qkv.reshape(-1, t, 3, hl, hd).unbind(2)  # shards fold into B
     o = attend(q, k, v).reshape(lead + [n, b * t, hl * hd])  # local heads only
     proj = torch.matmul(o, blk["wo"].reshape(lead + [n, hl * hd, d]))
-    x = x + proj.sum(-3).reshape(x.shape)  # the psum over the shards
+    x = x + _shard_psum(proj, axis).reshape(x.shape)
     up = F.gelu(torch.matmul(norm(x, blk["ln2"]), blk["w_up"]), approximate="tanh")
-    return x + torch.matmul(up, blk["w_down"]).sum(-3).reshape(x.shape)
+    return x + _shard_psum(torch.matmul(up, blk["w_down"]), axis).reshape(x.shape)
 
 
 def apply_transformer_tp(cfg, params: Dict, tokens: torch.Tensor, axis: WorkerAxis,
@@ -199,9 +206,9 @@ def apply_transformer_tp(cfg, params: Dict, tokens: torch.Tensor, axis: WorkerAx
     attend = local_attention(cfg)
     for blk in params["blocks"]:
         if cfg.remat:
-            x = checkpoint(tp_block, cfg, x, blk, attend, use_reentrant=False)
+            x = checkpoint(tp_block, cfg, x, blk, attend, axis, use_reentrant=False)
         else:
-            x = tp_block(cfg, x, blk, attend)
+            x = tp_block(cfg, x, blk, attend, axis)
     xf = _rms_norm(x.to(cd), params["out_norm"].to(cd))
     # tied unembedding: each shard's vocab rows only when sharded
     emb = params["embed"].to(cd)

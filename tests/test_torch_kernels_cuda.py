@@ -1254,3 +1254,41 @@ def test_torch_moe_bf16_lm1_width_step_on_card_is_finite(cuda_device):
     assert np.isfinite(float(task)) and np.isfinite(float(aux))
     for x in tree_leaves(p):
         assert x.dtype == torch.float32 and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ps_int8_replicated", "ps_int8_replicated_bucketed64k_pipelined",
+                                  "ps_int8_2round_replicated_bucketed_homomorphic",
+                                  "ps_hier_int8_2round_replicated_bucketed_homomorphic",
+                                  "serve_decode_int8kv"])
+def test_torch_check_records_the_same_step_on_card_as_on_cpu(cuda_device, name):
+    """pscheck on the card: a registry spec recorded with device="cuda"
+    (the kernels launch) gives the CPU's accounting rows and feeds_params
+    flags, no finding, and one kernel node a launch, entry by entry (the
+    pipelined spec's buckets go out from autograd's device thread, on a
+    side stream)."""
+    from ps_pytorch_tpu_torch.check import get_contracts, load_contract, run_checks, trace_spec
+    from ps_pytorch_tpu_torch.check.core import DEFAULT_CONTRACT
+    import importlib
+
+    # the module: ``ops.flash_attention`` is the function the package re-exports
+    fa = importlib.import_module("ps_pytorch_tpu_torch.ops.flash_attention")
+    spec = next(s for s in get_contracts() if s.name == name)
+    entries = {n: getattr(tq, n) for n in (
+        "quantize_tensors", "quantize_rows_scaled_many", "quantize_rows_many", "quantize_rows",
+        "quantize_kv_write", "accumulate_rescale_int8", "tensors_absmax",
+        "quantize_tensors_given", "rows_scaled_absmax", "quantize_rows_scaled_given")}
+    entries.update({n: getattr(fa, n) for n in ("flash_fwd", "flash_partial", "flash_bwd_dq",
+                                                "flash_bwd_dkv")})
+    before = {n: fn.launches for n, fn in entries.items()}
+    card = trace_spec(spec, device=cuda_device)
+    torch.cuda.synchronize()
+    grew = {n: fn.launches - before[n] for n, fn in entries.items() if fn.launches != before[n]}
+    assert {k.split(":", 1)[1]: v for k, v in card.kernels.items()} == grew
+    assert grew, "the spec launched no kernel on the card"
+    cpu = trace_spec(spec, device="cpu")
+    rows = [(c.kind, c.axes, c.dtype, c.bytes, c.feeds_params) for c in card.collectives]
+    assert rows == [(c.kind, c.axes, c.dtype, c.bytes, c.feeds_params) for c in cpu.collectives]
+    assert card.kernels == cpu.kernels
+    contract = load_contract(DEFAULT_CONTRACT)
+    assert run_checks([card], contract, check_stale=False) == []
