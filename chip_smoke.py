@@ -289,11 +289,28 @@ Phases, one line each:
    registry's ``ps_resnet18_int8_replicated_bucketed``, and timed with
    no tape active (p50 of 9 steps after 3), beside phase 9's p50; the
    phase's seconds;
-40. the kernels JSON line, then the result line.
+40. psnumerics on the card: PSC111-114 over phase 39's records, zero
+   findings; each spec's ``NumericsReport`` (recorded on the card) the
+   CPU's in this run, event for event (scale roots by their count); the
+   canonical full-width step through the four rules; the phase's seconds;
+41. autotune on the card: ``tools.autotune --model resnet18 --probe-top
+   3`` (every candidate recorded on the card, the card's profile
+   measured there, ResNet18 at its published widths), with the int8
+   4 MiB wire and the fused homomorphic two-round wire probed too
+   (``--probe``: the card's profile ranks the uncompressed wires first):
+   a schema-valid record, each probe stamped ``gpu`` and the card's
+   name, its K1 / K2 / K3 launches grown as its knobs say (K2 in both
+   named probes, K3 in the homomorphic one), the profile carrying the
+   card's name and power limit; the best candidate's flag line run 2 steps
+   through ``cli.train --config-json``; ``cli.tune`` sweeping 2 learning
+   rates x 4 steps of ResNet18 with ``--compress-grad compress`` (one K2
+   call a step) and ``--workload lm`` 2 x 2 steps on the flash kernels
+   (K4-K6 launched); the seconds of each part;
+42. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,36,37,38,39 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,39,40,41 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -312,7 +329,8 @@ steps of 33, the flash kernels at their shard shapes of 34, the MoE and
 dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
 alone, the held MoE and dp_tp_pp steps of 36, the serving CLI of 37, the
 compressed checkpoints of 38, pscheck of 39, which reports no phase 9
-p50 beside its own when run alone),
+p50 beside its own when run alone, psnumerics of 40, which runs 39
+first, autotune of 41),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -4355,10 +4373,12 @@ def _collective_rows(r) -> list:
     return [(c.kind, c.axes, c.dtype, c.bytes, c.feeds_params) for c in r.collectives]
 
 
-def phase_pscheck(card: str, phase9_p50_ms=None) -> dict:
+def phase_pscheck(card: str, phase9_p50_ms=None, keep=None) -> dict:
     """Phase 39: the registry recorded on the card, held against the
     committed artifact and against the same registry on the CPU; the
-    canonical ResNet18 step recorded and timed with no tape active."""
+    canonical ResNet18 step recorded and timed with no tape active.
+    ``keep`` (a dict) receives the card's and the CPU's records and the
+    canonical one, for phase 40."""
     from ps_pytorch_tpu_torch.check import get_contracts, load_contract, run_checks, trace_spec
     from ps_pytorch_tpu_torch.check.contracts import canonical_spec
     from ps_pytorch_tpu_torch.check.core import DEFAULT_CONTRACT
@@ -4382,8 +4402,10 @@ def phase_pscheck(card: str, phase9_p50_ms=None) -> dict:
     require(not findings, "phase 39 findings on the card: "
             + "; ".join(f"{f.config}: {f.rule} {f.message}" for f in findings[:10]))
     t_cpu = time.perf_counter()
+    cpu_results = []
     for r in results:
         c = trace_spec(r.spec, device="cpu")
+        cpu_results.append(c)
         require(r.summary == c.summary and _collective_rows(r) == _collective_rows(c),
                 f"phase 39 {r.spec.name}: card rows {_collective_rows(r)} != CPU rows "
                 f"{_collective_rows(c)}")
@@ -4414,6 +4436,8 @@ def phase_pscheck(card: str, phase9_p50_ms=None) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     require(np.isfinite(float(metrics["loss"])), "phase 39 canonical step: loss not finite")
+    if keep is not None:
+        keep.update(card=results, cpu=cpu_results, canonical=rc)
     rec = {"card": card, "configs": len(results), "findings": 0,
            "kernel_nodes": by_kernel, "card_record_s": card_s, "cpu_record_s": cpu_s,
            "canonical": {"name": canon.name, "record_s": canon_s, "rows": rc.summary,
@@ -4426,14 +4450,217 @@ def phase_pscheck(card: str, phase9_p50_ms=None) -> dict:
     return rec
 
 
+def _numerics_events(rep) -> dict:
+    """A NumericsReport event for event, each scale-root set by its size
+    (the roots are node ids of the analyzer's own graph)."""
+    def strip(e):
+        d = dict(vars(e))
+        for k in ("roots", "scale_roots"):
+            if k in d:
+                d[k] = len(d[k])
+        return tuple(sorted((k, repr(v)) for k, v in d.items()))
+
+    return {"sites": [strip(e) for e in rep.sites], "dequants": [strip(e) for e in rep.dequants],
+            "accums": [strip(e) for e in rep.accums], "narrows": [strip(e) for e in rep.narrows],
+            "residuals": [strip(e) for e in rep.residuals], "axis_sizes": rep.axis_sizes}
+
+
+def phase_numerics(card: str, kept: dict) -> dict:
+    """Phase 40: PSC111-114 over phase 39's records on the card; each
+    report the CPU's, event for event; the canonical step through the
+    four rules."""
+    from ps_pytorch_tpu_torch.check.rules import (
+        psc111_scale_provenance,
+        psc112_error_feedback,
+        psc113_capacity,
+        psc114_downcast,
+    )
+
+    def numerics_findings(r):
+        return (psc111_scale_provenance(r) + psc112_error_feedback(r) + psc113_capacity(r)
+                + psc114_downcast(r))
+
+    t0 = time.perf_counter()
+    counts = {"sites": 0, "dequants": 0, "accums": 0, "narrows": 0, "residuals": 0}
+    for r, c in zip(kept["card"], kept["cpu"]):
+        require(r.spec.name == c.spec.name, "phase 40: phase 39's records out of order")
+        if r.spec.numerics is None:
+            continue
+        found = numerics_findings(r)
+        require(not found, f"phase 40 {r.spec.name}: " + "; ".join(
+            f"{f.rule} {f.message}" for f in found[:5]))
+        mine, cpu = _numerics_events(r.numerics), _numerics_events(c.numerics)
+        for key in mine:
+            require(mine[key] == cpu[key], f"phase 40 {r.spec.name}: the card's {key} differ "
+                                           f"from the CPU's")
+        for key in counts:
+            counts[key] += len(mine[key])
+    canon = kept["canonical"]
+    found = numerics_findings(canon)
+    require(not found and canon.numerics is not None,
+            "phase 40 canonical step: " + "; ".join(f"{f.rule} {f.message}" for f in found[:5]))
+    rec = {"card": card, "configs": sum(1 for r in kept["card"] if r.spec.numerics is not None),
+           "findings": 0, "events": counts,
+           "canonical": {"name": canon.spec.name, "sites": len(canon.numerics.sites),
+                         "accums": [(a.kind, a.dtype, a.multiplier, a.peak_out, a.capacity)
+                                    for a in canon.numerics.accums[:1]],
+                         "n_accums": len(canon.numerics.accums)},
+           "seconds": time.perf_counter() - t0}
+    print("phase 40 psnumerics on the card: " + json.dumps(rec))
+    return rec
+
+
+def _uses(knobs: dict) -> dict:
+    """Which quantize kernels a knob point launches on the stacked card:
+    K2 on a per-tensor int8 wire (both rounds of the dequant two-round
+    wire), K1 on a block-scaled one, K3 on the homomorphic two-round
+    wire."""
+    q = knobs["compress"] in ("int8", "int8_2round")
+    block = knobs["quant_block_size"] > 0
+    return {"K2": q and not block, "K1": q and block,
+            "K3": knobs["compress"] == "int8_2round" and knobs["wire_domain"] == "homomorphic"}
+
+
+AUTOTUNE_PROBE_STEPS = 4
+
+
+def phase_autotune(card: str) -> dict:
+    """Phase 41: ``tools.autotune`` on the card, its best flag line
+    through ``cli.train --config-json``, and ``cli.tune``'s two sweeps."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch.cli import train as cli_train
+    from ps_pytorch_tpu_torch.cli import tune as cli_tune
+    from ps_pytorch_tpu_torch.obs.schema import validate_event
+    from ps_pytorch_tpu_torch.tools import autotune
+
+    smi_name, smi_power = (x.strip() for x in nvidia_smi_line().split(",", 1))
+    kind = torch.cuda.get_device_name(0)
+    named = ("ps_resnet18_int8_replicated_bucketed4096k",
+             "ps_resnet18_int8_2round_replicated_bucketed_homomorphic")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "autotune_resnet18.json")
+        t0 = time.perf_counter()
+        rc = autotune.main(["--model", "resnet18", "--probe-top", "3", "--probe-steps",
+                            str(AUTOTUNE_PROBE_STEPS), "--probe", ",".join(named),
+                            "--out", out])
+        search_s = time.perf_counter() - t0
+        require(rc == 0, f"phase 41: tools.autotune exited {rc}")
+        with open(out) as f:
+            rec = json.load(f)
+        validate_event(dict(rec))
+        validate_event(dict(rec["run"]))
+        prof = rec["hardware_profile"]
+        require(prof["name"] == smi_name and prof["power_limit"] == smi_power,
+                f"phase 41: profile {prof['name']} / {prof['power_limit']}, nvidia-smi "
+                f"{smi_name} / {smi_power}")
+        probes = [c for c in rec["candidates"] if "probe" in c]
+        require(len(probes) == 3 + len(set(named) - {c["name"] for c in probes[:3]})
+                and set(named) <= {c["name"] for c in probes},
+                f"phase 41: probes {[c['name'] for c in probes]}")
+        for name in named:
+            got = next(c["probe"]["launches"] for c in probes if c["name"] == name)
+            require(got["K2"] == AUTOTUNE_PROBE_STEPS
+                    and got["K3"] == (AUTOTUNE_PROBE_STEPS if "homomorphic" in name else 0),
+                    f"phase 41 {name}: probe launches {got}, not one K2 (and K3) a step")
+        for c in probes:
+            p = c["probe"]
+            require(p["platform"] == "gpu" and p["device_kind"] == kind,
+                    f"phase 41 {c['name']}: probe backend {p['platform']} {p['device_kind']}")
+            for k, used in _uses(c["knobs"]).items():
+                n = p["launches"][k]
+                require((n > 0) == used and n % AUTOTUNE_PROBE_STEPS == 0,
+                        f"phase 41 {c['name']}: {k} launched {n} times over "
+                        f"{AUTOTUNE_PROBE_STEPS} steps (knobs {c['knobs']})")
+        stages = sorted({p["stage"] for p in rec["pruned"]})
+        require(stages == ["config", "contract"], f"phase 41: prune stages {stages}")
+        # the best candidate's flags through cli.train --config-json, 2 steps
+        owned = set(rec["best"]["flags"])
+        base = [x for i in range(0, len(TRAIN_ARGS), 2) if TRAIN_ARGS[i] not in owned
+                for x in TRAIN_ARGS[i:i + 2]]
+        steps = 2
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli_train.main(base + ["--max-steps", str(steps), "--no-checkpoints",
+                                     "--config-json", out])
+        torch.cuda.synchronize()
+        best_s = time.perf_counter() - t0
+        best_launches = read_counts()
+        losses = [h["loss"] for h in res["history"]]
+        require(len(losses) == steps and all(np.isfinite(v) for v in losses),
+                f"phase 41 best flag line: losses {losses}")
+        want = {k: v for k, v in _uses(rec["best"]["knobs"]).items() if v}
+        k_of = {"K2": "quantize_tensors", "K3": "accumulate_rescale_int8"}
+        for k in want:
+            if k in k_of:
+                require(best_launches[k_of[k]] > 0,
+                        f"phase 41 best flag line: no {k} launch ({best_launches})")
+        # cli.tune: 2 learning rates x 4 steps of ResNet18, the int8 wire
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = cli_tune.main(["--device", "cuda", "--network", "ResNet18", "--dataset",
+                                "Cifar10", "--num-workers", str(WORKERS), "--batch-size", "128",
+                                "--max-steps", "4", "--lr-grid", "0.1", "0.01",
+                                "--compress-grad", "compress", "--score-window", "2",
+                                "--train-dir", os.path.join(root, "tune")])
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        tune_launches = read_counts()
+        require(set(scores) == {0.1, 0.01} and all(np.isfinite(v) for v in scores.values()),
+                f"phase 41 cli.tune: scores {scores}")
+        require(tune_launches["quantize_tensors"] == 2 * 4,
+                f"phase 41 cli.tune: K2 launches {tune_launches}, not one a step")
+        # cli.tune --workload lm: 2 x 2 steps, attention on K4-K6
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        lm_scores = cli_tune.main(["--device", "cuda", "--workload", "lm", "--max-steps", "2",
+                                   "--batch-size", "4", "--lr-grid", "0.1", "0.01",
+                                   "--score-window", "2", "--lm-attention-impl", "flash"])
+        torch.cuda.synchronize()
+        lm_s = time.perf_counter() - t0
+        lm_launches = read_flash_counts()
+        require(set(lm_scores) == {0.1, 0.01}
+                and all(np.isfinite(v) for v in lm_scores.values()),
+                f"phase 41 cli.tune lm: scores {lm_scores}")
+        require(lm_launches["flash_fwd"] + lm_launches["flash_partial"] > 0
+                and lm_launches["flash_bwd_dq"] > 0 and lm_launches["flash_bwd_dkv"] > 0,
+                f"phase 41 cli.tune lm: flash launches {lm_launches}")
+    top = [{"rank": c["rank"], "name": c["name"],
+            "modeled_step_ms": c["cost"]["modeled_step_s"] * 1e3,
+            "modeled_step_probe_ms": c["cost"].get("modeled_step_probe_s", 0) * 1e3 or None,
+            "measured_step_ms": c["probe"]["measured_step_s"] * 1e3 if "probe" in c else None,
+            "overlap_fraction_spans": c["probe"]["overlap_fraction_spans"]
+            if "probe" in c else None,
+            "update_path_ops": c["cost"]["update_path_ops"], "comm_ms": c["cost"]["comm_s"] * 1e3,
+            "probe_launches": c["probe"]["launches"] if "probe" in c else None}
+           for c in rec["candidates"] if c["rank"] < 6 or "probe" in c]
+    out_rec = {"card": card, "profile": prof, "n_points": rec["n_points"],
+               "n_candidates": rec["n_candidates"], "n_pruned": rec["n_pruned"],
+               "pruned": [(p["name"], p["stage"], p["rules"]) for p in rec["pruned"]],
+               "best": rec["best"]["name"], "best_flag_line": rec["best"]["flag_line"],
+               "gate": rec["gate"], "default_modeled_step_ms":
+                   rec["default"]["cost"]["modeled_step_s"] * 1e3 if rec["default"] else None,
+               "top": top, "search_s": search_s,
+               "best_run": {"losses": losses, "launches": best_launches,
+                            "step_ms": [h["time_cost"] * 1e3 for h in res["history"]],
+                            "seconds": best_s},
+               "tune": {"scores": scores, "launches": tune_launches, "seconds": tune_s},
+               "tune_lm": {"scores": lm_scores, "launches": lm_launches, "seconds": lm_s},
+               "seconds": time.perf_counter() - t_phase}
+    print("phase 41 autotune on the card: " + json.dumps(out_rec))
+    return out_rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
                          "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, "
-                         "36, 37, 38, 39; 2 "
-                         "on this tree only; 22 runs 9 first, 24 runs 23 first)")
+                         "36, 37, 38, 39, 40, 41; 2 "
+                         "on this tree only; 22 runs 9 first, 24 runs 23 first, 40 runs 39 "
+                         "first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
     ap.add_argument("--phase24-child", nargs=4, default=None, metavar=("RANK", "PORT", "DIR", "OUT"),
@@ -4519,7 +4746,14 @@ def main(argv=None) -> int:
                  36: lambda: phase_moe_schemes_held(dev),
                  37: lambda: phase_serve_cli(smi),
                  38: lambda: phase_compressed_checkpoint(smi),
-                 39: lambda: phase_pscheck(smi, ran[9]["step_ms_p50"] if 9 in ran else None)}
+                 39: lambda: phase_pscheck(smi, ran[9]["step_ms_p50"] if 9 in ran else None),
+                 40: lambda: phase_numerics(smi, _kept_pscheck(smi)),
+                 41: lambda: phase_autotune(smi)}
+
+        def _kept_pscheck(smi_):
+            kept = {}
+            phase_pscheck(smi_, None, kept)
+            return kept
         alone = {str(k): v for k, v in alone.items()}
         phases = args.phases.split(",")
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
@@ -4569,7 +4803,11 @@ def main(argv=None) -> int:
     phase_moe_schemes_held(dev)
     serve_cli = phase_serve_cli(smi)
     psck = phase_compressed_checkpoint(smi)
-    pscheck = phase_pscheck(smi, train["step_ms_p50"])
+    kept = {}
+    pscheck = phase_pscheck(smi, train["step_ms_p50"], kept)
+    phase_numerics(smi, kept)
+    del kept
+    tune = phase_autotune(smi)
 
     def moe_launches(counter):
         """Phase 35's launches of one flash entry in each run (8 steps)."""
@@ -4623,7 +4861,13 @@ def main(argv=None) -> int:
             entry["shard_shapes"] = shard_shapes(part)
         # phase 35: the MoE schemes (ep_sp's ring takes the partial triple)
         entry.update(moe_launches(name))
+        # phase 41: cli.tune --workload lm (2 learning rates x 2 steps)
+        entry["launches_cli_tune_lm"] = tune["tune_lm"]["launches"][name]
         return entry
+
+    def probe_launches(k):
+        """Phase 41: the K launches of the autotune probes (4 steps each)."""
+        return sum(t["probe_launches"][k] for t in tune["top"] if t["probe_launches"])
 
     def split_entry(name, source, site, rec, wire, absmax, given):
         """A split route: launches from phase 23's NCCL run of its wire
@@ -4685,6 +4929,7 @@ def main(argv=None) -> int:
             "launches_pipelined": overlap["block128"]["launches_pipelined"][
                 "quantize_rows_scaled_many"],
             "launches_hier": hier["dequant_block128"]["launches"]["quantize_rows_scaled_many"],
+            "launches_autotune_probes": probe_launches("K1"),
             "max_abs_err": max(k1s["max_abs_err"], k1s["resnet18_step"]["max_abs_err"]),
             "ms": k1s["resnet18_step"]["ms"], "plain_ms": k1s["resnet18_step"]["plain_ms"],
             "bound_ms": k1s["resnet18_step"]["bound_ms"],
@@ -4713,6 +4958,10 @@ def main(argv=None) -> int:
             "launches_compressed_resume": psck["resume_launches"],
             # phase 39: the registry's tapes (every int8 / int8_2round spec)
             "launches_pscheck": pscheck["kernel_nodes"].get("K2:quantize_tensors", 0),
+            # phase 41: the autotune probes, the best flag line's 2 steps, cli.tune
+            "launches_autotune_probes": probe_launches("K2"),
+            "launches_autotune_best_run": tune["best_run"]["launches"]["quantize_tensors"],
+            "launches_cli_tune": tune["tune"]["launches"]["quantize_tensors"],
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],
@@ -4734,6 +4983,9 @@ def main(argv=None) -> int:
             "launches_config_json": cfg_json["launches"]["accumulate_rescale_int8"],
             # phase 39: the registry's tapes (the homomorphic two-round specs)
             "launches_pscheck": pscheck["kernel_nodes"].get("K3:accumulate_rescale_int8", 0),
+            # phase 41: the autotune probes and the best flag line's 2 steps
+            "launches_autotune_probes": probe_launches("K3"),
+            "launches_autotune_best_run": tune["best_run"]["launches"]["accumulate_rescale_int8"],
             "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
             "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
             "bound_ms": k3["resnet18_fused"]["bound_ms"],

@@ -17,8 +17,12 @@ adaptive configs keep their grad-reduce declaration and byte envelope
 per-bucket dispatch (PSC109), and adaptive configs name a real
 host-consensus point (PSC110, ``lint/diverge.consensus_inventory``).
 
-PSC111-114 (psnumerics) are ROADMAP.md item 26: ``--select`` naming one
-is refused.
+psnumerics (``numerics.py``, PSC111-114) runs a precision-flow analysis
+over the same tape whenever a spec declares a ``NumericsPolicy``: every
+dequantize's scale descends from its quantize's max-abs reduction
+(PSC111), error feedback closes every primary site (PSC112), integer
+sums fit their accumulator by the recorded axis sizes (PSC113), and no
+silent downcast sits on the update path (PSC114).
 
 Entry point: ``python -m ps_pytorch_tpu_torch.check`` (``--device cpu``
 on a machine with no card). The module imports no kernel and builds
@@ -53,6 +57,7 @@ from .core import (
     trace_spec,
     write_contract,
 )
+from .numerics import NumericsReport, analyze_numerics
 from .opcount import device_kernel_count, update_path_op_count, update_path_ops_from
 from .rules import RULE_IDS
 from .walker import Collective, Tape, collect_collectives, record_step, recording, summarize
@@ -60,6 +65,7 @@ from .walker import Collective, Tape, collect_collectives, record_step, recordin
 __all__ = [
     "AdaptivePolicy", "Built", "CheckFinding", "Collective", "ContractSpec", "Deviation",
     "DonationSpec", "FusionSpec", "GradReduce", "NarrowingAllowance", "NumericsPolicy",
+    "NumericsReport", "analyze_numerics",
     "OverlapPolicy", "PrecisionPolicy", "RULE_IDS", "ServePolicy", "Tape", "TraceResult",
     "WireAllowance", "WirePolicy", "collect_collectives", "device_kernel_count",
     "get_contracts", "load_contract", "record_step", "recording", "run_checks", "summarize",

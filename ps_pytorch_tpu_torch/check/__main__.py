@@ -8,8 +8,9 @@ cannot silently re-baseline itself.
 
 ``--device`` (default ``cuda``, as every entry point of the port) is
 where the registry's steps are recorded: without a card, pass ``--device
-cpu`` (on the default a card-less machine raises). ``--select`` naming a
-psnumerics rule (PSC111-114) exits 2: they are ROADMAP.md item 26.
+cpu`` (on the default a card-less machine raises). ``--select
+PSC111,PSC112,PSC113,PSC114`` runs the psnumerics rules alone over the
+same recorded steps.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(
         prog="python -m ps_pytorch_tpu_torch.check",
-        description="communication-contract checker over a recorded step (rules "
-                    "PSC101-PSC110).")
+        description="communication-contract and precision-flow checker over a "
+                    "recorded step (rules PSC101-PSC114).")
     parser.add_argument("--format", choices=("text", "json"), default="text")
     parser.add_argument("--contract", default=None,
                         help=f"accounting artifact (default: {DEFAULT_CONTRACT})")
@@ -68,17 +69,12 @@ def main(argv=None) -> int:
 
     selected = None
     if args.select:
-        from .rules import NUMERICS_RULE_IDS, RULE_IDS
+        from .rules import RULE_IDS
 
         selected = {r.strip().upper() for r in args.select.split(",") if r.strip()}
         unknown = selected - set(RULE_IDS)
         if unknown:
             print(f"unknown rule id(s): {', '.join(sorted(unknown))}", file=sys.stderr)
-            return 2
-        numerics = sorted(selected & set(NUMERICS_RULE_IDS))
-        if numerics:
-            print(f"pscheck: {', '.join(numerics)} (psnumerics) are not ported yet: "
-                  f"ROADMAP.md item 26", file=sys.stderr)
             return 2
 
     try:

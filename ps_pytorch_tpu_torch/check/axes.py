@@ -65,6 +65,17 @@ def _process_bytes(axis):
     return nbytes
 
 
+def _sizes(axis) -> dict:
+    """The size of each mesh axis a recording axis rides, where it knows
+    them: a one-name axis its own size, the hybrid grid its hosts and
+    per-host workers (JAX's tuple axis ``(dcn, workers)``)."""
+    if isinstance(axis, HybridWorkerAxis):
+        return {DCN_AXIS: axis.hosts, WORKER_AXIS: axis.per_host}
+    if len(axis.names) == 1:
+        return {axis.names[0]: axis.size}
+    return {}
+
+
 def _recorded(method: str, base):
     real = getattr(base, method)
     kind = walker.COLLECTIVE_KINDS[method]
@@ -79,7 +90,8 @@ def _recorded(method: str, base):
             nbytes = (_process_bytes(self) if isinstance(self, ProcessWorkerAxis)
                       else _stacked_bytes(self))
         return walker.collective_call(kind, self.names, real, (self, x) + args, kwargs, [op],
-                                      nbytes, f"{'.'.join(self.names)}.{method}")
+                                      nbytes, f"{'.'.join(self.names)}.{method}",
+                                      mult=self.size, sizes=_sizes(self))
 
     call.__name__ = method
     call.__doc__ = real.__doc__

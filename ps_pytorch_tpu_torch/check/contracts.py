@@ -17,8 +17,9 @@ rules (rules.py) verify against the recorded step:
 - ``fusion`` / ``serve`` / ``adaptive`` / ``precision`` / ``overlap``:
   PSC106-110, as in the JAX registry.
 
-The policy dataclasses are JAX's, unchanged, as data; ``numerics`` is
-kept and unread (PSC111-114 are ROADMAP.md item 26).
+The policy dataclasses are JAX's, unchanged, as data; ``numerics`` (a
+``NumericsPolicy``) is what PSC111-114 hold the step's precision-flow
+report to (``numerics.py``).
 
 The differences from JAX's registry:
 
@@ -158,7 +159,7 @@ class ServePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class NarrowingAllowance:
-    """PSC114 data (item 26): one tolerated narrowing convert."""
+    """PSC114: one tolerated narrowing convert (src -> dst dtype)."""
 
     src: str
     dst: str
@@ -167,8 +168,10 @@ class NarrowingAllowance:
 
 @dataclasses.dataclass(frozen=True)
 class NumericsPolicy:
-    """PSC111-114 data, kept as JAX declares it and read by no rule of
-    the port yet (ROADMAP.md item 26)."""
+    """PSC111-114: whether the wire is quantized (every primary site on
+    the gradient path needs a max-abs scale root), whether error feedback
+    must close it, the declared lattice accumulator dtype, and the
+    narrowing converts the update path may make."""
 
     quantized: bool = False
     error_feedback: bool = False

@@ -75,6 +75,9 @@ class TraceResult:
                                       # model derives update-path ops and
                                       # overlap headroom from the SAME record
                                       # the rules ran on
+    numerics: Any = None              # NumericsReport (check/numerics.py)
+                                      # from the same tape, whenever
+                                      # spec.numerics is set (PSC111-114)
 
 
 def leaves_with_paths(obj, path: str = "") -> List[Tuple[str, Any]]:
@@ -170,8 +173,11 @@ def trace_spec(spec: ContractSpec, keep_tape: bool = False,
     gc.disable()  # a leak must show with reference counting alone
     try:
         with recording(built.devices) as tape:
+            tape.mark_inputs((args, kwargs))
             out = step(*args, **kwargs)
         params_nodes = tape.producers(built.select_params(out))
+        param_vids = tape.value_ids(built.select_params(out))
+        out_vids = tape.value_ids(out)
         mismatches, refs = _donation(spec, args, out)
         del args
         leaked = [(a, p) for a, p, r in refs if r() is not None]
@@ -183,11 +189,16 @@ def trace_spec(spec: ContractSpec, keep_tape: bool = False,
                           f"alive after the caller drops it (a reference cycle or a cache "
                           f"holds last step's tensors)")
     colls = collect_collectives(tape, params_nodes)
+    numerics = None
+    if spec.numerics is not None:
+        from .numerics import analyze_numerics
+
+        numerics = analyze_numerics(tape, param_vids, out_vids)
     return TraceResult(spec=spec, collectives=colls, summary=summarize(colls),
                        donation_mismatches=mismatches, kv_leaves=kv_leaves,
                        kernels=dict(Counter(f"{n.kernel}:{n.name}" for n in tape.nodes
                                             if n.op == "kernel")),
-                       tape=tape if keep_tape else None)
+                       tape=tape if keep_tape else None, numerics=numerics)
 
 
 def trace_registry(specs: Sequence[ContractSpec], only: Optional[Sequence[str]] = None,

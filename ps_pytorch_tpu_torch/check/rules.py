@@ -22,9 +22,22 @@ check/rules.py; the table of what each rule guards is JAX's):
 |        | or re-fused into fewer reduces than its buckets                 |
 | PSC110 | an adaptive config naming no host-consensus point, or one that  |
 |        | is not in the port's consensus inventory (lint/diverge.py)      |
+| PSC111 | fresh or mismatched scale rows: every dequantize's scale must   |
+|        | descend from the max-abs reduction behind its quantize's scale  |
+|        | (check/numerics.py provenance roots)                            |
+| PSC112 | broken error-feedback closure: every primary site on the        |
+|        | gradient path needs a grad - dequant(quant) residual feeding    |
+|        | the carry, and not the updated params too                       |
+| PSC113 | integer-accumulation overflow proven from the recorded bounds   |
+|        | (clamp peak x the recording axes' summand counts), a lattice    |
+|        | reduce off the declared accumulator, a saturating requantize    |
+| PSC114 | a silent precision-narrowing convert downstream of the gradient |
+|        | reduce on the update path                                       |
 
-PSC111-114 (psnumerics) are not ported: ROADMAP.md item 26. They stay
-in ``RULE_IDS`` so that ``--select`` can name them and be refused.
+PSC111-114 read the ``NumericsReport`` that ``core.trace_spec`` derives
+from the same tape whenever the spec declares a ``NumericsPolicy``. A
+tape is straight-line (no loop carry), so JAX's "cannot prove ... across
+a scan/while carry" findings have no counterpart.
 
 The messages are JAX's, reworded where a jaxpr term has no meaning for a
 recorded step ("equation" is a call, "lowering" the recorded run).
@@ -40,8 +53,6 @@ from .walker import REDUCE_KINDS
 RULE_IDS = ("PSC101", "PSC102", "PSC103", "PSC104", "PSC105", "PSC106",
             "PSC107", "PSC108", "PSC109", "PSC110", "PSC111", "PSC112",
             "PSC113", "PSC114")
-# the psnumerics rules: refused until ROADMAP.md item 26 ports them
-NUMERICS_RULE_IDS = ("PSC111", "PSC112", "PSC113", "PSC114")
 
 
 def psc101_axes(r: TraceResult) -> List[CheckFinding]:
@@ -288,10 +299,214 @@ def psc110_consensus(results: Sequence[TraceResult]) -> List[CheckFinding]:
     return out
 
 
+def _numerics(r: TraceResult):
+    """The (policy, report) pair the PSC111-114 rules read, or (None,
+    None) when the spec declares no NumericsPolicy (old fixtures)."""
+    pol = getattr(r.spec, "numerics", None)
+    rep = r.numerics
+    if pol is None or rep is None:
+        return None, None
+    return pol, rep
+
+
+def psc111_scale_provenance(r: TraceResult) -> List[CheckFinding]:
+    """Every dequantize's scale must descend from the SAME max-abs
+    reduction that produced its quantize's scale (shared provenance
+    root), across every hop of the 2round / hier wires."""
+    pol, rep = _numerics(r)
+    if rep is None:
+        return []
+    out = []
+    by_sid = {s.sid: s for s in rep.sites}
+    for d in rep.dequants:
+        for sid in sorted(d.payload_sites):
+            s = by_sid.get(sid)
+            if s is None or s.roots & d.scale_roots:
+                continue
+            origin = ("a static constant" if d.scale_literal
+                      else "a different dataflow origin" if d.scale_roots
+                      else "no max-abs reduction at all")
+            out.append(CheckFinding(
+                "PSC111", r.spec.name,
+                f"dequantize of the {s.dtype} payload at offset "
+                f"{s.start_offset} takes its scale from {origin}: the "
+                f"scale does not descend from the max-abs reduction behind the "
+                f"quantize's scale — the lattice decodes against the "
+                f"wrong dynamic range",
+            ))
+    if pol.quantized:
+        for s in rep.sites:
+            if s.primary and s.feeds_params and not s.roots:
+                out.append(CheckFinding(
+                    "PSC111", r.spec.name,
+                    f"quantization site at offset {s.start_offset} "
+                    f"({s.dtype}, {s.size} elem) on the gradient path "
+                    f"has no max-abs reduction in its scale chain — its "
+                    f"clamp bound was minted from a constant, not from "
+                    f"the data's dynamic range",
+                ))
+    return out
+
+
+def psc112_error_feedback(r: TraceResult) -> List[CheckFinding]:
+    """With error_feedback declared, every primary quantization site on
+    the gradient path needs a grad - dequant(quant) residual that feeds
+    the next step's carry — and only the carry (feeding the params too
+    double-counts the correction)."""
+    pol, rep = _numerics(r)
+    if rep is None or not pol.error_feedback:
+        return []
+    primary = [s for s in rep.sites if s.primary and s.feeds_params]
+    if not primary:
+        return [CheckFinding(
+            "PSC112", r.spec.name,
+            "error_feedback declared but the trace has no primary "
+            "quantization site on the gradient path — there is no "
+            "quantization error for a residual to close over",
+        )]
+    out = []
+    live = [e for e in rep.residuals if e.feeds_carry]
+    for s in primary:
+        cov = [e for e in live if s.sid in e.covered_sites]
+        if not cov:
+            out.append(CheckFinding(
+                "PSC112", r.spec.name,
+                f"quantization site at offset {s.start_offset} "
+                f"({s.dtype}, {s.size} elem) has no residual consumer "
+                f"grad - dequant(quant) feeding the next step's carry — "
+                f"the quantization error is dropped and EF-SGD silently "
+                f"degrades to biased quantized SGD",
+            ))
+    for e in rep.residuals:
+        if e.covered_sites and e.feeds_carry and e.feeds_params:
+            out.append(CheckFinding(
+                "PSC112", r.spec.name,
+                f"the error-feedback residual covering site(s) "
+                f"{sorted(e.covered_sites)} feeds BOTH the carried "
+                f"residual and the updated params — the correction is "
+                f"applied this step AND replayed next step "
+                f"(double-counted)",
+            ))
+    return out
+
+
+def psc113_capacity(r: TraceResult) -> List[CheckFinding]:
+    """Integer-accumulation capacity proven from the trace: worst-case
+    |sum| = clamp peak x the traced summand count (collective axis
+    sizes, reduce dims) must fit the payload dtype — plus the declared-
+    accumulator dtype pin (the widened-payload regression) and the
+    homomorphic_rescale saturation check."""
+    pol, rep = _numerics(r)
+    if rep is None:
+        return []
+    out = []
+    for a in rep.accums:
+        where = f"{a.kind} over {list(a.axes)}" if a.axes else a.kind
+        if (a.peak_out is not None and a.capacity is not None
+                and a.peak_out > a.capacity):
+            summands = (
+                f" ({a.multiplier} summands x |payload| <= {a.peak_in:g})"
+                if a.multiplier is not None and a.peak_in is not None
+                else ""
+            )
+            cap_kind = ("exact-mantissa capacity"
+                        if a.kind == "mantissa" or not a.dtype.startswith(
+                            "int")
+                        else "dtype capacity")
+            out.append(CheckFinding(
+                "PSC113", r.spec.name,
+                f"{where} in {a.dtype} reaches worst-case |sum| = "
+                f"{a.peak_out:g}{summands}, over the {cap_kind} "
+                f"{a.capacity} — the traced accumulation overflows",
+            ))
+        elif a.lattice and a.peak_out is None:
+            reason = ("unknown axis size"
+                      if a.multiplier is None and a.kind in ("psum", "psum_scatter")
+                      else "the payload bound is unknown")
+            out.append(CheckFinding(
+                "PSC113", r.spec.name,
+                f"cannot prove {where} in {a.dtype} fits: lattice "
+                f"payload with no provable |sum| bound ({reason}) — "
+                f"quantized accumulation must be proven from the trace, "
+                f"not assumed",
+            ))
+        elif (pol.quantized and a.kind in ("psum", "psum_scatter")
+              and a.dtype in ("int8", "int16") and a.feeds_params
+              and a.peak_out is None):
+            out.append(CheckFinding(
+                "PSC113", r.spec.name,
+                f"cannot prove {where} fits {a.dtype}: the wire payload "
+                f"carries no provable clamp bound into the reduce — an "
+                f"unclamped cast is on the quantized wire",
+            ))
+        if (pol.accum_dtype is not None and a.lattice
+                and a.kind in ("psum", "psum_scatter")
+                and a.dtype.startswith("int")
+                and a.dtype != pol.accum_dtype):
+            out.append(CheckFinding(
+                "PSC113", r.spec.name,
+                f"lattice {where} carries {a.dtype} on a declared "
+                f"{pol.accum_dtype} accumulator — the widened payload "
+                f"crept back onto the wire (the widened-payload regression)",
+            ))
+    for s in rep.sites:
+        if s.primary or not s.feeds_params:
+            # primary quantizes divide by their own max-abs: in-range by
+            # construction; only lattice REQUANTS (homomorphic_rescale)
+            # carry a divisor that can saturate the clamp
+            continue
+        if s.pre_peak is None:
+            out.append(CheckFinding(
+                "PSC113", r.spec.name,
+                f"cannot prove the lattice requantize at offset "
+                f"{s.start_offset} ({s.dtype}) stays in range: the "
+                f"pre-clamp |value| bound is unknown, so the "
+                f"homomorphic_rescale divisor cannot be proven to "
+                f"prevent saturation",
+            ))
+        elif s.peak is not None and s.pre_peak > s.peak + 1e-6:
+            out.append(CheckFinding(
+                "PSC113", r.spec.name,
+                f"lattice requantize at offset {s.start_offset} "
+                f"saturates: |value| reaches {s.pre_peak:g} before the "
+                f"+-{s.peak:g} clamp — the homomorphic_rescale divisor "
+                f"is too small and the wire clips",
+            ))
+    return out
+
+
+def psc114_downcast(r: TraceResult) -> List[CheckFinding]:
+    """No silent downcast on the update path: a precision-narrowing
+    convert downstream of the gradient reduce that feeds the updated
+    params must be a detected quantization site (those never land in
+    ``narrows``) or a declared NarrowingAllowance."""
+    pol, rep = _numerics(r)
+    if rep is None:
+        return []
+    allowed = {(a.src, a.dst) for a in pol.allow_narrowing}
+    out = []
+    for n in rep.narrows:
+        if not n.downstream_of_reduce or not n.feeds_params:
+            continue
+        if (n.src, n.dst) in allowed:
+            continue
+        out.append(CheckFinding(
+            "PSC114", r.spec.name,
+            f"convert {n.src}->{n.dst} downstream of the gradient "
+            f"reduce feeds the updated params but is neither a "
+            f"quantization site (no provable clamp bound) nor a "
+            f"declared NarrowingAllowance — precision drops silently "
+            f"on the update path",
+        ))
+    return out
+
+
 def check_result(r: TraceResult) -> List[CheckFinding]:
-    """The per-result rules: PSC101-103 and PSC105-108."""
+    """The per-result rules: PSC101-103, PSC105-108 and PSC111-114."""
     return (psc101_axes(r) + psc102_grad_reduce(r) + psc103_wire(r) + psc105_donation(r)
-            + psc106_fusion(r) + psc107_serve(r) + psc108_adaptive(r) + psc108_precision(r))
+            + psc106_fusion(r) + psc107_serve(r) + psc108_adaptive(r) + psc108_precision(r)
+            + psc111_scale_provenance(r) + psc112_error_feedback(r) + psc113_capacity(r)
+            + psc114_downcast(r))
 
 
 def _row_key(row: dict) -> tuple:

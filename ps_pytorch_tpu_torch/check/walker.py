@@ -51,7 +51,7 @@ import contextlib
 import dataclasses
 import functools
 import threading
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -59,7 +59,7 @@ from ..ops import _tape
 # the hooks live beside the kernels (ops/_tape.py), which import
 # nothing of the checker; ``active`` and ``collective_call`` are used
 # from here by the recording axes
-from ..ops._tape import Payload, _tensors, active, collective_call  # noqa: F401
+from ..ops._tape import Payload, _dtype_name, _tensors, active, collective_call  # noqa: F401
 
 # axis method -> the canonical kind of the JAX primitive it ports
 # (walker.py:26-36 there: pmean is a psum, the tiled all_to_all an
@@ -113,7 +113,15 @@ class Node:
     entry; ``parents`` the nodes whose outputs it read (or whose writes
     into a storage it read); ``kernel`` the kernel's id (K1..K6) on a
     kernel node; ``payloads`` the collectives the node performs (an axis
-    call's one, or the reductions a kernel declares)."""
+    call's one, or the reductions a kernel declares).
+
+    What the precision-flow pass (``check/numerics.py``) reads: ``args``,
+    the call's arguments by name, a tensor as its ``Ref`` (value id), a
+    Python scalar, dtype or int list as itself; ``outs``, the value ids
+    of its outputs (written arguments included); ``info``, what the call
+    declares beyond its arguments (an axis call's summand count
+    ``mult`` and per-axis ``sizes``; a kernel node's ``shared`` axis
+    names and ``rows`` grouping)."""
 
     index: int
     op: str
@@ -121,6 +129,63 @@ class Node:
     parents: Tuple[int, ...]
     kernel: Optional[str] = None
     payloads: Tuple[Payload, ...] = ()
+    args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    outs: Tuple[int, ...] = ()
+    info: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ref:
+    """A tensor argument of a node: the value id of the tensor it read."""
+
+    vid: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Value:
+    """One tensor value of the tape: the node that produced it (-1: from
+    outside the step), its dtype and shape, its storage group, and its
+    origin: "out" (a node's output), "input" (a step argument: unknown,
+    as a jaxpr's invars), or "const" (a tensor the step closes over,
+    a jaxpr constvar: ``const`` holds its (min, max) when it has at most
+    ``CONST_MAX_ELEMS`` finite numbers, read from the program, not from
+    the data)."""
+
+    node: int
+    dtype: str
+    shape: Tuple[int, ...]
+    group: int
+    origin: str = "out"
+    const: Optional[Tuple[float, float]] = None
+
+
+# the largest closed-over tensor whose values are read as a constant
+# (check/numerics.py:336 there: a jaxpr const up to 4096 elements)
+CONST_MAX_ELEMS = 4096
+
+
+def _arg(x, tape):
+    """A node argument as the tape keeps it: a tensor as its ``Ref``, a
+    (nested) list of them as a tuple, a Python scalar / dtype / string
+    as itself; anything else (devices, layouts, generators) is dropped
+    (None)."""
+    if isinstance(x, torch.Tensor):
+        return Ref(tape._entry(x)[2])
+    if isinstance(x, (list, tuple)):
+        return tuple(_arg(v, tape) for v in x)
+    if x is None or isinstance(x, (bool, int, float, str, torch.dtype)):
+        return x
+    return None
+
+
+def _const_of(t: torch.Tensor) -> Optional[Tuple[float, float]]:
+    """(min, max) of a small closed-over numeric tensor, or None."""
+    if t.numel() == 0 or t.numel() > CONST_MAX_ELEMS or t.is_complex() or t.device.type == "meta":
+        return None
+    a = t.detach().to("cpu", torch.float64)
+    if not bool(torch.isfinite(a).all()):
+        return None
+    return float(a.min()), float(a.max())
 
 
 def _storage_ptr(t: torch.Tensor) -> int:
@@ -146,8 +211,11 @@ def _schema_info(func) -> Tuple[Tuple[int, ...], Tuple[str, ...], bool]:
 
 class Tape:
     """The recorded step: ``nodes`` in execution order (the counterpart
-    of the ClosedJaxpr's equations). ``devices`` is the mesh's device
-    count, the divisor of a stacked operand's bytes."""
+    of the ClosedJaxpr's equations) and ``values``, every tensor value
+    they read or wrote, by value id. ``devices`` is the mesh's device
+    count, the divisor of a stacked operand's bytes; ``axis_sizes`` the
+    sizes the recording axes reported (the counterpart of the sizes JAX
+    discovers on a ``shard_map``)."""
 
     def __init__(self, devices: int = 1):
         from torch.utils.weak import WeakIdKeyDictionary
@@ -156,28 +224,60 @@ class Tape:
             raise ValueError(f"a tape needs >= 1 device, got {devices}")
         self.devices = int(devices)
         self.nodes: List[Node] = []
+        self.values: List[Value] = []
+        self.axis_sizes: Dict[str, int] = {}
         self._lock = threading.RLock()
-        # tensor (weakly, by identity) -> (producer node or -1, storage group)
+        # tensor (weakly, by identity) -> (producer node or -1, storage
+        # group, value id)
         self._vals = WeakIdKeyDictionary()
         self._writers: Dict[int, List[int]] = {}
         self._groups = 0
+        self._inputs = None  # ids of the step's argument tensors, once marked
+        self.written: Set[int] = set()  # value ids a node wrote in place
 
     # ------------------------------------------------------------ values
     def _new_group(self) -> int:
         self._groups += 1
         return self._groups
 
-    def _entry(self, t: torch.Tensor) -> Tuple[int, int]:
+    def _new_value(self, t: torch.Tensor, node: int, group: int, origin: str = "out",
+                   const=None) -> int:
+        self.values.append(Value(node, _dtype_name(t.dtype), tuple(int(d) for d in t.shape),
+                                 group, origin, const))
+        return len(self.values) - 1
+
+    def mark_inputs(self, tree) -> None:
+        """Declare the step's arguments (any nesting): their tensors are
+        unknown inputs; any other tensor the step reads without producing
+        it is a constant it closes over."""
+        with self._lock:
+            ts = _tensors(tree, [])
+            self._inputs = {id(t) for t in ts}
+            for t in ts:
+                self._entry(t)
+
+    def _entry(self, t: torch.Tensor) -> Tuple[int, int, int]:
         e = self._vals.get(t)
         if e is None:
-            e = (-1, self._new_group())
+            group = self._new_group()
+            if self._inputs is None or id(t) in self._inputs:
+                vid = self._new_value(t, -1, group, "input")
+            else:
+                depth = getattr(_tape._LOCAL, "depth", 0)
+                _tape._LOCAL.depth = depth + 1  # reading the constant records nothing
+                try:
+                    const = _const_of(t)
+                finally:
+                    _tape._LOCAL.depth = depth
+                vid = self._new_value(t, -1, group, "const", const)
+            e = (-1, group, vid)
             self._vals[t] = e
         return e
 
     def _deps(self, ts: Iterable[torch.Tensor]) -> Set[int]:
         deps: Set[int] = set()
         for t in ts:
-            prod, group = self._entry(t)
+            prod, group, _ = self._entry(t)
             if prod >= 0:
                 deps.add(prod)
             deps.update(self._writers.get(group, ()))
@@ -189,23 +289,28 @@ class Tape:
         with self._lock:
             return self._deps(_tensors(tensors, []))
 
+    def value_ids(self, tensors) -> List[int]:
+        """The value id of each tensor of ``tensors`` (any nesting; they
+        must be alive), in ``_tensors`` order."""
+        with self._lock:
+            return [self._entry(t)[2] for t in _tensors(tensors, [])]
+
     def _add(self, op: str, name: str, parents: Set[int], kernel=None,
-             payloads=()) -> int:
+             payloads=(), args=None, info=None) -> int:
         idx = len(self.nodes)
         self.nodes.append(Node(idx, op, name, tuple(sorted(parents)), kernel,
-                               tuple(payloads)))
+                               tuple(payloads), args or {}, (), info or {}))
         return idx
 
     def _outputs(self, idx: int, ins: Sequence[torch.Tensor], outs: Sequence[torch.Tensor],
                  written: Sequence[torch.Tensor], alias_first: bool) -> None:
         """Register node ``idx``'s outputs: a written tensor keeps its
         group and gains a writer; an output sharing an input's storage
-        joins that input's group (a view), any other output starts one."""
+        joins that input's group (a view), any other output starts one.
+        Each output (and written tensor) becomes a new value of the
+        node, in ``outs`` then ``written`` order."""
         wid = {id(t) for t in written}
-        for t in written:
-            _, group = self._entry(t)
-            self._vals[t] = (idx, group)
-            self._writers.setdefault(group, []).append(idx)
+        vids: List[int] = []
         ptrs = None
         for t in outs:
             if id(t) in wid:
@@ -221,7 +326,18 @@ class Tape:
                         if p:
                             ptrs.setdefault(p, self._entry(i)[1])
                 group = ptrs.get(_storage_ptr(t))
-            self._vals[t] = (idx, group if group is not None else self._new_group())
+            group = group if group is not None else self._new_group()
+            vid = self._new_value(t, idx, group)
+            self._vals[t] = (idx, group, vid)
+            vids.append(vid)
+        for t in written:
+            _, group, _ = self._entry(t)
+            vid = self._new_value(t, idx, group)
+            self._vals[t] = (idx, group, vid)
+            self._writers.setdefault(group, []).append(idx)
+            self.written.add(vid)
+            vids.append(vid)
+        self.nodes[idx].outs = tuple(vids)
 
     # ---------------------------------------------------------- recorders
     def record_aten(self, func, args, kwargs, out) -> None:
@@ -232,13 +348,22 @@ class Tape:
         written += [kwargs[n] for n in names if isinstance(kwargs.get(n), torch.Tensor)]
         outs = _tensors(out, [])
         with self._lock:
-            idx = self._add("aten", str(func), self._deps(ins))
+            named = {}
+            for i, a in enumerate(func._schema.arguments):
+                if i < len(args):
+                    named[a.name] = _arg(args[i], self)
+                elif a.name in kwargs:
+                    named[a.name] = _arg(kwargs[a.name], self)
+            idx = self._add("aten", str(func), self._deps(ins), args=named)
             self._outputs(idx, ins, outs, written, aliases and not written)
 
     def record_call(self, op: str, name: str, parents: Set[int], ins, outs, written=(),
-                    kernel=None, payloads=()) -> int:
+                    kernel=None, payloads=(), args=None, info=None) -> int:
         with self._lock:
-            idx = self._add(op, name, parents, kernel, payloads)
+            named = {k: _arg(v, self) for k, v in (args or {}).items()}
+            idx = self._add(op, name, parents, kernel, payloads, named, info)
+            for ax, size in (info or {}).get("sizes", {}).items():
+                self.axis_sizes.setdefault(ax, int(size))
             self._outputs(idx, ins, outs, list(written), False)
         return idx
 

@@ -102,6 +102,12 @@ EVENT_KINDS: Dict[str, EventSpec] = {
         int_fields=("step",),
         doc="checkpoint write failed (reported at failure time)",
     ),
+    "autotune": EventSpec(
+        required=("run", "model", "network", "grid", "n_candidates", "n_pruned", "gate"),
+        int_fields=("n_points", "n_candidates", "n_pruned"),
+        doc="one ranked knob-search evidence record (tune/search.py); carries its own "
+            "nested run_header under 'run'",
+    ),
     "span": EventSpec(
         required=("name", "t", "dur"),
         int_fields=("depth", "step", "tick", "slot", "rid",

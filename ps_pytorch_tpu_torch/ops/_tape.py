@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import inspect
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -96,11 +97,14 @@ def _fold(call: Callable, args, kwargs):
 
 def collective_call(kind: str, axes: Tuple[str, ...], call: Callable, args, kwargs,
                     operands: Sequence[torch.Tensor], nbytes: Callable[[torch.Tensor], int],
-                    name: str):
+                    name: str, mult: Optional[int] = None,
+                    sizes: Optional[Dict[str, int]] = None):
     """Run ``call(*args, **kwargs)`` as one collective node of the
     active tape (or plainly without one): one payload per operand dtype
     (JAX's walker splits a mixed-dtype payload the same way), each
-    ``nbytes(operand)`` per device."""
+    ``nbytes(operand)`` per device. ``mult`` is the axis's summand count
+    (a psum's multiplier) and ``sizes`` the size of each mesh axis it
+    rides, where the axis knows them."""
     tape = _TAPE
     if tape is None or getattr(_LOCAL, "depth", 0):
         return call(*args, **kwargs)
@@ -110,7 +114,9 @@ def collective_call(kind: str, axes: Tuple[str, ...], call: Callable, args, kwar
         parents = tape._deps(ins)
     out = _fold(call, args, kwargs)
     tape.record_call("collective", name, parents, ins, _tensors(out, []),
-                     payloads=payloads_by_dtype(kind, axes, operands, nbytes))
+                     payloads=payloads_by_dtype(kind, axes, operands, nbytes),
+                     args={"x": operands[0] if len(operands) == 1 else list(operands)},
+                     info={"axes": tuple(axes), "mult": mult, "sizes": dict(sizes or {})})
     return out
 
 
@@ -126,18 +132,18 @@ def payloads_by_dtype(kind: str, axes: Tuple[str, ...], operands: Sequence[torch
             for dtype, (shapes, b) in sorted(groups.items())]
 
 
-class _SharedOver:
-    __slots__ = ("axis", "prev")
+class _Local:
+    __slots__ = ("attr", "value", "prev")
 
-    def __init__(self, axis):
-        self.axis = axis
+    def __init__(self, attr: str, value):
+        self.attr, self.value = attr, value
 
     def __enter__(self):
-        self.prev = getattr(_LOCAL, "shared", None)
-        _LOCAL.shared = self.axis
+        self.prev = getattr(_LOCAL, self.attr, None)
+        setattr(_LOCAL, self.attr, self.value)
 
     def __exit__(self, *exc):
-        _LOCAL.shared = self.prev
+        setattr(_LOCAL, self.attr, self.prev)
 
 
 _NULL = contextlib.nullcontext()
@@ -150,7 +156,20 @@ def shared_over(axis):
     null context when no tape records, or with no axis (local scales)."""
     if _TAPE is None or axis is None:
         return _NULL
-    return _SharedOver(axis)
+    return _Local("shared", axis)
+
+
+def worker_rows(n: int):
+    """Inside this block a kernel node's pieces come in runs of ``n``:
+    each run is one worker-stacked value cut into ``n`` groups of rows
+    (a worker each, or the workers of one host), each group quantized
+    with its own scale (the two-round wire's round 2, the hierarchical
+    wire's grouped rounds, on the stacked backend). The node declares
+    one quantization site a run, as JAX's per-device program has one. A
+    null context when no tape records."""
+    if _TAPE is None or n <= 1:
+        return _NULL
+    return _Local("rows", int(n))
 
 
 def _shared_pmax(tape, pieces, out) -> List[Payload]:
@@ -170,18 +189,23 @@ def _shared_pmax(tape, pieces, out) -> List[Payload]:
     return payloads
 
 
-def kernel_entry(kernel: str, shared: bool = False, writes: Tuple[int, ...] = ()):
+def kernel_entry(kernel: str, shared: bool = False, writes: Tuple[int, ...] = (),
+                 numerics: Optional[str] = None):
     """Decorate the wrapper of a hand-written kernel (``kernel`` its id,
     K1..K6): with a tape recording, one call is one kernel node with the
     call's tensors as inputs and its results (and the arguments at
     positions ``writes``, written in place) as outputs; everything the
     call runs inside folds into the node. ``shared``: the entry takes a
     list of pieces whose scales may be shared over a worker axis
-    (``shared_over``), and then declares that pmax. With no tape the
-    wrapper is one module-level check."""
+    (``shared_over``), and then declares that pmax. ``numerics`` names
+    the precision-flow events the node declares, once for both devices
+    (``check/numerics.py`` ``KERNEL_EVENTS``: a quantize's int8 site at
+    peak 127 and its absmax root, K3's int32 accumulation and lattice
+    requantize). With no tape the wrapper is one module-level check."""
 
     def wrap(fn):
         name = fn.__name__
+        params = tuple(inspect.signature(fn).parameters)
 
         @functools.wraps(fn)
         def entry(*args, **kwargs):
@@ -195,8 +219,14 @@ def kernel_entry(kernel: str, shared: bool = False, writes: Tuple[int, ...] = ()
                 parents = tape._deps(ins)
             out = _fold(fn, args, kwargs)
             payloads = _shared_pmax(tape, list(args[0]), out) if shared else []
+            axis = getattr(_LOCAL, "shared", None) if shared else None
+            named = dict(zip(params, args))
+            named.update(kwargs)
+            info = {"numerics": numerics,
+                    "shared": axis_names(axis) if axis is not None else None,
+                    "rows": getattr(_LOCAL, "rows", None)}
             tape.record_call("kernel", name, parents, ins, _tensors(out, []), written,
-                             kernel=kernel, payloads=payloads)
+                             kernel=kernel, payloads=payloads, args=named, info=info)
             return out
 
         return entry

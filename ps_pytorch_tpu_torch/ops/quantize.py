@@ -450,7 +450,7 @@ def _rows_many_launch(xs_card, bs: int):
     return out, launches
 
 
-@kernel_entry("K1")
+@kernel_entry("K1", numerics="quantize")
 def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: per-row int8 quantization of ``[NB, BS]`` (f32 or bf16) ->
     (int8 ``[NB, BS]``, f32 scale ``[NB, 1]``): ``quantize_rows_many``'s
@@ -478,7 +478,7 @@ def quantize_rows(xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 quantize_rows.launches = 0
 
 
-@kernel_entry("K1")
+@kernel_entry("K1", numerics="quantize")
 def quantize_rows_many(xs):
     """K1, per-row scales over every piece of a list: each ``xs[i]`` is
     ``[NB_i, BS]`` (one BS and one dtype, f32 or bf16, one card, NB_i >=
@@ -506,7 +506,7 @@ def quantize_rows_many(xs):
 quantize_rows_many.launches = 0
 
 
-@kernel_entry("K1", writes=(2, 3, 4, 5))
+@kernel_entry("K1", writes=(2, 3, 4, 5), numerics="kv_write")
 def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
     """K1, KV entry: quantize one layer's K and V ``[R, H, hd]`` (f32 or
     bf16, any row and head strides) per (position, head) row and store
@@ -557,7 +557,7 @@ def quantize_kv_write(k, v, k_q, k_s, v_q, v_s, slot=None, pos=None) -> None:
 quantize_kv_write.launches = 0
 
 
-@kernel_entry("K1", shared=True)
+@kernel_entry("K1", shared=True, numerics="quantize")
 def quantize_rows_scaled_many(xs, block_size: int):
     """K1, shared-scale entry over every piece of a step: each ``xs[i]``
     is worker-stacked ``[N, *shape]`` (f32 or bf16, the same N for all,
@@ -622,7 +622,7 @@ def _k1_kind(dtype, ptr: int, n: int, block_size: int) -> int:
     return _F32_VEC if ptr % 16 == 0 and n % 4 == 0 and block_size % 4 == 0 else _F32
 
 
-@kernel_entry("K2", shared=True)
+@kernel_entry("K2", shared=True, numerics="quantize")
 def quantize_tensors(xs):
     """K2: per-tensor int8 quantization of every piece of a step in one
     call: each ``xs[i]`` (any shape and length, 0 included; f32 or bf16;
@@ -710,7 +710,7 @@ def _split_check(xs, absmax, rows: int, what: str) -> None:
                          f"{absmax.dtype} {tuple(absmax.shape)} on {absmax.device}")
 
 
-@kernel_entry("K2")
+@kernel_entry("K2", numerics="absmax")
 def tensors_absmax(xs) -> torch.Tensor:
     """K2's split route, first half: this process's absmax of every piece
     (the worker-stacked pieces of its local workers) -> f32 ``[len(xs)]``,
@@ -746,7 +746,7 @@ def tensors_absmax(xs) -> torch.Tensor:
 tensors_absmax.launches = 0
 
 
-@kernel_entry("K2")
+@kernel_entry("K2", numerics="quantize_given")
 def quantize_tensors_given(xs, absmax: torch.Tensor):
     """K2's split route, second half: every piece quantized with the given
     (cross-process) absmax ``[len(xs)]`` -> ``[(q int8 like xs[i], scale
@@ -823,7 +823,7 @@ def quantize_rows_scaled_given_plain(xs, block_size: int, absmax: torch.Tensor):
     return out
 
 
-@kernel_entry("K1")
+@kernel_entry("K1", numerics="absmax")
 def rows_scaled_absmax(xs, block_size: int) -> torch.Tensor:
     """K1's shared-scale split route, first half: block r's absmax of
     every piece over this process's workers -> f32 ``[sum of nb_i]``,
@@ -863,7 +863,7 @@ def rows_scaled_absmax(xs, block_size: int) -> torch.Tensor:
 rows_scaled_absmax.launches = 0
 
 
-@kernel_entry("K1")
+@kernel_entry("K1", numerics="quantize_given")
 def quantize_rows_scaled_given(xs, block_size: int, absmax: torch.Tensor):
     """K1's shared-scale split route, second half: every worker's block r
     of every piece quantized with the given (cross-process) block absmax,
@@ -1279,7 +1279,7 @@ def accumulate_rescale_plain(recv: torch.Tensor, divisor) -> torch.Tensor:
     return homomorphic_rescale(recv.to(torch.int32).sum(0, dtype=torch.int32), divisor)
 
 
-@kernel_entry("K3")
+@kernel_entry("K3", numerics="accum_rescale")
 def accumulate_rescale_int8(recv: torch.Tensor, divisor) -> torch.Tensor:
     """K3: exact integer accumulation over the worker rows of an int8
     payload ``[n, s]`` fused with the lattice rescale -> int8 ``[s]``.

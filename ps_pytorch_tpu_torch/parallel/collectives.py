@@ -86,6 +86,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops._tape import worker_rows
 from ..ops.quantize import (
     _INT8_PEAK,
     RECIP_127,
@@ -457,8 +458,9 @@ def _requantize_regions(partials, key_ids, axis, block_size: int, rounding: str,
     if rounding == "nearest":
         if block_size:
             return quantize_rows_many([p.reshape(-1, block_size) for p in partials])
-        return quantize_tensors([partial[w] for partial in partials
-                                 for w in range(axis.local_size)])
+        with worker_rows(axis.local_size):  # a recorded step: one site a region
+            return quantize_tensors([partial[w] for partial in partials
+                                     for w in range(axis.local_size)])
     out = []
     for i, partial in zip(key_ids, partials):
         s = partial.shape[1]
@@ -704,10 +706,11 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
     ici, dcn = grid.ici, grid.dcn
     # round 1 over ICI: each host's workers share scales
     host_rows = [slice(h * pp, (h + 1) * pp) for h in range(hh)]
-    round1 = _quantize_pieces([x[r] for x in xs for r in host_rows],
-                              [i for i in key_ids for _ in host_rows], ici, bs, rounding, draws,
-                              bucket_peaks, _INT8_PEAK, torch.int8, ordinal,
-                              rows=host_rows * len(xs))
+    with worker_rows(hh):  # a recorded step: one site a piece, as JAX's one pmax
+        round1 = _quantize_pieces([x[r] for x in xs for r in host_rows],
+                                  [i for i in key_ids for _ in host_rows], ici, bs, rounding,
+                                  draws, bucket_peaks, _INT8_PEAK, torch.int8, ordinal,
+                                  rows=host_rows * len(xs))
     partials2 = []
     for j, (total, shape, s1) in enumerate(zip(totals, shapes, s1s)):
         r1 = round1[j * hh:(j + 1) * hh]
@@ -728,9 +731,10 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
     col_rows = [torch.arange(c, n, pp) for c in range(pp)]
     dcn_in = [p2.reshape(hh, pp, -1)[:, c].contiguous() for p2, _, _ in partials2
               for c in range(pp)]
-    round_d = _quantize_pieces(dcn_in, [i for i in key_ids for _ in range(pp)], dcn, bs,
-                               rounding, draws, None, _INT8_PEAK, torch.int8, round_=2,
-                               rows=col_rows * len(xs))
+    with worker_rows(pp):
+        round_d = _quantize_pieces(dcn_in, [i for i in key_ids for _ in range(pp)], dcn, bs,
+                                   rounding, draws, None, _INT8_PEAK, torch.int8, round_=2,
+                                   rows=col_rows * len(xs))
     regions = []
     for j, (_, s1, s2) in enumerate(partials2):
         rd = round_d[j * pp:(j + 1) * pp]

@@ -7,7 +7,7 @@ committed port artifact ``check/comm_contract.json`` round-trips
 says otherwise (each pinned here); the pins of tests/test_check.py
 (the int8 wire, ResNet18's per-leaf -> bucketed collapse, the homomorphic
 shrink, the silent serving wire); the CLI's usage errors, ``--select``,
-``--list`` and its refusal of the psnumerics rules (ROADMAP.md item 26).
+``--list``, and ``--select`` of the psnumerics rules (PSC111-114).
 """
 
 import contextlib
@@ -391,9 +391,15 @@ def test_torch_cli_usage_errors(tmp_path):
 
 @pytest.mark.parametrize("rule", ["PSC111", "psc112", "PSC113", "PSC114"])
 def test_torch_cli_refuses_the_numerics_rules_naming_item_26(rule, capsys):
-    rc = check_main(["--device", "cpu", "--select", f"PSC101,{rule}"])
-    assert rc == 2
-    assert "ROADMAP.md item 26" in capsys.readouterr().err
+    """Once the CLI refused the psnumerics rules (exit 2); they are
+    ported now, so ``--select`` runs them like any other rule: a clean
+    registry config exits 0, with no refusal."""
+    rc = check_main(["--device", "cpu", "--only", "ps_int8_replicated_homomorphic",
+                     "--select", f"PSC101,{rule}"])
+    assert rc == 0
+    captured = capsys.readouterr()
+    assert "item 26" not in captured.err
+    assert "0 finding(s) across 1 traced config(s)" in captured.out
 
 
 def test_torch_cli_select_filters_findings():

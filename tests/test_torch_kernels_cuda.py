@@ -1292,3 +1292,56 @@ def test_torch_check_records_the_same_step_on_card_as_on_cpu(cuda_device, name):
     assert card.kernels == cpu.kernels
     contract = load_contract(DEFAULT_CONTRACT)
     assert run_checks([card], contract, check_stale=False) == []
+
+
+def _numerics_events(rep):
+    """A NumericsReport event for event, scale-root sets by their size."""
+    def strip(e):
+        d = dict(vars(e))
+        for k in ("roots", "scale_roots"):
+            if k in d:
+                d[k] = len(d[k])
+        return d
+
+    return [[strip(e) for e in getattr(rep, f)]
+            for f in ("sites", "dequants", "accums", "narrows", "residuals")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ps_int8_2round_replicated_bucketed_homomorphic",
+                                  "serve_decode_int8kv"])
+def test_torch_check_numerics_report_on_card_equals_cpu(cuda_device, name):
+    """psnumerics on the card: the recorded step's NumericsReport (K2's
+    and K3's nodes declare their events on either device) is the CPU's,
+    event for event, with no PSC111-114 finding."""
+    from ps_pytorch_tpu_torch.check import get_contracts, trace_spec
+    from ps_pytorch_tpu_torch.check.rules import (
+        psc111_scale_provenance,
+        psc112_error_feedback,
+        psc113_capacity,
+        psc114_downcast,
+    )
+
+    spec = next(s for s in get_contracts() if s.name == name)
+    card = trace_spec(spec, device=cuda_device)
+    cpu = trace_spec(spec, device="cpu")
+    assert card.numerics.sites
+    assert _numerics_events(card.numerics) == _numerics_events(cpu.numerics)
+    assert card.numerics.axis_sizes == cpu.numerics.axis_sizes
+    for rule in (psc111_scale_provenance, psc112_error_feedback, psc113_capacity,
+                 psc114_downcast):
+        assert rule(card) == []
+
+
+@pytest.mark.cuda
+def test_torch_autotune_probe_runs_the_kernels_on_the_card(cuda_device):
+    """A measured probe of the homomorphic two-round wire on the card:
+    K2 and K3 launch every step, the backend stamp is the card's."""
+    from ps_pytorch_tpu_torch.tune.search import Knobs, measure_probe
+
+    kn = Knobs(compress="int8_2round", bucket_bytes=0, wire_domain="homomorphic")
+    probe = measure_probe(kn, "LeNet", "MNIST", steps=3, batch=64, device=cuda_device)
+    assert probe["platform"] == "gpu"
+    assert probe["device_kind"] == torch.cuda.get_device_name(cuda_device)
+    assert probe["launches"]["K2"] == 3 and probe["launches"]["K3"] == 3
+    assert probe["launches"]["K1"] == 0 and probe["measured_step_s"] > 0
