@@ -144,7 +144,13 @@ Phases, one line each:
    bf16 + remat, each one's peak memory;
 20. one step at 8 workers of a narrow VGG11-BN (an eighth of VGG11's
    widths) with injected draws (augmentation, mask, Dropout keep-masks),
-   card vs CPU under phase 10's rule, with local and with synced BN;
+   card vs CPU under phase 10's rule, with local BN, with synced BN and
+   with synced BN under ``bn_mode="local"``, one K2 call each;
+20b. ResNet18 at full width, 8 workers x 128, synced BN under
+   ``bn_mode="local"`` through ``make_ps_train_step`` (no CLI builds a
+   synced model under local), the int8 wire, 5 steps from distinct
+   per-worker stats rows: finite losses, one K2 call a step, the rows
+   still distinct; step p50 and peak memory;
 21. the event stream on phase 9's configuration: the tracer's host cost
    (8 steps without ``--trace`` and 8 with, in turns, twice); then
    ``--metrics-file``, ``--trace``, ``--mode straggler --kill-threshold
@@ -306,11 +312,15 @@ Phases, one line each:
    rates x 4 steps of ResNet18 with ``--compress-grad compress`` (one K2
    call a step) and ``--workload lm`` 2 x 2 steps on the flash kernels
    (K4-K6 launched); the seconds of each part;
-42. the kernels JSON line, then the result line.
+42. the port's pslint gate (``python -m ps_pytorch_tpu_torch.lint
+   ps_pytorch_tpu_torch chip_smoke.py --baseline lint_baseline_torch.json``)
+   in a process of its own on this machine: exit 0 and no new finding;
+   its seconds and finding count;
+43. the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,39,40,41 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,39,40,41,42 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -319,7 +329,8 @@ through ``serve.kv`` alone; the flash kernels 4 and 14; the serve run of
 wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9;
 the two-round, homomorphic and ZeRO-1 wires of 12;
 the checkpoints of 12b; the VGG runs of 18; the bf16 runs of 19, after
-phase 9's f32 run; the held steps of 20; the event stream of 21; the
+phase 9's f32 run; the held steps of 20; the synced-local ResNet18 run of
+20b; the event stream of 21; the
 data path of 25, the adaptive wire of 26, stochastic rounding of 27, the
 resume-reshape of 28, the pipelined wire of 29, the hierarchical wire of
 30, which reports no flat run beside its own when run alone, the
@@ -330,7 +341,7 @@ dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
 alone, the held MoE and dp_tp_pp steps of 36, the serving CLI of 37, the
 compressed checkpoints of 38, pscheck of 39, which reports no phase 9
 p50 beside its own when run alone, psnumerics of 40, which runs 39
-first, autotune of 41),
+first, autotune of 41, the lint gate of 42),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -423,6 +434,9 @@ def device_ms(fn, iters: int = 10) -> tuple:
     return total, by_name
 
 
+PROFILE_ATTEMPTS = 6
+
+
 def device_profile(fn, iters: int = 10) -> tuple:
     """``device_ms``'s figures and the device launches (kernels and
     memsets) per call, by name."""
@@ -431,7 +445,9 @@ def device_profile(fn, iters: int = 10) -> tuple:
     fn()
     torch.cuda.synchronize()
     seen = {}
-    for _ in range(3):  # a trace may come back with no device events: take another
+    # a trace may come back with no device events (CUPTI drops them now
+    # and then, several traces in a row at times): take another
+    for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -443,7 +459,7 @@ def device_profile(fn, iters: int = 10) -> tuple:
                 rec[1] += evt.time_range.elapsed_us() / 1e3
         if seen:
             break
-    require(bool(seen), "profiler: no device time recorded in three traces")
+    require(bool(seen), f"profiler: no device time recorded in {PROFILE_ATTEMPTS} traces")
     per_call = {k: max(1, round(n / iters)) for k, (n, _) in seen.items()}
     by_name = {k: t / n * per_call[k] for k, (n, t) in seen.items()}
     return sum(by_name.values()), by_name, per_call
@@ -1902,9 +1918,11 @@ def phase_held_vgg(dev) -> dict:
     CIFAR-10, int8 per-tensor wire, num-aggregate 5) of a narrow VGG11-BN
     (VGG11's table at an eighth of its widths), card against CPU on the
     same params, batch and draws (augmentation, mask and Dropout
-    keep-masks from one ``draw_step``): with local BN statistics, and with
-    synced BN (``bn_mode="synced"``, a model built with ``bn_axis_name``).
-    Phase 10's rule; one K2 call a step on the card."""
+    keep-masks from one ``draw_step``): with local BN statistics, with
+    synced BN (``bn_mode="synced"``, a model built with ``bn_axis_name``),
+    and with synced BN under ``bn_mode="local"`` (the running stats kept
+    ``[8, C]``, a row a worker). Phase 10's rule; one K2 call a step on
+    the card."""
     from ps_pytorch_tpu_torch.data import make_preprocessor, make_synthetic
     from ps_pytorch_tpu_torch.models import VGG, init_model
     from ps_pytorch_tpu_torch.models.vgg import CFGS
@@ -1923,7 +1941,8 @@ def phase_held_vgg(dev) -> dict:
     pre = make_preprocessor("Cifar10", True)
     out = {}
     for name, bn_mode, axis in (("vgg11_bn_narrow", "pmean", None),
-                                ("vgg11_bn_narrow_synced", "synced", WORKER_AXIS)):
+                                ("vgg11_bn_narrow_synced", "synced", WORKER_AXIS),
+                                ("vgg11_bn_narrow_synced_local", "local", WORKER_AXIS)):
         model = VGG(cfg=narrow, batch_norm=True, bn_axis_name=axis)
         cfg = PSConfig(num_workers=WORKERS, compress="int8", num_aggregate=5, bn_mode=bn_mode)
         params, bs = init_model(model, torch.Generator().manual_seed(5), device="cpu")
@@ -1949,6 +1968,86 @@ def phase_held_vgg(dev) -> dict:
     print("phase 20 VGG11-BN narrow and synced BN held on the card vs CPU: "
           + json.dumps(out))
     return out
+
+
+SYNCED_LOCAL_STEPS = 5
+
+
+def phase_synced_local(card: str) -> dict:
+    """Phase 20b: ResNet18 at its published widths, 8 workers x 128
+    (synthetic CIFAR-10, augmentation on), synced BN under
+    ``bn_mode="local"`` (a model built with ``bn_axis_name``: JAX's CLI
+    builds none under local, so the library's ``make_ps_train_step`` is
+    the entry point), the int8 per-tensor wire, lr 0.1, momentum 0.9,
+    num-aggregate 5, for 5 steps on the card. Every worker's running
+    stats start as a distinct row (seeded offsets on the init); every
+    loss finite, no skipped step, one K2 call a step, each stats leaf
+    ``[8, C]`` with its rows still pairwise distinct after the 5 steps
+    (each keeps 0.9^5 of its start offset). Step p50 (host clock after a
+    synchronize, after 2 warm-up steps) and the run's peak device memory
+    above its start."""
+    from ps_pytorch_tpu_torch.data import make_preprocessor, make_synthetic
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves, tree_map
+    from ps_pytorch_tpu_torch.parallel.mesh import WORKER_AXIS
+    from ps_pytorch_tpu_torch.parallel.ps import PSConfig, init_ps_state, make_ps_train_step
+
+    dev = torch.device("cuda")
+    steps = SYNCED_LOCAL_STEPS
+    model = build_model("ResNet18", bn_axis_name=WORKER_AXIS)
+    cfg = PSConfig(num_workers=WORKERS, bn_mode="local", compress="int8", num_aggregate=5)
+    params, bs = init_model(model, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(7)
+    rows = tree_map(lambda s: (s.unsqueeze(0) + 0.5 * torch.rand((WORKERS,) + tuple(s.shape),
+                                                                 generator=g)).to(dev), bs)
+    d = make_synthetic("Cifar10", train_size=WORKERS * PER_WORKER * steps, test_size=8, seed=11)
+    batches = [{"image": d.train_images[i * WORKERS * PER_WORKER:(i + 1) * WORKERS * PER_WORKER],
+                "label": d.train_labels[i * WORKERS * PER_WORKER:(i + 1) * WORKERS * PER_WORKER]}
+               for i in range(steps)]
+
+    def run(base):
+        tx = build_optimizer("sgd", 0.1, momentum=0.9)
+        st = init_ps_state(model, tx, cfg, params=params, batch_stats=bs, device=dev)
+        st.batch_stats = rows
+        step = make_ps_train_step(model, tx, cfg, preprocess=make_preprocessor("Cifar10", True),
+                                  seed=0, device=dev)
+        losses, times, skipped = [], [], 0.0
+        for batch in batches:
+            t0 = time.perf_counter()
+            st, m = step(st, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            skipped = float(m["skipped_steps"])
+        return st, losses, times, skipped
+
+    reset_counts()
+    (st, losses, times, skipped), peak = _peak_of(run)
+    counts = read_counts()
+    require(all(np.isfinite(losses)), f"phase 20b: non-finite losses {losses}")
+    require(skipped == 0.0, "phase 20b: a step was skipped")
+    require(counts["quantize_tensors"] == steps and sum(counts.values()) == steps,
+            f"phase 20b: launches {counts}, expected {steps} K2 calls")
+    leaves = tree_leaves(st.batch_stats)
+    min_apart = float("inf")
+    for leaf in leaves:
+        require(tuple(leaf.shape[:1]) == (WORKERS,), f"phase 20b: stats leaf {tuple(leaf.shape)}")
+        require(bool(torch.isfinite(leaf).all()), "phase 20b: non-finite running stats")
+        flat = leaf.reshape(WORKERS, -1)
+        apart = (flat[:, None, :] - flat[None, :, :]).abs().amax(-1)
+        off_diagonal = ~torch.eye(WORKERS, dtype=torch.bool, device=dev)
+        min_apart = min(min_apart, float(apart[off_diagonal].min()))
+    require(min_apart > 0.0, "phase 20b: two workers' stats rows became equal")
+    rec = {"card": card, "model": "ResNet18 synthetic Cifar10 f32 (TF32 off), synced BN, "
+           "bn_mode local", "workers": WORKERS, "batch_per_worker": PER_WORKER, "steps": steps,
+           "losses": losses, "launches": counts, "stats_leaves": len(leaves),
+           "min_rows_apart": min_apart,
+           "step_ms_p50": float(np.median(times[2:])) * 1e3,
+           "step_ms": [t * 1e3 for t in times], "peak_bytes": int(peak)}
+    print("phase 20b synced BN under bn_mode local, ResNet18 8 x 128 int8 wire: "
+          + json.dumps(rec))
+    return rec
 
 
 def phase_events(card: str) -> dict:
@@ -4652,13 +4751,38 @@ def phase_autotune(card: str) -> dict:
     return out_rec
 
 
+def phase_lint(card: str) -> dict:
+    """Phase 42: the port's pslint gate on this machine, which has no JAX:
+    ``python -m ps_pytorch_tpu_torch.lint ps_pytorch_tpu_torch chip_smoke.py
+    --baseline lint_baseline_torch.json`` from this tree's root, in a
+    process of its own. Exit 0 and no new finding, or the phase fails; its
+    seconds and the findings it counted (baselined ones included)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "ps_pytorch_tpu_torch.lint", "ps_pytorch_tpu_torch",
+           "chip_smoke.py", "--baseline", "lint_baseline_torch.json", "--format", "json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"phase 42: the lint gate exited {proc.returncode}: "
+            f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    require(out["new"] == [], f"phase 42: new findings {out['new']}")
+    rec = {"card": card, "command": " ".join(cmd[1:]), "exit": proc.returncode,
+           "seconds": seconds, "findings": len(out["findings"]), "new": len(out["new"]),
+           "baselined": out["baselined"], "stale": len(out["stale"]),
+           "axes_source": out["axes_source"]}
+    print("phase 42 pslint gate on the port: " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
-                         "18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, "
-                         "36, 37, 38, 39, 40, 41; 2 "
+                         "18, 19, 20, 20b, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, "
+                         "34, 35, 36, 37, 38, 39, 40, 41, 42; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 23 first, 40 runs 39 "
                          "first)")
     ap.add_argument("--package-root", default=None,
@@ -4727,6 +4851,7 @@ def main(argv=None) -> int:
                  18: lambda: phase_vgg(smi),
                  19: lambda: phase_bf16(smi, phase_train(smi)),
                  20: lambda: phase_held_vgg(dev),
+                 "20b": lambda: phase_synced_local(smi),
                  21: lambda: phase_events(smi),
                  22: lambda: phase_adam(smi, phase_train(smi)),
                  23: lambda: procs(False),
@@ -4748,7 +4873,8 @@ def main(argv=None) -> int:
                  38: lambda: phase_compressed_checkpoint(smi),
                  39: lambda: phase_pscheck(smi, ran[9]["step_ms_p50"] if 9 in ran else None),
                  40: lambda: phase_numerics(smi, _kept_pscheck(smi)),
-                 41: lambda: phase_autotune(smi)}
+                 41: lambda: phase_autotune(smi),
+                 42: lambda: phase_lint(smi)}
 
         def _kept_pscheck(smi_):
             kept = {}
@@ -4786,6 +4912,7 @@ def main(argv=None) -> int:
     vgg = phase_vgg(smi)
     bf16 = phase_bf16(smi, train)
     phase_held_vgg(dev)
+    synced_local = phase_synced_local(smi)
     events = phase_events(smi)
     phase_adam(smi, train)
     nccl, two = procs(True)
@@ -4808,6 +4935,7 @@ def main(argv=None) -> int:
     phase_numerics(smi, kept)
     del kept
     tune = phase_autotune(smi)
+    phase_lint(smi)
 
     def moe_launches(counter):
         """Phase 35's launches of one flash entry in each run (8 steps)."""
@@ -4943,6 +5071,8 @@ def main(argv=None) -> int:
             # phase 12b's resumed run (steps 11-15), and phases 18, 19, 21
             "launches_checkpoint_resume": ckpt_rec["resume_launches"]["quantize_tensors"],
             "launches_vgg16": vgg["VGG16"]["launches"]["quantize_tensors"],
+            # phase 20b: ResNet18 synced BN under bn_mode local (5 steps)
+            "launches_synced_local": synced_local["launches"]["quantize_tensors"],
             "launches_resnet18_bf16": bf16["bf16"]["launches"]["quantize_tensors"],
             "launches_event_stream": events["launches"]["quantize_tensors"],
             # phase 25's run from the CIFAR-10 files; phases 26-27: none

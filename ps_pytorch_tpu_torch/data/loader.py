@@ -124,7 +124,9 @@ class _Staging:
         out of them has landed (refilling earlier would change a batch in
         flight)."""
         if self.event is not None:
-            self.event.synchronize()
+            # waits only for the last copy out of these buffers (a batch
+            # already handed to the card), never for a step
+            self.event.synchronize()  # psl: sync-ok
         out = {}
         for k, v in batch.items():
             src = torch.as_tensor(np.ascontiguousarray(v))

@@ -84,7 +84,7 @@ class ProfileWindow:
         # once a CAPTURE, not a step: the trace must hold the window's
         # retired device work
         if self.cuda:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # psl: sync-ok
         self._prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.trace_path = os.path.join(

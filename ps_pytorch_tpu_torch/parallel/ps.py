@@ -31,7 +31,11 @@ One call of the train step is one global step of the reference protocol
                                      (a model built with bn_axis_name)
                                      runs every worker's forward in one
                                      layer-synchronous pass over
-                                     per-worker copies of the params
+                                     per-worker copies of the params;
+                                     under bn_mode local its running
+                                     stats stay [N, ...], each row
+                                     updated from its own old row and
+                                     the shared batch statistics
 
 The non-finite guard checks every worker's gradients before the mask
 (ps.py:1227-1242): a NaN in a worker the mask drops still skips the
@@ -864,10 +868,6 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
                   if cfg.precision_adapt else None)
 
     synced = getattr(model, "bn_axis_name", None) is not None
-    if synced and cfg.bn_mode == "local":
-        raise NotImplementedError(
-            f"a synced-BatchNorm model under bn_mode='local' (per-worker running stats) "
-            f"{_ROADMAP} item 2")
     if synced and isinstance(axis, ProcessWorkerAxis):
         raise NotImplementedError(
             f"synced BatchNorm over processes (a cross-process BatchNorm with its "
@@ -1120,6 +1120,9 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             pipe.leaf_ready(i, g)
 
         if synced:
+            # under bn_mode local the stats go in stacked [N, ...] and come
+            # out so: each row's running update reads its own old row
+            # (ps.py:1134) and the batch statistics every worker shares
             leaf_grads, nbs, losses, p1s, p5s = synced_grads(
                 params_t, bs, xs, ys, scale, masks, on_grad=None if pipe is None else pipe_leaf)
             new_bs_w = [nbs] * n
@@ -1188,7 +1191,9 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             updates, new_opt = tx.update(agg, state.opt_state, master)
             new_master = apply_updates(master, updates)
 
-        if cfg.bn_mode == "local":
+        if cfg.bn_mode == "local" and synced:
+            out_bs = new_bs_w[0] if new_bs_w[0] else bs  # already [N, ...]
+        elif cfg.bn_mode == "local":
             out_bs = (tree_map(lambda *xs: torch.stack(xs), *new_bs_w)
                       if new_bs_w[0] else bs)
         else:

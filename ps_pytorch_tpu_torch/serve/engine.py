@@ -522,7 +522,7 @@ class ServingEngine:
         # THE per-tick host sync: the scheduler cannot admit/evict
         # without this step's tokens — one [slots] fetch
         with tr.span("token_fetch", cat="serve", tick=self._tick_no):
-            tokens = nxt.cpu().numpy()
+            tokens = nxt.cpu().numpy()  # psl: sync-ok
         emit_s = self.clock()
 
         done: List[Completion] = []

@@ -598,7 +598,8 @@ class Trainer:
         """The watchdog's per-step barrier: the card finishes the step
         (nothing is read back)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # armed only with the watchdog, which times each step's walltime
+            torch.cuda.synchronize(self.device)  # psl: sync-ok
 
     def train(self) -> dict:
         """Run up to epochs/max_steps, or until a stop is requested;
@@ -693,9 +694,12 @@ class Trainer:
                         self._adaptive.record(step_no, t2 - t0)
                     if self._precision is not None:
                         # popped before any window read sees it: the
-                        # controller's per-step read of a few floats
-                        self._precision.record(step_no,
-                                               metrics.pop("bucket_sqnorm").cpu().numpy())
+                        # controller's per-step read of a few floats, armed
+                        # only with precision_adapt (the controller needs
+                        # each step's bucket norms)
+                        self._precision.record(
+                            step_no,
+                            metrics.pop("bucket_sqnorm").cpu().numpy())  # psl: sync-ok
                     unsynced += 1
                     if armed:
                         self._watchdog(step_no, t2 - t0, first_step)
@@ -703,7 +707,7 @@ class Trainer:
                         # the once-per-window read: it waits for every step
                         # in flight, so the window's walltime is honest
                         with tr.span("sync", step=step_no):
-                            metrics = {k: float(v) for k, v in metrics.items()}
+                            metrics = {k: float(v) for k, v in metrics.items()}  # psl: sync-ok
                         unsynced = 0
                         step_time = (time.perf_counter() - window_t0) / max(window_steps, 1)
                         self.history.append({"step": step_no, "loss": metrics["loss"],
@@ -727,7 +731,7 @@ class Trainer:
                         # the guard's abort live when no window reads the
                         # metrics
                         with tr.span("sync", step=step_no):
-                            metrics = {k: float(v) for k, v in metrics.items()}
+                            metrics = {k: float(v) for k, v in metrics.items()}  # psl: sync-ok
                         with tr.span("guard", step=step_no):
                             self._guard_check(metrics, step_no)
                         unsynced = 0

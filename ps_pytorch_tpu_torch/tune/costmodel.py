@@ -48,6 +48,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel.mesh import DCN_AXIS
+
 # collective algorithm factors over a group of size g (ring schedules):
 # all-reduce moves 2(g-1)/g of the payload per link, one-shot
 # gather/scatter/all_to_all (g-1)/g, permute 1
@@ -231,7 +233,7 @@ def comm_seconds_from_rows(rows: Sequence[dict], axis_sizes: Dict[str, int],
         g = 1
         for ax in row.get("axes", ()):
             g *= int(axis_sizes.get(ax, 1))
-        gbs = profile.dcn_gbs if "dcn" in row.get("axes", ()) else profile.ici_gbs
+        gbs = profile.dcn_gbs if DCN_AXIS in row.get("axes", ()) else profile.ici_gbs
         total += _kind_factor(row["kind"], g) * row["bytes"] / (gbs * 1e9)
         total += int(row["count"]) * profile.collective_launch_s
     return total

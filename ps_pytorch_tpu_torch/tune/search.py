@@ -281,6 +281,7 @@ def run_search(model: str, grid: str = "default", profile: Optional[HardwareProf
     from ..check.core import trace_spec
     from ..check.rules import check_result, psc109_schedule
     from ..obs.schema import run_header, validate_event
+    from ..parallel.mesh import WORKER_AXIS
     from ..utils.compile_cache import enable_persistent_compile_cache
 
     say = progress or (lambda *_: None)
@@ -289,7 +290,7 @@ def run_search(model: str, grid: str = "default", profile: Optional[HardwareProf
     network, dataset = preset["network"], preset["dataset"]
     # candidates record on the registry's mesh of 8 stacked workers: the
     # model prices THAT geometry (probes stamp their backend separately)
-    axis_sizes = {"workers": MESH_DEVICES}
+    axis_sizes = {WORKER_AXIS: MESH_DEVICES}
     if profile is None:
         if dev.type != "cuda":
             raise ValueError("a CPU search takes an explicit HardwareProfile (no figure of "
