@@ -151,6 +151,15 @@ Phases, one line each:
    synced model under local), the int8 wire, 5 steps from distinct
    per-worker stats rows: finite losses, one K2 call a step, the rows
    still distinct; step p50 and peak memory;
+20c. synced BN across processes: two processes share the card over gloo,
+   4 workers each, ResNet18 8 x 128 through ``cli.train --bn-mode
+   synced`` on the int8 wire, 3 steps, then 3 under ``bn_mode="local"``
+   (20b's library configuration) from distinct rows: finite losses, each
+   process's K2 split halves once a step, the params against the stacked
+   runs of the same seed (cuDNN deterministic in both; bit for bit is the
+   rule), each process's stats rows the stacked run's; the step p50,
+   host-copy share and peak per process beside the stacked run's and
+   phase 20b's;
 21. the event stream on phase 9's configuration: the tracer's host cost
    (8 steps without ``--trace`` and 8 with, in turns, twice); then
    ``--metrics-file``, ``--trace``, ``--mode straggler --kill-threshold
@@ -230,6 +239,17 @@ Phases, one line each:
    launches at the ICI and DCN hops bit for bit their plain versions, the
    aggregate within JAX's bound of the exact mean, the homomorphic step
    p50 beside phase 12's flat autotune-best run;
+30b. the same grid over processes: two processes share the card over
+   gloo, one host of the 2 x 4 grid each (``ProcessHybridAxis``), on the
+   block-128 dequant and the homomorphic two-round wires, 3 steps each:
+   ``model_step_3`` byte for byte the stacked grid's run of the seed
+   (cuDNN deterministic in both), and NCCL at world size 1 (both hosts in
+   one process) too; each process's launches as the code implies (K3
+   twice a step, the split halves once, the ICI round 1's fused K1 and
+   round 2 once); one aggregate's K3 launches at each per-process hop
+   shape bit for bit their plain versions and the aggregate the stacked
+   grid's; the step p50 and host-copy share beside phase 30's stacked p50;
+   the split halves, K1's round 2 and K3 timed at the per-process shapes;
 31. ``cli.train --config-json runs/autotune_resnet18.json`` (the record's
    best candidate: the homomorphic two-round wire in one fused bucket)
    on phase 12's geometry, 3 steps, with ``--profile-dir`` and
@@ -1087,6 +1107,12 @@ def wire_step_case(dev, block: int) -> dict:
     return rec
 
 
+def _slice128(total: int, n: int) -> int:
+    """A region's length of the block-128 two-round wire: ceil(total / n)
+    in whole 128-blocks (collectives._slice_len)."""
+    return (-(-total // n) + 127) // 128 * 128
+
+
 def resnet18_round2_rows(dev) -> list:
     """The block-128 two-round wire's round-2 input of one ResNet18 step:
     each leaf padded to ``n * s`` (s whole blocks a region), its region
@@ -1094,7 +1120,7 @@ def resnet18_round2_rows(dev) -> list:
     out = []
     for x in resnet18_step_pieces(dev):
         n = x[0].numel()
-        s = (-(-n // WORKERS) + 127) // 128 * 128
+        s = _slice128(n, WORKERS)
         flat = torch.nn.functional.pad(x.reshape(WORKERS, n), (0, WORKERS * s - n))
         out.append(flat.reshape(WORKERS, WORKERS * s).sum(0).reshape(-1, 128))
     return out
@@ -2720,27 +2746,7 @@ def phase_two_processes(card: str, root: str, nccl: dict) -> dict:
     from ps_pytorch_tpu_torch import checkpoint as ckpt
 
     t0 = time.perf_counter()
-    port = _free_port()
-    outs = [os.path.join(root, f"p24_{r}.json") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase24-child",
-                               str(r), str(port), root, outs[r]],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=400)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        require(p.returncode == 0, f"phase 24 process {r} failed:\n{log[-3000:]}")
-    recs = []
-    for path in outs:
-        with open(path) as f:
-            recs.append(json.load(f))
+    recs = _spawn_children("--phase24-child", root, "phase 24", timeout=400)
     rec = {"card": card, "processes": 2, "workers_per_process": WORKERS // 2}
     for wire in PROC_WIRES:
         two = ckpt.checkpoint_path(os.path.join(root, f"two_{wire}"), PROC_STEPS)
@@ -3652,6 +3658,463 @@ def phase_hier(card: str, dev, flat_best=None) -> dict:
     print("phase 30 --dcn-hosts 2 (hierarchical two-round wire) ResNet18 2 x 4: "
           + json.dumps(rec))
     return rec
+
+
+# ------------------- phases 30b and 20c: the grid and synced BN over processes
+
+GRID_PROC_STEPS = 3
+GRID_PROC_BASE = ["--dcn-hosts", "2", "--compress-grad", "2round", "--bucket-bytes", "0"]
+GRID_PROC_WIRES = {
+    "dequant_block128": GRID_PROC_BASE + ["--quant-block-size", "128"],
+    "homomorphic": GRID_PROC_BASE + ["--wire-domain", "homomorphic"],
+}
+# a step's calls in each process holding whole hosts of the 2 x 4 grid (one
+# piece): the dequant wire's ICI round 1 stays in a host (K1's fused
+# shared-scale entry over the process's hosts), its DCN round 1 shares
+# scales across the processes (K1's split halves), its round 2 is K1's
+# quantize_rows_many; the homomorphic round 1 shares one lattice over the
+# grid (K2's split halves), then K3 at the ICI hop and at the DCN hop
+GRID_PROC_LAUNCHES = {
+    "dequant_block128": {"quantize_rows_scaled_many": 1, "rows_scaled_absmax": 1,
+                         "quantize_rows_scaled_given": 1, "quantize_rows_many": 1},
+    "homomorphic": {"tensors_absmax": 1, "quantize_tensors_given": 1,
+                    "accumulate_rescale_int8": 2},
+}
+
+
+def _wire_launches_want(per_step: dict, steps: int) -> dict:
+    """Every wire counter's launches over ``steps`` steps of ``per_step``."""
+    names = list(_counters()) + list(_split_counters())
+    return {k: per_step.get(k, 0) * steps for k in names}
+
+
+def _grid_grads(dev) -> dict:
+    """ResNet18-sized gradients of the 8 workers, ``{"g": [8, total]}``,
+    magnitudes varying by worker (phase 30's)."""
+    total = _resnet_total()
+    g = torch.Generator(device=dev).manual_seed(30)
+    scale = (1.0 + 0.05 * torch.arange(WORKERS, device=dev, dtype=torch.float32))[:, None]
+    return {"g": torch.randn((WORKERS, total), generator=g, device=dev) * scale * 1e-2}
+
+
+def _grid_aggregate(grid, grads, hops=None):
+    """The homomorphic hierarchical wire's aggregate of ``grads`` (this
+    process's rows) on ``grid``; ``hops`` collects each K3 launch's
+    ``(recv, divisor, out)``."""
+    import hashlib
+
+    from ps_pytorch_tpu_torch.parallel import collectives
+
+    real = collectives.accumulate_rescale_int8
+
+    def spy(recv, divisor):
+        out = real(recv, divisor)
+        hops.append((recv, float(divisor), out))
+        return out
+
+    if hops is not None:
+        collectives.accumulate_rescale_int8 = spy
+    try:
+        agg = collectives.aggregate_gradients(grads, grid, WORKERS, compress="int8_2round",
+                                              wire_domain="homomorphic", bucket_bytes=0,
+                                              flat_output=True)
+        torch.cuda.synchronize()
+    finally:
+        collectives.accumulate_rescale_int8 = real
+    return hashlib.sha256(agg.cpu().numpy().tobytes()).hexdigest()
+
+
+def phase30b_child(rank: int, port: int, root: str, out_path: str) -> int:
+    """One of phase 30b's two processes on the card: a gloo group, one
+    host of the 2 x 4 grid, ``cli.train.main`` on each wire (the trainer
+    builds the group's ``ProcessHybridAxis``); then one aggregate of
+    ResNet18-sized gradients on the grid, each K3 launch held against its
+    plain version. Writes its record to ``out_path``."""
+    import torch.distributed as dist
+
+    from ps_pytorch_tpu_torch.ops.quantize import accumulate_rescale_plain
+    from ps_pytorch_tpu_torch.parallel.mesh import ProcessHybridAxis
+
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    rec = {"rank": rank}
+    try:
+        for wire, flags in GRID_PROC_WIRES.items():
+            reset_counts()
+            reset_split_counts()
+            out = _train(GRID_PROC_STEPS, flags + [
+                "--train-dir", os.path.join(root, f"grid_two_{wire}"),
+                "--eval-freq", str(GRID_PROC_STEPS)], checkpoints=True)
+            torch.cuda.synchronize()
+            axis, hist = out["trainer"].mesh, out["history"]
+            require(isinstance(axis, ProcessHybridAxis) and axis.local_size == WORKERS // 2
+                    and axis.dcn.local_size == 1, f"phase 30b rank {rank}: axis {axis!r}")
+            step_s = sum(h["time_cost"] for h in hist)
+            rec[wire] = {"losses": [h["loss"] for h in hist],
+                         "launches": {**read_counts(), **read_split_counts()},
+                         "step_ms_p50": _step_p50(hist, warm=1) * 1e3,
+                         "host_copy_s": axis.host_copy_s, "steps_s": step_s,
+                         "host_copy_share": axis.host_copy_s / step_s}
+            dev = out["trainer"].device
+            del out
+        grid = ProcessHybridAxis(WORKERS, 2)
+        grads = {"g": grid.local(_grid_grads(dev)["g"]).contiguous()}
+        hops = []
+        rec["aggregate_sha256"] = _grid_aggregate(grid, grads, hops)
+        rec["k3_hops"] = []
+        for recv, d, k3 in hops:
+            require(torch.equal(k3.cpu(), accumulate_rescale_plain(recv.cpu(), d)),
+                    f"phase 30b rank {rank}: K3 {list(recv.shape)} / {d} differs from plain")
+            rec["k3_hops"].append({"shape": list(recv.shape), "divisor": d})
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _spawn_children(flag: str, root: str, what: str, timeout: int = 600) -> list:
+    """Two processes of this script (``flag RANK PORT ROOT OUT``) sharing
+    the card; their records, in rank order."""
+    port = _free_port()
+    outs = [os.path.join(root, f"{flag.strip('-')}_{r}.json") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                               str(port), root, outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"{what} process {r} failed:\n{log[-3000:]}")
+    recs = []
+    for path in outs:
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _timed_case(fn, plain, xs, n_bytes: float, n_ops: float, dtype) -> dict:
+    """One kernel entry at a path's shapes: bit for bit its plain version
+    on CPU copies, CUDA-event time, the plain version's on the card, the
+    bound."""
+    got = fn(xs)
+    torch.cuda.synchronize()
+    want = plain([x.cpu() for x in xs])
+    require(all(same_bits(a.cpu(), b) for g_, w_ in zip(got, want) for a, b in zip(g_, w_)),
+            "a per-process kernel case differs from its plain version")
+    b_ms, b_by = bound_ms(n_bytes, n_ops, PEAK_OPS_PER_S[dtype])
+    return {"shapes": sorted({str(list(x.shape)) for x in xs}), "pieces": len(xs),
+            "ms": time_ms(lambda: fn(xs), iters=50), "plain_ms": time_ms(lambda: plain(xs),
+                                                                          iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+
+
+def per_process_kernels(dev, k3_shapes) -> dict:
+    """The kernels of phases 30b and 20c at the shapes one process gives
+    them: K2's split halves over a 20c process's 62 leaves [4, ...]; K1's
+    split halves over the 2 x 4 grid's DCN round 1 (four [1, 2 s2] pieces
+    at block 128) and its round 2 (the process's [4 s2 / 128, 128] rows);
+    K3 at each hop shape ``k3_shapes`` lists."""
+    from ps_pytorch_tpu_torch.ops import quantize as q
+    from ps_pytorch_tpu_torch.ops.quantize import accumulate_rescale_int8 as k3
+    from ps_pytorch_tpu_torch.ops.quantize import accumulate_rescale_plain
+
+    f32 = torch.float32
+
+    def split_out(got):
+        return sum(a.numel() + 4 * b.numel() + 4 * c.numel() for a, b, c in got)
+
+    out = {}
+    xs = [x[:WORKERS // 2].contiguous() for x in resnet18_step_pieces(dev)]
+    n_in = sum(x.numel() for x in xs)
+    out["k2_split_20c"] = _timed_case(
+        lambda ys: q.quantize_tensors_given(ys, q.tensors_absmax(ys)),
+        lambda ys: q.quantize_tensors_given_plain(ys, q.tensors_absmax_plain(ys)), xs,
+        4 * n_in + split_out(q.quantize_tensors_given(xs, q.tensors_absmax(xs))), 4.0 * n_in,
+        f32)
+    total = _resnet_total()
+    s2 = _slice128(_slice128(total, 4), 2)
+    g = torch.Generator(device=dev).manual_seed(31)
+    xs = [torch.randn((1, 2 * s2), generator=g, device=dev) * 0.01 for _ in range(4)]
+    n_in = sum(x.numel() for x in xs)
+    out["k1_split_30b"] = _timed_case(
+        lambda ys: q.quantize_rows_scaled_given(ys, 128, q.rows_scaled_absmax(ys, 128)),
+        lambda ys: q.quantize_rows_scaled_given_plain(ys, 128, q.rows_scaled_absmax_plain(ys,
+                                                                                          128)),
+        xs, 4 * n_in + n_in + 8 * n_in // 128, 4.0 * n_in, f32)
+    xs = [torch.randn((4 * s2 // 128, 128), generator=g, device=dev) * 0.01]
+    n_in = xs[0].numel()
+    out["k1_round2_30b"] = _timed_case(q.quantize_rows_many, q.quantize_rows_many_plain, xs,
+                                       4 * n_in + n_in + 4 * n_in // 128, 4.0 * n_in, f32)
+    for shape, d in k3_shapes:
+        recv = torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+        hop = "ici" if d == 4.0 else "dcn"
+        rec = _timed_case(lambda ys: [(k3(ys[0], d),)],
+                          lambda ys: [(accumulate_rescale_plain(ys[0], d),)], [recv],
+                          recv.numel() + shape[1], float(recv.numel()), torch.int8)
+        out[f"k3_{hop}_30b"] = dict(rec, divisor=d)
+    print("phases 30b / 20c kernels at the per-process shapes, bit-exact vs plain: "
+          + json.dumps(out))
+    return out
+
+
+def phase_grid_processes(card: str, root: str, hier=None) -> dict:
+    """Phase 30b: the 2 x 4 grid over processes (cuDNN deterministic; the
+    caller sets it). Each wire: the stacked grid's run and NCCL at world
+    size 1 (both hosts in one process, the DCN axis over a one-rank
+    group), ``model_step_3`` byte for byte; then two gloo processes, one
+    host each, the same bytes; each process's launches as
+    ``GRID_PROC_LAUNCHES``; the grid aggregate's K3 launches in each
+    process bit for bit plain, the aggregate the stacked grid's; the
+    per-process kernel times; step p50s and host-copy shares beside phase
+    30's stacked p50 (``hier``, its record, when it ran)."""
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.parallel.mesh import (
+        HybridWorkerAxis,
+        ProcessHybridAxis,
+        make_hybrid_mesh,
+    )
+
+    t0 = time.perf_counter()
+    steps = GRID_PROC_STEPS
+    rec = {"card": card, "grid": [2, 4], "steps": steps}
+    faults = []  # checked after the record is printed
+    for wire, flags in GRID_PROC_WIRES.items():
+        r = {"flags": " ".join(flags)}
+        for kind in ("stacked", "nccl"):
+            extra = ["--train-dir", os.path.join(root, f"grid_{kind}_{wire}"),
+                     "--eval-freq", str(steps)]
+            if kind == "nccl":
+                extra += ["--coordinator-address", f"localhost:{_free_port()}",
+                          "--num-processes", "1", "--process-id", "0"]
+            reset_counts()
+            reset_split_counts()
+            out = _train(steps, flags + extra, checkpoints=True)
+            torch.cuda.synchronize()
+            counts = {**read_counts(), **read_split_counts()}
+            losses = [h["loss"] for h in out["history"]]
+            require(len(losses) == steps and all(np.isfinite(losses)),
+                    f"phase 30b {wire} {kind}: losses {losses}")
+            mesh = out["trainer"].mesh
+            require(isinstance(mesh, ProcessHybridAxis if kind == "nccl" else HybridWorkerAxis),
+                    f"phase 30b {wire} {kind}: axis {mesh!r}")
+            if kind == "nccl" and counts != _wire_launches_want(GRID_PROC_LAUNCHES[wire], steps):
+                faults.append(f"{wire} nccl: launches {counts}")
+            r[kind] = {"losses": losses, "launches": counts,
+                       "step_ms_p50": _step_p50(out["history"], warm=1) * 1e3}
+            del out
+        r["nccl_bit_exact_vs_stacked"] = _files_equal(
+            ckpt.checkpoint_path(os.path.join(root, f"grid_stacked_{wire}"), steps),
+            ckpt.checkpoint_path(os.path.join(root, f"grid_nccl_{wire}"), steps))
+        if not r["nccl_bit_exact_vs_stacked"]:
+            faults.append(f"{wire}: NCCL world size 1 model_step_{steps} differs from stacked")
+        rec[wire] = r
+    recs = _spawn_children("--phase30b-child", root, "phase 30b")
+    for wire in GRID_PROC_WIRES:
+        want = _wire_launches_want(GRID_PROC_LAUNCHES[wire], steps)
+        for c in recs:
+            if c[wire]["launches"] != want:
+                faults.append(f"{wire} rank {c['rank']}: launches {c[wire]['launches']}, "
+                              f"expected {want}")
+            if not all(np.isfinite(c[wire]["losses"])):
+                faults.append(f"{wire} rank {c['rank']}: losses {c[wire]['losses']}")
+        same = _files_equal(
+            ckpt.checkpoint_path(os.path.join(root, f"grid_stacked_{wire}"), steps),
+            ckpt.checkpoint_path(os.path.join(root, f"grid_two_{wire}"), steps))
+        if not same:
+            faults.append(f"{wire}: the two processes' model_step_{steps} differs from stacked")
+        rec[wire].update({
+            "bit_exact_vs_stacked": same,
+            "two_processes": {k: [c[wire][k] for c in recs]
+                              for k in ("launches", "step_ms_p50", "host_copy_share",
+                                        "losses")}})
+        if hier is not None and "step_ms_p50" in hier.get(wire, {}):
+            rec[wire]["phase30_stacked_step_ms_p50"] = hier[wire]["step_ms_p50"]
+    stacked_sha = _grid_aggregate(make_hybrid_mesh(2, WORKERS // 2), _grid_grads("cuda"))
+    shapes = []
+    for c in recs:
+        if c["aggregate_sha256"] != stacked_sha:
+            faults.append(f"rank {c['rank']}: the grid aggregate differs from the stacked one")
+        if [h["divisor"] for h in c["k3_hops"]] != [4.0, 2.0]:
+            faults.append(f"rank {c['rank']}: K3 hops {c['k3_hops']}")
+        shapes = [(tuple(h["shape"]), h["divisor"]) for h in c["k3_hops"]]
+    rec["aggregate_bit_exact_vs_stacked"] = all(c["aggregate_sha256"] == stacked_sha
+                                                for c in recs)
+    rec["k3_hop_shapes"] = [list(sh) for sh, _ in shapes]
+    rec["kernels"] = per_process_kernels(torch.device("cuda"), shapes)
+    rec["seconds"] = time.perf_counter() - t0
+    print("phase 30b the 2 x 4 grid over processes (NCCL world size 1, two gloo processes) "
+          "vs stacked: " + json.dumps(rec))
+    require(not faults, "phase 30b: " + "; ".join(faults))
+    return rec
+
+
+SYNCED_PROC_STEPS = 3
+
+
+def _synced_local_run(axis, steps: int, dev):
+    """Phase 20b's configuration (ResNet18 8 x 128, synced BN under
+    ``bn_mode="local"``, the int8 wire, num-aggregate 5) for ``steps``
+    steps over ``axis`` (stacked, or this process's workers), from the
+    seeded distinct stats rows: ``(state, losses, step seconds)``."""
+    from ps_pytorch_tpu_torch.data import make_preprocessor, make_synthetic
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.optim import build_optimizer
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_map
+    from ps_pytorch_tpu_torch.parallel.mesh import WORKER_AXIS
+    from ps_pytorch_tpu_torch.parallel.ps import PSConfig, init_ps_state, make_ps_train_step
+
+    model = build_model("ResNet18", bn_axis_name=WORKER_AXIS)
+    cfg = PSConfig(num_workers=WORKERS, bn_mode="local", compress="int8", num_aggregate=5)
+    params, bs = init_model(model, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(7)
+    rows = tree_map(lambda s: axis.local(s.unsqueeze(0) + 0.5 * torch.rand(
+        (WORKERS,) + tuple(s.shape), generator=g)).to(dev), bs)
+    d = make_synthetic("Cifar10", train_size=WORKERS * PER_WORKER * steps, test_size=8, seed=11)
+    tx = build_optimizer("sgd", 0.1, momentum=0.9)
+    st = init_ps_state(model, tx, cfg, params=params, batch_stats=bs, device=dev, mesh=axis)
+    st.batch_stats = rows
+    step = make_ps_train_step(model, tx, cfg, axis, preprocess=make_preprocessor("Cifar10", True),
+                              seed=0, device=dev)
+    lo, nl = axis.first * PER_WORKER, axis.local_size * PER_WORKER
+    losses, times = [], []
+    for i in range(steps):
+        at = i * WORKERS * PER_WORKER + lo
+        t0 = time.perf_counter()
+        st, m = step(st, {"image": d.train_images[at:at + nl],
+                          "label": d.train_labels[at:at + nl]})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    return st, losses, times
+
+
+def _synced_runs(root: str, run: str, tag: str, axis) -> dict:
+    """Phase 20c's two runs over ``axis``: ``cli.train --bn-mode synced``
+    (checkpoint ``model_step_3`` in ``root/synced_<run>``, which every
+    process of a run names), then the synced-local library run (its flat
+    params and stats rows saved as ``root/local_<tag>.pt``); launches,
+    losses, step p50s and peaks."""
+    from ps_pytorch_tpu_torch.parallel.buckets import tree_leaves
+
+    steps = SYNCED_PROC_STEPS
+    rec = {}
+    reset_counts()
+    reset_split_counts()
+    out, peak = _peak_of(lambda base: _train(steps, [
+        "--bn-mode", "synced", "--train-dir", os.path.join(root, f"synced_{run}"),
+        "--eval-freq", str(steps)], checkpoints=True))
+    hist = out["history"]
+    mesh = out["trainer"].mesh
+    step_s = sum(h["time_cost"] for h in hist)
+    copy_s = getattr(mesh, "host_copy_s", 0.0)
+    rec["synced"] = {"losses": [h["loss"] for h in hist],
+                     "launches": {**read_counts(), **read_split_counts()},
+                     "step_ms_p50": _step_p50(hist, warm=1) * 1e3, "peak_bytes": int(peak),
+                     "host_copy_share": copy_s / step_s}
+    del out
+    reset_counts()
+    reset_split_counts()
+    copy0 = getattr(axis, "host_copy_s", 0.0)
+    (st, losses, times), peak = _peak_of(lambda base: _synced_local_run(axis, steps, "cuda"))
+    rec["local"] = {"losses": losses, "launches": {**read_counts(), **read_split_counts()},
+                    "step_ms_p50": float(np.median(times[1:])) * 1e3, "peak_bytes": int(peak),
+                    "host_copy_share": (getattr(axis, "host_copy_s", 0.0) - copy0) / sum(times)}
+    torch.save({"params": st.params.flat.cpu(),
+                "stats": [t.cpu() for t in tree_leaves(st.batch_stats)]},
+               os.path.join(root, f"local_{tag}.pt"))
+    return rec
+
+
+def phase20c_child(rank: int, port: int, root: str, out_path: str) -> int:
+    """One of phase 20c's two processes on the card: a gloo group, 4 of
+    the 8 workers, the synced CLI run and the synced-local run."""
+    import torch.distributed as dist
+
+    from ps_pytorch_tpu_torch.parallel.mesh import ProcessWorkerAxis
+
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        rec = {"rank": rank, **_synced_runs(root, "two", f"two{rank}", ProcessWorkerAxis(WORKERS))}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def phase_synced_processes(card: str, root: str, synced_local=None) -> dict:
+    """Phase 20c: synced BN over two gloo processes of 4 workers on the
+    card (cuDNN deterministic; the caller sets it), against the stacked
+    runs of the same seed: the synced CLI run's ``model_step_3`` and the
+    synced-local run's params and stats rows; finite losses; each
+    process's K2 split halves once a step and no fused K2; step p50s,
+    host-copy shares and peaks beside the stacked runs' and phase 20b's
+    (``synced_local``, its record, when it ran)."""
+    from ps_pytorch_tpu_torch import checkpoint as ckpt
+    from ps_pytorch_tpu_torch.parallel.mesh import WorkerAxis
+
+    t0 = time.perf_counter()
+    steps = SYNCED_PROC_STEPS
+    stacked = _synced_runs(root, "stacked", "stacked", WorkerAxis(WORKERS))
+    recs = _spawn_children("--phase20c-child", root, "phase 20c")
+    want = _wire_launches_want({"tensors_absmax": 1, "quantize_tensors_given": 1}, steps)
+    rec = {"card": card, "steps": steps, "workers_per_process": WORKERS // 2,
+           "stacked": stacked, "two_processes": recs}
+    for run in ("synced", "local"):
+        require(stacked[run]["launches"]["quantize_tensors"] == steps,
+                f"phase 20c stacked {run}: launches {stacked[run]['launches']}")
+        for c in recs:
+            require(all(np.isfinite(c[run]["losses"])), f"phase 20c {run}: losses")
+            require(c[run]["launches"] == want,
+                    f"phase 20c {run} rank {c['rank']}: launches {c[run]['launches']}")
+    cmp = {}
+    a = ckpt.checkpoint_path(os.path.join(root, "synced_stacked"), steps)
+    b = ckpt.checkpoint_path(os.path.join(root, "synced_two"), steps)
+    ra, rb = ckpt.load_checkpoint_raw(os.path.dirname(a), steps), ckpt.load_checkpoint_raw(
+        os.path.dirname(b), steps)
+    pa = np.concatenate([np.asarray(v).reshape(-1) for v in _raw_leaves(ra["params"])])
+    pb = np.concatenate([np.asarray(v).reshape(-1) for v in _raw_leaves(rb["params"])])
+    cmp["synced"] = {"file_bit_exact": _files_equal(a, b),
+                     "max_abs_param_diff": float(np.abs(pa - pb).max())}
+    sl = torch.load(os.path.join(root, "local_stacked.pt"))
+    diffs, stats_exact = [], True
+    for r in range(2):
+        tl = torch.load(os.path.join(root, f"local_two{r}.pt"))
+        diffs.append(float((tl["params"] - sl["params"]).abs().max()))
+        rows = slice(r * WORKERS // 2, (r + 1) * WORKERS // 2)
+        stats_exact = stats_exact and all(same_bits(t, s[rows])
+                                          for t, s in zip(tl["stats"], sl["stats"]))
+    cmp["local"] = {"max_abs_param_diff": max(diffs), "stats_rows_bit_exact": stats_exact}
+    rec["vs_stacked"] = cmp
+    if synced_local is not None:
+        rec["phase20b_peak_bytes"] = synced_local["peak_bytes"]
+    rec["seconds"] = time.perf_counter() - t0
+    print("phase 20c synced BN over two gloo processes vs stacked, ResNet18 8 x 128: "
+          + json.dumps(rec))
+    require(cmp["synced"]["file_bit_exact"] and cmp["local"]["max_abs_param_diff"] == 0.0
+            and stats_exact, f"phase 20c: the processes' params differ from stacked: {cmp}")
+    return rec
+
+
+def _raw_leaves(tree):
+    """A raw checkpoint tree's array leaves, in key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _raw_leaves(tree[k])
+    elif tree is not None:
+        yield tree
 
 
 
@@ -4781,23 +5244,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
-                         "18, 19, 20, 20b, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, "
-                         "34, 35, 36, 37, 38, 39, 40, 41, 42; 2 "
+                         "18, 19, 20, 20b, 20c, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 30b, 31, "
+                         "32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 23 first, 40 runs 39 "
                          "first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
-    ap.add_argument("--phase24-child", nargs=4, default=None, metavar=("RANK", "PORT", "DIR", "OUT"),
-                    help=argparse.SUPPRESS)
+    children = {"phase24_child": phase24_child, "phase30b_child": phase30b_child,
+                "phase20c_child": phase20c_child}
+    for name in children:
+        ap.add_argument("--" + name.replace("_", "-"), nargs=4, default=None,
+                        metavar=("RANK", "PORT", "DIR", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if args.phase24_child is not None:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        rank, port, root, out = args.phase24_child
-        return phase24_child(int(rank), int(port), root, out)
+    for name, child in children.items():
+        if getattr(args, name) is not None:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            rank, port, root, out = getattr(args, name)
+            return child(int(rank), int(port), root, out)
     if args.package_root is not None:
         sys.path.insert(0, os.path.abspath(args.package_root))
         OTHER_TREE = True
@@ -4814,20 +5281,27 @@ def main(argv=None) -> int:
     print(f"phase 1 device: {card} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | tf32 off")
 
-    def procs(two: bool) -> tuple:
-        """Phases 23 and (``two``) 24 in one scratch directory: 24 holds
-        its files against 23's stacked ones. cuDNN picks deterministic
-        algorithms for both, so runs of one seed are comparable bit for
-        bit."""
+    def deterministic(fn):
+        """``fn(root)`` in a scratch directory with cuDNN's deterministic
+        algorithms (phase 23's rule: runs of one seed comparable bit for
+        bit)."""
         import tempfile
 
         torch.backends.cudnn.deterministic = True
         try:
             with tempfile.TemporaryDirectory() as root:
-                nccl = phase_nccl_one(smi, root)
-                return nccl, (phase_two_processes(smi, root, nccl) if two else None)
+                return fn(root)
         finally:
             torch.backends.cudnn.deterministic = False
+
+    def procs(two: bool) -> tuple:
+        """Phases 23 and (``two``) 24 in one scratch directory: 24 holds
+        its files against 23's stacked ones."""
+        def run(root):
+            nccl = phase_nccl_one(smi, root)
+            return nccl, (phase_two_processes(smi, root, nccl) if two else None)
+
+        return deterministic(run)
 
     if args.phases is not None:
         import ps_pytorch_tpu_torch
@@ -4851,7 +5325,9 @@ def main(argv=None) -> int:
                  18: lambda: phase_vgg(smi),
                  19: lambda: phase_bf16(smi, phase_train(smi)),
                  20: lambda: phase_held_vgg(dev),
-                 "20b": lambda: phase_synced_local(smi),
+                 "20b": lambda: ran.setdefault("20b", phase_synced_local(smi)),
+                 "20c": lambda: deterministic(lambda root: phase_synced_processes(
+                     smi, root, ran.get("20b"))),
                  21: lambda: phase_events(smi),
                  22: lambda: phase_adam(smi, phase_train(smi)),
                  23: lambda: procs(False),
@@ -4861,8 +5337,10 @@ def main(argv=None) -> int:
                  27: lambda: phase_stochastic(smi, dev),
                  28: lambda: phase_reshape(smi),
                  29: lambda: phase_overlap(smi, dev),
-                 30: lambda: phase_hier(smi, dev, ran[12]["autotune_best"]
-                                        if 12 in ran else None),
+                 30: lambda: ran.setdefault(30, phase_hier(smi, dev, ran[12]["autotune_best"]
+                                                           if 12 in ran else None)),
+                 "30b": lambda: deterministic(lambda root: phase_grid_processes(
+                     smi, root, ran.get(30))),
                  31: lambda: phase_config_json(smi),
                  32: lambda: phase_lm_schemes(smi),
                  33: lambda: phase_lm_schemes_held(dev),
@@ -4913,6 +5391,7 @@ def main(argv=None) -> int:
     bf16 = phase_bf16(smi, train)
     phase_held_vgg(dev)
     synced_local = phase_synced_local(smi)
+    synced_proc = deterministic(lambda root: phase_synced_processes(smi, root, synced_local))
     events = phase_events(smi)
     phase_adam(smi, train)
     nccl, two = procs(True)
@@ -4923,6 +5402,7 @@ def main(argv=None) -> int:
     phase_reshape(smi)
     overlap = phase_overlap(smi, dev)
     hier = phase_hier(smi, dev, wires["autotune_best"])
+    grid_proc = deterministic(lambda root: phase_grid_processes(smi, root, hier))
     cfg_json = phase_config_json(smi)
     schemes = phase_lm_schemes(smi, lm1)
     phase_lm_schemes_held(dev)
@@ -4997,7 +5477,21 @@ def main(argv=None) -> int:
         """Phase 41: the K launches of the autotune probes (4 steps each)."""
         return sum(t["probe_launches"][k] for t in tune["top"] if t["probe_launches"])
 
-    def split_entry(name, source, site, rec, wire, absmax, given):
+    def grid_launches(wire, name):
+        """Phase 30b's launches of one entry in each gloo process (3 steps),
+        and in its NCCL run at world size 1."""
+        return {"launches_grid_processes": [la[name] for la in
+                                            grid_proc[wire]["two_processes"]["launches"]],
+                "launches_grid_nccl_one": grid_proc[wire]["nccl"]["launches"][name]}
+
+    def synced_launches(name):
+        """Phase 20c's launches of one entry in each gloo process (3 synced
+        CLI steps, 3 synced-local steps)."""
+        return {"launches_synced_processes": {run: [c[run]["launches"][name]
+                                                    for c in synced_proc["two_processes"]]
+                                              for run in ("synced", "local")}}
+
+    def split_entry(name, source, site, rec, wire, absmax, given, **extra):
         """A split route: launches from phase 23's NCCL run of its wire
         (each half once a step; the quantize half is the entry's count),
         phase 24's per process beside them; times at the ResNet18 step."""
@@ -5010,7 +5504,7 @@ def main(argv=None) -> int:
             "max_abs_err": rec["max_abs_err"],
             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                    "fused_ms")},
-            "library_ms": None,
+            "library_ms": None, **extra,
         }
 
     kernels = [
@@ -5042,6 +5536,9 @@ def main(argv=None) -> int:
             **{k: k1s["resnet18_round2"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                      "bound_by")},
             "library_ms": None,
+            # phase 30b: the DCN hop's round 2 over one process's workers
+            **grid_launches("dequant_block128", "quantize_rows_many"),
+            "per_process": grid_proc["kernels"]["k1_round2_30b"],
         },
         {
             "name": "quantize_rows_scaled_many", "route": "cuda",
@@ -5057,6 +5554,8 @@ def main(argv=None) -> int:
             "launches_pipelined": overlap["block128"]["launches_pipelined"][
                 "quantize_rows_scaled_many"],
             "launches_hier": hier["dequant_block128"]["launches"]["quantize_rows_scaled_many"],
+            # phase 30b: the ICI round 1 inside each process's host
+            **grid_launches("dequant_block128", "quantize_rows_scaled_many"),
             "launches_autotune_probes": probe_launches("K1"),
             "max_abs_err": max(k1s["max_abs_err"], k1s["resnet18_step"]["max_abs_err"]),
             "ms": k1s["resnet18_step"]["ms"], "plain_ms": k1s["resnet18_step"]["plain_ms"],
@@ -5109,6 +5608,10 @@ def main(argv=None) -> int:
             "launches_pipelined": overlap["2round_homomorphic"]["launches_pipelined"][
                 "accumulate_rescale_int8"],
             "launches_hier": hier["homomorphic"]["launches"]["accumulate_rescale_int8"],
+            # phase 30b: two a step in each process, at the per-process hop shapes
+            **grid_launches("homomorphic", "accumulate_rescale_int8"),
+            "per_process_hops": {hop: grid_proc["kernels"][f"k3_{hop}_30b"]
+                                 for hop in ("ici", "dcn")},
             # phase 31's run from the committed autotune record
             "launches_config_json": cfg_json["launches"]["accumulate_rescale_int8"],
             # phase 39: the registry's tapes (the homomorphic two-round specs)
@@ -5147,10 +5650,17 @@ def main(argv=None) -> int:
             **moe_launches("flash_fwd"),
         },
         split_entry("quantize_tensors_split", "ps_pytorch_tpu_torch/csrc/quantize_tensor.cu",
-                    78, split["k2"], "compress", "tensors_absmax", "quantize_tensors_given"),
+                    78, split["k2"], "compress", "tensors_absmax", "quantize_tensors_given",
+                    # phase 30b's homomorphic round 1, phase 20c's synced runs
+                    **grid_launches("homomorphic", "quantize_tensors_given"),
+                    **synced_launches("quantize_tensors_given"),
+                    per_process=grid_proc["kernels"]["k2_split_20c"]),
         split_entry("quantize_rows_scaled_split", "ps_pytorch_tpu_torch/csrc/quantize_rows.cu",
                     101, split["k1"], "block128", "rows_scaled_absmax",
-                    "quantize_rows_scaled_given"),
+                    "quantize_rows_scaled_given",
+                    # phase 30b's DCN round 1, shared across the processes
+                    **grid_launches("dequant_block128", "quantize_rows_scaled_given"),
+                    per_process=grid_proc["kernels"]["k1_split_30b"]),
         flash_entry("flash_partial", "ps_pytorch_tpu_torch/csrc/flash_fwd.cu", 199, "partial"),
         flash_entry("flash_bwd_dq", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 319, "dq"),
         flash_entry("flash_bwd_dkv", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 337, "dkv"),

@@ -30,7 +30,9 @@ import torch
 from ..parallel.mesh import (
     DCN_AXIS,
     WORKER_AXIS,
+    GRIDS,
     HybridWorkerAxis,
+    ProcessHybridAxis,
     ProcessWorkerAxis,
     WorkerAxis,
 )
@@ -67,9 +69,10 @@ def _process_bytes(axis):
 
 def _sizes(axis) -> dict:
     """The size of each mesh axis a recording axis rides, where it knows
-    them: a one-name axis its own size, the hybrid grid its hosts and
-    per-host workers (JAX's tuple axis ``(dcn, workers)``)."""
-    if isinstance(axis, HybridWorkerAxis):
+    them: a one-name axis its own size, the hybrid grid (stacked or over
+    processes) its hosts and per-host workers (JAX's tuple axis ``(dcn,
+    workers)``)."""
+    if isinstance(axis, GRIDS):
         return {DCN_AXIS: axis.hosts, WORKER_AXIS: axis.per_host}
     if len(axis.names) == 1:
         return {axis.names[0]: axis.size}
@@ -151,10 +154,30 @@ class RecordingProcessAxis(ProcessWorkerAxis):
 _install(RecordingProcessAxis, ProcessWorkerAxis, _PROCESS)
 
 
+class RecordingProcessHybridAxis(ProcessHybridAxis):
+    """The hybrid grid over processes, recording: the grid's collectives
+    ride the tuple axis; ``dcn`` is a recording process axis and ``ici``
+    a recording stacked one, of their own names."""
+
+    def __init__(self, size: int, hosts: int, group=None):
+        super().__init__(size, hosts, group)
+        self._dcn = RecordingProcessAxis(hosts, group, names=(DCN_AXIS,))
+        self._dcn._copy_s = self._copy_s
+
+    @property
+    def ici(self) -> WorkerAxis:
+        return RecordingWorkerAxis(self.per_host, names=(WORKER_AXIS,))
+
+
+_install(RecordingProcessHybridAxis, ProcessWorkerAxis, _PROCESS)
+
+
 def recording_axis(axis, names: Tuple[str, ...] = (WORKER_AXIS,)):
     """The recording twin of ``axis`` (a ``WorkerAxis``, the hybrid grid
     or a ``ProcessWorkerAxis``), riding ``names`` (the grid keeps its
     tuple axis)."""
+    if isinstance(axis, ProcessHybridAxis):
+        return RecordingProcessHybridAxis(axis.size, axis.hosts, axis.group)
     if isinstance(axis, ProcessWorkerAxis):
         return RecordingProcessAxis(axis.size, axis.group, names)
     if isinstance(axis, HybridWorkerAxis):

@@ -23,14 +23,22 @@ in f32, the output in the input's dtype, the running stats in f32.
 Worker-stacked params (synced BatchNorm): a leaf with a leading worker
 dim (a ``[N, kh, kw, in, out]`` kernel, ``[N, C]`` BN scale) is each of
 N workers' own copy, and the batch's rows are the N workers' batches in
-order. Each worker's rows go through its own copy; BatchNorm reduces its
-statistics over every worker's rows, as flax's ``axis_name`` pmean does
-across devices, so one backward of the summed losses gives each copy
-its gradient, the cross-worker terms included.
+order. Each worker's rows go through its own copy; BatchNorm takes each
+worker's mean and mean of squares and combines them over the workers,
+as flax's ``axis_name`` BatchNorm pmeans them across devices
+(``E[x^2] - E[x]^2``, clipped at 0), so one backward of the summed
+losses gives each copy its gradient, the cross-worker terms included.
+The workers may span processes: inside ``synced_stats_axis(axis)`` the
+statistics combine over ``axis`` (a ``ProcessWorkerAxis`` holds this
+process's workers), whose backward brings the other processes' losses
+in. Every per-worker op runs on one worker's rows, so a process computes
+its workers' values as the stacked run does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Dict, Tuple
 
@@ -96,10 +104,8 @@ def dense(x: torch.Tensor, p: Dict) -> torch.Tensor:
     if k.dim() == 2:
         out = x @ k
         return out + b if b is not None else out
-    out = torch.bmm(x.reshape(k.shape[0], -1, x.shape[-1]), k)
-    if b is not None:
-        out = out + b[:, None, :]
-    return out.reshape(-1, k.shape[-1])
+    return torch.cat([xw @ k[i] + b[i] if b is not None else xw @ k[i]
+                      for i, xw in enumerate(x.chunk(k.shape[0]))])
 
 
 def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -115,13 +121,19 @@ def init_batch_norm(c: int) -> Tuple[Dict, Dict]:
             {"mean": torch.zeros(c), "var": torch.ones(c)})
 
 
+def _running_update(stats: Dict, mean: torch.Tensor, var: torch.Tensor) -> Dict:
+    """flax's running update from a batch's mean and biased variance."""
+    with torch.no_grad():
+        return {"mean": BN_MOMENTUM * stats["mean"] + (1.0 - BN_MOMENTUM) * mean,
+                "var": BN_MOMENTUM * stats["var"] + (1.0 - BN_MOMENTUM) * var}
+
+
 def _running(stats: Dict, x: torch.Tensor) -> Dict:
     """flax's running update from the biased batch statistics of ``x``,
     reduced in f32."""
     with torch.no_grad():
         var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-        return {"mean": BN_MOMENTUM * stats["mean"] + (1.0 - BN_MOMENTUM) * mean,
-                "var": BN_MOMENTUM * stats["var"] + (1.0 - BN_MOMENTUM) * var}
+    return _running_update(stats, mean, var)
 
 
 def batch_norm(x: torch.Tensor, p: Dict, stats: Dict, train: bool,
@@ -141,19 +153,121 @@ def batch_norm(x: torch.Tensor, p: Dict, stats: Dict, train: bool,
     return F.batch_norm(x, None, None, scale, bias, training=True, eps=BN_EPS)
 
 
+# the worker axis synced BatchNorm combines its statistics over (None: the
+# stacked workers of the call, every one in this process)
+_STATS_AXIS = contextvars.ContextVar("synced_stats_axis", default=None)
+
+
+@contextlib.contextmanager
+def synced_stats_axis(axis):
+    """Within, synced BatchNorm combines the per-worker statistics over
+    ``axis`` (``parallel.mesh``'s ``WorkerAxis`` or a process-spanning
+    one, whose ``local_size`` workers are the call's): the PS step sets
+    it around its forward."""
+    token = _STATS_AXIS.set(axis)
+    try:
+        yield
+    finally:
+        _STATS_AXIS.reset(token)
+
+
+class _WorkerMean(torch.autograd.Function):
+    """The mean over every worker of per-worker statistics ``s [n_loc,
+    k]`` (``axis.pmean``: the rows gathered in worker order and reduced
+    as the stacked backend reduces them), returned once a local worker,
+    ``[n_loc, k]``. The backward sums every worker's gradient of its
+    copy (``axis.psum``, the same order) and hands each row the sum over
+    the workers count: the transpose of the pmean, which carries the
+    other processes' losses into this process's statistics."""
+
+    @staticmethod
+    def forward(ctx, s, axis):
+        ctx.axis, ctx.n = axis, s.shape[0] if axis is None else axis.size
+        mean = s.mean(0) if axis is None else axis.pmean(s)
+        return mean.expand(s.shape).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.sum(0) if ctx.axis is None else ctx.axis.psum(g.contiguous())
+        return (total / ctx.n).expand(g.shape).clone(), None
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A per-worker ``[n, C]`` value broadcast over its worker's rows of
+    ``[n, B, C, H, W]``."""
+    return t[:, None, :, None, None]
+
+
+class _WorkerStats(torch.autograd.Function):
+    """Each worker's mean and mean of squares over its rows of ``x [n B,
+    C, H, W]`` (f32), ``[n, 2C]``. The forward reduces one worker's rows
+    a call; the backward is elementwise over every row."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.save_for_backward(x)
+        ctx.n = n
+        return torch.stack([torch.cat([p.mean(dim=(0, 2, 3)), p.square().mean(dim=(0, 2, 3))])
+                            for p in x.chunk(n)])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        n, c = ctx.n, x.shape[1]
+        xs = x.reshape(n, -1, *x.shape[1:])
+        count = xs[0].numel() // c
+        dx = (_rows(g[:, :c]) + 2.0 * xs * _rows(g[:, c:])) / count
+        return dx.reshape(x.shape), None
+
+
+class _WorkerAffine(torch.autograd.Function):
+    """``(x - mean) * mul + bias`` with each worker's own ``[n, C]``
+    values on its rows of ``x [n B, C, H, W]``: elementwise over every
+    row, and each per-worker gradient reduced over one worker's rows a
+    call."""
+
+    @staticmethod
+    def forward(ctx, x, mean, mul, bias):
+        ctx.save_for_backward(x, mean, mul)
+        xs = x.reshape(mean.shape[0], -1, *x.shape[1:])
+        return ((xs - _rows(mean)) * _rows(mul) + _rows(bias)).reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, mul = ctx.saved_tensors
+        n = mean.shape[0]
+        dx = g.reshape(n, -1, *g.shape[1:]) * _rows(mul)
+        gs, xs = g.chunk(n), x.chunk(n)
+        dbias = torch.stack([gw.sum(dim=(0, 2, 3)) for gw in gs])
+        dmul = torch.stack([(gw * (xw - mean[i][:, None, None])).sum(dim=(0, 2, 3))
+                            for i, (gw, xw) in enumerate(zip(gs, xs))])
+        return dx.reshape(x.shape), -(dbias * mul), dmul, dbias
+
+
 def _synced_batch_norm(x, scale, bias, stats, train, new_stats, name):
-    """BatchNorm over the rows of every worker (statistics shared), then
-    each worker's own affine, in f32; the output in ``x``'s dtype."""
-    n = scale.shape[0]
+    """flax's synced BatchNorm on worker-stacked params: each worker's
+    mean and mean of squares (f32), their mean over every worker
+    (``_WorkerMean`` over ``synced_stats_axis``'s axis), the variance
+    ``E[x^2] - E[x]^2`` clipped at 0, then each worker's own normalize
+    and affine (flax's ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``), in f32; the output in ``x``'s dtype. Every reduction runs
+    over one worker's rows, so its bits do not depend on how many
+    workers the call holds."""
+    n, c = scale.shape
+    axis = _STATS_AXIS.get()
+    if axis is not None and axis.local_size != n:
+        raise ValueError(f"synced BatchNorm: {n} stacked copies, the axis holds "
+                         f"{axis.local_size} workers here")
+    xf = x.float()
     if train:
-        new_stats[name] = _running(stats, x)
-        xhat = F.batch_norm(x.float(), None, None, training=True, eps=BN_EPS)
+        m = _WorkerMean.apply(_WorkerStats.apply(xf, n), axis)
+        mean, var = m[:, :c], torch.clamp_min(m[:, c:] - m[:, :c].square(), 0.0)
+        new_stats[name] = _running_update(stats, mean[0].detach(), var[0].detach())
     else:
-        xhat = F.batch_norm(x.float(), stats["mean"], stats["var"], training=False,
-                            eps=BN_EPS)
-    y = xhat.reshape(n, -1, *x.shape[1:]) * scale[:, None, :, None, None] \
-        + bias[:, None, :, None, None]
-    return y.reshape(x.shape).to(x.dtype)
+        mean = stats["mean"].expand(n, c)
+        var = stats["var"].expand(n, c)
+    mul = torch.rsqrt(var + BN_EPS) * scale
+    return _WorkerAffine.apply(xf, mean, mul, bias).to(x.dtype)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -74,9 +74,10 @@ drives it over a whole tree in readiness order for the wires'
 ``pipelined=`` keyword. The values are the serial wire's, bit for bit.
 
 The hierarchical DCN x ICI wire (``quantized_allreduce_2round_hier``)
-runs on the hybrid grid ``mesh.HybridWorkerAxis`` (JAX's tuple axis):
-``aggregate_gradients`` routes ``int8_2round`` there, and every other
-wire reduces over the grid as over the flat axis.
+runs on the hybrid grid (JAX's tuple axis): ``mesh.HybridWorkerAxis`` on
+one process, or ``mesh.ProcessHybridAxis``, whose processes each hold
+whole hosts. ``aggregate_gradients`` routes ``int8_2round`` there, and
+every other wire reduces over the grid as over the flat axis.
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ from ..ops.quantize import (
     quantize_tensors,
 )
 from .buckets import piece_stream, tree_flatten, tree_unflatten
-from .mesh import HybridWorkerAxis, ProcessWorkerAxis, WorkerAxis
+from .mesh import GRIDS, ProcessWorkerAxis, WorkerAxis
 
 def reciprocal(denominator: float) -> float:
     """The f32 constant XLA multiplies by where the JAX code divides by
@@ -292,7 +293,8 @@ def _quantize_pieces(pieces, key_ids, axis, block_size: int, rounding: str, draw
     worker-stacked; ``ordinal`` maps a key id to its canonical bucket
     (default: the rank among ``key_ids``). On the hierarchical grid a
     piece may be one group of workers (its scales shared over ``axis``,
-    that group's axis): ``rows[j]`` selects piece j's rows of the draws."""
+    that group's axis): ``rows[j]`` selects piece j's rows of every
+    worker's draws (global worker ids: this process's)."""
     if rounding == "nearest" and bucket_peaks is None:
         return quantize_int8_many(pieces, axis, block_size)
     if ordinal is None and bucket_peaks is not None:
@@ -307,10 +309,12 @@ def _quantize_pieces(pieces, key_ids, axis, block_size: int, rounding: str, draw
             continue
         n = int(np.prod(g.shape[1:], dtype=np.int64))
         shape = (-(-n // block_size), block_size) if block_size else tuple(g.shape[1:])
-        u = _uniform(draws, axis, i, round_, shape, g.device)
+        if rows is None or draws is None:
+            u = _uniform(draws, axis, i, round_, shape, g.device)
+        else:
+            u = draws(int(i), round_, tuple(int(d) for d in shape))[rows[j]].to(g.device)
         out.append(quantize_int8(g, axis_name=axis, block_size=block_size, rounding=rounding,
-                                 uniform=u if u is None or rows is None else u[rows[j]],
-                                 return_absmax=True))
+                                 uniform=u, return_absmax=True))
     return out
 
 
@@ -656,22 +660,25 @@ def _hier_gain_scale(scale, absmax, gain_num: int, denominator, lattice: bool):
 
 def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: str, draws,
                  wire_domain: str, bucket_peaks, ordinal, want_contrib: bool):
-    """``quantized_allreduce_2round_hier`` over ``pieces`` on the stacked
-    grid: ``(aggregates, each worker's round-1 round trip or [])``.
+    """``quantized_allreduce_2round_hier`` over ``pieces`` on the grid:
+    ``(aggregates, each of this process's workers' round-1 round trip or
+    [])``. The pieces hold this process's hosts, ``[hosts_loc, per_host,
+    ...]`` stacked (every host on the stacked grid).
 
-    Stacked launch shapes: an all_to_all is a permuted copy of the grid's
-    rows (``[hosts, per_host, ...]``, worker ``h * per_host + c``), so one
-    K3 launch covers every region of a hop: two launches a piece on the
-    homomorphic wire, one at the ICI hop (divisor per_host) and one at
-    the DCN hop (divisor hosts)."""
+    Launch shapes: an all_to_all is a permuted copy of the local rows (the
+    DCN one crosses the processes first), so one K3 launch covers every
+    local region of a hop: two launches a piece on the homomorphic wire,
+    one at the ICI hop (``[per_host, N_loc * s1]``, divisor per_host) and
+    one at the DCN hop (``[hosts, N_loc * s2]``, divisor hosts)."""
     hh, pp = grid.hosts, grid.per_host
-    n = hh * pp
+    nl = grid.local_size
+    hl, h0 = nl // pp, grid.first // pp  # this process's hosts [h0, h0 + hl)
     bs = block_size
     homomorphic = wire_domain == "homomorphic"
     shapes = [tuple(g.shape[1:]) for g in pieces]
     totals = [int(np.prod(shape, dtype=np.int64)) for shape in shapes]
     s1s = [_slice_len(total, pp, bs) for total in totals]
-    xs = [torch.nn.functional.pad(g.float().reshape(n, total), (0, pp * s1 - total))
+    xs = [torch.nn.functional.pad(g.float().reshape(nl, total), (0, pp * s1 - total))
           for g, total, s1 in zip(pieces, totals, s1s)]
     outs, contribs = [], []
     if homomorphic:
@@ -680,56 +687,60 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
                                   _INT8_PEAK, torch.int8, ordinal)
         for (q1, scale1, absmax), total, shape, s1 in zip(round1, totals, shapes, s1s):
             s2 = _slice_len(s1, hh, bs)
-            q1 = q1.reshape(hh, pp, pp, s1)  # [h, j(sender), c(region), s1]
+            q1 = q1.reshape(hl, pp, pp, s1)  # [h, j(sender), c(region), s1]
             # ICI hop: worker (h, j) sends region c to (h, c) (the hosts ride
             # along), which sums it over j, rescaled / per_host
             recv = grid.ici.all_to_all(q1.permute(1, 2, 0, 3))  # [c, j, h, s1]
             q_mid = accumulate_rescale_int8(
-                recv.permute(1, 2, 0, 3).reshape(pp, n * s1), float(pp)).reshape(n, s1)
+                recv.permute(1, 2, 0, 3).reshape(pp, nl * s1), float(pp)).reshape(nl, s1)
             q_mid = torch.nn.functional.pad(q_mid, (0, hh * s2 - s1))
             # DCN hop: worker (h', c) sends chunk h to (h, c), which sums it
             # over the hosts h', rescaled / hosts
-            recv = grid.dcn.all_to_all(q_mid.reshape(hh, pp, hh, s2).permute(0, 2, 1, 3))
+            recv = grid.dcn.all_to_all(q_mid.reshape(hl, pp, hh, s2).permute(0, 2, 1, 3))
             q2 = accumulate_rescale_int8(
-                recv.permute(1, 0, 2, 3).reshape(hh, n * s2), float(hh)).reshape(hh, pp, s2)
+                recv.permute(1, 0, 2, 3).reshape(hh, nl * s2), float(hh)).reshape(hl, pp, s2)
             # int8 gathers: over DCN (the region), then over ICI (the piece)
-            chunks = grid.dcn.all_gather(q2.reshape(hh, 1, pp, s2))  # [h, c, s2]
+            chunks = grid.dcn.all_gather(q2.reshape(hl, 1, pp, s2))  # [h, c, s2]
             full = _ici_gather(grid, _ici_region(chunks, s1))
-            scale = _hier_gain_scale(scale1, absmax, n, denominator, bucket_peaks is not None)
+            scale = _hier_gain_scale(scale1, absmax, hh * pp, denominator,
+                                     bucket_peaks is not None)
             outs.append(_deq_shared(full, scale, 1.0, bs)[:total].reshape(shape))
             if want_contrib:
-                qc = q1.reshape((n, -1, bs) if bs else (n, pp * s1))
+                qc = q1.reshape((nl, -1, bs) if bs else (nl, pp * s1))
                 c = dequantize_int8(qc.to(torch.int32), scale1, block_size=bs,
                                     shape=(pp * s1,))
-                contribs.append(c[:, :total].reshape((n,) + shape))
+                contribs.append(c[:, :total].reshape((nl,) + shape))
         return outs, contribs
     ici, dcn = grid.ici, grid.dcn
-    # round 1 over ICI: each host's workers share scales
-    host_rows = [slice(h * pp, (h + 1) * pp) for h in range(hh)]
-    with worker_rows(hh):  # a recorded step: one site a piece, as JAX's one pmax
+    # round 1 over ICI: each host's workers share scales (rows of this
+    # process's pieces; draw_rows: the same workers' global ids)
+    host_rows = [slice(h * pp, (h + 1) * pp) for h in range(hl)]
+    draw_rows = [slice((h0 + h) * pp, (h0 + h + 1) * pp) for h in range(hl)]
+    with worker_rows(hl):  # a recorded step: one site a piece, as JAX's one pmax
         round1 = _quantize_pieces([x[r] for x in xs for r in host_rows],
                                   [i for i in key_ids for _ in host_rows], ici, bs, rounding,
                                   draws, bucket_peaks, _INT8_PEAK, torch.int8, ordinal,
-                                  rows=host_rows * len(xs))
+                                  rows=draw_rows * len(xs))
     partials2 = []
     for j, (total, shape, s1) in enumerate(zip(totals, shapes, s1s)):
-        r1 = round1[j * hh:(j + 1) * hh]
+        r1 = round1[j * hl:(j + 1) * hl]
         q1 = torch.stack([q.reshape(pp, pp * s1) for q, _, _ in r1])  # [h, j, c*s1]
         scale1 = torch.stack([sc for _, sc, _ in r1])
         # the ICI all_to_all (worker (h, j) sends region c to (h, c)), then
         # the exact region sums over the senders j
-        recv = ici.all_to_all(q1.reshape(hh, pp, pp, s1).permute(1, 2, 0, 3))  # [c, j, h, s1]
+        recv = ici.all_to_all(q1.reshape(hl, pp, pp, s1).permute(1, 2, 0, 3))  # [c, j, h, s1]
         part = recv.to(torch.int32).sum(1, dtype=torch.int32).permute(1, 0, 2)  # [h, c, s1]
-        partial = _grid_scale(part, scale1, bs, hh, pp, s1).reshape(n, s1)
+        partial = _grid_scale(part, scale1, bs, hl, pp, s1).reshape(nl, s1)
         if want_contrib:
             c = torch.cat([dequantize_int8(q.to(torch.int32), sc, block_size=bs,
                                            shape=(pp * s1,)) for q, sc, _ in r1])
-            contribs.append(c[:, :total].reshape((n,) + shape))
+            contribs.append(c[:, :total].reshape((nl,) + shape))
         s2 = _slice_len(s1, hh, bs)
         partials2.append((torch.nn.functional.pad(partial, (0, hh * s2 - s1)), s1, s2))
     # the DCN hop's round 1: the same ICI index on every host shares scales
-    col_rows = [torch.arange(c, n, pp) for c in range(pp)]
-    dcn_in = [p2.reshape(hh, pp, -1)[:, c].contiguous() for p2, _, _ in partials2
+    # (across the processes: the split route's absmax_max)
+    col_rows = [torch.arange(h0 * pp + c, (h0 + hl) * pp, pp) for c in range(pp)]
+    dcn_in = [p2.reshape(hl, pp, -1)[:, c].contiguous() for p2, _, _ in partials2
               for c in range(pp)]
     with worker_rows(pp):
         round_d = _quantize_pieces(dcn_in, [i for i in key_ids for _ in range(pp)], dcn, bs,
@@ -738,14 +749,16 @@ def _hier_pieces(pieces, key_ids, grid, denominator, block_size: int, rounding: 
     regions = []
     for j, (_, s1, s2) in enumerate(partials2):
         rd = round_d[j * pp:(j + 1) * pp]
-        qd = torch.stack([q.reshape(hh, hh, s2) for q, _, _ in rd])  # [c, h', h(region), s2]
+        qd = torch.stack([q.reshape(hl, hh, s2) for q, _, _ in rd])  # [c, h', h(region), s2]
         # the DCN all_to_all (worker (h', c) sends chunk h to (h, c)), then
         # the exact sums over the senders h'
         recv = dcn.all_to_all(qd.permute(1, 2, 0, 3))  # [h, h', c, s2]
         sums = recv.to(torch.int32).sum(1, dtype=torch.int32).permute(1, 0, 2)  # [c, h, s2]
         scale_d = torch.stack([sc for _, sc, _ in rd])
-        regions.append(_grid_scale(sums, scale_d, bs, pp, hh, s2)  # [c, h, s2]
-                       .permute(1, 0, 2).reshape(n, s2))
+        if bs:  # this process's regions' rows of each ICI index's scales
+            scale_d = scale_d.reshape(pp, hh, -1, 1)[:, h0:h0 + hl]
+        regions.append(_grid_scale(sums, scale_d, bs, pp, hl, s2)  # [c, h, s2]
+                       .permute(1, 0, 2).reshape(nl, s2))
     # the DCN hop's round 2 (local scales, fold 2 then 1: round 3) and its gather
     fulls = _q2r_local_gather(regions, key_ids, grid, bs, rounding, draws)
     for full, total, shape, s1 in zip(fulls, totals, shapes, s1s):
@@ -766,28 +779,29 @@ def _ici_gather(grid, region: torch.Tensor) -> torch.Tensor:
     """The ICI all_gather of every worker's region (``region [per_host,
     s1]``: every host holds the same one after the DCN gather) -> the
     flat piece, ``[per_host * s1]``."""
-    hh, pp = grid.hosts, grid.per_host
+    pp = grid.per_host
     s1 = region.shape[1]
-    every = region[:, None, None].expand(pp, 1, hh, s1)  # worker (h, c)'s region c
+    # worker (h, c)'s region c, for each of this process's hosts h
+    every = region[:, None, None].expand(pp, 1, grid.local_size // pp, s1)
     return grid.ici.all_gather(every)[:, 0].reshape(-1)
 
 
 def _q2r_local_gather(regions, key_ids, grid, block_size: int, rounding: str, draws):
-    """Every worker's region ``[N, s]`` (worker (h, c) holding chunk h of
-    ICI region c) requantized with its own scales (round 3 of the draws),
-    the int8 chunks and their scale rows all_gathered over DCN, and
-    dequantized: ``[hosts, per_host, s]`` a piece."""
+    """Every local worker's region ``[N_loc, s]`` (worker (h, c) holding
+    chunk h of ICI region c) requantized with its own scales (round 3 of
+    the draws), the int8 chunks and their scale rows all_gathered over
+    DCN, and dequantized: ``[hosts, per_host, s]`` a piece."""
     req = _requantize_regions(regions, key_ids, grid, block_size, rounding, draws, round_=3)
-    hh, pp = grid.hosts, grid.per_host
+    pp = grid.per_host
+    nl = grid.local_size
 
-    def gather(x):  # [n, ...] -> the DCN all_gather, [hosts, per_host, ...]
-        return grid.dcn.all_gather(x.reshape(hh, 1, pp, *x.shape[1:]))
+    def gather(x):  # [n_loc, ...] -> the DCN all_gather, [hosts, per_host, ...]
+        return grid.dcn.all_gather(x.reshape(nl // pp, 1, pp, *x.shape[1:]))
 
     if block_size:
-        return [(gather(q2.reshape(hh * pp, -1, block_size)).float()
-                 * gather(scale2.reshape(hh * pp, -1, 1))).reshape(hh, pp, r.shape[1])
+        return [(gather(q2.reshape(nl, -1, block_size)).float()
+                 * gather(scale2.reshape(nl, -1, 1))).reshape(grid.hosts, pp, r.shape[1])
                 for r, (q2, scale2) in zip(regions, req)]
-    nl = grid.local_size
     outs = []
     for j in range(len(regions)):
         mine = req[j * nl:(j + 1) * nl]
@@ -810,8 +824,10 @@ def quantized_allreduce_2round_hier(
     bucket_peaks=None,
 ):
     """The hierarchical (DCN x ICI) two-round int8 all-reduce
-    (collectives.py:513) on a ``mesh.HybridWorkerAxis`` grid of ``hosts x
-    per_host`` workers. Per piece:
+    (collectives.py:513) on a grid of ``hosts x per_host`` workers
+    (``mesh.HybridWorkerAxis``, or ``mesh.ProcessHybridAxis`` with whole
+    hosts in each process: the DCN hops and the scales shared over DCN
+    cross the processes, the ICI hop stays in one). Per piece:
 
     - dequant wire: round 1 quantizes with scales shared over each host's
       workers (ICI), all_to_all over ICI and exact region sums, each
@@ -831,8 +847,9 @@ def quantized_allreduce_2round_hier(
     ``return_contribution`` returns each worker's round-1 round trip: over
     ICI scales on the dequant wire, over the global scales on the
     homomorphic one, as JAX's EF mirror is."""
-    if not isinstance(grid, HybridWorkerAxis):
-        raise TypeError(f"the hierarchical wire takes a mesh.HybridWorkerAxis, got {grid!r}")
+    if not isinstance(grid, GRIDS):
+        raise TypeError(f"the hierarchical wire takes the hybrid grid (mesh.HybridWorkerAxis "
+                        f"or mesh.ProcessHybridAxis), got {grid!r}")
     _check_adaptive(bucket_peaks, rounding, wire_domain)
     _check_rounding(rounding, draws)
     align = block_size or 1
@@ -946,7 +963,7 @@ def bucket_wire(axis, num_workers: int, starts, num_aggregate=None, perm=None,
     return _bucket_reduce(axis, num_workers, starts, denom, sel, compress, quant_block_size,
                           quant_rounding, quant_draws, wire_domain, bucket_peaks,
                           lattice_hi_peak, return_contribution,
-                          hier=compress == "int8_2round" and isinstance(axis, HybridWorkerAxis))
+                          hier=compress == "int8_2round" and isinstance(axis, GRIDS))
 
 
 def _mask_and_count(axis, num_workers, num_aggregate, perm, mask_mode, compress,
@@ -1021,8 +1038,8 @@ def aggregate_gradients(
     permutation (``random_permutation``); ``quant_draws`` stochastic
     rounding's draw source (``UniformDraws``).
 
-    ``axis`` may be the hybrid grid (``mesh.HybridWorkerAxis``, JAX's
-    tuple axis): ``int8_2round`` then runs the hierarchical wire
+    ``axis`` may be the hybrid grid (``mesh.GRIDS``, JAX's tuple axis,
+    stacked or over processes): ``int8_2round`` then runs the hierarchical wire
     (``quantized_allreduce_2round_hier``), and every other wire reduces
     over the grid as over the flat axis. ``pipelined`` (a bucketed wire)
     runs each bucket's whole wire in turn, in readiness order
@@ -1060,7 +1077,7 @@ def aggregate_gradients(
         if compress == "int8":
             out = quantized_psum(grads, axis, denom, num_workers=num_workers,
                                  lattice_hi_peak=lattice_hi_peak, **kw)
-        elif isinstance(axis, HybridWorkerAxis):
+        elif isinstance(axis, GRIDS):
             out = quantized_allreduce_2round_hier(grads, axis, denom, **kw)
         else:
             out = quantized_allreduce_2round(grads, axis, denom, num_workers, **kw)

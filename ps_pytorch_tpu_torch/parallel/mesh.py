@@ -26,6 +26,12 @@ of a float sum matters, the worker rows are gathered and reduced with
 the stacked backend's own op, so a run over processes gives the stacked
 run's bits. ``initialize_multihost`` joins the group (NCCL for a card,
 gloo for the CPU).
+
+``ProcessHybridAxis`` is the hybrid grid over processes (JAX's
+multi-process ``make_hybrid_mesh``, one host a process granule): each
+process holds ``hosts / world`` whole hosts, its tuple-axis collectives
+are ``ProcessWorkerAxis``'s, its DCN axis crosses the processes and its
+ICI axis stays inside one.
 """
 
 from __future__ import annotations
@@ -292,11 +298,16 @@ class ProcessWorkerAxis:
             raise ValueError(f"{size} workers do not split over {self.world} processes")
         self.first = self.rank * (size // self.world)
         self._staged = dist.get_backend(group) == "gloo"
-        self.host_copy_s = 0.0
+        # the staged copies' seconds, one cell a grid shares with its DCN axis
+        self._copy_s = [0.0]
 
     def __repr__(self) -> str:
-        return (f"ProcessWorkerAxis(size={self.size}, world={self.world}, "
+        return (f"{type(self).__name__}(size={self.size}, world={self.world}, "
                 f"rank={self.rank})")
+
+    @property
+    def host_copy_s(self) -> float:
+        return self._copy_s[0]
 
     @property
     def local_size(self) -> int:
@@ -318,7 +329,7 @@ class ProcessWorkerAxis:
         if self._staged and x.is_cuda:
             t0 = time.perf_counter()
             x = x.cpu()
-            self.host_copy_s += time.perf_counter() - t0
+            self._copy_s[0] += time.perf_counter() - t0
         return x
 
     def _back(self, y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -326,7 +337,7 @@ class ProcessWorkerAxis:
             t0 = time.perf_counter()
             y = y.to(like.device)
             torch.cuda.synchronize(like.device)
-            self.host_copy_s += time.perf_counter() - t0
+            self._copy_s[0] += time.perf_counter() - t0
         return y.to(like.dtype)
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
@@ -458,6 +469,61 @@ class ProcessWorkerAxis:
         dist.barrier(group=self.group)
 
 
+class ProcessHybridAxis(ProcessWorkerAxis):
+    """The (hosts x per_host) grid of ``HybridWorkerAxis`` over the
+    ``world`` processes of a group, hosts mapped to processes as JAX's
+    multi-process ``make_hybrid_mesh`` maps them (mesh.py:72-96, one
+    process a granule): each process holds ``hosts / world`` whole hosts,
+    so worker (h, c) is still number ``h * per_host + c`` and this
+    process's workers are the contiguous ids ``[first, first +
+    local_size)`` of ``ProcessWorkerAxis``, stacked ``[hosts / world,
+    per_host, ...]``.
+
+    The grid's own collectives (the tuple axis) are the flat process
+    axis's, so every wire but the hierarchical one reduces over it as
+    over ``ProcessWorkerAxis(N)``, bit for bit. ``dcn`` is a
+    process-spanning axis of ``hosts`` workers (``hosts / world`` local,
+    the ICI index riding along in each row), whose ``absmax_max`` gives
+    the split quantize routes their scales across processes; ``ici`` is
+    the stacked ``WorkerAxis(per_host)`` inside one host. A DCN axis over
+    a one-rank group (every host in one process) is a valid layout."""
+
+    names = (DCN_AXIS, WORKER_AXIS)
+
+    def __init__(self, size: int, hosts: int, group: Any = None):
+        super().__init__(size, group)
+        if hosts < 1 or size % hosts:
+            raise ValueError(f"{size} workers do not split over {hosts} hosts")
+        if hosts % self.world:
+            raise ValueError(
+                f"{hosts} hosts do not split over {self.world} processes: each process "
+                f"holds whole hosts (hosts % processes == 0, the balanced-per-host rule of "
+                f"make_hybrid_mesh)")
+        self.hosts, self.per_host = hosts, size // hosts
+        self._dcn = ProcessWorkerAxis(hosts, group)
+        self._dcn._copy_s = self._copy_s
+
+    def __repr__(self) -> str:
+        return (f"ProcessHybridAxis(size={self.size}, hosts={self.hosts}, world={self.world}, "
+                f"rank={self.rank})")
+
+    @property
+    def dcn(self) -> ProcessWorkerAxis:
+        return self._dcn
+
+    @property
+    def ici(self) -> WorkerAxis:
+        return WorkerAxis(self.per_host)
+
+    def worker_ids(self) -> torch.Tensor:
+        """``[hosts, per_host]`` worker numbers, the DCN axis outer."""
+        return torch.arange(self.size).reshape(self.hosts, self.per_host)
+
+
+# the two forms of the (hosts x per_host) grid: stacked, and over processes
+GRIDS = (HybridWorkerAxis, ProcessHybridAxis)
+
+
 def batch_sharding(axis) -> range:
     """The global worker ids whose batches this process feeds (the role
     of ``batch_sharding``'s split of the global batch over the worker
@@ -465,14 +531,19 @@ def batch_sharding(axis) -> range:
     return range(axis.first, axis.first + axis.local_size)
 
 
-def make_worker_axis(num_workers: int):
+def make_worker_axis(num_workers: int, dcn_hosts: int = 1):
     """The trainer's worker axis: ``ProcessWorkerAxis`` over the default
     group once ``torch.distributed`` is initialised (at any world size),
-    else the stacked ``WorkerAxis``."""
+    else the stacked ``WorkerAxis``; with ``dcn_hosts > 1`` the
+    (hosts x per_host) grid of either kind (JAX's trainer.py:242-249)."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
+        if dcn_hosts > 1:
+            return ProcessHybridAxis(num_workers, dcn_hosts)
         return ProcessWorkerAxis(num_workers)
+    if dcn_hosts > 1:
+        return make_hybrid_mesh(dcn_hosts, num_workers // dcn_hosts)
     return WorkerAxis(num_workers)
 
 

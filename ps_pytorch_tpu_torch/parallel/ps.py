@@ -78,11 +78,17 @@ optimizer update a bucket). The values and bytes are the serial
 step's; the kernels launch once a bucket instead of once a step.
 
 The hierarchical wire (``dcn_hosts > 1``, JAX's tuple axis) runs on the
-hybrid grid ``mesh.HybridWorkerAxis``: ``int8_2round`` takes the DCN x
-ICI two-round wire (``collectives.quantized_allreduce_2round_hier``),
-every other wire reduces over the grid as over the flat axis. Over
-processes it is refused (ROADMAP.md queue 1 item 14: hosts are not
-mapped to processes yet).
+hybrid grid, ``mesh.HybridWorkerAxis`` on one process or
+``mesh.ProcessHybridAxis`` with whole hosts in each process:
+``int8_2round`` takes the DCN x ICI two-round wire
+(``collectives.quantized_allreduce_2round_hier``), every other wire
+reduces over the grid as over the flat axis.
+
+Over processes, synced BN combines every process's per-worker
+statistics (``models.common.synced_stats_axis``, which the step sets
+around its forward): each process runs its own workers' rows over its
+``[N_loc, ...]`` copies of the leaves, and the backward of the shared
+statistics carries the other processes' losses in.
 """
 
 from __future__ import annotations
@@ -95,6 +101,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..models import apply_model, draw_dropout, init_model
+from ..models.common import synced_stats_axis
 from ..ops.metrics import accuracy, cross_entropy_loss
 from ..ops.quantize import (
     _INT8_PEAK,
@@ -138,32 +145,27 @@ from .collectives import (
 )
 from .mesh import (
     DCN_AXIS,
+    GRIDS,
     WORKER_AXIS,
-    HybridWorkerAxis,
     ProcessWorkerAxis,
     WorkerAxis,
     make_hybrid_mesh,
 )
 
-_ROADMAP = "is not ported yet (see ROADMAP.md queue 1)"
-
 
 def hier_sizes(cfg: "PSConfig", mesh) -> Optional[Tuple[int, int]]:
     """``(hosts, per_host)`` of a hierarchical config's grid (ps.py:1079),
-    None on the flat axis; the grid must be the config's."""
+    stacked or over processes, None on the flat axis; the grid must be
+    the config's."""
     if not cfg.hierarchical:
-        if isinstance(mesh, HybridWorkerAxis):
+        if isinstance(mesh, GRIDS):
             raise ValueError("a hybrid grid needs a hierarchical config (dcn_hosts > 1 "
                              "or the tuple axis_name)")
         return None
-    if isinstance(mesh, ProcessWorkerAxis):
-        raise NotImplementedError(
-            f"the hierarchical DCN x ICI wire over processes (hosts mapped to "
-            f"torch.distributed processes) {_ROADMAP} item 14; run dcn_hosts > 1 on the "
-            f"stacked grid of one process")
-    if not isinstance(mesh, HybridWorkerAxis):
+    if not isinstance(mesh, GRIDS):
         raise ValueError(f"a hierarchical config (dcn_hosts {cfg.dcn_hosts}, axis "
-                         f"{cfg.axis_name!r}) needs the hybrid grid (mesh.make_hybrid_mesh)")
+                         f"{cfg.axis_name!r}) needs the hybrid grid (mesh.make_hybrid_mesh, "
+                         f"or mesh.ProcessHybridAxis over processes)")
     if cfg.dcn_hosts > 1 and mesh.hosts != cfg.dcn_hosts:
         raise ValueError(f"the grid has {mesh.hosts} hosts, dcn_hosts says {cfg.dcn_hosts}")
     return mesh.hosts, mesh.per_host
@@ -868,10 +870,6 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
                   if cfg.precision_adapt else None)
 
     synced = getattr(model, "bn_axis_name", None) is not None
-    if synced and isinstance(axis, ProcessWorkerAxis):
-        raise NotImplementedError(
-            f"synced BatchNorm over processes (a cross-process BatchNorm with its "
-            f"backward all_reduce) {_ROADMAP} item 1; run bn_mode pmean or local")
 
     def micro(masks, i):
         """Microbatch ``i``'s rows of each Dropout mask (or None)."""
@@ -935,32 +933,34 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
         return None if on_grad is not None else gsum, bs_c, lsum, p1sum, p5sum
 
     def synced_grads(params_t, bs_in, xs, ys, scale, masks, on_grad=None):
-        """Synced BN: each microbatch runs every worker's rows in one
-        layer-synchronous forward over worker-stacked copies of the
-        leaves, and one backward of the summed losses gives each copy its
-        gradient (``[N, *leaf]`` per leaf). Returns those (None with
-        ``on_grad``: its hooks finished them), the new BN stats and each
-        worker's loss, prec1, prec5."""
+        """Synced BN: each microbatch runs this process's workers' rows in
+        one layer-synchronous forward over worker-stacked copies of the
+        leaves, the statistics combined over ``axis`` (every process's
+        workers), and one backward of the summed losses gives each copy
+        its gradient (``[N_loc, *leaf]`` per leaf), the other processes'
+        losses brought in by the statistics' backward. Returns those
+        (None with ``on_grad``: its hooks finished them), the new BN
+        stats and each local worker's loss, prec1, prec5."""
         if xs[0].shape[0] % a:
             raise ValueError(f"per-worker batch {xs[0].shape[0]} not divisible by "
                              f"grad_accum_steps={a}")
         leaves, skel = tree_flatten(params_t)
         gsum, bs_c = None, bs_in
-        lsum, p1sum, p5sum = [0.0] * n, [0.0] * n, [0.0] * n
+        lsum, p1sum, p5sum = [0.0] * nl, [0.0] * nl, [0.0] * nl
         for i in range(a):
             xi = torch.cat([x.chunk(a)[i] for x in xs])
             yis = [y.chunk(a)[i] for y in ys]
             mi = None if masks is None else [torch.cat(ms) for ms in
                                              zip(*(micro(m, i) for m in masks))]
-            stacked = [leaf.detach().unsqueeze(0).repeat(n, *([1] * leaf.dim()))
+            stacked = [leaf.detach().unsqueeze(0).repeat(nl, *([1] * leaf.dim()))
                        .requires_grad_(True) for leaf in leaves]
             hooked = on_grad is not None and i == a - 1
             if hooked:
                 finishing_hooks(stacked, scale, gsum, on_grad)
-            with torch.enable_grad():
+            with torch.enable_grad(), synced_stats_axis(axis):
                 logits, bs_c = apply_model(model, tree_unflatten(skel, stacked), bs_c, xi,
                                            train=True, dropout=mi)
-                per = logits.chunk(n)
+                per = logits.chunk(nl)
                 losses = torch.stack([cross_entropy_loss(lw, yw) for lw, yw in zip(per, yis)])
                 if scale is not None:
                     losses = losses * scale
@@ -972,7 +972,7 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
                     g = [t / scale for t in g]
             if not hooked:
                 gsum = list(g) if gsum is None else [s + t for s, t in zip(gsum, g)]
-            for w in range(n):
+            for w in range(nl):
                 p1, p5 = accuracy(per[w].detach(), yis[w], (1, 5))
                 lsum[w], p1sum[w], p5sum[w] = lsum[w] + losses[w], p1sum[w] + p1, p5sum[w] + p5
         if a > 1:
@@ -1125,7 +1125,7 @@ def make_ps_train_step(model, tx, cfg: PSConfig, mesh: Optional[WorkerAxis] = No
             # (ps.py:1134) and the batch statistics every worker shares
             leaf_grads, nbs, losses, p1s, p5s = synced_grads(
                 params_t, bs, xs, ys, scale, masks, on_grad=None if pipe is None else pipe_leaf)
-            new_bs_w = [nbs] * n
+            new_bs_w = [nbs] * nl
         else:
             per_worker, new_bs_w, losses, p1s, p5s = [], [], [], [], []
             for w in range(nl):

@@ -98,7 +98,6 @@ from .parallel.buckets import FlatVector, tree_map
 from .parallel.mesh import (
     ProcessWorkerAxis,
     batch_sharding,
-    make_hybrid_mesh,
     make_worker_axis,
 )
 from .parallel.ps import (
@@ -217,11 +216,9 @@ class Trainer:
             logger.warning("fault injection ACTIVE: %s", self.faults)
         self.dataset = dataset or prepare_data(tcfg.dataset, root=tcfg.data_root,
                                                allow_synthetic=tcfg.allow_synthetic)
-        self.mesh = make_worker_axis(pcfg.num_workers)
-        if pcfg.dcn_hosts > 1 and not isinstance(self.mesh, ProcessWorkerAxis):
-            # the (hosts x per_host) grid of the hierarchical wire
-            # (trainer.py:242); over processes make_ps_train_step refuses it
-            self.mesh = make_hybrid_mesh(pcfg.dcn_hosts, pcfg.num_workers // pcfg.dcn_hosts)
+        # the flat axis, or the (hosts x per_host) grid of the hierarchical
+        # wire (trainer.py:242), on one process or over the group's
+        self.mesh = make_worker_axis(pcfg.num_workers, pcfg.dcn_hosts)
         self.multi = isinstance(self.mesh, ProcessWorkerAxis)
         self.rank = self.mesh.rank if self.multi else 0
         # bf16 compute over f32 params, optimizer state and loss when asked

@@ -277,12 +277,13 @@ def test_torch_process_axis_batch_sharding_and_refusals():
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="one process per card"):
             initialize_multihost("localhost:1", 2, 0, device="cuda")
-    # a one-process gloo group: the axis over it, and synced BN refused
+    # a one-process gloo group: the axis over it; synced BN and the
+    # hierarchical grid build their steps over it
     import torch.distributed as dist
 
     from ps_pytorch_tpu_torch.models import build_model
     from ps_pytorch_tpu_torch.optim import build_optimizer
-    from ps_pytorch_tpu_torch.parallel.mesh import ProcessWorkerAxis
+    from ps_pytorch_tpu_torch.parallel.mesh import ProcessHybridAxis, ProcessWorkerAxis
     from ps_pytorch_tpu_torch.parallel.ps import PSConfig, make_ps_train_step
 
     assert initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cpu") is True
@@ -291,13 +292,13 @@ def test_torch_process_axis_batch_sharding_and_refusals():
         assert list(batch_sharding(axis)) == [0, 1] and axis.local_size == 2
         cfg = PSConfig(num_workers=2, bn_mode="synced")
         model = build_model("ResNet18", bn_axis_name=cfg.axis_name)
-        with pytest.raises(NotImplementedError, match="item 1"):
-            make_ps_train_step(model, build_optimizer("sgd", 0.1), cfg, axis, device="cpu")
-        # the hierarchical grid over processes: hosts are not mapped to them yet
-        with pytest.raises(NotImplementedError, match="item 14"):
-            make_ps_train_step(build_model("LeNet"), build_optimizer("sgd", 0.1),
-                               PSConfig(num_workers=2, dcn_hosts=2, compress="int8_2round"),
-                               axis, device="cpu")
+        assert callable(make_ps_train_step(model, build_optimizer("sgd", 0.1), cfg, axis,
+                                           device="cpu"))
+        # the hierarchical grid over processes: both hosts in this process
+        assert callable(make_ps_train_step(
+            build_model("LeNet"), build_optimizer("sgd", 0.1),
+            PSConfig(num_workers=2, dcn_hosts=2, compress="int8_2round"),
+            ProcessHybridAxis(2, 2), device="cpu"))
     finally:
         dist.destroy_process_group()
 

@@ -16,7 +16,10 @@ collectives.quantized_allreduce_2round_hier) against the JAX package's
   (the gradients differ in their last bits), and the hierarchical
   aggregate within JAX's stated bound of the exact mean
   (tests/test_compression.py:613: 3.5 * max|g| * 1.5 / 127);
-- over processes the grid is refused, naming ROADMAP.md item 14.
+- over processes the grid is ``ProcessHybridAxis`` (whole hosts a
+  process), whose sizes ``hier_sizes`` takes; the flat process axis is
+  refused for a hierarchical config (tests/test_torch_hier_processes.py
+  holds the process grid's wire to this file's stacked one).
 """
 
 import jax
@@ -199,12 +202,27 @@ def test_torch_hier_config_and_refusal_over_processes():
                  opt_placement="sharded")
     import torch.distributed as dist
 
-    from ps_pytorch_tpu_torch.parallel.mesh import ProcessWorkerAxis, initialize_multihost
+    from ps_pytorch_tpu_torch.parallel.mesh import (
+        ProcessHybridAxis,
+        ProcessWorkerAxis,
+        initialize_multihost,
+    )
     from tools.mp_util import free_port
 
     assert initialize_multihost(f"localhost:{free_port()}", 1, 0, device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="item 14"):
+        # over processes: the grid with every host in this one process
+        grid = ProcessHybridAxis(N, HOSTS)
+        assert hier_sizes(cfg, grid) == (HOSTS, PER)
+        assert grid.local_size == N and grid.dcn.local_size == HOSTS
+        # pscheck's recording twin keeps the grid and names its sub-axes
+        from ps_pytorch_tpu_torch.check.axes import recording_axis
+
+        rec = recording_axis(grid)
+        assert isinstance(rec, ProcessHybridAxis) and hier_sizes(cfg, rec) == (HOSTS, PER)
+        assert rec.names == AXES and rec.dcn.names == (DCN_AXIS,)
+        assert rec.ici.names == (WORKER_AXIS,)
+        with pytest.raises(ValueError, match="hybrid grid"):
             hier_sizes(cfg, ProcessWorkerAxis(N))
     finally:
         dist.destroy_process_group()
