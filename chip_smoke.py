@@ -19,7 +19,7 @@ Phases, one line each:
    f32 (D 32, 64, 128); the f32 kernels count only their TF32
    ``HMMA.1688.F32.TF32`` lines; a zero fails the run;
    beside ptxas's registers and spill bytes, and the registers and spills
-   of K2's and K1's kernels;
+   of K1's, K2's and K3's kernels;
 3. K1's KV entry quantize_kv_write vs its plain version, bit-exact over
    the whole pool, at the serving path's shapes (a prefill write of 128
    positions x 8 heads x 64 bf16 into one slot; a decode write of 8
@@ -74,8 +74,11 @@ Phases, one line each:
 11. K3 accumulate_rescale_int8 vs its plain version, bit-exact, at the
    homomorphic two-round wire's shapes: the ResNet18 fused stacked payload
    [8, 11173968], one region [8, 1396746], [8, 130], [258, 4096] and
-   [1, 1], with divisors 5.0, 8.0 and a device-tensor divisor; timed, with
-   its bound;
+   [1, 1], the 2 x 4 grid's hops (stacked ICI [4, 22347928] and DCN
+   [2, 11173968], one process's ICI [4, 11173964] and DCN [2, 5586984])
+   and the fused payload as views at storage offsets 1, 8 and 15, with
+   divisors 5.0, 8.0 and a device-tensor divisor; timed (CUDA events a
+   call, the profiler's device time a launch), with its bound;
 12. train ResNet18 (8 x 128, lr 0.1, momentum 0.9, num-aggregate 5) through
    ``cli.train.main`` on the autotune-best wire (``--compress-grad 2round
    --bucket-bytes 0 --wire-domain homomorphic``) for 10 steps: finite
@@ -189,9 +192,16 @@ Phases, one line each:
    ``model_step_5`` byte for byte phase 23's stacked one, the split
    routes' launches per process, step p50 and the host-copy share; a
    NaN-only piece in process 1's rows gives both processes scale NaN and
-   an all-zero payload (K2 and K1 block 128); then both split routes at
-   the ResNet18 step against their plain versions and the fused entries
-   (a NaN-only piece too), timed beside the fused entry;
+   an all-zero payload (K2 and K1 block 128); and (24b, run before phase
+   23: once a process group is up, profiler traces can lose their device
+   events) both split routes at the ResNet18 step against their plain
+   versions and the fused entries (a NaN-only piece too), timed beside
+   the fused entry, each half's device time beside its own bound and the
+   two halves' floor; when this process's profiler records no device
+   events, the whole of 24b again in a fresh process of this script;
+   phases 23, 30 and 30b print the SHA-256 of their checkpoints or
+   aggregates (24's files are 23's, byte for byte), so runs of two trees
+   compare by their lines;
 25. the data path at full width: CIFAR-10 written in its on-disk form
    (``cifar-10-batches-py``, 50,000 + 10,000 images from
    ``make_synthetic``) and read back equal through ``prepare_data``, then
@@ -347,10 +357,11 @@ runs only the named phases (the build 2; the serving pool's write of 3
 through ``serve.kv`` alone; the flash kernels 4 and 14; the serve run of
 5, its K1 counts reported, not required, on another tree; the 62-leaf
 wire steps of 7 and 8 alone, with round 2 in 8; the ResNet18 run of 9;
-the two-round, homomorphic and ZeRO-1 wires of 12;
+K3's cases of 11; the two-round, homomorphic and ZeRO-1 wires of 12;
 the checkpoints of 12b; the VGG runs of 18; the bf16 runs of 19, after
 phase 9's f32 run; the held steps of 20; the synced-local ResNet18 run of
 20b; the event stream of 21; the
+split routes at the ResNet18 step of 24b alone; the
 data path of 25, the adaptive wire of 26, stochastic rounding of 27, the
 resume-reshape of 28, the pipelined wire of 29, the hierarchical wire of
 30, which reports no flat run beside its own when run alone, the
@@ -397,12 +408,19 @@ PEAK_OPS_PER_S = {                 # H100 SXM dense peaks (f32: CUDA cores)
 TF32X3_OPS_PER_S = 494.7e12 / 3
 ITERS = 200
 # set by --package-root: the package timed is another checkout's, whose
-# kernels may bear other names than this one's routes
+# kernels may bear other names than this one's routes; its directory, which
+# the phases' child processes take too
 OTHER_TREE = False
+PACKAGE_ROOT = None
 
 
 class SmokeError(RuntimeError):
     pass
+
+
+class ProfilerEmpty(SmokeError):
+    """Every trace of one ``device_profile`` came back without device
+    events: the profiler's fault, not the kernels'."""
 
 
 def require(cond: bool, what: str) -> None:
@@ -479,7 +497,8 @@ def device_profile(fn, iters: int = 10) -> tuple:
                 rec[1] += evt.time_range.elapsed_us() / 1e3
         if seen:
             break
-    require(bool(seen), f"profiler: no device time recorded in {PROFILE_ATTEMPTS} traces")
+    if not seen:
+        raise ProfilerEmpty(f"profiler: no device time recorded in {PROFILE_ATTEMPTS} traces")
     per_call = {k: max(1, round(n / iters)) for k, (n, _) in seen.items()}
     by_name = {k: t / n * per_call[k] for k, (n, t) in seen.items()}
     return sum(by_name.values()), by_name, per_call
@@ -569,11 +588,12 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-# K2's and K1's kernels, whose registers and spills phase 2 prints
+# K1's, K2's and K3's kernels, whose registers and spills phase 2 prints
 QUANT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
                  "quantize_rows_scaled_many_kernel", "quantize_kv_write_kernel",
                  "quantize_rows_many_kernel", "rows_absmax_many_kernel",
-                 "rows_quantize_given_many_kernel")
+                 "rows_quantize_given_many_kernel", "accum_rescale_aligned_kernel",
+                 "accum_rescale_kernel")
 
 
 def ptxas_quant_report(log: str) -> dict:
@@ -624,7 +644,7 @@ def phase_build() -> dict:
     print(f"phase 2 build: {seconds:.1f} s "
           f"({', '.join(os.path.basename(s) for s in _build.sources())} -> "
           f"{os.path.relpath(lib)}); K4/K5/K6 tensor-core SASS: " + json.dumps(rec)
-          + "; K1/K2: " + json.dumps(quant))
+          + "; K1/K2/K3: " + json.dumps(quant))
     return rec
 
 
@@ -1387,20 +1407,47 @@ def phase_train(card: str) -> dict:
     return rec
 
 
+# K3's operands on the 2 x 4 grid's homomorphic wire at --bucket-bytes 0
+# (phases 30 and 30b report the shapes they see): the stacked grid's ICI
+# hop and DCN hop, and one process's ICI and DCN hops when each process
+# holds one host; pitches with s % 16 of 8, 0, 12 and 8
+GRID_K3_HOPS = (("grid_ici_hop", 4, 22347928), ("grid_dcn_hop", 2, 11173968),
+                ("process_ici_hop", 4, 11173964), ("process_dcn_hop", 2, 5586984))
+# storage offsets of phase 11's views of the fused payload: every row's
+# base off the 16-byte grid
+K3_VIEW_OFFSETS = (1, 8, 15)
+
+
+def _k3_device_ms(fn) -> float:
+    """K3's own device time a call (profiler): the kernel's entries only."""
+    _, by_name, _ = device_profile(fn)
+    times = [t for name, t in by_name.items() if "accum_rescale" in name]
+    require(bool(times), f"K3: no accum_rescale kernel in the trace ({sorted(by_name)})")
+    return sum(times)
+
+
 def phase_k3(dev) -> dict:
+    """Phase 11: K3 bit for bit against its plain version at the wires'
+    shapes, at the 2 x 4 grid's hop shapes and on views of the fused
+    payload at odd storage offsets; CUDA-event time a call, device time
+    a launch (a device-tensor divisor: no fill beside the kernel), the
+    plain version's time and the bound."""
     from ps_pytorch_tpu_torch.ops.quantize import (
         accumulate_rescale_int8,
         accumulate_rescale_plain,
     )
 
     g = torch.Generator(device=dev).manual_seed(11)
-    cases = [("resnet18_fused", WORKERS, RESNET18_PADDED),
-             ("resnet18_region", WORKERS, RESNET18_PADDED // WORKERS),
-             ("ragged", WORKERS, 130), ("int16_capacity", 258, 4096), ("one", 1, 1)]
+    cases = [("resnet18_fused", WORKERS, RESNET18_PADDED, 0),
+             ("resnet18_region", WORKERS, RESNET18_PADDED // WORKERS, 0),
+             ("ragged", WORKERS, 130, 0), ("int16_capacity", 258, 4096, 0), ("one", 1, 1, 0)]
+    cases += [(name, n, s, 0) for name, n, s in GRID_K3_HOPS]
+    cases += [(f"resnet18_fused_offset{o}", WORKERS, RESNET18_PADDED, o) for o in K3_VIEW_OFFSETS]
     out = {}
-    for name, n, s in cases:
-        recv = torch.randint(-127, 128, (n, s), generator=g, device=dev,
-                             dtype=torch.int32).to(torch.int8)
+    for name, n, s, offset in cases:
+        buf = torch.randint(-127, 128, (n * s + offset,), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+        recv = buf[offset:].view(n, s)  # contiguous, storage offset `offset`
         recv[:, 0] = 127  # a full-scale column
         err = 0
         for d in (5.0, 8.0, torch.tensor(float(n), device=dev)):
@@ -1412,12 +1459,16 @@ def phase_k3(dev) -> dict:
         # the contract's bound: recv read once, the int8 row written once;
         # n adds per column on the int8 path
         b_ms, b_by = bound_ms(n * s + s, float(n * s), PEAK_OPS_PER_S[torch.int8])
+        div = torch.tensor(5.0, device=dev)
         out[name] = {
-            "shape": [n, s], "max_abs_err": float(err),
+            "shape": [n, s], "storage_offset": offset, "s_mod_16": s % 16,
+            "base_mod_16": recv.data_ptr() % 16, "max_abs_err": float(err),
             "ms": time_ms(lambda: accumulate_rescale_int8(recv, 5.0)),
+            "device_ms": _k3_device_ms(lambda: accumulate_rescale_int8(recv, div)),
             "plain_ms": time_ms(lambda: accumulate_rescale_plain(recv, 5.0), iters=20),
             "bound_ms": b_ms, "bound_by": b_by,
         }
+        del buf, recv
     print("phase 11 K3 accumulate_rescale_int8 bit-exact vs plain: " + json.dumps(out))
     return out
 
@@ -2551,6 +2602,14 @@ def _files_equal(a: str, b: str) -> bool:
         return f.read() == g.read()
 
 
+def _sha256_of(path: str) -> str:
+    """A file's SHA-256: runs of two trees compared by their printed lines."""
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def phase_nccl_one(card: str, root: str) -> dict:
     """Phase 23: one process on ``torch.distributed`` NCCL at world size 1
     (``cli.train --coordinator-address``), the 8 workers on the
@@ -2607,6 +2666,8 @@ def phase_nccl_one(card: str, root: str) -> dict:
             require(pc["accumulate_rescale_int8"] == sc["accumulate_rescale_int8"] == PROC_STEPS,
                     f"phase 23 {wire}: K3 launches stacked {sc}, nccl {pc}")
         rec[wire] = {"flags": " ".join(flags), "bit_exact": True,
+                     "model_step_sha256": _sha256_of(
+                         ckpt.checkpoint_path(dirs["stacked"], PROC_STEPS)),
                      "launches_stacked": sc, "launches_nccl": pc,
                      "loss_last": so["history"][-1]["loss"],
                      "stacked_step_ms_p50": _step_p50(so["history"], warm=2) * 1e3,
@@ -2659,20 +2720,68 @@ def split_route_case(dev, block: int) -> dict:
     require(bool(torch.isnan(got_nan[1][1]).any()) and not bool(got_nan[1][0][3].any()),
             f"split route block {block}: the NaN-only rows did not give scale NaN, payload 0")
     n_in = sum(x.numel() for x in xs)
-    n_out = sum(g_[0].numel() + 4 * g_[1].numel() + 4 * g_[2].numel() for g_ in got)
-    b_ms, b_by = bound_ms(4 * n_in + n_out, 4.0 * n_in, PEAK_OPS_PER_S[torch.float32])
+    n_q = sum(g_[0].numel() for g_ in got)
+    n_rows = sum(g_[1].numel() for g_ in got)  # one scale (and absmax) a row or tensor
+    f32_ops = PEAK_OPS_PER_S[torch.float32]
+    b_ms, b_by = bound_ms(4 * n_in + n_q + 8 * n_rows, 4.0 * n_in, f32_ops)
+    # each half alone: the absmax half reads x and writes the absmax; the
+    # given half reads x and the absmax, writes q and the scales; the
+    # route's floor is the two together (x read twice)
+    absmax = halves[0](xs)
+    halves_rec = {}
+    for half, call, n_bytes in (("absmax", lambda: halves[0](xs), 4 * n_in + 4 * n_rows),
+                                ("given", lambda: halves[1](xs, absmax),
+                                 4 * n_in + 4 * n_rows + n_q + 4 * n_rows)):
+        h_ms, h_by = bound_ms(n_bytes, 4.0 * n_in, f32_ops)
+        h_total, h_names, _ = device_profile(call)
+        halves_rec[half] = {"device_ms": h_total, "bound_ms": h_ms, "bound_by": h_by,
+                            "device_kernels": {k[:60]: v for k, v in h_names.items()}}
+    floor_ms = halves_rec["absmax"]["bound_ms"] + halves_rec["given"]["bound_ms"]
     dev_total, by_name, launches = device_profile(lambda: fn(xs))
     return {"pieces": len(xs), "elements": n_in, "device_ms": dev_total,
             "device_launches": sum(launches.values()),
             "device_kernels": {k[:60]: v for k, v in by_name.items()},
+            "halves": halves_rec, "two_pass_floor_ms": floor_ms,
+            "fused_device_ms": device_ms(lambda: fused(xs))[0],
             "ms": time_ms(lambda: fn(xs), iters=50), "fused_ms": time_ms(lambda: fused(xs),
                                                                          iters=50),
             "plain_ms": time_ms(lambda: plain[1](xs, plain[0](xs)), iters=5),
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
 
 
+def split_cases(dev) -> dict:
+    return {"k2": split_route_case(dev, 0), "k1": split_route_case(dev, 128)}
+
+
+def _split_in_child(timeout: int = 600) -> dict:
+    """Phase 24b's cases in a fresh process of this script
+    (``--phase24b-child OUT``, the same package root): its record."""
+    import tempfile
+
+    tree = ["--package-root", PACKAGE_ROOT] if PACKAGE_ROOT is not None else []
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "split.json")
+        # run() kills the child if it outlives the timeout
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase24b-child", out]
+                           + tree, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           timeout=timeout)
+        require(p.returncode == 0, f"phase 24b in a fresh process failed:\n{p.stdout[-3000:]}")
+        with open(out) as f:
+            return json.load(f)
+
+
 def phase_split(dev) -> dict:
-    split = {"k2": split_route_case(dev, 0), "k1": split_route_case(dev, 128)}
+    try:
+        split = split_cases(dev)
+        split["profiled_in"] = "this process"
+    except ProfilerEmpty as err:
+        # the profiler of this long-lived process can stop recording
+        # device events for good (24b is its last profile in the full
+        # run); a fresh process has a fresh one, and takes every check of
+        # the phase again
+        print(f"phase 24b: {err}; the phase again in a fresh process", file=sys.stderr)
+        split = _split_in_child()
+        split["profiled_in"] = "a fresh process"
     print("phase 24b split routes at the ResNet18 step, bit-exact vs plain and fused: "
           + json.dumps(split))
     return split
@@ -3574,6 +3683,8 @@ def phase_hier(card: str, dev, flat_best=None) -> dict:
     both domains; the homomorphic step p50 and losses beside phase 12's
     flat autotune-best run (``flat_best``, its record, when phase 12 ran),
     the first three losses held to it (``HIER_LOSS_RTOL``)."""
+    import hashlib
+
     from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
     from ps_pytorch_tpu_torch.models import build_model, init_model
     from ps_pytorch_tpu_torch.ops.quantize import accumulate_rescale_plain
@@ -3630,7 +3741,7 @@ def phase_hier(card: str, dev, flat_best=None) -> dict:
         return out
 
     grid = make_hybrid_mesh(2, WORKERS // 2)
-    errs = {}
+    errs, digests = {}, {}
     for domain in ("homomorphic", "dequant"):
         collectives.accumulate_rescale_int8 = spy
         try:
@@ -3641,6 +3752,7 @@ def phase_hier(card: str, dev, flat_best=None) -> dict:
         finally:
             collectives.accumulate_rescale_int8 = real
         errs[domain] = float((agg[:total].double() - exact).abs().max())
+        digests[domain] = hashlib.sha256(agg.cpu().numpy().tobytes()).hexdigest()
         require(errs[domain] <= bound, f"hier {domain}: error {errs[domain]} beyond the bound "
                                        f"{bound}")
     require([d for _, d, _ in seen] == [4.0, 2.0], f"hier: K3 divisors {[d for _, d, _ in seen]}")
@@ -3654,6 +3766,7 @@ def phase_hier(card: str, dev, flat_best=None) -> dict:
                      "ms": time_ms(lambda: real(recv, d), iters=50),
                      "bound_ms": b_ms, "bound_by": b_by}
     rec.update({"k3_hops": hops, "bound": bound, "max_err_vs_exact_mean": errs,
+                "aggregate_sha256": digests,
                 "seconds": time.perf_counter() - t_start})
     print("phase 30 --dcn-hosts 2 (hierarchical two-round wire) ResNet18 2 x 4: "
           + json.dumps(rec))
@@ -3779,8 +3892,9 @@ def _spawn_children(flag: str, root: str, what: str, timeout: int = 600) -> list
     the card; their records, in rank order."""
     port = _free_port()
     outs = [os.path.join(root, f"{flag.strip('-')}_{r}.json") for r in range(2)]
+    tree = ["--package-root", PACKAGE_ROOT] if PACKAGE_ROOT is not None else []
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
-                               str(port), root, outs[r]],
+                               str(port), root, outs[r]] + tree,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(2)]
     logs = []
@@ -3915,6 +4029,8 @@ def phase_grid_processes(card: str, root: str, hier=None) -> dict:
         r["nccl_bit_exact_vs_stacked"] = _files_equal(
             ckpt.checkpoint_path(os.path.join(root, f"grid_stacked_{wire}"), steps),
             ckpt.checkpoint_path(os.path.join(root, f"grid_nccl_{wire}"), steps))
+        r["model_step_sha256"] = _sha256_of(
+            ckpt.checkpoint_path(os.path.join(root, f"grid_stacked_{wire}"), steps))
         if not r["nccl_bit_exact_vs_stacked"]:
             faults.append(f"{wire}: NCCL world size 1 model_step_{steps} differs from stacked")
         rec[wire] = r
@@ -4169,7 +4285,7 @@ def phase_config_json(card: str) -> dict:
                 "config-json: no profiler trace written")
         with open(pw.trace_path) as f:
             events = json.load(f)["traceEvents"]
-        k3 = [e for e in events if "accum_rescale_kernel" in e.get("name", "")
+        k3 = [e for e in events if "accum_rescale" in e.get("name", "")
               and e.get("cat") == "kernel"]
         names = {e.get("name") for e in events}
         spans = sorted({"fetch", "dispatch", "h2d"} & names)
@@ -5240,14 +5356,15 @@ def phase_lint(card: str) -> dict:
 
 
 def main(argv=None) -> int:
-    global OTHER_TREE
+    global OTHER_TREE, PACKAGE_ROOT
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 12, 12b, 14, "
-                         "18, 19, 20, 20b, 20c, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 30b, 31, "
+                    help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 11, 12, 12b, "
+                         "14, 18, 19, 20, 20b, 20c, 21, 22, 23, 24, 24b, 25, 26, 27, 28, 29, 30, "
+                         "30b, 31, "
                          "32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42; 2 "
-                         "on this tree only; 22 runs 9 first, 24 runs 23 first, 40 runs 39 "
-                         "first)")
+                         "on this tree only; 22 runs 9 first, 24 runs 24b and 23 first, "
+                         "40 runs 39 first)")
     ap.add_argument("--package-root", default=None,
                     help="directory holding the ps_pytorch_tpu_torch package to time")
     children = {"phase24_child": phase24_child, "phase30b_child": phase30b_child,
@@ -5255,19 +5372,28 @@ def main(argv=None) -> int:
     for name in children:
         ap.add_argument("--" + name.replace("_", "-"), nargs=4, default=None,
                         metavar=("RANK", "PORT", "DIR", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--phase24b-child", default=None, metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.package_root is not None:
+        PACKAGE_ROOT = os.path.abspath(args.package_root)
+        sys.path.insert(0, PACKAGE_ROOT)
+        OTHER_TREE = True
     for name, child in children.items():
         if getattr(args, name) is not None:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             rank, port, root, out = getattr(args, name)
             return child(int(rank), int(port), root, out)
-    if args.package_root is not None:
-        sys.path.insert(0, os.path.abspath(args.package_root))
-        OTHER_TREE = True
+    if args.phase24b_child is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        split = split_cases(torch.device("cuda"))
+        with open(args.phase24b_child, "w") as f:
+            json.dump(split, f)
+        return 0
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 
     # f32 comparisons on the card need full f32 products: TF32 off for
@@ -5319,6 +5445,7 @@ def main(argv=None) -> int:
                                   + json.dumps({"round1": wire_step_case(dev, 128),
                                                 "round2": round2_step_case(dev)})),
                  9: lambda: ran.setdefault(9, phase_train(smi)),
+                 11: lambda: phase_k3(dev),
                  12: lambda: ran.setdefault(12, phase_train_wires(smi)),
                  "12b": lambda: phase_checkpoint(smi),
                  14: lambda: phase_flash_train_kernels(dev),
@@ -5331,7 +5458,8 @@ def main(argv=None) -> int:
                  21: lambda: phase_events(smi),
                  22: lambda: phase_adam(smi, phase_train(smi)),
                  23: lambda: procs(False),
-                 24: lambda: (procs(True), phase_split(dev)),
+                 24: lambda: (phase_split(dev), procs(True)),
+                 "24b": lambda: phase_split(dev),
                  25: lambda: phase_data(smi, ran[9]["step_ms_p50"] if 9 in ran else None),
                  26: lambda: phase_adaptive(smi, dev),
                  27: lambda: phase_stochastic(smi, dev),
@@ -5394,8 +5522,10 @@ def main(argv=None) -> int:
     synced_proc = deterministic(lambda root: phase_synced_processes(smi, root, synced_local))
     events = phase_events(smi)
     phase_adam(smi, train)
-    nccl, two = procs(True)
+    # before phases 23-24: once a process group is up, the profiler's
+    # traces can come back without device events
     split = phase_split(dev)
+    nccl, two = procs(True)
     data = phase_data(smi, train["step_ms_p50"])
     adapt = phase_adaptive(smi, dev)
     stoch = phase_stochastic(smi, dev)
@@ -5503,7 +5633,8 @@ def main(argv=None) -> int:
             "launches_two_processes": [la[given] for la in two[wire]["launches"]],
             "max_abs_err": rec["max_abs_err"],
             **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                   "fused_ms")},
+                                   "fused_ms", "fused_device_ms", "halves",
+                                   "two_pass_floor_ms")},
             "library_ms": None, **extra,
         }
 
@@ -5620,9 +5751,13 @@ def main(argv=None) -> int:
             "launches_autotune_probes": probe_launches("K3"),
             "launches_autotune_best_run": tune["best_run"]["launches"]["accumulate_rescale_int8"],
             "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
-            "ms": k3["resnet18_fused"]["ms"], "plain_ms": k3["resnet18_fused"]["plain_ms"],
-            "bound_ms": k3["resnet18_fused"]["bound_ms"],
-            "bound_by": k3["resnet18_fused"]["bound_by"], "library_ms": None,
+            **{k: k3["resnet18_fused"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                    "bound_by")},
+            "library_ms": None,
+            # phase 11: the grid's hop shapes and the views at odd offsets
+            "hop_shapes": {name: k3[name] for name, _, _ in GRID_K3_HOPS},
+            "offset_views": {f"offset{o}": k3[f"resnet18_fused_offset{o}"]
+                             for o in K3_VIEW_OFFSETS},
         },
         {
             "name": "flash_fwd", "route": "cuda",

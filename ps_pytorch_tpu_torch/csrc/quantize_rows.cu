@@ -43,7 +43,9 @@
 //   ps_quantize_rows_scaled_given_many  cross-process max of the block
 //                                 absmax, for a worker axis over
 //                                 processes (each process's N is its
-//                                 local workers).
+//                                 local workers), on the same warp-a-
+//                                 block-row walk and, at block 128, the
+//                                 same lane mapping.
 //
 // All compute, per row, inv = absmax > 0 ? 127 / max(absmax, 1e-30) : 0,
 // int8(clip(rint(x * inv), -127, 127)) and scale = absmax * (1/127).
@@ -92,15 +94,21 @@
 // absmax) per row: a few flops per byte (far below the card's ~20 f32
 // flops/byte balance). The lane-group entries hold each lane's 16 bytes
 // in registers from the absmax to the quantize: one read. At block 128
-// and up to 8 workers (the shared-scale wire's case) each lane keeps its float4 of every worker's block in registers
-// (scaled_block_row_128): the row is read once, its loads all in flight.
-// Elsewhere a warp reads its row twice (absmax, then quantize), but the
-// second read follows the first at once and touches N * bs elements: it
-// hits L1 or L2, so device memory sees one read either way, the part of
-// the design the TPU's whole-array pmax could not have. The shared-scale
-// entry loads float4 and stores char4 for every f32 piece whose input is
-// 16-byte aligned and whose n and bs are multiples of 4, decided per
-// piece; other pieces and bf16 go element by element.
+// and up to 8 workers (the shared-scale wire's case) each lane keeps its
+// four elements of every worker's block in registers (load_row_128): the
+// row is read once, its loads all in flight. Elsewhere a warp reads its
+// row twice (absmax, then quantize), but the second read follows the
+// first at once and touches N * bs elements: it hits L1 or L2, so device
+// memory sees one read either way, the part of the design the TPU's
+// whole-array pmax could not have. The fused shared-scale entry loads
+// float4 and stores char4 for every f32 piece whose input is 16-byte
+// aligned and whose n and bs are multiples of 4, decided per piece;
+// other pieces and bf16 go element by element. The split route's two
+// halves read x once each (the cross-process max lies between them), so
+// its floor is two reads of x; at block 128 and up to 8 workers both take
+// load_row_128 for f32 pieces on the float4 kind and for bf16 pieces
+// whose input is 8-byte aligned with n a multiple of 4 (8-byte loads),
+// and the given half stores one char4 a worker and lane.
 //
 // Non-finite input, as JAX's max(abs) and the plain versions take it:
 // every max keeps a NaN (ps::max_abs, a max over the bits of |x|, where a
@@ -251,9 +259,10 @@ cudaError_t launch_kv_write(const KvWrite& a, bool vec, cudaStream_t s) {
 // ------------------------------------------ the multi-tensor shared-scale entry
 
 // load kinds of the multi-tensor entry (ops/quantize.py _k1_kind)
-constexpr long long kF32Vec = 0;  // f32, x 16-byte aligned, n and bs multiples of 4
+constexpr long long kF32Vec = 0;   // f32, x 16-byte aligned, n and bs multiples of 4
 constexpr long long kF32 = 1;
 constexpr long long kBF16 = 2;
+constexpr long long kBF16Vec = 3;  // bf16, x 8-byte aligned, n and bs multiples of 4
 
 // Every field is an int64 word: the host fills the table word by word
 // (ops/quantize.py _K1_TABLE) and checks its size against
@@ -332,32 +341,67 @@ __device__ __forceinline__ void scaled_block_row(const T* __restrict__ x, int8_t
   }
 }
 
-// the block-128 wire at up to 8 workers, an f32 piece on the float4
-// path: each lane holds its float4 of every worker's block in registers,
-// so the row is read once, all its loads in flight together
+// The block-128 wire at up to 8 workers (kF32Vec and kBF16Vec pieces):
+// lane l holds elements [4 l, 4 l + 4) of every worker's block in
+// registers, one float4 (f32) or one 8-byte word (bf16) a worker, all
+// loaded before any is used, so the row is read once with all its loads
+// in flight; the quantize stores one char4 a worker, so a warp writes
+// each worker's 128 int8 as 128 contiguous bytes.
+constexpr int kRowWorkers = 8;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// four bf16 widened exactly to f32; element 2i is the low half of word i
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// block-row r's elements of this lane, every worker; padding reads as 0
+template <typename T>
+__device__ __forceinline__ void load_row_128(const T* __restrict__ x, long long n, long long r,
+                                             int workers, int lane, float4 (&v)[kRowWorkers]) {
+  const long long c0 = r * 128;
+  const bool live = c0 + 4 * lane < n;  // n % 4 == 0: a lane's four are live or padding
+#pragma unroll
+  for (int w = 0; w < kRowWorkers; ++w) {
+    v[w] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (w < workers && live) v[w] = load4(x + w * n + c0 + 4 * lane);
+  }
+}
+
+__device__ __forceinline__ float row_max_128(const float4 (&v)[kRowWorkers]) {
+  float m = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kRowWorkers; ++w)
+    m = ps::max_abs(ps::max_abs(ps::max_abs(ps::max_abs(m, v[w].x), v[w].y), v[w].z), v[w].w);
+  return ps::warp_max(m);
+}
+
+__device__ __forceinline__ void store_row_128(const float4 (&v)[kRowWorkers],
+                                              int8_t* __restrict__ q, long long nb, long long r,
+                                              int workers, int lane, float inv) {
+#pragma unroll
+  for (int w = 0; w < kRowWorkers; ++w)
+    if (w < workers)
+      reinterpret_cast<char4*>(q + (w * nb + r) * 128)[lane] =
+          make_char4(ps::quant_int8(v[w].x, inv), ps::quant_int8(v[w].y, inv),
+                     ps::quant_int8(v[w].z, inv), ps::quant_int8(v[w].w, inv));
+}
+
+// the fused entry's block-128 row: one read of x, all loads in flight
 __device__ __forceinline__ void scaled_block_row_128(const float* __restrict__ x,
                                                      int8_t* __restrict__ q, long long n,
                                                      long long nb, long long r, int workers,
                                                      int lane, float* __restrict__ absmax,
                                                      float* __restrict__ scale) {
-  const long long c0 = r * 128;
-  const bool live = c0 + 4 * lane < n;  // n % 4 == 0: a lane's float4 is live or padding
-  float4 v[8];
-  float m = 0.0f;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    v[w] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (w < workers && live) v[w] = __ldg(reinterpret_cast<const float4*>(x + w * n + c0) + lane);
-    m = ps::max_abs(ps::max_abs(ps::max_abs(ps::max_abs(m, v[w].x), v[w].y), v[w].z), v[w].w);
-  }
-  m = ps::warp_max(m);
-  const float inv = ps::inv_scale(m);
-#pragma unroll
-  for (int w = 0; w < 8; ++w)
-    if (w < workers)
-      reinterpret_cast<char4*>(q + (w * nb + r) * 128)[lane] =
-          make_char4(ps::quant_int8(v[w].x, inv), ps::quant_int8(v[w].y, inv),
-                     ps::quant_int8(v[w].z, inv), ps::quant_int8(v[w].w, inv));
+  float4 v[kRowWorkers];
+  load_row_128(x, n, r, workers, lane, v);
+  const float m = row_max_128(v);
+  store_row_128(v, q, nb, r, workers, lane, ps::inv_scale(m));
   if (lane == 0) {
     absmax[r] = m;
     scale[r] = m * ps::kRecip127;
@@ -377,7 +421,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     int8_t* q = reinterpret_cast<int8_t*>(t.q[i]);
     float* a = absmax + t.slot[i];
     float* s = scale + t.slot[i];
-    if (t.kind[i] == kF32Vec && bs == 128 && workers <= 8)
+    if (t.kind[i] == kF32Vec && bs == 128 && workers <= kRowWorkers)
       scaled_block_row_128(reinterpret_cast<const float*>(t.x[i]), q, t.n[i], t.nb[i], r,
                            workers, lane, a, s);
     else if (t.kind[i] == kF32Vec)
@@ -386,7 +430,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     else if (t.kind[i] == kF32)
       scaled_block_row<float, false>(reinterpret_cast<const float*>(t.x[i]), q, t.n[i], t.nb[i],
                                      r, workers, bs, lane, a, s);
-    else
+    else  // kBF16, kBF16Vec
       scaled_block_row<__nv_bfloat16, false>(reinterpret_cast<const __nv_bfloat16*>(t.x[i]), q,
                                              t.n[i], t.nb[i], r, workers, bs, lane, a, s);
   }
@@ -396,8 +440,22 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 // processes: block r's absmax is the max over EVERY process's workers, so
 // the cross-process max (an all_reduce of the int32 bits, ops/quantize.py)
 // sits between a pass that takes this process's block absmax and one that
-// quantizes with the reduced one. One warp a block-row, as above, the
-// lanes over consecutive elements (coalesced); padding reads as 0.
+// quantizes with the reduced one. One warp a block-row, as above. At
+// block 128 and up to 8 local workers, on the vector kinds (f32 float4,
+// bf16 8-byte words), both halves take the fused entry's row mapping
+// (load_row_128): the absmax half one warp max of the row held in
+// registers, the given half one char4 store a worker and lane. Other
+// block sizes, kinds and worker counts walk the row element by element,
+// the lanes over consecutive elements (coalesced); padding reads as 0.
+__device__ __forceinline__ bool row_128(const RowsTable& t, int i) {
+  return t.bs == 128 && t.workers <= kRowWorkers &&
+         (t.kind[i] == kF32Vec || t.kind[i] == kBF16Vec);
+}
+
+__device__ __forceinline__ bool is_bf16(long long kind) {
+  return kind == kBF16 || kind == kBF16Vec;
+}
+
 template <typename T>
 __device__ __forceinline__ float local_block_absmax(const T* __restrict__ x, long long n,
                                                     long long r, int workers, int bs,
@@ -427,21 +485,41 @@ __device__ __forceinline__ void given_block_quantize(const T* __restrict__ x,
   }
 }
 
+template <typename T>
+__device__ __forceinline__ float split_absmax(const RowsTable& t, int i, long long r, int lane) {
+  const T* x = reinterpret_cast<const T*>(t.x[i]);
+  if (row_128(t, i)) {
+    float4 v[kRowWorkers];
+    load_row_128(x, t.n[i], r, (int)t.workers, lane, v);
+    return row_max_128(v);
+  }
+  return local_block_absmax(x, t.n[i], r, (int)t.workers, (int)t.bs, lane);
+}
+
+template <typename T>
+__device__ __forceinline__ void split_quantize(const RowsTable& t, int i, long long r, int lane,
+                                               float inv) {
+  const T* x = reinterpret_cast<const T*>(t.x[i]);
+  int8_t* q = reinterpret_cast<int8_t*>(t.q[i]);
+  if (row_128(t, i)) {
+    float4 v[kRowWorkers];
+    load_row_128(x, t.n[i], r, (int)t.workers, lane, v);
+    store_row_128(v, q, t.nb[i], r, (int)t.workers, lane, inv);
+  } else {
+    given_block_quantize(x, q, t.n[i], t.nb[i], r, (int)t.workers, (int)t.bs, lane, inv);
+  }
+}
+
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     rows_absmax_many_kernel(const __grid_constant__ RowsTable t, float* __restrict__ absmax) {
   const int lane = threadIdx.x & 31;
-  const int workers = (int)t.workers, bs = (int)t.bs;
   const long long warps = (long long)gridDim.x * kWarpsPerBlock;
   for (long long u = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
        u < t.total_rows; u += warps) {  // warp-uniform
     const int i = piece_of(t, u);
     const long long r = u - t.first_row[i];
-    const float m =
-        t.kind[i] == kBF16
-            ? local_block_absmax(reinterpret_cast<const __nv_bfloat16*>(t.x[i]), t.n[i], r,
-                                 workers, bs, lane)
-            : local_block_absmax(reinterpret_cast<const float*>(t.x[i]), t.n[i], r, workers,
-                                 bs, lane);
+    const float m = is_bf16(t.kind[i]) ? split_absmax<__nv_bfloat16>(t, i, r, lane)
+                                       : split_absmax<float>(t, i, r, lane);
     if (lane == 0) absmax[t.slot[i] + r] = m;
   }
 }
@@ -451,7 +529,6 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                                     const float* __restrict__ absmax,
                                     float* __restrict__ scale) {
   const int lane = threadIdx.x & 31;
-  const int workers = (int)t.workers, bs = (int)t.bs;
   const long long warps = (long long)gridDim.x * kWarpsPerBlock;
   for (long long u = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
        u < t.total_rows; u += warps) {  // warp-uniform
@@ -459,13 +536,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     const long long r = u - t.first_row[i];
     const float m = absmax[t.slot[i] + r];
     const float inv = ps::inv_scale(m);
-    int8_t* q = reinterpret_cast<int8_t*>(t.q[i]);
-    if (t.kind[i] == kBF16)
-      given_block_quantize(reinterpret_cast<const __nv_bfloat16*>(t.x[i]), q, t.n[i], t.nb[i],
-                           r, workers, bs, lane, inv);
+    if (is_bf16(t.kind[i]))
+      split_quantize<__nv_bfloat16>(t, i, r, lane, inv);
     else
-      given_block_quantize(reinterpret_cast<const float*>(t.x[i]), q, t.n[i], t.nb[i], r,
-                           workers, bs, lane, inv);
+      split_quantize<float>(t, i, r, lane, inv);
     if (lane == 0) scale[t.slot[i] + r] = m * ps::kRecip127;
   }
 }
@@ -522,9 +596,34 @@ static int check_table(const RowsTable& t) {
     return (int)cudaErrorInvalidValue;
   for (long long i = 0; i < t.count; ++i)
     if (t.n[i] < 1 || t.nb[i] != (t.n[i] + t.bs - 1) / t.bs || t.kind[i] < kF32Vec ||
-        t.kind[i] > kBF16)
+        t.kind[i] > kBF16Vec)
       return (int)cudaErrorInvalidValue;
   return (int)cudaSuccess;
+}
+
+// The grid of a kernel whose warps walk a table's rows with a grid
+// stride: the card's resident blocks of it (kernel occupancy, cached per
+// device in `resident`), or fewer when the rows need fewer.
+template <typename Kernel>
+static cudaError_t warp_row_grid(Kernel kernel, int (&resident)[16], long long rows,
+                                 unsigned* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  long long cap = dev < 16 ? resident[dev] : 0;  // zero: not computed yet
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarpsPerBlock * 32, 0);
+    if (err != cudaSuccess) return err;
+    cap = (long long)sms * per_sm;
+    if (dev < 16) resident[dev] = (int)cap;
+  }
+  if (cap < 1) return cudaErrorInvalidConfiguration;
+  const long long want = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  *grid = (unsigned)(want < cap ? want : cap);
+  return cudaSuccess;
 }
 
 // One table of K1's multi-tensor shared-scale entry: `words` is a
@@ -535,32 +634,15 @@ extern "C" int ps_quantize_rows_scaled_many(const long long* words, void* absmax
   RowsTable t;
   memcpy(&t, words, sizeof t);
   if (const int err = check_table(t)) return err;
-  static int resident[16];  // zero: not computed yet
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 16 || resident[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, quantize_rows_scaled_many_kernel, kWarpsPerBlock * 32, 0);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 16) resident[dev] = sms * per_sm;
-  }
-  const long long cap = dev < 16 ? resident[dev] : (long long)sms * per_sm;
-  const long long want = (t.total_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (cap < 1) return (int)cudaErrorInvalidConfiguration;
-  quantize_rows_scaled_many_kernel<<<(unsigned)(want < cap ? want : cap), kWarpsPerBlock * 32, 0,
+  static int resident[16];
+  unsigned grid = 0;
+  if (const cudaError_t err =
+          warp_row_grid(quantize_rows_scaled_many_kernel, resident, t.total_rows, &grid))
+    return (int)err;
+  quantize_rows_scaled_many_kernel<<<grid, kWarpsPerBlock * 32, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<float*>(absmax), static_cast<float*>(scale));
   return (int)cudaGetLastError();
-}
-
-// the split route's grid: a grid-stride walk over the table's rows, at
-// most 4096 blocks of kWarpsPerBlock warps
-static unsigned split_grid(const RowsTable& t) {
-  const long long want = (t.total_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  return (unsigned)(want < 4096 ? want : 4096);
 }
 
 // One table of K1's shared-scale split route, first half: absmax[slot + r]
@@ -570,8 +652,13 @@ extern "C" int ps_rows_scaled_absmax_many(const long long* words, void* absmax,
   RowsTable t;
   memcpy(&t, words, sizeof t);
   if (const int err = check_table(t)) return err;
-  rows_absmax_many_kernel<<<split_grid(t), kWarpsPerBlock * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(t, static_cast<float*>(absmax));
+  static int resident[16];
+  unsigned grid = 0;
+  if (const cudaError_t err =
+          warp_row_grid(rows_absmax_many_kernel, resident, t.total_rows, &grid))
+    return (int)err;
+  rows_absmax_many_kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<float*>(absmax));
   return (int)cudaGetLastError();
 }
 
@@ -582,7 +669,12 @@ extern "C" int ps_quantize_rows_scaled_given_many(const long long* words, const 
   RowsTable t;
   memcpy(&t, words, sizeof t);
   if (const int err = check_table(t)) return err;
-  rows_quantize_given_many_kernel<<<split_grid(t), kWarpsPerBlock * 32, 0,
+  static int resident[16];
+  unsigned grid = 0;
+  if (const cudaError_t err =
+          warp_row_grid(rows_quantize_given_many_kernel, resident, t.total_rows, &grid))
+    return (int)err;
+  rows_quantize_given_many_kernel<<<grid, kWarpsPerBlock * 32, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<const float*>(absmax), static_cast<float*>(scale));
   return (int)cudaGetLastError();

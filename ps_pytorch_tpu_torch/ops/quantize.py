@@ -279,7 +279,7 @@ class _Layout:
 
 _K2_TABLE = _Layout(2, ["x", "q", "n", "kind", "slot", "first"])
 _K1_TABLE = _Layout(4, ["x", "q", "n", "nb", "kind", "slot", "first"])
-_F32_VEC, _F32, _BF16 = 0, 1, 2  # the kernels' load kinds
+_F32_VEC, _F32, _BF16, _BF16_VEC = 0, 1, 2, 3  # the kernels' load kinds
 # int64 words of csrc/quantize_rows.cu KvWrite
 _KV_WORDS = 18
 
@@ -617,9 +617,12 @@ quantize_rows_scaled_many.launches = 0
 
 
 def _k1_kind(dtype, ptr: int, n: int, block_size: int) -> int:
+    """A piece's load kind: four elements a lane in one load (f32 16-byte,
+    bf16 8-byte aligned, n and the block a multiple of 4), or one a time."""
+    whole = n % 4 == 0 and block_size % 4 == 0
     if dtype == torch.bfloat16:
-        return _BF16
-    return _F32_VEC if ptr % 16 == 0 and n % 4 == 0 and block_size % 4 == 0 else _F32
+        return _BF16_VEC if ptr % 8 == 0 and whole else _BF16
+    return _F32_VEC if ptr % 16 == 0 and whole else _F32
 
 
 @kernel_entry("K2", shared=True, numerics="quantize")
@@ -1289,7 +1292,10 @@ def accumulate_rescale_int8(recv: torch.Tensor, divisor) -> torch.Tensor:
     number or a 0-d f32 tensor on the card; the kernel reads it from
     device memory, as the TPU read it from SMEM, so a changing divisor
     costs no host sync and no rebuild. Any ``n >= 1`` and any ``s``: no
-    lane or block condition (the Pallas wrapper needed ``s % 128 == 0``).
+    lane or block condition (the Pallas wrapper needed ``s % 128 == 0``);
+    every row is read in aligned 16-byte words at any pitch and base
+    address (csrc/accum_rescale.cu). The output is a fresh allocation,
+    which the kernel stores in 16-byte words.
     Bound on the H100: bytes (``n*s`` int8 read once, ``s`` written). A
     CPU tensor runs ``accumulate_rescale_plain``; a CUDA tensor launches
     the kernel or raises."""

@@ -51,7 +51,7 @@ CATEGORIES = (
     ("K1 quantize_rows_scaled_many", ("quantize_rows_scaled_many_kernel",)),
     # round 2 of the block-scale two-round wire
     ("K1 quantize_rows_many", ("quantize_rows_many_kernel",)),
-    ("K3 accumulate_rescale", ("accum_rescale_kernel",)),
+    ("K3 accumulate_rescale", ("accum_rescale",)),
     ("integer sum over workers", ("sum_functor<int", "sum_functor<short")),
     ("cuDNN convolution", ("cudnn", "xmma", "conv", "implicit", "winograd", "fft",
                            "dgrad", "wgrad", "fprop", "cutlass", "sgemm", "gemm")),
@@ -62,7 +62,7 @@ CATEGORIES = (
 # the port's own kernels, reported launch by launch
 PORT_KERNELS = ("absmax_many_kernel", "quantize_many_kernel",
                 "quantize_rows_scaled_many_kernel", "quantize_rows_many_kernel",
-                "accum_rescale_kernel")
+                "accum_rescale")
 
 
 # CUDA runtime calls that block the host until the card catches up (a

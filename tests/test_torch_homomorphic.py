@@ -80,7 +80,10 @@ def test_torch_accumulate_rescale_exhaustive_matches_jax(d, monkeypatch):
     np.testing.assert_array_equal(got_float, pallas[:s])
 
 
-@pytest.mark.parametrize("n,s", [(8, 130), (8, 1), (1, 300), (258, 4096), (3, 0)])
+@pytest.mark.parametrize("n,s", [(8, 130), (8, 1), (1, 300), (258, 4096), (3, 0)]
+                         # the pitch classes s % 16 in {1, 4, 8, 12, 15}: rows of the
+                         # kernel's aligned-word reads at every misalignment
+                         + [(n, 32 + j) for n in (2, 4, 8) for j in (1, 4, 8, 12, 15)])
 def test_torch_accumulate_rescale_shapes_match_jax(n, s, monkeypatch):
     monkeypatch.setenv("PS_TPU_DISABLE_PALLAS", "1")
     rng = np.random.RandomState(n + s)

@@ -356,7 +356,7 @@ def test_torch_quantize_rows_scaled_many_kernel_resnet18_leaves_on_card(cuda_dev
     _same_many(again, got)
 
 
-def _odd_pieces(dev, count, seed):
+def _odd_pieces(dev, count, seed, workers=8):
     """``count`` worker-stacked pieces of assorted lengths (0 included,
     multiples of 4 or not), f32 and bf16, every third f32 one a view one
     element past an aligned start (the element-wise load path)."""
@@ -365,9 +365,22 @@ def _odd_pieces(dev, count, seed):
     out = []
     for i in range(count):
         n = int(rng.choice([0, 1, 3, 4, 127, 128, 129, 1000, 4099, 9001]))
-        flat = torch.randn(8 * n + 1, generator=g, device=dev) * float(np.exp(rng.randn() * 3))
-        x = (flat[1:] if i % 3 == 1 else flat[:-1]).view(8, n)
+        flat = (torch.randn(workers * n + 1, generator=g, device=dev)
+                * float(np.exp(rng.randn() * 3)))
+        x = (flat[1:] if i % 3 == 1 else flat[:-1]).view(workers, n)
         out.append(x.to(torch.bfloat16) if i % 5 == 3 else x)
+    return out
+
+
+def _bf16_views(dev, workers, seed):
+    """bf16 pieces on both of K1's bf16 load kinds: whole 8-byte words
+    (aligned, n % 4 == 0: block 128 takes the lane mapping) and views
+    one element off, or with n % 4 != 0 (element by element)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for n, off in ((4096, 0), (4096, 1), (1000, 0), (1001, 0), (130, 2), (128 * 37, 4)):
+        flat = (torch.randn(workers * n + off, generator=g, device=dev) * 3).to(torch.bfloat16)
+        out.append(flat[off:].view(workers, n))
     return out
 
 
@@ -397,14 +410,20 @@ def test_torch_quantize_rows_scaled_many_kernel_300_pieces_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("workers", [8, 1, 2, 3, 4, 5, 6, 7, 9])
 @pytest.mark.parametrize("block", [0, 128, 33])
-def test_torch_split_routes_bit_exact_on_card(cuda_device, block):
+def test_torch_split_routes_bit_exact_on_card(cuda_device, block, workers):
     """The split routes (absmax, then the quantize with a given absmax:
-    K2's per tensor, K1's shared-scale per block) over 300 assorted
-    pieces equal their plain versions and the fused entry; one wrapper
-    call a half; a NaN-only worker row gives its piece scale NaN and an
-    all-zero payload, as a NaN absmax from another process would."""
-    xs = _odd_pieces(cuda_device, 300, 5)
+    K2's per tensor, K1's shared-scale per block) over assorted pieces of
+    1-9 local workers (9: K1's element loop at block 128, up to 8 its
+    lane mapping), f32 and bf16 on both load kinds, lengths with n % 4 !=
+    0 among them, equal their plain versions and the fused entry; one
+    wrapper call a half; a NaN-only worker row gives its piece scale NaN
+    and an all-zero payload, as a NaN absmax from another process would,
+    and a block row of NaN only (every worker) gives that row's scale NaN
+    and zero payload beside finite rows."""
+    xs = (_odd_pieces(cuda_device, 300 if workers == 8 else 60, 5, workers)
+          + _bf16_views(cuda_device, workers, 6))
     if block:
         absmax, given = tq.rows_scaled_absmax, tq.quantize_rows_scaled_given
         plain = (lambda ys: tq.rows_scaled_absmax_plain(ys, block),
@@ -422,14 +441,20 @@ def test_torch_split_routes_bit_exact_on_card(cuda_device, block):
     assert (absmax.launches, given.launches) == (before[0] + 1, before[1] + 1)
     _same_many(got, plain[1](xs, plain[0](xs)))
     _same_many(got, fused(xs))
-    ys = [x.float().clone() for x in xs[:4]]
-    ys[2][5] = float("nan")
-    got = run(ys)
-    want = plain[1](ys, plain[0](ys))
-    for (q, s, a), (qp, sp, ap) in zip(got, want):
-        assert torch.equal(q, qp)
-        assert torch.equal(s.view(torch.int32), sp.view(torch.int32))
-    assert bool(torch.isnan(got[2][1]).all()) and not bool(got[2][0].any())
+    for dtype in (torch.float32, torch.bfloat16):
+        ys = [x.to(dtype).clone() for x in xs if x.shape[1] >= 256][:4]
+        ys[2][-1] = float("nan")  # a worker's row: every block of the piece
+        ys[3].view(workers, -1)[:, :max(block, 1)] = float("nan")  # block row 0 only
+        got = run(ys)
+        want = plain[1](ys, plain[0](ys))
+        for (q, s, a), (qp, sp, ap) in zip(got, want):
+            assert torch.equal(q, qp)
+            assert torch.equal(s.view(torch.int32), sp.view(torch.int32))
+        assert bool(torch.isnan(got[2][1]).all()) and not bool(got[2][0].any())
+        assert bool(torch.isnan(got[3][1].reshape(-1)[0]))
+        if block:
+            assert not bool(got[3][0][:, 0].any())
+            assert bool(torch.isfinite(got[3][1].reshape(-1)[1:]).all())
 
 
 @pytest.mark.cuda
@@ -904,8 +929,8 @@ def test_torch_engine_rollover_on_card_matches_cpu_engine(cuda_device, int8, tmp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s", [
-    (8, 11173968),  # the ResNet18 fused stacked payload (16-byte path)
-    (8, 1396746),   # one region of it (byte path: s % 16 != 0)
+    (8, 11173968),  # the ResNet18 fused stacked payload (every row aligned)
+    (8, 1396746),   # one region of it (s % 16 == 10: rows at four offsets)
     (8, 130), (1, 1), (258, 4096), (1, 300), (8, 16), (3, 17),
 ])
 def test_torch_accumulate_rescale_kernel_bit_exact_on_card(cuda_device, n, s):
@@ -921,6 +946,53 @@ def test_torch_accumulate_rescale_kernel_bit_exact_on_card(cuda_device, n, s):
         assert accumulate_rescale_int8.launches == before + 1
         assert out.dtype == torch.int8 and tuple(out.shape) == (s,)
         assert torch.equal(out, plain)
+
+
+def _int8_view(dev, n, s, offset, seed):
+    """A contiguous int8 [n, s] at storage offset ``offset`` of a buffer
+    with guard bytes on both sides, and the buffer."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randint(-128, 128, (n * s + offset + 16,), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    recv = buf[offset:offset + n * s].view(n, s)
+    if s:
+        recv[:, 0] = 127  # a full-scale column
+    return recv, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 8, 15])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 258])
+def test_torch_accumulate_rescale_kernel_every_pitch_and_offset_on_card(cuda_device, n, offset):
+    """K3 at every pitch class s % 16, at small s and past several
+    blocks, with recv's base at storage offsets 0, 1, 8 and 15 (rows at
+    every misalignment, read as aligned 16-byte words): bit for bit the
+    plain version, one launch a call, and the buffer around recv as it
+    was (the kernel writes only ``out``)."""
+    for s in [j for j in range(1, 16)] + [16 * k + j for k in (1, 263) for j in range(16)]:
+        recv, buf = _int8_view(cuda_device, n, s, offset, n * 1000 + s + offset)
+        before_buf = buf.clone()
+        for d in (float(n), 5.0, torch.tensor(3.0, device=cuda_device)):
+            launches = accumulate_rescale_int8.launches
+            out = accumulate_rescale_int8(recv, d)
+            torch.cuda.synchronize()
+            assert accumulate_rescale_int8.launches == launches + 1
+            assert tuple(out.shape) == (s,) and torch.equal(out, accumulate_rescale_plain(recv, d))
+        assert torch.equal(buf, before_buf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,s", [(4, 22347928), (2, 11173968), (4, 11173964), (2, 5586984)],
+                         ids=["grid_ici", "grid_dcn", "process_ici", "process_dcn"])
+def test_torch_accumulate_rescale_kernel_grid_hop_shapes_on_card(cuda_device, n, s, offset):
+    """K3 at the 2 x 4 grid's hop shapes (the stacked grid's ICI and DCN
+    hops, one process's), at an aligned base and one byte off, bit for
+    bit the plain version at the hop's divisor."""
+    recv, _ = _int8_view(cuda_device, n, s, offset, s + offset)
+    for d in (float(n), torch.tensor(float(n), device=cuda_device)):
+        out = accumulate_rescale_int8(recv, d)
+        assert torch.equal(out, accumulate_rescale_plain(recv, d))
 
 
 @pytest.mark.cuda

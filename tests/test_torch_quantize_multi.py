@@ -105,6 +105,61 @@ def test_torch_quantize_many_plain_bit_exact_vs_shard_map(mesh, block_size):
     assert not q0.any() and not s0.any()
 
 
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def split_case(request):
+    """``_pieces`` with NaN block rows (the ragged (129,) piece NaN in
+    every worker; block row 2 of every worker of the (1001,) piece) as
+    torch tensors of the param's dtype, and JAX's block-128 quantize of
+    them with the worker axis."""
+    dtype = request.param
+    pieces = _pieces(7)
+    pieces[-4][:] = np.nan  # (129,): both block rows, every worker
+    pieces[-3][:, 256:384] = np.nan  # (1001,): block row 2 of every worker
+    pieces = [x for x in pieces if x[0].size <= 1 << 16]  # LeNet's leaves and the edges
+    ts = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in pieces]
+    mesh = jax.make_mesh((N,), (WORKER_AXIS,))
+    wide = [jnp.asarray(t.float().numpy(), dtype=getattr(jnp, dtype)) for t in ts]
+    return ts, _shard_map_quantize(mesh, wide, 128)
+
+
+@pytest.mark.parametrize("processes", [1, 2, 4, 8])
+def test_torch_split_halves_plain_bit_exact_vs_shard_map(split_case, processes):
+    """K1's split route as ``processes`` processes run it, in its plain
+    versions: each process's ``rows_scaled_absmax_plain`` over its
+    workers, the max over the stacked processes' absmax bits between the
+    halves (``ProcessWorkerAxis.absmax_max``'s MAX over int32 bits, NaN
+    kept), then each process's ``quantize_rows_scaled_given_plain``:
+    every payload, and the shared scale of every finite block row, equal
+    JAX's ``quantize_int8(block_size=128, axis_name=...)`` under jit on
+    the 8-device mesh, in f32 and bf16, ragged lengths among them. A
+    block row that is NaN in every worker gets payload 0 in both; its
+    scale is NaN in the port (F1) and not finite in JAX, whose pmax on
+    XLA:CPU drops NaN (-inf when every worker is NaN; ROADMAP "Reference
+    caveats")."""
+    ts, (qj, sj) = split_case
+    per = N // processes
+    parts = [[t[p * per:(p + 1) * per] for t in ts] for p in range(processes)]
+    local = torch.stack([tq.rows_scaled_absmax_plain(xs, 128) for xs in parts])
+    absmax = local.abs().view(torch.int32).amax(0).view(torch.float32)
+    outs = [tq.quantize_rows_scaled_given_plain(xs, 128, absmax) for xs in parts]
+    nan_rows, at = 0, 0
+    for i, (qr, sr) in enumerate(zip(qj, sj)):
+        q = torch.cat([o[i][0] for o in outs])
+        scale, am = outs[0][i][1], outs[0][i][2]
+        assert all(torch.equal(o[i][1].view(torch.int32), scale.view(torch.int32))
+                   for o in outs)
+        assert torch.equal(am.reshape(-1).view(torch.int32),
+                           absmax[at:at + am.numel()].view(torch.int32))
+        at += am.numel()
+        np.testing.assert_array_equal(q.numpy(), qr.reshape(q.shape))
+        bad = torch.isnan(scale.reshape(-1)).numpy()
+        want = sr[0].reshape(-1)
+        np.testing.assert_array_equal(scale.reshape(-1).numpy()[~bad], want[~bad])
+        assert not np.isfinite(want[bad]).any()
+        nan_rows += int(bad.sum())
+    assert nan_rows == 2 + 1 and at == absmax.numel()
+
+
 @pytest.mark.parametrize("block_size", [0, 128])
 def test_torch_quantize_many_is_each_piece_quantized_alone(block_size):
     """One call over the list == quantize_int8 of each piece (the
