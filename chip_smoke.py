@@ -193,12 +193,11 @@ Phases, one line each:
    routes' launches per process, step p50 and the host-copy share; a
    NaN-only piece in process 1's rows gives both processes scale NaN and
    an all-zero payload (K2 and K1 block 128); and (24b, run before phase
-   23: once a process group is up, profiler traces can lose their device
-   events) both split routes at the ResNet18 step against their plain
+   23) both split routes at the ResNet18 step against their plain
    versions and the fused entries (a NaN-only piece too), timed beside
    the fused entry, each half's device time beside its own bound and the
-   two halves' floor; when this process's profiler records no device
-   events, the whole of 24b again in a fresh process of this script;
+   two halves' floor, profiled in this process (every capture padded with
+   host time: ``obs.profiler.padded_profile``);
    phases 23, 30 and 30b print the SHA-256 of their checkpoints or
    aggregates (24's files are 23's, byte for byte), so runs of two trees
    compare by their lines;
@@ -346,11 +345,24 @@ Phases, one line each:
    ps_pytorch_tpu_torch chip_smoke.py --baseline lint_baseline_torch.json``)
    in a process of its own on this machine: exit 0 and no new finding;
    its seconds and finding count;
-43. the kernels JSON line, then the result line.
+43. the trace front end: phase 29's configuration (ResNet18 8 x 128, the
+   int8 wire in 4 MiB buckets), ``--overlap on`` and then serial, 3 steps
+   each through ``cli.train.main`` with ``--trace`` and ``--profile-dir``
+   (steps 2-3 captured): ``tools.trace_report`` merges the span stream and
+   passes ``--require-phases fetch,dispatch,sync``; ``tools.overlap_report
+   trace`` finds device events in both profiles, and in the pipelined one
+   a ``bucket_reduce_o*`` range a bucket a captured step (11) holding every
+   K2 launch of the captured steps; both reports printed, their overlap
+   fractions reported, not gated; ``analysis.scaling_bench`` on LeNet and
+   ResNet18 x 128 at 1 / 2 / 4 / 8 stacked workers (3 timed steps after 2),
+   ``tools.dcn_scaling`` at 1 and 2 gloo processes sharing the card (LeNet,
+   5 steps), each record with the card's name and power limit;
+44. the count of ``device_profile``'s captures and retries, the kernels
+   JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,39,40,41,42 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,39,40,41,42,43 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -372,7 +384,7 @@ dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
 alone, the held MoE and dp_tp_pp steps of 36, the serving CLI of 37, the
 compressed checkpoints of 38, pscheck of 39, which reports no phase 9
 p50 beside its own when run alone, psnumerics of 40, which runs 39
-first, autotune of 41, the lint gate of 42),
+first, autotune of 41, the lint gate of 42, the trace front end of 43),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -420,7 +432,7 @@ class SmokeError(RuntimeError):
 
 class ProfilerEmpty(SmokeError):
     """Every trace of one ``device_profile`` came back without device
-    events: the profiler's fault, not the kernels'."""
+    events: no time can be read from it."""
 
 
 def require(cond: bool, what: str) -> None:
@@ -473,23 +485,29 @@ def device_ms(fn, iters: int = 10) -> tuple:
 
 
 PROFILE_ATTEMPTS = 6
+# device_profile's captures and the ones of them that were a retry after an
+# empty trace, over the run (printed by main)
+PROFILE_SESSIONS = PROFILE_RETRIES = 0
 
 
 def device_profile(fn, iters: int = 10) -> tuple:
     """``device_ms``'s figures and the device launches (kernels and
-    memsets) per call, by name."""
-    from torch.profiler import ProfilerActivity, profile
+    memsets) per call, by name. Each capture is padded with host time at
+    both ends (``obs.profiler.padded_profile``): the profiler misplaces a
+    capture's device events by up to 5.8 ms on the host's clock, and
+    drops those it places before the capture began."""
+    from ps_pytorch_tpu_torch.obs import padded_profile
 
+    global PROFILE_SESSIONS, PROFILE_RETRIES
     fn()
     torch.cuda.synchronize()
     seen = {}
-    # a trace may come back with no device events (CUPTI drops them now
-    # and then, several traces in a row at times): take another
-    for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for attempt in range(PROFILE_ATTEMPTS):
+        PROFILE_SESSIONS += 1
+        PROFILE_RETRIES += attempt > 0
+        with padded_profile() as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 rec = seen.setdefault(evt.name[:80], [0, 0.0])
@@ -502,6 +520,13 @@ def device_profile(fn, iters: int = 10) -> tuple:
     per_call = {k: max(1, round(n / iters)) for k, (n, _) in seen.items()}
     by_name = {k: t / n * per_call[k] for k, (n, t) in seen.items()}
     return sum(by_name.values()), by_name, per_call
+
+
+def print_captures() -> None:
+    """How many ``device_profile`` captures the run took, and how many of
+    them were a retry after a capture without device events."""
+    print("profiler captures of device_profile: " + json.dumps(
+        {"captures": PROFILE_SESSIONS, "retries": PROFILE_RETRIES}))
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
@@ -2753,35 +2778,9 @@ def split_cases(dev) -> dict:
     return {"k2": split_route_case(dev, 0), "k1": split_route_case(dev, 128)}
 
 
-def _split_in_child(timeout: int = 600) -> dict:
-    """Phase 24b's cases in a fresh process of this script
-    (``--phase24b-child OUT``, the same package root): its record."""
-    import tempfile
-
-    tree = ["--package-root", PACKAGE_ROOT] if PACKAGE_ROOT is not None else []
-    with tempfile.TemporaryDirectory() as root:
-        out = os.path.join(root, "split.json")
-        # run() kills the child if it outlives the timeout
-        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase24b-child", out]
-                           + tree, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                           timeout=timeout)
-        require(p.returncode == 0, f"phase 24b in a fresh process failed:\n{p.stdout[-3000:]}")
-        with open(out) as f:
-            return json.load(f)
-
-
 def phase_split(dev) -> dict:
-    try:
-        split = split_cases(dev)
-        split["profiled_in"] = "this process"
-    except ProfilerEmpty as err:
-        # the profiler of this long-lived process can stop recording
-        # device events for good (24b is its last profile in the full
-        # run); a fresh process has a fresh one, and takes every check of
-        # the phase again
-        print(f"phase 24b: {err}; the phase again in a fresh process", file=sys.stderr)
-        split = _split_in_child()
-        split["profiled_in"] = "a fresh process"
+    split = split_cases(dev)
+    split["profiled_in"] = "this process"
     print("phase 24b split routes at the ResNet18 step, bit-exact vs plain and fused: "
           + json.dumps(split))
     return split
@@ -5355,6 +5354,126 @@ def phase_lint(card: str) -> dict:
     return rec
 
 
+# phase 43's captured window: steps [2, 4) of a 3-step run (the window
+# closes when the run ends)
+TRACE_STEPS, TRACE_START, TRACE_CAPTURED = 3, 2, 2
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_trace_front_end(card: str) -> dict:
+    """Phase 43: the trace front end on the port. Phase 29's configuration
+    (ResNet18 8 x 128, the int8 wire in 4 MiB buckets), ``--overlap on``
+    and then serial, each 3 steps through ``cli.train.main`` with
+    ``--trace`` and ``--profile-dir`` (steps 2-3 captured): the port's
+    ``tools.trace_report`` merges each span stream and its
+    ``--require-phases fetch,dispatch,sync`` exits 0; ``tools.overlap_report
+    trace`` finds device events in both profiles, and in the pipelined one
+    a ``bucket_reduce_o*`` range per bucket a captured step (11) with every
+    K2 launch of the captured steps inside one; both reports printed, their
+    overlap fractions reported, not gated. Then ``analysis.scaling_bench``
+    on LeNet (1024 a worker) and ResNet18 (128 a worker) at 1 / 2 / 4 / 8
+    stacked workers, 3 timed steps after 2 warm-up ones, and
+    ``tools.dcn_scaling`` at 1 and 2 gloo processes sharing the card (LeNet,
+    4 workers a process, 5 steps): each record carries the card's name and
+    power limit."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch.analysis import scaling_bench
+    from ps_pytorch_tpu_torch.cli._flags import add_ps_flags, add_train_flags, ps_config_from
+    from ps_pytorch_tpu_torch.models import build_model, init_model
+    from ps_pytorch_tpu_torch.tools import dcn_scaling, overlap_report, trace_report
+
+    t_start = time.perf_counter()
+    resnet, _ = init_model(build_model("ResNet18"), torch.Generator().manual_seed(0),
+                           device="cpu")
+    parser = add_ps_flags(add_train_flags(argparse.ArgumentParser()))
+    rec, reports = {"card": card}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, overlap in (("pipelined", "on"), ("serial", "off")):
+            d = os.path.join(root, name)
+            flags = OVERLAP_WIRES["int8"] + ["--overlap", overlap]
+            cfg = ps_config_from(parser.parse_args(TRAIN_ARGS + flags), WORKERS)
+            buckets = _pieces(cfg, resnet)
+            t0 = time.perf_counter()
+            reset_counts()
+            out = _train(TRACE_STEPS, flags + [
+                "--trace", os.path.join(d, "trace"), "--profile-dir", os.path.join(d, "prof"),
+                "--profile-start", str(TRACE_START), "--profile-steps", str(TRACE_CAPTURED)])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            losses = [h["loss"] for h in out["history"]]
+            require(len(losses) == TRACE_STEPS and all(np.isfinite(v) for v in losses),
+                    f"phase 43 {name}: losses {losses}")
+            rc, text = _quiet(trace_report.main, [
+                os.path.join(d, "trace"), "--require-phases", "fetch,dispatch,sync",
+                "--out", os.path.join(d, "merged.json")])
+            require(rc == 0, f"phase 43 {name}: trace_report --require-phases exited {rc}")
+            summary = json.loads(text)
+            rep = overlap_report.run_trace(argparse.Namespace(profile_dir=os.path.join(d, "prof")))
+            require("error" not in rep, f"phase 43 {name}: overlap trace: {rep.get('error')}")
+            k2 = [v for k, v in rep["port_kernels"].items()
+                  if "absmax_many_kernel" in k or "quantize_many_kernel" in k]
+            k2_launches = sum(v["launches"] for v in k2)
+            k2_inside = sum(v["in_bucket_reduce"] for v in k2)
+            if name == "pipelined":
+                require(len(rep["per_bucket"] or []) == buckets == 11
+                        and rep["n_bucket_ranges"] == buckets * TRACE_CAPTURED,
+                        f"phase 43: {rep['n_bucket_ranges']} bucket_reduce ranges in "
+                        f"{len(rep['per_bucket'] or [])} rows, expected {buckets} a captured "
+                        f"step over {TRACE_CAPTURED}")
+                require(k2_launches == 2 * buckets * TRACE_CAPTURED and k2_inside == k2_launches,
+                        f"phase 43: {k2_inside} of {k2_launches} K2 launches inside a bucket's "
+                        f"range, expected all {2 * buckets * TRACE_CAPTURED}")
+            else:
+                require(rep["n_bucket_ranges"] == 0 and k2_launches == 2 * TRACE_CAPTURED,
+                        f"phase 43 serial: {rep['n_bucket_ranges']} bucket ranges, "
+                        f"{k2_launches} K2 launches")
+            reports[name] = {k: v for k, v in rep.items()
+                             if k not in ("top_compute_events", "top_skipped_events")}
+            reports[name]["trace_file"] = os.path.basename(rep["trace_file"])
+            reports[name]["top_skipped_events"] = rep["top_skipped_events"][:4]
+            rec[name] = {"buckets": buckets, "train_s": train_s, "losses": losses,
+                         "launches": read_counts(), "k2_launches_captured": k2_launches,
+                         "k2_inside_bucket_ranges": k2_inside,
+                         "overlap_fraction": rep["overlap_fraction"],
+                         "profile_host_s": out["trainer"].profile_window.host_s,
+                         "spans": {k: summary["phases"][k] for k in ("fetch", "dispatch", "sync")},
+                         "nesting_ok": summary["nesting_ok"]}
+    print("phase 43 overlap trace reports, pipelined and serial: " + json.dumps(reports))
+    t0 = time.perf_counter()
+    scaling = {}
+    for net, ds, batch in (("LeNet", "MNIST", 1024), ("ResNet18", "Cifar10", 128)):
+        res, _ = _quiet(scaling_bench.main, [
+            "--network", net, "--dataset", ds, "--batch-size", str(batch),
+            "--workers", "1", "2", "4", "8", "--steps", "3"])
+        require(res["card"] == card and res["platform"] == "cuda"
+                and all(np.isfinite(r["images_per_sec"]) for r in res["rows"]),
+                f"phase 43 scaling_bench {net}: {res}")
+        scaling[net] = res
+    rec["scaling_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dcn, _ = _quiet(dcn_scaling.main, ["--hosts", "1", "2", "--network", "LeNet", "--steps", "5",
+                                       "--per-host-devices", "4", "--device", "cuda",
+                                       "--timeout", "300"])
+    require(dcn["card"] == card and dcn["contention"]
+            and all(np.isfinite(r["images_per_sec"]) for r in dcn["rows"]),
+            f"phase 43 dcn_scaling: {dcn}")
+    rec.update({"dcn_s": time.perf_counter() - t0, "scaling": scaling, "dcn_scaling": dcn,
+                "seconds": time.perf_counter() - t_start})
+    print("phase 43 trace front end, scaling and DCN records: " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE, PACKAGE_ROOT
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5362,7 +5481,7 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 11, 12, 12b, "
                          "14, 18, 19, 20, 20b, 20c, 21, 22, 23, 24, 24b, 25, 26, 27, 28, 29, 30, "
                          "30b, 31, "
-                         "32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42; 2 "
+                         "32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 24b and 23 first, "
                          "40 runs 39 first)")
     ap.add_argument("--package-root", default=None,
@@ -5372,7 +5491,6 @@ def main(argv=None) -> int:
     for name in children:
         ap.add_argument("--" + name.replace("_", "-"), nargs=4, default=None,
                         metavar=("RANK", "PORT", "DIR", "OUT"), help=argparse.SUPPRESS)
-    ap.add_argument("--phase24b-child", default=None, metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5387,13 +5505,6 @@ def main(argv=None) -> int:
             torch.backends.cudnn.allow_tf32 = False
             rank, port, root, out = getattr(args, name)
             return child(int(rank), int(port), root, out)
-    if args.phase24b_child is not None:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        split = split_cases(torch.device("cuda"))
-        with open(args.phase24b_child, "w") as f:
-            json.dump(split, f)
-        return 0
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 
     # f32 comparisons on the card need full f32 products: TF32 off for
@@ -5480,7 +5591,8 @@ def main(argv=None) -> int:
                  39: lambda: phase_pscheck(smi, ran[9]["step_ms_p50"] if 9 in ran else None),
                  40: lambda: phase_numerics(smi, _kept_pscheck(smi)),
                  41: lambda: phase_autotune(smi),
-                 42: lambda: phase_lint(smi)}
+                 42: lambda: phase_lint(smi),
+                 43: lambda: phase_trace_front_end(smi)}
 
         def _kept_pscheck(smi_):
             kept = {}
@@ -5492,6 +5604,7 @@ def main(argv=None) -> int:
         require(not ("2" in phases and OTHER_TREE), "--phases: 2 checks this tree's kernels")
         for n in phases:
             alone[n]()
+        print_captures()
         return 0
 
     phase_build()
@@ -5522,8 +5635,6 @@ def main(argv=None) -> int:
     synced_proc = deterministic(lambda root: phase_synced_processes(smi, root, synced_local))
     events = phase_events(smi)
     phase_adam(smi, train)
-    # before phases 23-24: once a process group is up, the profiler's
-    # traces can come back without device events
     split = phase_split(dev)
     nccl, two = procs(True)
     data = phase_data(smi, train["step_ms_p50"])
@@ -5546,6 +5657,7 @@ def main(argv=None) -> int:
     del kept
     tune = phase_autotune(smi)
     phase_lint(smi)
+    phase_trace_front_end(smi)
 
     def moe_launches(counter):
         """Phase 35's launches of one flash entry in each run (8 steps)."""
@@ -5800,6 +5912,7 @@ def main(argv=None) -> int:
         flash_entry("flash_bwd_dq", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 319, "dq"),
         flash_entry("flash_bwd_dkv", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 337, "dkv"),
     ]
+    print_captures()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),

@@ -54,11 +54,10 @@ def device_kernel_count(fn, *args, **kwargs) -> Optional[int]:
 
     try:
         if torch.cuda.is_available():
-            from torch.profiler import ProfilerActivity, profile
+            from ..obs.profiler import padded_profile
 
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with padded_profile() as prof:
                 fn(*args, **kwargs)
-                torch.cuda.synchronize()
             n = sum(1 for e in prof.events()
                     if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
             return n or None

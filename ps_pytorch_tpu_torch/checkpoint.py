@@ -318,6 +318,21 @@ def load_checkpoint(target, model_dir: str, step: int):
     return restore_from_raw(target, _restore_raw(model_dir, step), step)
 
 
+def restore_sharded(target, model_dir: str, step: int, mesh, specs):
+    """Checkpoint ``step`` restored into ``target`` (a tree in the file's
+    global layout, e.g. ``tp.to_tp_layout`` of fresh params, as JAX's
+    target is the sharded state's global shapes), then every leaf placed
+    on the stacked layout of ``mesh`` as ``specs`` says
+    (``parallel.mesh.place_on_mesh``: None as it is, an int the dim the
+    shards cut; ``tp.tp_param_specs``, ``moe.moe_param_specs``,
+    ``pp.pp_param_specs``). Saves write the global layout, so a file
+    written at any shard count restores onto any other whose shards
+    divide its dims (checkpoint.py:521)."""
+    from .parallel.mesh import place_on_mesh
+
+    return place_on_mesh(load_checkpoint(target, model_dir, step), mesh, specs)
+
+
 def restore_from_raw(target, raw, step: int):
     """A raw state dict into the structure of ``target``.
 

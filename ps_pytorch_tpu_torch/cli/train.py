@@ -23,7 +23,8 @@ SIGTERM / SIGINT stop the run gracefully after the current step, with a
 checkpoint written and validation skipped.
 
 The event stream: ``--metrics-file F`` (one JSON record a line),
-``--trace DIR`` (host spans, ``tools/trace_report.py DIR`` merges them),
+``--trace DIR`` (host spans, which ``python -m
+ps_pytorch_tpu_torch.tools.trace_report DIR`` merges),
 ``--mode straggler --kill-threshold S`` (the straggler watchdog) with
 ``--straggler-storm-n K``, ``--profile-dir DIR`` (a ``torch.profiler``
 capture of steps ``[--profile-start, + --profile-steps)``, Chrome trace

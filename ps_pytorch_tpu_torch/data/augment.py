@@ -65,6 +65,19 @@ def random_crop_flip(images: torch.Tensor, draws: CropFlipDraws, pad: int = 4,
     return torch.where(flips, out.flip(2), out)
 
 
+def preprocess_batch(images: torch.Tensor, mean: np.ndarray, std: np.ndarray, augment: bool,
+                     draws: Optional[CropFlipDraws] = None, pad_mode: str = "reflect",
+                     pad: int = 4) -> torch.Tensor:
+    """The whole train / eval preprocessing (augment.py:46), with the
+    crop and flip draws injected in place of JAX's key; ``augment=False``
+    is the test path."""
+    if augment:
+        if draws is None:
+            raise ValueError("this preprocessor augments: pass its draws")
+        images = random_crop_flip(images, draws, pad, pad_mode)
+    return normalize(images, mean, std)
+
+
 @dataclasses.dataclass(frozen=True)
 class Preprocessor:
     """``fn(images, draws=None)`` for one dataset, with the reference's
@@ -81,11 +94,8 @@ class Preprocessor:
 
     def __call__(self, images: torch.Tensor,
                  draws: Optional[CropFlipDraws] = None) -> torch.Tensor:
-        if self.augment:
-            if draws is None:
-                raise ValueError("this preprocessor augments: pass its draws")
-            images = random_crop_flip(images, draws, self.pad, self.pad_mode)
-        return normalize(images, self.mean, self.std)
+        return preprocess_batch(images, self.mean, self.std, self.augment, draws,
+                                self.pad_mode, self.pad)
 
 
 def make_preprocessor(dataset_name: str, train: bool) -> Preprocessor:

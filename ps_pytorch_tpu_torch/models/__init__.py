@@ -20,7 +20,7 @@ import torch
 
 from .. import DeviceLike, on_device, resolve_device
 from .convert import cnn_from_jax, params_from_jax, params_to_numpy
-from .decode import generate, init_kv_cache, prefill
+from .decode import generate, init_kv_cache, make_generate, prefill
 from .lenet import LeNet
 from .resnet import (
     BasicBlock,
@@ -142,6 +142,7 @@ __all__ = [
     "init_model",
     "init_transformer",
     "input_shape_for",
+    "make_generate",
     "param_count",
     "params_from_jax",
     "params_to_numpy",

@@ -180,3 +180,16 @@ def generate(
             nxt = torch.argmax(logits, dim=-1)  # first maximum, as jnp
         buf[:, pos + 1] = nxt
     return buf.to(torch.int32)
+
+
+def make_generate(cfg: TransformerConfig, max_new_tokens: int, temperature: float = 0.0,
+                  max_len: Optional[int] = None, device: DeviceLike = None, moe=None):
+    """``generate`` with its configuration bound (decode.py:253): ``fn(params,
+    prompt [B, T], generator=None) -> [B, T + max_new_tokens]``, the
+    generator taking the place of JAX's key. ``moe`` as in ``generate``."""
+    def fn(params: Dict, prompt: torch.Tensor,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return generate(cfg, params, prompt, max_new_tokens, temperature=temperature,
+                        generator=generator, max_len=max_len, device=device, moe=moe)
+
+    return fn

@@ -11,10 +11,19 @@ obs/trace.py appear in it by name when the loop's tracer runs with
 The one deliberate host wait lives here: stopping a capture waits for
 the window's device work to retire, or the trace ends mid-step. It runs
 once a capture, never a step.
+
+The profiler places the card's events on the host's clock with an error
+that differs from capture to capture: on an H100, one capture in seven put
+kernels up to 5.8 ms before the calls that launched them
+(``tools/profiler_sessions``), and the events it places before the
+capture's start are dropped, all of a short capture's at worst. So every
+capture on the card here (``ProfileWindow``, ``padded_profile``) begins
+and ends with ``CAPTURE_PAD_S`` of host time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -24,6 +33,24 @@ import torch
 from ..utils import get_logger
 
 logger = get_logger()
+
+# host time at both ends of a capture on the card: over three times the
+# largest misplacement of device events measured (5.8 ms)
+CAPTURE_PAD_S = 0.02
+
+
+@contextlib.contextmanager
+def padded_profile():
+    """``torch.profiler.profile`` of the host and the card over the block,
+    with ``CAPTURE_PAD_S`` of host time after the start and, once the card
+    has retired the block's work, before the stop, so no device event of
+    the block lands outside the capture."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(CAPTURE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()  # psl: sync-ok (once a capture, as ProfileWindow's stop)
+        time.sleep(CAPTURE_PAD_S)
 
 
 class ProfileWindow:
@@ -39,7 +66,8 @@ class ProfileWindow:
 
     After a capture, ``trace_path`` names the file and ``host_s`` holds
     the capture's one-time host seconds: starting the profiler, the wait
-    at its end, stopping it and writing the trace."""
+    at its end, the pads at both ends on the card, stopping it and
+    writing the trace."""
 
     def __init__(self, profile_dir: Optional[str], start_step: int,
                  num_steps: int = 10, device=None):
@@ -67,6 +95,8 @@ class ProfileWindow:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.start()
+            if self.cuda:
+                time.sleep(CAPTURE_PAD_S)
             self.active = True
             self.host_s += time.perf_counter() - t0
             logger.info("profiler capture started: steps [%d, %d) -> %s",
@@ -85,6 +115,7 @@ class ProfileWindow:
         # retired device work
         if self.cuda:
             torch.cuda.synchronize()  # psl: sync-ok
+            time.sleep(CAPTURE_PAD_S)
         self._prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.trace_path = os.path.join(

@@ -212,3 +212,34 @@ def _pct_sorted(xs: List[float], q: float) -> float:
     hi = min(lo + 1, len(xs) - 1)
     frac = pos - lo
     return xs[lo] * (1.0 - frac) + xs[hi] * frac
+
+
+def chrome_trace_events(header: dict, spans: List[dict], pid: Optional[int] = None,
+                        t0_wall: float = 0.0) -> List[dict]:
+    """One stream (header + span records) as Chrome ``trace_event`` dicts.
+    ``ts`` is microseconds of (the header's wall base + the span's
+    monotonic offset - ``t0_wall``): every process's spans land on one
+    wall-clock timeline, and durations keep the monotonic clock's
+    accuracy."""
+    p = int(header.get("pid", 0)) if pid is None else pid
+    base = float(header.get("t_wall", 0.0)) - t0_wall
+    out: List[dict] = [{
+        "name": "process_name", "ph": "M", "pid": p, "tid": 0,
+        "args": {"name": f"{header.get('component', '?')} p{header.get('pid', 0)} "
+                         f"[{header.get('run_id', '?')}]"},
+    }]
+    for s in spans:
+        if s.get("kind") != "span":
+            continue
+        # async intervals (request lifecycles, rollover drains) overlap the
+        # synchronous stack; a lane per slot keeps each track nested (a slot
+        # serves one request at a time)
+        tid = 10 + int(s.get("slot", -1)) + 1 if s.get("async") else 0
+        ev = {"name": s["name"], "cat": s.get("cat", "phase"), "ph": "X",
+              "ts": round((base + float(s["t"])) * 1e6, 3),
+              "dur": round(float(s["dur"]) * 1e6, 3), "pid": p, "tid": tid}
+        args = {k: v for k, v in s.items() if k not in ("kind", "name", "cat", "t", "dur")}
+        if args:
+            ev["args"] = args
+        out.append(ev)
+    return out

@@ -68,6 +68,17 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the codec library builds and loads here (codec.py:116): the
+    port has no zlib fallback for writes, so without it
+    ``--compress-checkpoints`` cannot run."""
+    try:
+        load()
+    except _native.NativeBuildError:
+        return False
+    return True
+
+
 def _src(data: bytes):
     """Zero-copy read-only view of ``data`` for the C side."""
     return ctypes.cast(ctypes.c_char_p(data or b"\0"), ctypes.POINTER(ctypes.c_uint8))

@@ -7,7 +7,9 @@ and bucketed wires (buckets.py), the gradient aggregation wires
 parallelisms, its Mixture-of-Experts schemes (moe.py, ep_sp.py,
 pp_moe.py) and the data x stage x tensor grid (dp_tp_pp.py). dp_sp and
 ep_sp import the transformer model, which imports this package: import
-them as modules."""
+them as modules. The PS engine's names (``PSConfig``, ``make_ps_train_step``
+and the rest of ``ps.py``'s public names that JAX's package exports) load
+on first use, for the same reason."""
 
 from .dp_tp import (
     init_dp_tp_state,
@@ -68,3 +70,45 @@ from .tp import (
     tp_param_specs,
     vocab_parallel_nll,
 )
+from .buckets import (
+    FlatVector,
+    assemble_bucket,
+    bucket_leaf_segments,
+    leaves_from_buckets,
+    readiness_bucket_order,
+    tree_view,
+)
+from .collectives import aggregate_gradients, aggregation_mask, psum_mean, quantized_psum
+from .mesh import (
+    DCN_AXIS,
+    WORKER_AXIS,
+    initialize_multihost,
+    make_hybrid_mesh,
+    make_mesh,
+    place_on_mesh,
+)
+from .overlap import grad_leaf_readiness
+# the module ring_attention keeps its name here (JAX's package puts the
+# function of that name in its place): callers import the module by it
+from .ring_attention import (
+    SEQ_AXIS,
+    full_attention,
+    make_ring_attention,
+    make_seq_mesh,
+    ring_flash_attention,
+    shard_sequence,
+)
+from .ulysses import make_ulysses_attention, ulysses_attention
+
+# the PS engine imports the models, which import this package: its names
+# load on first use
+_PS_NAMES = ("PSConfig", "PSTrainState", "init_ps_state", "make_ps_eval_step",
+             "make_ps_train_step", "state_plan")
+
+
+def __getattr__(name):
+    if name in _PS_NAMES:
+        from . import ps
+
+        return getattr(ps, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -36,9 +36,12 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..ops.metrics import shard_next_token_nll
 from .dp_tp import shard_tokens_dp
-from .mesh import WorkerAxis
+from .mesh import WORKER_AXIS, WorkerAxis
 from .pp import pipeline_loss
 from .tp import differentiate, from_tp_layout, to_tp_layout, tp_block
+
+# the data axis of the grid (dp_tp_pp.py:46): the PS engine's worker axis
+DP_AXIS = WORKER_AXIS
 
 
 @dataclasses.dataclass(frozen=True)

@@ -206,6 +206,32 @@ def make_mesh(num_workers: int) -> WorkerAxis:
     return WorkerAxis(num_workers)
 
 
+def place_on_mesh(tree, mesh: WorkerAxis, specs):
+    """Every leaf of ``tree`` on the stacked layout of ``mesh`` as ``specs``
+    says (mesh.py:98): ``specs`` matches ``tree`` (a dict / list / tuple
+    tree), and at a leaf is None (the leaf as it is: replicated, or a
+    layout whose shards are views of it, as pp's stages) or the dim the
+    shards cut (an int): the leaf becomes ``[n, ...]``, shard i holding
+    the i-th of n equal slices of that dim (``shard_params_tp``'s layout,
+    and the expert leaves of ``shard_params_moe`` at dim 0). A None
+    ``specs`` subtree leaves its subtree as it is, as does a None leaf of
+    ``tree``. The single placement behind ``shard_params_tp`` and
+    ``checkpoint.restore_sharded``."""
+    if specs is None or tree is None:
+        return tree
+    if isinstance(specs, int) and not isinstance(specs, bool):
+        n = mesh.size
+        if tree.shape[specs] % n:
+            raise ValueError(f"dim {specs} of a {tuple(tree.shape)} leaf does not split "
+                             f"into {n} shards")
+        return torch.stack(tree.chunk(n, dim=specs)).contiguous()
+    if isinstance(tree, dict):
+        return {k: place_on_mesh(v, mesh, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_on_mesh(v, mesh, s) for v, s in zip(tree, specs, strict=True))
+    raise TypeError(f"place_on_mesh: a {type(tree).__name__} leaf with spec {specs!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class HybridWorkerAxis(WorkerAxis):
     """A (hosts x per_host) grid of virtual workers on one device, the

@@ -104,6 +104,16 @@ def init_moe_params(cfg, moe: MoEConfig, generator: Optional[torch.Generator] = 
     return on_device(params, dev)
 
 
+def moe_param_specs(cfg) -> Dict:
+    """The dim of each plain MoE leaf that the expert shards cut (moe.py:102):
+    the expert leaves' E (dim 0, ``shard_params_moe``'s ``[n, E / n, ...]``),
+    None for the replicated rest (``parallel.mesh.place_on_mesh``)."""
+    blk = {"ln1": None, "wqkv": None, "wo": None, "ln2": None, "wg": None,
+           "w_up_e": 0, "w_down_e": 0}
+    return {"embed": None, "pos_embed": None, "out_norm": None,
+            "blocks": [dict(blk) for _ in range(cfg.depth)]}
+
+
 def _check_experts(e: int, n: int) -> None:
     if e % n:
         raise ValueError(f"{e} experts not divisible by {n} expert shards")

@@ -62,6 +62,15 @@ def from_pp_layout(cfg, params_pp: Dict) -> Dict:
     return out
 
 
+def pp_param_specs(cfg) -> Dict:
+    """The placement of a PP-layout tree on the stage grid (pp.py:76): every
+    leaf as it is (None). JAX cuts the blocks' depth dim over the stage
+    axis; the stacked stages are views of the ``[depth, ...]`` leaves
+    (``shard_params_pp``), so nothing moves."""
+    blk = {k: None for k in ("ln1", "wqkv", "wo", "ln2", "w_up", "w_down")}
+    return {"embed": None, "pos_embed": None, "out_norm": None, "blocks": blk}
+
+
 def shard_params_pp(cfg, params_pp: Dict, mesh: WorkerAxis) -> Dict:
     """The stage grid of a PP-layout tree: the stacked ``[depth, ...]``
     leaves already are it (stage s reads rows ``[s depth / S, (s + 1)

@@ -46,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import DeviceLike, resolve_device
 from ..ops.metrics import next_token_positions_nll
 from .buckets import tree_flatten, tree_unflatten
-from .mesh import WorkerAxis
+from .mesh import WorkerAxis, place_on_mesh
 
 # ..models.transformer imports this package (mesh, ring_attention), so it
 # is imported inside the functions that use it, as the JAX module does
@@ -120,10 +120,7 @@ def shard_params_tp(cfg, params_tp: Dict, mesh: WorkerAxis,
     if shard_vocab and cfg.vocab_size % n:
         raise ValueError(f"vocab {cfg.vocab_size} not divisible by {n} model shards")
 
-    def cut(x, dim):
-        return x if dim is None else torch.stack(x.chunk(n, dim=dim)).contiguous()
-
-    return _map_specs(cut, params_tp, tp_param_specs(cfg, shard_vocab))
+    return place_on_mesh(params_tp, mesh, tp_param_specs(cfg, shard_vocab))
 
 
 def unshard_params_tp(cfg, params: Dict, shard_vocab: bool = False) -> Dict:

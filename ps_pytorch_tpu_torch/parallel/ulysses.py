@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from .mesh import WorkerAxis
-from .ring_attention import full_attention
+from .ring_attention import full_attention, shard_sequence, unshard_sequence
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,3 +59,15 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = attend(seq_to_heads(q), seq_to_heads(k), seq_to_heads(v),
                causal=causal, scale=scale)
     return heads_to_seq(o)
+
+
+def make_ulysses_attention(axis: WorkerAxis, causal: bool = False, impl: str = "naive"):
+    """Sequence-sharded attention (ulysses.py:81): (q, k, v) ``[B, T, H, D]``
+    global -> ``[B, T, H, D]`` global, T split over the axis's workers (the
+    contract of ``ring_attention.make_ring_attention``)."""
+    def attend(q, k, v):
+        shards = (shard_sequence(x, axis) for x in (q, k, v))
+        return unshard_sequence(ulysses_attention(*shards, axis=axis, causal=causal, impl=impl),
+                                axis)
+
+    return attend

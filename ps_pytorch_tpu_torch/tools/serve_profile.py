@@ -66,10 +66,10 @@ def _category(name: str) -> str:
 def _window(step, n: int) -> dict:
     """Profile ``n`` calls of ``step`` (each ends in a host sync): wall
     time, summed CUDA kernel time, idle share, per-kernel device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from ps_pytorch_tpu_torch.obs import padded_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()

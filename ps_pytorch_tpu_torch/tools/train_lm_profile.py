@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("train_lm_profile: no CUDA device is available", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
+    from ps_pytorch_tpu_torch.obs import padded_profile
 
     from ps_pytorch_tpu_torch.cli.train_lm import make_synthetic_tokens
     from ps_pytorch_tpu_torch.models import TransformerConfig, init_transformer
@@ -118,7 +118,7 @@ def main(argv=None) -> int:
         one()
     torch.cuda.synchronize()
     plain_wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             one()

@@ -103,7 +103,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device is available", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
+    from ps_pytorch_tpu_torch.obs import padded_profile
 
     from ps_pytorch_tpu_torch.data import (
         BatchIterator,
@@ -152,7 +152,7 @@ def main(argv=None) -> int:
         one()
     torch.cuda.synchronize()
     plain_wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             one()

@@ -121,7 +121,7 @@ def append_metrics_line(path: Optional[str], record: dict) -> None:
     package): each record is validated against ``obs/schema.py``
     (unknown kinds and missing fields raise, counters become ints) and
     stamped with a ``t_wall`` second, so the stream merges onto the span
-    trace's timeline (tools/trace_report.py)."""
+    trace's timeline (``python -m ps_pytorch_tpu_torch.tools.trace_report``)."""
     if not path:
         return
     record = validate_event(record)

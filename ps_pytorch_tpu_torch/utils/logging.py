@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import logging
 import re
+import time
 from typing import Dict, Optional
 
 _FMT = (
@@ -70,3 +71,42 @@ def format_eval_line(step: int, loss: float, prec1: float, prec5: float) -> str:
     """Evaluator report (parity: distributed_evaluator.py:90-106)."""
     return (f"Validation Step: {step}, Loss: {loss:.4f}, "
             f"Prec@1: {prec1:.2f}, Prec@5: {prec5:.2f}")
+
+
+class PhaseTimer:
+    """Wall-clock phase spans for the per-iteration line:
+
+        t = PhaseTimer()
+        with t.phase("fetch"): ...
+        with t.phase("step"): ...
+        t.durations  # seconds by phase name, summed over repeats
+        t.total      # seconds since construction or ``reset()``
+    """
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._start = time.perf_counter()
+        self.durations: Dict[str, float] = {}
+
+    def phase(self, name: str):
+        return _Span(self, name)
+
+    @property
+    def total(self) -> float:
+        return time.perf_counter() - self._start
+
+
+class _Span:
+    def __init__(self, timer: PhaseTimer, name: str):
+        self._timer, self._name = timer, name
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        d = self._timer.durations
+        d[self._name] = d.get(self._name, 0.0) + time.perf_counter() - self._t0
+        return False

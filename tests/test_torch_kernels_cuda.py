@@ -11,7 +11,8 @@ serving engine on the card against the same engine on the
 CPU (also across a hot checkpoint rollover), the gradient wires on the card against the same wires on the CPU
 (bit-exact: every op on them is elementwise or an exact integer sum), and
 the MoE steps (moe, ep_sp) on the card against the CPU, with the same
-expert choices.
+expert choices; and the profiler's padded captures, each holding all its
+device events.
 
 Every test here needs a CUDA card and skips without one. This file
 imports neither JAX nor the JAX package (the card's machine has no JAX),
@@ -1417,3 +1418,26 @@ def test_torch_autotune_probe_runs_the_kernels_on_the_card(cuda_device):
     assert probe["device_kind"] == torch.cuda.get_device_name(cuda_device)
     assert probe["launches"]["K2"] == 3 and probe["launches"]["K3"] == 3
     assert probe["launches"]["K1"] == 0 and probe["measured_step_s"] > 0
+
+
+@pytest.mark.cuda
+def test_torch_padded_captures_keep_every_device_event(cuda_device):
+    """150 back-to-back captures in one process (the whole chip_smoke.py run
+    opens 109-111), each over 10 of K2's calls on ResNet18's 62 leaves:
+    every capture holds all its device events. The profiler misplaces a
+    capture's device events on the host's clock by up to 5.8 ms and drops
+    those it places before the capture began; ``padded_profile`` begins
+    and ends each capture with host time."""
+    from ps_pytorch_tpu_torch.obs import padded_profile
+
+    xs = _resnet18_pieces(cuda_device)
+    quantize_tensors(xs)
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(150):
+        with padded_profile() as prof:
+            for _ in range(10):
+                quantize_tensors(xs)
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    assert counts[0] >= 20 and counts == [counts[0]] * len(counts), counts

@@ -12,7 +12,8 @@
   in place of each module's ``time``) that only the injected 0.7 s stalls
   advance, so the watchdog's 0.6 s verdicts do not depend on this
   machine's load.
-- ``tools/trace_report.py`` reads the port's ``--trace`` directory.
+- ``tools/trace_report.py`` reads the port's ``--trace`` directory, and
+  so does the port's own ``ps_pytorch_tpu_torch.tools.trace_report``.
 - ``ckpt_write_failed`` and ``ckpt_quarantined`` reach the stream.
 - SIGTERM: the ``sigterm`` fault stops a run at its step with a
   checkpoint written; that run goes in a subprocess with its own timeout
@@ -143,6 +144,19 @@ def test_torch_trace_report_reads_the_port_trace(streams, capsys):
     assert summary["nesting_ok"]
     header = _records(tmp / "trace" / "trace_train_p0.jsonl")[0]
     assert header["run_id"] == _records(tmp / "port.jsonl")[0]["run_id"]
+
+
+def test_torch_port_trace_report_reads_the_port_trace(streams, capsys):
+    """The port's own tool (no JAX) gives the gate and summary JAX's gives."""
+    from ps_pytorch_tpu_torch.tools import trace_report
+
+    *_, tmp = streams
+    argv = [str(tmp / "trace"), "--metrics", str(tmp / "port.jsonl"),
+            "--require-phases", "fetch,dispatch,sync,guard"]
+    assert trace_report.main(argv) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["nesting_ok"] and summary["n_overlay_events"] >= 1
+    assert summary["streams"][0]["run_id"] == _records(tmp / "port.jsonl")[0]["run_id"]
 
 
 def test_torch_checkpoint_events_reach_the_stream(tmp_path):
