@@ -196,8 +196,10 @@ Phases, one line each:
    23) both split routes at the ResNet18 step against their plain
    versions and the fused entries (a NaN-only piece too), timed beside
    the fused entry, each half's device time beside its own bound and the
-   two halves' floor, profiled in this process (every capture padded with
-   host time: ``obs.profiler.padded_profile``);
+   two halves' floor, profiled in this process (every capture padded
+   with host time: ``obs.profiler.padded_profile``), and, where a capture
+   holds no device event, again in a fresh process of this script
+   (``--split-child``) after the empty captures are printed;
    phases 23, 30 and 30b print the SHA-256 of their checkpoints or
    aggregates (24's files are 23's, byte for byte), so runs of two trees
    compare by their lines;
@@ -357,12 +359,27 @@ Phases, one line each:
    ResNet18 x 128 at 1 / 2 / 4 / 8 stacked workers (3 timed steps after 2),
    ``tools.dcn_scaling`` at 1 and 2 gloo processes sharing the card (LeNet,
    5 steps), each record with the card's name and power limit;
-44. the count of ``device_profile``'s captures and retries, the kernels
-   JSON line, then the result line.
+44. ``tools.longcontext_check`` at T=8192 on 8 stacked shards, f32, at 1
+   and 8 heads: the causal flash ring's value and gradients within the JAX
+   tool's tolerances of the full-attention oracle, with exactly 16 K4
+   partial, 8 K5 and 8 K6 launches (f32 route) each; errors beside JAX's
+   CPU record;
+45. ``tools.predicted_scaling`` on ResNet18 at 8 and 16 stacked workers,
+   every mode, the link rates given (450 / 50 GB/s) and t1 measured on the
+   card: the pscheck contract's kinds, no failure, one K2 launch a tape
+   kernel node, each row's bytes by kind within 1% of JAX's committed
+   record's, printed beside them with the row's kernel nodes;
+46. ``tools.convergence --suite r04 --steps 20 --eval-freq 10``: three
+   ResNet18 legs on the real-digits stand-in, each beside its polling
+   evaluator: finite losses, evaluator steps 10 and 20, the int8 leg's one
+   K2 call a step and the none leg's none;
+47. each phase's wall seconds, the count of ``device_profile``'s captures
+   and retries (each empty one with its host events and launch calls),
+   the kernels JSON line, then the result line.
 
 Any mismatch raises; the exit code is then non-zero.
 
-    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,39,40,41,42,43 \
+    python3 chip_smoke.py --phases 2,3,4,5,7,8,9,12,12b,14,18,...,42,43,44,45,46 \
         [--package-root DIR]
 
 runs only the named phases (the build 2; the serving pool's write of 3
@@ -384,7 +401,9 @@ dp_tp_pp runs of 35, which report no dp_sp run beside their own when run
 alone, the held MoE and dp_tp_pp steps of 36, the serving CLI of 37, the
 compressed checkpoints of 38, pscheck of 39, which reports no phase 9
 p50 beside its own when run alone, psnumerics of 40, which runs 39
-first, autotune of 41, the lint gate of 42, the trace front end of 43),
+first, autotune of 41, the lint gate of 42, the trace front end of 43,
+the long-context check of 44, predicted scaling of 45, the convergence
+legs of 46),
 against the
 ``ps_pytorch_tpu_torch`` package under DIR when given (not phase 2, which
 checks this tree's kernel list; another checkout:
@@ -486,8 +505,10 @@ def device_ms(fn, iters: int = 10) -> tuple:
 
 PROFILE_ATTEMPTS = 6
 # device_profile's captures and the ones of them that were a retry after an
-# empty trace, over the run (printed by main)
+# empty trace, over the run, and each empty capture's host events and the
+# kernel launch calls among them (printed by main)
 PROFILE_SESSIONS = PROFILE_RETRIES = 0
+EMPTY_CAPTURES = []
 
 
 def device_profile(fn, iters: int = 10) -> tuple:
@@ -495,7 +516,9 @@ def device_profile(fn, iters: int = 10) -> tuple:
     memsets) per call, by name. Each capture is padded with host time at
     both ends (``obs.profiler.padded_profile``): the profiler misplaces a
     capture's device events by up to 5.8 ms on the host's clock, and
-    drops those it places before the capture began."""
+    drops those it places before the capture began. A capture without
+    device events is listed with its host events and launch calls (did
+    the host record the launches?)."""
     from ps_pytorch_tpu_torch.obs import padded_profile
 
     global PROFILE_SESSIONS, PROFILE_RETRIES
@@ -508,25 +531,40 @@ def device_profile(fn, iters: int = 10) -> tuple:
         with padded_profile() as prof:
             for _ in range(iters):
                 fn()
-        for evt in prof.events():
+        events = prof.events()
+        for evt in events:
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 rec = seen.setdefault(evt.name[:80], [0, 0.0])
                 rec[0] += 1
                 rec[1] += evt.time_range.elapsed_us() / 1e3
         if seen:
             break
+        EMPTY_CAPTURES.append({"capture": PROFILE_SESSIONS, "host_events": len(events),
+                               "launch_calls": sum("LaunchKernel" in e.name for e in events)})
     if not seen:
-        raise ProfilerEmpty(f"profiler: no device time recorded in {PROFILE_ATTEMPTS} traces")
+        raise ProfilerEmpty(f"profiler: no device time recorded in {PROFILE_ATTEMPTS} traces; "
+                            f"empty captures {EMPTY_CAPTURES[-PROFILE_ATTEMPTS:]}")
     per_call = {k: max(1, round(n / iters)) for k, (n, _) in seen.items()}
     by_name = {k: t / n * per_call[k] for k, (n, t) in seen.items()}
     return sum(by_name.values()), by_name, per_call
+
+
+# each phase's wall seconds, by its label, over the run (printed by main)
+PHASE_SECONDS = {}
+
+
+def print_phase_seconds(t_main: float) -> None:
+    """Each phase's wall seconds and the run's, from main's start."""
+    print("phase seconds: " + json.dumps(
+        {"phases": PHASE_SECONDS, "sum": sum(PHASE_SECONDS.values()),
+         "run": time.perf_counter() - t_main}))
 
 
 def print_captures() -> None:
     """How many ``device_profile`` captures the run took, and how many of
     them were a retry after a capture without device events."""
     print("profiler captures of device_profile: " + json.dumps(
-        {"captures": PROFILE_SESSIONS, "retries": PROFILE_RETRIES}))
+        {"captures": PROFILE_SESSIONS, "retries": PROFILE_RETRIES, "empty": EMPTY_CAPTURES}))
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
@@ -2778,9 +2816,49 @@ def split_cases(dev) -> dict:
     return {"k2": split_route_case(dev, 0), "k1": split_route_case(dev, 128)}
 
 
+def split_child(out_path: str) -> int:
+    """Phase 24b's cases in a process of their own (``--split-child``),
+    written to ``out_path`` with the process's profiler captures."""
+    split = split_cases(torch.device("cuda"))
+    split["captures"] = {"captures": PROFILE_SESSIONS, "retries": PROFILE_RETRIES,
+                         "empty": EMPTY_CAPTURES}
+    with open(out_path, "w") as f:
+        json.dump(split, f)
+    return 0
+
+
 def phase_split(dev) -> dict:
-    split = split_cases(dev)
-    split["profiled_in"] = "this process"
+    """Phase 24b, profiled in this process; where a capture comes back
+    without device events (late in the whole run the K1 shared-scale
+    fused entry's 62-leaf call did so in six captures of six, in three
+    runs of three, where a fresh process profiles it), the empty captures
+    are printed with their launch calls and the cases run again in a
+    fresh process of the script (``--split-child``), timed."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    try:
+        split = split_cases(dev)
+        split["profiled_in"] = "this process"
+    except ProfilerEmpty as e:
+        print(f"phase 24b: in this process after {time.perf_counter() - t0:.1f} s: {e}; "
+              "again in a fresh process")
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "split.json")
+            cmd = [sys.executable, os.path.abspath(__file__), "--split-child", out]
+            if PACKAGE_ROOT is not None:
+                cmd += ["--package-root", PACKAGE_ROOT]
+            t_child = time.perf_counter()
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True, timeout=600)
+            require(proc.returncode == 0,
+                    f"phase 24b: its process exited {proc.returncode}: {proc.stderr[-3000:]}")
+            with open(out) as f:
+                split = json.load(f)
+        split["profiled_in"] = "a fresh process, after this one's empty captures"
+        split["in_process_empty"] = str(e)
+        split["child_seconds"] = time.perf_counter() - t_child
+    split["seconds"] = time.perf_counter() - t0
     print("phase 24b split routes at the ResNet18 step, bit-exact vs plain and fused: "
           + json.dumps(split))
     return split
@@ -5474,6 +5552,133 @@ def phase_trace_front_end(card: str) -> dict:
     return rec
 
 
+RUNS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
+LONGCONTEXT_SEQ, LONGCONTEXT_SHARDS = 8192, 8
+
+
+def phase_longcontext(card: str) -> dict:
+    """Phase 44: ``tools.longcontext_check`` at T=8192 on 8 stacked shards,
+    f32, at ``--heads 1`` (the JAX record's shape) and ``--heads 8`` (LM-1's
+    heads): the causal flash ring's value and dq / dk / dv within the JAX
+    tool's tolerances of the full-attention oracle, through K4's partial
+    triple (one launch a hop: 2 x 8, the value's ring and the gradient's
+    forward), K5 and K6 (8 each), all on the f32 route; the tool's counts
+    and this script's counters agree. Errors beside JAX's CPU record."""
+    from ps_pytorch_tpu_torch.tools import longcontext_check
+
+    with open(os.path.join(RUNS, "longcontext_t8192_cpu.json")) as f:
+        jax_rec = json.load(f)
+    want = {"flash_partial": 2 * LONGCONTEXT_SHARDS, "flash_bwd_dq": LONGCONTEXT_SHARDS,
+            "flash_bwd_dkv": LONGCONTEXT_SHARDS}
+    t_start = time.perf_counter()
+    rec = {"card": card, "jax_cpu_errors": [c["max_abs_err"] for c in jax_rec["checks"]]}
+    for heads in (1, 8):
+        t0 = time.perf_counter()
+        reset_flash_counts()
+        rep, _ = longcontext_check.run_check(seq=LONGCONTEXT_SEQ, dim=64, heads=heads,
+                                             devices=LONGCONTEXT_SHARDS, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_flash_counts()
+        require(rep["all_pass"], f"phase 44 heads {heads}: {rep['checks']}")
+        require(rep["kernels"] == want and counts == dict(want, flash_fwd=0),
+                f"phase 44 heads {heads}: launches {rep['kernels']} / {counts}, expected {want}")
+        rec[f"heads{heads}"] = {"errors": [c["max_abs_err"] for c in rep["checks"]],
+                                "oracle_max_abs": [c["oracle_max_abs"] for c in rep["checks"]],
+                                "launches": rep["kernels"], "report": rep,
+                                "seconds": time.perf_counter() - t0}
+    rec["seconds"] = time.perf_counter() - t_start
+    print("phase 44 long-context check, T=8192 x 8 shards: " + json.dumps(rec))
+    return rec
+
+
+# the link rates phase 45 gives (no default exists): NVLink 4's 900 GB/s
+# both ways a card (H100 SXM), one way; one 400 Gb/s NIC a host
+GIVEN_ICI_GBS, GIVEN_DCN_GBS = 450.0, 50.0
+
+
+def phase_predicted_scaling(card: str) -> dict:
+    """Phase 45: ``tools.predicted_scaling`` on ResNet18 at 8 and 16 stacked
+    workers, every mode, the rates given (``--ici-gbs 450 --dcn-gbs 50``)
+    and t1 measured on the card: the contract cross-check holds, no
+    failure, each rate labelled given, t1 measured; one K2 launch a tape
+    kernel node; each row's bytes by kind within 1% of JAX's committed
+    ``runs/predicted_scaling.json`` (HLO bytes), printed beside them with
+    the row's tape kernel nodes."""
+    from ps_pytorch_tpu_torch.tools import predicted_scaling
+
+    with open(os.path.join(RUNS, "predicted_scaling.json")) as f:
+        jax_rows = {(r["workers"], r["mode"]): r for r in json.load(f)["rows"]}
+    t0 = time.perf_counter()
+    reset_counts()
+    rep, _ = _quiet(predicted_scaling.main, [
+        "--workers", "8", "16", "--ici-gbs", str(GIVEN_ICI_GBS),
+        "--dcn-gbs", str(GIVEN_DCN_GBS)])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    m = rep["model"]
+    require(rep["contract_check"] is not None and rep["contract_check"]["ok"]
+            and not rep["failures"] and len(rep["rows"]) == 8,
+            f"phase 45: contract {rep['contract_check']}, failures {rep['failures']}")
+    require(m["t1_source"].startswith(f"measured on {card}") and m["ici_source"].startswith(
+        "given") and m["dcn_source"].startswith("given"), f"phase 45: sources {m}")
+    nodes = sum(r["kernel_nodes"].get("K2:quantize_tensors", 0) for r in rep["rows"])
+    require(launches["quantize_tensors"] == nodes and nodes > 0,
+            f"phase 45: {launches['quantize_tensors']} K2 launches for {nodes} tape nodes")
+    for r in rep["rows"]:
+        # the ring factors price the buffers JAX's record gives (an
+        # all-gather's result): each kind's bytes within 1% of its HLO's
+        jax_kinds = jax_rows[(r["workers"], r["mode"])]["by_kind"]
+        require(set(r["by_kind"]) == set(jax_kinds) and all(
+            abs(v["bytes"] / jax_kinds[k]["bytes"] - 1) < 0.01 for k, v in r["by_kind"].items()),
+            f"phase 45 {r['workers']} / {r['mode']}: bytes {r['by_kind']}, JAX's {jax_kinds}")
+    rows = [{"workers": r["workers"], "mode": r["mode"], "kernel_nodes": r["kernel_nodes"],
+             "n_collectives": r["n_collectives"], "record_seconds": r["record_seconds"],
+             "bytes_by_kind": {k: v["bytes"] for k, v in r["by_kind"].items()},
+             "jax_hlo_bytes_by_kind": {k: v["bytes"] for k, v in jax_rows.get(
+                 (r["workers"], r["mode"]), {}).get("by_kind", {}).items()},
+             "efficiency_no_overlap": r["efficiency_no_overlap"],
+             "efficiency_full_overlap": r["efficiency_full_overlap"]} for r in rep["rows"]]
+    rec = {"card": card, "model": m, "rows": rows, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print("phase 45 predicted scaling, ResNet18 at 8 and 16 workers: " + json.dumps(rec))
+    return rec
+
+
+def phase_convergence(card: str) -> dict:
+    """Phase 46: ``tools.convergence --suite r04 --steps 20 --eval-freq 10``
+    on the card (ResNet18 2 x 128 on the real-digits CIFAR-10 stand-in,
+    the polling evaluator beside each trainer): every leg's losses finite,
+    the evaluator logged steps 10 and 20; each leg's K1-K3 launches, the
+    int8 leg's one K2 call a step, the none leg's none."""
+    import tempfile
+
+    from ps_pytorch_tpu_torch.tools import convergence
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rc, _ = _quiet(convergence.main, [
+            "--suite", "r04", "--steps", "20", "--eval-freq", "10", "--out-dir", out,
+            "--poll-interval", "1", "--wait-timeout", "120", "--leg-timeout", "300"])
+        with open(os.path.join(out, "convergence_legs.json")) as f:
+            rep = json.load(f)
+    require(rc == 0 and rep["ok"], f"phase 46: exit {rc}: {rep['legs']}")
+    legs = {leg["leg"]: leg for leg in rep["legs"]}
+    for name, leg in legs.items():
+        require(leg["losses_finite"] and {10, 20} <= set(leg["eval_steps"]),
+                f"phase 46 {name}: losses finite {leg['losses_finite']}, evaluator steps "
+                f"{leg['eval_steps']}")
+    require(set(legs["none"]["launches"].values()) == {0}
+            and legs["int8"]["launches"]["quantize_tensors"] == 20,
+            f"phase 46: launches {({k: v['launches'] for k, v in legs.items()})}")
+    rec = {"card": card, "seconds": time.perf_counter() - t0,
+           "legs": {name: {k: leg[k] for k in ("launches", "eval_steps", "step_s_p50",
+                                                "seconds", "train_flags")}
+                    for name, leg in legs.items()},
+           "summary": rep["merged"]["compression_convergence.json"]}
+    print("phase 46 convergence legs, r04 at 20 steps: " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     global OTHER_TREE, PACKAGE_ROOT
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5481,7 +5686,7 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run alone (2, 3, 4, 5, 7, 8, 9, 11, 12, 12b, "
                          "14, 18, 19, 20, 20b, 20c, 21, 22, 23, 24, 24b, 25, 26, 27, 28, 29, 30, "
                          "30b, 31, "
-                         "32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43; 2 "
+                         "32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46; 2 "
                          "on this tree only; 22 runs 9 first, 24 runs 24b and 23 first, "
                          "40 runs 39 first)")
     ap.add_argument("--package-root", default=None,
@@ -5491,7 +5696,9 @@ def main(argv=None) -> int:
     for name in children:
         ap.add_argument("--" + name.replace("_", "-"), nargs=4, default=None,
                         metavar=("RANK", "PORT", "DIR", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--split-child", default=None, metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -5505,6 +5712,10 @@ def main(argv=None) -> int:
             torch.backends.cudnn.allow_tf32 = False
             rank, port, root, out = getattr(args, name)
             return child(int(rank), int(port), root, out)
+    if args.split_child is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return split_child(args.split_child)
     from ps_pytorch_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 
     # f32 comparisons on the card need full f32 products: TF32 off for
@@ -5592,7 +5803,10 @@ def main(argv=None) -> int:
                  40: lambda: phase_numerics(smi, _kept_pscheck(smi)),
                  41: lambda: phase_autotune(smi),
                  42: lambda: phase_lint(smi),
-                 43: lambda: phase_trace_front_end(smi)}
+                 43: lambda: phase_trace_front_end(smi),
+                 44: lambda: phase_longcontext(smi),
+                 45: lambda: phase_predicted_scaling(smi),
+                 46: lambda: phase_convergence(smi)}
 
         def _kept_pscheck(smi_):
             kept = {}
@@ -5603,61 +5817,77 @@ def main(argv=None) -> int:
         require(set(phases) <= set(alone), f"--phases: {phases} not all in {sorted(alone)}")
         require(not ("2" in phases and OTHER_TREE), "--phases: 2 checks this tree's kernels")
         for n in phases:
+            t0 = time.perf_counter()
             alone[n]()
+            PHASE_SECONDS[n] = time.perf_counter() - t0
+        print_phase_seconds(t_main)
         print_captures()
         return 0
 
-    phase_build()
+    def timed(label, fn, *args):
+        """``fn(*args)``, its wall seconds kept under the phase's label."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            PHASE_SECONDS[label] = time.perf_counter() - t0
 
-    k1 = phase_k1(dev)
-    k4 = phase_k4(flash_fwd, flash_fwd_plain, dev)
-    serve = phase_serve(card, dev)
-    phase_exact(dev)
-    k2 = phase_k2(dev)
-    k1s = phase_k1_scaled(dev)
-    train = phase_train(smi)
-    phase_held(dev)
-    k3 = phase_k3(dev)
-    wires = phase_train_wires(smi)
-    ckpt_rec = phase_checkpoint(smi)
-    phase_held_wires(dev)
-    fk = phase_flash_train_kernels(dev)
-    shard_k = phase_flash_shard_kernels(dev)
-    lm1 = phase_lm(smi, "phase 15 LM-1 train_lm dp 1 x sp 1 flash", 20, 1, 8, 1024)
-    lm1_f32 = phase_lm(smi, "phase 15b LM-1 f32 train_lm dp 1 x sp 1 flash", 8, 1, 8, 1024,
-                       "float32")
-    phase_lm(smi, "phase 16 LM-ring train_lm dp 1 x sp 4 flash", 5, 4, 2, 8192)
-    held = phase_lm_held(dev)
-    vgg = phase_vgg(smi)
-    bf16 = phase_bf16(smi, train)
-    phase_held_vgg(dev)
-    synced_local = phase_synced_local(smi)
-    synced_proc = deterministic(lambda root: phase_synced_processes(smi, root, synced_local))
-    events = phase_events(smi)
-    phase_adam(smi, train)
-    split = phase_split(dev)
-    nccl, two = procs(True)
-    data = phase_data(smi, train["step_ms_p50"])
-    adapt = phase_adaptive(smi, dev)
-    stoch = phase_stochastic(smi, dev)
-    phase_reshape(smi)
-    overlap = phase_overlap(smi, dev)
-    hier = phase_hier(smi, dev, wires["autotune_best"])
-    grid_proc = deterministic(lambda root: phase_grid_processes(smi, root, hier))
-    cfg_json = phase_config_json(smi)
-    schemes = phase_lm_schemes(smi, lm1)
-    phase_lm_schemes_held(dev)
-    moe_runs = phase_moe_schemes(smi, lm1)
-    phase_moe_schemes_held(dev)
-    serve_cli = phase_serve_cli(smi)
-    psck = phase_compressed_checkpoint(smi)
+    timed("2", phase_build)
+
+    k1 = timed("3", phase_k1, dev)
+    k4 = timed("4", phase_k4, flash_fwd, flash_fwd_plain, dev)
+    serve = timed("5", phase_serve, card, dev)
+    timed("6", phase_exact, dev)
+    k2 = timed("7", phase_k2, dev)
+    k1s = timed("8", phase_k1_scaled, dev)
+    train = timed("9", phase_train, smi)
+    timed("10", phase_held, dev)
+    k3 = timed("11", phase_k3, dev)
+    wires = timed("12", phase_train_wires, smi)
+    ckpt_rec = timed("12b", phase_checkpoint, smi)
+    timed("13", phase_held_wires, dev)
+    fk = timed("14", phase_flash_train_kernels, dev)
+    shard_k = timed("34", phase_flash_shard_kernels, dev)
+    lm1 = timed("15", phase_lm, smi, "phase 15 LM-1 train_lm dp 1 x sp 1 flash", 20, 1, 8, 1024)
+    lm1_f32 = timed("15b", phase_lm, smi, "phase 15b LM-1 f32 train_lm dp 1 x sp 1 flash", 8,
+                    1, 8, 1024, "float32")
+    timed("16", phase_lm, smi, "phase 16 LM-ring train_lm dp 1 x sp 4 flash", 5, 4, 2, 8192)
+    held = timed("17", phase_lm_held, dev)
+    vgg = timed("18", phase_vgg, smi)
+    bf16 = timed("19", phase_bf16, smi, train)
+    timed("20", phase_held_vgg, dev)
+    synced_local = timed("20b", phase_synced_local, smi)
+    synced_proc = timed("20c", deterministic,
+                        lambda root: phase_synced_processes(smi, root, synced_local))
+    events = timed("21", phase_events, smi)
+    timed("22", phase_adam, smi, train)
+    split = timed("24b", phase_split, dev)
+    nccl, two = timed("23,24", procs, True)
+    data = timed("25", phase_data, smi, train["step_ms_p50"])
+    adapt = timed("26", phase_adaptive, smi, dev)
+    stoch = timed("27", phase_stochastic, smi, dev)
+    timed("28", phase_reshape, smi)
+    overlap = timed("29", phase_overlap, smi, dev)
+    hier = timed("30", phase_hier, smi, dev, wires["autotune_best"])
+    grid_proc = timed("30b", deterministic,
+                      lambda root: phase_grid_processes(smi, root, hier))
+    cfg_json = timed("31", phase_config_json, smi)
+    schemes = timed("32", phase_lm_schemes, smi, lm1)
+    timed("33", phase_lm_schemes_held, dev)
+    moe_runs = timed("35", phase_moe_schemes, smi, lm1)
+    timed("36", phase_moe_schemes_held, dev)
+    serve_cli = timed("37", phase_serve_cli, smi)
+    psck = timed("38", phase_compressed_checkpoint, smi)
     kept = {}
-    pscheck = phase_pscheck(smi, train["step_ms_p50"], kept)
-    phase_numerics(smi, kept)
+    pscheck = timed("39", phase_pscheck, smi, train["step_ms_p50"], kept)
+    timed("40", phase_numerics, smi, kept)
     del kept
-    tune = phase_autotune(smi)
-    phase_lint(smi)
-    phase_trace_front_end(smi)
+    tune = timed("41", phase_autotune, smi)
+    timed("42", phase_lint, smi)
+    timed("43", phase_trace_front_end, smi)
+    longctx = timed("44", phase_longcontext, smi)
+    pscale = timed("45", phase_predicted_scaling, smi)
+    conv = timed("46", phase_convergence, smi)
 
     def moe_launches(counter):
         """Phase 35's launches of one flash entry in each run (8 steps)."""
@@ -5713,6 +5943,9 @@ def main(argv=None) -> int:
         entry.update(moe_launches(name))
         # phase 41: cli.tune --workload lm (2 learning rates x 2 steps)
         entry["launches_cli_tune_lm"] = tune["tune_lm"]["launches"][name]
+        # phase 44: the T=8192 long-context check on 8 shards (f32), each head count
+        entry["f32"]["launches_longcontext_t8192"] = {
+            f"heads{h}": longctx[f"heads{h}"]["launches"][name] for h in (1, 8)}
         return entry
 
     def probe_launches(k):
@@ -5834,6 +6067,11 @@ def main(argv=None) -> int:
             "launches_autotune_probes": probe_launches("K2"),
             "launches_autotune_best_run": tune["best_run"]["launches"]["quantize_tensors"],
             "launches_cli_tune": tune["tune"]["launches"]["quantize_tensors"],
+            # phase 45: the recorded ResNet18 steps (one a tape node); phase 46:
+            # the r04 legs' 20 steps each
+            "launches_predicted_scaling": pscale["launches"]["quantize_tensors"],
+            "launches_convergence_r04": {name: leg["launches"]["quantize_tensors"]
+                                         for name, leg in conv["legs"].items()},
             "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
             "ms": k2["resnet18_step"]["ms"], "plain_ms": k2["resnet18_step"]["plain_ms"],
             "bound_ms": k2["resnet18_step"]["bound_ms"],
@@ -5912,6 +6150,7 @@ def main(argv=None) -> int:
         flash_entry("flash_bwd_dq", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 319, "dq"),
         flash_entry("flash_bwd_dkv", "ps_pytorch_tpu_torch/csrc/flash_bwd.cu", 337, "dkv"),
     ]
+    print_phase_seconds(t_main)
     print_captures()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

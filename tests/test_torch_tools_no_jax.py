@@ -1,13 +1,15 @@
 """The port's trace front end and analysis scripts run where JAX cannot
 be imported (as on the card's machine): each runs in a subprocess in
-which importing ``jax``, ``jaxlib``, ``flax``, ``optax``, ``msgpack`` or
-the package ``ps_pytorch_tpu`` raises, while ``ps_pytorch_tpu_torch``
-still imports. There, ``cli.train --device cpu --trace --profile-dir``
+which importing ``jax``, ``jaxlib``, ``flax``, ``optax``, ``msgpack``,
+``sklearn`` or the package ``ps_pytorch_tpu`` raises, while
+``ps_pytorch_tpu_torch`` still imports. There, ``cli.train --device cpu --trace --profile-dir``
 writes both traces, ``trace_report`` merges the span stream and passes
 ``--require-phases``, ``overlap_report trace`` reads the CPU profile and
 exits 1 naming the missing device events (never a zero fraction), its
 ``tape`` mode reports the recorded step, ``speedup`` reads the run's log
-and ``scaling_bench --device cpu`` times two points.
+and ``scaling_bench --device cpu`` times two points; ``longcontext_check``,
+``predicted_scaling`` (with ``--t1``) and ``make_real_digits`` (which reads
+the package's copy of the digits, not scikit-learn) run too.
 """
 
 import json
@@ -20,8 +22,8 @@ from tests.test_torch_one_thread import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# an import hook that refuses the JAX stack and the JAX package (not the
-# port, whose name only starts like it)
+# an import hook that refuses the JAX stack, scikit-learn and the JAX
+# package (not the port, whose name only starts like it)
 HOOK = r"""
 import importlib.abc, runpy, sys
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "msgpack", "ps_pytorch_tpu"}
@@ -31,6 +33,9 @@ class Refuse(importlib.abc.MetaPathFinder):
             raise ImportError(f"{name} is not importable here")
         return None
 sys.meta_path.insert(0, Refuse())
+# scikit-learn absent as on the card's machine: an import fails and
+# importlib.util.find_spec (which torch._dynamo probes it with) finds none
+sys.modules["sklearn"] = None
 """
 # ... then the named module runs as __main__
 BLOCKED_RUN = HOOK + r"""
@@ -38,7 +43,7 @@ mod, sys.argv = sys.argv[1], sys.argv[1:]
 runpy.run_module(mod, run_name="__main__", alter_sys=True)
 """
 PROBE = HOOK + r"""
-for name in ("jax", "ps_pytorch_tpu"):
+for name in ("jax", "ps_pytorch_tpu", "sklearn"):
     try:
         __import__(name)
     except ImportError as e:
@@ -59,7 +64,7 @@ def _run(module, *args, timeout=240):
 def test_torch_the_import_block_refuses_jax_and_keeps_the_port():
     p = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, stdout=subprocess.PIPE,
                        stderr=subprocess.PIPE, text=True, timeout=120)
-    assert p.stdout.count("refused") == 2 and "port ok" in p.stdout, p.stderr
+    assert p.stdout.count("refused") == 3 and "port ok" in p.stdout, p.stderr
     rc, out, _ = _run("ps_pytorch_tpu_torch.tools.trace_report", "--help")
     assert rc == 0 and "require-phases" in out
 
@@ -107,3 +112,24 @@ def test_torch_tools_run_without_jax(tmp_path):
     assert rc == 0, err[-3000:]
     rec = json.loads(out.splitlines()[-1])
     assert rec["platform"] == "cpu" and len(rec["rows"]) == 2
+
+
+def test_torch_the_last_repo_tools_run_without_jax(tmp_path):
+    rc, out, err = _run("ps_pytorch_tpu_torch.tools.longcontext_check", "--seq", "128",
+                        "--devices", "4", "--device", "cpu")
+    assert rc == 0, err[-3000:]
+    assert json.loads(out)["all_pass"]
+
+    rc, out, err = _run("ps_pytorch_tpu_torch.tools.predicted_scaling", "--device", "cpu",
+                        "--network", "LeNet", "--workers", "8", "--modes", "none",
+                        "hier_2round", "--t1", "0.01", "--ici-gbs", "450", "--dcn-gbs", "50",
+                        "--out", str(tmp_path / "ps.json"))
+    assert rc == 0, err[-3000:]
+    rep = json.loads((tmp_path / "ps.json").read_text())
+    assert rep["contract_check"]["ok"] and len(rep["rows"]) == 2
+
+    rc, out, err = _run("ps_pytorch_tpu_torch.tools.make_real_digits", "--root",
+                        str(tmp_path / "data"))
+    assert rc == 0, err[-3000:]
+    assert out.startswith("train=1438 test=359")
+    assert (tmp_path / "data" / "real_digits_svhn" / "test_32x32.mat").exists()
